@@ -1,0 +1,131 @@
+"""Model-architecture presets (llama family).
+
+Counterpart of mla_tpu/conf/models.py. The flagship deployment config is
+`mla-7b` (Llama-2-7B backbone); smaller presets exist for checks and tests.
+The generation heads' config belongs to the training slice and is not part
+of these presets; `mla-phi` waits for the Phi decoder.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+from typing import Callable, Dict
+
+import torch
+
+from mla_tpu_torch.models import llama as llama_mod
+from mla_tpu_torch.models import point_tokenizer as pt_mod
+from mla_tpu_torch.models import prismatic
+from mla_tpu_torch.models import vision_tokenizer as vt_mod
+
+
+def _full_width(llama_cfg, use_diff, use_pointcloud, use_tactile, use_contrastive,
+                use_generation, use_roi, camera_name, **kw) -> prismatic.MLAModelConfig:
+    return prismatic.MLAModelConfig(
+        llm_family=kw.pop("llm_family", "llama"),
+        llama=llama_cfg,
+        vision=vt_mod.VisionTokenizerConfig(),
+        point=pt_mod.PointTokenizerConfig(),
+        use_diff=use_diff, use_pointcloud=use_pointcloud, use_tactile=use_tactile,
+        use_contrastive=use_contrastive, use_generation=use_generation,
+        use_roi=use_roi, camera_name=camera_name, **kw,
+    )
+
+
+def mla_7b(use_diff=True, use_pointcloud=True, use_tactile=False, use_contrastive=True,
+           use_generation=False, use_roi=False, camera_name="rlbench_front",
+           param_dtype=torch.bfloat16, **kw) -> prismatic.MLAModelConfig:
+    """Flagship: Llama-2-7B + 672px vision tokenizer + 1024-pt Point-PN."""
+    return _full_width(
+        replace(llama_mod.LLAMA2_7B, param_dtype=param_dtype), use_diff, use_pointcloud,
+        use_tactile, use_contrastive, use_generation, use_roi, camera_name, **kw,
+    )
+
+
+def mla_2b(**kw) -> prismatic.MLAModelConfig:
+    """mla-7b cut to 8 decoder layers, same widths and front-ends."""
+    cfg = mla_7b(**kw)
+    return replace(cfg, llama=replace(cfg.llama, num_layers=8))
+
+
+def mla_medium(**kw) -> prismatic.MLAModelConfig:
+    """~0.45B decoder (hidden 2048 x 6 layers, head_dim 128), full front-ends."""
+    cfg = mla_7b(**kw)
+    return replace(cfg, llama=replace(
+        cfg.llama, hidden_size=2048, intermediate_size=5632, num_layers=6,
+        num_heads=16, num_kv_heads=16, contrastive_layer=3,
+    ))
+
+
+def mla_small(**kw) -> prismatic.MLAModelConfig:
+    """~120M decoder with production-shape hot loops (head_dim 128, full
+    front-ends)."""
+    cfg = mla_7b(**kw)
+    return replace(cfg, llama=replace(
+        cfg.llama, hidden_size=1024, intermediate_size=2816, num_layers=4,
+        num_heads=8, num_kv_heads=8, contrastive_layer=2,
+    ))
+
+
+def mla_tiny(**kw) -> prismatic.MLAModelConfig:
+    """Test size: the full architecture at toy widths, fp32 compute."""
+    for k in ("use_generation", "use_tactile", "use_roi"):
+        kw.setdefault(k, False)
+    llama_cfg = llama_mod.LlamaConfig(
+        vocab_size=32064, hidden_size=64, intermediate_size=128, num_layers=4,
+        num_heads=4, num_kv_heads=4, max_position_embeddings=256,
+        contrastive_layer=2, compute_dtype=torch.float32,
+    )
+    return prismatic.MLAModelConfig(
+        llama=llama_cfg,
+        vision=vt_mod.VisionTokenizerConfig(image_size=168, hidden_dim=32, num_heads=4),
+        point=pt_mod.PointTokenizerConfig(
+            input_points=64, embed_dim=12, k_neighbors=8, lga_blocks=(2, 1),
+            dim_expansion=(2, 2), out_dim=24,
+        ),
+        image_hidden_dim=32, point_token_dim=24, **kw,
+    )
+
+
+def mla_golden(use_diff=True, use_pointcloud=False, use_tactile=False, use_contrastive=False,
+               use_generation=False, use_roi=False, camera_name="rlbench_front", num_layers=4,
+               contrastive_layer=2, hidden_size=512, num_heads=8, intermediate_size=1376,
+               **kw) -> prismatic.MLAModelConfig:
+    """Reduced decoder (default hidden 512 x 4 layers) with the full-width
+    front-ends, bf16 params and compute."""
+    llama_cfg = llama_mod.LlamaConfig(
+        vocab_size=32064, hidden_size=hidden_size, intermediate_size=intermediate_size,
+        num_layers=num_layers, num_heads=num_heads, num_kv_heads=num_heads,
+        max_position_embeddings=2048, contrastive_layer=contrastive_layer,
+        param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+    )
+    return _full_width(llama_cfg, use_diff, use_pointcloud, use_tactile, use_contrastive,
+                       use_generation, use_roi, camera_name, **kw)
+
+
+def mla_mistral(use_diff=True, use_pointcloud=True, use_tactile=False, use_contrastive=True,
+                use_generation=False, use_roi=False, camera_name="rlbench_front",
+                param_dtype=torch.bfloat16, **kw) -> prismatic.MLAModelConfig:
+    """Mistral-7B backbone (GQA, 8 KV heads) with the same front-ends."""
+    return _full_width(
+        replace(llama_mod.MISTRAL_7B, param_dtype=param_dtype), use_diff, use_pointcloud,
+        use_tactile, use_contrastive, use_generation, use_roi, camera_name, **kw,
+    )
+
+
+MODEL_REGISTRY: Dict[str, Callable[..., prismatic.MLAModelConfig]] = {
+    "mla-7b": mla_7b,
+    "prism-dinosiglip-224px+7b": mla_7b,
+    "mla-2b": mla_2b,
+    "mla-medium": mla_medium,
+    "mla-small": mla_small,
+    "mla-tiny": mla_tiny,
+    "mla-golden": mla_golden,
+    "mla-mistral": mla_mistral,
+}
+
+
+def get_model_config(model_id: str, **overrides) -> prismatic.MLAModelConfig:
+    if model_id not in MODEL_REGISTRY:
+        raise ValueError(f"Unknown model `{model_id}`. Available: {list(MODEL_REGISTRY)}")
+    return MODEL_REGISTRY[model_id](**overrides)

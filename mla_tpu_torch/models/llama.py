@@ -1,0 +1,220 @@
+"""Llama-family decoder (inference), with GQA for the Mistral backbone.
+
+Counterpart of mla_tpu/models/llama.py. Layer parameters stay stacked on a
+leading [num_layers] axis, as in the JAX tree; the layers run as a Python
+loop over per-layer views. The KV cache is a preallocated
+[L, B, Hkv, S_max, hd] pair that prefill updates IN PLACE (the JAX version
+returns a new cache); the read-only suffix path never writes it.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import torch
+
+from mla_tpu_torch import nn
+from mla_tpu_torch.ops import attention as attn_ops
+from mla_tpu_torch.ops import rope as rope_ops
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32064
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    max_position_embeddings: int = 2048
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-5
+    contrastive_layer: int = 8
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.bfloat16
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+LLAMA2_7B = LlamaConfig()
+MISTRAL_7B = LlamaConfig(
+    vocab_size=32064, hidden_size=4096, intermediate_size=14336, num_layers=32,
+    num_heads=32, num_kv_heads=8, max_position_embeddings=32768,
+)
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None, device=None) -> Dict[str, torch.Tensor]:
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    dtype = dtype or cfg.compute_dtype
+    return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _mlp_block(lp, h, cfg):
+    x = nn.rms_norm(lp["post_ln"], h, cfg.rms_eps)
+    if "gateup_fused" in lp["mlp"]:
+        gu = nn.linear(lp["mlp"]["gateup_fused"], x)
+        I = gu.shape[-1] // 2
+        gated = nn.silu(gu[..., :I]) * gu[..., I:]
+    else:
+        gated = nn.silu(nn.linear(lp["mlp"]["gate"], x)) * nn.linear(lp["mlp"]["up"], x)
+    return h + nn.linear(lp["mlp"]["down"], gated)
+
+
+def _layer_fn(lp, h, cache_kv, cfg, cos_table, sin_table, positions, key_mask, cache_len,
+              cache_read_only=False, inflight_mask=None):
+    """One decoder layer. cache_kv: this layer's (k_cache, v_cache)
+    [B, Hkv, S_max, hd] views, or None. Returns h."""
+    B, S, D = h.shape
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    x = nn.rms_norm(lp["input_ln"], h, cfg.rms_eps)
+    kvd = Hkv * hd
+    if "qkv_fused" in lp["attn"]:
+        qkv = nn.linear(lp["attn"]["qkv_fused"], x)
+        q, k, v = qkv[..., :D], qkv[..., D : D + kvd], qkv[..., D + kvd :]
+    else:
+        q = nn.linear(lp["attn"]["q"], x)
+        k = nn.linear(lp["attn"]["k"], x)
+        v = nn.linear(lp["attn"]["v"], x)
+    q = q.reshape(B, S, H, hd).transpose(1, 2)
+    k = k.reshape(B, S, Hkv, hd).transpose(1, 2)
+    v = v.reshape(B, S, Hkv, hd).transpose(1, 2)
+    q, k = rope_ops.apply_rope(q, k, cos_table, sin_table, positions)
+    rep = H // Hkv
+
+    if cache_kv is not None and cache_read_only:
+        # attend over [cached prefix | in-flight block] under one softmax,
+        # without writing the cache
+        k_cache, v_cache = cache_kv
+        if rep > 1:
+            k_cache, v_cache = k_cache.repeat_interleave(rep, 1), v_cache.repeat_interleave(rep, 1)
+            k_rep, v_rep = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        else:
+            k_rep, v_rep = k, v
+        scale = 1.0 / math.sqrt(hd)
+        qf = q.float()
+        Sc = k_cache.shape[2]
+        s_cache = (qf @ k_cache.float().transpose(-1, -2)) * scale
+        stale = torch.arange(Sc, device=h.device)[None, None, None, :] >= cache_len
+        if key_mask is not None:
+            stale = stale | ~key_mask[:, None, None, :Sc]
+        s_cache = s_cache.masked_fill(stale, float("-inf"))
+        s_new = (qf @ k_rep.float().transpose(-1, -2)) * scale
+        causal = torch.arange(S, device=h.device)[None, :] > torch.arange(S, device=h.device)[:, None]
+        s_new = s_new.masked_fill(causal[None, None], float("-inf"))
+        if inflight_mask is not None:
+            s_new = s_new.masked_fill(~inflight_mask[:, None, None, :], float("-inf"))
+        attn = torch.softmax(torch.cat([s_cache, s_new], dim=-1), dim=-1).to(v_rep.dtype)
+        out = attn[..., :Sc] @ v_cache + attn[..., Sc:] @ v_rep
+    else:
+        # uncached forward, or the static prefill: write k/v at [0, S) and
+        # attend over the in-flight block only (the rest of the cache is empty)
+        if cache_kv is not None:
+            if cache_len != 0:
+                raise NotImplementedError("a cache write at cache_len > 0 (AR decoding) is not ported yet")
+            cache_kv[0][:, :, :S] = k
+            cache_kv[1][:, :, :S] = v
+        if rep > 1:
+            k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        mask = key_mask[:, None, None, :S] if key_mask is not None else None
+        out = attn_ops.sdpa(q, k, v, mask=mask)
+    out = out.transpose(1, 2).reshape(B, S, D)
+    h = h + nn.linear(lp["attn"]["o"], out)
+    return _mlp_block(lp, h, cfg)
+
+
+def layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer i's view of a stacked layer tree."""
+    if isinstance(layers, dict):
+        return {k: layer_params(v, i) for k, v in layers.items()}
+    return layers[i]
+
+
+def llama_forward(
+    params: Dict[str, Any],
+    cfg: LlamaConfig,
+    inputs_embeds: torch.Tensor,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    key_mask: Optional[torch.Tensor] = None,
+    kv_cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_len: int = 0,
+    compute_logits: bool = True,
+    cache_read_only: bool = False,
+) -> Dict[str, Any]:
+    """Decoder forward from embeddings [B, S, D] (cast to compute_dtype).
+
+    key_mask: [B, S_keys] boolean key validity; with a cache S_keys is the
+    cache length. kv_cache: {'k','v'} [L,B,Hkv,Smax,hd]. Two cached modes:
+    the static prefill (cache_len 0) writes [0, S) in place; the read-only
+    suffix (cache_read_only) attends over the cache's [0, cache_len) and the
+    in-flight block without writing. Returns
+    {'last_hidden', 'hidden_mid', 'logits'?, 'kv_cache'?}."""
+    B, S, D = inputs_embeds.shape
+    h = inputs_embeds.to(cfg.compute_dtype)
+    dev = h.device
+    if positions is None:
+        positions = torch.arange(S, device=dev) + cache_len
+    cos_table, sin_table = rope_ops.rope_tables_on(
+        cfg.head_dim, cfg.max_position_embeddings, cfg.rope_theta, str(dev)
+    )
+    inflight_mask = None
+    if cache_read_only and key_mask is not None:
+        inflight_mask = key_mask[:, cache_len : cache_len + S]
+    hidden_mid = h
+    for i in range(cfg.num_layers):
+        if i == cfg.contrastive_layer:
+            hidden_mid = h
+        ck = (kv_cache["k"][i], kv_cache["v"][i]) if kv_cache is not None else None
+        h = _layer_fn(
+            layer_params(params["layers"], i), h, ck, cfg, cos_table, sin_table, positions,
+            key_mask, cache_len, cache_read_only=cache_read_only, inflight_mask=inflight_mask,
+        )
+    if cfg.contrastive_layer >= cfg.num_layers:
+        hidden_mid = h
+    out: Dict[str, Any] = {
+        "last_hidden": nn.rms_norm(params["final_ln"], h, cfg.rms_eps),
+        "hidden_mid": hidden_mid,
+    }
+    if kv_cache is not None:
+        out["kv_cache"] = kv_cache
+    if compute_logits:
+        out["logits"] = lm_head_logits(params, out["last_hidden"])
+    return out
+
+
+def lm_head_logits(params: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor:
+    """fp32 logits from final-normed hidden states."""
+    head = params["lm_head"]
+    hf = hidden.float()
+    if "w_q" in head:
+        return (hf @ head["w_q"].float()) * head["w_scale"][0].float()
+    return hf @ head["w"].float()
+
+
+def embed_tokens(params: Dict[str, Any], ids: torch.Tensor) -> torch.Tensor:
+    emb = params["embed"]
+    if "table_q" in emb:
+        # int8 rows come back in bf16 whatever the compute dtype, as in JAX
+        rows = emb["table_q"][ids].to(torch.bfloat16)
+        return rows * emb["table_scale"][ids].to(torch.bfloat16)
+    return nn.embedding(emb, ids)
+
+
+def fuse_for_serving(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Concatenate q|k|v and gate|up on the output dim (fp or int8 leaves;
+    per-output-channel scales concatenate too)."""
+
+    def cat(leaves):
+        keys = ("w",) if "w" in leaves[0] else ("w_q", "w_scale")
+        return {k: torch.cat([l[k] for l in leaves], dim=-1) for k in keys}
+
+    lp = params["layers"]
+    attn = {k: v for k, v in lp["attn"].items() if k not in ("q", "k", "v")}
+    attn["qkv_fused"] = cat([lp["attn"]["q"], lp["attn"]["k"], lp["attn"]["v"]])
+    mlp = {k: v for k, v in lp["mlp"].items() if k not in ("gate", "up")}
+    mlp["gateup_fused"] = cat([lp["mlp"]["gate"], lp["mlp"]["up"]])
+    return {**params, "layers": {**lp, "attn": attn, "mlp": mlp}}

@@ -1,0 +1,88 @@
+"""Functional layer library on plain dicts of tensors.
+
+Counterpart of mla_tpu/nn.py, inference side. Parameters keep the JAX
+layout: linear weights are [in, out] (the transpose of torch's
+nn.Linear.weight), int8 leaves are {'w_q','w_scale'}. Norm math runs in
+fp32 and casts back, as in the JAX package.
+
+An int8 leaf runs the W8A8 product (ops/quantization.w8a8_matmul) on the
+CPU and on the card alike; `dequant=True` selects the JAX package's
+dequantizing branch instead (bf16-style `x @ w_q * scale`).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from mla_tpu_torch.ops.quantization import w8a8_linear
+
+Params = Dict[str, Any]
+
+
+def linear(p: Params, x: torch.Tensor, *, dequant: bool = False) -> torch.Tensor:
+    if "w_q" in p:
+        if not dequant:
+            return w8a8_linear(p, x)
+        y = x @ p["w_q"].to(x.dtype)
+        y = y * p["w_scale"][..., 0, :].to(x.dtype)
+    else:
+        y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Llama RMSNorm: fp32 variance, cast back, then scale in x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    y = (xf * torch.rsqrt(var + eps)).to(x.dtype)
+    return y * p["scale"].to(x.dtype)
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
+
+
+def mlp(p: Params, x: torch.Tensor, act=gelu_tanh) -> torch.Tensor:
+    return linear(p["fc2"], act(linear(p["fc1"], x)))
+
+
+def mlp_gelu(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """MLP_GELU projector: Linear, then (depth-1) x [GELU, Linear]."""
+    x = linear(p["layers"][0], x)
+    for lp in p["layers"][1:]:
+        x = linear(lp, gelu_exact(x))
+    return x
+
+
+def embedding(p: Params, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"][ids]
+
+
+def batch_norm(p: Params, s: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Eval-mode BatchNorm over the last (channel) axis with running stats."""
+    xf = x.float()
+    y = (xf - s["mean"].float()) * torch.rsqrt(s["var"].float() + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)

@@ -1,0 +1,151 @@
+"""int8 quantization and the W8A8 linear.
+
+Counterpart of mla_tpu/ops/quantization.py. A quantized linear leaf is
+{'w_q': int8 [..., in, out], 'w_scale': fp32 [..., 1, out]} and a quantized
+embedding {'table_q': int8 [V, D], 'table_scale': fp32 [V, 1]}, exactly the
+JAX layout, so quantized trees carry across leaf for leaf.
+
+`w8a8_matmul` is the serving product of every int8 decoder linear: per-row
+dynamic activation quantization, an exact int8 x int8 -> int32 product and
+the fp32 rescale. On a CUDA tensor it launches the hand-written kernel
+(csrc/w8a8.cu); on a CPU tensor it runs `w8a8_matmul_plain`, which
+accumulates exactly in float64 (11008 * 127^2 > 2^24, so float32 would not).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from mla_tpu_torch.ops import cuda
+from mla_tpu_torch.params import tree_to
+
+
+def _div127(amax: torch.Tensor) -> torch.Tensor:
+    """max(amax, 1e-8) / 127 as a true division. Dividing by a Python scalar
+    would let PyTorch's CUDA kernel multiply by the reciprocal instead, which
+    is one ulp off for some values (JAX and the kernel divide)."""
+    return amax.clamp_min(1e-8) / torch.full_like(amax, 127.0)
+
+
+def _quantize(w: torch.Tensor, dim: int):
+    wf = w.float()
+    scale = _div127(wf.abs().amax(dim=dim, keepdim=True))
+    q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_weight(w: torch.Tensor, axis: int = -2) -> Dict[str, torch.Tensor]:
+    """Symmetric per-output-channel int8: scale over the reduction axis
+    (default -2 = the `in` dim of the [in, out] layout)."""
+    q, scale = _quantize(w, axis)
+    return {"w_q": q, "w_scale": scale}
+
+
+def quantize_embedding(table: torch.Tensor) -> Dict[str, torch.Tensor]:
+    q, scale = _quantize(table, -1)
+    return {"table_q": q, "table_scale": scale}
+
+
+def _quantize_stacked(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """quantize_weight layer by layer over a stacked [L, in, out] leaf, so
+    the fp32 transient is one layer's, not the whole stack's."""
+    parts = [quantize_weight(w[i]) for i in range(w.shape[0])]
+    return {k: torch.stack([p[k] for p in parts]) for k in ("w_q", "w_scale")}
+
+
+def quantize_llama(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Quantize every big matmul of a models/llama.py tree (q/k/v/o,
+    gate/up/down, lm_head, embedding). Norm scales stay as they are."""
+    lp = params["layers"]
+    return {
+        "embed": quantize_embedding(params["embed"]["table"]),
+        "layers": {
+            "attn": {k: _quantize_stacked(lp["attn"][k]["w"]) for k in ("q", "k", "v", "o")},
+            "mlp": {k: _quantize_stacked(lp["mlp"][k]["w"]) for k in ("gate", "up", "down")},
+            "input_ln": lp["input_ln"],
+            "post_ln": lp["post_ln"],
+        },
+        "final_ln": params["final_ln"],
+        "lm_head": quantize_weight(params["lm_head"]["w"]),
+    }
+
+
+def quantize_model(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Quantize the LLM backbone of a full MLA tree on the device its leaves
+    are on; the small front-end and head modules keep their dtype."""
+    out = dict(params)
+    out["llm_backbone"] = quantize_llama(params["llm_backbone"])
+    return out
+
+
+def quantize_model_host(params: Dict[str, Any]) -> Dict[str, Any]:
+    """quantize_model on the host: every leaf is moved to the CPU first and
+    the int8 leaves stay there (for checkpoints that are quantized before
+    they are moved to the card)."""
+    return {**params, "llm_backbone": quantize_llama(tree_to(params["llm_backbone"], "cpu"))}
+
+
+# --------------------------------------------------------------------------- #
+# W8A8 product
+# --------------------------------------------------------------------------- #
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-row dynamic activation quantization: (xq int8, s_x fp32 [M, 1])."""
+    xf = x.float()
+    sx = _div127(xf.abs().amax(dim=-1, keepdim=True))
+    xq = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
+    return xq, sx
+
+
+def w8a8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *, return_acc: bool = False):
+    """The plain version: x [M, K] (fp32/bf16), w_q int8 [K, N], w_scale fp32
+    [N] -> y [M, N] in x's dtype (and the int32 accumulators)."""
+    xq, sx = quantize_rows(x)
+    acc = (xq.double() @ w_q.double()).to(torch.int32)  # exact: |acc| < 2^53
+    y = (acc.float() * sx * w_scale.float().reshape(1, -1)).to(x.dtype)
+    return (y, acc) if return_acc else y
+
+
+def w8a8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *, return_acc: bool = False):
+    """Fused per-row quantization + int8 product + rescale. On CUDA the
+    kernel (csrc/w8a8.cu, K and N multiples of 64); on the CPU the plain
+    version. `return_acc` also returns the int32 accumulators."""
+    if not x.is_cuda:
+        return w8a8_matmul_plain(x, w_q, w_scale, return_acc=return_acc)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"w8a8_matmul: x must be float32 or bfloat16, got {x.dtype}")
+    cuda.check(x, "w8a8_matmul x", ndim=2)
+    cuda.check(w_q, "w8a8_matmul w_q", torch.int8, 2)
+    w_scale = w_scale.reshape(-1)
+    cuda.check(w_scale, "w8a8_matmul w_scale", torch.float32, 1)
+    M, K = x.shape
+    N = w_q.shape[1]
+    if w_q.shape[0] != K or w_scale.shape[0] != N:
+        raise ValueError(f"w8a8_matmul: shapes x {tuple(x.shape)}, w_q {tuple(w_q.shape)}, w_scale {N}")
+    if K % 64 or N % 64:
+        raise ValueError(f"w8a8_matmul: the kernel needs K and N multiples of 64, got K={K} N={N}")
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    acc = torch.empty((M, N), dtype=torch.int32, device=x.device) if return_acc else None
+    if M > 0:
+        xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+        sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+        cuda.call(
+            "w8a8", x.data_ptr(), 0 if x.dtype == torch.float32 else 1, w_q.data_ptr(),
+            w_scale.data_ptr(), y.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+            acc.data_ptr() if acc is not None else None, M, K, N,
+        )
+        cuda.launches["w8a8_matmul"] += 1
+    return (y, acc) if return_acc else y
+
+
+def w8a8_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """nn.linear entry for a 2-D {'w_q','w_scale'(,'b')} leaf; x [..., K]."""
+    lead = x.shape[:-1]
+    y = w8a8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), p["w_q"], p["w_scale"])
+    y = y.reshape(*lead, y.shape[-1])
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y

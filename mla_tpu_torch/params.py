@@ -1,0 +1,181 @@
+"""Parameter trees: the bridge from JAX and a seeded random init.
+
+Trees are nested dicts (and lists) of tensors in the JAX package's layout,
+so a JAX param/state pytree with numpy leaves carries across leaf for leaf
+(`from_jax`). `init` builds the serving modules of an MLA model with the
+JAX init's distributions, directly on the target device from a
+torch.Generator, so a full-width 7B never passes through the host.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import TYPE_CHECKING, Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+if TYPE_CHECKING:  # the model modules import this one (quantization uses tree_to)
+    from mla_tpu_torch.models.prismatic import MLAModelConfig
+
+
+def _leaf_from_numpy(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a.view(np.uint16))).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def from_jax(tree, device=None):
+    """JAX pytree (dicts/lists/tuples of numpy or jax arrays) -> the same tree
+    of tensors, dtypes kept (bf16 through a uint16 view)."""
+    if isinstance(tree, dict):
+        return {k: from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_jax(v, device) for v in tree)
+    t = _leaf_from_numpy(tree)
+    return t.to(device) if device is not None else t
+
+
+def tree_to(tree, device):
+    """Move every tensor leaf of a tree to `device`."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+class _Init:
+    """Draws from one torch.Generator on one device."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+
+    def normal(self, shape, std=0.02, dtype=torch.float32):
+        return torch.randn(shape, generator=self.gen, dtype=dtype, device=self.device).mul_(std)
+
+    def uniform(self, shape, bound, dtype=torch.float32):
+        u = torch.rand(shape, generator=self.gen, dtype=dtype, device=self.device)
+        return u.mul_(2 * bound).sub_(bound)
+
+    def zeros(self, shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def ones(self, shape, dtype=torch.float32):
+        return torch.ones(shape, dtype=dtype, device=self.device)
+
+    def linear(self, i, o, bias=True, w_init="xavier", std=0.02):
+        if w_init == "xavier":
+            w = self.uniform((i, o), math.sqrt(6.0 / (i + o)))
+        elif w_init == "normal":
+            w = self.normal((i, o), std)
+        elif w_init == "torch":
+            w = self.uniform((i, o), 1.0 / math.sqrt(i))
+        else:
+            raise ValueError(f"unknown w_init {w_init!r}")
+        return {"w": w, "b": self.zeros((o,))} if bias else {"w": w}
+
+    def norm(self, dim):
+        return {"scale": self.ones((dim,)), "bias": self.zeros((dim,))}
+
+    def mlp(self, i, h, o, w_init="xavier"):
+        return {"fc1": self.linear(i, h, w_init=w_init), "fc2": self.linear(h, o, w_init=w_init)}
+
+
+def _llama(it: _Init, cfg) -> Dict[str, Any]:
+    L, D, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    dt = cfg.param_dtype
+
+    def stacked(shape):
+        return {"w": it.normal((L,) + shape, 0.02, dt)}
+
+    return {
+        "embed": {"table": it.normal((cfg.vocab_size, D), 0.02, dt)},
+        "layers": {
+            "attn": {"q": stacked((D, D)), "k": stacked((D, kvd)), "v": stacked((D, kvd)), "o": stacked((D, D))},
+            "mlp": {"gate": stacked((D, I)), "up": stacked((D, I)), "down": stacked((I, D))},
+            "input_ln": {"scale": it.ones((L, D), dt)},
+            "post_ln": {"scale": it.ones((L, D), dt)},
+        },
+        "final_ln": {"scale": it.ones((D,), dt)},
+        "lm_head": {"w": it.normal((D, cfg.vocab_size), 0.02, dt)},
+    }
+
+
+def _vision(it: _Init, cfg) -> Dict[str, Any]:
+    C = cfg.hidden_dim
+
+    def attn_block():
+        return {
+            "q_ln": it.norm(C), "q": it.linear(C, C, bias=False),
+            "kv_ln": it.norm(C), "kv": it.linear(C, 2 * C, bias=False),
+            "proj": it.linear(C, C),
+        }
+
+    return {
+        "patch_embedding": it.linear(3 * cfg.patch_stride**2, C, bias=False, w_init="torch"),
+        "class_embedding": it.normal((C,), 1.0),
+        "split_embedding": it.normal((C,), 1.0),
+        "local_attention": attn_block(),
+        "global_attention": attn_block(),
+    }
+
+
+def _point(it: _Init, cfg) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    def conv_bn(i, o, bias=True):
+        bn_state = {"bn": {"mean": it.zeros((o,)), "var": it.ones((o,))}}
+        return {"conv": it.linear(i, o, bias=bias, w_init="torch"), "bn": it.norm(o)}, bn_state
+
+    raw_p, raw_s = conv_bn(3, cfg.embed_dim, bias=False)
+    stages_p, stages_s = [], []
+    for si in range(cfg.num_stages):
+        dim = cfg.stage_dims[si]
+        bp, bs = [], []
+        for _ in range(cfg.lga_blocks[si]):
+            p1, s1 = conv_bn(dim, dim // 2)
+            p2, s2 = conv_bn(dim // 2, dim)
+            bp.append({"net1": p1, "net2": p2})
+            bs.append({"net1": s1, "net2": s2})
+        stages_p.append({"blocks": bp})
+        stages_s.append({"blocks": bs})
+    params = {
+        "raw_embed": raw_p,
+        "stages": stages_p,
+        "proj": it.linear(cfg.encoder_out_dim, cfg.out_dim),
+        "cls_token": it.normal((1, 1, cfg.out_dim), 0.02),
+        "pos_embed": it.zeros((1, cfg.num_tokens + 1, cfg.out_dim)),
+        "norm": it.norm(cfg.out_dim),
+    }
+    return params, {"raw_embed": raw_s, "stages": stages_s}
+
+
+def init(cfg: MLAModelConfig, seed: int = 0, device="cuda") -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(params, state) of the serving modules of `cfg`, drawn on `device`
+    with the JAX init's distributions (the values differ from JAX's: the
+    generators differ). The final layer's fc2 is zero, as in the reference."""
+    it = _Init(seed, device)
+    D = cfg.token_size
+    params: Dict[str, Any] = {
+        "llm_backbone": _llama(it, cfg.llama),
+        "vision_tower_2d": _vision(it, cfg.vision),
+        "projector_2d": {"layers": [it.linear(cfg.image_hidden_dim, D), it.linear(D, D)]},
+        "proprio_embedder": it.mlp(cfg.action_dim, D, D, w_init="normal"),
+    }
+    state: Dict[str, Any] = {}
+    if cfg.use_pointcloud:
+        params["vision_tower_3d"], state["vision_tower_3d"] = _point(it, cfg.point)
+        params["projector_3d"] = it.mlp(cfg.point_token_dim, D, D)
+    if cfg.use_tactile:
+        params["tactile_embedder"] = it.mlp(cfg.tactile_dim, D, D, w_init="normal")
+    if cfg.use_diff:
+        params["x_embedder"] = it.mlp(cfg.action_dim, D, D, w_init="normal")
+        params["t_embedder"] = {"fc1": it.linear(256, D, w_init="normal"), "fc2": it.linear(D, D, w_init="normal")}
+        params["z_embedder"] = {"uncondition": it.zeros((1, D))}
+        final = {"norm": {"scale": it.ones((D,))}, "mlp": it.mlp(D, D, cfg.action_dim)}
+        final["mlp"]["fc2"]["w"].zero_()
+        params["final_layer"] = final
+    return params, state

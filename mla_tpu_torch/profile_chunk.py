@@ -1,0 +1,119 @@
+"""Where the time of one diffusion chunk goes, on one NVIDIA GPU.
+
+    python3 -m mla_tpu_torch.profile_chunk [--sampler ddim|dpm]
+
+Builds the int8 mla-7b from a seeded random init on the card (as
+chip_smoke.py does), serves a few warm-up chunks, then reports:
+  * host wall time per stage (front-end + prefix embeds, prefill, one
+    suffix evaluation, the whole chunk), each ending in a synchronize;
+  * a torch.profiler trace of one chunk: device time by kernel, the sum of
+    device time, and the device's idle share of the unprofiled chunk's wall
+    time (1 - busy / chunk_ms).
+Results print as text and go to chiprun_out/profile_chunk_mla-7b_<sampler>.json.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from mla_tpu_torch import params as P
+from mla_tpu_torch.conf.models import get_model_config
+from mla_tpu_torch.models import mla
+from mla_tpu_torch.ops.quantization import quantize_model
+
+
+def _timed(fn, reps: int = 5):
+    """Median host wall ms of fn() ending in a synchronize."""
+    out, times = None, []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times)), out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--sampler", default="ddim", choices=("ddim", "dpm"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_chunk: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    cfg = get_model_config("mla-7b")
+    params, state = P.init(cfg, seed=0, device="cuda")
+    fc2 = params["final_layer"]["mlp"]["fc2"]
+    fc2["w"] = torch.randn(fc2["w"].shape, generator=torch.Generator("cuda").manual_seed(1), device="cuda") * 0.02
+    policy = mla.MLAPolicy(quantize_model(params), state, cfg)
+    del params
+    rng = np.random.default_rng(0)
+    size = cfg.vision.image_size
+    img = rng.integers(0, 256, size=(3, size, size), dtype=np.uint8)
+    pc = rng.uniform([-0.3, -0.45, 0.75], [0.7, 0.45, 1.6], size=(cfg.point.input_points, 3)).astype(np.float32)
+    ids = np.concatenate([[1], rng.integers(100, 20000, 20), [29871]]).astype(np.int32)[None, :]
+    noise = rng.standard_normal((cfg.action_horizon, cfg.action_dim)).astype(np.float32)
+
+    def chunk():
+        return policy.predict_action_diff(img, pc, "", input_ids=ids, noise=noise, sampler=args.sampler,
+                                          return_normalized=True)
+
+    for _ in range(3):
+        chunk()
+    stages = {}
+    stages["chunk_ms"], _ = _timed(chunk)
+    prefix_ids = torch.as_tensor(ids[:, :-1], device="cuda").long()
+    images = {"front_image": torch.as_tensor(img, device="cuda")[None]}
+    pc_t = torch.as_tensor(pc, device="cuda")[None]
+    with torch.inference_mode():
+        stages["prefix_embeds_ms"], prefix = _timed(
+            lambda: mla.build_prefix_embeds(policy.params, policy.state, cfg, prefix_ids, images, pc_t))
+        cache_max = prefix.shape[1] + 2 + cfg.action_horizon + 1 + mla.CACHE_MARGIN
+        stages["prefill_ms"], kv = _timed(lambda: mla.prefill(policy.params, cfg, prefix, cache_max))
+        fn = mla.make_suffix_denoise_fn(policy.params, cfg, kv, prefix.shape[1],
+                                        torch.zeros((1, 1, cfg.action_dim), device="cuda"))
+        x = torch.as_tensor(noise, device="cuda")[None]
+        t = torch.full((1,), 50, dtype=torch.int32, device="cuda")
+        stages["suffix_eval_ms"], _ = _timed(lambda: fn(x, t))
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, memcpy, memset): the CPU-side aten
+    # ops carry their kernels' time too and would count it twice
+    rows = [
+        {"name": e.key[:90], "device_ms": e.self_device_time_total / 1e3, "count": e.count}
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    rows.sort(key=lambda r: -r["device_ms"])
+    device_ms = sum(r["device_ms"] for r in rows)
+    result = {"gpu": torch.cuda.get_device_name(0), "model": "mla-7b", "sampler": args.sampler,
+              "stages": stages, "profiled_chunk_wall_ms": wall_ms, "device_busy_ms": device_ms,
+              "device_idle_share": max(0.0, 1.0 - device_ms / stages["chunk_ms"]), "kernels": rows[:40]}
+    for k, v in stages.items():
+        print(f"{k}: {v:.3f}")
+    print(f"profiled chunk: wall {wall_ms:.3f} ms (under the profiler), device busy {device_ms:.3f} ms, "
+          f"idle share of the unprofiled chunk {result['device_idle_share']:.3f}")
+    for r in rows[:20]:
+        print(f"  {r['device_ms']:9.3f} ms  x{r['count']:5d}  {r['name']}")
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / f"profile_chunk_mla-7b_{args.sampler}.json").write_text(json.dumps(result, indent=1))
+
+
+if __name__ == "__main__":
+    main()

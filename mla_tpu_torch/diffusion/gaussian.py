@@ -1,8 +1,9 @@
 """Gaussian diffusion schedules and samplers for the action head.
 
-Counterpart of mla_tpu/diffusion/gaussian.py (the sampling side):
-squaredcos_cap_v2 betas, 100 train steps, epsilon prediction, FIXED_SMALL
-variance, "ddimN" respacing (the only respacing the policy uses). The
+Counterpart of mla_tpu/diffusion/gaussian.py (the sampling side and the
+training forward process `q_sample`): squaredcos_cap_v2 betas, 100 train
+steps, epsilon prediction, FIXED_SMALL variance, "ddimN" respacing (the
+only respacing the policy uses). The
 schedule tables are float64 numpy, cast to fp32 at use. The loops are
 Python loops over a denoise closure.
 """
@@ -51,6 +52,8 @@ class Schedule:
     timestep_map: np.ndarray
     alphas_cumprod: np.ndarray = field(init=False)
     alphas_cumprod_prev: np.ndarray = field(init=False)
+    sqrt_alphas_cumprod: np.ndarray = field(init=False)
+    sqrt_one_minus_alphas_cumprod: np.ndarray = field(init=False)
     sqrt_recip_alphas_cumprod: np.ndarray = field(init=False)
     sqrt_recipm1_alphas_cumprod: np.ndarray = field(init=False)
     posterior_variance: np.ndarray = field(init=False)
@@ -67,6 +70,8 @@ class Schedule:
         values = {
             "alphas_cumprod": acp,
             "alphas_cumprod_prev": acp_prev,
+            "sqrt_alphas_cumprod": np.sqrt(acp),
+            "sqrt_one_minus_alphas_cumprod": np.sqrt(1.0 - acp),
             "sqrt_recip_alphas_cumprod": np.sqrt(1.0 / acp),
             "sqrt_recipm1_alphas_cumprod": np.sqrt(1.0 / acp - 1),
             "posterior_variance": post_var,
@@ -104,6 +109,14 @@ def _extract(arr: np.ndarray, t: torch.Tensor, broadcast_shape) -> torch.Tensor:
     """arr[t] as fp32 on t's device, broadcastable to broadcast_shape."""
     out = torch.as_tensor(np.asarray(arr, np.float32), device=t.device)[t.long()]
     return out.reshape(out.shape + (1,) * (len(broadcast_shape) - out.dim()))
+
+
+def q_sample(sched: Schedule, x_start, t, noise):
+    """A draw of q(x_t | x_0) from the given noise."""
+    return (
+        _extract(sched.sqrt_alphas_cumprod, t, x_start.shape) * x_start
+        + _extract(sched.sqrt_one_minus_alphas_cumprod, t, x_start.shape) * noise
+    )
 
 
 def pred_xstart_from_eps(sched: Schedule, x_t, t, eps):

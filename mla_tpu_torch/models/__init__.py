@@ -1,1 +1,1 @@
-"""Model modules of the port (inference side)."""
+"""Model modules of the port."""

@@ -1,5 +1,5 @@
 """Action/timestep/condition embedders, the final layer and the point
-projector of the diffusion head (inference).
+projector of the diffusion head.
 
 Counterpart of mla_tpu/models/embedders.py.
 """
@@ -35,14 +35,20 @@ def action_embedder(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
 
 
 def label_embedder(
-    p: Dict[str, Any], conditions: torch.Tensor, *, force_drop_ids: Optional[torch.Tensor] = None
+    p: Dict[str, Any], conditions: torch.Tensor, *, dropout_prob: float = 0.0, training: bool = False,
+    generator: Optional[torch.Generator] = None, force_drop_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Replace the condition sequences of the rows with force_drop_ids == 1
-    by the broadcast `uncondition` vector (inference side: no random drop)."""
-    if force_drop_ids is None:
+    """conditions [B, S, D]: replace whole rows' condition sequences by the
+    broadcast `uncondition` vector: the rows with force_drop_ids == 1, or in
+    training with dropout_prob > 0 the rows whose uniform draw from
+    `generator` falls under dropout_prob."""
+    if force_drop_ids is not None:
+        drop = force_drop_ids == 1
+    elif training and dropout_prob > 0:
+        drop = torch.rand((conditions.shape[0],), generator=generator, device=conditions.device) < dropout_prob
+    else:
         return conditions
-    drop = (force_drop_ids == 1)[:, None, None]
-    return torch.where(drop, p["uncondition"].to(conditions.dtype)[None], conditions)
+    return torch.where(drop[:, None, None], p["uncondition"].to(conditions.dtype)[None], conditions)
 
 
 def final_layer(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,26 @@
-"""Llama-family decoder (inference), with GQA for the Mistral backbone.
+"""Llama-family decoder, with GQA for the Mistral backbone.
 
 Counterpart of mla_tpu/models/llama.py. Layer parameters stay stacked on a
 leading [num_layers] axis, as in the JAX tree; the layers run as a Python
-loop over per-layer views. The KV cache is a preallocated
+loop over per-layer views (one unbind per leaf, so the backward stacks the
+layer gradients in one op). The KV cache is a preallocated
 [L, B, Hkv, S_max, hd] pair that prefill updates IN PLACE (the JAX version
-returns a new cache); the read-only suffix path never writes it.
+returns a new cache); the read-only suffix path never writes it. Training
+runs the uncached forward under autograd, each layer optionally under
+non-reentrant torch.utils.checkpoint (the JAX package's per-layer
+jax.checkpoint), which reruns the layer, its flash forward included, in
+the backward.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mla_tpu_torch import nn
 from mla_tpu_torch.ops import attention as attn_ops
@@ -126,11 +133,13 @@ def _layer_fn(lp, h, cache_kv, cfg, cos_table, sin_table, positions, key_mask, c
     return _mlp_block(lp, h, cfg)
 
 
-def layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer i's view of a stacked layer tree."""
+def unstack_layers(layers: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Per-layer views of a stacked layer tree."""
     if isinstance(layers, dict):
-        return {k: layer_params(v, i) for k, v in layers.items()}
-    return layers[i]
+        subs = {k: unstack_layers(v) for k, v in layers.items()}
+        n = len(next(iter(subs.values())))
+        return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+    return list(layers.unbind(0))
 
 
 def llama_forward(
@@ -144,6 +153,7 @@ def llama_forward(
     cache_len: int = 0,
     compute_logits: bool = True,
     cache_read_only: bool = False,
+    remat: bool = False,
 ) -> Dict[str, Any]:
     """Decoder forward from embeddings [B, S, D] (cast to compute_dtype).
 
@@ -151,8 +161,8 @@ def llama_forward(
     cache length. kv_cache: {'k','v'} [L,B,Hkv,Smax,hd]. Two cached modes:
     the static prefill (cache_len 0) writes [0, S) in place; the read-only
     suffix (cache_read_only) attends over the cache's [0, cache_len) and the
-    in-flight block without writing. Returns
-    {'last_hidden', 'hidden_mid', 'logits'?, 'kv_cache'?}."""
+    in-flight block without writing. remat (uncached only) checkpoints each
+    layer. Returns {'last_hidden', 'hidden_mid', 'logits'?, 'kv_cache'?}."""
     B, S, D = inputs_embeds.shape
     h = inputs_embeds.to(cfg.compute_dtype)
     dev = h.device
@@ -164,15 +174,15 @@ def llama_forward(
     inflight_mask = None
     if cache_read_only and key_mask is not None:
         inflight_mask = key_mask[:, cache_len : cache_len + S]
+    if remat and kv_cache is not None:
+        raise ValueError("remat is for the uncached training forward")
     hidden_mid = h
-    for i in range(cfg.num_layers):
+    for i, lp in enumerate(unstack_layers(params["layers"])):
         if i == cfg.contrastive_layer:
             hidden_mid = h
         ck = (kv_cache["k"][i], kv_cache["v"][i]) if kv_cache is not None else None
-        h = _layer_fn(
-            layer_params(params["layers"], i), h, ck, cfg, cos_table, sin_table, positions,
-            key_mask, cache_len, cache_read_only=cache_read_only, inflight_mask=inflight_mask,
-        )
+        args = (lp, h, ck, cfg, cos_table, sin_table, positions, key_mask, cache_len, cache_read_only, inflight_mask)
+        h = checkpoint(_layer_fn, *args, use_reentrant=False) if remat else _layer_fn(*args)
     if cfg.contrastive_layer >= cfg.num_layers:
         hidden_mid = h
     out: Dict[str, Any] = {
@@ -193,6 +203,14 @@ def lm_head_logits(params: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor
     if "w_q" in head:
         return (hf @ head["w_q"].float()) * head["w_scale"][0].float()
     return hf @ head["w"].float()
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
+    """Shifted cross-entropy, mean over the labels that are not ignored."""
+    shift_logits, shift_labels = logits[:, :-1].float(), labels[:, 1:].long()
+    valid = shift_labels != ignore_index
+    nll = F.cross_entropy(shift_logits.transpose(1, 2), torch.where(valid, shift_labels, 0), reduction="none")
+    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp_min(1)
 
 
 def embed_tokens(params: Dict[str, Any], ids: torch.Tensor) -> torch.Tensor:

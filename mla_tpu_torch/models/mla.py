@@ -1,7 +1,11 @@
-"""MLA diffusion serving: prefix embeds, prefill, cached-suffix denoising and
-the deployment policy (inference side).
+"""MLA diffusion training loss and serving: prefix embeds, prefill,
+cached-suffix denoising and the deployment policy.
 
-Counterpart of mla_tpu/models/mla.py. The multimodal prefix
+Counterpart of mla_tpu/models/mla.py. `mla_train_loss` is the diffusion
+training forward: the batch repeated `repeated_diffusion_steps` times, the
+future-action window q-sampled at random t, the noise regressed, plus the
+point/image contrastive loss. The AR loss mode is not ported yet. The
+multimodal prefix
 [BOS | fused | text[1:]] is prefilled once into a KV cache; each denoise
 step then runs only the 18-token suffix [proprio, t, x_0..15] against the
 cached prefix, reading the cache without writing it. This is exact with
@@ -11,7 +15,7 @@ attention is causal.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +41,71 @@ EOD_ID = 32002
 # CLIP normalization (the constants of the data pipeline, mla_tpu/vla/datasets.py)
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+
+LOSS_KEYS = (
+    "total_loss", "img_pc_contrastive_loss", "tactile_contrastive_loss", "diff_loss", "ar_loss",
+    "image_gen_loss", "point_cloud_gen_loss", "tactile_gen_loss",
+)
+
+
+def _tile_batch(tree, rep: int):
+    """Repeat every tensor leaf of dim > 0 `rep` times along dim 0."""
+    if isinstance(tree, dict):
+        return {k: _tile_batch(v, rep) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.dim() > 0:
+        return tree.repeat(rep, *([1] * (tree.dim() - 1)))
+    return tree
+
+
+def mla_train_loss(
+    params: Dict[str, Any], state: Dict[str, Any], cfg: prismatic.MLAModelConfig, sched: gd.Schedule,
+    batch: Dict[str, Any], generator: Optional[torch.Generator] = None, *, repeated_diffusion_steps: int = 4,
+    remat: bool = True, override_noise=None, override_t=None, fps_start: Optional[Sequence[torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Tuple[Dict[str, torch.Tensor], Dict[str, Any]]]:
+    """One training forward -> (total_loss, (loss_dict, new_state)) for a
+    batch of tensors on the parameters' device. The diffusion noise, t and
+    the point tokenizer's FPS starts ([num_stages] x [B * rep]) are drawn
+    from `generator` unless given: override_noise [B * rep, horizon,
+    action_dim], override_t [B * rep] and fps_start replace the draws (the
+    parity tests feed the JAX package's)."""
+    if not cfg.use_diff:
+        raise NotImplementedError("the AR loss mode (use_diff=False) is not ported yet")
+    rbatch = _tile_batch(batch, repeated_diffusion_steps)
+    future = rbatch["actions"][:, -cfg.action_horizon :, :].float()
+    Br, dev = future.shape[0], future.device
+    if override_noise is not None:
+        noise = torch.as_tensor(np.array(override_noise), dtype=torch.float32, device=dev).reshape(future.shape)
+    else:
+        noise = torch.randn(future.shape, generator=generator, device=dev)
+    if override_t is not None:
+        t = torch.as_tensor(np.array(override_t), device=dev).long().reshape(Br)
+    else:
+        t = torch.randint(0, sched.num_timesteps, (Br,), generator=generator, device=dev)
+    if fps_start is not None:
+        fps_start = [torch.as_tensor(np.array(s), dtype=torch.int32, device=dev) for s in fps_start]
+    elif cfg.use_pointcloud:
+        fps_start = [
+            torch.randint(0, cfg.point.input_points >> si, (Br,), generator=generator, device=dev, dtype=torch.int32)
+            for si in range(cfg.point.num_stages)
+        ]
+    x = gd.q_sample(sched, future, t, noise)
+    rbatch = {**rbatch, "x": x, "t": t}
+    # the reference computes the LM loss in diffusion mode and drops it from
+    # the total; like the JAX package, skip the LM head instead
+    rbatch.pop("labels", None)
+    outputs, new_state = prismatic.vlm_forward(
+        params, state, cfg, rbatch, training=True, use_diff=True, generator=generator, remat=remat,
+        fps_start=fps_start,
+    )
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    loss_dict = {k: zero for k in LOSS_KEYS}
+    total = loss_dict["diff_loss"] = ((outputs["noise_pred"].float() - noise) ** 2).mean()
+    if cfg.use_contrastive and "img_pc_contrastive_loss" in outputs:
+        loss_dict["img_pc_contrastive_loss"] = outputs["img_pc_contrastive_loss"]
+        total = total + outputs["img_pc_contrastive_loss"]
+    loss_dict["total_loss"] = total
+    return total, (loss_dict, new_state)
 
 
 def _device_clip_preprocess(img_u8: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Functional layer library on plain dicts of tensors.
 
-Counterpart of mla_tpu/nn.py, inference side. Parameters keep the JAX
+Counterpart of mla_tpu/nn.py. Parameters keep the JAX
 layout: linear weights are [in, out] (the transpose of torch's
 nn.Linear.weight), int8 leaves are {'w_q','w_scale'}. Norm math runs in
 fp32 and casts back, as in the JAX package.
@@ -12,7 +12,8 @@ dequantizing branch instead (bf16-style `x @ w_q * scale`).
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import math
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -76,13 +77,36 @@ def mlp_gelu(p: Params, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def proj_head(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Linear -> ReLU -> Linear (the contrastive projection heads)."""
+    return linear(p["fc2"], torch.relu(linear(p["fc1"], x)))
+
+
 def embedding(p: Params, ids: torch.Tensor) -> torch.Tensor:
     return p["table"][ids]
 
 
-def batch_norm(p: Params, s: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode BatchNorm over the last (channel) axis with running stats."""
+def batch_norm(
+    p: Params, s: Params, x: torch.Tensor, training: bool = False, momentum: float = 0.1, eps: float = 1e-5,
+) -> Tuple[torch.Tensor, Params]:
+    """BatchNorm over every axis but the last (channels last); returns
+    (y, new_state). Eval mode normalizes with the running statistics and
+    returns the state as it is. Training mode normalizes with the batch mean
+    and biased variance, and moves the running mean and the unbiased
+    variance by `momentum`, outside the autograd graph."""
     xf = x.float()
-    y = (xf - s["mean"].float()) * torch.rsqrt(s["var"].float() + eps)
+    if training:
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dims)
+        var = xf.var(dims, unbiased=False)
+        with torch.no_grad():
+            n = math.prod(x.shape[:-1])
+            new_s = {
+                "mean": (1 - momentum) * s["mean"] + momentum * mean,
+                "var": (1 - momentum) * s["var"] + momentum * (var * (n / max(n - 1, 1))),
+            }
+    else:
+        mean, var, new_s = s["mean"].float(), s["var"].float(), s
+    y = (xf - mean) * torch.rsqrt(var + eps)
     y = y * p["scale"].float() + p["bias"].float()
-    return y.to(x.dtype)
+    return y.to(x.dtype), new_s

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -31,11 +31,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# C signature of each library's one entry point: (symbol, argtypes)
+# C signatures of each library's entry points: {symbol: argtypes}; the
+# first entry point is the library's default
 SIGNATURES = {
-    "w8a8": ("w8a8_matmul", [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "fps": ("fps", [_P, _P, _P, _I, _I, _I, _P]),
-    "flash_fwd": ("flash_fwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]),
+    "w8a8": {"w8a8_matmul": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    "fps": {"fps": [_P, _P, _P, _I, _I, _I, _P]},
+    "flash_fwd": {"flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]},
+    "flash_bwd": {
+        "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+        "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    },
 }
 # extra nvcc flags per source: FPS must not contract its distance into FMAs
 EXTRA_FLAGS = {"fps": ["-fmad=false"]}
@@ -62,6 +67,16 @@ def _stale(name: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
 
 
+def compile_cmd(name: str, src: Path, out: Path) -> list:
+    """The nvcc command that builds library `name` from `src` into `out`."""
+    return [
+        nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        *EXTRA_FLAGS.get(name, []),
+        "-o", str(out), str(src),
+    ]
+
+
 def build(names=tuple(SIGNATURES)) -> Dict[str, str]:
     """Compile every stale library of `names` in parallel; returns the
     compiler's register/shared-memory report (-Xptxas -v) per library."""
@@ -70,12 +85,7 @@ def build(names=tuple(SIGNATURES)) -> Dict[str, str]:
     for name in names:
         if not _stale(name):
             continue
-        cmd = [
-            nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            *EXTRA_FLAGS.get(name, []),
-            "-o", str(_lib_path(name)) + ".tmp", str(CSRC / f"{name}.cu"),
-        ]
+        cmd = compile_cmd(name, CSRC / f"{name}.cu", Path(str(_lib_path(name)) + ".tmp"))
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     reports, failed = {}, []
     for name, proc in procs.items():
@@ -90,25 +100,31 @@ def build(names=tuple(SIGNATURES)) -> Dict[str, str]:
     return reports
 
 
+def load(name: str, path: Path) -> ctypes.CDLL:
+    """Load the library at `path` with the entry points of library `name`."""
+    lib = ctypes.CDLL(str(path))
+    for symbol, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library `name`, built first if needed."""
     with _lock:
         if name not in _loaded:
             if _stale(name):
                 build((name,))
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _loaded[name] = lib
+            _loaded[name] = load(name, _lib_path(name))
         return _loaded[name]
 
 
-def call(name: str, *args) -> None:
-    """Launch library `name`'s entry point on the current stream (appended as
-    the last argument) and raise on a non-zero cudaGetLastError()."""
-    symbol, _ = SIGNATURES[name]
+def call(name: str, *args, symbol: Optional[str] = None) -> None:
+    """Launch entry point `symbol` (default: the first) of library `name` on
+    the current stream (appended as the last argument) and raise on a
+    non-zero cudaGetLastError()."""
+    symbol = symbol or next(iter(SIGNATURES[name]))
     fn = getattr(library(name), symbol)
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -1,12 +1,16 @@
-"""Causal flash-attention forward with a key-padding mask.
+"""Causal flash attention with a key-padding mask, forward and backward.
 
-Counterpart of the forward of mla_tpu/ops/flash_attention.py (the backward
-kernels belong to the training slice). `flash_attention` normalizes the mask
-as the JAX wrapper does and then, on a CUDA tensor, launches the
-hand-written kernel (csrc/flash_fwd.cu: bf16 q/k/v, head_dim 64 or 128,
-ragged S masked in the kernel); on a CPU tensor it runs `flash_fwd_plain`,
-the JAX kernel's blocked online softmax with the JAX wrapper's padding to the
-lcm of the two block sizes.
+Counterpart of mla_tpu/ops/flash_attention.py. `flash_attention` normalizes
+the mask as the JAX wrapper does and runs `FlashAttention`, an autograd
+Function whose forward saves (q, k, v, mask, o, lse) as `_flash_fwd` does
+and whose backward recomputes P from lse.
+
+On a CUDA tensor the forward launches csrc/flash_fwd.cu and the backward
+csrc/flash_bwd.cu (dQ, then dK/dV): bf16 q/k/v, head_dim 64 or 128, ragged S
+masked in the kernels. delta = rowsum(dO * O) is a plain torch reduction
+between them, as it is an XLA op outside the kernels in JAX. On a CPU tensor
+they run `flash_fwd_plain` and `flash_bwd_plain`, the JAX kernels' blocked
+loops with the JAX wrapper's padding to the lcm of the two block sizes.
 """
 
 from __future__ import annotations
@@ -109,16 +113,142 @@ def flash_fwd(
     return o, lse
 
 
+class _PlainBwd:
+    """The TPU backward kernels' shared block arithmetic over S padded to
+    lcm(block_q, block_k): P = exp(s - lse) with the forward's masks and
+    dS = P (dP - delta) scale, both fp32."""
+
+    def __init__(self, q, k, v, key_mask, o, lse, do, block_q, block_k):
+        BH, S, hd = q.shape
+        self.S, self.bq, self.bk = S, block_q, block_k
+        self.scale = 1.0 / math.sqrt(hd)
+        delta = (do.float() * o.float()).sum(-1)
+        lcm = math.lcm(block_q, block_k)
+        self.Sp = -(-S // lcm) * lcm
+        if self.Sp != S:
+            pad = self.Sp - S
+            q, k, v, do = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v, do))
+            key_mask, lse, delta = (torch.nn.functional.pad(t, (0, pad)) for t in (key_mask, lse, delta))
+        self.q, self.k, self.v, self.do, self.lse, self.delta = q, k, v, do, lse, delta
+        self.kvalid = key_mask > 0
+        self.q_iota = torch.arange(block_q, device=q.device)[:, None]
+        self.k_iota = torch.arange(block_k, device=q.device)[None, :]
+
+    def probs(self, qi: int, ki: int):
+        """(P, dS) of query block qi against key block ki."""
+        q0, k0, bq, bk = qi * self.bq, ki * self.bk, self.bq, self.bk
+        s = (self.q[:, q0 : q0 + bq].float() @ self.k[:, k0 : k0 + bk].float().transpose(1, 2)) * self.scale
+        s = torch.where(self.kvalid[:, None, k0 : k0 + bk], s, NEG_INF)
+        s = torch.where(k0 + self.k_iota <= q0 + self.q_iota, s, NEG_INF)
+        p = torch.exp(s - self.lse[:, q0 : q0 + bq, None])
+        dp = self.do[:, q0 : q0 + bq].float() @ self.v[:, k0 : k0 + bk].float().transpose(1, 2)
+        return p, p * (dp - self.delta[:, q0 : q0 + bq, None]) * self.scale
+
+    def zeros(self):
+        return torch.zeros(self.q.shape, dtype=torch.float32, device=self.q.device)
+
+
+def flash_bwd_dq_plain(q, k, v, key_mask, o, lse, do, block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K):
+    """The plain version of the dQ kernel (_bwd_dq_kernel): per query block,
+    key blocks up to the diagonal (ceil-div); dS rounded to k's dtype before
+    dS K; fp32 sums; dQ in q's dtype."""
+    b = _PlainBwd(q, k, v, key_mask, o, lse, do, block_q, block_k)
+    dq = b.zeros()
+    for qi in range(b.Sp // block_q):
+        for ki in range(-(-(qi + 1) * block_q // block_k)):
+            _, ds = b.probs(qi, ki)
+            dq[:, qi * block_q : (qi + 1) * block_q] += ds.to(k.dtype).float() @ b.k[:, ki * block_k : (ki + 1) * block_k].float()
+    return dq[:, : b.S].to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, key_mask, o, lse, do, block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K):
+    """The plain version of the dK/dV kernel (_bwd_dkv_kernel): per key
+    block, query blocks from k_offset // block_q; P rounded to dO's dtype
+    before P^T dO, dS to q's dtype before dS^T Q; fp32 sums."""
+    b = _PlainBwd(q, k, v, key_mask, o, lse, do, block_q, block_k)
+    dk, dv = b.zeros(), b.zeros()
+    for ki in range(b.Sp // block_k):
+        k0 = ki * block_k
+        for qi in range(k0 // block_q, b.Sp // block_q):
+            p, ds = b.probs(qi, ki)
+            q0 = qi * block_q
+            dv[:, k0 : k0 + block_k] += p.to(do.dtype).float().transpose(1, 2) @ b.do[:, q0 : q0 + block_q].float()
+            dk[:, k0 : k0 + block_k] += ds.to(q.dtype).float().transpose(1, 2) @ b.q[:, q0 : q0 + block_q].float()
+    return dk[:, : b.S].to(k.dtype), dv[:, : b.S].to(v.dtype)
+
+
+def flash_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor,
+    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the backward: (dq, dk, dv) in the inputs' dtypes
+    for q/k/v/o/do [BH, S, hd], key_mask int32 [BH, S], lse fp32 [BH, S]."""
+    dq = flash_bwd_dq_plain(q, k, v, key_mask, o, lse, do, block_q, block_k)
+    return (dq, *flash_bwd_dkv_plain(q, k, v, key_mask, o, lse, do, block_q, block_k))
+
+
+def flash_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor,
+    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): the two kernels on CUDA (their own tiles; block_q and
+    block_k shape the plain version only), the plain version on the CPU."""
+    if not q.is_cuda:
+        return flash_bwd_plain(q, k, v, key_mask, o, lse, do, block_q, block_k)
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do")):
+        cuda.check(t, f"flash_bwd {name}", torch.bfloat16, 3)
+    cuda.check(key_mask, "flash_bwd key_mask", torch.int32, 2)
+    cuda.check(lse, "flash_bwd lse", torch.float32, 2)
+    BH, S, hd = q.shape
+    if any(t.shape != q.shape for t in (k, v, o, do)) or key_mask.shape != (BH, S) or lse.shape != (BH, S):
+        raise ValueError(f"flash_bwd: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
+                         f"o {tuple(o.shape)} do {tuple(do.shape)} mask {tuple(key_mask.shape)} lse {tuple(lse.shape)}")
+    if hd not in (64, 128):
+        raise ValueError(f"flash_bwd: head_dim must be 64 or 128, got {hd}")
+    delta = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if BH > 0 and S > 0:
+        scale = 1.0 / math.sqrt(hd)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr())
+        cuda.call("flash_bwd", *ptrs, dq.data_ptr(), BH, S, hd, scale, symbol="flash_bwd_dq")
+        cuda.launches["flash_attention_bwd_dq"] += 1
+        cuda.call("flash_bwd", *ptrs, dk.data_ptr(), dv.data_ptr(), BH, S, hd, scale, symbol="flash_bwd_dkv")
+        cuda.launches["flash_attention_bwd_dkv"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = attention(q, k, v) for [BH, S, hd] with an int32 [BH, S] key mask.
+    Saves (q, k, v, mask, o, lse) and recomputes P in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K):
+        o, lse = flash_fwd(q, k, v, key_mask, block_q, block_k)
+        ctx.save_for_backward(q, k, v, key_mask, o, lse)
+        ctx.blocks = (block_q, block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_mask, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, key_mask, o, lse, do.contiguous(), *ctx.blocks)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None,
     block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K,
 ) -> torch.Tensor:
-    """q/k/v [B, H, S, hd] -> [B, H, S, hd]; `mask` a boolean key-padding
-    mask ([B, S], [B, 1, 1, S] or row-constant [B, 1, Sq, Sk])."""
+    """q/k/v [B, H, S, hd] -> [B, H, S, hd], differentiable in q, k and v;
+    `mask` a boolean key-padding mask ([B, S], [B, 1, 1, S] or row-constant
+    [B, 1, Sq, Sk])."""
     B, H, S, hd = q.shape
     key_mask = _key_mask(mask, B, S, q.device)
     mask_bh = key_mask.repeat_interleave(H, dim=0).contiguous()
-    o, _ = flash_fwd(
+    o = FlashAttention.apply(
         q.reshape(B * H, S, hd).contiguous(), k.reshape(B * H, S, hd).contiguous(),
         v.reshape(B * H, S, hd).contiguous(), mask_bh, block_q, block_k,
     )

@@ -82,10 +82,14 @@ def knn(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
     return torch.topk(-d, nsample, dim=-1).indices
 
 
-def fps_knn(xyz: torch.Tensor, feats: torch.Tensor, group_num: int, k_neighbors: int) -> Tuple[torch.Tensor, ...]:
+def fps_knn(
+    xyz: torch.Tensor, feats: torch.Tensor, group_num: int, k_neighbors: int, start: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
     """The FPS_kNN stage of Point-PN: (lc_xyz, lc_x, knn_xyz, knn_x), the
-    sampled centers and features and their k neighbours'."""
-    fps_idx = furthest_point_sample(xyz, group_num).long()
+    sampled centers and features and their k neighbours'. `start` [B] are
+    the FPS start indices (default 0, the serving mode; training draws
+    them)."""
+    fps_idx = furthest_point_sample(xyz, group_num, start).long()
     lc_xyz = index_points(xyz, fps_idx)
     lc_x = index_points(feats, fps_idx)
     knn_idx = knn(k_neighbors, xyz, lc_xyz)

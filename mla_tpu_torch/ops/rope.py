@@ -23,9 +23,12 @@ def rope_tables(head_dim: int, max_len: int, theta: float = 10000.0):
 
 @functools.lru_cache(maxsize=8)
 def rope_tables_on(head_dim: int, max_len: int, theta: float, device: str):
-    """rope_tables as tensors on `device`, built once per configuration."""
+    """rope_tables as tensors on `device`, built once per configuration,
+    outside inference mode even when first asked for by a serving call, so
+    a training forward in the same process can use them under autograd."""
     cos, sin = rope_tables(head_dim, max_len, theta)
-    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,10 @@
 
 Trees are nested dicts (and lists) of tensors in the JAX package's layout,
 so a JAX param/state pytree with numpy leaves carries across leaf for leaf
-(`from_jax`). `init` builds the serving modules of an MLA model with the
-JAX init's distributions, directly on the target device from a
-torch.Generator, so a full-width 7B never passes through the host.
+(`from_jax`). `init` builds the modules of an MLA model that the ported
+paths run (serving and the diffusion training step) with the JAX init's
+distributions, directly on the target device from a torch.Generator, so a
+full-width 7B never passes through the host.
 """
 
 from __future__ import annotations
@@ -37,13 +38,18 @@ def from_jax(tree, device=None):
     return t.to(device) if device is not None else t
 
 
+def tree_map(fn, tree):
+    """The same tree with fn applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
 def tree_to(tree, device):
     """Move every tensor leaf of a tree to `device`."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_to(v, device) for v in tree)
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
 
 
 class _Init:
@@ -153,10 +159,29 @@ def _point(it: _Init, cfg) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     return params, {"raw_embed": raw_s, "stages": stages_s}
 
 
+def tree_leaves(tree):
+    """The tensor leaves of a tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [l for k in tree for l in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [l for v in tree for l in tree_leaves(v)]
+    return [tree]
+
+
+def tree_items(tree, prefix: str = ""):
+    """(path, leaf) pairs of a tree, paths as 'a/b/0/c'."""
+    if isinstance(tree, dict):
+        return [i for k, v in tree.items() for i in tree_items(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [i for n, v in enumerate(tree) for i in tree_items(v, f"{prefix}{n}/")]
+    return [(prefix[:-1], tree)]
+
+
 def init(cfg: MLAModelConfig, seed: int = 0, device="cuda") -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """(params, state) of the serving modules of `cfg`, drawn on `device`
-    with the JAX init's distributions (the values differ from JAX's: the
-    generators differ). The final layer's fc2 is zero, as in the reference."""
+    """(params, state) of `cfg`, drawn on `device` with the JAX init's
+    distributions (the values differ from JAX's: the generators differ). The
+    final layer's fc2 is zero, as in the reference. The leaves do not require
+    grad; training.optim.make_optimizer sets requires_grad per leaf."""
     it = _Init(seed, device)
     D = cfg.token_size
     params: Dict[str, Any] = {
@@ -178,4 +203,10 @@ def init(cfg: MLAModelConfig, seed: int = 0, device="cuda") -> Tuple[Dict[str, A
         final = {"norm": {"scale": it.ones((D,))}, "mlp": it.mlp(D, D, cfg.action_dim)}
         final["mlp"]["fc2"]["w"].zero_()
         params["final_layer"] = final
+    if cfg.use_contrastive:
+        # drawn last, so the serving modules' draws do not depend on it
+        def head():
+            return {"fc1": it.linear(D, D), "fc2": it.linear(D, 256)}
+
+        params["contrastive"] = {"coord": {"image_head": head(), "pointcloud_head": head()}}
     return params, state

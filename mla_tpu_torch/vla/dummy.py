@@ -1,0 +1,69 @@
+"""Synthetic training batches with the training token layout.
+
+Counterpart of `synthetic_batch` in mla_tpu/vla/dummy.py, with its own copy
+of the special token ids, for smoke-testing the training step without
+data. The same arguments give the same arrays as the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+
+# special token ids of the Llama-2 + MLA vocabulary
+BOS_ID = 1
+EOS_ID = 2
+EMPTY_ID = 29871
+PAD_ID = 32000
+BOD_ID = 32001
+EOD_ID = 32002
+
+
+def synthetic_batch(cfg, B: int = 2, L: int = 16, seed: int = 0, training: bool = True) -> Dict[str, Any]:
+    """Random batch with the training token layout:
+    [BOS, prompt..., 29871, BOD, EOD, action ids x action_dim, EOS, pad..].
+
+    `splice_idx` follows the reference's tag convention: training splices at
+    the last EOS, inference at the last 29871. The generation heads' targets
+    are not made (those heads are not ported)."""
+    rng = np.random.default_rng(seed)
+    ad = cfg.action_dim
+    if L < ad + 7:
+        raise ValueError(f"L={L} too short for the action span")
+    ids = np.full((B, L), PAD_ID, dtype=np.int32)
+    n_real = L - 2
+    for b in range(B):
+        ids[b, 0] = BOS_ID
+        ids[b, 1 : n_real - ad - 3] = rng.integers(100, 20000, n_real - ad - 4)
+        ids[b, n_real - ad - 3] = EMPTY_ID
+        ids[b, n_real - ad - 2] = BOD_ID
+        ids[b, n_real - ad - 1] = EOD_ID
+        ids[b, n_real - ad : n_real] = rng.integers(31744, 32000, ad)
+        ids[b, n_real] = EOS_ID
+    attn = ids != PAD_ID
+    labels = np.where(attn, ids, -100).astype(np.int32)
+    labels[:, : n_real - ad] = -100
+    splice = np.full((B,), n_real if training else n_real - ad - 3, dtype=np.int32)
+
+    img = rng.normal(size=(B, 3, cfg.vision.image_size, cfg.vision.image_size)).astype(np.float32)
+    mask = np.ones((B, 1, cfg.vision.image_size, cfg.vision.image_size), np.float32)
+    batch: Dict[str, Any] = {
+        "input_ids": ids,
+        "attention_mask": attn,
+        "labels": labels,
+        "splice_idx": splice,
+        "images": {"front_image": np.concatenate([img, mask], axis=1)},
+        "proprio": rng.normal(size=(B, 1, ad)).astype(np.float32),
+        "actions": rng.uniform(-1, 1, size=(B, cfg.action_horizon, ad)).astype(np.float32),
+    }
+    if cfg.use_pointcloud:
+        batch["point_cloud"] = rng.uniform(
+            [-0.3, -0.45, 0.75], [0.7, 0.45, 1.6], size=(B, cfg.point.input_points, 3)
+        ).astype(np.float32)
+    if cfg.use_tactile:
+        batch["tactile"] = rng.normal(size=(B, cfg.tactile_dim * cfg.n_arms)).astype(np.float32)
+        batch["gripper_xyz"] = rng.uniform(
+            [0.0, -0.2, 0.9], [0.4, 0.2, 1.3], size=(B, 3 * cfg.n_arms)
+        ).astype(np.float32)
+    return batch

@@ -61,7 +61,7 @@ def test_point_tokenizer_matches_jax(full, record_property):
     state = jax.tree_util.tree_map(lambda a: a + 0.1 * jnp.abs(jax.random.normal(jax.random.PRNGKey(3), a.shape)), state)
     pc = np.random.default_rng(4).uniform([-0.3, -0.45, 0.75], [0.7, 0.45, 1.6], size=(2, jc.input_points, 3)).astype(np.float32)
     jtok, jcen, _ = jpt.point_tokenizer(params, state, jnp.asarray(pc), jc, training=False)
-    ttok, tcen = tpt.point_tokenizer(from_jax(params), from_jax(state), torch.from_numpy(pc), tc)
+    ttok, tcen, _ = tpt.point_tokenizer(from_jax(params), from_jax(state), torch.from_numpy(pc), tc)
     # FPS indices are identical, so the centers are exact; the kNN order may
     # differ but the max-pool over neighbours is order-invariant
     np.testing.assert_array_equal(_np(tcen), np.asarray(jcen))

@@ -63,7 +63,7 @@ def test_nn_ops_match_jax(dtype):
     bn_p = {"scale": _rand((32,), 5), "bias": _rand((32,), 6)}
     bn_s = {"mean": _rand((32,), 7), "var": np.abs(_rand((32,), 8)) + 0.5}
     jbn, _ = jnn.batch_norm(jax.tree_util.tree_map(jnp.asarray, bn_p), jax.tree_util.tree_map(jnp.asarray, bn_s), xj, training=False)
-    pairs.append((jbn, tnn.batch_norm(_t(bn_p), _t(bn_s), xt)))
+    pairs.append((jbn, tnn.batch_norm(_t(bn_p), _t(bn_s), xt)[0]))
     for j, t in pairs:
         assert t.dtype == tdt
         np.testing.assert_allclose(_np(t), np.asarray(j, np.float32), **tol)
@@ -247,11 +247,12 @@ def _shapes(tree, prefix=""):
 
 
 def test_init_has_the_jax_layout():
-    """params.init builds the serving modules with the JAX tree's keys,
-    shapes and dtypes (training-only modules are not built)."""
+    """params.init builds the modules of the ported paths (serving and the
+    diffusion training step, contrastive heads included) with the JAX
+    tree's keys, shapes and dtypes; the generation heads are not built."""
     tcfg = TREG["mla-tiny"]()
     jp, js = jprismatic.mla_model_init(jax.random.PRNGKey(0), JREG["mla-tiny"]())
-    jp = {k: v for k, v in jp.items() if k not in ("contrastive", "generation_manager")}
+    jp = {k: v for k, v in jp.items() if k != "generation_manager"}
     tp, ts = tparams.init(tcfg, seed=0, device="cpu")
     assert _shapes(tp) == _shapes(tparams.from_jax(jp))
     assert _shapes(ts) == _shapes(tparams.from_jax(js))

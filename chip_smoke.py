@@ -8,9 +8,10 @@ Run from the repository root with no arguments:
 Phases, each of which fails the run if it fails:
   1. build        compile every CUDA kernel from mla_tpu_torch/csrc with
                   nvcc (sm_90a), one process per source, in parallel, and
-                  beside them a control: a copy of flash_bwd.cu in a
-                  temporary directory with the last, partial tile of each
-                  backward loop dropped.
+                  beside them two controls, each in a temporary directory:
+                  a copy of flash_bwd.cu with the last, partial tile of
+                  each backward loop dropped, and a copy of int8_mm.cu
+                  with its last K tile dropped.
   2. kernels      hold each kernel against its plain PyTorch version and
                   time kernel, plain version, a PyTorch library call
                   (yardstick only) and the roofline bound: W8A8, FPS and
@@ -19,16 +20,34 @@ Phases, each of which fails the run if it fails:
                   mla-2b training shape (BH 256, S 563, hd 128), with and
                   without a padded key tail, each gradient row within a
                   bf16 tolerance of its own norm, bit-identical over two
-                  launches; the same check must reject the control.
+                  launches; the same check must reject the control. The
+                  weight-only int8 product at M = 1, 4 and 535 rows by the
+                  four mla-7b linears, each output column within one bf16
+                  step of its own norm, bit-identical over two launches;
+                  the check must reject the int8_mm control.
   3. agree        serve one DDIM-8 request of an int8 `mla-small` (4
                   decoder layers, full-width front-ends) on the card and on
                   the CPU (plain versions) from the same weights and noise;
                   the normalized chunks must agree.
+     ar-agree     the weight-only int8 `mla-small` on the card and on the
+                  CPU: prefill and 7 cached decode steps fed the CPU's
+                  greedy ids; the card's fp32 logits must agree with the
+                  CPU's at every step, and the card's run through the
+                  int8_mm control must not; predict_action_ar on the card
+                  must give the CPU's ids wherever the CPU's top-1 margin
+                  exceeds twice the logits' error.
   4. serve        build the int8 `mla-7b` at full width from a seeded
                   random init on the card, serve DDIM-8 and DPM-4 requests
                   through MLAPolicy.predict_action_diff, check finite
                   [16, 7] chunks and the kernel launch counts of every
                   request.
+     ar-serve     a second policy over the same int8 weights with
+                  int8_mode="weight_only": predict_action_ar x 3, greedy
+                  and 4-beam generate_text of 16 tokens,
+                  predict_action_diff_ar (DDIM-8) and predict_action_batch
+                  (B = 2, a seeded DiT-B head), each with its exact kernel
+                  launch counts; then prefill, decode-step and lm_head
+                  times beside the decode step's weight-read bound.
   5. train-agree  one AdamW training step of the bf16 `mla-small` (B = 2)
                   on the card and on the CPU from the same weights, batch,
                   noise, t and FPS starts; loss and grad_norm must agree,
@@ -42,7 +61,8 @@ Phases, each of which fails the run if it fails:
 
 The second-to-last line of output is a JSON object with each kernel's
 numbers (launches counted on the serving path for the kernels of slice 1,
-on the training path for the flash backward); the last is
+on the AR serving path for the weight-only int8 product, on the training
+path for the flash backward); the last is
 {"ok": true, "device": {...}}. Detailed results go to
 chiprun_out/chip_smoke.json. Without a CUDA device, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -51,11 +71,13 @@ beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, int8 ops/s, bf16 and fp32 flop/s
@@ -257,31 +279,37 @@ FLASH_BWD_MUTATIONS = (
 )
 
 
-def start_control_build(cuda, tmp: Path):
-    """Write the control's source into `tmp` and start its nvcc."""
-    src = (cuda.CSRC / "flash_bwd.cu").read_text()
-    for old, new in FLASH_BWD_MUTATIONS:
+# the control of int8_mm.cu: its last K tile dropped (the loop over K tiles
+# stops one short), the fault the column check must catch
+INT8_MM_MUTATIONS = (("for (int kt = 0; kt < nkt; ++kt)", "for (int kt = 0; kt < nkt - 1; ++kt)"),)
+CONTROLS = {"flash_bwd": FLASH_BWD_MUTATIONS, "int8_mm": INT8_MM_MUTATIONS}
+
+
+def start_control_build(cuda, tmp: Path, name: str):
+    """Write the control copy of `name`.cu into `tmp` and start its nvcc."""
+    src = (cuda.CSRC / f"{name}.cu").read_text()
+    for old, new in CONTROLS[name]:
         if old not in src:
-            raise AssertionError(f"flash_bwd.cu no longer holds {old!r}: the control must follow the source")
+            raise AssertionError(f"{name}.cu no longer holds {old!r}: the control must follow the source")
         src = src.replace(old, new)
-    cu, lib = tmp / "flash_bwd_control.cu", tmp / "libflash_bwd_control.so"
+    cu, lib = tmp / f"{name}_control.cu", tmp / f"lib{name}_control.so"
     cu.write_text(src)
-    cmd = cuda.compile_cmd("flash_bwd", cu, lib)
+    cmd = cuda.compile_cmd(name, cu, lib)
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def finish_control_build(cuda, lib: Path, proc):
+def finish_control_build(cuda, name: str, lib: Path, proc):
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"the control build of flash_bwd.cu failed:\n{out}")
-    return cuda.load("flash_bwd", lib)
+        raise RuntimeError(f"the control build of {name}.cu failed:\n{out}")
+    return cuda.load(name, lib)
 
 
 @contextlib.contextmanager
-def flash_bwd_from(cuda, lib):
-    """Within the block, the flash-backward launches go to `lib`."""
+def kernel_from(cuda, name: str, lib):
+    """Within the block, the launches of library `name` go to `lib`."""
     real = cuda.library
-    cuda.library = lambda name: lib if name == "flash_bwd" else real(name)
+    cuda.library = lambda n: lib if n == name else real(n)
     try:
         yield
     finally:
@@ -324,7 +352,7 @@ def check_flash_bwd(torch, report, control):
         got = fa.flash_bwd(q, k, v, m, o, lse, do)
         again = fa.flash_bwd(q, k, v, m, o, lse, do)
         want = fa.flash_bwd_plain(q, k, v, m, o, lse, do)
-        with flash_bwd_from(cuda, control):
+        with kernel_from(cuda, "flash_bwd", control):
             bad = fa.flash_bwd(q, k, v, m, o, lse, do)
         torch.cuda.synchronize()
         valid = m[0] > 0
@@ -397,6 +425,109 @@ def check_flash_bwd(torch, report, control):
     return out_rows
 
 
+# the weight-only int8 product at a decode step (1 row), a 4-beam step and
+# the AR prefill (22 prompt ids + 513 fused tokens)
+INT8_M = (1, 4, PREFIX_LEN + 1)
+# kernel vs plain version, bf16 out: the products are exact in both and the
+# sums fp32, only their order differs, so an output lands at most one bf16
+# step away: 2^-7 = 7.8e-3 of its value when it sits just above a power of
+# two, which a one-row column (M = 1) reads in full. Each column is held to
+# its own norm, norms floored at ROW_FLOOR of the median (a one-row column
+# can cancel to ~0, where only the fp32 sum order is left, ~1e-3 of the
+# floor); the tolerance is one bf16 step plus that term
+INT8_COL_RTOL = 1e-2
+L2_BYTES = 50e6  # H100 L2: weight copies are cycled past it, as a decode step finds them cold
+
+
+def col_rel_err(a, w):
+    """max over columns of ||a - w|| / max(||w||, ROW_FLOOR x the median)."""
+    a, w = a.float(), w.float()
+    n = w.norm(dim=0)
+    return float(((a - w).norm(dim=0) / n.clamp_min(ROW_FLOOR * float(n.median()))).max())
+
+
+def check_int8_mm(torch, report, control):
+    """int8_mm against its plain version at the mla-7b AR shapes, bf16:
+    every column within INT8_COL_RTOL, bit-identical over two launches; the
+    control library (its last K tile dropped) must exceed the tolerance at
+    every shape. Times kernel, plain version, _weight_int8pack_mm (the
+    yardstick; its scales are bf16) and the bound, weights cycled past L2."""
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.ops import quantization as q
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "err": 0.0, "b_bytes": 0.0, "b_ops": 0.0}
+    readings = {"col_rtol": INT8_COL_RTOL, "kernel": {}, "control": {}, "per_layer_ms": {}}
+    library_ok = True
+    for M in INT8_M:
+        layer = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        for K, N in LINEARS:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
+            copies = [torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+                      for _ in range(max(2, int(4 * L2_BYTES // (K * N)) + 1))]
+            w_q = copies[0]
+            y, again, want = q.int8_matmul(x, w_q, ws), q.int8_matmul(x, w_q, ws), q.int8_matmul_plain(x, w_q, ws)
+            with kernel_from(cuda, "int8_mm", control):
+                bad = q.int8_matmul(x, w_q, ws)
+            torch.cuda.synchronize()
+            if not torch.equal(y, again):
+                raise AssertionError(f"int8_mm M={M} K={K} N={N}: two launches differ in {int((y != again).sum())} entries")
+            rel, rel_c = col_rel_err(y, want), col_rel_err(bad, want)
+            err = float((y.float() - want.float()).abs().max())
+            key = f"M={M} K={K} N={N}"
+            readings["kernel"][key], readings["control"][key] = rel, rel_c
+            if not rel <= INT8_COL_RTOL:
+                raise AssertionError(f"int8_mm {key}: a column is {rel} of its norm from the plain version "
+                                     f"(tol {INT8_COL_RTOL})")
+            if not rel_c > INT8_COL_RTOL:
+                raise AssertionError(f"int8_mm {key}: the check passes the control ({rel_c} <= {INT8_COL_RTOL})")
+            cyc = itertools.cycle(copies)
+            ms = cuda_ms(torch, lambda: q.int8_matmul(x, next(cyc), ws), 20)
+            plain_ms = cuda_ms(torch, lambda: q.int8_matmul_plain(x, w_q, ws), 3, 1)
+            lib_ms = None
+            if library_ok:
+                w_t = [c.t().contiguous() for c in copies]
+                s_b = ws.to(torch.bfloat16)
+                cyc_t = itertools.cycle(w_t)
+                try:
+                    lib_ms = cuda_ms(torch, lambda: torch._weight_int8pack_mm(x, next(cyc_t), s_b), 20)
+                except RuntimeError as e:
+                    library_ok = False
+                    log(f"int8_mm yardstick: torch._weight_int8pack_mm is not available here ({str(e)[:120]})")
+                del w_t
+            nbytes, ops = M * K * 2 + K * N + N * 4 + M * N * 2, 2.0 * M * K * N
+            b, by = bound_ms(nbytes, ops, "bf16")
+            lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a"
+            log(f"int8_mm {key:22s}: identical repeats, max column |kernel - plain| / |plain| {rel:.3e} "
+                f"(tol {INT8_COL_RTOL:.3e}), control {rel_c:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"_weight_int8pack_mm {lib_txt}, bound {b:.4f} ms ({by})")
+            report["shapes"].append({"kernel": "int8_matmul", "M": M, "K": K, "N": N, "ms": ms, "plain_ms": plain_ms,
+                                     "library_ms": lib_ms, "bound_ms": b, "bound_by": by, "max_abs_err": err,
+                                     "col_rel_err": rel, "control_col_rel_err": rel_c})
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b)):
+                tot[k] += v
+            layer["ms"] += ms
+            layer["bound_ms"] += b
+            if lib_ms is not None:
+                tot["library_ms"] += lib_ms
+                layer["library_ms"] += lib_ms
+            tot["b_bytes"] += nbytes / PEAK_BYTES * 1e3
+            tot["b_ops"] += ops / PEAK_OPS["bf16"] * 1e3
+            tot["err"] = max(tot["err"], err)
+            del copies
+        readings["per_layer_ms"][M] = layer
+        log(f"int8_mm M={M}: one layer's 4 linears {layer['ms']:.4f} ms against a bound of {layer['bound_ms']:.4f} ms")
+    report["int8_mm"] = readings
+    return {
+        "name": "int8_matmul", "route": "cuda", "source": "mla_tpu_torch/csrc/int8_mm.cu",
+        "replaces": "mla_tpu/ops/quantization.py:264", "max_abs_err": tot["err"],
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": "bytes" if tot["b_bytes"] >= tot["b_ops"] else "operations",
+        "library_ms": tot["library_ms"] if library_ok else None,
+    }
+
+
 def request_inputs(cfg, seed: int):
     import numpy as np
 
@@ -450,6 +581,102 @@ def check_agreement(torch, report):
         raise AssertionError(f"GPU and CPU chunks disagree: max abs err {err} vs scale {scale}")
 
 
+class WordTokenizer:
+    """A word-level stand-in for the Llama tokenizer (no vocabulary files
+    here): BOS, then one id in [100, 20100) per word."""
+
+    def __call__(self, text, add_special_tokens=True):
+        return {"input_ids": [1] + [100 + zlib.crc32(w.encode()) % 20000 for w in text.split()]}
+
+    def decode(self, ids):
+        return " ".join(str(int(i)) for i in ids)
+
+
+STATS = {"rlbench": {"action": {"q01": [-1.0] * 6 + [0.0], "q99": [1.0] * 7}}}
+
+# weight-only int8 mla-small, card (bf16 products through int8_mm, the flash
+# prefill) vs CPU (plain versions, reference attention) on the same weights
+# and ids: bf16 rounds at other places in the attention and at a different
+# fp32 sum order in every product, so the fp32 logits agree to a small share
+# of their scale (the largest |logit| of the CPU's run); the card's run
+# through the int8_mm control (its last K tile dropped) must miss it
+AR_AGREE_RTOL = 2e-2
+
+
+def check_ar_agreement(torch, report, control):
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.models import mla
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.ops.quantization import quantize_model
+
+    cfg = get_model_config("mla-small")
+    params, state = P.init(cfg, seed=13, device="cpu")
+    params = quantize_model(params)
+    img, pc, ids, _ = request_inputs(cfg, 14)
+    T = cfg.action_dim
+    pols = {dev: mla.MLAPolicy(params, state, cfg, norm_stats=STATS, device=dev, int8_mode="weight_only")
+            for dev in ("cuda", "cpu")}
+
+    def drive(pol, feed=None):
+        """fp32 logits [T + 1, V] of the prefill and T decode steps, each step
+        fed feed[i] (None: the run's own greedy id), and the ids fed."""
+        dev = pol.device
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            prefix = mla.build_prefix_embeds(
+                pol.params, pol.state, cfg, torch.as_tensor(ids, device=dev).long(),
+                {"front_image": torch.as_tensor(img, device=dev)[None]}, torch.as_tensor(pc, device=dev)[None])
+            n = prefix.shape[1]
+            kv, logits = mla.prefill(pol.params, cfg, prefix, n + T + mla.CACHE_MARGIN, int8_mode="weight_only")
+            out, toks = [logits[0].float().cpu()], []
+            for i in range(T):
+                toks.append(int(logits[0].argmax()) if feed is None else feed[i])
+                logits = mla.decode_step(pol.params, cfg, kv, n + i, torch.tensor([toks[-1]], device=dev),
+                                         int8_mode="weight_only")
+                out.append(logits[0].float().cpu())
+        log(f"ar-agree mla-small weight-only int8, prefill + {T} decode steps on {dev}: "
+            f"{time.perf_counter() - t0:.2f} s")
+        return torch.stack(out), toks
+
+    cpu, cpu_ids = drive(pols["cpu"])
+    gpu, _ = drive(pols["cuda"], cpu_ids)
+    with kernel_from(cuda, "int8_mm", control):
+        ctrl, _ = drive(pols["cuda"], cpu_ids)
+    scale = float(cpu.abs().max())
+    step_err = (gpu - cpu).abs().amax(dim=1)
+    err, err_c = float(step_err.max()), float((ctrl - cpu).abs().max())
+    log(f"ar-agree: max |gpu - cpu| logit {err:.4e} per step {[round(float(e), 5) for e in step_err]}, "
+        f"scale {scale:.4e}, rel {err / scale:.4e} (tol {AR_AGREE_RTOL}); control rel {err_c / scale:.4e}")
+    if not err <= AR_AGREE_RTOL * scale:
+        raise AssertionError(f"ar-agree: GPU and CPU logits disagree: {err} vs scale {scale}")
+    if not err_c > AR_AGREE_RTOL * scale:
+        raise AssertionError(f"ar-agree passes the control: {err_c} vs scale {scale}")
+
+    # the card's own greedy run: the CPU's id at every step whose top-1
+    # margin exceeds twice the logits' error; a closer call may go either
+    # way, and past a differing id the two contexts part, so the comparison
+    # stops at the first difference
+    top2 = cpu[:T].topk(2, dim=-1).values
+    margins = [float(m) for m in top2[:, 0] - top2[:, 1]]
+    gpu_ids = [int(t) for t in pols["cuda"].generate_ids(img, pc, ids, T)[0][0]]
+    compared = T
+    for i in range(T):
+        if gpu_ids[i] != cpu_ids[i]:
+            if margins[i] > 2 * err:
+                raise AssertionError(f"ar-agree: predict_action_ar on the card chose {gpu_ids[i]} at step {i}, the "
+                                     f"CPU {cpu_ids[i]}, with a margin {margins[i]} > 2 x {err}")
+            compared = i
+            break
+    held = sum(m > 2 * err for m in margins[:compared])
+    log(f"ar-agree: card ids {gpu_ids}, CPU ids {cpu_ids}, CPU margins {[round(m, 5) for m in margins]}; "
+        f"{compared} step(s) in one context, {held} of them with a margin above 2 x {err:.4e}")
+    report["ar_agree"] = {"max_abs_err": err, "step_err": [float(e) for e in step_err], "scale": scale,
+                          "rtol": AR_AGREE_RTOL, "control_max_abs_err": err_c, "cpu_ids": cpu_ids,
+                          "gpu_ids": gpu_ids, "margins": margins, "steps_compared": compared,
+                          "steps_above_margin": held}
+
+
 REQUESTS = 3  # requests per sampler in the serve phase
 
 
@@ -468,12 +695,13 @@ def serve(torch, report):
     live_head(torch, params, 1)
     params = quantize_model(params)
     torch.cuda.empty_cache()
-    stats = {"rlbench": {"action": {"q01": [-1.0] * 6 + [0.0], "q99": [1.0] * 7}}}
-    policy = MLAPolicy(params, state, cfg, norm_stats=stats)
+    policy = MLAPolicy(params, state, cfg, norm_stats=STATS)
+    # the AR policy over the same int8 leaves (its own fused q|k|v, gate|up)
+    ar_policy = MLAPolicy(params, state, cfg, tokenizer=WordTokenizer(), norm_stats=STATS, int8_mode="weight_only")
     del params
     torch.cuda.synchronize()
     log(f"serve: int8 mla-7b built on the card in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (two policies)")
     L = cfg.llama.num_layers
     expected = {"ddim": {"w8a8_matmul": L * 4 * (1 + 8)}, "dpm": {"w8a8_matmul": L * 4 * (1 + 4)}}
     for e in expected.values():
@@ -505,6 +733,110 @@ def serve(torch, report):
     totals = dict(cuda.launches)
     report["serve"] = {"latency_ms": lat, "launches": totals, "expected_per_chunk": expected,
                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return totals, ar_policy
+
+
+AR_TEXT_TOKENS = 16
+INSTRUCTIONS = ("pick up the red block and place it on the green plate next to the cup",
+                "open the top drawer of the cabinet")
+
+
+def ar_serve(torch, report, policy):
+    """The weight-only int8 mla-7b through its AR entry points, each call
+    with its exact kernel launch counts; then the decode step's parts."""
+    import numpy as np
+
+    from mla_tpu_torch.models import action_model as am
+    from mla_tpu_torch.models import llama as llama_mod
+    from mla_tpu_torch.models import mla
+    from mla_tpu_torch.ops import cuda
+
+    cfg, dev = policy.cfg, policy.device
+    L, S, A, T = cfg.llama.num_layers, cfg.point.num_stages, cfg.action_dim, AR_TEXT_TOKENS
+    dit_cfg = am.dit_config("DiT-B", token_size=cfg.token_size, in_channels=A,
+                            future_action_window_size=cfg.future_action_window_size)
+    dit = am.dit_init(dit_cfg, seed=15, device=dev)
+    fc2 = dit["final_layer"]["mlp"]["fc2"]  # zero in the reference init; drawn so the head is live
+    fc2["w"] = torch.randn(fc2["w"].shape, generator=torch.Generator(dev).manual_seed(16), device=dev) * 0.02
+    reqs = [request_inputs(cfg, 200 + i) for i in range(3)]
+    img, pc, ids, _ = reqs[0]
+
+    def counts(int8, passes=1):
+        return {"int8_matmul": int8, "flash_attention": passes * L, "furthest_point_sample": passes * S,
+                "w8a8_matmul": 0}
+
+    def check_ar(out):
+        actions, probs = out
+        return actions.shape == (A,) and np.isfinite(actions).all() and len(probs) == A and \
+            all(0.0 < p <= 1.0 for p in probs)
+
+    def check_text(out):
+        return isinstance(out, str) and len(out.split()) <= T
+
+    def check_both(out):
+        return out["actions"].shape == (cfg.action_horizon, A) and np.isfinite(out["actions"]).all() and \
+            check_ar((out["ar_actions"], out["ar_max_probs"]))
+
+    calls = [(f"predict_action_ar {i}", counts(4 * L * (1 + A)), check_ar,
+              lambda r=r: policy.predict_action_ar(r[0], r[1], "", input_ids=r[2], return_probs=True))
+             for i, r in enumerate(reqs)]
+    calls += [
+        (f"generate_text greedy {T}", counts(4 * L * (1 + T)), check_text,
+         lambda: policy.generate_text(img, pc, "", max_new_tokens=T, input_ids=ids)),
+        (f"generate_text 4 beams {T}", counts(4 * L * T), check_text,
+         lambda: policy.generate_text(img, pc, "", max_new_tokens=T, input_ids=ids, num_beams=4)),
+        ("predict_action_diff_ar DDIM-8", counts(4 * L * (1 + A) + 4 * L * (1 + 8), passes=2), check_both,
+         lambda: policy.predict_action_diff_ar(img, pc, INSTRUCTIONS[0], seed=3)),
+        ("predict_action_batch B=2 DiT-B", counts(4 * L), lambda out: out.shape == (2, cfg.action_horizon, A)
+         and np.isfinite(out).all(),
+         lambda: policy.predict_action_batch([reqs[1][0], reqs[2][0]], [reqs[1][1], reqs[2][1]], list(INSTRUCTIONS),
+                                             action_model_params=dit, action_model_cfg=dit_cfg)),
+    ]
+    policy.predict_action_ar(img, pc, "", input_ids=ids)  # warm-up (first-call allocations), not counted
+    torch.cuda.synchronize()
+    cuda.launches.clear()
+    lat = {}
+    for name, expected, ok, fn in calls:
+        before = dict(cuda.launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        lat[name] = (time.perf_counter() - t) * 1e3
+        got = {k: cuda.launches[k] - before.get(k, 0) for k in expected}
+        log(f"ar-serve {name}: {lat[name]:.2f} ms, launches {got}")
+        if not ok(out):
+            raise AssertionError(f"ar-serve {name}: bad output {out!r:.200}")
+        if got != expected:
+            raise AssertionError(f"ar-serve {name}: launches {got}, expected {expected}")
+    totals = dict(cuda.launches)
+
+    # the parts of a request, outside the counted run
+    bb = policy.params["llm_backbone"]
+    with torch.inference_mode():
+        prefix = mla.build_prefix_embeds(policy.params, policy.state, cfg, torch.as_tensor(ids, device=dev).long(),
+                                         {"front_image": torch.as_tensor(img, device=dev)[None]},
+                                         torch.as_tensor(pc, device=dev)[None])
+        n = prefix.shape[1]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        kv, last = mla.prefill(policy.params, cfg, prefix, n + T + mla.CACHE_MARGIN, int8_mode="weight_only")
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        mla.greedy_decode_actions(policy.params, cfg, kv, n, last, T, int8_mode="weight_only")
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t) * 1e3 / T
+        h = torch.zeros((1, cfg.llama.hidden_size), dtype=cfg.llama.compute_dtype, device=dev)
+        lm_head_ms = cuda_ms(torch, lambda: llama_mod.lm_head_logits(bb, h), 10)
+    weight_bytes = sum(leaf["w_q"].numel() for group in ("attn", "mlp") for leaf in bb["layers"][group].values())
+    bound = weight_bytes / PEAK_BYTES * 1e3
+    log(f"ar-serve parts: prefill of {n} positions {prefill_ms:.2f} ms; decode {decode_ms:.3f} ms per token "
+        f"(host wall, {T} tokens) against a weight-read bound of {bound:.3f} ms ({weight_bytes / 1e9:.2f} GB of int8 "
+        f"weights); lm_head {lm_head_ms:.4f} ms device time, {lm_head_ms / decode_ms:.3f} of a decode step")
+    report["ar_serve"] = {"latency_ms": lat, "launches": totals, "prefill_ms": prefill_ms,
+                          "decode_ms_per_token": decode_ms, "decode_bound_ms": bound, "lm_head_ms": lm_head_ms,
+                          "prefix_len": n}
     return totals
 
 
@@ -557,7 +889,7 @@ def check_train_agreement(torch, report, control):
         return out
 
     out = {"cuda": one_step("cuda"), "cpu": one_step("cpu")}
-    with flash_bwd_from(cuda, control):
+    with kernel_from(cuda, "flash_bwd", control):
         out["control"] = one_step("cuda")
 
     def rel(dev):
@@ -644,26 +976,31 @@ def main() -> int:
     report = {"gpu": line, "shapes": []}
     t = time.perf_counter()
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
-    control_lib, control_proc = start_control_build(cuda, Path(tmp.name))
+    started = {name: start_control_build(cuda, Path(tmp.name), name) for name in CONTROLS}
     try:
         built = cuda.build()
     except BaseException:
-        control_proc.kill()
-        control_proc.wait()
+        for _, proc in started.values():
+            proc.kill()
+            proc.wait()
         raise
     for name, text in built.items():
         log(f"built {name}.cu\n" + "\n".join("  " + l for l in text.strip().splitlines() if "registers" in l or "spill" in l))
-    control = finish_control_build(cuda, control_lib, control_proc)
-    log(f"build: {time.perf_counter() - t:.1f} s (with the control copy of flash_bwd.cu)")
-    kernels = [check_w8a8(torch, report), check_fps(torch, report), check_flash(torch, report)]
-    train_kernels = check_flash_bwd(torch, report, control)
+    controls = {name: finish_control_build(cuda, name, *started[name]) for name in CONTROLS}
+    log(f"build: {time.perf_counter() - t:.1f} s (with the control copies of {', '.join(CONTROLS)})")
+    kernels = [check_w8a8(torch, report), check_fps(torch, report), check_flash(torch, report),
+               check_int8_mm(torch, report, controls["int8_mm"])]
+    train_kernels = check_flash_bwd(torch, report, controls["flash_bwd"])
     check_agreement(torch, report)
-    totals = serve(torch, report)
+    check_ar_agreement(torch, report, controls["int8_mm"])
+    totals, ar_policy = serve(torch, report)
+    ar_totals = ar_serve(torch, report, ar_policy)
+    del ar_policy
     torch.cuda.empty_cache()
-    check_train_agreement(torch, report, control)
+    check_train_agreement(torch, report, controls["flash_bwd"])
     train_totals = train(torch, report)
     for k in kernels:
-        k["launches"] = totals[k["name"]]
+        k["launches"] = (ar_totals if k["name"] == "int8_matmul" else totals)[k["name"]]
     for k in train_kernels:
         k["launches"] = train_totals[k["name"]]
     kernels += train_kernels

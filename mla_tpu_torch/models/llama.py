@@ -9,7 +9,10 @@ returns a new cache); the read-only suffix path never writes it. Training
 runs the uncached forward under autograd, each layer optionally under
 non-reentrant torch.utils.checkpoint (the JAX package's per-layer
 jax.checkpoint), which reruns the layer, its flash forward included, in
-the backward.
+the backward. A decode step (cache_len > 0, cache written) writes its k/v
+into the cache in place and attends over the whole cache, causal from
+cache_len, under the key mask. `int8_mode` picks the product of the int8
+linears (nn.linear).
 """
 
 from __future__ import annotations
@@ -60,19 +63,20 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None, device
     return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _mlp_block(lp, h, cfg):
+def _mlp_block(lp, h, cfg, int8_mode="w8a8"):
     x = nn.rms_norm(lp["post_ln"], h, cfg.rms_eps)
     if "gateup_fused" in lp["mlp"]:
-        gu = nn.linear(lp["mlp"]["gateup_fused"], x)
+        gu = nn.linear(lp["mlp"]["gateup_fused"], x, int8_mode=int8_mode)
         I = gu.shape[-1] // 2
         gated = nn.silu(gu[..., :I]) * gu[..., I:]
     else:
-        gated = nn.silu(nn.linear(lp["mlp"]["gate"], x)) * nn.linear(lp["mlp"]["up"], x)
-    return h + nn.linear(lp["mlp"]["down"], gated)
+        gated = nn.silu(nn.linear(lp["mlp"]["gate"], x, int8_mode=int8_mode)) * nn.linear(
+            lp["mlp"]["up"], x, int8_mode=int8_mode)
+    return h + nn.linear(lp["mlp"]["down"], gated, int8_mode=int8_mode)
 
 
 def _layer_fn(lp, h, cache_kv, cfg, cos_table, sin_table, positions, key_mask, cache_len,
-              cache_read_only=False, inflight_mask=None):
+              cache_read_only=False, inflight_mask=None, int8_mode="w8a8"):
     """One decoder layer. cache_kv: this layer's (k_cache, v_cache)
     [B, Hkv, S_max, hd] views, or None. Returns h."""
     B, S, D = h.shape
@@ -80,12 +84,12 @@ def _layer_fn(lp, h, cache_kv, cfg, cos_table, sin_table, positions, key_mask, c
     x = nn.rms_norm(lp["input_ln"], h, cfg.rms_eps)
     kvd = Hkv * hd
     if "qkv_fused" in lp["attn"]:
-        qkv = nn.linear(lp["attn"]["qkv_fused"], x)
+        qkv = nn.linear(lp["attn"]["qkv_fused"], x, int8_mode=int8_mode)
         q, k, v = qkv[..., :D], qkv[..., D : D + kvd], qkv[..., D + kvd :]
     else:
-        q = nn.linear(lp["attn"]["q"], x)
-        k = nn.linear(lp["attn"]["k"], x)
-        v = nn.linear(lp["attn"]["v"], x)
+        q = nn.linear(lp["attn"]["q"], x, int8_mode=int8_mode)
+        k = nn.linear(lp["attn"]["k"], x, int8_mode=int8_mode)
+        v = nn.linear(lp["attn"]["v"], x, int8_mode=int8_mode)
     q = q.reshape(B, S, H, hd).transpose(1, 2)
     k = k.reshape(B, S, Hkv, hd).transpose(1, 2)
     v = v.reshape(B, S, Hkv, hd).transpose(1, 2)
@@ -116,12 +120,21 @@ def _layer_fn(lp, h, cache_kv, cfg, cos_table, sin_table, positions, key_mask, c
             s_new = s_new.masked_fill(~inflight_mask[:, None, None, :], float("-inf"))
         attn = torch.softmax(torch.cat([s_cache, s_new], dim=-1), dim=-1).to(v_rep.dtype)
         out = attn[..., :Sc] @ v_cache + attn[..., Sc:] @ v_rep
+    elif cache_kv is not None and cache_len > 0:
+        # decode step: write k/v in place at [cache_len, cache_len + S), then
+        # attend over the whole cache, causal from cache_len, under the key
+        # mask (plain attention: JAX runs it in XLA, not in Pallas)
+        k_cache, v_cache = cache_kv
+        k_cache[:, :, cache_len : cache_len + S] = k
+        v_cache[:, :, cache_len : cache_len + S] = v
+        if rep > 1:
+            k_cache, v_cache = k_cache.repeat_interleave(rep, 1), v_cache.repeat_interleave(rep, 1)
+        mask = key_mask[:, None, None, :] if key_mask is not None else None
+        out = attn_ops.sdpa_reference(q, k_cache, v_cache, mask=mask, causal_offset=cache_len)
     else:
         # uncached forward, or the static prefill: write k/v at [0, S) and
         # attend over the in-flight block only (the rest of the cache is empty)
         if cache_kv is not None:
-            if cache_len != 0:
-                raise NotImplementedError("a cache write at cache_len > 0 (AR decoding) is not ported yet")
             cache_kv[0][:, :, :S] = k
             cache_kv[1][:, :, :S] = v
         if rep > 1:
@@ -129,8 +142,8 @@ def _layer_fn(lp, h, cache_kv, cfg, cos_table, sin_table, positions, key_mask, c
         mask = key_mask[:, None, None, :S] if key_mask is not None else None
         out = attn_ops.sdpa(q, k, v, mask=mask)
     out = out.transpose(1, 2).reshape(B, S, D)
-    h = h + nn.linear(lp["attn"]["o"], out)
-    return _mlp_block(lp, h, cfg)
+    h = h + nn.linear(lp["attn"]["o"], out, int8_mode=int8_mode)
+    return _mlp_block(lp, h, cfg, int8_mode)
 
 
 def unstack_layers(layers: Dict[str, Any]) -> List[Dict[str, Any]]:
@@ -154,15 +167,19 @@ def llama_forward(
     compute_logits: bool = True,
     cache_read_only: bool = False,
     remat: bool = False,
+    int8_mode: str = "w8a8",
 ) -> Dict[str, Any]:
     """Decoder forward from embeddings [B, S, D] (cast to compute_dtype).
 
     key_mask: [B, S_keys] boolean key validity; with a cache S_keys is the
-    cache length. kv_cache: {'k','v'} [L,B,Hkv,Smax,hd]. Two cached modes:
-    the static prefill (cache_len 0) writes [0, S) in place; the read-only
-    suffix (cache_read_only) attends over the cache's [0, cache_len) and the
-    in-flight block without writing. remat (uncached only) checkpoints each
-    layer. Returns {'last_hidden', 'hidden_mid', 'logits'?, 'kv_cache'?}."""
+    cache length. kv_cache: {'k','v'} [L,B,Hkv,Smax,hd]. Three cached modes:
+    the static prefill (cache_len 0) writes [0, S) in place; a decode step
+    (cache_len > 0) writes [cache_len, cache_len + S) in place and attends
+    over the whole cache; the read-only suffix (cache_read_only) attends over
+    the cache's [0, cache_len) and the in-flight block without writing.
+    remat (uncached only) checkpoints each layer. int8_mode: the product of
+    the int8 linears (nn.linear). Returns {'last_hidden', 'hidden_mid',
+    'logits'?, 'kv_cache'?}."""
     B, S, D = inputs_embeds.shape
     h = inputs_embeds.to(cfg.compute_dtype)
     dev = h.device
@@ -181,7 +198,8 @@ def llama_forward(
         if i == cfg.contrastive_layer:
             hidden_mid = h
         ck = (kv_cache["k"][i], kv_cache["v"][i]) if kv_cache is not None else None
-        args = (lp, h, ck, cfg, cos_table, sin_table, positions, key_mask, cache_len, cache_read_only, inflight_mask)
+        args = (lp, h, ck, cfg, cos_table, sin_table, positions, key_mask, cache_len, cache_read_only, inflight_mask,
+                int8_mode)
         h = checkpoint(_layer_fn, *args, use_reentrant=False) if remat else _layer_fn(*args)
     if cfg.contrastive_layer >= cfg.num_layers:
         hidden_mid = h

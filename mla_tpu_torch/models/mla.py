@@ -1,5 +1,5 @@
 """MLA diffusion training loss and serving: prefix embeds, prefill,
-cached-suffix denoising and the deployment policy.
+cached-suffix denoising, autoregressive decoding and the deployment policy.
 
 Counterpart of mla_tpu/models/mla.py. `mla_train_loss` is the diffusion
 training forward: the batch repeated `repeated_diffusion_steps` times, the
@@ -10,22 +10,28 @@ multimodal prefix
 step then runs only the 18-token suffix [proprio, t, x_0..15] against the
 cached prefix, reading the cache without writing it. This is exact with
 respect to a full recompute, since the prefix is unchanged across steps and
-attention is causal.
+attention is causal. The AR heads (action tokens, text, beam search) decode
+one token per step against the same cache, writing each step's k/v in
+place; beams ride the batch axis and the cache is regathered along it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from mla_tpu_torch import nn
 from mla_tpu_torch.diffusion import gaussian as gd
 from mla_tpu_torch.diffusion.dpm_solver import dpm_solver_pp_2m
+from mla_tpu_torch.models import action_model as am
 from mla_tpu_torch.models import embedders
 from mla_tpu_torch.models import llama as llama_mod
 from mla_tpu_torch.models import prismatic
 from mla_tpu_torch.params import tree_to
+from mla_tpu_torch.vla.action_tokenizer import ActionTokenizer
 
 DDIM_STEPS = 8     # the reference's DDIM respacing
 DPM_STEPS = 4      # DPM-Solver++(2M) model evaluations
@@ -35,6 +41,7 @@ CACHE_MARGIN = 32  # spare KV-cache slots past the prefix and the suffix
 BOS_ID = 1
 EOS_ID = 2
 EMPTY_ID = 29871  # the '▁' token after "Out:"
+PAD_ID = 32000
 BOD_ID = 32001
 EOD_ID = 32002
 
@@ -139,21 +146,27 @@ def build_prefix_embeds(
 
 def prefill(
     params: Dict[str, Any], cfg: prismatic.MLAModelConfig, prefix_embeds: torch.Tensor, cache_max_len: int,
-) -> Dict[str, torch.Tensor]:
-    """Run the prefix through the decoder into a new KV cache. The diffusion
-    path needs no logits. On the card its attention is the flash kernel."""
+    compute_logits: bool = True, *, int8_mode: str = "w8a8",
+) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
+    """Run the prefix through the decoder into a new KV cache; returns
+    (kv_cache, fp32 logits [B, V] of the last position, or None when
+    compute_logits is off, as on the diffusion path). The lm_head runs on
+    the last position only. On the card the attention is the flash kernel."""
     B, P, _ = prefix_embeds.shape
     cache = llama_mod.init_kv_cache(cfg.llama, B, cache_max_len, device=prefix_embeds.device)
     key_mask = (torch.arange(cache_max_len, device=prefix_embeds.device) < P)[None, :].expand(B, -1)
-    return llama_mod.llama_forward(
+    out = llama_mod.llama_forward(
         params["llm_backbone"], cfg.llama, prefix_embeds,
-        kv_cache=cache, cache_len=0, key_mask=key_mask, compute_logits=False,
-    )["kv_cache"]
+        kv_cache=cache, cache_len=0, key_mask=key_mask, compute_logits=False, int8_mode=int8_mode,
+    )
+    if not compute_logits:
+        return out["kv_cache"], None
+    return out["kv_cache"], llama_mod.lm_head_logits(params["llm_backbone"], out["last_hidden"][:, -1])
 
 
 def make_suffix_denoise_fn(
     params: Dict[str, Any], cfg: prismatic.MLAModelConfig, kv_cache: Dict[str, torch.Tensor],
-    prefix_len: int, proprio: torch.Tensor,
+    prefix_len: int, proprio: torch.Tensor, *, int8_mode: str = "w8a8",
 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """The eps model (x, t) -> eps: a suffix forward [proprio, t, x_0..15]
     against the cached prefix. The prompt's tail id sits causally after the
@@ -171,7 +184,7 @@ def make_suffix_denoise_fn(
         suffix = torch.cat([proprio_emb, t_emb.to(x_emb.dtype), x_emb], dim=1)
         out = llama_mod.llama_forward(
             params["llm_backbone"], cfg.llama, suffix, kv_cache=kv_cache, cache_len=prefix_len,
-            key_mask=key_mask, compute_logits=False, cache_read_only=True,
+            key_mask=key_mask, compute_logits=False, cache_read_only=True, int8_mode=int8_mode,
         )
         final = embedders.final_layer(params["final_layer"], out["last_hidden"])
         return final[:, 2 : 2 + horizon].float()
@@ -183,14 +196,14 @@ def ddim_denoise_actions(
     params: Dict[str, Any], cfg: prismatic.MLAModelConfig, sched: gd.Schedule,
     kv_cache: Dict[str, torch.Tensor], prefix_len: int, proprio: torch.Tensor, noise: torch.Tensor,
     *, use_ddpm: bool = False, generator: Optional[torch.Generator] = None, cfg_scale: float = 0.0,
-    sampler: str = "ddim",
+    sampler: str = "ddim", int8_mode: str = "w8a8",
 ) -> torch.Tensor:
     """Denoise loop over cached-suffix evaluations: DDIM (eta 0), DDPM, or
     DPM-Solver++(2M) with DPM_STEPS evaluations (`sched` is then the
     unspaced training schedule). With cfg_scale > 1 the cache holds
     [cond; uncond] rows and noise/proprio the doubled batch; the guided eps
     is uncond + scale * (cond - uncond)."""
-    base_fn = make_suffix_denoise_fn(params, cfg, kv_cache, prefix_len, proprio)
+    base_fn = make_suffix_denoise_fn(params, cfg, kv_cache, prefix_len, proprio, int8_mode=int8_mode)
     if cfg_scale > 1.0:
         def denoise_fn(x, t_model):
             half = x[: x.shape[0] // 2]
@@ -204,6 +217,120 @@ def ddim_denoise_actions(
     if use_ddpm:
         return gd.ddpm_sample_loop(sched, denoise_fn, noise, generator=generator)
     return gd.ddim_sample_loop(sched, denoise_fn, noise)
+
+
+def decode_step(
+    params: Dict[str, Any], cfg: prismatic.MLAModelConfig, kv_cache: Dict[str, torch.Tensor], cache_len: int,
+    tok: torch.Tensor, *, int8_mode: str = "w8a8",
+) -> torch.Tensor:
+    """One cached decode step: the tokens `tok` [B] at position cache_len;
+    their k/v are written into the cache in place, and they attend over the
+    cache's [0, cache_len]. Returns the fp32 next-token logits [B, V]."""
+    B = tok.shape[0]
+    cache_max = kv_cache["k"].shape[3]
+    emb = llama_mod.embed_tokens(params["llm_backbone"], tok[:, None])
+    key_mask = (torch.arange(cache_max, device=tok.device) < cache_len + 1)[None, :].expand(B, -1)
+    out = llama_mod.llama_forward(
+        params["llm_backbone"], cfg.llama, emb, kv_cache=kv_cache, cache_len=cache_len, key_mask=key_mask,
+        int8_mode=int8_mode,
+    )
+    return out["logits"][:, -1]
+
+
+def _select_token(logits: torch.Tensor, temperature: float, top_k: int,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Greedy at temperature 0 (the first maximum on ties, as jnp.argmax);
+    else a draw from softmax(logits / temperature), truncated to the top-k
+    logits when top_k > 0."""
+    if temperature <= 0:
+        return logits.argmax(-1)
+    scaled = logits.float() / temperature
+    if top_k > 0:
+        cutoff = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+        scaled = scaled.masked_fill(scaled < cutoff, float("-inf"))
+    return torch.multinomial(torch.softmax(scaled, dim=-1), 1, generator=generator)[:, 0]
+
+
+def greedy_decode_actions(
+    params: Dict[str, Any], cfg: prismatic.MLAModelConfig, kv_cache: Dict[str, torch.Tensor], prefix_len: int,
+    last_logits: torch.Tensor, num_tokens: int, *, temperature: float = 0.0, top_k: int = 0,
+    generator: Optional[torch.Generator] = None, int8_mode: str = "w8a8",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """AR decode of `num_tokens` tokens from the prefill's last logits [B, V];
+    returns ([B, T] token ids, [B, T] max softmax probability of each step's
+    distribution). Greedy at temperature 0, else sampled from `generator`
+    (optionally top-k). Like the JAX scan, every step runs the decoder on its
+    token, the last one included."""
+    if temperature > 0 and generator is None:
+        raise ValueError("sampling requires a torch.Generator")
+    logits, toks, probs = last_logits, [], []
+    for i in range(num_tokens):
+        tok = _select_token(logits, temperature, top_k, generator)
+        f32 = logits.float()
+        probs.append(torch.exp(f32.max(-1).values - torch.logsumexp(f32, dim=-1)))
+        toks.append(tok)
+        logits = decode_step(params, cfg, kv_cache, prefix_len + i, tok, int8_mode=int8_mode)
+    return torch.stack(toks, dim=1), torch.stack(probs, dim=1)
+
+
+def beam_search_decode(
+    params: Dict[str, Any], cfg: prismatic.MLAModelConfig, kv_cache: Dict[str, torch.Tensor], prefix_len: int,
+    last_logits: torch.Tensor, num_tokens: int, *, num_beams: int, eos_id: int = EOS_ID,
+    length_penalty: float = 1.0, int8_mode: str = "w8a8",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Static-shape beam search against the cached prefix; returns ([B, T]
+    best-beam ids, [B] length-penalized log-prob scores). Beams ride the
+    batch axis (row b's beams are rows b*K .. b*K+K-1), each step is one
+    [B*K]-row decode step, the cache is regathered along the batch by the
+    chosen parents, and a finished beam extends with EOS at log-prob 0 (its
+    score frozen). Selection follows HF's scorer: score / len(tokens up to
+    and including EOS) ** length_penalty."""
+    B, V = last_logits.shape
+    K = int(num_beams)
+    if not 1 <= K <= V:
+        raise ValueError(f"num_beams must be in [1, vocab], got {K}")
+    dev = last_logits.device
+    cache = {name: c.repeat_interleave(K, dim=1) for name, c in kv_cache.items()}
+    scores, tok = torch.topk(torch.log_softmax(last_logits.float(), dim=-1), K, dim=-1)  # [B, K]
+    finished = tok == eos_id
+    lengths = torch.ones((B, K), dtype=torch.int32, device=dev)
+    tokens = torch.zeros((B, K, num_tokens), dtype=torch.long, device=dev)
+    tokens[:, :, 0] = tok
+    batch_offset = (torch.arange(B, device=dev) * K)[:, None]
+    # a finished beam's only continuation: EOS at log-prob 0
+    eos_row = torch.full((V,), -1e9, device=dev)
+    eos_row[eos_id] = 0.0
+    for i in range(num_tokens - 1):
+        logits = decode_step(params, cfg, cache, prefix_len + i, tok.reshape(B * K), int8_mode=int8_mode)
+        logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
+        logp = torch.where(finished[:, :, None], eos_row, logp)
+        scores, flat = torch.topk((scores[:, :, None] + logp).reshape(B, K * V), K, dim=-1)
+        parent, tok = flat // V, flat % V
+        was_finished = finished.gather(1, parent)
+        lengths = lengths.gather(1, parent)
+        tokens = tokens.gather(1, parent[:, :, None].expand(B, K, num_tokens))
+        tokens[:, :, i + 1] = tok
+        lengths = torch.where(was_finished, lengths, lengths + 1)
+        finished = was_finished | (tok == eos_id)
+        rows = (batch_offset + parent).reshape(-1)
+        cache = {name: c.index_select(1, rows) for name, c in cache.items()}
+    penalized = scores / lengths.float() ** length_penalty
+    best = penalized.argmax(dim=1)
+    b = torch.arange(B, device=dev)
+    return tokens[b, best], penalized[b, best]
+
+
+def cognition_feature(
+    params: Dict[str, Any], state: Dict[str, Any], cfg: prismatic.MLAModelConfig, input_ids: torch.Tensor,
+    images: Dict[str, torch.Tensor], point_cloud: Optional[torch.Tensor], *, int8_mode: str = "w8a8",
+) -> torch.Tensor:
+    """The DiT head's condition: the decoder's final-normed hidden state at
+    the last position of [BOS | fused | ids[1:]], fp32 [B, 1, D] (one
+    uncached forward; no mask, as in JAX, so padding ids are attended)."""
+    prefix = build_prefix_embeds(params, state, cfg, input_ids, images, point_cloud)
+    out = llama_mod.llama_forward(params["llm_backbone"], cfg.llama, prefix, compute_logits=False,
+                                  int8_mode=int8_mode)
+    return out["last_hidden"][:, -1:, :].float()
 
 
 def unnormalize_actions(normalized: np.ndarray, action_stats: Dict[str, Any]) -> np.ndarray:
@@ -244,24 +371,30 @@ def _resolve_device(device) -> torch.device:
 
 
 class MLAPolicy:
-    """Deployment-facing policy: load once, call predict_action_diff per step.
+    """Deployment-facing policy: load once, call predict_action_* per step.
 
     The decoder's q|k|v and gate|up weights are fused for serving.
     device=None means "cuda" and raises when no card is present; the CPU
-    is used only when the caller passes device="cpu"."""
+    is used only when the caller passes device="cpu". int8_mode picks the
+    product of the int8 decoder linears (nn.linear): "w8a8" (default),
+    "weight_only" or "dequant"."""
 
     def __init__(
         self, params: Dict[str, Any], state: Dict[str, Any], cfg: prismatic.MLAModelConfig,
-        tokenizer=None, norm_stats: Optional[Dict[str, Any]] = None, device=None,
+        tokenizer=None, norm_stats: Optional[Dict[str, Any]] = None, device=None, int8_mode: str = "w8a8",
     ) -> None:
         if cfg.llm_family != "llama":
             raise NotImplementedError(f"llm_family {cfg.llm_family!r} is not ported yet")
+        if int8_mode not in nn.INT8_MODES:
+            raise ValueError(f"int8_mode must be one of {nn.INT8_MODES}, got {int8_mode!r}")
+        self.int8_mode = int8_mode
         self.device = _resolve_device(device)
         params, state = tree_to(params, self.device), tree_to(state, self.device)
         params = {**params, "llm_backbone": llama_mod.fuse_for_serving(params["llm_backbone"])}
         self.params, self.state, self.cfg = params, state, cfg
         self.tokenizer = tokenizer
         self.norm_stats = norm_stats or {}
+        self.action_tokenizer = ActionTokenizer(tokenizer, vocab_size=32000)
         self.sched_full = gd.create_schedule("", diffusion_steps=100)
         self.sched_ddim = gd.create_schedule(f"ddim{DDIM_STEPS}", diffusion_steps=100)
 
@@ -281,6 +414,16 @@ class MLAPolicy:
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device, dtype=dtype)
 
+    def _images(self, image) -> Dict[str, torch.Tensor]:
+        img = self._tensor(image)
+        return {"front_image": img[None] if img.dim() == 3 else img}
+
+    def _points(self, pointcloud) -> Optional[torch.Tensor]:
+        if pointcloud is None:
+            return None
+        pc = self._tensor(pointcloud, torch.float32)
+        return pc[None] if pc.dim() == 2 else pc
+
     def _run(self, ids: np.ndarray, images, pc, proprio, noise, *, use_ddpm=False, cfg_scale=0.0,
              sampler="ddim", generator=None) -> torch.Tensor:
         """The serving graph: prefix embeds -> prefill -> denoise loop."""
@@ -293,7 +436,7 @@ class MLAPolicy:
         use_cfg = cfg_scale > 1.0
         with torch.inference_mode():
             prefix = build_prefix_embeds(self.params, self.state, cfg, prefix_ids, images, pc, with_uncond=use_cfg)
-            kv = prefill(self.params, cfg, prefix, cache_max)
+            kv, _ = prefill(self.params, cfg, prefix, cache_max, compute_logits=False, int8_mode=self.int8_mode)
             if use_cfg:
                 proprio, noise_x = torch.cat([proprio, proprio]), torch.cat([noise, noise])
             else:
@@ -301,6 +444,7 @@ class MLAPolicy:
             samples = ddim_denoise_actions(
                 self.params, cfg, sched, kv, prefix.shape[1], proprio, noise_x,
                 use_ddpm=use_ddpm, generator=generator, cfg_scale=cfg_scale, sampler=sampler,
+                int8_mode=self.int8_mode,
             )
         return samples[: noise.shape[0]]
 
@@ -318,12 +462,7 @@ class MLAPolicy:
             raise ValueError("sampler='dpm' is an ODE sampler and conflicts with use_ddim=False")
         if input_ids is None:
             input_ids = build_prompt_ids(self.tokenizer, instruction, mode="diff")
-        img = self._tensor(image)
-        images = {"front_image": img[None] if img.dim() == 3 else img}
-        pc = None
-        if pointcloud is not None:
-            pc = self._tensor(pointcloud, torch.float32)
-            pc = pc[None] if pc.dim() == 2 else pc
+        images, pc = self._images(image), self._points(pointcloud)
         if cur_robot_state is not None:
             proprio = normalize_proprio(np.asarray(cur_robot_state, np.float32), self.get_proprio_stats(unnorm_key))[None, None, :]
         else:
@@ -382,3 +521,161 @@ class MLAPolicy:
             return out
         stats = self.get_action_stats(unnorm_key)
         return np.stack([unnormalize_actions(out[b], stats) for b in range(B)])
+
+    # --- autoregressive heads ----------------------------------------------
+    def generate_ids(self, image, pointcloud, input_ids: np.ndarray, num_tokens: int, *, num_beams: int = 1,
+                     temperature: float = 0.0, top_k: int = 0, length_penalty: float = 1.0,
+                     seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+        """The AR core of predict_action_ar and generate_text: prefix embeds
+        of [BOS | fused | input_ids[1:]] for B observations ([B, 4, H, W] or
+        one [4, H, W] frame) -> prefill with logits -> greedy / sampled
+        decode, or beam search with num_beams > 1. Returns ([B, num_tokens]
+        ids, [B, num_tokens] max probabilities, or [B] beam scores). The
+        cache holds the prefix, the new tokens and CACHE_MARGIN spare
+        slots."""
+        if num_beams > 1 and temperature > 0:
+            raise ValueError("beam search and sampling are mutually exclusive")
+        cfg = self.cfg
+        ids = np.asarray(input_ids)
+        cache_max = ids.shape[1] + cfg.fused_len + num_tokens + CACHE_MARGIN
+        gen = None
+        if temperature > 0:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+        with torch.inference_mode():
+            prefix = build_prefix_embeds(self.params, self.state, cfg, self._tensor(ids, torch.long),
+                                         self._images(image), self._points(pointcloud))
+            kv, last = prefill(self.params, cfg, prefix, cache_max, int8_mode=self.int8_mode)
+            if num_beams > 1:
+                toks, extra = beam_search_decode(
+                    self.params, cfg, kv, prefix.shape[1], last, num_tokens, num_beams=num_beams,
+                    length_penalty=length_penalty, int8_mode=self.int8_mode,
+                )
+            else:
+                toks, extra = greedy_decode_actions(
+                    self.params, cfg, kv, prefix.shape[1], last, num_tokens, temperature=temperature,
+                    top_k=top_k, generator=gen, int8_mode=self.int8_mode,
+                )
+        return toks.cpu().numpy(), extra.float().cpu().numpy()
+
+    def predict_action_ar(
+        self, image, pointcloud, instruction: str, unnorm_key: Optional[str] = None,
+        input_ids: Optional[np.ndarray] = None, return_probs: bool = False,
+    ):
+        """Greedy decode of action_dim action tokens, decoded through the
+        action tokenizer and unnormalized; with return_probs also the
+        per-token max softmax probabilities."""
+        if input_ids is None:
+            input_ids = build_prompt_ids(self.tokenizer, instruction, mode="ar")
+        toks, probs = self.generate_ids(image, pointcloud, input_ids, self.cfg.action_dim)
+        normalized = self.action_tokenizer.decode_token_ids_to_actions(toks[0])
+        actions = unnormalize_actions(normalized, self.get_action_stats(unnorm_key))
+        if return_probs:
+            return actions, [float(p) for p in probs[0]]
+        return actions
+
+    def _text_ids(self, prompt: str) -> np.ndarray:
+        return np.asarray([self.tokenizer(f"In: {prompt}\nOut:".rstrip(), add_special_tokens=True)["input_ids"]],
+                          np.int32)
+
+    def _decode_to_eos(self, toks: np.ndarray) -> str:
+        eos = np.nonzero(toks == EOS_ID)[0]
+        if len(eos):
+            toks = toks[: eos[0]]
+        if self.tokenizer is None:
+            return " ".join(str(t) for t in toks)
+        return self.tokenizer.decode(toks)
+
+    def generate_text(
+        self, image, pointcloud, prompt: str, max_new_tokens: int = 64, input_ids: Optional[np.ndarray] = None,
+        num_beams: int = 1, temperature: float = 0.0, top_k: int = 0, length_penalty: float = 1.0, seed: int = 0,
+    ) -> str:
+        """Multimodal text generation: greedy by default, sampled with
+        temperature / top_k (seeded), or beam search with num_beams > 1 and
+        HF's length_penalty. The output stops at the first EOS."""
+        if input_ids is None:
+            input_ids = self._text_ids(prompt)
+        toks, _ = self.generate_ids(image, pointcloud, input_ids, max_new_tokens, num_beams=num_beams,
+                                    temperature=temperature, top_k=top_k, length_penalty=length_penalty, seed=seed)
+        return self._decode_to_eos(toks[0])
+
+    def generate_text_batch(
+        self, images, pointclouds, prompts: List[str], max_new_tokens: int = 64, num_beams: int = 1,
+        temperature: float = 0.0, top_k: int = 0, length_penalty: float = 1.0, seed: int = 0,
+    ) -> List[str]:
+        """Batched generation: rows are grouped by prompt token length and
+        each group runs as one batch (beams ride the [B*K] rows); padding
+        prompts instead would shift the splice layout."""
+        ids_list = [self._text_ids(p) for p in prompts]
+        groups: Dict[int, List[int]] = {}
+        for i, ids in enumerate(ids_list):
+            groups.setdefault(int(ids.shape[1]), []).append(i)
+        out: List[Optional[str]] = [None] * len(prompts)
+        for rows in groups.values():
+            toks, _ = self.generate_ids(
+                np.stack([np.asarray(images[i]) for i in rows]), np.stack([np.asarray(pointclouds[i]) for i in rows]),
+                np.concatenate([ids_list[i] for i in rows]), max_new_tokens, num_beams=num_beams,
+                temperature=temperature, top_k=top_k, length_penalty=length_penalty, seed=seed,
+            )
+            for j, i in enumerate(rows):
+                out[i] = self._decode_to_eos(toks[j])
+        return out  # type: ignore[return-value]
+
+    def predict_action_diff_ar(
+        self, front_image, pointcloud, instruction: str, cur_robot_state=None, unnorm_key: Optional[str] = None,
+        seed: int = 0, sampler: str = "ddim",
+    ) -> Dict[str, Any]:
+        """Both heads for one observation: the AR action (with its per-token
+        confidences) and the diffusion chunk (DDIM-8, or DPM-4 with
+        sampler='dpm'), with the host wall time of each."""
+        ar_ids = build_prompt_ids(self.tokenizer, instruction, mode="ar")
+        t0 = time.perf_counter()
+        ar_actions, ar_max_probs = self.predict_action_ar(
+            front_image, pointcloud, instruction, unnorm_key=unnorm_key, input_ids=ar_ids, return_probs=True,
+        )
+        t_ar = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        diff_actions = self.predict_action_diff(
+            front_image, pointcloud, instruction, cur_robot_state=cur_robot_state, unnorm_key=unnorm_key,
+            seed=seed, sampler=sampler,
+        )
+        t_diff = time.perf_counter() - t0
+        return {"actions": diff_actions, "ar_actions": ar_actions,
+                "ar_max_probs": ar_max_probs[-self.cfg.action_dim:], "timings": [t_ar, t_diff]}
+
+    def predict_action_batch(
+        self, images, pointclouds, instructions, action_model_params=None, action_model_cfg=None,
+        unnorm_key: Optional[str] = None, cfg_scale: float = 1.5, num_ddim_steps: int = 10, seed: int = 0,
+    ) -> np.ndarray:
+        """The legacy CogACT path: a standalone DiT action head
+        (models/action_model.py) conditioned on the decoder's last hidden
+        state denoises a batch of chunks (DDIM, classifier-free guidance
+        when cfg_scale > 1). Prompts are right-padded with PAD_ID to the
+        longest. Returns [B, horizon, action_dim]."""
+        if action_model_params is None:
+            raise ValueError("predict_action_batch requires action_model params")
+        cfg = self.cfg
+        B = len(instructions)
+        ids_list = [build_prompt_ids(self.tokenizer, ins, mode="ar") for ins in instructions]
+        ids = np.full((B, max(x.shape[1] for x in ids_list)), PAD_ID, np.int32)
+        for i, x in enumerate(ids_list):
+            ids[i, : x.shape[1]] = x[0]
+        dit = tree_to(action_model_params, self.device)
+        sched = gd.create_schedule(f"ddim{num_ddim_steps}", diffusion_steps=100)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        with torch.inference_mode():
+            images_b = {"front_image": self._tensor(np.stack([np.asarray(im) for im in images]))}
+            pc_b = self._tensor(np.stack([np.asarray(p) for p in pointclouds]), torch.float32)
+            z = cognition_feature(self.params, self.state, cfg, self._tensor(ids, torch.long), images_b, pc_b,
+                                  int8_mode=self.int8_mode)
+            noise = torch.randn((B, cfg.action_horizon, cfg.action_dim), generator=gen, device=self.device)
+            if cfg_scale > 1.0:
+                z_all = torch.cat([z, dit["uncondition"][None].expand(z.shape)], dim=0)
+                samples = gd.ddim_sample_loop(
+                    sched, lambda x, t: am.dit_forward_with_cfg(dit, action_model_cfg, x, t, z_all, cfg_scale),
+                    torch.cat([noise, noise], dim=0),
+                )[:B]
+            else:
+                samples = gd.ddim_sample_loop(sched, lambda x, t: am.dit_forward(dit, action_model_cfg, x, t, z), noise)
+        return unnormalize_actions(samples.cpu().numpy(), self.get_action_stats(unnorm_key))

@@ -5,9 +5,13 @@ layout: linear weights are [in, out] (the transpose of torch's
 nn.Linear.weight), int8 leaves are {'w_q','w_scale'}. Norm math runs in
 fp32 and casts back, as in the JAX package.
 
-An int8 leaf runs the W8A8 product (ops/quantization.w8a8_matmul) on the
-CPU and on the card alike; `dequant=True` selects the JAX package's
-dequantizing branch instead (bf16-style `x @ w_q * scale`).
+An int8 leaf runs one of three products, chosen by `int8_mode` on the CPU
+and on the card alike (JAX's MLA_INT8_MODE value in brackets):
+  "w8a8"        W8A8 (ops/quantization.w8a8_matmul) [w8a8, w8a8_pallas];
+  "weight_only" the weight-only int8 product (ops/quantization.int8_matmul)
+                for 2-D leaves whose K and N are multiples of 128, the
+                dequantizing branch for any other leaf, as in JAX [pallas];
+  "dequant"     `x @ w_q * scale` in x's dtype [dequant].
 """
 
 from __future__ import annotations
@@ -18,15 +22,28 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from mla_tpu_torch.ops.quantization import w8a8_linear
+from mla_tpu_torch.ops.quantization import int8_linear, w8a8_linear
 
 Params = Dict[str, Any]
 
+INT8_MODES = ("w8a8", "weight_only", "dequant")
 
-def linear(p: Params, x: torch.Tensor, *, dequant: bool = False) -> torch.Tensor:
+
+def weight_only_eligible(p: Params) -> bool:
+    """JAX's rule for its weight-only kernel: a 2-D leaf, K and N multiples
+    of 128."""
+    wq = p["w_q"]
+    return wq.dim() == 2 and wq.shape[0] % 128 == 0 and wq.shape[1] % 128 == 0
+
+
+def linear(p: Params, x: torch.Tensor, *, int8_mode: str = "w8a8") -> torch.Tensor:
     if "w_q" in p:
-        if not dequant:
+        if int8_mode not in INT8_MODES:
+            raise ValueError(f"int8_mode must be one of {INT8_MODES}, got {int8_mode!r}")
+        if int8_mode == "w8a8":
             return w8a8_linear(p, x)
+        if int8_mode == "weight_only" and weight_only_eligible(p):
+            return int8_linear(p, x)
         y = x @ p["w_q"].to(x.dtype)
         y = y * p["w_scale"][..., 0, :].to(x.dtype)
     else:
@@ -43,6 +60,14 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     y = (xf - mean) * torch.rsqrt(var + eps)
     y = y * p["scale"].float() + p["bias"].float()
     return y.to(x.dtype)
+
+
+def layer_norm_noaffine(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm without scale and bias (the DiT blocks)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -80,6 +105,18 @@ def mlp_gelu(p: Params, x: torch.Tensor) -> torch.Tensor:
 def proj_head(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Linear -> ReLU -> Linear (the contrastive projection heads)."""
     return linear(p["fc2"], torch.relu(linear(p["fc1"], x)))
+
+
+def mha(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Unmasked self-attention with a packed qkv linear (the DiT blocks);
+    fp32 scores and softmax, the probabilities cast to v's dtype."""
+    B, S, D = x.shape
+    hd = D // num_heads
+    qkv = linear(p["qkv"], x).reshape(B, S, 3, num_heads, hd)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+    out = torch.softmax(scores, dim=-1).to(v.dtype) @ v
+    return linear(p["proj"], out.transpose(1, 2).reshape(B, S, D))
 
 
 def embedding(p: Params, ids: torch.Tensor) -> torch.Tensor:

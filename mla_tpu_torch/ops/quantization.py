@@ -5,11 +5,17 @@ Counterpart of mla_tpu/ops/quantization.py. A quantized linear leaf is
 embedding {'table_q': int8 [V, D], 'table_scale': fp32 [V, 1]}, exactly the
 JAX layout, so quantized trees carry across leaf for leaf.
 
-`w8a8_matmul` is the serving product of every int8 decoder linear: per-row
-dynamic activation quantization, an exact int8 x int8 -> int32 product and
-the fp32 rescale. On a CUDA tensor it launches the hand-written kernel
-(csrc/w8a8.cu); on a CPU tensor it runs `w8a8_matmul_plain`, which
-accumulates exactly in float64 (11008 * 127^2 > 2^24, so float32 would not).
+`w8a8_matmul` is the serving product of every int8 decoder linear by
+default: per-row dynamic activation quantization, an exact int8 x int8 ->
+int32 product and the fp32 rescale. On a CUDA tensor it launches the
+hand-written kernel (csrc/w8a8.cu); on a CPU tensor it runs
+`w8a8_matmul_plain`, which accumulates exactly in float64 (11008 * 127^2 >
+2^24, so float32 would not).
+
+`int8_matmul` is the weight-only product (nn.linear's int8_mode
+"weight_only"): the activations stay in their dtype and the int8 weights are
+widened on the way, y = (x @ float(w_q)) * w_scale. On a CUDA tensor it
+launches csrc/int8_mm.cu; on a CPU tensor it runs `int8_matmul_plain`.
 """
 
 from __future__ import annotations
@@ -141,11 +147,62 @@ def w8a8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *, re
     return (y, acc) if return_acc else y
 
 
-def w8a8_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """nn.linear entry for a 2-D {'w_q','w_scale'(,'b')} leaf; x [..., K]."""
+def _int8_leaf_linear(matmul, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
-    y = w8a8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), p["w_q"], p["w_scale"])
+    y = matmul(x.reshape(-1, x.shape[-1]).contiguous(), p["w_q"], p["w_scale"])
     y = y.reshape(*lead, y.shape[-1])
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def w8a8_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """nn.linear entry for a 2-D {'w_q','w_scale'(,'b')} leaf; x [..., K]."""
+    return _int8_leaf_linear(w8a8_matmul, p, x)
+
+
+# --------------------------------------------------------------------------- #
+# Weight-only int8 product
+# --------------------------------------------------------------------------- #
+
+
+def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """The plain version: x [M, K] (fp32/bf16), w_q int8 [K, N], w_scale fp32
+    [1, N] or [N] -> (x @ float(w_q)) * w_scale in x's dtype. The products
+    are exact (int8 and bf16 values fit fp32), the sums fp32, the scale after
+    the dot in fp32, as in the JAX kernel."""
+    acc = x.float() @ w_q.float()
+    return (acc * w_scale.float().reshape(1, -1)).to(x.dtype)
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """Weight-only int8 product. On CUDA the kernel (csrc/int8_mm.cu; K a
+    multiple of 128, N of 16); on the CPU the plain version."""
+    if not x.is_cuda:
+        return int8_matmul_plain(x, w_q, w_scale)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"int8_matmul: x must be float32 or bfloat16, got {x.dtype}")
+    cuda.check(x, "int8_matmul x", ndim=2)
+    cuda.check(w_q, "int8_matmul w_q", torch.int8, 2)
+    w_scale = w_scale.reshape(-1)
+    cuda.check(w_scale, "int8_matmul w_scale", torch.float32, 1)
+    M, K = x.shape
+    N = w_q.shape[1]
+    if w_q.shape[0] != K or w_scale.shape[0] != N:
+        raise ValueError(f"int8_matmul: shapes x {tuple(x.shape)}, w_q {tuple(w_q.shape)}, w_scale {N}")
+    if K % 128 or N % 16:
+        raise ValueError(f"int8_matmul: the kernel needs K a multiple of 128 and N of 16, got K={K} N={N}")
+    if x.data_ptr() % 16 or w_q.data_ptr() % 16 or w_scale.data_ptr() % 8:
+        raise ValueError("int8_matmul: x and w_q must be 16-byte aligned, w_scale 8-byte aligned")
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M > 0:
+        cuda.call("int8_mm", x.data_ptr(), 0 if x.dtype == torch.float32 else 1, w_q.data_ptr(),
+                  w_scale.data_ptr(), y.data_ptr(), M, K, N)
+        cuda.launches["int8_matmul"] += 1
+    return y
+
+
+def int8_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """nn.linear entry of the weight-only mode for a 2-D {'w_q','w_scale'(,'b')}
+    leaf; x [..., K]."""
+    return _int8_leaf_linear(int8_matmul, p, x)

@@ -1,14 +1,19 @@
-"""Where the time of one diffusion chunk goes, on one NVIDIA GPU.
+"""Where the time of one request goes, on one NVIDIA GPU.
 
-    python3 -m mla_tpu_torch.profile_chunk [--sampler ddim|dpm]
+    python3 -m mla_tpu_torch.profile_chunk [--sampler ddim|dpm|ar]
 
 Builds the int8 mla-7b from a seeded random init on the card (as
-chip_smoke.py does), serves a few warm-up chunks, then reports:
-  * host wall time per stage (front-end + prefix embeds, prefill, one
-    suffix evaluation, the whole chunk), each ending in a synchronize;
-  * a torch.profiler trace of one chunk: device time by kernel, the sum of
-    device time, and the device's idle share of the unprofiled chunk's wall
-    time (1 - busy / chunk_ms).
+chip_smoke.py does), serves a few warm-up requests, then reports:
+  * host wall time per stage, each ending in a synchronize: for a
+    diffusion chunk (ddim, dpm; W8A8 linears) front-end + prefix embeds,
+    prefill, one suffix evaluation and the whole chunk; for an AR action
+    (ar: predict_action_ar, weight-only int8 linears) front-end + prefix
+    embeds, prefill with the last position's logits, one decode step, the
+    lm_head alone and the whole request, beside the decode step's
+    weight-read bound (the decoder's int8 weight bytes over 3.35 TB/s);
+  * a torch.profiler trace of one request: device time by kernel, the sum
+    of device time, and the device's idle share of the unprofiled
+    request's wall time (1 - busy / request ms).
 Results print as text and go to chiprun_out/profile_chunk_mla-7b_<sampler>.json.
 """
 
@@ -24,8 +29,11 @@ import torch
 
 from mla_tpu_torch import params as P
 from mla_tpu_torch.conf.models import get_model_config
+from mla_tpu_torch.models import llama as llama_mod
 from mla_tpu_torch.models import mla
 from mla_tpu_torch.ops.quantization import quantize_model
+
+PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s (data sheet)
 
 
 def _timed(fn, reps: int = 5):
@@ -40,9 +48,47 @@ def _timed(fn, reps: int = 5):
     return float(np.median(times)), out
 
 
+def _diffusion_stages(policy, cfg, prefix_ids, images, pc_t, noise):
+    stages = {}
+    with torch.inference_mode():
+        stages["prefix_embeds_ms"], prefix = _timed(
+            lambda: mla.build_prefix_embeds(policy.params, policy.state, cfg, prefix_ids, images, pc_t))
+        cache_max = prefix.shape[1] + 2 + cfg.action_horizon + 1 + mla.CACHE_MARGIN
+        stages["prefill_ms"], (kv, _) = _timed(lambda: mla.prefill(policy.params, cfg, prefix, cache_max,
+                                                                     compute_logits=False))
+        fn = mla.make_suffix_denoise_fn(policy.params, cfg, kv, prefix.shape[1],
+                                        torch.zeros((1, 1, cfg.action_dim), device="cuda"))
+        x = torch.as_tensor(noise, device="cuda")[None]
+        t = torch.full((1,), 50, dtype=torch.int32, device="cuda")
+        stages["suffix_eval_ms"], _ = _timed(lambda: fn(x, t))
+    return stages
+
+
+def _ar_stages(policy, cfg, ids, images, pc_t):
+    """Stages of predict_action_ar; the decode step is timed at one cache
+    position (each repetition rewrites the same slot)."""
+    stages = {}
+    mode = policy.int8_mode
+    bb = policy.params["llm_backbone"]
+    with torch.inference_mode():
+        stages["prefix_embeds_ms"], prefix = _timed(
+            lambda: mla.build_prefix_embeds(policy.params, policy.state, cfg, ids, images, pc_t))
+        P = prefix.shape[1]
+        cache_max = P + cfg.action_dim + mla.CACHE_MARGIN
+        stages["prefill_ms"], (kv, last) = _timed(lambda: mla.prefill(policy.params, cfg, prefix, cache_max,
+                                                                        int8_mode=mode))
+        tok = last.argmax(-1)
+        stages["decode_step_ms"], _ = _timed(lambda: mla.decode_step(policy.params, cfg, kv, P, tok, int8_mode=mode))
+        h = torch.zeros((1, cfg.llama.hidden_size), dtype=cfg.llama.compute_dtype, device="cuda")
+        stages["lm_head_ms"], _ = _timed(lambda: llama_mod.lm_head_logits(bb, h))
+    weight_bytes = sum(leaf["w_q"].numel() for group in ("attn", "mlp") for leaf in bb["layers"][group].values())
+    stages["decode_weight_read_bound_ms"] = weight_bytes / PEAK_BYTES * 1e3
+    return stages
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--sampler", default="ddim", choices=("ddim", "dpm"))
+    ap.add_argument("--sampler", default="ddim", choices=("ddim", "dpm", "ar"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_chunk: needs a CUDA device")
@@ -53,7 +99,10 @@ def main() -> None:
     params, state = P.init(cfg, seed=0, device="cuda")
     fc2 = params["final_layer"]["mlp"]["fc2"]
     fc2["w"] = torch.randn(fc2["w"].shape, generator=torch.Generator("cuda").manual_seed(1), device="cuda") * 0.02
-    policy = mla.MLAPolicy(quantize_model(params), state, cfg)
+    ar = args.sampler == "ar"
+    stats = {"rlbench": {"action": {"q01": [-1.0] * 6 + [0.0], "q99": [1.0] * 7}}}
+    policy = mla.MLAPolicy(quantize_model(params), state, cfg, norm_stats=stats,
+                           int8_mode="weight_only" if ar else "w8a8")
     del params
     rng = np.random.default_rng(0)
     size = cfg.vision.image_size
@@ -63,6 +112,8 @@ def main() -> None:
     noise = rng.standard_normal((cfg.action_horizon, cfg.action_dim)).astype(np.float32)
 
     def chunk():
+        if ar:
+            return policy.predict_action_ar(img, pc, "", input_ids=ids)
         return policy.predict_action_diff(img, pc, "", input_ids=ids, noise=noise, sampler=args.sampler,
                                           return_normalized=True)
 
@@ -70,19 +121,13 @@ def main() -> None:
         chunk()
     stages = {}
     stages["chunk_ms"], _ = _timed(chunk)
-    prefix_ids = torch.as_tensor(ids[:, :-1], device="cuda").long()
     images = {"front_image": torch.as_tensor(img, device="cuda")[None]}
     pc_t = torch.as_tensor(pc, device="cuda")[None]
-    with torch.inference_mode():
-        stages["prefix_embeds_ms"], prefix = _timed(
-            lambda: mla.build_prefix_embeds(policy.params, policy.state, cfg, prefix_ids, images, pc_t))
-        cache_max = prefix.shape[1] + 2 + cfg.action_horizon + 1 + mla.CACHE_MARGIN
-        stages["prefill_ms"], kv = _timed(lambda: mla.prefill(policy.params, cfg, prefix, cache_max))
-        fn = mla.make_suffix_denoise_fn(policy.params, cfg, kv, prefix.shape[1],
-                                        torch.zeros((1, 1, cfg.action_dim), device="cuda"))
-        x = torch.as_tensor(noise, device="cuda")[None]
-        t = torch.full((1,), 50, dtype=torch.int32, device="cuda")
-        stages["suffix_eval_ms"], _ = _timed(lambda: fn(x, t))
+    ids_t = torch.as_tensor(ids, device="cuda").long()
+    if ar:
+        stages.update(_ar_stages(policy, cfg, ids_t, images, pc_t))
+    else:
+        stages.update(_diffusion_stages(policy, cfg, ids_t[:, :-1], images, pc_t, noise))
 
     from torch.profiler import ProfilerActivity, profile
 

@@ -1,1 +1,2 @@
-"""Data fixtures of the VLA pipeline."""
+"""Host-side pieces of the VLA pipeline: synthetic batches and the action
+tokenizer."""

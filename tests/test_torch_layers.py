@@ -85,7 +85,7 @@ def test_int8_linear_branches_match_jax(monkeypatch):
     np.testing.assert_allclose(_np(tnn.linear(pt, torch.from_numpy(x))), np.asarray(jnn.linear(pj, jnp.asarray(x))),
                                rtol=3e-7, atol=1e-7)
     monkeypatch.setenv("MLA_INT8_MODE", "dequant")
-    np.testing.assert_allclose(_np(tnn.linear(pt, torch.from_numpy(x), dequant=True)),
+    np.testing.assert_allclose(_np(tnn.linear(pt, torch.from_numpy(x), int8_mode="dequant")),
                                np.asarray(jnn.linear(pj, jnp.asarray(x))), rtol=1e-5, atol=1e-5)
 
 

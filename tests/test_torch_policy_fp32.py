@@ -52,7 +52,7 @@ def test_prefix_cache_diffusion_is_exact(record_property):
     prefix = tmla.build_prefix_embeds(tp, ts, cfg, torch.from_numpy(ids[:, :-1]).long(),
                                       {"front_image": torch.from_numpy(img)[None]}, torch.from_numpy(pc)[None])
     P = prefix.shape[1]
-    kv = tmla.prefill(tp, cfg, prefix, P + 2 + cfg.action_horizon + 9)
+    kv, _ = tmla.prefill(tp, cfg, prefix, P + 2 + cfg.action_horizon + 9, compute_logits=False)
     eps_cached = tmla.make_suffix_denoise_fn(tp, cfg, kv, P, proprio)(x, t)
 
     emb = tmla.embedders

@@ -5,26 +5,42 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+or, to time this tree's flash forward and dK/dV kernels against another
+version of them (such as the parent commit's, written out with
+`git show HEAD~1:mla_tpu_torch/csrc/flash_fwd.cu`, the same for
+flash_bwd.cu and, where that commit has it, hopper.cuh), add `--parent DIR`.
+
 Phases, each of which fails the run if it fails:
   1. build        compile every CUDA kernel from mla_tpu_torch/csrc with
                   nvcc (sm_90a), one process per source, in parallel, and
-                  beside them two controls, each in a temporary directory:
-                  a copy of flash_bwd.cu with the last, partial tile of
-                  each backward loop dropped, and a copy of int8_mm.cu
-                  with its last K tile dropped.
+                  beside them three controls, each in a temporary directory:
+                  a copy of flash_fwd.cu with its last, ragged key tile
+                  dropped, a copy of flash_bwd.cu with the last, partial
+                  tile of each backward loop dropped, and a copy of
+                  int8_mm.cu with its last K tile dropped (and, with
+                  --parent, the other version's flash kernels).
   2. kernels      hold each kernel against its plain PyTorch version and
                   time kernel, plain version, a PyTorch library call
-                  (yardstick only) and the roofline bound: W8A8, FPS and
-                  the flash forward at the shapes of the int8 mla-7b
-                  serving path; the flash backward (dQ, dK/dV) at the
-                  mla-2b training shape (BH 256, S 563, hd 128), with and
+                  (yardstick only) and the roofline bound: W8A8 and FPS at
+                  the shapes of the int8 mla-7b serving path; the flash
+                  forward at the serving prefill (BH 32, S 534) and the
+                  mla-2b training shape (BH 256, S 563), with and without a
+                  padded key tail, o and lse at every valid row, the check
+                  rejecting the forward control without padding; the flash
+                  backward (dQ, dK/dV) at the training shape, with and
                   without a padded key tail, each gradient row within a
                   bf16 tolerance of its own norm, bit-identical over two
-                  launches; the same check must reject the control. The
-                  weight-only int8 product at M = 1, 4 and 535 rows by the
-                  four mla-7b linears, each output column within one bf16
-                  step of its own norm, bit-identical over two launches;
-                  the check must reject the int8_mm control.
+                  launches; the same check must reject the control;
+                  SDPA's backward, the yardstick, the median of 5 graph
+                  replays.
+                  The weight-only int8 product at M = 1, 4 and 535 rows by
+                  the four mla-7b linears, each output column within one
+                  bf16 step of its own norm, bit-identical over two
+                  launches; the check must reject the int8_mm control. The
+                  flash kernels are timed as CUDA graphs of 20 launches
+                  (device time, no host launch cost). With --parent, the
+                  other version's flash forward and dK/dV in turns with
+                  this tree's (parent, this, this, parent).
   3. agree        serve one DDIM-8 request of an int8 `mla-small` (4
                   decoder layers, full-width front-ends) on the card and on
                   the CPU (plain versions) from the same weights and noise;
@@ -70,9 +86,11 @@ beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import itertools
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -209,52 +227,115 @@ def check_fps(torch, report):
 
 
 # kernel vs plain version, both bf16 out: P is rounded to bf16 in both, but
-# the tiles (64 vs 128) and so the online-softmax rescale order differ, which
-# moves an output by about one bf16 ulp (2^-8 relative)
+# the tiles (64 vs 128) and so the online-softmax rescale order differ,
+# which moves an output by about one bf16 ulp (2^-8 relative)
 FLASH_ATOL = 2e-2
+FLASH_LSE_ATOL = 1e-3
+# the forward's shapes: the int8 mla-7b serving prefill and the mla-2b
+# training step (B = 8: 32 text + 513 fused + 18 diffusion tokens, 32 heads)
+FLASH_SHAPES = ((32, PREFIX_LEN, "serving prefill"), (8 * 32, 563, "training"))
 
 
-def check_flash(torch, report):
+def graph_ms(torch, fn, reps: int = 20, windows: int = 3, stream=None) -> float:
+    """Device time of one fn() call: `reps` calls captured in one CUDA graph
+    and replayed back to back, so the host's launch cost between calls is
+    not counted; the median of `windows` replays. `stream`, if given, is
+    the capture stream (an autograd backward runs on its forward's)."""
+    side = stream or torch.cuda.Stream()  # warm-up off the default stream, as capture wants
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=stream):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del g
+    return sorted(times)[len(times) // 2]
+
+
+def fwd_call(cuda, q, k, v, mask, o, lse):
+    """A bare launch of flash_fwd into preallocated o and lse."""
+    BH, S, hd = q.shape
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), o.data_ptr(), lse.data_ptr(), BH, S, hd,
+            1.0 / hd**0.5)
+    return lambda: cuda.call("flash_fwd", *args)
+
+
+def check_flash(torch, report, control):
+    """The flash forward at the serving-prefill and training shapes, with
+    and without a padded 40-key tail: o within FLASH_ATOL and lse within
+    FLASH_LSE_ATOL of the plain version at valid rows; the control (its
+    last, ragged key tile dropped) must miss that check without padding.
+    Times kernel (CUDA graph), plain version, SDPA and the bound."""
     import torch.nn.functional as F
 
+    from mla_tpu_torch.ops import cuda
     from mla_tpu_torch.ops import flash_attention as fa
 
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    BH, S, hd = 32, PREFIX_LEN, 128
-    q, k, v = (torch.randn((BH, S, hd), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
-    mask = torch.ones((BH, S), dtype=torch.int32, device="cuda")
-    mask_pad = mask.clone()
-    mask_pad[:, S - 40:] = 0
-    err = 0.0
-    for m in (mask, mask_pad):
-        o, lse = fa.flash_fwd(q, k, v, m)
-        op, lsep = fa.flash_fwd_plain(q, k, v, m)
-        torch.cuda.synchronize()
-        valid = m[0] > 0
-        e = float((o.float() - op.float())[:, valid].abs().max())
-        e_lse = float((lse - lsep)[:, valid].abs().max())
-        if not (e <= FLASH_ATOL and e_lse <= 1e-3):
-            raise AssertionError(f"flash: max |o - plain| {e} (tol {FLASH_ATOL}), max |lse - plain| {e_lse} (tol 1e-3)")
-        err = max(err, e)
-    q4, k4, v4 = (t[None] for t in (q, k, v))
-    lib_err = float((fa.flash_fwd(q, k, v, mask)[0].float()
-                     - F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)[0].float()).abs().max())
-    ms = cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, mask), 20)
-    plain_ms = cuda_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, mask), 5)
-    lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 20)
-    nbytes = 4 * BH * S * hd * 2 + BH * S * 4 * 2
-    ops = 4.0 * BH * hd * S * (S + 1) / 2
-    b, by = bound_ms(nbytes, ops, "bf16")
-    log(f"flash BH={BH} S={S} hd={hd}: max |o - plain| {err:.3e} (tol {FLASH_ATOL}), |o - sdpa| {lib_err:.3e}, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b:.4f} ms ({by})")
-    report["shapes"].append({"kernel": "flash_attention", "BH": BH, "S": S, "hd": hd, "ms": ms, "plain_ms": plain_ms,
-                             "library_ms": lib_ms, "bound_ms": b, "bound_by": by, "max_abs_err": err,
-                             "max_abs_err_vs_sdpa": lib_err})
-    return {
-        "name": "flash_attention", "route": "cuda", "source": "mla_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "mla_tpu/ops/flash_attention.py:39", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
-    }
+    readings, row = {}, None
+    for BH, S, what in FLASH_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        hd = 128
+        q, k, v = (torch.randn((BH, S, hd), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+        mask = torch.ones((BH, S), dtype=torch.int32, device="cuda")
+        mask_pad = mask.clone()
+        mask_pad[:, S - 40:] = 0
+        err = 0.0
+        for m, case in ((mask, "no padding"), (mask_pad, "padded tail")):
+            o, lse = fa.flash_fwd(q, k, v, m)
+            op, lsep = fa.flash_fwd_plain(q, k, v, m)
+            with kernel_from(cuda, "flash_fwd", control):
+                oc, lsec = fa.flash_fwd(q, k, v, m)
+            torch.cuda.synchronize()
+            valid = m[0] > 0
+            e = float((o.float() - op.float())[:, valid].abs().max())
+            e_lse = float((lse - lsep)[:, valid].abs().max())
+            ec = float((oc.float() - op.float())[:, valid].abs().max())
+            ec_lse = float((lsec - lsep)[:, valid].abs().max())
+            log(f"flash fwd BH={BH} S={S} ({what}, {case}): max |o - plain| {e:.3e} (tol {FLASH_ATOL}), "
+                f"max |lse - plain| {e_lse:.3e} (tol {FLASH_LSE_ATOL}); control {ec:.3e}, lse {ec_lse:.3e}")
+            if not (e <= FLASH_ATOL and e_lse <= FLASH_LSE_ATOL):
+                raise AssertionError(f"flash fwd BH={BH} S={S} ({case}): max |o - plain| {e} (tol {FLASH_ATOL}), "
+                                     f"max |lse - plain| {e_lse} (tol {FLASH_LSE_ATOL})")
+            if case == "no padding" and ec <= FLASH_ATOL and ec_lse <= FLASH_LSE_ATOL:
+                raise AssertionError(f"flash fwd BH={BH} S={S}: the check passes the control ({ec}, lse {ec_lse})")
+            err = max(err, e)
+            readings[f"BH={BH} S={S}, {case}"] = {"o": e, "lse": e_lse, "control_o": ec, "control_lse": ec_lse}
+        q4, k4, v4 = (t[None] for t in (q, k, v))
+        lib_err = float((fa.flash_fwd(q, k, v, mask)[0].float()
+                         - F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)[0].float()).abs().max())
+        o, lse = torch.empty_like(q), torch.empty((BH, S), dtype=torch.float32, device="cuda")
+        ms = graph_ms(torch, fwd_call(cuda, q, k, v, mask, o, lse))
+        plain_ms = cuda_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, mask), 3, 1)
+        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+        nbytes = 4 * BH * S * hd * 2 + BH * S * 4 * 2
+        ops = 4.0 * BH * hd * S * (S + 1) / 2
+        b, by = bound_ms(nbytes, ops, "bf16")
+        log(f"flash fwd BH={BH} S={S} hd={hd} ({what}): |o - sdpa| {lib_err:.3e}, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, kernel / sdpa {ms / lib_ms:.3f}, bound {b:.4f} ms ({by})")
+        report["shapes"].append({"kernel": "flash_attention", "BH": BH, "S": S, "hd": hd, "ms": ms,
+                                 "plain_ms": plain_ms, "library_ms": lib_ms, "kernel_over_library": ms / lib_ms,
+                                 "bound_ms": b, "bound_by": by, "max_abs_err": err, "max_abs_err_vs_sdpa": lib_err})
+        if row is None:  # the serving prefill: the shape whose launches the row counts
+            row = {"name": "flash_attention", "route": "cuda", "source": "mla_tpu_torch/csrc/flash_fwd.cu",
+                   "replaces": "mla_tpu/ops/flash_attention.py:39", "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": lib_ms}
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    report["flash_fwd"] = readings
+    return row
 
 
 # training shape of mla-2b at B = 8: 32 text + 513 fused + 18 diffusion
@@ -270,38 +351,61 @@ TRAIN_BH, TRAIN_S, TRAIN_HD = 8 * 32, 563, 128
 FLASH_BWD_ROW_RTOL = 1e-2
 ROW_FLOOR = 1e-2
 
-# the control: flash_bwd.cu with the last, partial tile of each loop dropped
-# (at S = 563, keys 544..562 for dQ and queries 544..562 for dK/dV), the
-# ragged-S fault the checks above must catch
+# the controls: copies of a kernel's source with a fault the checks must
+# catch, each built in a temporary directory beside the kernels.
+# flash_fwd.cu with its last, ragged key tile dropped (at S = 534 and 563,
+# keys 512.. of its 64-key tiles): rows past 512 lose keys, which only the
+# unpadded case shows
+FLASH_FWD_MUTATIONS = (("const int nk_all = (S + BN - 1) / BN;", "const int nk_all = S / BN;"),)
+# flash_bwd.cu with the last, partial tile of each loop dropped (at S = 563,
+# keys 544..562 for dQ and queries 512..562 for dK/dV), the ragged-S fault
 FLASH_BWD_MUTATIONS = (
     ("const int nk = min((S + BKQ - 1) / BKQ,", "const int nk = min(S / BKQ,"),
-    ("const int nq = (S + BQKV - 1) / BQKV;", "const int nq = S / BQKV;"),
+    ("const int nq = (S + KV_QS - 1) / KV_QS;", "const int nq = S / KV_QS;"),
 )
+# int8_mm.cu with its last K tile dropped (the loops over K tiles of its
+# bf16 and fp32 kernels stop one short), the fault the column check must
+# catch
+INT8_MM_MUTATIONS = (
+    ("load_tile<T, BM, BN, BK>(ra, rb, x, wq, m0, n0, 0, M, N, K, tid);\n  for (int kt = 0; kt < nkt; ++kt)",
+     "load_tile<T, BM, BN, BK>(ra, rb, x, wq, m0, n0, 0, M, N, K, tid);\n  for (int kt = 0; kt < nkt - 1; ++kt)"),
+    ("const int nkt = K / FBK;\n  for (int kt = 0; kt < nkt; ++kt)",
+     "const int nkt = K / FBK;\n  for (int kt = 0; kt < nkt - 1; ++kt)"),
+)
+CONTROLS = {"flash_fwd": FLASH_FWD_MUTATIONS, "flash_bwd": FLASH_BWD_MUTATIONS, "int8_mm": INT8_MM_MUTATIONS}
 
 
-# the control of int8_mm.cu: its last K tile dropped (the loop over K tiles
-# stops one short), the fault the column check must catch
-INT8_MM_MUTATIONS = (("for (int kt = 0; kt < nkt; ++kt)", "for (int kt = 0; kt < nkt - 1; ++kt)"),)
-CONTROLS = {"flash_bwd": FLASH_BWD_MUTATIONS, "int8_mm": INT8_MM_MUTATIONS}
-
-
-def start_control_build(cuda, tmp: Path, name: str):
-    """Write the control copy of `name`.cu into `tmp` and start its nvcc."""
+def control_source(cuda, name: str) -> str:
+    """The control copy of `name`.cu; raises unless each mutation matches
+    exactly once, so a control cannot silently stop following its source."""
     src = (cuda.CSRC / f"{name}.cu").read_text()
     for old, new in CONTROLS[name]:
-        if old not in src:
-            raise AssertionError(f"{name}.cu no longer holds {old!r}: the control must follow the source")
+        if src.count(old) != 1:
+            raise AssertionError(f"{name}.cu holds {old!r} {src.count(old)} times, not once: "
+                                 "the control must follow the source")
         src = src.replace(old, new)
-    cu, lib = tmp / f"{name}_control.cu", tmp / f"lib{name}_control.so"
+    return src
+
+
+def start_build(cuda, tmp: Path, name: str, src: str, tag: str, headers: Path = None):
+    """Write `src`, a version of `name`.cu, into a directory of `tmp` beside
+    a copy of the kernels' headers (those of `headers`, where it has them)
+    and start its nvcc."""
+    out = tmp / tag
+    out.mkdir(exist_ok=True)
+    for d in (cuda.CSRC, headers):
+        for header in (d.glob("*.cuh") if d else ()):
+            shutil.copy(header, out / header.name)
+    cu, lib = out / f"{name}.cu", out / f"lib{name}.so"
     cu.write_text(src)
     cmd = cuda.compile_cmd(name, cu, lib)
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def finish_control_build(cuda, name: str, lib: Path, proc):
+def finish_build(cuda, name: str, lib: Path, proc):
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"the control build of {name}.cu failed:\n{out}")
+        raise RuntimeError(f"the build of {lib.name} failed:\n{out}")
     return cuda.load(name, lib)
 
 
@@ -328,12 +432,22 @@ def row_rel_err(torch, a, w):
     return float(rel[i]), i, float(n[i])
 
 
+def bwd_calls(cuda, ptrs, dq, dk, dv, BH, S, hd):
+    """Bare launches of the two backward kernels into preallocated outputs."""
+    scale = 1.0 / hd**0.5
+    return {
+        "dq": lambda: cuda.call("flash_bwd", *ptrs, dq.data_ptr(), BH, S, hd, scale, symbol="flash_bwd_dq"),
+        "dkv": lambda: cuda.call("flash_bwd", *ptrs, dk.data_ptr(), dv.data_ptr(), BH, S, hd, scale,
+                                 symbol="flash_bwd_dkv"),
+    }
+
+
 def check_flash_bwd(torch, report, control):
     """dQ and dK/dV kernels at the training shape, with and without a
     padded key tail: every gradient row within FLASH_BWD_ROW_RTOL of the
     plain version's, bit-identical over two launches; the control
-    library must exceed the tolerance in each gradient. Also times the
-    forward kernel there."""
+    library must exceed the tolerance in each gradient. Times the kernels
+    (CUDA graph), the plain versions, SDPA's backward and the bound."""
     import torch.nn.functional as F
 
     from mla_tpu_torch.ops import cuda
@@ -381,26 +495,29 @@ def check_flash_bwd(torch, report, control):
 
     o, lse = fa.flash_fwd(q, k, v, mask)
     delta = (do.float() * o.float()).sum(-1)
-    scale = 1.0 / hd**0.5
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    ms = {
-        "dq": cuda_ms(torch, lambda: cuda.call("flash_bwd", *ptrs, dq.data_ptr(), BH, S, hd, scale,
-                                               symbol="flash_bwd_dq"), 20),
-        "dkv": cuda_ms(torch, lambda: cuda.call("flash_bwd", *ptrs, dk.data_ptr(), dv.data_ptr(), BH, S, hd, scale,
-                                                symbol="flash_bwd_dkv"), 20),
-    }
+    calls = bwd_calls(cuda, ptrs, dq, dk, dv, BH, S, hd)
+    ms = {key: graph_ms(torch, fn) for key, fn in calls.items()}
     plain_ms = {
         "dq": cuda_ms(torch, lambda: fa.flash_bwd_dq_plain(q, k, v, mask, o, lse, do), 3, 1),
         "dkv": cuda_ms(torch, lambda: fa.flash_bwd_dkv_plain(q, k, v, mask, o, lse, do), 3, 1),
     }
     # yardstick only: the backward of torch's fused causal attention, which
-    # computes dQ, dK and dV in one call
+    # computes dQ, dK and dV in one call. Eager windows of it read 0.32 to
+    # 1.5 ms, paced by the host; so it is captured in a CUDA graph like the
+    # kernels, and the median of 5 timed replays is taken
     q4, k4, v4 = (t[None].detach().requires_grad_(True) for t in (q, k, v))
-    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-    lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, (q4, k4, v4), do[None], retain_graph=True), 10)
-    fwd_ms = cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, mask), 20)
-    fwd_lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 20)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    lib_ms = graph_ms(torch, lambda: torch.autograd.grad(out, (q4, k4, v4), do[None], retain_graph=True), 10, 5,
+                      stream)
+    windows = [cuda_ms(torch, lambda: torch.autograd.grad(out, (q4, k4, v4), do[None], retain_graph=True), 10)
+               for _ in range(5)]
+    log(f"sdpa backward: {lib_ms:.4f} ms (CUDA graph, median of 5 replays); eager windows (ms), host-paced: "
+        f"{[round(w, 4) for w in windows]}")
     tile = BH * S * hd * 2
     causal = 2.0 * BH * hd * S * (S + 1) / 2  # one causal [S, S] x [S, hd] product
     small = BH * S * 4 * 3  # lse, delta and the mask
@@ -409,20 +526,53 @@ def check_flash_bwd(torch, report, control):
     for key, name, src_line in (("dq", "flash_attention_bwd_dq", 92), ("dkv", "flash_attention_bwd_dkv", 127)):
         b, by = bound_ms(*work[key], "bf16")
         log(f"flash bwd {key} BH={BH} S={S} hd={hd}: kernel {ms[key]:.4f} ms, plain {plain_ms[key]:.4f} ms, "
-            f"sdpa backward (dq+dk+dv) {lib_ms:.4f} ms, bound {b:.4f} ms ({by})")
+            f"sdpa backward (dq+dk+dv) {lib_ms:.4f} ms, kernel / sdpa backward {ms[key] / lib_ms:.3f}, "
+            f"bound {b:.4f} ms ({by})")
         report["shapes"].append({"kernel": name, "BH": BH, "S": S, "hd": hd, "ms": ms[key], "plain_ms": plain_ms[key],
-                                 "library_ms": lib_ms, "bound_ms": b, "bound_by": by, "max_abs_err": errs[key]})
+                                 "library_ms": lib_ms, "library_windows_ms": windows,
+                                 "kernel_over_library": ms[key] / lib_ms, "bound_ms": b, "bound_by": by,
+                                 "max_abs_err": errs[key]})
         out_rows.append({
             "name": name, "route": "cuda", "source": "mla_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"mla_tpu/ops/flash_attention.py:{src_line}", "max_abs_err": errs[key], "ms": ms[key],
             "plain_ms": plain_ms[key], "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
         })
-    fb, fby = bound_ms(4 * tile + BH * S * 8, 2 * causal, "bf16")
-    log(f"flash fwd at the training shape BH={BH} S={S} hd={hd}: kernel {fwd_ms:.4f} ms, sdpa {fwd_lib_ms:.4f} ms, "
-        f"bound {fb:.4f} ms ({fby})")
-    report["shapes"].append({"kernel": "flash_attention", "BH": BH, "S": S, "hd": hd, "ms": fwd_ms,
-                             "library_ms": fwd_lib_ms, "bound_ms": fb, "bound_by": fby})
     return out_rows
+
+
+PARENT_KERNELS = ("flash_fwd", "flash_bwd")
+
+
+def compare_parent(torch, report, parent):
+    """The flash forward (both shapes) and dK/dV (training shape) of this
+    tree against `parent`'s kernels on the same card and inputs, in turns:
+    parent, this tree, this tree, parent (CUDA graph device times)."""
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+
+    def turns(name, key, fn):
+        def theirs():
+            with kernel_from(cuda, name, parent[name]):
+                return graph_ms(torch, fn)
+
+        t = [theirs(), graph_ms(torch, fn), graph_ms(torch, fn), theirs()]
+        out[key] = {"parent_ms": [t[0], t[3]], "ms": [t[1], t[2]]}
+        log(f"parent vs this tree, {key}: parent {t[0]:.4f}, this {t[1]:.4f}, this {t[2]:.4f}, parent {t[3]:.4f} ms")
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for BH, S, what in FLASH_SHAPES:
+        q, k, v, do = (torch.randn((BH, S, 128), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
+        mask = torch.ones((BH, S), dtype=torch.int32, device="cuda")
+        o, lse = torch.empty_like(q), torch.empty((BH, S), dtype=torch.float32, device="cuda")
+        turns("flash_fwd", f"flash fwd BH={BH} S={S} ({what})", fwd_call(cuda, q, k, v, mask, o, lse))
+    o, lse = fa.flash_fwd(q, k, v, mask)
+    delta = (do.float() * o.float()).sum(-1)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    dkv = bwd_calls(cuda, ptrs, torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), BH, S, 128)["dkv"]
+    turns("flash_bwd", f"flash dK/dV BH={BH} S={S} (training)", dkv)
+    report["parent"] = out
 
 
 # the weight-only int8 product at a decode step (1 row), a 4-beam step and
@@ -952,6 +1102,11 @@ def train(torch, report):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.")
+    parser.add_argument("--parent", help="a directory holding another version of flash_fwd.cu and flash_bwd.cu "
+                        "(such as the parent commit's, with its hopper.cuh where it has one) to time against "
+                        "this tree's kernels")
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -976,7 +1131,13 @@ def main() -> int:
     report = {"gpu": line, "shapes": []}
     t = time.perf_counter()
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
-    started = {name: start_control_build(cuda, Path(tmp.name), name) for name in CONTROLS}
+    started = {name: start_build(cuda, Path(tmp.name), name, control_source(cuda, name), "control")
+               for name in CONTROLS}
+    if args.parent:
+        started.update({("parent", name): start_build(cuda, Path(tmp.name), name,
+                                                      (Path(args.parent) / f"{name}.cu").read_text(), "parent",
+                                                      Path(args.parent))
+                        for name in PARENT_KERNELS})
     try:
         built = cuda.build()
     except BaseException:
@@ -986,18 +1147,21 @@ def main() -> int:
         raise
     for name, text in built.items():
         log(f"built {name}.cu\n" + "\n".join("  " + l for l in text.strip().splitlines() if "registers" in l or "spill" in l))
-    controls = {name: finish_control_build(cuda, name, *started[name]) for name in CONTROLS}
-    log(f"build: {time.perf_counter() - t:.1f} s (with the control copies of {', '.join(CONTROLS)})")
-    kernels = [check_w8a8(torch, report), check_fps(torch, report), check_flash(torch, report),
-               check_int8_mm(torch, report, controls["int8_mm"])]
-    train_kernels = check_flash_bwd(torch, report, controls["flash_bwd"])
+    libs = {key: finish_build(cuda, key[1] if isinstance(key, tuple) else key, *proc) for key, proc in started.items()}
+    log(f"build: {time.perf_counter() - t:.1f} s (with the control copies of {', '.join(CONTROLS)}"
+        f"{' and the parent kernels' if args.parent else ''})")
+    kernels = [check_w8a8(torch, report), check_fps(torch, report), check_flash(torch, report, libs["flash_fwd"]),
+               check_int8_mm(torch, report, libs["int8_mm"])]
+    train_kernels = check_flash_bwd(torch, report, libs["flash_bwd"])
+    if args.parent:
+        compare_parent(torch, report, {name: libs[("parent", name)] for name in PARENT_KERNELS})
     check_agreement(torch, report)
-    check_ar_agreement(torch, report, controls["int8_mm"])
+    check_ar_agreement(torch, report, libs["int8_mm"])
     totals, ar_policy = serve(torch, report)
     ar_totals = ar_serve(torch, report, ar_policy)
     del ar_policy
     torch.cuda.empty_cache()
-    check_train_agreement(torch, report, controls["flash_bwd"])
+    check_train_agreement(torch, report, libs["flash_bwd"])
     train_totals = train(torch, report)
     for k in kernels:
         k["launches"] = (ar_totals if k["name"] == "int8_matmul" else totals)[k["name"]]

@@ -16,21 +16,37 @@
 // rows past S masked here, so the caller need not pad).  dS = P * (dP -
 // delta) * scale, delta = rowsum(dO * O) from the caller.  As in the TPU
 // kernels, P and dS are rounded to bf16 before they enter a product, every
-// product accumulates in fp32 (mma.sync m16n8k16 bf16), and the gradients
-// are written in bf16.  The work is split as the TPU kernels split it, so
-// no two blocks write the same output and no atomics are needed: two runs
-// give bit-identical gradients.
-//   dQ:    one block per (batch*head, 64-query tile), four warps of 16 rows.
-//          Q and dO fragments stay in registers; 32-key tiles of K (as
-//          stored and transposed) and V stream through shared memory, up to
-//          the diagonal tile (ceil-div), as _bwd_dq_kernel loops.
-//   dK/dV: one block per (batch*head, 64-key tile), four warps of 16 keys.
-//          K and V stay in shared memory; 32-query tiles of Q and dO (as
-//          stored and transposed), lse and delta stream from the first
-//          query tile that can see the key tile to the end, as
-//          _bwd_dkv_kernel loops.  S^T = K Q^T and dP^T = V dO^T are formed
-//          per warp, so P^T and dS^T feed dV += P^T dO and dK += dS^T Q
-//          straight from the accumulators.
+// product accumulates in fp32, and the gradients are written in bf16.  The
+// work is split as the TPU kernels split it, so no two blocks write the
+// same output and no atomics are needed: two runs give bit-identical
+// gradients.
+//   dQ:    one block per (batch*head, 64-query tile), four warps of 16 rows,
+//          mma.sync m16n8k16.  Q and dO fragments stay in registers; 32-key
+//          tiles of K (as stored and transposed) and V stream through shared
+//          memory, up to the diagonal tile (ceil-div), as _bwd_dq_kernel
+//          loops.
+//   dK/dV: one block per (batch*head, 128-key tile); a head's key tiles
+//          are launched together (Q and dO stay in L2), the first, with the
+//          longest query loop, first.  Two consumer warpgroups of 64 keys
+//          and a producer warpgroup, which hands its registers to them
+//          (setmaxnreg) and of which one warp loads.  K and V are loaded
+//          once by TMA and stay in shared memory; 64-query tiles of Q and dO
+//          stream through a three-stage TMA ring (3-D tensor maps: the
+//          ragged tail reads zeros), with lse and delta stored beside them
+//          by the producer warp, from the first query tile that can see the
+//          key tile to the end, as _bwd_dkv_kernel loops.  All four products run
+//          on wgmma (layouts in hopper.cuh) and read every operand as
+//          stored: S^T = K Q^T and dP^T = V dO^T with both operands K-major;
+//          dV += P^T dO and dK += dS^T Q with P^T and dS^T converted in
+//          registers from the accumulators just computed, dO and Q read
+//          MN-major through the transpose bit.  Each warpgroup keeps its dK
+//          and dV (64 x hd fp32 each) in registers.  The causal triangle and
+//          queries past S are masked on the diagonal and ragged tiles only;
+//          a padded key zeroes its own row.  dK and dV leave through the K
+//          and V slots by TMA store (whole 128-byte rows; rows past S are
+//          clipped by the tensor map).
+
+#include "hopper.cuh"
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -43,8 +59,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 64;    // dQ: query rows per block
 constexpr int BKQ = 32;   // dQ: key rows per step
-constexpr int BKV = 64;   // dK/dV: key rows per block
-constexpr int BQKV = 32;  // dK/dV: query rows per step
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -196,129 +210,208 @@ flash_bwd_dq_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K, cons
   }
 }
 
+constexpr int KV_BK = 128;    // dK/dV: key rows per block, two warpgroups of 64
+constexpr int KV_QS = 64;     // dK/dV: query rows per step of the ring
+constexpr int KV_STAGES = 3;  // dK/dV: ring depth
+
 template <int HD>
 constexpr size_t dkv_smem_bytes() {
-  return (size_t)(2 * BKV + 2 * BQKV) * (HD + 8) * sizeof(bf16) + (size_t)2 * HD * (BQKV + 8) * sizeof(bf16) +
-         (size_t)2 * BQKV * sizeof(float);
+  return 1024 + (size_t)(HD / 64) * 128 * (2 * KV_BK + 2 * KV_STAGES * KV_QS) +
+         (size_t)KV_STAGES * 2 * KV_QS * sizeof(float) + (2 * KV_STAGES + 1) * 8;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkv_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K, const bf16* __restrict__ V,
-                     const int* __restrict__ mask, const bf16* __restrict__ dO, const float* __restrict__ LSE,
-                     const float* __restrict__ Delta, bf16* __restrict__ dK, bf16* __restrict__ dV, int S,
-                     float sm_scale) {
-  constexpr int KP = HD + 8;
-  constexpr int TP = BQKV + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16(*Ks)[KP] = reinterpret_cast<bf16(*)[KP]>(smem);  // [BKV][KP] this block's keys
-  bf16(*Vs)[KP] = Ks + BKV;                             // [BKV][KP] their values
-  bf16(*Qs)[KP] = Vs + BKV;                             // [BQKV][KP] query tile
-  bf16(*Ds)[KP] = Qs + BQKV;                            // [BQKV][KP] dO tile
-  bf16(*Qt)[TP] = reinterpret_cast<bf16(*)[TP]>(Ds + BQKV);  // [HD][TP] query tile transposed
-  bf16(*Dt)[TP] = Qt + HD;                                   // [HD][TP] dO tile transposed
-  float* Ls = reinterpret_cast<float*>(Dt + HD);             // [BQKV] lse of the tile's rows
-  float* Dl = Ls + BQKV;                                     // [BQKV] delta of the tile's rows
+__global__ void __launch_bounds__(3 * 128, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
+                     const int* __restrict__ mask, const float* __restrict__ LSE, const float* __restrict__ Delta,
+                     int S, float sm_scale) {
+  using namespace hopper;
+  constexpr int NCB = HD / 64;
+  constexpr uint32_t KV_BYTES = NCB * KV_BK * 128, QT_BYTES = NCB * KV_QS * 128;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sK = smem_u32(smem), sV = sK + KV_BYTES;
+  const uint32_t sRing = sV + KV_BYTES;  // stage s: Q at sRing + 2 s QT_BYTES, dO QT_BYTES later
+  float* rowv = reinterpret_cast<float*>(smem + 2 * KV_BYTES + 2 * KV_STAGES * QT_BYTES);  // stage s: lse log2 e, delta
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rowv + KV_STAGES * 2 * KV_QS);
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + KV_STAGES * 8, kvbar = full0 + 2 * KV_STAGES * 8;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, k_off = blockIdx.x * BKV;
-  const size_t base = (size_t)bh * S * HD;
-  const int wr = warp * 16;  // this warp's first key row in the tile
-  const int krows[2] = {k_off + wr + g, k_off + wr + g + 8};
+  const int bh = blockIdx.y, k_off = blockIdx.x * KV_BK;
+  const int qb0 = k_off / KV_QS;  // the first query tile that can see a key of the block
+  const int nq = (S + KV_QS - 1) / KV_QS;
+
+  if (tid == 0) {
+    for (int s = 0; s < KV_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1 + 32);  // the TMA bytes, and the producer warp's lse/delta stores
+      mbar_init(empty0 + 8 * s, 2 * 4);
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup: warp 8 loads, the group gives its registers to the consumers
+    setmaxnreg_dec<24>();
+    if (warp > 8) return;
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * KV_BYTES);
+      for (int c = 0; c < NCB; ++c) {
+        tma_load_3d(sK + c * KV_BK * 128, &tk, kvbar, c * 64, k_off, bh);
+        tma_load_3d(sV + c * KV_BK * 128, &tv, kvbar, c * 64, k_off, bh);
+      }
+    }
+    for (int i = 0; qb0 + i < nq; ++i) {
+      const int s = i % KV_STAGES, q0 = (qb0 + i) * KV_QS;
+      mbar_wait(empty0 + 8 * s, ((i / KV_STAGES) & 1) ^ 1);
+      const uint32_t full = full0 + 8 * s, sQ = sRing + 2 * s * QT_BYTES;
+      if (lane == 0) {
+        mbar_expect_tx(full, 2 * QT_BYTES);
+        for (int c = 0; c < NCB; ++c) {
+          tma_load_3d(sQ + c * KV_QS * 128, &tq, full, c * 64, q0, bh);
+          tma_load_3d(sQ + QT_BYTES + c * KV_QS * 128, &tdo, full, c * 64, q0, bh);
+        }
+      }
+      float* rv = rowv + s * 2 * KV_QS;
+      for (int j = lane; j < KV_QS; j += 32) {
+        const int q = q0 + j;
+        rv[j] = q < S ? LSE[(size_t)bh * S + q] * LOG2E : 0.f;
+        rv[KV_QS + j] = q < S ? Delta[(size_t)bh * S + q] : 0.f;
+      }
+      mbar_arrive(full);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  // consumer warpgroup wg: keys kw0 .. kw0 + 63; this thread's keys krows[0]
+  // and krows[1] (warp w of the group holds 16)
+  const int wg = warp >> 2, w = warp & 3, g = lane >> 2, t = lane & 3;
+  const int kw0 = k_off + wg * 64;
+  const int krows[2] = {kw0 + w * 16 + g, kw0 + w * 16 + g + 8};
   bool kvalid[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) kvalid[h] = krows[h] < S && mask[(size_t)bh * S + krows[h]] > 0;
+  const float scale_log2 = sm_scale * LOG2E;
 
-  load_tile<BKV, HD, true, false, KP, TP>(K + base, k_off, S, Ks, Qt);
-  load_tile<BKV, HD, true, false, KP, TP>(V + base, k_off, S, Vs, Qt);
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kvbar, 0);
 
-  float dk[HD / 8][4], dv[HD / 8][4];
+  for (int i = 0; qb0 + i < nq; ++i) {
+    const int s = i % KV_STAGES, q0 = (qb0 + i) * KV_QS;
+    mbar_wait(full0 + 8 * s, (i / KV_STAGES) & 1);
+    if (kw0 < S && q0 + KV_QS - 1 >= kw0) {  // some query of the tile sees a key of the group
+      const uint32_t sQ = sRing + 2 * s * QT_BYTES, sD = sQ + QT_BYTES;
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x KV_QS queries, all K-major as stored
+      float st[KV_QS / 2], dpt[KV_QS / 2];
+      wg_fence();
 #pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) dk[d][r] = dv[d][r] = 0.f;
-
-  const int nq = (S + BQKV - 1) / BQKV;
-  for (int qb = k_off / BQKV; qb < nq; ++qb) {
-    const int q0 = qb * BQKV;
-    __syncthreads();
-    load_tile<BQKV, HD, true, true, KP, TP>(Q + base, q0, S, Qs, Qt);
-    load_tile<BQKV, HD, true, true, KP, TP>(dO + base, q0, S, Ds, Dt);
-    if (tid < BQKV) {
-      Ls[tid] = q0 + tid < S ? LSE[(size_t)bh * S + q0 + tid] : 0.f;
-      Dl[tid] = q0 + tid < S ? Delta[(size_t)bh * S + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQKV queries
-    float st[BQKV / 8][4], dpt[BQKV / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BQKV / 8; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) st[nt][r] = dpt[nt][r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c) {
-      const int col = c * 16 + t * 2;
-      const uint32_t ka[4] = {ld32(&Ks[wr + g][col]), ld32(&Ks[wr + g + 8][col]), ld32(&Ks[wr + g][col + 8]),
-                              ld32(&Ks[wr + g + 8][col + 8])};
-      const uint32_t va[4] = {ld32(&Vs[wr + g][col]), ld32(&Vs[wr + g + 8][col]), ld32(&Vs[wr + g][col + 8]),
-                              ld32(&Vs[wr + g + 8][col + 8])};
-#pragma unroll
-      for (int nt = 0; nt < BQKV / 8; ++nt) {
-        mma_bf16(st[nt], ka, ld32(&Qs[nt * 8 + g][col]), ld32(&Qs[nt * 8 + g][col + 8]));
-        mma_bf16(dpt[nt], va, ld32(&Ds[nt * 8 + g][col]), ld32(&Ds[nt * 8 + g][col + 8]));
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t a = (kk >> 2) * KV_BK * 128 + wg * 64 * 128 + (kk & 3) * 32;
+        const uint32_t b = (kk >> 2) * KV_QS * 128 + (kk & 3) * 32;
+        wgmma_ss(st, desc_sw128(sK + a, 16, 1024), desc_sw128(sQ + b, 16, 1024), kk > 0);
       }
-    }
-
 #pragma unroll
-    for (int nt = 0; nt < BQKV / 8; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int ql = nt * 8 + t * 2 + (r & 1), h = r >> 1;
-        float v = st[nt][r] * sm_scale;
-        if (!kvalid[h]) v = NEG_INF;
-        if (krows[h] > q0 + ql) v = NEG_INF;
-        const float p = q0 + ql < S ? expf(v - Ls[ql]) : 0.f;
-        dpt[nt][r] = p * (dpt[nt][r] - Dl[ql]) * sm_scale;  // dS^T
-        st[nt][r] = p;                                      // P^T
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t a = (kk >> 2) * KV_BK * 128 + wg * 64 * 128 + (kk & 3) * 32;
+        const uint32_t b = (kk >> 2) * KV_QS * 128 + (kk & 3) * 32;
+        wgmma_ss(dpt, desc_sw128(sV + a, 16, 1024), desc_sw128(sD + b, 16, 1024), kk > 0);
       }
+      wg_commit();
+      wg_wait_all();
+      reg_fence(st);
+      reg_fence(dpt);
 
+      // P^T = exp(s - lse) and dS^T = P^T (dP^T - delta) scale; the causal
+      // triangle and queries past S only on the diagonal and ragged tiles
+      const float* rv = rowv + s * 2 * KV_QS;
+      const bool edge = q0 < kw0 + 63 || q0 + KV_QS > S;
 #pragma unroll
-    for (int j = 0; j < BQKV / 16; ++j) {
-      uint32_t pa[4], sa[4];
-      acc_to_a(pa, st[2 * j], st[2 * j + 1]);
-      acc_to_a(sa, dpt[2 * j], dpt[2 * j + 1]);
+      for (int j = 0; j < KV_QS / 8; ++j)
 #pragma unroll
-      for (int d = 0; d < HD / 8; ++d) {
-        const int n = d * 8 + g, kk = j * 16 + t * 2;
-        mma_bf16(dv[d], pa, ld32(&Dt[n][kk]), ld32(&Dt[n][kk + 8]));
-        mma_bf16(dk[d], sa, ld32(&Qt[n][kk]), ld32(&Qt[n][kk + 8]));
+        for (int e = 0; e < 2; ++e) {
+          const int ql = j * 8 + t * 2 + e, q = q0 + ql;
+          const float L = rv[ql], D = rv[KV_QS + ql];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i2 = j * 4 + h * 2 + e;
+            float p = kvalid[h] ? exp2f(st[i2] * scale_log2 - L) : 0.f;
+            if (edge && (krows[h] > q || q >= S)) p = 0.f;
+            dpt[i2] = p * (dpt[i2] - D) * sm_scale;
+            st[i2] = p;
+          }
+        }
+
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to bf16 from the
+      // accumulators, dO and Q read MN-major through the transpose bit
+      uint32_t pa[KV_QS / 16][4], sa[KV_QS / 16][4];
+#pragma unroll
+      for (int c = 0; c < KV_QS / 16; ++c) {
+        hopper::acc_to_a(pa[c], &st[8 * c], &st[8 * c + 4]);
+        hopper::acc_to_a(sa[c], &dpt[8 * c], &dpt[8 * c + 4]);
       }
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < KV_QS / 16; ++c) wgmma_rs(dv, pa[c], desc_sw128(sD + c * 16 * 128, KV_QS * 128, 1024));
+#pragma unroll
+      for (int c = 0; c < KV_QS / 16; ++c) wgmma_rs(dk, sa[c], desc_sw128(sQ + c * 16 * 128, KV_QS * 128, 1024));
+      wg_commit();
+      wg_wait_all();
+      reg_fence(dk);
+      reg_fence(dv);
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
   }
 
+  // dK and dV through shared memory (the K and V slots, whose rows only
+  // this warpgroup read) and out by TMA; rows past S are not written
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (krows[h] >= S) continue;
+    const int r = wg * 64 + w * 16 + g + h * 8;
 #pragma unroll
-    for (int d = 0; d < HD / 8; ++d) {
-      const size_t off = base + (size_t)krows[h] * HD + d * 8 + t * 2;
-      *reinterpret_cast<__nv_bfloat162*>(dK + off) = __floats2bfloat162_rn(dk[d][2 * h], dk[d][2 * h + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dV + off) = __floats2bfloat162_rn(dv[d][2 * h], dv[d][2 * h + 1]);
+    for (int j = 0; j < HD / 8; ++j) {
+      const uint32_t off = (j >> 3) * KV_BK * 128 + r * 128 + (((j & 7) ^ (r & 7)) << 4) + t * 4;
+      *reinterpret_cast<__nv_bfloat162*>(smem + off) = __floats2bfloat162_rn(dk[j * 4 + h * 2], dk[j * 4 + h * 2 + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(smem + KV_BYTES + off) =
+          __floats2bfloat162_rn(dv[j * 4 + h * 2], dv[j * 4 + h * 2 + 1]);
     }
+  }
+  fence_proxy_async();
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the eight consumer warps
+  if (tid == 0) {
+    for (int c = 0; c < NCB; ++c) {
+      tma_store_3d(&tdk, sK + c * KV_BK * 128, c * 64, k_off, bh);
+      tma_store_3d(&tdv, sV + c * KV_BK * 128, c * 64, k_off, bh);
+    }
+    tma_store_wait();
   }
 }
 
 template <int HD>
-int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const int* mask, const bf16* dout, const float* lse,
+int launch_dkv(const void* q, const void* k, const void* v, const int* mask, const void* dout, const float* lse,
                const float* delta, bf16* dk, bf16* dv, int BH, int S, float sm_scale, cudaStream_t s) {
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+  if (!make_map(&tq, q, HD, S, BH, KV_QS) || !make_map(&tdo, dout, HD, S, BH, KV_QS) ||
+      !make_map(&tk, k, HD, S, BH, KV_BK) || !make_map(&tv, v, HD, S, BH, KV_BK) ||
+      !make_map(&tdk, dk, HD, S, BH, KV_BK) || !make_map(&tdv, dv, HD, S, BH, KV_BK))
+    return (int)cudaErrorInvalidValue;
   constexpr size_t smem = dkv_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + BKV - 1) / BKV, BH);
-  flash_bwd_dkv_kernel<HD><<<grid, 128, smem, s>>>(q, k, v, mask, dout, lse, delta, dk, dv, S, sm_scale);
+  static bool smem_allowed = false;  // raised once, not at every launch
+  if (!smem_allowed) {
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed = true;
+  }
+  // a head's key tiles together (Q and dO stay in L2), the first, with the
+  // longest query loop, first
+  const dim3 grid((S + KV_BK - 1) / KV_BK, BH);
+  flash_bwd_dkv_kernel<HD><<<grid, 3 * 128, smem, s>>>(tq, tk, tv, tdo, tdk, tdv, mask, lse, delta, S, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -348,13 +441,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              const float* lse, const float* delta, void* dk, void* dv, int BH, int S, int hd,
                              float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k), *V = static_cast<const bf16*>(v),
-             *D = static_cast<const bf16*>(dout);
-  if (hd == 128)
-    return launch_dkv<128>(Q, K, V, mask, D, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), BH, S,
-                           sm_scale, s);
-  if (hd == 64)
-    return launch_dkv<64>(Q, K, V, mask, D, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), BH, S,
-                          sm_scale, s);
+  bf16 *dK = static_cast<bf16*>(dk), *dV = static_cast<bf16*>(dv);
+  if (hd == 128) return launch_dkv<128>(q, k, v, mask, dout, lse, delta, dK, dV, BH, S, sm_scale, s);
+  if (hd == 64) return launch_dkv<64>(q, k, v, mask, dout, lse, delta, dK, dV, BH, S, sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -55,8 +55,8 @@ def _valid(g, mask):
 
 @pytest.mark.parametrize(
     "S,valid,bq,bk",
-    [(256, 230, 128, 128), (200, 181, 128, 128), (256, 230, 64, 128), (256, 256, 128, 96)],
-    ids=["padding-mask", "ragged-S", "blocks-64-128", "blocks-128-96"],
+    [(256, 230, 128, 128), (200, 181, 128, 128), (256, 230, 64, 128), (256, 256, 128, 96), (563, 523, 64, 128)],
+    ids=["padding-mask", "ragged-S", "blocks-64-128", "blocks-128-96", "dkv-kernel-tiles-ragged"],
 )
 def test_flash_grads_match_jax(S, valid, bq, bk, record_property):
     q, k, v, mask = _inputs(1, 2, S, 64, S + bq + bk, valid)
@@ -117,7 +117,8 @@ def test_flash_bwd_kernels_match_plain_on_card(card):
     land an entry a bf16 step (2^-8 relative) away at most. Bit-identical
     over two launches."""
     g = torch.Generator(device=card).manual_seed(0)
-    for BH, S, hd, valid in ((4, 563, 128, 563), (3, 300, 128, 260), (2, 129, 64, 100)):
+    for BH, S, hd, valid in ((4, 563, 128, 563), (3, 300, 128, 260), (2, 129, 64, 100), (256, 563, 128, 563),
+                             (256, 563, 128, 523)):
         q, k, v, do = (torch.randn((BH, S, hd), generator=g, device=card).to(torch.bfloat16) for _ in range(4))
         mask = (torch.arange(S, device=card) < valid).to(torch.int32)[None].expand(BH, S).contiguous()
         o, lse = tflash.flash_fwd(q, k, v, mask)

@@ -1,0 +1,41 @@
+"""The controls of chip_smoke.py: each is a copy of a kernel's source with a
+fault its check on the card must catch. A redesign that moves the code a
+mutation names would silently drop the control; these tests catch that on
+the CPU, before a run on the card."""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke  # noqa: E402
+from mla_tpu_torch.ops import cuda  # noqa: E402
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.CONTROLS))
+def test_control_mutations_match_once(name):
+    src = (cuda.CSRC / f"{name}.cu").read_text()
+    for old, new in chip_smoke.CONTROLS[name]:
+        assert src.count(old) == 1, f"{name}.cu holds {old!r} {src.count(old)} times"
+        assert old != new
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.CONTROLS))
+def test_control_source_differs(name):
+    src = (cuda.CSRC / f"{name}.cu").read_text()
+    control = chip_smoke.control_source(cuda, name)
+    assert control != src
+    assert len(control.splitlines()) == len(src.splitlines())
+
+
+def test_control_source_raises_on_a_stale_mutation(monkeypatch):
+    monkeypatch.setitem(chip_smoke.CONTROLS, "flash_fwd", (("no such line;", "x"),))
+    with pytest.raises(AssertionError, match="not once"):
+        chip_smoke.control_source(cuda, "flash_fwd")
+
+
+def test_every_flash_kernel_has_a_control():
+    assert {"flash_fwd", "flash_bwd"} <= set(chip_smoke.CONTROLS)
+    assert set(chip_smoke.CONTROLS) <= set(cuda.SIGNATURES)

@@ -126,6 +126,8 @@ def _qkv(shape, seed):
     (256, 230, 64, 128),    # asymmetric blocks: ceil-div diagonal, lcm padding
     (256, 230, 128, 96),
     (150, 140, 128, 64),
+    (534, 494, 64, 64),     # the card kernel's 64 x 64 tiles: ragged S, padded keys
+    (563, 523, 64, 64),     # the same at the training length
 ])
 def test_flash_plain_matches_jax(S, valid, bq, bk, record_property):
     B, H, hd = 1, 2, 64
@@ -200,11 +202,14 @@ def test_fps_kernel_matches_plain_on_card(card):
 @pytest.mark.gpu
 def test_flash_kernel_matches_plain_on_card(card):
     g = torch.Generator(device=card).manual_seed(2)
-    q, k, v = (torch.randn((4, 534, 128), generator=g, device=card).to(torch.bfloat16) for _ in range(3))
-    mask = torch.ones((4, 534), dtype=torch.int32, device=card)
-    mask[:, 500:] = 0
-    o, lse = tflash.flash_fwd(q, k, v, mask)
-    op, lsep = tflash.flash_fwd_plain(q, k, v, mask)
-    # bf16 out, different tiles: about one bf16 ulp
-    assert float((o.float() - op.float())[:, :500].abs().max()) <= 2e-2
-    assert float((lse - lsep)[:, :500].abs().max()) <= 1e-3
+    # a few heads, the serving prefill and the training shape, each with a
+    # padded key tail; hd 64 at a ragged S
+    for BH, S, hd, valid in ((4, 534, 128, 500), (32, 534, 128, 494), (256, 563, 128, 523), (3, 129, 64, 100)):
+        q, k, v = (torch.randn((BH, S, hd), generator=g, device=card).to(torch.bfloat16) for _ in range(3))
+        mask = torch.ones((BH, S), dtype=torch.int32, device=card)
+        mask[:, valid:] = 0
+        o, lse = tflash.flash_fwd(q, k, v, mask)
+        op, lsep = tflash.flash_fwd_plain(q, k, v, mask)
+        # bf16 out, different tiles: about one bf16 ulp
+        assert float((o.float() - op.float())[:, :valid].abs().max()) <= 2e-2, (BH, S)
+        assert float((lse - lsep)[:, :valid].abs().max()) <= 1e-3, (BH, S)

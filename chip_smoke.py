@@ -5,24 +5,30 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-or, to time this tree's flash forward and dK/dV kernels against another
-version of them (such as the parent commit's, written out with
+or, to time this tree's flash forward, dQ, dK/dV and W8A8 kernels against
+another version of them (such as the parent commit's, written out with
 `git show HEAD~1:mla_tpu_torch/csrc/flash_fwd.cu`, the same for
-flash_bwd.cu and, where that commit has it, hopper.cuh), add `--parent DIR`.
+flash_bwd.cu, w8a8.cu and, where that commit has it, hopper.cuh), add
+`--parent DIR`.
 
 Phases, each of which fails the run if it fails:
   1. build        compile every CUDA kernel from mla_tpu_torch/csrc with
                   nvcc (sm_90a), one process per source, in parallel, and
-                  beside them three controls, each in a temporary directory:
+                  beside them four controls, each in a temporary directory:
                   a copy of flash_fwd.cu with its last, ragged key tile
                   dropped, a copy of flash_bwd.cu with the last, partial
-                  tile of each backward loop dropped, and a copy of
-                  int8_mm.cu with its last K tile dropped (and, with
-                  --parent, the other version's flash kernels).
+                  tile of each backward loop dropped, a copy of int8_mm.cu
+                  and one of w8a8.cu with the last K tile dropped (and,
+                  with --parent, the other version's kernels).
   2. kernels      hold each kernel against its plain PyTorch version and
                   time kernel, plain version, a PyTorch library call
-                  (yardstick only) and the roofline bound: W8A8 and FPS at
-                  the shapes of the int8 mla-7b serving path; the flash
+                  (yardstick only) and the roofline bound: W8A8 (int32
+                  accumulators and outputs identical) at the shapes of the
+                  int8 mla-7b serving path and at ragged and boundary row
+                  counts on both sides of its narrow/wide line, the check
+                  rejecting the control at every shape, kernel and
+                  torch._int_mm timed as CUDA graphs with the weights cycled
+                  past L2; FPS at the serving shapes; the flash
                   forward at the serving prefill (BH 32, S 534) and the
                   mla-2b training shape (BH 256, S 563), with and without a
                   padded key tail, o and lse at every valid row, the check
@@ -39,8 +45,10 @@ Phases, each of which fails the run if it fails:
                   launches; the check must reject the int8_mm control. The
                   flash kernels are timed as CUDA graphs of 20 launches
                   (device time, no host launch cost). With --parent, the
-                  other version's flash forward and dK/dV in turns with
-                  this tree's (parent, this, this, parent).
+                  other version's flash forward, dQ, dK/dV and one layer's
+                  four W8A8 linears (M = 534 and 18; an earlier W8A8 ABI
+                  gets [K, N] weights) in turns with this tree's (parent,
+                  this, this, parent).
   3. agree        serve one DDIM-8 request of an int8 `mla-small` (4
                   decoder layers, full-width front-ends) on the card and on
                   the CPU (plain versions) from the same weights and noise;
@@ -106,6 +114,7 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}
 # suffix 18 tokens; (K, N) of the fused qkv, o, fused gate-up and down linears
 PREFIX_LEN, SUFFIX_LEN = 534, 18
 LINEARS = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096)]
+L2_BYTES = 50e6  # H100 L2: weight copies are cycled past it, as a layer's products find them cold
 
 
 def log(msg: str) -> None:
@@ -139,46 +148,114 @@ def bound_ms(nbytes: float, ops: float, kind: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_w8a8(torch, report):
+# W8A8 beyond the serving shapes: ragged and boundary row counts (one row,
+# an odd count under 32, just past the narrow tile's 32, both sides of the
+# narrow/wide line, a ragged wide tile), at the o and down linears, whose
+# N = 4096 splits K on both paths
+W8A8_EDGE_M = (1, 17, 33, 63, 64, 65, PREFIX_LEN + 1)
+W8A8_EDGE_LINEARS = ((4096, 4096), (11008, 4096))
+
+
+def weight_copies(torch, gen, K, N):
+    """int8 [K, N] weights, enough distinct copies that cycling through them
+    reads each from memory, not L2, as a layer's products find them."""
+    return [torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+            for _ in range(max(2, int(4 * L2_BYTES // (K * N)) + 1))]
+
+
+def check_w8a8(torch, report, control):
+    """W8A8 against its plain version: the int32 accumulators and outputs
+    identical at the serving shapes (M = 534 and 18 by the four mla-7b
+    linears) and at W8A8_EDGE_M; the control (its last K tile dropped) must
+    miss at every shape. Times kernel (CUDA graph, weights K-major and
+    cycled past L2), plain version, torch._int_mm with the quantization and
+    rescale around it (the yardstick, timed the same way) and the bound."""
+    from mla_tpu_torch.ops import cuda
     from mla_tpu_torch.ops import quantization as q
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "err": 0.0, "b_bytes": 0.0, "b_ops": 0.0}
+    readings = {"per_layer_ms": {}, "checked": [], "control_missed": []}
+
+    def check(x, w_q, w_qt, ws, where):
+        y, acc = q.w8a8_matmul(x, w_qt, ws, return_acc=True)
+        yp, accp = q.w8a8_matmul_plain(x, w_q.t(), ws, return_acc=True)
+        with kernel_from(cuda, "w8a8", control):
+            _, acc_c = q.w8a8_matmul(x, w_qt, ws, return_acc=True)
+        torch.cuda.synchronize()
+        if not torch.equal(acc, accp):
+            raise AssertionError(f"w8a8 {where}: int32 accumulators differ ({int((acc != accp).sum())} entries)")
+        err = float((y.float() - yp.float()).abs().max())
+        if err != 0.0:
+            raise AssertionError(f"w8a8 {where}: outputs differ by {err} with equal accumulators")
+        if torch.equal(acc_c, accp):
+            raise AssertionError(f"w8a8 {where}: the check passes the control")
+        readings["checked"].append(where)
+        readings["control_missed"].append(int((acc_c != accp).sum()))
+        return err
+
+    for K, N in W8A8_EDGE_LINEARS:
+        w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        w_qt = w_q.t().contiguous()
+        ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
+        for M in W8A8_EDGE_M:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            check(x, w_q, w_qt, ws, f"M={M} K={K} N={N}")
+        log(f"w8a8 K={K} N={N}: acc and output identical at M = {W8A8_EDGE_M}, the control missed")
+        del w_q, w_qt
+
     for M in (PREFIX_LEN, SUFFIX_LEN):
+        layer = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
         for K, N in LINEARS:
             x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-            w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+            copies = weight_copies(torch, gen, K, N)
+            kmajor = [c.t().contiguous() for c in copies]
             ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
-            y, acc = q.w8a8_matmul(x, w_q, ws, return_acc=True)
-            yp, accp = q.w8a8_matmul_plain(x, w_q, ws, return_acc=True)
-            torch.cuda.synchronize()
-            if not torch.equal(acc, accp):
-                raise AssertionError(f"w8a8 M={M} K={K} N={N}: int32 accumulators differ "
-                                     f"({int((acc != accp).sum())} entries)")
-            err = float((y.float() - yp.float()).abs().max())
-            if err != 0.0:
-                raise AssertionError(f"w8a8 M={M} K={K} N={N}: outputs differ by {err} with equal accumulators")
+            err = check(x, copies[0], kmajor[0], ws, f"M={M} K={K} N={N}")
 
-            def library():
+            def library(w):
                 xq, sx = q.quantize_rows(x)
-                return (torch._int_mm(xq, w_q).float() * sx * ws).to(torch.bfloat16)
+                return (torch._int_mm(xq, w).float() * sx * ws).to(torch.bfloat16)
 
-            ms = cuda_ms(torch, lambda: q.w8a8_matmul(x, w_q, ws), 20)
-            plain_ms = cuda_ms(torch, lambda: q.w8a8_matmul_plain(x, w_q, ws), 3, 1)
-            lib_ms = cuda_ms(torch, library, 20)
+            cyc, cyc_lib = itertools.cycle(kmajor), itertools.cycle(copies)
+            ms = graph_ms(torch, lambda: q.w8a8_matmul(x, next(cyc), ws))
+            plain_ms = cuda_ms(torch, lambda: q.w8a8_matmul_plain(x, kmajor[0], ws), 3, 1)
+            lib_ms = graph_ms(torch, lambda: library(next(cyc_lib)))
             nbytes, ops = M * K * 2 + K * N + N * 4 + M * N * 2, 2.0 * M * K * N
             b, by = bound_ms(nbytes, ops, "int8")
-            log(f"w8a8 M={M:4d} K={K:5d} N={N:5d}: acc identical, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"_int_mm {lib_ms:.4f} ms, bound {b:.4f} ms ({by})")
+            plan = q.w8a8_plan(M, K, N, torch.cuda.get_device_properties(0).multi_processor_count)
+            log(f"w8a8 M={M:4d} K={K:5d} N={N:5d}: acc identical, kernel {ms:.4f} ms "
+                f"({'narrow' if plan.narrow else 'wide'}, {plan.tiles} tiles x {plan.splits} splits, "
+                f"{len(copies)} weight copies), plain {plain_ms:.4f} ms, _int_mm {lib_ms:.4f} ms, "
+                f"bound {b:.4f} ms ({by})")
             report["shapes"].append({"kernel": "w8a8_matmul", "M": M, "K": K, "N": N, "ms": ms, "plain_ms": plain_ms,
-                                     "library_ms": lib_ms, "bound_ms": b, "bound_by": by, "max_abs_err": err})
-            tot["ms"] += ms
-            tot["plain_ms"] += plain_ms
-            tot["library_ms"] += lib_ms
-            tot["bound_ms"] += b
+                                     "library_ms": lib_ms, "bound_ms": b, "bound_by": by, "max_abs_err": err,
+                                     "splits": plan.splits, "narrow": plan.narrow})
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b), ("library_ms", lib_ms)):
+                tot[k] += v
+            for k, v in (("ms", ms), ("bound_ms", b), ("library_ms", lib_ms)):
+                layer[k] += v
             tot["b_bytes"] += nbytes / PEAK_BYTES * 1e3
             tot["b_ops"] += ops / PEAK_OPS["int8"] * 1e3
             tot["err"] = max(tot["err"], err)
+            del copies, kmajor
+        readings["per_layer_ms"][M] = layer
+        log(f"w8a8 M={M}: one layer's 4 linears {layer['ms']:.4f} ms, _int_mm {layer['library_ms']:.4f} ms, "
+            f"bound {layer['bound_ms']:.4f} ms")
+    # the wrapper's host time per call (checks, plan, scratch, two launches),
+    # at a shape whose device time is far shorter, so the host sets the pace
+    x = torch.randn((1, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    w_qt = torch.randint(-127, 128, (64, 128), generator=gen, device="cuda", dtype=torch.int8)
+    ws = torch.rand((64,), generator=gen, device="cuda")
+    q.w8a8_matmul(x, w_qt, ws)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(200):
+        q.w8a8_matmul(x, w_qt, ws)
+    readings["host_us_per_call"] = (time.perf_counter() - t) / 200 * 1e6
+    torch.cuda.synchronize()
+    log(f"w8a8 host time per call (M=1 K=128 N=64, 200 calls): {readings['host_us_per_call']:.1f} us")
+    report["w8a8"] = readings
     return {
         "name": "w8a8_matmul", "route": "cuda", "source": "mla_tpu_torch/csrc/w8a8.cu",
         "replaces": "mla_tpu/ops/quantization.py:347", "max_abs_err": tot["err"],
@@ -358,9 +435,9 @@ ROW_FLOOR = 1e-2
 # unpadded case shows
 FLASH_FWD_MUTATIONS = (("const int nk_all = (S + BN - 1) / BN;", "const int nk_all = S / BN;"),)
 # flash_bwd.cu with the last, partial tile of each loop dropped (at S = 563,
-# keys 544..562 for dQ and queries 512..562 for dK/dV), the ragged-S fault
+# keys 512..562 for dQ and queries 512..562 for dK/dV), the ragged-S fault
 FLASH_BWD_MUTATIONS = (
-    ("const int nk = min((S + BKQ - 1) / BKQ,", "const int nk = min(S / BKQ,"),
+    ("const int nk_all = (S + DQ_BN - 1) / DQ_BN;", "const int nk_all = S / DQ_BN;"),
     ("const int nq = (S + KV_QS - 1) / KV_QS;", "const int nq = S / KV_QS;"),
 )
 # int8_mm.cu with its last K tile dropped (the loops over K tiles of its
@@ -372,7 +449,11 @@ INT8_MM_MUTATIONS = (
     ("const int nkt = K / FBK;\n  for (int kt = 0; kt < nkt; ++kt)",
      "const int nkt = K / FBK;\n  for (int kt = 0; kt < nkt - 1; ++kt)"),
 )
-CONTROLS = {"flash_fwd": FLASH_FWD_MUTATIONS, "flash_bwd": FLASH_BWD_MUTATIONS, "int8_mm": INT8_MM_MUTATIONS}
+# w8a8.cu with its last K tile dropped (every split range of both paths
+# ends one tile short), the fault the exact check must catch
+W8A8_MUTATIONS = (("const int kt = (K + BK - 1) / BK;", "const int kt = (K + BK - 1) / BK - 1;"),)
+CONTROLS = {"flash_fwd": FLASH_FWD_MUTATIONS, "flash_bwd": FLASH_BWD_MUTATIONS, "int8_mm": INT8_MM_MUTATIONS,
+            "w8a8": W8A8_MUTATIONS}
 
 
 def control_source(cuda, name: str) -> str:
@@ -540,22 +621,48 @@ def check_flash_bwd(torch, report, control):
     return out_rows
 
 
-PARENT_KERNELS = ("flash_fwd", "flash_bwd")
+PARENT_KERNELS = ("flash_fwd", "flash_bwd", "w8a8")
 
 
-def compare_parent(torch, report, parent):
-    """The flash forward (both shapes) and dK/dV (training shape) of this
-    tree against `parent`'s kernels on the same card and inputs, in turns:
-    parent, this tree, this tree, parent (CUDA graph device times)."""
+def w8a8_abi(src: str) -> str:
+    """'k_major' for a w8a8.cu whose entry point takes the weight K-major
+    with split-K scratch (this tree's), 'kn' for the earlier one ([K, N]
+    weights, 11 arguments and the stream)."""
+    decl = src[src.index('extern "C" int w8a8_matmul('):]
+    return "k_major" if decl[:decl.index(")")].count(",") > 11 else "kn"
+
+
+def load_parent_w8a8(lib: Path, abi: str):
+    """The other version's W8A8 library, with its own C signature."""
+    import ctypes
+
+    from mla_tpu_torch.ops import cuda
+
+    if abi == "k_major":
+        return cuda.load("w8a8", lib)
+    handle = ctypes.CDLL(str(lib))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    handle.w8a8_matmul.argtypes = [P, I, P, P, P, P, P, P, I, I, I, P]
+    handle.w8a8_matmul.restype = ctypes.c_int
+    return handle
+
+
+def compare_parent(torch, report, parent, w8a8_layout):
+    """The flash forward (both shapes), dQ and dK/dV (training shape) and one
+    layer's four W8A8 linears (M = 534 and 18, weights cycled past L2) of
+    this tree against `parent`'s kernels on the same card and inputs, in
+    turns: parent, this tree, this tree, parent (CUDA graph device times).
+    A W8A8 of the earlier ABI gets its own arguments: [K, N] weights."""
     from mla_tpu_torch.ops import cuda
     from mla_tpu_torch.ops import flash_attention as fa
+    from mla_tpu_torch.ops import quantization as q
 
     out = {}
 
-    def turns(name, key, fn):
+    def turns(name, key, fn, fn_parent=None):
         def theirs():
             with kernel_from(cuda, name, parent[name]):
-                return graph_ms(torch, fn)
+                return graph_ms(torch, fn_parent or fn)
 
         t = [theirs(), graph_ms(torch, fn), graph_ms(torch, fn), theirs()]
         out[key] = {"parent_ms": [t[0], t[3]], "ms": [t[1], t[2]]}
@@ -563,15 +670,48 @@ def compare_parent(torch, report, parent):
 
     gen = torch.Generator(device="cuda").manual_seed(17)
     for BH, S, what in FLASH_SHAPES:
-        q, k, v, do = (torch.randn((BH, S, 128), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
+        q_, k, v, do = (torch.randn((BH, S, 128), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
         mask = torch.ones((BH, S), dtype=torch.int32, device="cuda")
-        o, lse = torch.empty_like(q), torch.empty((BH, S), dtype=torch.float32, device="cuda")
-        turns("flash_fwd", f"flash fwd BH={BH} S={S} ({what})", fwd_call(cuda, q, k, v, mask, o, lse))
-    o, lse = fa.flash_fwd(q, k, v, mask)
+        o, lse = torch.empty_like(q_), torch.empty((BH, S), dtype=torch.float32, device="cuda")
+        turns("flash_fwd", f"flash fwd BH={BH} S={S} ({what})", fwd_call(cuda, q_, k, v, mask, o, lse))
+    o, lse = fa.flash_fwd(q_, k, v, mask)
     delta = (do.float() * o.float()).sum(-1)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
-    dkv = bwd_calls(cuda, ptrs, torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), BH, S, 128)["dkv"]
-    turns("flash_bwd", f"flash dK/dV BH={BH} S={S} (training)", dkv)
+    ptrs = (q_.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr())
+    calls = bwd_calls(cuda, ptrs, torch.empty_like(q_), torch.empty_like(k), torch.empty_like(v), BH, S, 128)
+    turns("flash_bwd", f"flash dQ BH={BH} S={S} (training)", calls["dq"])
+    turns("flash_bwd", f"flash dK/dV BH={BH} S={S} (training)", calls["dkv"])
+    del q_, k, v, do, o, lse, delta
+
+    for M in (PREFIX_LEN, SUFFIX_LEN):
+        linears = []
+        for K, N in LINEARS:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
+            copies = weight_copies(torch, gen, K, N)
+            kmajor = [c.t().contiguous() for c in copies]
+            linears.append((x, ws, itertools.cycle(kmajor),
+                            itertools.cycle(kmajor if w8a8_layout == "k_major" else copies)))
+            del copies
+
+        def layer():
+            for x, ws, cyc, _ in linears:
+                q.w8a8_matmul(x, next(cyc), ws)
+
+        def layer_parent():
+            for x, ws, _, cyc in linears:
+                if w8a8_layout == "k_major":
+                    q.w8a8_matmul(x, next(cyc), ws)
+                    continue
+                K, N = x.shape[1], ws.shape[0]
+                y = torch.empty((M, N), dtype=x.dtype, device="cuda")
+                xq = torch.empty((M, K), dtype=torch.int8, device="cuda")
+                sx = torch.empty((M,), dtype=torch.float32, device="cuda")
+                cuda.call("w8a8", x.data_ptr(), 1, next(cyc).data_ptr(), ws.data_ptr(), y.data_ptr(), xq.data_ptr(),
+                          sx.data_ptr(), None, M, K, N)
+
+        turns("w8a8", f"w8a8 one layer's 4 linears, M={M}", layer, layer_parent)
+        del linears
     report["parent"] = out
 
 
@@ -586,7 +726,6 @@ INT8_M = (1, 4, PREFIX_LEN + 1)
 # can cancel to ~0, where only the fp32 sum order is left, ~1e-3 of the
 # floor); the tolerance is one bf16 step plus that term
 INT8_COL_RTOL = 1e-2
-L2_BYTES = 50e6  # H100 L2: weight copies are cycled past it, as a decode step finds them cold
 
 
 def col_rel_err(a, w):
@@ -614,8 +753,7 @@ def check_int8_mm(torch, report, control):
         for K, N in LINEARS:
             x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
             ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
-            copies = [torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
-                      for _ in range(max(2, int(4 * L2_BYTES // (K * N)) + 1))]
+            copies = weight_copies(torch, gen, K, N)
             w_q = copies[0]
             y, again, want = q.int8_matmul(x, w_q, ws), q.int8_matmul(x, w_q, ws), q.int8_matmul_plain(x, w_q, ws)
             with kernel_from(cuda, "int8_mm", control):
@@ -1103,9 +1241,9 @@ def train(torch, report):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.")
-    parser.add_argument("--parent", help="a directory holding another version of flash_fwd.cu and flash_bwd.cu "
-                        "(such as the parent commit's, with its hopper.cuh where it has one) to time against "
-                        "this tree's kernels")
+    parser.add_argument("--parent", help="a directory holding another version of flash_fwd.cu, flash_bwd.cu and "
+                        "w8a8.cu (such as the parent commit's, with its hopper.cuh where it has one) to time "
+                        "against this tree's kernels")
     args = parser.parse_args()
     try:
         import torch
@@ -1147,14 +1285,22 @@ def main() -> int:
         raise
     for name, text in built.items():
         log(f"built {name}.cu\n" + "\n".join("  " + l for l in text.strip().splitlines() if "registers" in l or "spill" in l))
-    libs = {key: finish_build(cuda, key[1] if isinstance(key, tuple) else key, *proc) for key, proc in started.items()}
+    w8a8_layout = w8a8_abi((Path(args.parent) / "w8a8.cu").read_text()) if args.parent else None
+    libs = {}
+    for key, (lib, proc) in started.items():
+        if key == ("parent", "w8a8"):
+            finish_build(cuda, "w8a8", lib, proc)
+            libs[key] = load_parent_w8a8(lib, w8a8_layout)
+        else:
+            libs[key] = finish_build(cuda, key[1] if isinstance(key, tuple) else key, lib, proc)
     log(f"build: {time.perf_counter() - t:.1f} s (with the control copies of {', '.join(CONTROLS)}"
         f"{' and the parent kernels' if args.parent else ''})")
-    kernels = [check_w8a8(torch, report), check_fps(torch, report), check_flash(torch, report, libs["flash_fwd"]),
+    kernels = [check_w8a8(torch, report, libs["w8a8"]), check_fps(torch, report),
+               check_flash(torch, report, libs["flash_fwd"]),
                check_int8_mm(torch, report, libs["int8_mm"])]
     train_kernels = check_flash_bwd(torch, report, libs["flash_bwd"])
     if args.parent:
-        compare_parent(torch, report, {name: libs[("parent", name)] for name in PARENT_KERNELS})
+        compare_parent(torch, report, {name: libs[("parent", name)] for name in PARENT_KERNELS}, w8a8_layout)
     check_agreement(torch, report)
     check_ar_agreement(torch, report, libs["int8_mm"])
     totals, ar_policy = serve(torch, report)

@@ -20,11 +20,21 @@
 // work is split as the TPU kernels split it, so no two blocks write the
 // same output and no atomics are needed: two runs give bit-identical
 // gradients.
-//   dQ:    one block per (batch*head, 64-query tile), four warps of 16 rows,
-//          mma.sync m16n8k16.  Q and dO fragments stay in registers; 32-key
-//          tiles of K (as stored and transposed) and V stream through shared
-//          memory, up to the diagonal tile (ceil-div), as _bwd_dq_kernel
-//          loops.
+//   dQ:    one block per (batch*head, 64-query tile): one consumer
+//          warpgroup and a producer warp, two blocks per SM; a head's query
+//          tiles are launched together (K and V stay in L2), the longest
+//          causal loop first.  Q and dO are loaded once by TMA and stay in
+//          shared memory, lse and delta in registers; 64-key tiles of K and
+//          V stream through two-stage TMA rings (3-D tensor maps: the ragged
+//          tail reads zeros) up to the diagonal tile (ceil-div), as
+//          _bwd_dq_kernel loops.  S = Q K^T and dP = dO V^T run on wgmma
+//          with both operands K-major as stored; dS, converted in registers
+//          from the accumulators, is the A operand of dQ += dS K, with K
+//          read MN-major through the transpose bit: no transposed copy.  The
+//          key mask is scanned into one flag per key tile while the first
+//          tiles load, and masks apply only on the diagonal tile and tiles
+//          with a padded key or a key past S.  dQ leaves through the Q slot
+//          by TMA store (rows past S clipped).
 //   dK/dV: one block per (batch*head, 128-key tile); a head's key tiles
 //          are launched together (Q and dO stay in L2), the first, with the
 //          longest query loop, first.  Two consumer warpgroups of 64 keys
@@ -57,157 +67,216 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;    // dQ: query rows per block
-constexpr int BKQ = 32;   // dQ: key rows per step
-constexpr float NEG_INF = -1e30f;
+constexpr int DQ_BM = 64;      // dQ: query rows per block, one consumer warpgroup
+constexpr int DQ_BN = 64;      // dQ: keys per tile
+constexpr int DQ_STAGES = 2;   // dQ: depth of the K and V rings
+constexpr int DQ_THREADS = 128 + 32;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragments (16 rows x HD) of a [S, HD] matrix for rows r[0], r[1] (= r[0] + 8);
-// rows past S read as zero.
 template <int HD>
-__device__ __forceinline__ void load_frags(uint32_t (&a)[HD / 16][4], const bf16* __restrict__ src,
-                                           const int (&r)[2], int S, int t) {
-#pragma unroll
-  for (int c = 0; c < HD / 16; ++c) {
-    const int col = c * 16 + t * 2;
-    a[c][0] = r[0] < S ? ld32(src + (size_t)r[0] * HD + col) : 0u;
-    a[c][1] = r[1] < S ? ld32(src + (size_t)r[1] * HD + col) : 0u;
-    a[c][2] = r[0] < S ? ld32(src + (size_t)r[0] * HD + col + 8) : 0u;
-    a[c][3] = r[1] < S ? ld32(src + (size_t)r[1] * HD + col + 8) : 0u;
-  }
-}
-
-// Rows [r0, r0 + ROWS) of a [S, HD] matrix into shared memory: as stored into
-// `rm` (if ROW) and transposed into `tr` (if TRANS).  Rows past S are zero.
-template <int ROWS, int HD, bool ROW, bool TRANS, int RP, int TP>
-__device__ __forceinline__ void load_tile(const bf16* __restrict__ src, int r0, int S, bf16 (*rm)[RP],
-                                          bf16 (*tr)[TP]) {
-  for (int i = threadIdx.x; i < ROWS * (HD / 8); i += blockDim.x) {
-    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < S) v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * HD + c);
-    if (ROW) *reinterpret_cast<uint4*>(&rm[r][c]) = v;
-    if (TRANS) {
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) tr[c + j][r] = e[j];
-    }
-  }
-}
-
-// A fragment of a 16 x 16 chunk j from two adjacent n-tiles of accumulators,
-// rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4], const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
+constexpr size_t dq_smem_bytes(int nk_all) {
+  return 1024 + (size_t)(HD / 64) * 128 * (2 * DQ_BM + 2 * DQ_STAGES * DQ_BN) + (4 * DQ_STAGES + 1) * 8 + nk_all;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K, const bf16* __restrict__ V,
-                    const int* __restrict__ mask, const bf16* __restrict__ dO, const float* __restrict__ LSE,
-                    const float* __restrict__ Delta, bf16* __restrict__ dQ, int S, float sm_scale) {
-  constexpr int KP = HD + 8;   // padded row of the K and V tiles (bank spread)
-  constexpr int TP = BKQ + 8;  // padded row of the transposed K tile
-  __shared__ __align__(16) bf16 Ks[BKQ][KP];
-  __shared__ __align__(16) bf16 Vs[BKQ][KP];
-  __shared__ __align__(16) bf16 Kt[HD][TP];
-  __shared__ int Ms[BKQ];
+__global__ void __launch_bounds__(DQ_THREADS, 2)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tdq, const int* __restrict__ mask,
+                    const float* __restrict__ LSE, const float* __restrict__ Delta, int S, float sm_scale) {
+  using namespace hopper;
+  constexpr int NCB = HD / 64;
+  constexpr uint32_t Q_BYTES = NCB * DQ_BM * 128, KV_BYTES = NCB * DQ_BN * 128;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sQ = smem_u32(smem), sD = sQ + Q_BYTES;
+  const uint32_t sK0 = sD + Q_BYTES, sV0 = sK0 + DQ_STAGES * KV_BYTES;  // the K and V rings
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 2 * Q_BYTES + 2 * DQ_STAGES * KV_BYTES);
+  const uint32_t fullK = smem_u32(bars), emptyK = fullK + DQ_STAGES * 8, fullV = emptyK + DQ_STAGES * 8,
+                 emptyV = fullV + DQ_STAGES * 8, qbar = emptyV + DQ_STAGES * 8;
+  signed char* tile_ok = reinterpret_cast<signed char*>(bars + 4 * DQ_STAGES + 1);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, qb = blockIdx.x;
-  const size_t base = (size_t)bh * S * HD;
-  const int row0 = qb * BQ + warp * 16 + g;
-  const int rows[2] = {row0, row0 + 8};
+  const int bh = blockIdx.y;
+  const int q0 = ((S + DQ_BM - 1) / DQ_BM - 1 - (int)blockIdx.x) * DQ_BM;  // the longest causal loop first
+  const int nk_all = (S + DQ_BN - 1) / DQ_BN;
+  const int nk = min(nk_all, (q0 + DQ_BM + DQ_BN - 1) / DQ_BN);
+  const int* mask_row = mask + (size_t)bh * S;
 
-  uint32_t qa[HD / 16][4], da[HD / 16][4];
-  load_frags<HD>(qa, Q + base, rows, S, t);
-  load_frags<HD>(da, dO + base, rows, S, t);
-  float lse[2], dl[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    lse[h] = rows[h] < S ? LSE[(size_t)bh * S + rows[h]] : 0.f;
-    dl[h] = rows[h] < S ? Delta[(size_t)bh * S + rows[h]] : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(fullK + 8 * s, 1);
+      mbar_init(emptyK + 8 * s, 4);  // one arrival per consumer warp
+      mbar_init(fullV + 8 * s, 1);
+      mbar_init(emptyV + 8 * s, 4);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer warp
+    if (lane == 0) {
+      mbar_expect_tx(qbar, 2 * Q_BYTES);
+      for (int c = 0; c < NCB; ++c) {
+        tma_load_3d(sQ + c * DQ_BM * 128, &tq, qbar, c * 64, q0, bh);
+        tma_load_3d(sD + c * DQ_BM * 128, &tdo, qbar, c * 64, q0, bh);
+      }
+      for (int kb = 0; kb < nk; ++kb) {  // a slot is reused once the consumers release it
+        const int s = kb % DQ_STAGES;
+        const uint32_t ph = ((kb / DQ_STAGES) & 1) ^ 1;
+        mbar_wait(emptyK + 8 * s, ph);
+        mbar_expect_tx(fullK + 8 * s, KV_BYTES);
+        for (int c = 0; c < NCB; ++c)
+          tma_load_3d(sK0 + s * KV_BYTES + c * DQ_BN * 128, &tk, fullK + 8 * s, c * 64, kb * DQ_BN, bh);
+        mbar_wait(emptyV + 8 * s, ph);
+        mbar_expect_tx(fullV + 8 * s, KV_BYTES);
+        for (int c = 0; c < NCB; ++c)
+          tma_load_3d(sV0 + s * KV_BYTES + c * DQ_BN * 128, &tv, fullV + 8 * s, c * 64, kb * DQ_BN, bh);
+      }
+    }
+    return;
   }
 
-  float dq[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) dq[d][r] = 0.f;
+  // consumer warpgroup: query rows q0 .. q0 + 63; this thread's rows rows[0]
+  // and rows[1] (warp w holds 16)
+  const int w = warp, g = lane >> 2, t = lane & 3;
+  const int rows[2] = {q0 + w * 16 + g, q0 + w * 16 + g + 8};
 
-  const int nk = min((S + BKQ - 1) / BKQ, ((qb + 1) * BQ + BKQ - 1) / BKQ);
-  for (int kb = 0; kb < nk; ++kb) {
-    const int k0 = kb * BKQ;
-    __syncthreads();
-    load_tile<BKQ, HD, true, true, KP, TP>(K + base, k0, S, Ks, Kt);
-    load_tile<BKQ, HD, true, false, KP, TP>(V + base, k0, S, Vs, Kt);
-    if (tid < BKQ) Ms[tid] = (k0 + tid < S) ? mask[(size_t)bh * S + k0 + tid] : 0;
-    __syncthreads();
-
-    float s[BKQ / 8][4], dp[BKQ / 8][4];
+  // one flag per key tile, scanned while the first tiles load: every key of
+  // it lies below S and may be attended
+  for (int kb0 = w; kb0 < nk; kb0 += 16) {
+    int ok[4];
 #pragma unroll
-    for (int nt = 0; nt < BKQ / 8; ++nt)
+    for (int u = 0; u < 4; ++u) {
+      ok[u] = 1;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) s[nt][r] = dp[nt][r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c)
-#pragma unroll
-      for (int nt = 0; nt < BKQ / 8; ++nt) {
-        const int kr = nt * 8 + g, col = c * 16 + t * 2;
-        mma_bf16(s[nt], qa[c], ld32(&Ks[kr][col]), ld32(&Ks[kr][col + 8]));
-        mma_bf16(dp[nt], da[c], ld32(&Vs[kr][col]), ld32(&Vs[kr][col + 8]));
+      for (int j = 0; j < DQ_BN; j += 32) {
+        const int key = (kb0 + 4 * u) * DQ_BN + j + lane;
+        ok[u] &= key < S && mask_row[key] > 0;
       }
-
+    }
 #pragma unroll
-    for (int nt = 0; nt < BKQ / 8; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int kl = nt * 8 + t * 2 + (r & 1), h = r >> 1;
-        float v = s[nt][r] * sm_scale;
-        if (Ms[kl] <= 0) v = NEG_INF;
-        if (k0 + kl > rows[h]) v = NEG_INF;
-        const float p = expf(v - lse[h]);
-        s[nt][r] = p * (dp[nt][r] - dl[h]) * sm_scale;  // dS, rounded to bf16 below
-      }
-
-#pragma unroll
-    for (int j = 0; j < BKQ / 16; ++j) {
-      uint32_t sa[4];
-      acc_to_a(sa, s[2 * j], s[2 * j + 1]);
-#pragma unroll
-      for (int d = 0; d < HD / 8; ++d)
-        mma_bf16(dq[d], sa, ld32(&Kt[d * 8 + g][j * 16 + t * 2]), ld32(&Kt[d * 8 + g][j * 16 + 8 + t * 2]));
+    for (int u = 0; u < 4; ++u) {
+      const int all = __all_sync(0xffffffffu, ok[u]);
+      if (lane == 0 && kb0 + 4 * u < nk) tile_ok[kb0 + 4 * u] = all;
     }
   }
+  named_sync(1, 128);  // the four consumer warps
 
+  // lse in log2 units and delta of this thread's rows (0 past S, where Q
+  // and dO read zeros, so dS is 0 there)
+  const float scale_log2 = sm_scale * LOG2E;
+  float lse2[2], dl[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (rows[h] >= S) continue;
-#pragma unroll
-    for (int d = 0; d < HD / 8; ++d)
-      *reinterpret_cast<__nv_bfloat162*>(dQ + base + (size_t)rows[h] * HD + d * 8 + t * 2) =
-          __floats2bfloat162_rn(dq[d][2 * h], dq[d][2 * h + 1]);
+    lse2[h] = rows[h] < S ? LSE[(size_t)bh * S + rows[h]] * LOG2E : 0.f;
+    dl[h] = rows[h] < S ? Delta[(size_t)bh * S + rows[h]] : 0.f;
   }
+  float dq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+  mbar_wait(qbar, 0);
+
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % DQ_STAGES, k0 = kb * DQ_BN;
+    const uint32_t ph = (kb / DQ_STAGES) & 1;
+    const uint32_t sK = sK0 + s * KV_BYTES, sV = sV0 + s * KV_BYTES;
+    // S = Q K^T and dP = dO V^T: 64 queries x 64 keys, all K-major as stored
+    float sc[DQ_BN / 2], dp[DQ_BN / 2];
+    mbar_wait(fullK + 8 * s, ph);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_ss(sc, desc_sw128(sQ + (kk >> 2) * DQ_BM * 128 + off, 16, 1024),
+               desc_sw128(sK + (kk >> 2) * DQ_BN * 128 + off, 16, 1024), kk > 0);
+    }
+    mbar_wait(fullV + 8 * s, ph);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_ss(dp, desc_sw128(sD + (kk >> 2) * DQ_BM * 128 + off, 16, 1024),
+               desc_sw128(sV + (kk >> 2) * DQ_BN * 128 + off, 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    reg_fence(sc);
+    reg_fence(dp);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(emptyV + 8 * s);  // the next V tile may load while dQ is formed
+
+    // P = exp(s - lse) and dS = P (dP - delta) scale; the key mask, keys
+    // past S and the causal triangle only on the diagonal and flagged tiles
+    const bool edge = !tile_ok[kb] || k0 + DQ_BN - 1 > q0;
+#pragma unroll
+    for (int j = 0; j < DQ_BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + j * 8 + t * 2 + e;
+        const bool kv = !edge || (key < S && mask_row[key] > 0);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = j * 4 + h * 2 + e;
+          float p = exp2f(sc[i] * scale_log2 - lse2[h]);
+          if (edge && !(kv && key <= rows[h])) p = 0.f;
+          dp[i] = p * (dp[i] - dl[h]) * sm_scale;
+        }
+      }
+
+    // dQ += dS K: dS rounded to bf16 from the accumulator, K read MN-major
+    // through the transpose bit
+    uint32_t da[DQ_BN / 16][4];
+#pragma unroll
+    for (int c = 0; c < DQ_BN / 16; ++c) acc_to_a(da[c], &dp[8 * c], &dp[8 * c + 4]);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < DQ_BN / 16; ++c) wgmma_rs(dq, da[c], desc_sw128(sK + c * 16 * 128, DQ_BN * 128, 1024));
+    wg_commit();
+    wg_wait_all();
+    reg_fence(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(emptyK + 8 * s);
+  }
+
+  // dQ through shared memory (the Q slot, which no product reads any more)
+  // and out by TMA, in the 128-byte-swizzled layout of the tensor map's
+  // box; rows past S are not written
+  named_sync(1, 128);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = w * 16 + g + h * 8;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(smem + (j >> 3) * DQ_BM * 128 + r * 128 + (((j & 7) ^ (r & 7)) << 4) + t * 4) =
+          __floats2bfloat162_rn(dq[j * 4 + h * 2], dq[j * 4 + h * 2 + 1]);
+  }
+  fence_proxy_async();
+  named_sync(1, 128);
+  if (tid == 0) {
+    for (int c = 0; c < NCB; ++c) tma_store_3d(&tdq, sQ + c * DQ_BM * 128, c * 64, q0, bh);
+    tma_store_wait();
+  }
+}
+
+template <int HD>
+int launch_dq(const void* q, const void* k, const void* v, const int* mask, const void* dout, const float* lse,
+              const float* delta, void* dq, int BH, int S, float sm_scale, cudaStream_t s) {
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!make_map(&tq, q, HD, S, BH, DQ_BM) || !make_map(&tdo, dout, HD, S, BH, DQ_BM) ||
+      !make_map(&tk, k, HD, S, BH, DQ_BN) || !make_map(&tv, v, HD, S, BH, DQ_BN) ||
+      !make_map(&tdq, dq, HD, S, BH, DQ_BM))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = dq_smem_bytes<HD>((S + DQ_BN - 1) / DQ_BN);
+  static size_t smem_allowed = 0;  // raised once per size, not at every launch
+  if (smem > smem_allowed) {
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed = smem;
+  }
+  const dim3 grid((S + DQ_BM - 1) / DQ_BM, BH);
+  flash_bwd_dq_kernel<HD><<<grid, DQ_THREADS, smem, s>>>(tq, tk, tv, tdo, tdq, mask, lse, delta, S, sm_scale);
+  return (int)cudaGetLastError();
 }
 
 constexpr int KV_BK = 128;    // dK/dV: key rows per block, two warpgroups of 64
@@ -423,17 +492,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const int* mask, con
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const int* mask, const void* dout,
                             const float* lse, const float* delta, void* dq, int BH, int S, int hd, float sm_scale,
                             void* stream) {
-  dim3 grid((S + BQ - 1) / BQ, BH);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k), *V = static_cast<const bf16*>(v),
-             *D = static_cast<const bf16*>(dout);
-  if (hd == 128)
-    flash_bwd_dq_kernel<128><<<grid, 128, 0, s>>>(Q, K, V, mask, D, lse, delta, static_cast<bf16*>(dq), S, sm_scale);
-  else if (hd == 64)
-    flash_bwd_dq_kernel<64><<<grid, 128, 0, s>>>(Q, K, V, mask, D, lse, delta, static_cast<bf16*>(dq), S, sm_scale);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (hd == 128) return launch_dq<128>(q, k, v, mask, dout, lse, delta, dq, BH, S, sm_scale, s);
+  if (hd == 64) return launch_dq<64>(q, k, v, mask, dout, lse, delta, dq, BH, S, sm_scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The same inputs; dk, dv bf16 [BH, S, hd].  Returns cudaGetLastError().

@@ -240,17 +240,36 @@ def embed_tokens(params: Dict[str, Any], ids: torch.Tensor) -> torch.Tensor:
     return nn.embedding(emb, ids)
 
 
-def fuse_for_serving(params: Dict[str, Any]) -> Dict[str, Any]:
+def fuse_for_serving(params: Dict[str, Any], k_major: bool = False) -> Dict[str, Any]:
     """Concatenate q|k|v and gate|up on the output dim (fp or int8 leaves;
-    per-output-channel scales concatenate too)."""
+    per-output-channel scales concatenate too).
+
+    k_major (the W8A8 serving tree): the int8 decoder weights are also laid
+    out K-major, 'w_qt' int8 [L, out, in], the layout the W8A8 kernel reads
+    (the card's int8 tensor cores take both operands K-major). The fused
+    leaves hold only that copy; o and down keep JAX's w_q beside it. Built
+    once, on the leaves' device."""
 
     def cat(leaves):
-        keys = ("w",) if "w" in leaves[0] else ("w_q", "w_scale")
-        return {k: torch.cat([l[k] for l in leaves], dim=-1) for k in keys}
+        if "w" in leaves[0]:
+            return {"w": torch.cat([l["w"] for l in leaves], dim=-1)}
+        out = {"w_scale": torch.cat([l["w_scale"] for l in leaves], dim=-1)}
+        if k_major:
+            out["w_qt"] = torch.cat([l["w_q"].transpose(-1, -2) for l in leaves], dim=-2)
+        else:
+            out["w_q"] = torch.cat([l["w_q"] for l in leaves], dim=-1)
+        return out
+
+    def with_k_major(leaf):
+        if not k_major or "w_q" not in leaf:
+            return leaf
+        return {**leaf, "w_qt": leaf["w_q"].transpose(-1, -2).contiguous()}
 
     lp = params["layers"]
     attn = {k: v for k, v in lp["attn"].items() if k not in ("q", "k", "v")}
+    attn["o"] = with_k_major(lp["attn"]["o"])
     attn["qkv_fused"] = cat([lp["attn"]["q"], lp["attn"]["k"], lp["attn"]["v"]])
     mlp = {k: v for k, v in lp["mlp"].items() if k not in ("gate", "up")}
+    mlp["down"] = with_k_major(lp["mlp"]["down"])
     mlp["gateup_fused"] = cat([lp["mlp"]["gate"], lp["mlp"]["up"]])
     return {**params, "layers": {**lp, "attn": attn, "mlp": mlp}}

@@ -373,7 +373,9 @@ def _resolve_device(device) -> torch.device:
 class MLAPolicy:
     """Deployment-facing policy: load once, call predict_action_* per step.
 
-    The decoder's q|k|v and gate|up weights are fused for serving.
+    The decoder's q|k|v and gate|up weights are fused for serving; with
+    int8_mode "w8a8" its int8 weights are laid out K-major for the W8A8
+    kernel (llama.fuse_for_serving(k_major=True)).
     device=None means "cuda" and raises when no card is present; the CPU
     is used only when the caller passes device="cpu". int8_mode picks the
     product of the int8 decoder linears (nn.linear): "w8a8" (default),
@@ -390,7 +392,8 @@ class MLAPolicy:
         self.int8_mode = int8_mode
         self.device = _resolve_device(device)
         params, state = tree_to(params, self.device), tree_to(state, self.device)
-        params = {**params, "llm_backbone": llama_mod.fuse_for_serving(params["llm_backbone"])}
+        params = {**params, "llm_backbone": llama_mod.fuse_for_serving(params["llm_backbone"],
+                                                                      k_major=int8_mode == "w8a8")}
         self.params, self.state, self.cfg = params, state, cfg
         self.tokenizer = tokenizer
         self.norm_stats = norm_stats or {}

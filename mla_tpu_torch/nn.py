@@ -6,7 +6,10 @@ nn.Linear.weight), int8 leaves are {'w_q','w_scale'}. Norm math runs in
 fp32 and casts back, as in the JAX package.
 
 An int8 leaf runs one of three products, chosen by `int8_mode` on the CPU
-and on the card alike (JAX's MLA_INT8_MODE value in brackets):
+and on the card alike (JAX's MLA_INT8_MODE value in brackets); a W8A8
+serving tree's leaves may also, or only, hold the weight K-major ('w_qt'
+[..., out, in], models/llama.fuse_for_serving(k_major=True)), which W8A8
+reads:
   "w8a8"        W8A8 (ops/quantization.w8a8_matmul) [w8a8, w8a8_pallas];
   "weight_only" the weight-only int8 product (ops/quantization.int8_matmul)
                 for 2-D leaves whose K and N are multiples of 128, the
@@ -37,11 +40,14 @@ def weight_only_eligible(p: Params) -> bool:
 
 
 def linear(p: Params, x: torch.Tensor, *, int8_mode: str = "w8a8") -> torch.Tensor:
-    if "w_q" in p:
+    if "w_q" in p or "w_qt" in p:
         if int8_mode not in INT8_MODES:
             raise ValueError(f"int8_mode must be one of {INT8_MODES}, got {int8_mode!r}")
         if int8_mode == "w8a8":
             return w8a8_linear(p, x)
+        if "w_q" not in p:
+            raise ValueError(f"int8_mode {int8_mode!r} reads w_q [K, N]; this leaf holds only the K-major W8A8 "
+                             "copy (w_qt) of a W8A8 serving tree")
         if int8_mode == "weight_only" and weight_only_eligible(p):
             return int8_linear(p, x)
         y = x @ p["w_q"].to(x.dtype)

@@ -3,8 +3,9 @@
 Each kernel is one `csrc/<name>.cu` file with a plain C interface. It is
 compiled with `nvcc` for `sm_90a` into `build/kernels/lib<name>.so` beside
 the package (a directory `.gitignore` lists) at first use and loaded with
-ctypes. `build()` starts one `nvcc` per source, all at once, and raises if
-any of them fails; nothing falls back to a plain version.
+ctypes. A library is rebuilt when its `.cu` file or any header in `csrc/`
+is newer than it. `build()` starts one `nvcc` per source, all at once, and
+raises if any of them fails; nothing falls back to a plain version.
 
 `launches` counts kernel launches by wrapper name. A wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that the main
@@ -34,7 +35,7 @@ _F = ctypes.c_float
 # C signatures of each library's entry points: {symbol: argtypes}; the
 # first entry point is the library's default
 SIGNATURES = {
-    "w8a8": {"w8a8_matmul": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    "w8a8": {"w8a8_matmul": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "fps": {"fps": [_P, _P, _P, _I, _I, _I, _P]},
     "flash_fwd": {"flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]},
     "flash_bwd": {
@@ -64,8 +65,13 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """True when library `name` is missing or older than its source or any
+    shared header it may include."""
     lib = _lib_path(name)
-    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(built < src.stat().st_mtime for src in (CSRC / f"{name}.cu", *CSRC.glob("*.cuh")))
 
 
 def compile_cmd(name: str, src: Path, out: Path) -> list:

@@ -7,8 +7,11 @@ JAX layout, so quantized trees carry across leaf for leaf.
 
 `w8a8_matmul` is the serving product of every int8 decoder linear by
 default: per-row dynamic activation quantization, an exact int8 x int8 ->
-int32 product and the fp32 rescale. On a CUDA tensor it launches the
-hand-written kernel (csrc/w8a8.cu); on a CPU tensor it runs
+int32 product and the fp32 rescale. It takes the weight K-major, `w_qt`
+int8 [N, K] (the transpose of JAX's w_q), because the card's int8 tensor
+cores read both operands K-major; the serving tree carries that copy
+(models/llama.fuse_for_serving(k_major=True)). On a CUDA tensor it
+launches the hand-written kernel (csrc/w8a8.cu); on a CPU tensor it runs
 `w8a8_matmul_plain`, which accumulates exactly in float64 (11008 * 127^2 >
 2^24, so float32 would not).
 
@@ -20,7 +23,8 @@ launches csrc/int8_mm.cu; on a CPU tensor it runs `int8_matmul_plain`.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, NamedTuple
 
 import torch
 
@@ -106,50 +110,125 @@ def quantize_rows(x: torch.Tensor):
     return xq, sx
 
 
-def w8a8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *, return_acc: bool = False):
-    """The plain version: x [M, K] (fp32/bf16), w_q int8 [K, N], w_scale fp32
-    [N] -> y [M, N] in x's dtype (and the int32 accumulators)."""
+def w8a8_matmul_plain(x: torch.Tensor, w_qt: torch.Tensor, w_scale: torch.Tensor, *, return_acc: bool = False):
+    """The plain version: x [M, K] (fp32/bf16), w_qt int8 [N, K] (any
+    strides), w_scale fp32 [N] -> y [M, N] in x's dtype (and the int32
+    accumulators)."""
     xq, sx = quantize_rows(x)
-    acc = (xq.double() @ w_q.double()).to(torch.int32)  # exact: |acc| < 2^53
+    acc = (xq.double() @ w_qt.double().t()).to(torch.int32)  # exact: |acc| < 2^53
     y = (acc.float() * sx * w_scale.float().reshape(1, -1)).to(x.dtype)
     return (y, acc) if return_acc else y
 
 
-def w8a8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *, return_acc: bool = False):
-    """Fused per-row quantization + int8 product + rescale. On CUDA the
-    kernel (csrc/w8a8.cu, K and N multiples of 64); on the CPU the plain
-    version. `return_acc` also returns the int32 accumulators."""
+# The kernel's two paths (csrc/w8a8.cu): up to W8A8_NARROW_MAX_M rows it
+# streams the weights, 64 output columns a block, three or four blocks an
+# SM; above, 128 x 128 output tiles, one block an SM. K runs in 128-byte
+# tiles. Each path splits K over several blocks where its tiles alone
+# would leave SMs idle.
+W8A8_NARROW_MAX_M = 64
+_K_TILE = 128
+_NARROW_COLS, _NARROW_THREADS, _NARROW_BLOCKS_PER_SM = 64, 128, 3
+_WIDE_TILE, _WIDE_THREADS, _WIDE_MAX_SPLITS = 128, 256, 4
+
+
+class W8A8Plan(NamedTuple):
+    narrow: bool
+    tiles: int      # output tiles
+    splits: int     # blocks per output tile, each over 1 / splits of K
+    part_ints: int  # int32 scratch of the partial sums (0 without a split)
+
+
+@functools.lru_cache(maxsize=None)
+def w8a8_plan(M: int, K: int, N: int, sms: int) -> W8A8Plan:
+    """The kernel's path and split of K for x [M, K] times a [N, K] weight
+    on a card with `sms` SMs.
+
+    Narrow (M <= W8A8_NARROW_MAX_M, bound by the weight stream): every
+    block should be resident at once, so K is split until the blocks fill
+    the SMs' slots, each split keeping at least four K tiles. Wide (bound by
+    operations): the split (1 to 4) that minimizes the waves of blocks times
+    a block's K tiles, plus four tiles' worth for its start and its partial
+    sums."""
+    kt = -(-K // _K_TILE)
+    if M <= W8A8_NARROW_MAX_M:
+        tiles = N // _NARROW_COLS
+        splits = max(1, min(sms * _NARROW_BLOCKS_PER_SM // tiles, kt // 4))
+        regs = 16 if M <= 32 else 32
+        part = tiles * splits * _NARROW_THREADS * regs
+    else:
+        tiles = -(-M // _WIDE_TILE) * -(-N // _WIDE_TILE)
+        costs = [(-(-tiles * s // sms) * (-(-kt // s) + 4), s)
+                 for s in range(1, _WIDE_MAX_SPLITS + 1) if s == 1 or kt // s >= 4]
+        splits = min(costs)[1]
+        part = tiles * splits * _WIDE_THREADS * (_WIDE_TILE // 2)
+    return W8A8Plan(M <= W8A8_NARROW_MAX_M, tiles, splits, part if splits > 1 else 0)
+
+
+_SMS: Dict[int, int] = {}
+_TICKETS: Dict[int, torch.Tensor] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The split-K tickets of a device: int32 zeros, one per output tile,
+    which each launch leaves at zero, so one buffer serves every call."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    t = _TICKETS.get(index)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _TICKETS[index] = t
+    return t
+
+
+def w8a8_matmul(x: torch.Tensor, w_qt: torch.Tensor, w_scale: torch.Tensor, *, return_acc: bool = False):
+    """Fused per-row quantization + int8 product + rescale: x [M, K] times
+    the weight K-major, w_qt int8 [N, K]. On CUDA the kernel (csrc/w8a8.cu;
+    K and N multiples of 64, w_qt contiguous); on the CPU the plain version.
+    `return_acc` also returns the int32 accumulators."""
     if not x.is_cuda:
-        return w8a8_matmul_plain(x, w_q, w_scale, return_acc=return_acc)
+        return w8a8_matmul_plain(x, w_qt, w_scale, return_acc=return_acc)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"w8a8_matmul: x must be float32 or bfloat16, got {x.dtype}")
     cuda.check(x, "w8a8_matmul x", ndim=2)
-    cuda.check(w_q, "w8a8_matmul w_q", torch.int8, 2)
+    cuda.check(w_qt, "w8a8_matmul w_qt (the weight K-major, int8 [N, K], built once by "
+               "models/llama.fuse_for_serving(k_major=True))", torch.int8, 2)
     w_scale = w_scale.reshape(-1)
     cuda.check(w_scale, "w8a8_matmul w_scale", torch.float32, 1)
     M, K = x.shape
-    N = w_q.shape[1]
-    if w_q.shape[0] != K or w_scale.shape[0] != N:
-        raise ValueError(f"w8a8_matmul: shapes x {tuple(x.shape)}, w_q {tuple(w_q.shape)}, w_scale {N}")
+    N = w_qt.shape[0]
+    if w_qt.shape[1] != K or w_scale.shape[0] != N:
+        raise ValueError(f"w8a8_matmul: shapes x {tuple(x.shape)}, w_qt {tuple(w_qt.shape)}, w_scale {N}")
     if K % 64 or N % 64:
         raise ValueError(f"w8a8_matmul: the kernel needs K and N multiples of 64, got K={K} N={N}")
+    if x.data_ptr() % 16 or w_qt.data_ptr() % 16:
+        raise ValueError("w8a8_matmul: x and w_qt must be 16-byte aligned")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     acc = torch.empty((M, N), dtype=torch.int32, device=x.device) if return_acc else None
     if M > 0:
+        plan = w8a8_plan(M, K, N, _sm_count(x.device))
         xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
         sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+        split = plan.splits > 1
+        part = torch.empty((plan.part_ints,), dtype=torch.int32, device=x.device) if split else None
         cuda.call(
-            "w8a8", x.data_ptr(), 0 if x.dtype == torch.float32 else 1, w_q.data_ptr(),
+            "w8a8", x.data_ptr(), 0 if x.dtype == torch.float32 else 1, w_qt.data_ptr(),
             w_scale.data_ptr(), y.data_ptr(), xq.data_ptr(), sx.data_ptr(),
-            acc.data_ptr() if acc is not None else None, M, K, N,
+            acc.data_ptr() if acc is not None else None, part.data_ptr() if split else None,
+            _tickets(x.device, plan.tiles).data_ptr() if split else None, M, K, N, plan.splits,
         )
         cuda.launches["w8a8_matmul"] += 1
     return (y, acc) if return_acc else y
 
 
-def _int8_leaf_linear(matmul, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+def _int8_leaf_linear(matmul, w: torch.Tensor, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
-    y = matmul(x.reshape(-1, x.shape[-1]).contiguous(), p["w_q"], p["w_scale"])
+    y = matmul(x.reshape(-1, x.shape[-1]).contiguous(), w, p["w_scale"])
     y = y.reshape(*lead, y.shape[-1])
     if "b" in p:
         y = y + p["b"].to(y.dtype)
@@ -157,8 +236,12 @@ def _int8_leaf_linear(matmul, p: Dict[str, Any], x: torch.Tensor) -> torch.Tenso
 
 
 def w8a8_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """nn.linear entry for a 2-D {'w_q','w_scale'(,'b')} leaf; x [..., K]."""
-    return _int8_leaf_linear(w8a8_matmul, p, x)
+    """nn.linear entry for a 2-D int8 leaf; x [..., K]. Reads the leaf's
+    K-major copy 'w_qt' where it has one (the W8A8 serving tree's); else
+    JAX's w_q through a transposed view, which the plain version takes and
+    the kernel refuses."""
+    w = p["w_qt"] if "w_qt" in p else p["w_q"].transpose(-1, -2)
+    return _int8_leaf_linear(w8a8_matmul, w, p, x)
 
 
 # --------------------------------------------------------------------------- #
@@ -205,4 +288,4 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> to
 def int8_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """nn.linear entry of the weight-only mode for a 2-D {'w_q','w_scale'(,'b')}
     leaf; x [..., K]."""
-    return _int8_leaf_linear(int8_matmul, p, x)
+    return _int8_leaf_linear(int8_matmul, p["w_q"], p, x)

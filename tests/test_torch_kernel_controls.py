@@ -39,3 +39,23 @@ def test_control_source_raises_on_a_stale_mutation(monkeypatch):
 def test_every_flash_kernel_has_a_control():
     assert {"flash_fwd", "flash_bwd"} <= set(chip_smoke.CONTROLS)
     assert set(chip_smoke.CONTROLS) <= set(cuda.SIGNATURES)
+
+
+def test_w8a8_has_a_control():
+    """W8A8's exact check on the card must reject a copy with its last K
+    tile dropped, on both paths: the one mutation sits in the split range
+    that both kernels take their K tiles from."""
+    assert "w8a8" in chip_smoke.CONTROLS
+    src = (cuda.CSRC / "w8a8.cu").read_text()
+    (old, _), = chip_smoke.CONTROLS["w8a8"]
+    assert src.count("split_range(K, split, splits)") == 2
+    assert old in src[src.index("int2 split_range("):src.index("bool reduce_splits(")]
+
+
+def test_parent_w8a8_abi_is_read_from_its_source():
+    src = (cuda.CSRC / "w8a8.cu").read_text()
+    assert chip_smoke.w8a8_abi(src) == "k_major"
+    earlier = ('extern "C" int w8a8_matmul(const void* x, int x_dtype, const int8_t* wq, const float* ws, void* y,\n'
+               '                           int8_t* xq, float* sx, int32_t* acc_out, int M, int K, int N,\n'
+               '                           void* stream) {')
+    assert chip_smoke.w8a8_abi(earlier) == "kn"

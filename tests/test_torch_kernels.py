@@ -77,7 +77,8 @@ def test_w8a8_plain_matches_pallas(M, K, N, record_property):
     np.testing.assert_array_equal(tp["w_q"].numpy(), np.asarray(pq["w_q"]))
     np.testing.assert_array_equal(tp["w_scale"].numpy(), np.asarray(pq["w_scale"]))
 
-    y, acc = tq.w8a8_matmul(_t(x), tp["w_q"], tp["w_scale"], return_acc=True)
+    # the port's W8A8 takes the weight K-major, [N, K]
+    y, acc = tq.w8a8_matmul(_t(x), tp["w_q"].t().contiguous(), tp["w_scale"], return_acc=True)
     np.testing.assert_array_equal(acc.numpy(), _exact_w8a8(x, np.asarray(pq["w_q"])))
     y_jax = np.asarray(jq.w8a8_matmul(jnp.asarray(x), pq["w_q"], pq["w_scale"], interpret=True))
     # ~1 ulp: XLA may fold the two scale multiplies into one (reassociation)
@@ -94,7 +95,7 @@ def test_w8a8_bf16_activations():
     xb = jnp.asarray(x).astype(jnp.bfloat16)
     y_jax = np.asarray(jq.w8a8_matmul(xb, pq["w_q"], pq["w_scale"], interpret=True).astype(jnp.float32))
     y = tq.w8a8_matmul(_t(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16),
-                       _t(np.asarray(pq["w_q"])), _t(np.asarray(pq["w_scale"])))
+                       _t(np.asarray(pq["w_q"]).T), _t(np.asarray(pq["w_scale"])))
     assert y.dtype == torch.bfloat16
     # one bf16 rounding of the same fp32 value, up to the 1-ulp fp32 fold above
     np.testing.assert_allclose(y.float().numpy(), y_jax, rtol=8e-3, atol=1e-6)
@@ -181,14 +182,21 @@ def card():
 
 @pytest.mark.gpu
 def test_w8a8_kernel_matches_plain_on_card(card):
+    """Both paths (narrow up to 64 rows, wide above) and their split of K
+    (the N = 4096 products split on both), the smallest leaf and a ragged
+    wide tile: int32 accumulators and outputs identical to the plain
+    version's."""
     g = torch.Generator(device=card).manual_seed(0)
-    for M, K, N in ((18, 4096, 4096), (534, 1024, 3072), (1, 128, 64)):
+    shapes = [(M, 4096, 4096) for M in (1, 18, 33, 64, 65, 534)] + [(18, 11008, 4096), (1, 128, 64),
+                                                                       (534, 1024, 3072)]
+    for M, K, N in shapes:
         x = torch.randn((M, K), generator=g, device=card).to(torch.bfloat16)
-        w_q = torch.randint(-127, 128, (K, N), generator=g, device=card, dtype=torch.int8)
+        w_qt = torch.randint(-127, 128, (N, K), generator=g, device=card, dtype=torch.int8)
         ws = torch.rand((N,), generator=g, device=card) * 1e-3
-        y, acc = tq.w8a8_matmul(x, w_q, ws, return_acc=True)
-        yp, accp = tq.w8a8_matmul_plain(x, w_q, ws, return_acc=True)
-        assert torch.equal(acc, accp) and torch.equal(y, yp)
+        y, acc = tq.w8a8_matmul(x, w_qt, ws, return_acc=True)
+        again = tq.w8a8_matmul(x, w_qt, ws)
+        yp, accp = tq.w8a8_matmul_plain(x, w_qt, ws, return_acc=True)
+        assert torch.equal(acc, accp) and torch.equal(y, yp) and torch.equal(y, again), (M, K, N)
 
 
 @pytest.mark.gpu

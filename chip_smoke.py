@@ -5,21 +5,23 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-or, to time this tree's flash forward, dQ, dK/dV and W8A8 kernels against
-another version of them (such as the parent commit's, written out with
-`git show HEAD~1:mla_tpu_torch/csrc/flash_fwd.cu`, the same for
-flash_bwd.cu, w8a8.cu and, where that commit has it, hopper.cuh), add
+or, to time this tree's flash forward, dQ, dK/dV, W8A8, weight-only int8
+and FPS kernels against another version of them (such as the parent
+commit's, written out with `git show HEAD~1:mla_tpu_torch/csrc/flash_fwd.cu`,
+the same for flash_bwd.cu, w8a8.cu, int8_mm.cu, fps.cu and hopper.cuh), add
 `--parent DIR`.
 
 Phases, each of which fails the run if it fails:
   1. build        compile every CUDA kernel from mla_tpu_torch/csrc with
                   nvcc (sm_90a), one process per source, in parallel, and
-                  beside them four controls, each in a temporary directory:
+                  beside them five controls, each in a temporary directory:
                   a copy of flash_fwd.cu with its last, ragged key tile
                   dropped, a copy of flash_bwd.cu with the last, partial
                   tile of each backward loop dropped, a copy of int8_mm.cu
-                  and one of w8a8.cu with the last K tile dropped (and,
-                  with --parent, the other version's kernels).
+                  and one of w8a8.cu with the last K tile dropped, and a
+                  copy of fps.cu that leaves the last point out of the
+                  distance field (and, with --parent, the other version's
+                  kernels).
   2. kernels      hold each kernel against its plain PyTorch version and
                   time kernel, plain version, a PyTorch library call
                   (yardstick only) and the roofline bound: W8A8 (int32
@@ -28,7 +30,9 @@ Phases, each of which fails the run if it fails:
                   counts on both sides of its narrow/wide line, the check
                   rejecting the control at every shape, kernel and
                   torch._int_mm timed as CUDA graphs with the weights cycled
-                  past L2; FPS at the serving shapes; the flash
+                  past L2; FPS at both point-tokenizer stages, B = 1 and 8,
+                  starts 0 and 7, indices identical, the control rejected
+                  at each stage; the flash
                   forward at the serving prefill (BH 32, S 534) and the
                   mla-2b training shape (BH 256, S 563), with and without a
                   padded key tail, o and lse at every valid row, the check
@@ -40,15 +44,21 @@ Phases, each of which fails the run if it fails:
                   SDPA's backward, the yardstick, the median of 5 graph
                   replays.
                   The weight-only int8 product at M = 1, 4 and 535 rows by
-                  the four mla-7b linears, each output column within one
-                  bf16 step of its own norm, bit-identical over two
-                  launches; the check must reject the int8_mm control. The
-                  flash kernels are timed as CUDA graphs of 20 launches
-                  (device time, no host launch cost). With --parent, the
-                  other version's flash forward, dQ, dK/dV and one layer's
-                  four W8A8 linears (M = 534 and 18; an earlier W8A8 ABI
-                  gets [K, N] weights) in turns with this tree's (parent,
-                  this, this, parent).
+                  the four mla-7b linears, at edge row counts on both sides
+                  of its narrow/wide line, and in fp32 at the lm_head's
+                  shape (M = 1 and 4, K 4096, N 32064), each output column
+                  within one bf16 step of its own norm, bit-identical over
+                  two launches; the check must reject the int8_mm control
+                  at every shape; one layer timed on both paths at row
+                  counts around the line (INT8_LINE_M). The kernels are timed as CUDA graphs (the
+                  flash kernels of 20 launches; device time, no host launch
+                  cost). With --parent, the other version's flash forward,
+                  dQ, dK/dV, one layer's four W8A8 linears (M = 534 and 18;
+                  an earlier W8A8 ABI gets [K, N] weights), one layer's four
+                  weight-only int8 linears (M = 1, 4, 535) and FPS, and the
+                  parent tree's lm_head (the widened head and an fp32
+                  matmul), in turns with this tree's (parent, this, this,
+                  parent).
   3. agree        serve one DDIM-8 request of an int8 `mla-small` (4
                   decoder layers, full-width front-ends) on the card and on
                   the CPU (plain versions) from the same weights and noise;
@@ -70,8 +80,11 @@ Phases, each of which fails the run if it fails:
                   and 4-beam generate_text of 16 tokens,
                   predict_action_diff_ar (DDIM-8) and predict_action_batch
                   (B = 2, a seeded DiT-B head), each with its exact kernel
-                  launch counts; then prefill, decode-step and lm_head
-                  times beside the decode step's weight-read bound.
+                  launch counts (int8_matmul counts the int8 lm_head of
+                  every forward that yields logits); then prefill and
+                  decode-step times beside the decode step's weight-read
+                  bound, and the lm_head through int8_mm (one launch) beside
+                  the widened head it replaced.
   5. train-agree  one AdamW training step of the bf16 `mla-small` (B = 2)
                   on the card and on the CPU from the same weights, batch,
                   noise, t and FPS starts; loss and grad_norm must agree,
@@ -265,36 +278,69 @@ def check_w8a8(torch, report, control):
     }
 
 
-def check_fps(torch, report):
-    from mla_tpu_torch.ops import pointops
+# FPS: the point tokenizer's two stages, at the serving batch and at mla-2b
+# training's (B = 8), each from start indices 0 and 7
+FPS_STAGES = ((1024, 512), (512, 256))
+FPS_BATCHES = (1, 8)
+
+
+def check_fps(torch, report, control):
+    """FPS at both stages, B = 1 and 8, starts 0 and 7: indices identical to
+    the plain version's; the control (the last point left out of the
+    distance field, so it is never sampled) must differ at every stage. The
+    last cloud of the batch of 8 holds its last point far outside the unit
+    cube, so the sound kernel samples it second and the control cannot.
+    Times kernel (CUDA graph), plain version and the bound; the row sums the
+    stages at B = 1, the serving path's."""
+    from mla_tpu_torch.ops import cuda, pointops
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "b_bytes": 0.0, "b_ops": 0.0}
-    for N, npoint in ((1024, 512), (512, 256)):
-        xyz = torch.rand((1, N, 3), generator=gen, device="cuda")
-        for start in (0, 7):
-            s = torch.full((1,), start, dtype=torch.int32, device="cuda")
-            got = pointops.furthest_point_sample(xyz, npoint, s)
-            want = pointops.furthest_point_sample_plain(xyz, npoint, s)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"fps N={N} npoint={npoint} start={start}: indices differ "
-                                     f"(first at {int((got != want).nonzero()[0, 1])})")
-        ms = cuda_ms(torch, lambda: pointops.furthest_point_sample(xyz, npoint), 20)
-        zero = torch.zeros((1,), dtype=torch.int32, device="cuda")
-        plain_ms = cuda_ms(torch, lambda: pointops.furthest_point_sample_plain(xyz, npoint, zero), 2, 1)
-        nbytes, ops = N * 12 + npoint * 4, 9.0 * N * npoint
-        b, by = bound_ms(nbytes, ops, "fp32")
-        log(f"fps N={N} npoint={npoint}: indices identical, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {b:.6f} ms ({by})")
-        report["shapes"].append({"kernel": "furthest_point_sample", "N": N, "npoint": npoint, "ms": ms,
-                                 "plain_ms": plain_ms, "library_ms": None, "bound_ms": b, "bound_by": by,
-                                 "max_abs_err": 0.0})
-        tot["ms"] += ms
-        tot["plain_ms"] += plain_ms
-        tot["bound_ms"] += b
-        tot["b_bytes"] += nbytes / PEAK_BYTES * 1e3
-        tot["b_ops"] += ops / PEAK_OPS["fp32"] * 1e3
+    readings = {"control_differs": {}, "ms": {}}
+    for N, npoint in FPS_STAGES:
+        differs = 0
+        for B in FPS_BATCHES:
+            xyz = torch.rand((B, N, 3), generator=gen, device="cuda")
+            if B > 1:
+                xyz[-1, -1] = 2.0
+            for start in (0, 7):
+                s = torch.full((B,), start, dtype=torch.int32, device="cuda")
+                got = pointops.furthest_point_sample(xyz, npoint, s)
+                want = pointops.furthest_point_sample_plain(xyz, npoint, s)
+                with kernel_from(cuda, "fps", control):
+                    bad = pointops.furthest_point_sample(xyz, npoint, s)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    first = (got != want).nonzero()[0]
+                    raise AssertionError(f"fps B={B} N={N} npoint={npoint} start={start}: indices differ "
+                                         f"(first at cloud {int(first[0])}, step {int(first[1])})")
+                differs += int((bad != want).sum())
+            out = torch.empty((B, npoint), dtype=torch.int32, device="cuda")
+            zero = torch.zeros((B,), dtype=torch.int32, device="cuda")
+            ms = graph_ms(torch, lambda: cuda.call("fps", xyz.data_ptr(), zero.data_ptr(), out.data_ptr(), B, N,
+                                                   npoint), 10)
+            nbytes, ops = B * (N * 12 + npoint * 4), 9.0 * B * N * npoint
+            b, by = bound_ms(nbytes, ops, "fp32")
+            readings["ms"][f"B={B} N={N} npoint={npoint}"] = ms
+            plain_ms = None
+            if B == 1:
+                plain_ms = cuda_ms(torch, lambda: pointops.furthest_point_sample_plain(xyz, npoint, zero), 2, 1)
+                tot["ms"] += ms
+                tot["plain_ms"] += plain_ms
+                tot["bound_ms"] += b
+                tot["b_bytes"] += nbytes / PEAK_BYTES * 1e3
+                tot["b_ops"] += ops / PEAK_OPS["fp32"] * 1e3
+            log(f"fps B={B} N={N} npoint={npoint}: indices identical at starts 0 and 7, kernel {ms:.4f} ms"
+                + (f", plain {plain_ms:.4f} ms" if plain_ms is not None else "")
+                + f", roofline bound {b:.6f} ms ({by}; the floor is the chain of {npoint} dependent steps)")
+            report["shapes"].append({"kernel": "furthest_point_sample", "B": B, "N": N, "npoint": npoint, "ms": ms,
+                                     "plain_ms": plain_ms, "library_ms": None, "bound_ms": b, "bound_by": by,
+                                     "max_abs_err": 0.0})
+        readings["control_differs"][f"N={N} npoint={npoint}"] = differs
+        if differs == 0:
+            raise AssertionError(f"fps N={N} npoint={npoint}: the check passes the control")
+        log(f"fps N={N} npoint={npoint}: the control differs in {differs} indices")
+    report["fps"] = readings
     return {
         "name": "furthest_point_sample", "route": "cuda", "source": "mla_tpu_torch/csrc/fps.cu",
         "replaces": "mla_tpu/ops/pointops_pallas.py:28", "max_abs_err": 0.0,
@@ -440,20 +486,18 @@ FLASH_BWD_MUTATIONS = (
     ("const int nk_all = (S + DQ_BN - 1) / DQ_BN;", "const int nk_all = S / DQ_BN;"),
     ("const int nq = (S + KV_QS - 1) / KV_QS;", "const int nq = S / KV_QS;"),
 )
-# int8_mm.cu with its last K tile dropped (the loops over K tiles of its
-# bf16 and fp32 kernels stop one short), the fault the column check must
+# int8_mm.cu with its last K tile dropped (every split range of both paths,
+# bf16 and fp32, ends one tile short), the fault the column check must
 # catch
-INT8_MM_MUTATIONS = (
-    ("load_tile<T, BM, BN, BK>(ra, rb, x, wq, m0, n0, 0, M, N, K, tid);\n  for (int kt = 0; kt < nkt; ++kt)",
-     "load_tile<T, BM, BN, BK>(ra, rb, x, wq, m0, n0, 0, M, N, K, tid);\n  for (int kt = 0; kt < nkt - 1; ++kt)"),
-    ("const int nkt = K / FBK;\n  for (int kt = 0; kt < nkt; ++kt)",
-     "const int nkt = K / FBK;\n  for (int kt = 0; kt < nkt - 1; ++kt)"),
-)
+INT8_MM_MUTATIONS = (("const int kt = (K + BK - 1) / BK;", "const int kt = (K + BK - 1) / BK - 1;"),)
 # w8a8.cu with its last K tile dropped (every split range of both paths
 # ends one tile short), the fault the exact check must catch
 W8A8_MUTATIONS = (("const int kt = (K + BK - 1) / BK;", "const int kt = (K + BK - 1) / BK - 1;"),)
+# fps.cu with the last point left out of the distance field (it is then
+# never sampled), the fault the exact check must catch
+FPS_MUTATIONS = (("const bool real = p < N;", "const bool real = p < N - 1;"),)
 CONTROLS = {"flash_fwd": FLASH_FWD_MUTATIONS, "flash_bwd": FLASH_BWD_MUTATIONS, "int8_mm": INT8_MM_MUTATIONS,
-            "w8a8": W8A8_MUTATIONS}
+            "w8a8": W8A8_MUTATIONS, "fps": FPS_MUTATIONS}
 
 
 def control_source(cuda, name: str) -> str:
@@ -621,7 +665,7 @@ def check_flash_bwd(torch, report, control):
     return out_rows
 
 
-PARENT_KERNELS = ("flash_fwd", "flash_bwd", "w8a8")
+PARENT_KERNELS = ("flash_fwd", "flash_bwd", "w8a8", "int8_mm", "fps")
 
 
 def w8a8_abi(src: str) -> str:
@@ -630,6 +674,29 @@ def w8a8_abi(src: str) -> str:
     weights, 11 arguments and the stream)."""
     decl = src[src.index('extern "C" int w8a8_matmul('):]
     return "k_major" if decl[:decl.index(")")].count(",") > 11 else "kn"
+
+
+def int8_mm_abi(src: str) -> str:
+    """'split' for an int8_mm.cu whose entry point takes a path and split-K
+    scratch (this tree's), 'plain' for the earlier one (8 arguments and the
+    stream)."""
+    decl = src[src.index('extern "C" int int8_mm('):]
+    return "split" if decl[:decl.index(")")].count(",") > 8 else "plain"
+
+
+def load_parent_int8_mm(lib: Path, abi: str):
+    """The other version's int8_mm library, with its own C signature."""
+    import ctypes
+
+    from mla_tpu_torch.ops import cuda
+
+    if abi == "split":
+        return cuda.load("int8_mm", lib)
+    handle = ctypes.CDLL(str(lib))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    handle.int8_mm.argtypes = [P, I, P, P, P, I, I, I, P]
+    handle.int8_mm.restype = ctypes.c_int
+    return handle
 
 
 def load_parent_w8a8(lib: Path, abi: str):
@@ -647,12 +714,15 @@ def load_parent_w8a8(lib: Path, abi: str):
     return handle
 
 
-def compare_parent(torch, report, parent, w8a8_layout):
-    """The flash forward (both shapes), dQ and dK/dV (training shape) and one
-    layer's four W8A8 linears (M = 534 and 18, weights cycled past L2) of
-    this tree against `parent`'s kernels on the same card and inputs, in
-    turns: parent, this tree, this tree, parent (CUDA graph device times).
-    A W8A8 of the earlier ABI gets its own arguments: [K, N] weights."""
+def compare_parent(torch, report, parent, w8a8_layout, int8_layout):
+    """The flash forward (both shapes), dQ and dK/dV (training shape), one
+    layer's four W8A8 linears (M = 534 and 18) and four weight-only int8
+    linears (M = 1, 4 and 535; weights cycled past L2), the int8 lm_head
+    (fp32, M = 1 and 4; the parent tree widened the head and ran an fp32
+    matmul) and FPS (both stages, B = 1 and 8) of this tree against
+    `parent`'s on the same card and inputs, in turns: parent, this tree,
+    this tree, parent (CUDA graph device times). A W8A8 or int8_mm of an
+    earlier ABI gets its own arguments."""
     from mla_tpu_torch.ops import cuda
     from mla_tpu_torch.ops import flash_attention as fa
     from mla_tpu_torch.ops import quantization as q
@@ -712,19 +782,70 @@ def compare_parent(torch, report, parent, w8a8_layout):
 
         turns("w8a8", f"w8a8 one layer's 4 linears, M={M}", layer, layer_parent)
         del linears
+
+    for M in INT8_M:
+        linears = []
+        for K, N in LINEARS:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
+            linears.append((x, ws, itertools.cycle(weight_copies(torch, gen, K, N))))
+
+        def int8_layer():
+            for x, ws, cyc in linears:
+                q.int8_matmul(x, next(cyc), ws)
+
+        def int8_layer_parent():
+            for x, ws, cyc in linears:
+                if int8_layout == "split":
+                    q.int8_matmul(x, next(cyc), ws)
+                    continue
+                K, N = x.shape[1], ws.shape[0]
+                y = torch.empty((M, N), dtype=x.dtype, device="cuda")
+                cuda.call("int8_mm", x.data_ptr(), 1, next(cyc).data_ptr(), ws.data_ptr(), y.data_ptr(), M, K, N)
+
+        turns("int8_mm", f"int8_mm one layer's 4 linears, M={M}", int8_layer, int8_layer_parent)
+        del linears
+    K, N = LM_HEAD
+    head = itertools.cycle(weight_copies(torch, gen, K, N))
+    ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
+    for M in LM_HEAD_M:
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        turns("int8_mm", f"int8 lm_head fp32, M={M} (parent: widened head + fp32 matmul)",
+              lambda: q.int8_matmul(x, next(head), ws), lambda: (x @ next(head).float()) * ws)
+    del head
+
+    for N, npoint in FPS_STAGES:
+        for B in FPS_BATCHES:
+            xyz = torch.rand((B, N, 3), generator=gen, device="cuda")
+            start = torch.zeros((B,), dtype=torch.int32, device="cuda")
+            idx = torch.empty((B, npoint), dtype=torch.int32, device="cuda")
+            turns("fps", f"fps B={B} N={N} npoint={npoint}",
+                  lambda: cuda.call("fps", xyz.data_ptr(), start.data_ptr(), idx.data_ptr(), B, N, npoint))
     report["parent"] = out
 
 
 # the weight-only int8 product at a decode step (1 row), a 4-beam step and
 # the AR prefill (22 prompt ids + 513 fused tokens)
 INT8_M = (1, 4, PREFIX_LEN + 1)
+# beyond those: ragged and boundary row counts on both sides of the
+# narrow/wide line (quantization.INT8_NARROW_MAX_M), past a wide tile and at
+# predict_action_batch's prefill (B = 2), at the o and down linears, whose
+# N = 4096 splits K
+INT8_EDGE_LINEARS = ((4096, 4096), (11008, 4096))
+# the narrow/wide line: one layer's four bf16 linears timed on each path at
+# row counts around it
+INT8_LINE_M = (2, 4, 5, 8, 16)
+# the int8 lm_head in fp32 (mla-7b: hidden 4096, vocab 32064; 32064 is not a
+# multiple of a tile's columns), greedy and 4 beams
+LM_HEAD, LM_HEAD_M = (4096, 32064), (1, 4)
 # kernel vs plain version, bf16 out: the products are exact in both and the
 # sums fp32, only their order differs, so an output lands at most one bf16
 # step away: 2^-7 = 7.8e-3 of its value when it sits just above a power of
 # two, which a one-row column (M = 1) reads in full. Each column is held to
 # its own norm, norms floored at ROW_FLOOR of the median (a one-row column
 # can cancel to ~0, where only the fp32 sum order is left, ~1e-3 of the
-# floor); the tolerance is one bf16 step plus that term
+# floor); the tolerance is one bf16 step plus that term. fp32 out (the
+# lm_head) stays far inside it: its sums differ in order only
 INT8_COL_RTOL = 1e-2
 
 
@@ -736,17 +857,91 @@ def col_rel_err(a, w):
 
 
 def check_int8_mm(torch, report, control):
-    """int8_mm against its plain version at the mla-7b AR shapes, bf16:
-    every column within INT8_COL_RTOL, bit-identical over two launches; the
-    control library (its last K tile dropped) must exceed the tolerance at
-    every shape. Times kernel, plain version, _weight_int8pack_mm (the
-    yardstick; its scales are bf16) and the bound, weights cycled past L2."""
+    """int8_mm against its plain version: bf16 at the mla-7b AR shapes and at
+    edge row counts on both paths, fp32 at the lm_head's shape; every column
+    within INT8_COL_RTOL, bit-identical over two launches; the control
+    library (its last K tile dropped) must exceed the tolerance at every
+    shape. Times kernel, plain version, _weight_int8pack_mm (the yardstick;
+    its scales are bf16) and the bound as CUDA graphs, weights cycled past
+    L2; the lm_head beside the parent's way of computing it (the head
+    widened to fp32, then an fp32 matmul)."""
     from mla_tpu_torch.ops import cuda
     from mla_tpu_torch.ops import quantization as q
 
     gen = torch.Generator(device="cuda").manual_seed(12)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "err": 0.0, "b_bytes": 0.0, "b_ops": 0.0}
-    readings = {"col_rtol": INT8_COL_RTOL, "kernel": {}, "control": {}, "per_layer_ms": {}}
+    readings = {"col_rtol": INT8_COL_RTOL, "narrow_max_m": q.INT8_NARROW_MAX_M, "kernel": {}, "control": {},
+                "per_layer_ms": {}, "lm_head": {}}
+
+    def check(x, w_q, ws):
+        M, K = x.shape
+        N = w_q.shape[1]
+        key = f"M={M} K={K} N={N} {str(x.dtype).replace('torch.', '')}"
+        y, again, want = q.int8_matmul(x, w_q, ws), q.int8_matmul(x, w_q, ws), q.int8_matmul_plain(x, w_q, ws)
+        with kernel_from(cuda, "int8_mm", control):
+            bad = q.int8_matmul(x, w_q, ws)
+        torch.cuda.synchronize()
+        if not torch.equal(y, again):
+            raise AssertionError(f"int8_mm {key}: two launches differ in {int((y != again).sum())} entries")
+        rel, rel_c = col_rel_err(y, want), col_rel_err(bad, want)
+        readings["kernel"][key], readings["control"][key] = rel, rel_c
+        if not rel <= INT8_COL_RTOL:
+            raise AssertionError(f"int8_mm {key}: a column is {rel} of its norm from the plain version "
+                                 f"(tol {INT8_COL_RTOL})")
+        if not rel_c > INT8_COL_RTOL:
+            raise AssertionError(f"int8_mm {key}: the check passes the control ({rel_c} <= {INT8_COL_RTOL})")
+        return key, rel, rel_c, float((y.float() - want.float()).abs().max())
+
+    line = q.INT8_NARROW_MAX_M
+    edge_m = (2, 3, line, line + 1, 17, 65, 193, 2 * (PREFIX_LEN + 1))
+    for K, N in INT8_EDGE_LINEARS:
+        w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
+        worst = max(check(torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16), w_q, ws)[1]
+                    for M in edge_m)
+        log(f"int8_mm K={K} N={N}: identical repeats, columns within {worst:.3e} (tol {INT8_COL_RTOL}) at "
+            f"M = {edge_m} (narrow up to {line} rows), the control missed at each")
+        del w_q
+
+    readings["line"] = {}
+    for M in INT8_LINE_M:
+        linears = []
+        for K, N in LINEARS:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
+            y = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+            linears.append((x, ws, y, itertools.cycle(weight_copies(torch, gen, K, N)), K, N))
+        ms = {}
+        for path, narrow in (("narrow", True), ("wide", False)):
+            plans = [q.int8_mm_plan(M, K, N, sms, False, narrow) for *_, K, N in linears]
+            ms[path] = graph_ms(torch, lambda: [q.int8_mm_launch(x, next(c), ws, y, plan)
+                                                for (x, ws, y, c, _, _), plan in zip(linears, plans)])
+        readings["line"][M] = ms
+        log(f"int8_mm line, M={M}: one layer's 4 linears {ms['narrow']:.4f} ms on the weight stream, "
+            f"{ms['wide']:.4f} ms on wgmma (the plan takes {'narrow' if M <= line else 'wide'})")
+        del linears
+
+    K, N = LM_HEAD
+    copies = weight_copies(torch, gen, K, N)
+    ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
+    for M in LM_HEAD_M:
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        key, rel, rel_c, err = check(x, copies[0], ws)
+        cyc, cyc_w = itertools.cycle(copies), itertools.cycle(copies)
+        ms = graph_ms(torch, lambda: q.int8_matmul(x, next(cyc), ws))
+        widen_ms = graph_ms(torch, lambda: (x @ next(cyc_w).float()) * ws)
+        b, by = bound_ms(M * K * 4 + K * N + N * 4 + M * N * 4, 2.0 * M * K * N, "fp32")
+        plan = q.int8_mm_plan(M, K, N, sms, True)
+        log(f"int8_mm lm_head {key}: identical repeats, max column error {rel:.3e} (tol {INT8_COL_RTOL}), "
+            f"control {rel_c:.3e}; kernel {ms:.4f} ms ({plan.tiles} tiles x {plan.splits} splits), widened head "
+            f"+ fp32 matmul {widen_ms:.4f} ms, bound {b:.4f} ms ({by})")
+        readings["lm_head"][M] = {"ms": ms, "widen_matmul_ms": widen_ms, "bound_ms": b, "col_rel_err": rel}
+        report["shapes"].append({"kernel": "int8_matmul (lm_head)", "M": M, "K": K, "N": N, "ms": ms,
+                                 "library_ms": None, "widen_matmul_ms": widen_ms, "bound_ms": b, "bound_by": by,
+                                 "max_abs_err": err, "col_rel_err": rel, "control_col_rel_err": rel_c})
+    del copies
+
     library_ok = True
     for M in INT8_M:
         layer = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
@@ -755,23 +950,9 @@ def check_int8_mm(torch, report, control):
             ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
             copies = weight_copies(torch, gen, K, N)
             w_q = copies[0]
-            y, again, want = q.int8_matmul(x, w_q, ws), q.int8_matmul(x, w_q, ws), q.int8_matmul_plain(x, w_q, ws)
-            with kernel_from(cuda, "int8_mm", control):
-                bad = q.int8_matmul(x, w_q, ws)
-            torch.cuda.synchronize()
-            if not torch.equal(y, again):
-                raise AssertionError(f"int8_mm M={M} K={K} N={N}: two launches differ in {int((y != again).sum())} entries")
-            rel, rel_c = col_rel_err(y, want), col_rel_err(bad, want)
-            err = float((y.float() - want.float()).abs().max())
-            key = f"M={M} K={K} N={N}"
-            readings["kernel"][key], readings["control"][key] = rel, rel_c
-            if not rel <= INT8_COL_RTOL:
-                raise AssertionError(f"int8_mm {key}: a column is {rel} of its norm from the plain version "
-                                     f"(tol {INT8_COL_RTOL})")
-            if not rel_c > INT8_COL_RTOL:
-                raise AssertionError(f"int8_mm {key}: the check passes the control ({rel_c} <= {INT8_COL_RTOL})")
+            key, rel, rel_c, err = check(x, w_q, ws)
             cyc = itertools.cycle(copies)
-            ms = cuda_ms(torch, lambda: q.int8_matmul(x, next(cyc), ws), 20)
+            ms = graph_ms(torch, lambda: q.int8_matmul(x, next(cyc), ws))
             plain_ms = cuda_ms(torch, lambda: q.int8_matmul_plain(x, w_q, ws), 3, 1)
             lib_ms = None
             if library_ok:
@@ -779,20 +960,23 @@ def check_int8_mm(torch, report, control):
                 s_b = ws.to(torch.bfloat16)
                 cyc_t = itertools.cycle(w_t)
                 try:
-                    lib_ms = cuda_ms(torch, lambda: torch._weight_int8pack_mm(x, next(cyc_t), s_b), 20)
+                    lib_ms = graph_ms(torch, lambda: torch._weight_int8pack_mm(x, next(cyc_t), s_b))
                 except RuntimeError as e:
                     library_ok = False
                     log(f"int8_mm yardstick: torch._weight_int8pack_mm is not available here ({str(e)[:120]})")
                 del w_t
             nbytes, ops = M * K * 2 + K * N + N * 4 + M * N * 2, 2.0 * M * K * N
             b, by = bound_ms(nbytes, ops, "bf16")
+            plan = q.int8_mm_plan(M, K, N, sms, False)
             lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a"
-            log(f"int8_mm {key:22s}: identical repeats, max column |kernel - plain| / |plain| {rel:.3e} "
-                f"(tol {INT8_COL_RTOL:.3e}), control {rel_c:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"_weight_int8pack_mm {lib_txt}, bound {b:.4f} ms ({by})")
+            log(f"int8_mm {key:28s}: identical repeats, max column |kernel - plain| / |plain| {rel:.3e} "
+                f"(tol {INT8_COL_RTOL:.3e}), control {rel_c:.3e}; kernel {ms:.4f} ms "
+                f"({'narrow' if plan.narrow else 'wide'}, {plan.tiles} tiles x {plan.splits} splits), plain "
+                f"{plain_ms:.4f} ms, _weight_int8pack_mm {lib_txt}, bound {b:.4f} ms ({by})")
             report["shapes"].append({"kernel": "int8_matmul", "M": M, "K": K, "N": N, "ms": ms, "plain_ms": plain_ms,
                                      "library_ms": lib_ms, "bound_ms": b, "bound_by": by, "max_abs_err": err,
-                                     "col_rel_err": rel, "control_col_rel_err": rel_c})
+                                     "col_rel_err": rel, "control_col_rel_err": rel_c, "narrow": plan.narrow,
+                                     "splits": plan.splits})
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b)):
                 tot[k] += v
             layer["ms"] += ms
@@ -805,7 +989,8 @@ def check_int8_mm(torch, report, control):
             tot["err"] = max(tot["err"], err)
             del copies
         readings["per_layer_ms"][M] = layer
-        log(f"int8_mm M={M}: one layer's 4 linears {layer['ms']:.4f} ms against a bound of {layer['bound_ms']:.4f} ms")
+        log(f"int8_mm M={M}: one layer's 4 linears {layer['ms']:.4f} ms against a bound of {layer['bound_ms']:.4f} ms"
+            f", _weight_int8pack_mm {layer['library_ms']:.4f} ms")
     report["int8_mm"] = readings
     return {
         "name": "int8_matmul", "route": "cuda", "source": "mla_tpu_torch/csrc/int8_mm.cu",
@@ -1065,15 +1250,19 @@ def ar_serve(torch, report, policy):
         return out["actions"].shape == (cfg.action_horizon, A) and np.isfinite(out["actions"]).all() and \
             check_ar((out["ar_actions"], out["ar_max_probs"]))
 
-    calls = [(f"predict_action_ar {i}", counts(4 * L * (1 + A)), check_ar,
+    # int8_matmul launches: 4 decoder linears a layer in each forward, and
+    # the int8 lm_head (fp32) once in each forward that yields logits (the
+    # AR prefill and every decode step; not the diffusion prefill or suffix
+    # steps, nor predict_action_batch's cognition feature)
+    calls = [(f"predict_action_ar {i}", counts((4 * L + 1) * (1 + A)), check_ar,
               lambda r=r: policy.predict_action_ar(r[0], r[1], "", input_ids=r[2], return_probs=True))
              for i, r in enumerate(reqs)]
     calls += [
-        (f"generate_text greedy {T}", counts(4 * L * (1 + T)), check_text,
+        (f"generate_text greedy {T}", counts((4 * L + 1) * (1 + T)), check_text,
          lambda: policy.generate_text(img, pc, "", max_new_tokens=T, input_ids=ids)),
-        (f"generate_text 4 beams {T}", counts(4 * L * T), check_text,
+        (f"generate_text 4 beams {T}", counts((4 * L + 1) * T), check_text,
          lambda: policy.generate_text(img, pc, "", max_new_tokens=T, input_ids=ids, num_beams=4)),
-        ("predict_action_diff_ar DDIM-8", counts(4 * L * (1 + A) + 4 * L * (1 + 8), passes=2), check_both,
+        ("predict_action_diff_ar DDIM-8", counts((4 * L + 1) * (1 + A) + 4 * L * (1 + 8), passes=2), check_both,
          lambda: policy.predict_action_diff_ar(img, pc, INSTRUCTIONS[0], seed=3)),
         ("predict_action_batch B=2 DiT-B", counts(4 * L), lambda out: out.shape == (2, cfg.action_horizon, A)
          and np.isfinite(out).all(),
@@ -1115,16 +1304,24 @@ def ar_serve(torch, report, policy):
         mla.greedy_decode_actions(policy.params, cfg, kv, n, last, T, int8_mode="weight_only")
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t) * 1e3 / T
-        h = torch.zeros((1, cfg.llama.hidden_size), dtype=cfg.llama.compute_dtype, device=dev)
-        lm_head_ms = cuda_ms(torch, lambda: llama_mod.lm_head_logits(bb, h), 10)
+        h = torch.randn((1, cfg.llama.hidden_size), device=dev).to(cfg.llama.compute_dtype)
+        before = cuda.launches["int8_matmul"]
+        llama_mod.lm_head_logits(bb, h)
+        head_launches = cuda.launches["int8_matmul"] - before
+        if head_launches != 1:
+            raise AssertionError(f"ar-serve: the int8 lm_head launched int8_matmul {head_launches} times, not once")
+        head = bb["lm_head"]
+        lm_head_ms = graph_ms(torch, lambda: llama_mod.lm_head_logits(bb, h))
+        widen_ms = graph_ms(torch, lambda: (h.float() @ head["w_q"].float()) * head["w_scale"][0])
     weight_bytes = sum(leaf["w_q"].numel() for group in ("attn", "mlp") for leaf in bb["layers"][group].values())
     bound = weight_bytes / PEAK_BYTES * 1e3
     log(f"ar-serve parts: prefill of {n} positions {prefill_ms:.2f} ms; decode {decode_ms:.3f} ms per token "
         f"(host wall, {T} tokens) against a weight-read bound of {bound:.3f} ms ({weight_bytes / 1e9:.2f} GB of int8 "
-        f"weights); lm_head {lm_head_ms:.4f} ms device time, {lm_head_ms / decode_ms:.3f} of a decode step")
+        f"weights); lm_head through int8_mm {lm_head_ms:.4f} ms device time (CUDA graph; the widened head + fp32 "
+        f"matmul it replaces {widen_ms:.4f} ms), {lm_head_ms / decode_ms:.4f} of a decode step")
     report["ar_serve"] = {"latency_ms": lat, "launches": totals, "prefill_ms": prefill_ms,
                           "decode_ms_per_token": decode_ms, "decode_bound_ms": bound, "lm_head_ms": lm_head_ms,
-                          "prefix_len": n}
+                          "lm_head_widen_matmul_ms": widen_ms, "prefix_len": n}
     return totals
 
 
@@ -1241,8 +1438,8 @@ def train(torch, report):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.")
-    parser.add_argument("--parent", help="a directory holding another version of flash_fwd.cu, flash_bwd.cu and "
-                        "w8a8.cu (such as the parent commit's, with its hopper.cuh where it has one) to time "
+    parser.add_argument("--parent", help="a directory holding another version of flash_fwd.cu, flash_bwd.cu, "
+                        "w8a8.cu, int8_mm.cu and fps.cu (such as the parent commit's, with its hopper.cuh) to time "
                         "against this tree's kernels")
     args = parser.parse_args()
     try:
@@ -1286,21 +1483,26 @@ def main() -> int:
     for name, text in built.items():
         log(f"built {name}.cu\n" + "\n".join("  " + l for l in text.strip().splitlines() if "registers" in l or "spill" in l))
     w8a8_layout = w8a8_abi((Path(args.parent) / "w8a8.cu").read_text()) if args.parent else None
+    int8_layout = int8_mm_abi((Path(args.parent) / "int8_mm.cu").read_text()) if args.parent else None
     libs = {}
     for key, (lib, proc) in started.items():
         if key == ("parent", "w8a8"):
             finish_build(cuda, "w8a8", lib, proc)
             libs[key] = load_parent_w8a8(lib, w8a8_layout)
+        elif key == ("parent", "int8_mm"):
+            finish_build(cuda, "int8_mm", lib, proc)
+            libs[key] = load_parent_int8_mm(lib, int8_layout)
         else:
             libs[key] = finish_build(cuda, key[1] if isinstance(key, tuple) else key, lib, proc)
     log(f"build: {time.perf_counter() - t:.1f} s (with the control copies of {', '.join(CONTROLS)}"
         f"{' and the parent kernels' if args.parent else ''})")
-    kernels = [check_w8a8(torch, report, libs["w8a8"]), check_fps(torch, report),
+    kernels = [check_w8a8(torch, report, libs["w8a8"]), check_fps(torch, report, libs["fps"]),
                check_flash(torch, report, libs["flash_fwd"]),
                check_int8_mm(torch, report, libs["int8_mm"])]
     train_kernels = check_flash_bwd(torch, report, libs["flash_bwd"])
     if args.parent:
-        compare_parent(torch, report, {name: libs[("parent", name)] for name in PARENT_KERNELS}, w8a8_layout)
+        compare_parent(torch, report, {name: libs[("parent", name)] for name in PARENT_KERNELS}, w8a8_layout,
+                       int8_layout)
     check_agreement(torch, report)
     check_ar_agreement(torch, report, libs["int8_mm"])
     totals, ar_policy = serve(torch, report)

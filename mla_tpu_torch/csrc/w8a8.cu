@@ -410,7 +410,9 @@ template <int NX, typename T>
 int launch_narrow(const int8_t* wt, const int8_t* xq, const float* sx, const float* ws, T* y, int32_t* acc_out,
                   int* part, int* tickets, int M, int K, int N, int splits, cudaStream_t stream) {
   CUtensorMap tw, tx;
-  if (!make_map_s8(&tw, wt, K, N, NARROW_ROWS) || !make_map_s8(&tx, xq, K, M, NX)) return (int)cudaErrorInvalidValue;
+  if (!make_map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wt, K, N, BK, NARROW_ROWS, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xq, K, M, BK, NX, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
   constexpr size_t smem = narrow_smem_bytes<NX>();
   static bool smem_allowed = false;  // raised once, not at every launch
   if (!smem_allowed) {
@@ -427,7 +429,9 @@ template <typename T>
 int launch_wide(const int8_t* wt, const int8_t* xq, const float* sx, const float* ws, T* y, int32_t* acc_out,
                 int* part, int* tickets, int M, int K, int N, int splits, cudaStream_t stream) {
   CUtensorMap tx, tw;
-  if (!make_map_s8(&tx, xq, K, M, WIDE_BM) || !make_map_s8(&tw, wt, K, N, WIDE_BN)) return (int)cudaErrorInvalidValue;
+  if (!make_map_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xq, K, M, BK, WIDE_BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wt, K, N, BK, WIDE_BN, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
   constexpr size_t smem = wide_smem_bytes();
   static bool smem_allowed = false;
   if (!smem_allowed) {

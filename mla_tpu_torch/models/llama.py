@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from mla_tpu_torch import nn
 from mla_tpu_torch.ops import attention as attn_ops
+from mla_tpu_torch.ops import quantization
 from mla_tpu_torch.ops import rope as rope_ops
 
 
@@ -215,11 +216,15 @@ def llama_forward(
 
 
 def lm_head_logits(params: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor:
-    """fp32 logits from final-normed hidden states."""
+    """fp32 logits from final-normed hidden states [..., D]. An int8 head
+    takes JAX's formula, (hf @ float(w_q)) * w_scale with the scale after
+    the dot, through the weight-only product in fp32 (on the card its
+    kernel reads the int8 bytes; nothing widens the head)."""
     head = params["lm_head"]
     hf = hidden.float()
     if "w_q" in head:
-        return (hf @ head["w_q"].float()) * head["w_scale"][0].float()
+        y = quantization.int8_matmul(hf.reshape(-1, hf.shape[-1]).contiguous(), head["w_q"], head["w_scale"])
+        return y.reshape(*hf.shape[:-1], y.shape[-1])
     return hf @ head["w"].float()
 
 

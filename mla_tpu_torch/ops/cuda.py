@@ -42,7 +42,7 @@ SIGNATURES = {
         "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
         "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     },
-    "int8_mm": {"int8_mm": [_P, _I, _P, _P, _P, _I, _I, _I, _P]},
+    "int8_mm": {"int8_mm": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
 }
 # extra nvcc flags per source: FPS must not contract its distance into FMAs
 EXTRA_FLAGS = {"fps": ["-fmad=false"]}

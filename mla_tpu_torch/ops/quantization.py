@@ -16,15 +16,17 @@ launches the hand-written kernel (csrc/w8a8.cu); on a CPU tensor it runs
 2^24, so float32 would not).
 
 `int8_matmul` is the weight-only product (nn.linear's int8_mode
-"weight_only"): the activations stay in their dtype and the int8 weights are
-widened on the way, y = (x @ float(w_q)) * w_scale. On a CUDA tensor it
-launches csrc/int8_mm.cu; on a CPU tensor it runs `int8_matmul_plain`.
+"weight_only", and the int8 lm_head in fp32 whatever the mode): the
+activations stay in their dtype and the int8 weights are widened on the
+way, y = (x @ float(w_q)) * w_scale. On a CUDA tensor it launches
+csrc/int8_mm.cu along the path and split of K that `int8_mm_plan` picks; on
+a CPU tensor it runs `int8_matmul_plain`.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -177,7 +179,8 @@ def _sm_count(device: torch.device) -> int:
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
     """The split-K tickets of a device: int32 zeros, one per output tile,
-    which each launch leaves at zero, so one buffer serves every call."""
+    which each launch of W8A8 or int8_mm leaves at zero, so one buffer
+    serves every call of both (launches on a stream do not overlap)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     t = _TICKETS.get(index)
     if t is None or t.numel() < n:
@@ -258,9 +261,69 @@ def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor)
     return (acc * w_scale.float().reshape(1, -1)).to(x.dtype)
 
 
+# The kernel's two paths (csrc/int8_mm.cu): fp32 x, and bf16 x up to
+# INT8_NARROW_MAX_M rows, take the weight stream on the CUDA cores: a block
+# takes a group of 1, 2, 4 or 8 rows and 256 output columns (128 for 8 rows),
+# two blocks an SM up to 2 rows, one above. bf16 x above the line takes the
+# wgmma path: a block takes up to three 64-row blocks (as few as cover M in
+# the fewest tiles) and 128 columns, one block an SM. K runs in 64-row
+# tiles. Each path splits K over several blocks where its tiles alone would
+# leave SMs idle. The line is where chip_smoke.py finds the wgmma path
+# faster for an mla-7b layer's four linears (PERF.md).
+INT8_NARROW_MAX_M = 4
+_I8_K_TILE = 64
+_I8_WIDE_COLS, _I8_WIDE_MAX_MB, _I8_WIDE_MAX_SPLITS = 128, 3, 4
+
+
+class Int8MMPlan(NamedTuple):
+    narrow: bool
+    rows: int         # rows of x a block takes (narrow: its row group; wide: 64 x its m64 blocks)
+    tiles: int        # output tiles (narrow: column strips x row groups)
+    splits: int       # blocks per output tile, each over 1 / splits of K
+    part_floats: int  # fp32 scratch of the partial sums (0 without a split)
+
+
+def _best_split(tiles: int, kt: int, slots: int, start: int, partials: int, splits) -> int:
+    """The split of K that minimizes the waves of blocks times a block's
+    time in K tiles: its share of K, `start` tiles' worth for its start and,
+    when K is split, `partials` for storing and adding its partial sums."""
+    return min((-(-tiles * s // slots) * (-(-kt // s) + start + (partials if s > 1 else 0)), s) for s in splits)[1]
+
+
+@functools.lru_cache(maxsize=None)
+def int8_mm_plan(M: int, K: int, N: int, sms: int, fp32: bool, narrow: Optional[bool] = None) -> Int8MMPlan:
+    """The kernel's path, tile and split of K for x [M, K] (fp32 or bf16)
+    times an int8 [K, N] weight on a card with `sms` SMs; `narrow` forces a
+    path (bf16 only; the wgmma path takes no fp32), else the line picks it.
+
+    Narrow (fp32 x, or M <= INT8_NARROW_MAX_M; bound by the weight stream;
+    a block's partial sums are at most 4 KB): the split, each keeping at
+    least four K tiles, that minimizes the waves of blocks times a block's K
+    tiles plus two. Wide (bound by operations): the split, 1 to 4 and at
+    least eight K tiles each, that minimizes the waves times a block's K
+    tiles plus four, plus three for each 64-row block whose 32 KB of partial
+    sums a split writes and reads back."""
+    kt = -(-K // _I8_K_TILE)
+    if fp32 or (M <= INT8_NARROW_MAX_M if narrow is None else narrow):
+        rows = 1 if M <= 1 else 2 if M <= 2 else 4 if M <= 4 else 8
+        cols = 256 if rows <= 4 else 128
+        tiles = -(-N // cols) * -(-M // rows)
+        per_sm = 2 if rows <= 2 else 1
+        splits = _best_split(tiles, kt, sms * per_sm, 2, 0, range(1, max(1, kt // 4) + 1))
+        part = tiles * splits * 4 * 256  # one float4 per consumer thread
+        return Int8MMPlan(True, rows, tiles, splits, part if splits > 1 else 0)
+    blocks = -(-M // 64)
+    mb = -(-blocks // -(-blocks // _I8_WIDE_MAX_MB))
+    tiles = -(-M // (64 * mb)) * -(-N // _I8_WIDE_COLS)
+    splits = _best_split(tiles, kt, sms, 4, 3 * mb,
+                         [s for s in range(1, _I8_WIDE_MAX_SPLITS + 1) if s == 1 or kt // s >= 8])
+    part = tiles * splits * 64 * mb * 128  # the tile's sums: 16 mb float4 per consumer thread
+    return Int8MMPlan(False, 64 * mb, tiles, splits, part if splits > 1 else 0)
+
+
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
-    """Weight-only int8 product. On CUDA the kernel (csrc/int8_mm.cu; K a
-    multiple of 128, N of 16); on the CPU the plain version."""
+    """Weight-only int8 product. On CUDA the kernel (csrc/int8_mm.cu; K and
+    N multiples of 16, ragged tiles masked); on the CPU the plain version."""
     if not x.is_cuda:
         return int8_matmul_plain(x, w_q, w_scale)
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -273,16 +336,29 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> to
     N = w_q.shape[1]
     if w_q.shape[0] != K or w_scale.shape[0] != N:
         raise ValueError(f"int8_matmul: shapes x {tuple(x.shape)}, w_q {tuple(w_q.shape)}, w_scale {N}")
-    if K % 128 or N % 16:
-        raise ValueError(f"int8_matmul: the kernel needs K a multiple of 128 and N of 16, got K={K} N={N}")
-    if x.data_ptr() % 16 or w_q.data_ptr() % 16 or w_scale.data_ptr() % 8:
-        raise ValueError("int8_matmul: x and w_q must be 16-byte aligned, w_scale 8-byte aligned")
+    if K < 16 or N < 16 or K % 16 or N % 16:
+        raise ValueError(f"int8_matmul: the kernel needs K and N multiples of 16, got K={K} N={N}")
+    if x.data_ptr() % 16 or w_q.data_ptr() % 16:
+        raise ValueError("int8_matmul: x and w_q must be 16-byte aligned")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M > 0:
-        cuda.call("int8_mm", x.data_ptr(), 0 if x.dtype == torch.float32 else 1, w_q.data_ptr(),
-                  w_scale.data_ptr(), y.data_ptr(), M, K, N)
-        cuda.launches["int8_matmul"] += 1
+        int8_mm_launch(x, w_q, w_scale, y, int8_mm_plan(M, K, N, _sm_count(x.device), x.dtype == torch.float32))
     return y
+
+
+def int8_mm_launch(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, y: torch.Tensor,
+                   plan: Int8MMPlan) -> None:
+    """One launch of csrc/int8_mm.cu along `plan` on tensors int8_matmul
+    has checked (w_scale [N]); y [M, N] in x's dtype is written."""
+    M, K = x.shape
+    N = w_q.shape[1]
+    split = plan.splits > 1
+    part = torch.empty((plan.part_floats,), dtype=torch.float32, device=x.device) if split else None
+    cuda.call("int8_mm", x.data_ptr(), 0 if x.dtype == torch.float32 else 1, w_q.data_ptr(), w_scale.data_ptr(),
+              y.data_ptr(), part.data_ptr() if split else None,
+              _tickets(x.device, plan.tiles).data_ptr() if split else None, M, K, N,
+              0 if plan.narrow else plan.rows // 64, plan.splits)
+    cuda.launches["int8_matmul"] += 1
 
 
 def int8_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:

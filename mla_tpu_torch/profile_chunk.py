@@ -12,8 +12,9 @@ chip_smoke.py does), serves a few warm-up requests, then reports:
     lm_head alone and the whole request, beside the decode step's
     weight-read bound (the decoder's int8 weight bytes over 3.35 TB/s);
   * a torch.profiler trace of one request: device time by kernel, the sum
-    of device time, and the device's idle share of the unprofiled
-    request's wall time (1 - busy / request ms).
+    of device time, the device time and launches of the int8_mm and w8a8
+    kernels, and the device's idle share of the unprofiled request's wall
+    time (1 - busy / request ms).
 Results print as text and go to chiprun_out/profile_chunk_mla-7b_<sampler>.json.
 """
 
@@ -146,13 +147,20 @@ def main() -> None:
     ]
     rows.sort(key=lambda r: -r["device_ms"])
     device_ms = sum(r["device_ms"] for r in rows)
+    # the hand-written products by kernel file: int8_mm (weight-only) and w8a8
+    products = {name: {"device_ms": sum(r["device_ms"] for r in rows if name in r["name"]),
+                       "launches": sum(r["count"] for r in rows if name in r["name"])}
+                for name in ("int8_mm", "w8a8")}
     result = {"gpu": torch.cuda.get_device_name(0), "model": "mla-7b", "sampler": args.sampler,
               "stages": stages, "profiled_chunk_wall_ms": wall_ms, "device_busy_ms": device_ms,
-              "device_idle_share": max(0.0, 1.0 - device_ms / stages["chunk_ms"]), "kernels": rows[:40]}
+              "device_idle_share": max(0.0, 1.0 - device_ms / stages["chunk_ms"]), "products": products,
+              "kernels": rows[:40]}
     for k, v in stages.items():
         print(f"{k}: {v:.3f}")
     print(f"profiled chunk: wall {wall_ms:.3f} ms (under the profiler), device busy {device_ms:.3f} ms, "
           f"idle share of the unprofiled chunk {result['device_idle_share']:.3f}")
+    for name, v in products.items():
+        print(f"{name} kernels: {v['device_ms']:.3f} ms device time, {v['launches']} launches")
     for r in rows[:20]:
         print(f"  {r['device_ms']:9.3f} ms  x{r['count']:5d}  {r['name']}")
     out = Path("chiprun_out")

@@ -141,6 +141,24 @@ def _eps_pair(seed):
     return jfn, tfn
 
 
+def test_clip_scaling_matches_both_jax_graphs():
+    """The frame's uint8 -> [0, 1] scaling. XLA compiles x / 255.0 into x *
+    fl(1/255), so JAX's jitted serving graph multiplies by the reciprocal
+    (as PyTorch's CUDA kernel does for a Python-scalar divisor), while JAX
+    run op by op divides exactly (as the port does on the CPU, which
+    test_fused_tokens_and_prefix_match_jax holds at 1e-6): the two differ by
+    one ulp in 126 of the 256 byte values."""
+    a = np.arange(256, dtype=np.uint8)
+    jitted = np.asarray(jax.jit(lambda v: v.astype(jnp.float32) / 255.0)(jnp.asarray(a)))
+    exact = (a.astype(np.float64) / 255.0).astype(np.float32)
+    np.testing.assert_array_equal(jitted, a.astype(np.float32) * np.float32(1.0 / 255.0))
+    assert int((jitted != exact).sum()) == 126
+    with jax.disable_jit():
+        eager = np.asarray(jnp.asarray(a).astype(jnp.float32) / 255.0)
+    np.testing.assert_array_equal(eager, exact)
+    np.testing.assert_array_equal((torch.from_numpy(a).float() / 255.0).numpy(), exact)
+
+
 @pytest.mark.parametrize("respacing", ["", "ddim8", "ddim4", "ddim1"])
 def test_schedules_match_jax(respacing):
     js, ts = jgd.create_schedule(respacing), tgd.create_schedule(respacing)

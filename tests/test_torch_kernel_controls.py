@@ -52,6 +52,33 @@ def test_w8a8_has_a_control():
     assert old in src[src.index("int2 split_range("):src.index("bool reduce_splits(")]
 
 
+def test_int8_mm_has_a_control():
+    """int8_mm's column check on the card must reject a copy with its last K
+    tile dropped, on both paths and both x dtypes: the one mutation sits in
+    the split range that every kernel of the file takes its K tiles from."""
+    src = (cuda.CSRC / "int8_mm.cu").read_text()
+    (old, _), = chip_smoke.CONTROLS["int8_mm"]
+    assert src.count("split_range(K, split, splits)") == 2  # the narrow and the wide kernel
+    assert old in src[src.index("int2 split_range("):src.index("// Four int8")]
+
+
+def test_fps_has_a_control():
+    """FPS's exact check must reject a copy that leaves the last point out
+    of the distance field (it is then never sampled)."""
+    src = (cuda.CSRC / "fps.cu").read_text()
+    (old, new), = chip_smoke.CONTROLS["fps"]
+    assert "p < N" in old and "p < N - 1" in new
+    assert old in src[src.index("fps_kernel("):src.index("int far = start[b];")]
+
+
+def test_parent_int8_mm_abi_is_read_from_its_source():
+    src = (cuda.CSRC / "int8_mm.cu").read_text()
+    assert chip_smoke.int8_mm_abi(src) == "split"
+    earlier = ('extern "C" int int8_mm(const void* x, int x_dtype, const int8_t* wq, const float* ws, void* y, '
+               'int M, int K, int N,\n                       void* stream) {')
+    assert chip_smoke.int8_mm_abi(earlier) == "plain"
+
+
 def test_parent_w8a8_abi_is_read_from_its_source():
     src = (cuda.CSRC / "w8a8.cu").read_text()
     assert chip_smoke.w8a8_abi(src) == "k_major"

@@ -208,6 +208,19 @@ def test_fps_kernel_matches_plain_on_card(card):
 
 
 @pytest.mark.gpu
+def test_fps_kernel_batched_and_large_clouds_on_card(card):
+    """The training batch (B = 8) at both stages, a cloud whose points do
+    not fill the last warp, and clouds past 4096 points (their coordinates
+    read from shared memory, not registers): indices identical."""
+    g = torch.Generator(device=card).manual_seed(3)
+    for B, N, npoint in ((8, 1024, 512), (8, 512, 256), (3, 40, 17), (2, 5000, 300), (1, 14528, 64)):
+        xyz = torch.rand((B, N, 3), generator=g, device=card)
+        start = torch.randint(0, N, (B,), generator=g, device=card, dtype=torch.int32)
+        got = tpo.furthest_point_sample(xyz, npoint, start)
+        assert torch.equal(got, tpo.furthest_point_sample_plain(xyz, npoint, start)), (B, N, npoint)
+
+
+@pytest.mark.gpu
 def test_flash_kernel_matches_plain_on_card(card):
     g = torch.Generator(device=card).manual_seed(2)
     # a few heads, the serving prefill and the training shape, each with a

@@ -34,10 +34,12 @@ Phases, each of which fails the run if it fails:
                   starts 0 and 7, indices identical, the control rejected
                   at each stage; the flash
                   forward at the serving prefill (BH 32, S 534) and the
-                  mla-2b training shape (BH 256, S 563), with and without a
-                  padded key tail, o and lse at every valid row, the check
-                  rejecting the forward control without padding; the flash
-                  backward (dQ, dK/dV) at the training shape, with and
+                  mla-2b training shapes (BH 256, S 563, and S 819 of the
+                  post-training step, a ragged last tile of 51 rows), with
+                  and without a padded key tail, o and lse at every valid
+                  row, the check rejecting the forward control without
+                  padding; the flash backward (dQ, dK/dV) at both training
+                  shapes, with and
                   without a padded key tail, each gradient row within a
                   bf16 tolerance of its own norm, bit-identical over two
                   launches; the same check must reject the control;
@@ -95,6 +97,21 @@ Phases, each of which fails the run if it fails:
                   through mla_tpu_torch.train_step; check finite loss and
                   grad_norm and the exact kernel launch counts of every
                   step.
+  7. post-train-agree  one AdamW step of the bf16 `mla-small` in the Franka
+                  post-training stage (the image, point-cloud and tactile
+                  generation heads, tactile input and loss, one wrist view;
+                  the heads' dropout 0) on the card and on the CPU from the
+                  same weights, batch and draws: the loss, grad_norm and
+                  each head's loss must agree, and the card's step through
+                  the flash_bwd control must miss grad_norm.
+  8. post-train   the same stage on `mla-2b` through
+                  mla_tpu_torch.train_step (POST_FRANKA): TRAIN_STEPS AdamW
+                  steps at B = 8, S = 819, remat on; finite losses, every
+                  head's loss and the tactile contrastive loss non-zero, the
+                  frozen vision towers without gradients and unchanged, the
+                  exact kernel launch counts of every step; step ms,
+                  tokens/s, MFU and peak GiB beside the card's name and
+                  power limit.
 
 The second-to-last line of output is a JSON object with each kernel's
 numbers (launches counted on the serving path for the kernels of slice 1,
@@ -109,6 +126,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import itertools
 import json
 import shutil
@@ -354,9 +372,10 @@ def check_fps(torch, report, control):
 # which moves an output by about one bf16 ulp (2^-8 relative)
 FLASH_ATOL = 2e-2
 FLASH_LSE_ATOL = 1e-3
-# the forward's shapes: the int8 mla-7b serving prefill and the mla-2b
+# the forward's shapes: the int8 mla-7b serving prefill, the mla-2b
 # training step (B = 8: 32 text + 513 fused + 18 diffusion tokens, 32 heads)
-FLASH_SHAPES = ((32, PREFIX_LEN, "serving prefill"), (8 * 32, 563, "training"))
+# and its post-training step (769 fused tokens)
+FLASH_SHAPES = ((32, PREFIX_LEN, "serving prefill"), (8 * 32, 563, "training"), (8 * 32, 819, "post-training"))
 
 
 def graph_ms(torch, fn, reps: int = 20, windows: int = 3, stream=None) -> float:
@@ -462,8 +481,11 @@ def check_flash(torch, report, control):
 
 
 # training shape of mla-2b at B = 8: 32 text + 513 fused + 18 diffusion
-# tokens, 32 heads of 128
+# tokens, 32 heads of 128; the post-training step's fused block is 769
+# tokens (256 point, 256 front, 256 wrist, 1 tactile), so S = 819 = 6 x 128
+# + 51, a ragged last tile
 TRAIN_BH, TRAIN_S, TRAIN_HD = 8 * 32, 563, 128
+POST_S = 819
 # kernels vs plain version, bf16 gradients: P and dS are rounded to bf16 at
 # the same places in both, but the kernels' tiles (32/64) differ from the
 # plain version's (128), so fp32 sums run in another order and an entry can
@@ -477,11 +499,12 @@ ROW_FLOOR = 1e-2
 # the controls: copies of a kernel's source with a fault the checks must
 # catch, each built in a temporary directory beside the kernels.
 # flash_fwd.cu with its last, ragged key tile dropped (at S = 534 and 563,
-# keys 512.. of its 64-key tiles): rows past 512 lose keys, which only the
-# unpadded case shows
+# keys 512.. of its 64-key tiles, at S = 819 keys 768..): the rows past them
+# lose keys, which only the unpadded case shows
 FLASH_FWD_MUTATIONS = (("const int nk_all = (S + BN - 1) / BN;", "const int nk_all = S / BN;"),)
 # flash_bwd.cu with the last, partial tile of each loop dropped (at S = 563,
-# keys 512..562 for dQ and queries 512..562 for dK/dV), the ragged-S fault
+# keys 512..562 for dQ and queries 512..562 for dK/dV; at S = 819, 768..818),
+# the ragged-S fault
 FLASH_BWD_MUTATIONS = (
     ("const int nk_all = (S + DQ_BN - 1) / DQ_BN;", "const int nk_all = S / DQ_BN;"),
     ("const int nq = (S + KV_QS - 1) / KV_QS;", "const int nq = S / KV_QS;"),
@@ -568,7 +591,16 @@ def bwd_calls(cuda, ptrs, dq, dk, dv, BH, S, hd):
 
 
 def check_flash_bwd(torch, report, control):
-    """dQ and dK/dV kernels at the training shape, with and without a
+    """The flash backward at the training shapes of both training paths
+    (flash_bwd_at); returns the kernel-table rows of the diffusion step's
+    shape, S = 563."""
+    rows = flash_bwd_at(torch, report, control, TRAIN_S, "training")
+    flash_bwd_at(torch, report, control, POST_S, "post-training")
+    return rows
+
+
+def flash_bwd_at(torch, report, control, S, what):
+    """dQ and dK/dV kernels at BH 256, sequence S, with and without a
     padded key tail: every gradient row within FLASH_BWD_ROW_RTOL of the
     plain version's, bit-identical over two launches; the control
     library must exceed the tolerance in each gradient. Times the kernels
@@ -579,7 +611,7 @@ def check_flash_bwd(torch, report, control):
     from mla_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    BH, S, hd = TRAIN_BH, TRAIN_S, TRAIN_HD
+    BH, hd = TRAIN_BH, TRAIN_HD
     q, k, v, do = (torch.randn((BH, S, hd), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
     mask = torch.ones((BH, S), dtype=torch.int32, device="cuda")
     mask_pad = mask.clone()
@@ -601,12 +633,12 @@ def check_flash_bwd(torch, report, control):
             a, c, w = a[:, valid], c[:, valid], w[:, valid]
             (rel, row, norm), (rel_c, row_c, _) = row_rel_err(torch, a, w), row_rel_err(torch, c, w)
             e = float((a.float() - w.float()).abs().max())
-            log(f"flash bwd {name} ({case}): bit-identical repeats, max row |kernel - plain| / |plain| {rel:.3e} "
+            log(f"flash bwd {name} S={S} ({case}): bit-identical repeats, max row |kernel - plain| / |plain| {rel:.3e} "
                 f"(tol {FLASH_BWD_ROW_RTOL}; row {row % int(valid.sum())} of head {row // int(valid.sum())}, "
                 f"norm {norm:.3e}), max |kernel - plain| {e:.3e}; control {rel_c:.3e} "
                 f"(row {row_c % int(valid.sum())})")
             if not rel <= FLASH_BWD_ROW_RTOL:
-                raise AssertionError(f"flash bwd {name} ({case}): a row is {rel} of its norm from the plain version "
+                raise AssertionError(f"flash bwd {name} S={S} ({case}): a row is {rel} of its norm from the plain version "
                                      f"(tol {FLASH_BWD_ROW_RTOL})")
             key = "dq" if name == "dq" else "dkv"
             errs[key] = max(errs[key], e)
@@ -615,8 +647,9 @@ def check_flash_bwd(torch, report, control):
     for name in ("dq", "dk", "dv"):
         worst = max(readings["control"][f"{name}, {case}"] for case in ("no padding", "padded tail"))
         if not worst > FLASH_BWD_ROW_RTOL:
-            raise AssertionError(f"flash bwd {name}: the check passes the control ({worst} <= {FLASH_BWD_ROW_RTOL})")
-    report["flash_bwd_rows"] = readings
+            raise AssertionError(f"flash bwd {name} S={S}: the check passes the control ({worst} <= "
+                                 f"{FLASH_BWD_ROW_RTOL})")
+    report.setdefault("flash_bwd_rows", {})[f"S={S}"] = readings
 
     o, lse = fa.flash_fwd(q, k, v, mask)
     delta = (do.float() * o.float()).sum(-1)
@@ -650,7 +683,7 @@ def check_flash_bwd(torch, report, control):
     out_rows = []
     for key, name, src_line in (("dq", "flash_attention_bwd_dq", 92), ("dkv", "flash_attention_bwd_dkv", 127)):
         b, by = bound_ms(*work[key], "bf16")
-        log(f"flash bwd {key} BH={BH} S={S} hd={hd}: kernel {ms[key]:.4f} ms, plain {plain_ms[key]:.4f} ms, "
+        log(f"flash bwd {key} BH={BH} S={S} hd={hd} ({what}): kernel {ms[key]:.4f} ms, plain {plain_ms[key]:.4f} ms, "
             f"sdpa backward (dq+dk+dv) {lib_ms:.4f} ms, kernel / sdpa backward {ms[key] / lib_ms:.3f}, "
             f"bound {b:.4f} ms ({by})")
         report["shapes"].append({"kernel": name, "BH": BH, "S": S, "hd": hd, "ms": ms[key], "plain_ms": plain_ms[key],
@@ -749,8 +782,8 @@ def compare_parent(torch, report, parent, w8a8_layout, int8_layout):
     ptrs = (q_.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr())
     calls = bwd_calls(cuda, ptrs, torch.empty_like(q_), torch.empty_like(k), torch.empty_like(v), BH, S, 128)
-    turns("flash_bwd", f"flash dQ BH={BH} S={S} (training)", calls["dq"])
-    turns("flash_bwd", f"flash dK/dV BH={BH} S={S} (training)", calls["dkv"])
+    turns("flash_bwd", f"flash dQ BH={BH} S={S} ({what})", calls["dq"])
+    turns("flash_bwd", f"flash dK/dV BH={BH} S={S} ({what})", calls["dkv"])
     del q_, k, v, do, o, lse, delta
 
     for M in (PREFIX_LEN, SUFFIX_LEN):
@@ -1347,35 +1380,46 @@ def _draws(cfg, rows: int, seed: int):
     }
 
 
-def check_train_agreement(torch, report, control):
+def agreement_steps(torch, control, cfg, batch, keys, what: str, stage: str = "pretrain"):
+    """One AdamW step of `cfg` from the same seeded weights (a live
+    diffusion head), batch, noise, t and FPS starts on the card, on the CPU
+    and on the card through the flash_bwd `control`: {'cuda', 'cpu',
+    'control'}, each the step's metrics named in `keys`."""
     from mla_tpu_torch import params as P
-    from mla_tpu_torch.conf.models import get_model_config
     from mla_tpu_torch.diffusion import gaussian as gd
     from mla_tpu_torch.ops import cuda
     from mla_tpu_torch.training import optim, strategy
-    from mla_tpu_torch.vla.dummy import synthetic_batch
 
-    cfg = get_model_config("mla-small")
     params, state = P.init(cfg, seed=8, device="cpu")
     live_head(torch, params, 9)
-    batch = synthetic_batch(cfg, B=2, L=32, seed=10)
     draws = [_draws(cfg, 2, 11)]
     sched = gd.create_schedule("", diffusion_steps=100)
 
     def one_step(dev):
         t0 = time.perf_counter()
         p = P.tree_map(lambda t: t.detach().to(dev, copy=True), params)
-        opt, _, _ = optim.make_optimizer(p, learning_rate=1e-5, num_training_steps=10)
+        opt, _, _ = optim.make_optimizer(p, learning_rate=1e-5, num_training_steps=10, stage=stage)
         tcfg = strategy.TrainConfig(repeated_diffusion_steps=1)
         step = strategy.make_train_step(cfg, tcfg, opt, sched)
         _, m = step(strategy.init_train_state(p, opt, P.tree_to(state, dev)), batch, draws=draws)
-        out = {k: float(m[k]) for k in ("total_loss", "diff_loss", "img_pc_contrastive_loss", "grad_norm")}
-        log(f"train-agree mla-small bf16 B=2 on {dev}: {time.perf_counter() - t0:.2f} s, {out}")
+        out = {k: float(m[k]) for k in keys}
+        log(f"{what} on {dev}: {time.perf_counter() - t0:.2f} s, {out}")
         return out
 
     out = {"cuda": one_step("cuda"), "cpu": one_step("cpu")}
     with kernel_from(cuda, "flash_bwd", control):
         out["control"] = one_step("cuda")
+    return out
+
+
+def check_train_agreement(torch, report, control):
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.vla.dummy import synthetic_batch
+
+    cfg = get_model_config("mla-small")
+    out = agreement_steps(torch, control, cfg, synthetic_batch(cfg, B=2, L=32, seed=10),
+                          ("total_loss", "diff_loss", "img_pc_contrastive_loss", "grad_norm"),
+                          "train-agree mla-small bf16 B=2")
 
     def rel(dev):
         return {k: abs(out[dev][k] - out["cpu"][k]) / abs(out["cpu"][k]) for k in ("total_loss", "grad_norm")}
@@ -1433,6 +1477,120 @@ def train(torch, report):
         f"{tok_s:.0f} tokens/s, MFU {mfu if mfu is None else round(mfu, 4)}, peak {peak_gib:.2f} GiB")
     report["train"] = {"steps": steps, "step_ms_median": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
                        "peak_gib": peak_gib, "launches": dict(cuda.launches), "expected_per_step": expected}
+    return dict(cuda.launches)
+
+
+# the post-training losses compared card vs CPU within TRAIN_AGREE_RTOL of
+# themselves; image_gen_loss within it of |total_loss|, since its
+# delta-reward term is negative and the image loss can sit near 0
+POST_AGREE_KEYS = ("total_loss", "tactile_contrastive_loss", "point_cloud_gen_loss", "tactile_gen_loss", "grad_norm")
+
+
+def check_post_train_agreement(torch, report, control):
+    """One AdamW step of the bf16 `mla-small` in the Franka post-training
+    stage (every head, tactile, one wrist view; the heads' dropout 0, since
+    the card's and the CPU's generators differ) on the card and on the CPU
+    from the same weights, batch, wrist view, noise, t and FPS starts; the
+    card's step through the flash_bwd control must miss grad_norm."""
+    from dataclasses import replace
+
+    from mla_tpu_torch import train_step as ts
+    from mla_tpu_torch.models.mla import LOSS_KEYS
+    from mla_tpu_torch.vla.dummy import add_extra_views, synthetic_batch
+
+    flags = {k: v for k, v in ts.POST_FRANKA.items() if k != "stage"}
+    cfg = ts.model_config("mla-small", **flags)
+    g = cfg.gen
+    cfg = replace(cfg, gen=replace(g, image=replace(g.image, dropout=0.0), point=replace(g.point, dropout=0.0),
+                                   tactile=replace(g.tactile, dropout=0.0)))
+    batch = add_extra_views(synthetic_batch(cfg, B=2, L=32, seed=10), cfg, seed=12)
+    out = agreement_steps(torch, control, cfg, batch, LOSS_KEYS + ("grad_norm",),
+                          f"post-train-agree mla-small bf16 B=2 S={32 + cfg.fused_len + cfg.diff_block_len}",
+                          stage=ts.POST_FRANKA["stage"])
+
+    def rel(dev):
+        r = {k: abs(out[dev][k] - out["cpu"][k]) / abs(out["cpu"][k]) for k in POST_AGREE_KEYS}
+        r["image_gen_loss (of |total_loss|)"] = (abs(out[dev]["image_gen_loss"] - out["cpu"]["image_gen_loss"])
+                                                 / abs(out["cpu"]["total_loss"]))
+        return r
+
+    sound, ctrl = rel("cuda"), rel("control")
+    log(f"post-train-agree: relative |gpu - cpu| {({k: float(f'{v:.4e}') for k, v in sound.items()})} "
+        f"(tol {TRAIN_AGREE_RTOL}); control grad_norm {ctrl['grad_norm']:.4e}")
+    report["post_train_agree"] = {**out, "rel_err": sound, "control_rel_err": ctrl, "rtol": TRAIN_AGREE_RTOL}
+    for k in ("tactile_contrastive_loss", "image_gen_loss", "point_cloud_gen_loss", "tactile_gen_loss"):
+        if out["cpu"][k] == 0.0:
+            raise AssertionError(f"post-train-agree: {k} is 0 on the CPU, the head did not run")
+    if not all(v <= TRAIN_AGREE_RTOL for v in sound.values()):
+        raise AssertionError(f"GPU and CPU post-training steps disagree: {sound}")
+    if not ctrl["grad_norm"] > TRAIN_AGREE_RTOL:
+        raise AssertionError(f"post-train-agree passes the control: grad_norm off by {ctrl['grad_norm']}")
+
+
+def post_train(torch, report):
+    """mla-2b in the Franka post-training stage (train_step --post_franka):
+    TRAIN_STEPS AdamW steps at B = 8, S = 819, remat on; finite losses, the
+    three generation losses and the tactile contrastive loss non-zero, the
+    frozen vision towers without gradients and unchanged, the exact kernel
+    launches of every step."""
+    import numpy as np
+
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch import train_step as ts
+    from mla_tpu_torch.models.mla import LOSS_KEYS
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.training import metrics
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    run = ts.build("mla-2b", 8, 32, "cuda", seed=0, **ts.POST_FRANKA)
+    cfg, params = run["cfg"], run["state"]["params"]
+    S = 32 + cfg.fused_len + cfg.diff_block_len
+    heads_n = sum(t.numel() for t in P.tree_leaves(params["generation_manager"]))
+    towers = {p: t.detach().clone() for p, t in P.tree_items(params)
+              if p.startswith(("vision_tower_2d/", "vision_tower_3d/"))}
+    torch.cuda.synchronize()
+    log(f"post-train: mla-2b built on the card in {time.perf_counter() - t0:.1f} s, S = {S}, generation heads "
+        f"{heads_n / 1e9:.3f} B parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    L = cfg.llama.num_layers
+    expected = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+                "furthest_point_sample": cfg.point.num_stages, "w8a8_matmul": 0, "int8_matmul": 0}
+    cuda.launches.clear()
+    times, steps = [], []
+    for i in range(TRAIN_STEPS):
+        before = dict(cuda.launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run["state"], m = run["step"](run["state"], run["batch"], run["generator"])
+        losses = {k: float(m[k]) for k in LOSS_KEYS}
+        gnorm = float(m["grad_norm"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        counts = {k: cuda.launches[k] - before.get(k, 0) for k in expected}
+        log(f"post-train step {i}: {losses}, grad_norm {gnorm:.5f}, {times[-1]:.1f} ms, launches {counts}")
+        if not all(np.isfinite(v) for v in (*losses.values(), gnorm)):
+            raise AssertionError(f"post-train step {i}: non-finite loss or grad_norm: {losses}, {gnorm}")
+        for k in ("tactile_contrastive_loss", "image_gen_loss", "point_cloud_gen_loss", "tactile_gen_loss"):
+            if losses[k] == 0.0:
+                raise AssertionError(f"post-train step {i}: {k} is 0")
+        if counts != expected:
+            raise AssertionError(f"post-train step {i}: launches {counts}, expected {expected}")
+        steps.append({**losses, "grad_norm": gnorm, "ms": times[-1]})
+    for p, t in P.tree_items(params):
+        if p in towers and (t.requires_grad or t.grad is not None or not torch.equal(t, towers[p])):
+            raise AssertionError(f"post-train: the frozen leaf {p} got a gradient or moved")
+    step_ms = float(np.median(times[1:]))
+    tok_s = run["tokens_per_step"] / (step_ms / 1e3)
+    peak = metrics.bf16_peak_flops(torch.cuda.get_device_name(0))
+    mfu = tok_s * run["flops_per_token"] / peak if peak else None
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"post-train mla-2b B=8 S={S} ({gpu_line()}): step {step_ms:.1f} ms (median of steps 1..{TRAIN_STEPS - 1}), "
+        f"{tok_s:.0f} tokens/s, MFU {mfu if mfu is None else round(mfu, 4)} (decoder 6N only: the front-ends and "
+        f"the {heads_n / 1e9:.3f} B generation-head parameters not counted), peak {peak_gib:.2f} GiB")
+    report["post_train"] = {"steps": steps, "S": S, "step_ms_median": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
+                            "peak_gib": peak_gib, "generation_head_params": heads_n,
+                            "frozen_leaves_checked": len(towers), "launches": dict(cuda.launches),
+                            "expected_per_step": expected}
     return dict(cuda.launches)
 
 
@@ -1511,6 +1669,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_train_agreement(torch, report, libs["flash_bwd"])
     train_totals = train(torch, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_post_train_agreement(torch, report, libs["flash_bwd"])
+    report["post_train_launches"] = post_train(torch, report)
     for k in kernels:
         k["launches"] = (ar_totals if k["name"] == "int8_matmul" else totals)[k["name"]]
     for k in train_kernels:

@@ -2,8 +2,8 @@
 
 Counterpart of mla_tpu/conf/models.py. The flagship deployment config is
 `mla-7b` (Llama-2-7B backbone); smaller presets exist for checks and tests.
-The generation heads' config belongs to the training slice and is not part
-of these presets; `mla-phi` waits for the Phi decoder.
+Each preset carries the generation heads' config at its decoder width, as
+the JAX presets do; `mla-phi` waits for the Phi decoder.
 """
 
 from __future__ import annotations
@@ -13,10 +13,23 @@ from typing import Callable, Dict
 
 import torch
 
+from mla_tpu_torch.models import generation as gen_mod
 from mla_tpu_torch.models import llama as llama_mod
 from mla_tpu_torch.models import point_tokenizer as pt_mod
 from mla_tpu_torch.models import prismatic
 from mla_tpu_torch.models import vision_tokenizer as vt_mod
+
+
+def _gen_cfg(token_size: int, use_generation: bool, use_tactile: bool, use_roi: bool) -> gen_mod.GenerationConfig:
+    return gen_mod.GenerationConfig(
+        token_size=token_size,
+        use_image=use_generation,
+        use_pointcloud=use_generation,
+        use_tactile=use_generation and use_tactile,
+        image=gen_mod.ImageGenConfig(token_size=token_size, use_roi=use_roi),
+        point=gen_mod.PointGenConfig(token_size=token_size),
+        tactile=gen_mod.TactileGenConfig(token_size=token_size),
+    )
 
 
 def _full_width(llama_cfg, use_diff, use_pointcloud, use_tactile, use_contrastive,
@@ -26,6 +39,7 @@ def _full_width(llama_cfg, use_diff, use_pointcloud, use_tactile, use_contrastiv
         llama=llama_cfg,
         vision=vt_mod.VisionTokenizerConfig(),
         point=pt_mod.PointTokenizerConfig(),
+        gen=_gen_cfg(llama_cfg.hidden_size, use_generation, use_tactile, use_roi),
         use_diff=use_diff, use_pointcloud=use_pointcloud, use_tactile=use_tactile,
         use_contrastive=use_contrastive, use_generation=use_generation,
         use_roi=use_roi, camera_name=camera_name, **kw,
@@ -54,7 +68,7 @@ def mla_medium(**kw) -> prismatic.MLAModelConfig:
     return replace(cfg, llama=replace(
         cfg.llama, hidden_size=2048, intermediate_size=5632, num_layers=6,
         num_heads=16, num_kv_heads=16, contrastive_layer=3,
-    ))
+    ), gen=_gen_cfg(2048, cfg.use_generation, cfg.use_tactile, cfg.use_roi))
 
 
 def mla_small(**kw) -> prismatic.MLAModelConfig:
@@ -64,15 +78,27 @@ def mla_small(**kw) -> prismatic.MLAModelConfig:
     return replace(cfg, llama=replace(
         cfg.llama, hidden_size=1024, intermediate_size=2816, num_layers=4,
         num_heads=8, num_kv_heads=8, contrastive_layer=2,
-    ))
+    ), gen=_gen_cfg(1024, cfg.use_generation, cfg.use_tactile, cfg.use_roi))
 
 
 def mla_tiny(**kw) -> prismatic.MLAModelConfig:
     """Test size: the full architecture at toy widths, fp32 compute."""
     for k in ("use_generation", "use_tactile", "use_roi"):
         kw.setdefault(k, False)
+    D = 64
+    gen = gen_mod.GenerationConfig(
+        token_size=D, use_image=kw["use_generation"], use_pointcloud=kw["use_generation"],
+        use_tactile=kw["use_generation"] and kw["use_tactile"],
+        image=gen_mod.ImageGenConfig(
+            token_size=D, num_gen_queries=4, decoder_layers=1, decoder_heads=4, num_patches=16,
+            use_roi=kw["use_roi"],
+        ),
+        point=gen_mod.PointGenConfig(token_size=D, trans_dim=32, decoder_layers=1, decoder_heads=4, group_size=4,
+                                     num_groups=8),
+        tactile=gen_mod.TactileGenConfig(token_size=D, decoder_layers=1),
+    )
     llama_cfg = llama_mod.LlamaConfig(
-        vocab_size=32064, hidden_size=64, intermediate_size=128, num_layers=4,
+        vocab_size=32064, hidden_size=D, intermediate_size=128, num_layers=4,
         num_heads=4, num_kv_heads=4, max_position_embeddings=256,
         contrastive_layer=2, compute_dtype=torch.float32,
     )
@@ -83,7 +109,7 @@ def mla_tiny(**kw) -> prismatic.MLAModelConfig:
             input_points=64, embed_dim=12, k_neighbors=8, lga_blocks=(2, 1),
             dim_expansion=(2, 2), out_dim=24,
         ),
-        image_hidden_dim=32, point_token_dim=24, **kw,
+        gen=gen, image_hidden_dim=32, point_token_dim=24, **kw,
     )
 
 

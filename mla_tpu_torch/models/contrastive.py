@@ -1,12 +1,16 @@
-"""Coordinate-aware contrastive loss between point and image tokens.
+"""Positional-correspondence contrastive losses on the decoder's
+contrastive-layer hidden states.
 
-Counterpart of mla_tpu/models/contrastive.py (`coordinate_contrastive_loss`):
-InfoNCE between each valid point-cloud token, read at the decoder's
-contrastive layer, and the image token at its 3D->2D-projected patch, over
-the whole batch. As in the JAX package the [B*N, B*N] logits keep their
-static shape: invalid columns are masked before the row log-sum-exp and
-invalid rows leave the mean, which equals the cross-entropy over the
-compacted matrix of valid pairs. The tactile loss is not ported yet.
+Counterpart of mla_tpu/models/contrastive.py:
+  * `coordinate_contrastive_loss`: InfoNCE between each valid point-cloud
+    token and the image token at its 3D->2D-projected patch, over the whole
+    batch. As in the JAX package the [B*N, B*N] logits keep their static
+    shape: invalid columns are masked before the row log-sum-exp and
+    invalid rows leave the mean, which equals the cross-entropy over the
+    compacted matrix of valid pairs.
+  * `tactile_contrastive_loss`: each tactile token against its sample's
+    point-cloud tokens (positive: the one nearest the gripper) and image
+    tokens (positive: that point's patch).
 """
 
 from __future__ import annotations
@@ -49,3 +53,23 @@ def coordinate_contrastive_loss(
     logits = (pc.reshape(B * N, -1) @ target.reshape(B * N, -1).T) / temperature
     loss = (_masked_infonce(logits, valid) + _masked_infonce(logits.T, valid)) / 2.0
     return torch.where(valid.sum() > 0, loss, 0.0)
+
+
+def tactile_contrastive_loss(
+    params: Dict[str, Any], tac_features: torch.Tensor, pc_features: torch.Tensor, img_features: torch.Tensor,
+    positive_pc_indices: torch.Tensor, positive_img_indices: torch.Tensor, temperature: float = 0.07,
+) -> torch.Tensor:
+    """tac_features [B, n_arms, D], pc/img features [B, 256, D], positive
+    indices [B, n_arms, 1] -> scalar: the mean of the tactile->point and
+    tactile->image cross-entropies."""
+    tac = _l2norm(nn.proj_head(params["tactile_head"], tac_features).float())
+    pc = _l2norm(nn.proj_head(params["pointcloud_head"], pc_features).float())
+    img = _l2norm(nn.proj_head(params["image_head"], img_features).float())
+
+    def ce(logits, labels):
+        pos = torch.gather(logits, -1, labels.long())[..., 0]
+        return (torch.logsumexp(logits, dim=-1) - pos).mean()
+
+    loss_pc = ce(tac @ pc.transpose(1, 2) / temperature, positive_pc_indices)
+    loss_img = ce(tac @ img.transpose(1, 2) / temperature, positive_img_indices)
+    return (loss_pc + loss_img) / 2.0

@@ -4,7 +4,8 @@ cached-suffix denoising, autoregressive decoding and the deployment policy.
 Counterpart of mla_tpu/models/mla.py. `mla_train_loss` is the diffusion
 training forward: the batch repeated `repeated_diffusion_steps` times, the
 future-action window q-sampled at random t, the noise regressed, plus the
-point/image contrastive loss. The AR loss mode is not ported yet. The
+contrastive losses (point/image; tactile) and, in the post-training stage,
+the generation heads' losses. The AR loss mode is not ported yet. The
 multimodal prefix
 [BOS | fused | text[1:]] is prefilled once into a KV cache; each denoise
 step then runs only the 18-token suffix [proprio, t, x_0..15] against the
@@ -75,7 +76,8 @@ def mla_train_loss(
     the point tokenizer's FPS starts ([num_stages] x [B * rep]) are drawn
     from `generator` unless given: override_noise [B * rep, horizon,
     action_dim], override_t [B * rep] and fps_start replace the draws (the
-    parity tests feed the JAX package's)."""
+    parity tests feed the JAX package's). The generation heads' dropout
+    draws from `generator` too, and is off without one."""
     if not cfg.use_diff:
         raise NotImplementedError("the AR loss mode (use_diff=False) is not ported yet")
     rbatch = _tile_batch(batch, repeated_diffusion_steps)
@@ -111,6 +113,16 @@ def mla_train_loss(
     if cfg.use_contrastive and "img_pc_contrastive_loss" in outputs:
         loss_dict["img_pc_contrastive_loss"] = outputs["img_pc_contrastive_loss"]
         total = total + outputs["img_pc_contrastive_loss"]
+        if cfg.use_tactile and "tactile_contrastive_loss" in outputs:
+            loss_dict["tactile_contrastive_loss"] = outputs["tactile_contrastive_loss"]
+            total = total + outputs["tactile_contrastive_loss"]
+    if cfg.use_generation and "generation_losses" in outputs:
+        gl = outputs["generation_losses"]
+        for key, on in (("image_gen_loss", cfg.gen.use_image), ("point_cloud_gen_loss", cfg.gen.use_pointcloud),
+                        ("tactile_gen_loss", cfg.gen.use_tactile)):
+            if on and key in gl:
+                loss_dict[key] = gl[key]
+                total = total + gl[key]
     loss_dict["total_loss"] = total
     return total, (loss_dict, new_state)
 

@@ -9,9 +9,9 @@ Counterpart of mla_tpu/models/prismatic.py. Token layout:
 Diffusion mode splices [proprio, t, x_0..x_15] right before the tag token
 (in training the last EOS) and reads noise_pred at the x positions. As in
 the JAX package the sequence is assembled with one gather through an index
-map from the batch's `splice_idx`, so every shape is static. The generation
-heads and the tactile contrastive loss are not ported yet; vlm_forward
-raises on a config that needs them in training.
+map from the batch's `splice_idx`, so every shape is static. In training
+the contrastive losses read the decoder's contrastive-layer hidden states
+and, in the post-training stage, the generation heads read its final ones.
 """
 
 from __future__ import annotations
@@ -24,9 +24,11 @@ import torch
 from mla_tpu_torch import nn
 from mla_tpu_torch.models import contrastive as contrastive_mod
 from mla_tpu_torch.models import embedders
+from mla_tpu_torch.models import generation as gen_mod
 from mla_tpu_torch.models import llama as llama_mod
 from mla_tpu_torch.models import point_tokenizer as pt_mod
 from mla_tpu_torch.models import vision_tokenizer as vt_mod
+from mla_tpu_torch.ops import pointops
 from mla_tpu_torch.ops import projection as proj_ops
 
 
@@ -36,6 +38,7 @@ class MLAModelConfig:
     llama: llama_mod.LlamaConfig = field(default_factory=lambda: llama_mod.LLAMA2_7B)
     vision: vt_mod.VisionTokenizerConfig = field(default_factory=vt_mod.VisionTokenizerConfig)
     point: pt_mod.PointTokenizerConfig = field(default_factory=pt_mod.PointTokenizerConfig)
+    gen: gen_mod.GenerationConfig = field(default_factory=gen_mod.GenerationConfig)
 
     action_dim: int = 7
     future_action_window_size: int = 15
@@ -98,16 +101,22 @@ class MLAModelConfig:
 def get_fused_tokens(
     params: Dict[str, Any], state: Dict[str, Any], cfg: MLAModelConfig,
     images: Dict[str, torch.Tensor], point_cloud: Optional[torch.Tensor],
+    tactile: Optional[torch.Tensor] = None, gripper_xyz: Optional[torch.Tensor] = None,
     *, training: bool = False, fps_start: Optional[Sequence[torch.Tensor]] = None,
 ) -> Dict[str, Any]:
-    """images: {'front_image': [B, 4, S, S], extra views...}. Returns
-    {'fused', 'img_tokens', 'centers', 'patch_indices', 'valid_mask',
-    'state'}: the point centers' image patches and their validity pair the
-    contrastive loss; 'state' carries the point tokenizer's batch-norm
-    state (moved in training). The image path computes in the decoder's
-    compute dtype, the point path in fp32; the fused block takes their
-    promoted dtype, as jnp.concatenate does. The tactile slot is the zero
-    token, as in JAX when no tactile reading is given."""
+    """images: {'front_image': [B, 4, S, S], extra views...}; tactile [B,
+    n_arms * tactile_dim]?, gripper_xyz [B, n_arms * 3]?. Returns {'fused',
+    'img_tokens', 'centers', 'patch_indices', 'valid_mask',
+    'positive_pc_idx', 'positive_img_idx', 'state'}: the point centers'
+    image patches and their validity pair the contrastive loss; with a
+    tactile reading and gripper positions, each gripper's nearest point
+    token (first on ties) and that token's image patch, [B, n_arms, 1], are
+    the tactile loss's positives (else None); 'state' carries the point
+    tokenizer's batch-norm state (moved in training). The image path
+    computes in the decoder's compute dtype, the point and tactile paths in
+    the dtype of their inputs; the fused block takes their promoted dtype,
+    as jnp.concatenate does. Without a tactile reading the tactile slot is
+    one zero token."""
     cdt = cfg.llama.compute_dtype
     images = {k: v.to(cdt) for k, v in images.items()}
     front = images["front_image"]
@@ -135,13 +144,24 @@ def get_fused_tokens(
     for view_key in sorted(k for k in images if k != "front_image"):
         view_raw = vt_mod.vision_tokenizer(params["vision_tower_2d"], images[view_key], cfg.vision)
         parts.append(nn.mlp_gelu(params["projector_2d"], view_raw))
-    parts.append(torch.zeros((B, 1, D), dtype=img_tokens.dtype, device=front.device))
+    positive_pc_idx = positive_img_idx = None
+    if cfg.use_tactile and tactile is not None:
+        n = cfg.n_arms
+        parts.append(embedders.action_embedder(params["tactile_embedder"], tactile.reshape(B, n, cfg.tactile_dim)))
+        if centers is not None and gripper_xyz is not None:
+            d = pointops.square_distance(gripper_xyz.reshape(B, n, 3), centers)
+            positive_pc_idx = torch.argmin(d, dim=-1)[..., None]
+            pi = torch.gather(patch_indices, 1, positive_pc_idx.expand(-1, -1, 2))
+            positive_img_idx = (pi[..., 0] * cfg.vision.out_grid + pi[..., 1]).long()[..., None]
+    else:
+        parts.append(torch.zeros((B, 1, D), dtype=img_tokens.dtype, device=front.device))
     dtype = parts[0].dtype
     for p in parts[1:]:
         dtype = torch.promote_types(dtype, p.dtype)
     fused = torch.cat([p.to(dtype) for p in parts], dim=1)
     return {"fused": fused, "img_tokens": img_tokens, "centers": centers, "patch_indices": patch_indices,
-            "valid_mask": valid_mask, "state": new_state}
+            "valid_mask": valid_mask, "positive_pc_idx": positive_pc_idx, "positive_img_idx": positive_img_idx,
+            "state": new_state}
 
 
 def build_splice_map(L: int, F: int, d: int, splice_idx: torch.Tensor) -> torch.Tensor:
@@ -164,6 +184,35 @@ def _gather_seq(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(src, 1, idx[..., None].expand(-1, -1, *src.shape[2:]))
 
 
+def generation_block(
+    params: Dict[str, Any], state: Dict[str, Any], cfg: MLAModelConfig, batch: Dict[str, Any],
+    last_hidden: torch.Tensor, img_tokens: torch.Tensor, patch_indices: torch.Tensor,
+    *, generator: Optional[torch.Generator] = None,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Dict[str, Any]]:
+    """The generation heads in training on the decoder's final hidden
+    states: (outputs, losses, the heads' new state). The image head warps
+    the front frame's patches; with cfg.use_roi its ROI is every point
+    center's patch (dilated in the head), else the whole frame."""
+    B, grid = last_hidden.shape[0], cfg.vision.out_grid
+    roi_2d = torch.ones((B, grid, grid), dtype=torch.bool, device=last_hidden.device)
+    curr_patches = None
+    if cfg.gen.use_image:
+        curr_patches = gen_mod.images_to_patches(batch["images"]["front_image"][:, :3], cfg.gen.image.image_patch_size)
+        if cfg.use_roi:
+            roi_2d = gen_mod.create_roi_mask_from_indices(patch_indices, grid)
+    # as in the JAX package, the point head gets no current cloud
+    outs, new_state = gen_mod.generation_manager_forward(
+        params["generation_manager"], state.get("generation_manager", {}), cfg.gen, last_hidden,
+        current_image_features=img_tokens, current_images_patches=curr_patches, current_point_cloud=None,
+        roi_mask_2d=roi_2d, training=True, generator=generator,
+    )
+    losses = gen_mod.compute_generation_losses(
+        cfg.gen, outs, next_images=batch.get("next_images"), next_point_cloud=batch.get("next_point_cloud"),
+        next_tactile=batch.get("next_tactile"),
+    )
+    return outs, losses, new_state
+
+
 def vlm_forward(
     params: Dict[str, Any], state: Dict[str, Any], cfg: MLAModelConfig, batch: Dict[str, Any],
     *, training: bool = False, use_diff: Optional[bool] = None, generator: Optional[torch.Generator] = None,
@@ -171,12 +220,16 @@ def vlm_forward(
 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The composed model on a batch of tensors: input_ids [B, L],
     attention_mask [B, L] bool, splice_idx [B], images {name: [B, 4, S, S]},
-    point_cloud [B, N, 3]?, labels [B, L]?, and in diffusion mode x [B, 16,
-    action_dim], t [B], proprio [B, 1, action_dim]. A batch without images
-    runs the language-only forward. `generator` draws the condition dropout
-    (when cfg.class_dropout_prob > 0); `fps_start` are the point tokenizer's
-    FPS starts. Returns (outputs, new_state): last_hidden, seq_mask,
-    logits?, lm_loss?, img_pc_contrastive_loss (training), noise_pred
+    point_cloud [B, N, 3]?, tactile?, gripper_xyz?, labels [B, L]?, in
+    diffusion mode x [B, 16, action_dim], t [B], proprio [B, 1,
+    action_dim], and for the generation heads next_images / next_point_cloud
+    / next_tactile. A batch without images runs the language-only forward.
+    `generator` draws the condition dropout (when cfg.class_dropout_prob >
+    0) and the generation heads' dropout; `fps_start` are the point
+    tokenizer's FPS starts. Returns (outputs, new_state): last_hidden,
+    seq_mask, logits?, lm_loss?, in training img_pc_contrastive_loss,
+    tactile_contrastive_loss (with tactile positives), generation_outputs
+    and generation_losses (cfg.use_generation), and noise_pred
     (diffusion)."""
     use_diff = cfg.use_diff if use_diff is None else use_diff
     input_ids = batch["input_ids"]
@@ -191,12 +244,12 @@ def vlm_forward(
             outputs["lm_loss"] = llama_mod.causal_lm_loss(out["logits"], batch["labels"])
         return outputs, state
 
-    if training and (cfg.use_generation or cfg.use_tactile):
-        raise NotImplementedError("training with the generation heads or the tactile loss is not ported yet")
     F = cfg.fused_len
     fused_out = get_fused_tokens(
-        params, state, cfg, batch["images"], batch.get("point_cloud"), training=training, fps_start=fps_start,
+        params, state, cfg, batch["images"], batch.get("point_cloud"), batch.get("tactile"),
+        batch.get("gripper_xyz"), training=training, fps_start=fps_start,
     )
+    new_state = fused_out["state"]
     fused = fused_out["fused"]
     if fused.shape[1] != F:
         raise ValueError(f"fused length {fused.shape[1]} != cfg.fused_len {F}")
@@ -245,14 +298,29 @@ def vlm_forward(
         hmid = out["hidden_mid"]
         pc_end = 1 + cfg.num_pc_tokens
         img_end = pc_end + cfg.num_image_tokens
+        pc_feats, img_feats = hmid[:, 1:pc_end], hmid[:, pc_end:img_end]
         outputs["img_pc_contrastive_loss"] = contrastive_mod.coordinate_contrastive_loss(
-            params["contrastive"]["coord"], hmid[:, pc_end:img_end], hmid[:, 1:pc_end],
-            fused_out["patch_indices"], fused_out["valid_mask"],
+            params["contrastive"]["coord"], img_feats, pc_feats, fused_out["patch_indices"], fused_out["valid_mask"],
         )
+        if cfg.use_tactile and fused_out["positive_pc_idx"] is not None:
+            # the tactile slot follows the extra views
+            tac_start = img_end + cfg.num_image_tokens * cfg.num_extra_views
+            outputs["tactile_contrastive_loss"] = contrastive_mod.tactile_contrastive_loss(
+                params["contrastive"]["tactile"], hmid[:, tac_start : tac_start + cfg.n_arms], pc_feats, img_feats,
+                fused_out["positive_pc_idx"], fused_out["positive_img_idx"],
+            )
+
+    if cfg.use_generation and training:
+        gen_outs, outputs["generation_losses"], gen_state = generation_block(
+            params, state, cfg, batch, out["last_hidden"], fused_out["img_tokens"], fused_out["patch_indices"],
+            generator=generator,
+        )
+        new_state = {**new_state, "generation_manager": gen_state}
+        outputs["generation_outputs"] = gen_outs
 
     if use_diff:
         # final_layer is position-wise: read the 16 x-token hiddens first
         pos = (F + splice_idx.long() + 2)[:, None] + torch.arange(cfg.action_horizon, device=seq_emb.device)[None, :]
         x_hidden = _gather_seq(out["last_hidden"], pos)
         outputs["noise_pred"] = embedders.final_layer(params["final_layer"], x_hidden)
-    return outputs, fused_out["state"]
+    return outputs, new_state

@@ -20,7 +20,7 @@ reads:
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -113,16 +113,35 @@ def proj_head(p: Params, x: torch.Tensor) -> torch.Tensor:
     return linear(p["fc2"], torch.relu(linear(p["fc1"], x)))
 
 
-def mha(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Unmasked self-attention with a packed qkv linear (the DiT blocks);
-    fp32 scores and softmax, the probabilities cast to v's dtype."""
-    B, S, D = x.shape
+def _promoted_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w in the wider of the two dtypes, as jnp's `@` promotes."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
+def mha(p: Params, x: torch.Tensor, num_heads: int, kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Unmasked attention with a packed qkv linear (the DiT blocks and the
+    generation heads): self-attention, or cross-attention over `kv` [B, Sk,
+    D], where q comes from x @ w[:, :D] and k, v from kv @ w[:, D:2D] and
+    kv @ w[:, 2D:] (plus the bias slices), each product in the wider of its
+    operands' dtypes, as the JAX package slices the packed weight. fp32
+    scores and softmax, the probabilities cast to v's dtype."""
+    B, Sq, D = x.shape
     hd = D // num_heads
-    qkv = linear(p["qkv"], x).reshape(B, S, 3, num_heads, hd)
-    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    if kv is None:
+        qkv = linear(p["qkv"], x).reshape(B, Sq, 3, num_heads, hd)
+        q, k, v = (qkv[:, :, i] for i in range(3))
+    else:
+        w, b = p["qkv"]["w"], p["qkv"].get("b")
+        q, k, v = _promoted_mm(x, w[:, :D]), _promoted_mm(kv, w[:, D : 2 * D]), _promoted_mm(kv, w[:, 2 * D :])
+        if b is not None:
+            q, k, v = q + b[:D], k + b[D : 2 * D], v + b[2 * D :]
+        q = q.reshape(B, Sq, num_heads, hd)
+        k, v = (t.reshape(B, kv.shape[1], num_heads, hd) for t in (k, v))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
     out = torch.softmax(scores, dim=-1).to(v.dtype) @ v
-    return linear(p["proj"], out.transpose(1, 2).reshape(B, S, D))
+    return linear(p["proj"], out.transpose(1, 2).reshape(B, Sq, D))
 
 
 def embedding(p: Params, ids: torch.Tensor) -> torch.Tensor:

@@ -3,15 +3,15 @@
 Trees are nested dicts (and lists) of tensors in the JAX package's layout,
 so a JAX param/state pytree with numpy leaves carries across leaf for leaf
 (`from_jax`). `init` builds the modules of an MLA model that the ported
-paths run (serving and the diffusion training step) with the JAX init's
-distributions, directly on the target device from a torch.Generator, so a
-full-width 7B never passes through the host.
+paths run (serving, the diffusion training step and the post-training
+heads) with the JAX init's distributions, directly on the target device
+from a torch.Generator, so a full-width 7B never passes through the host.
 """
 
 from __future__ import annotations
 
 import math
-from typing import TYPE_CHECKING, Any, Dict, Tuple
+from typing import TYPE_CHECKING, Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +67,13 @@ class _Init:
         u = torch.rand(shape, generator=self.gen, dtype=dtype, device=self.device)
         return u.mul_(2 * bound).sub_(bound)
 
+    def trunc_normal(self, shape, std=0.02):
+        """Normal truncated at +-2 std (timm's trunc_normal_), by inverting
+        the normal CDF on the uniform draws between the cut points."""
+        lo, hi = (0.5 * (1 + math.erf(c / math.sqrt(2))) for c in (-2.0, 2.0))
+        u = torch.rand(shape, generator=self.gen, device=self.device).mul_(hi - lo).add_(lo)
+        return torch.erfinv(u.mul_(2).sub_(1)).mul_(math.sqrt(2) * std).clamp_(-2 * std, 2 * std)
+
     def zeros(self, shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=self.device)
 
@@ -78,6 +85,8 @@ class _Init:
             w = self.uniform((i, o), math.sqrt(6.0 / (i + o)))
         elif w_init == "normal":
             w = self.normal((i, o), std)
+        elif w_init == "trunc_normal":
+            w = self.trunc_normal((i, o), std)
         elif w_init == "torch":
             w = self.uniform((i, o), 1.0 / math.sqrt(i))
         else:
@@ -159,6 +168,63 @@ def _point(it: _Init, cfg) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     return params, {"raw_embed": raw_s, "stages": stages_s}
 
 
+def _mha(it: _Init, dim: int) -> Dict[str, Any]:
+    return {"qkv": it.linear(dim, 3 * dim), "proj": it.linear(dim, dim)}
+
+
+def _decoder(it: _Init, num_layers: int, d: int, ffn: int) -> List[Dict[str, Any]]:
+    """Post-norm decoder layers (generation.decoder_layer)."""
+    return [{
+        "self_attn": _mha(it, d), "cross_attn": _mha(it, d),
+        "linear1": it.linear(d, ffn, w_init="torch"), "linear2": it.linear(ffn, d, w_init="torch"),
+        "norm1": it.norm(d), "norm2": it.norm(d), "norm3": it.norm(d),
+    } for _ in range(num_layers)]
+
+
+def _generation(it: _Init, cfg) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The generation heads' params and state (JAX generation_manager_init)."""
+    params: Dict[str, Any] = {}
+    state: Dict[str, Any] = {}
+    if cfg.use_image:
+        c, D = cfg.image, cfg.image.token_size
+        alpha = it.linear(D, 1, w_init="normal")
+        alpha["b"].fill_(-3.0)  # prefer copying the current patch at first
+        params["image_gen_module"] = {
+            "image_gen_queries": it.normal((1, c.num_gen_queries, D)),
+            "mae_mask_token": it.normal((1, 1, D)),
+            "mae_pos_embed": it.normal((1, c.num_patches, D)),
+            "intent_decoder": _decoder(it, 2, D, 2 * D),
+            "mae_decoder": _decoder(it, c.decoder_layers, D, 4 * D),
+            "mae_patch_norm": it.norm(D),
+            "mae_delta_head": it.linear(D, c.patch_dim, w_init="normal"),
+            "mae_alpha_head": alpha,
+            "mae_offset_head": it.linear(D, 2, w_init="normal", std=0.001),
+        }
+    if cfg.use_pointcloud:
+        c, t = cfg.point, cfg.point.trans_dim
+        params["pointcloud_gen_module"] = {
+            "feature_projector": it.linear(c.token_size, t, w_init="trunc_normal"),
+            "seq_to_patch": it.linear(t, c.num_groups * t, w_init="trunc_normal"),
+            "pos_embed": it.trunc_normal((1, c.num_groups, t)),
+            "blocks": [{"attn": _mha(it, t), "norm1": it.norm(t), "norm2": it.norm(t),
+                        "fc1": it.linear(t, 4 * t, w_init="trunc_normal"),
+                        "fc2": it.linear(4 * t, t, w_init="trunc_normal")} for _ in range(c.decoder_layers)],
+            "pred_conv1": it.linear(t, t, w_init="torch"),
+            "pred_bn": it.norm(t),
+            "pred_conv2": it.linear(t, 3 * c.group_size, w_init="torch"),
+        }
+        state["pointcloud_gen_module"] = {"pred_bn": {"mean": it.zeros((t,)), "var": it.ones((t,))}}
+    if cfg.use_tactile:
+        c, D = cfg.tactile, cfg.tactile.token_size
+        params["tactile_gen_module"] = {
+            "feature_projector": it.linear(D, D, w_init="torch"),
+            "tactile_query": it.normal((1, 1, D)),
+            "decoder": _decoder(it, c.decoder_layers, D, 2 * D),
+            "output_head": it.linear(D, c.tactile_dim, w_init="torch"),
+        }
+    return params, state
+
+
 def tree_leaves(tree):
     """The tensor leaves of a tree, in a fixed order."""
     if isinstance(tree, dict):
@@ -209,4 +275,10 @@ def init(cfg: MLAModelConfig, seed: int = 0, device="cuda") -> Tuple[Dict[str, A
             return {"fc1": it.linear(D, D), "fc2": it.linear(D, 256)}
 
         params["contrastive"] = {"coord": {"image_head": head(), "pointcloud_head": head()}}
+        if cfg.use_tactile:
+            params["contrastive"]["tactile"] = {
+                "tactile_head": head(), "pointcloud_head": head(), "image_head": head(),
+            }
+    if cfg.use_generation:
+        params["generation_manager"], state["generation_manager"] = _generation(it, cfg.gen)
     return params, state

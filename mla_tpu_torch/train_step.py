@@ -2,7 +2,9 @@
 MFU and peak memory.
 
     python -m mla_tpu_torch.train_step --model mla-2b --batch 8 [--steps 5]
-        [--text_len 32] [--profile] [--device cuda]
+        [--text_len 32] [--profile] [--device cuda] [--post_franka]
+        [--stage S] [--use_tactile] [--num_extra_views N] [--use_generation]
+        [--gen_image] [--use_roi] [--gen_pointcloud] [--gen_tactile]
 
 Counterpart of scripts/tpu_smoke.py. Builds the model from the seeded
 random init on the device (`params.init`), then runs `--steps` AdamW steps
@@ -10,17 +12,29 @@ of `make_train_step` on `synthetic_batch` (repeated_diffusion_steps 1, remat
 on, learning rate 1e-5), printing each step's loss, grad_norm and wall ms.
 Then: step ms (median of the steps after the first), tokens/s (B x S per
 step, S = text + fused + diffusion tokens), MFU (6N decoder FLOPs per token,
-training/metrics.py, over the card's dense bf16 peak) and peak GiB.
+training/metrics.py, over the card's dense bf16 peak: the front-ends and the
+generation heads are not counted) and peak GiB.
+
+The stage flags are those of scripts/train.py: --use_tactile (tactile input
+and the tactile contrastive loss), --num_extra_views (seeded wrist views),
+--use_generation with --gen_image / --gen_pointcloud / --gen_tactile (the
+heads) and --use_roi, --stage (which modules freeze). --post_franka sets
+the Franka post-training stage of scripts/post_franka.sh: all of them on,
+one wrist view, stage post-training.
 
 --profile adds the device-time split of one step from torch.profiler: the
 front-end forward alone (vision and point tokenizers, projectors), the
-whole loss forward (the decoder forward is the difference), and the whole
+whole loss forward (the decoder forward, with the generation heads' forward
+when they are on, is the difference), and the whole
 step (backward + optimizer is the difference from the forward), with the
 device's idle share of that profiled step (1 - busy / its wall time) and
-its top kernels.
+its top kernels. With the generation heads on, their forward and backward
+on the step's hidden states are profiled alone too, and their device time
+is a class of its own, taken out of the classes of the step's kernels.
 
 Runs on the card unless given --device cpu. Results go to
-chiprun_out/train_step_<model>.json.
+chiprun_out/train_step_<model>.json (train_step_<model>_post_franka.json
+with --post_franka).
 """
 
 from __future__ import annotations
@@ -28,6 +42,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from dataclasses import replace
 from pathlib import Path
 from typing import Any, Callable, Dict
 
@@ -40,7 +55,7 @@ from mla_tpu_torch.diffusion import gaussian as gd
 from mla_tpu_torch.models import mla as mla_mod
 from mla_tpu_torch.models import prismatic
 from mla_tpu_torch.training import metrics, optim, strategy
-from mla_tpu_torch.vla.dummy import synthetic_batch
+from mla_tpu_torch.vla.dummy import add_extra_views, synthetic_batch
 
 LEARNING_RATE = 1e-5
 # device-time classes of the profile, by kernel-name fragment (first match)
@@ -52,19 +67,39 @@ KERNEL_CLASSES = (
 )
 
 
-def build(model: str, batch: int, text_len: int, device, seed: int = 0) -> Dict[str, Any]:
+# the stage of scripts/post_franka.sh
+POST_FRANKA = dict(stage="post-training", use_tactile=True, num_extra_views=1, use_generation=True, gen_image=True,
+                   use_roi=True, gen_pointcloud=True, gen_tactile=True)
+HEADS_CLASS = "generation heads (fwd + bwd, profiled alone)"
+
+
+def model_config(model: str, *, use_tactile: bool = False, num_extra_views: int = 0, use_generation: bool = False,
+                 gen_image: bool = False, use_roi: bool = False, gen_pointcloud: bool = False,
+                 gen_tactile: bool = False) -> prismatic.MLAModelConfig:
+    """The preset with the stage flags, mapped onto the gen config as
+    scripts/train.py maps them."""
+    cfg = get_model_config(model, use_tactile=use_tactile, use_generation=use_generation, use_roi=use_roi,
+                           num_extra_views=num_extra_views)
+    if use_generation:
+        cfg = replace(cfg, gen=replace(cfg.gen, use_image=gen_image, use_pointcloud=gen_pointcloud,
+                                       use_tactile=gen_tactile))
+    return cfg
+
+
+def build(model: str, batch: int, text_len: int, device, seed: int = 0, stage: str = "pretrain",
+          **flags) -> Dict[str, Any]:
     """Model, optimizer, train state, step function and batch, as
-    scripts/tpu_smoke.py sets them up."""
-    cfg = get_model_config(model)
+    scripts/tpu_smoke.py sets them up; `flags` are model_config's."""
+    cfg = model_config(model, **flags)
     params, mstate = P.init(cfg, seed=seed, device=device)
     tcfg = strategy.TrainConfig(repeated_diffusion_steps=1, enable_gradient_checkpointing=True)
-    opt, _, _ = optim.make_optimizer(params, learning_rate=LEARNING_RATE, num_training_steps=10)
+    opt, _, _ = optim.make_optimizer(params, learning_rate=LEARNING_RATE, num_training_steps=10, stage=stage)
     sched = gd.create_schedule("", diffusion_steps=100)
     return {
         "cfg": cfg, "tcfg": tcfg, "sched": sched,
         "state": strategy.init_train_state(params, opt, mstate),
         "step": strategy.make_train_step(cfg, tcfg, opt, sched),
-        "batch": strategy.as_tensors(synthetic_batch(cfg, B=batch, L=text_len), device),
+        "batch": strategy.as_tensors(add_extra_views(synthetic_batch(cfg, B=batch, L=text_len), cfg), device),
         "flops_per_token": metrics.decoder_flops_per_token(params["llm_backbone"], cfg.use_diff),
         "tokens_per_step": batch * (text_len + cfg.fused_len + cfg.diff_block_len) * tcfg.repeated_diffusion_steps,
         "generator": torch.Generator(device=device).manual_seed(seed + 1),
@@ -115,7 +150,7 @@ def profile_step(run: Dict[str, Any]) -> Dict[str, Any]:
 
     def frontend():
         prismatic.get_fused_tokens(st["params"], st["model_state"], cfg, b["images"], b.get("point_cloud"),
-                                   training=True)
+                                   b.get("tactile"), b.get("gripper_xyz"), training=True)
 
     def forward():
         mla_mod.mla_train_loss(st["params"], st["model_state"], cfg, run["sched"], b, gen,
@@ -126,13 +161,42 @@ def profile_step(run: Dict[str, Any]) -> Dict[str, Any]:
         run["state"], _ = run["step"](run["state"], b, gen)
 
     fe, fwd, full = device_time(frontend), device_time(forward), device_time(step)
-    return {
+    out = {
         "frontend_fwd_device_ms": fe["device_ms"],
         "decoder_fwd_device_ms": fwd["device_ms"] - fe["device_ms"],
         "bwd_and_optimizer_device_ms": full["device_ms"] - fwd["device_ms"],
         "step_device_ms": full["device_ms"], "profiled_step_wall_ms": full["wall_ms"],
         "step_classes": full["classes"], "step_kernels": full["kernels"],
     }
+    if cfg.use_generation:
+        heads = device_time(heads_step(run))
+        for c, ms in heads["classes"].items():
+            out["step_classes"][c] = out["step_classes"].get(c, 0.0) - ms
+        out["step_classes"][HEADS_CLASS] = heads["device_ms"]
+        out["heads_kernels"] = heads["kernels"]
+    return out
+
+
+def heads_step(run: Dict[str, Any]) -> Callable[[], None]:
+    """The generation heads' forward, losses and backward alone, on the
+    hidden states and image tokens of the step's batch (computed once,
+    outside what the returned function runs)."""
+    cfg, st = run["cfg"], run["state"]
+    b = mla_mod._tile_batch(run["batch"], run["tcfg"].repeated_diffusion_steps)
+    future = b["actions"][:, -cfg.action_horizon :].float()
+    b = {**b, "x": future, "t": torch.zeros(future.shape[0], dtype=torch.long, device=future.device)}
+    with torch.no_grad():
+        fused = prismatic.get_fused_tokens(st["params"], st["model_state"], cfg, b["images"], b.get("point_cloud"))
+        hidden = prismatic.vlm_forward(st["params"], st["model_state"], cfg, b, use_diff=True)[0]["last_hidden"]
+
+    def fn():
+        h = hidden.detach().requires_grad_(True)
+        _, losses, _ = prismatic.generation_block(st["params"], st["model_state"], cfg, b, h, fused["img_tokens"],
+                                                  fused["patch_indices"], generator=run["generator"])
+        losses["total_generation_loss"].backward()
+        run["state"]["optimizer"].zero_grad()
+
+    return fn
 
 
 def main() -> None:
@@ -143,7 +207,15 @@ def main() -> None:
     ap.add_argument("--text_len", type=int, default=32)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--post_franka", action="store_true", help="the stage flags of scripts/post_franka.sh")
+    ap.add_argument("--stage", default="pretrain", choices=sorted(optim.STAGE_FROZEN_MODULES))
+    ap.add_argument("--num_extra_views", type=int, default=0)
+    for flag in ("use_tactile", "use_generation", "gen_image", "use_roi", "gen_pointcloud", "gen_tactile"):
+        ap.add_argument(f"--{flag}", action="store_true")
     args = ap.parse_args()
+    flags = {k: getattr(args, k) for k in POST_FRANKA}
+    if args.post_franka:
+        flags.update(POST_FRANKA)
     device = torch.device(args.device)
     on_card = device.type == "cuda"
     if on_card and not torch.cuda.is_available():
@@ -154,7 +226,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    run = build(args.model, args.batch, args.text_len, device)
+    run = build(args.model, args.batch, args.text_len, device, **flags)
     _sync(device)
     print(f"{args.model}: built on {device} in {time.perf_counter() - t0:.1f} s")
     times = []
@@ -165,15 +237,15 @@ def main() -> None:
         loss, gnorm = float(m["total_loss"]), float(m["grad_norm"])
         _sync(device)
         times.append((time.perf_counter() - t) * 1e3)
-        print(f"step {i}: loss {loss:.5f} (diff {float(m['diff_loss']):.5f}, contrastive "
-              f"{float(m['img_pc_contrastive_loss']):.5f}), grad_norm {gnorm:.5f}, {times[-1]:.1f} ms")
+        parts = ", ".join(f"{k.replace('_loss', '')} {float(m[k]):.5f}" for k in mla_mod.LOSS_KEYS[1:] if float(m[k]))
+        print(f"step {i}: loss {loss:.5f} ({parts}), grad_norm {gnorm:.5f}, {times[-1]:.1f} ms")
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise SystemExit(f"step {i}: non-finite loss {loss} or grad_norm {gnorm}")
 
     step_ms = float(np.median(times[1:] if len(times) > 1 else times))
     tok_s = run["tokens_per_step"] / (step_ms / 1e3)
     result: Dict[str, Any] = {
-        "model": args.model, "batch": args.batch, "text_len": args.text_len,
+        "model": args.model, "batch": args.batch, "text_len": args.text_len, "flags": flags,
         "tokens_per_step": run["tokens_per_step"], "step_ms": times, "step_ms_median": step_ms,
         "tokens_per_s": tok_s, "flops_per_token": run["flops_per_token"],
     }
@@ -200,7 +272,8 @@ def main() -> None:
             print(f"  {r['device_ms']:9.3f} ms  x{r['count']:5d}  {r['name']}")
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / f"train_step_{args.model}.json").write_text(json.dumps(result, indent=1))
+    tag = "_post_franka" if args.post_franka else ""
+    (out / f"train_step_{args.model}{tag}.json").write_text(json.dumps(result, indent=1))
 
 
 if __name__ == "__main__":

@@ -25,8 +25,9 @@ def synthetic_batch(cfg, B: int = 2, L: int = 16, seed: int = 0, training: bool 
     [BOS, prompt..., 29871, BOD, EOD, action ids x action_dim, EOS, pad..].
 
     `splice_idx` follows the reference's tag convention: training splices at
-    the last EOS, inference at the last 29871. The generation heads' targets
-    are not made (those heads are not ported)."""
+    the last EOS, inference at the last 29871. With cfg.use_generation the
+    batch also holds the enabled heads' targets: next_images, next_point_cloud
+    and next_tactile."""
     rng = np.random.default_rng(seed)
     ad = cfg.action_dim
     if L < ad + 7:
@@ -66,4 +67,28 @@ def synthetic_batch(cfg, B: int = 2, L: int = 16, seed: int = 0, training: bool 
         batch["gripper_xyz"] = rng.uniform(
             [0.0, -0.2, 0.9], [0.4, 0.2, 1.3], size=(B, 3 * cfg.n_arms)
         ).astype(np.float32)
+    if cfg.use_generation:
+        if cfg.gen.use_image:
+            batch["next_images"] = rng.normal(
+                size=(B, 3, cfg.vision.image_size, cfg.vision.image_size)
+            ).astype(np.float32)
+        if cfg.gen.use_pointcloud:
+            batch["next_point_cloud"] = rng.normal(size=(B, cfg.point.input_points, 3)).astype(np.float32)
+        if cfg.gen.use_tactile:
+            batch["next_tactile"] = rng.normal(size=(B, cfg.tactile_dim)).astype(np.float32)
     return batch
+
+
+def add_extra_views(batch: Dict[str, Any], cfg, seed: int = 1) -> Dict[str, Any]:
+    """`batch` with cfg.num_extra_views seeded camera views beside the front
+    frame ('wrist_image', then 'wrist_image_1', ...), each a normal [B, 3,
+    S, S] frame with the all-ones mask channel."""
+    front = batch["images"]["front_image"]
+    B, S = front.shape[0], front.shape[-1]
+    rng = np.random.default_rng(seed)
+    views = dict(batch["images"])
+    for i in range(cfg.num_extra_views):
+        img = rng.normal(size=(B, 3, S, S)).astype(np.float32)
+        views["wrist_image" if i == 0 else f"wrist_image_{i}"] = np.concatenate(
+            [img, np.ones((B, 1, S, S), np.float32)], axis=1)
+    return {**batch, "images": views}

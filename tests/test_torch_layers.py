@@ -204,21 +204,28 @@ def _torch_dtype_name(v):
     return str(v).replace("torch.", "") if isinstance(v, torch.dtype) else jnp.dtype(v).name
 
 
+def _same_config(t, j, where):
+    """Field for field, into nested configs (the gen config's heads);
+    dtypes by name."""
+    for f in dataclasses.fields(t):
+        a, b = getattr(t, f.name), getattr(j, f.name)
+        if dataclasses.is_dataclass(a):
+            _same_config(a, b, where + (f.name,))
+        elif f.name.endswith("dtype"):
+            assert _torch_dtype_name(a) == _torch_dtype_name(b), where + (f.name,)
+        else:
+            assert a == b, where + (f.name,)
+
+
 @pytest.mark.parametrize("name", sorted(TREG))
 def test_presets_match_jax(name):
-    jcfg, tcfg = JREG[name](), TREG[name]()
-    for f in dataclasses.fields(tcfg):
-        tv, jv = getattr(tcfg, f.name), getattr(jcfg, f.name)
-        if dataclasses.is_dataclass(tv):
-            for g in dataclasses.fields(tv):
-                a, b = getattr(tv, g.name), getattr(jv, g.name)
-                if g.name.endswith("dtype"):
-                    assert _torch_dtype_name(a) == _torch_dtype_name(b), (name, f.name, g.name)
-                else:
-                    assert a == b, (name, f.name, g.name)
-        else:
-            assert tv == jv, (name, f.name)
-    assert tcfg.fused_len == jcfg.fused_len and tcfg.action_horizon == jcfg.action_horizon
+    """Every preset as it is and with the post-training flags (the gen
+    config at the preset's width, mla-tiny's small one)."""
+    post = dict(use_pointcloud=True, use_tactile=True, use_generation=True, use_roi=True, num_extra_views=1)
+    for flags in ({}, post):
+        jcfg, tcfg = JREG[name](**flags), TREG[name](**flags)
+        _same_config(tcfg, jcfg, (name,))
+        assert tcfg.fused_len == jcfg.fused_len and tcfg.action_horizon == jcfg.action_horizon
 
 
 def test_from_jax_roundtrip_bitexact():
@@ -247,13 +254,18 @@ def _shapes(tree, prefix=""):
 
 
 def test_init_has_the_jax_layout():
-    """params.init builds the modules of the ported paths (serving and the
-    diffusion training step, contrastive heads included) with the JAX
-    tree's keys, shapes and dtypes; the generation heads are not built."""
-    tcfg = TREG["mla-tiny"]()
-    jp, js = jprismatic.mla_model_init(jax.random.PRNGKey(0), JREG["mla-tiny"]())
-    jp = {k: v for k, v in jp.items() if k != "generation_manager"}
-    tp, ts = tparams.init(tcfg, seed=0, device="cpu")
-    assert _shapes(tp) == _shapes(tparams.from_jax(jp))
-    assert _shapes(ts) == _shapes(tparams.from_jax(js))
-    assert float(tp["final_layer"]["mlp"]["fc2"]["w"].abs().max()) == 0.0
+    """params.init builds every module of the ported paths (serving, the
+    diffusion training step and the post-training heads, contrastive heads
+    included) with the JAX tree's keys, shapes and dtypes, for mla-tiny as
+    it is and with the generation heads (ROI, tactile input and the tactile
+    head) on; the same for the state (the point head's batch norm)."""
+    for flags in ({}, dict(use_generation=True, use_roi=True, use_tactile=True)):
+        jp, js = jprismatic.mla_model_init(jax.random.PRNGKey(0), JREG["mla-tiny"](**flags))
+        tp, ts = tparams.init(TREG["mla-tiny"](**flags), seed=0, device="cpu")
+        assert _shapes(tp) == _shapes(tparams.from_jax(jp)), flags
+        assert _shapes(ts) == _shapes(tparams.from_jax(js)), flags
+        assert float(tp["final_layer"]["mlp"]["fc2"]["w"].abs().max()) == 0.0
+    assert {"generation_manager", "tactile_embedder"} <= set(tp) and "tactile" in tp["contrastive"]
+    assert set(tp["generation_manager"]) == {"image_gen_module", "pointcloud_gen_module", "tactile_gen_module"}
+    assert "pred_bn" in ts["generation_manager"]["pointcloud_gen_module"]
+    assert torch.equal(tp["generation_manager"]["image_gen_module"]["mae_alpha_head"]["b"], torch.full((1,), -3.0))

@@ -105,3 +105,36 @@ def test_decay_and_freeze_rules_match_jax():
     assert not mask["z_embedder/uncondition"] and not tparams["z_embedder"]["uncondition"].requires_grad
     assert not tparams["vision_tower_2d"]["patch_embedding"]["w"].requires_grad
     assert sum(len(g["params"]) for g in opt.adamw.param_groups) == sum(mask.values())
+
+
+def test_post_franka_entry_builds_the_stage():
+    """train_step's --post_franka: the gen config mapped from the flags as
+    scripts/train.py maps them, one seeded wrist view in the batch, the
+    longer sequence counted, both vision towers frozen; two steps and the
+    heads' profiled function run on the CPU."""
+    from dataclasses import replace
+
+    from mla_tpu.conf.models import get_model_config as jconfig_flags
+    from mla_tpu_torch import train_step as ts
+
+    flags = {k: v for k, v in ts.POST_FRANKA.items() if k != "stage"}
+    cfg = ts.model_config("mla-tiny", **flags)
+    j = jconfig_flags("mla-tiny", use_tactile=True, use_generation=True, use_roi=True, num_extra_views=1)
+    j = replace(j, gen=replace(j.gen, use_image=True, use_pointcloud=True, use_tactile=True))
+    assert repr(cfg.gen) == repr(j.gen).replace("mla_tpu.models", "mla_tpu_torch.models")
+    assert ts.model_config("mla-tiny", use_generation=True, gen_image=True).gen.use_pointcloud is False
+    run = ts.build("mla-tiny", 2, 16, "cpu", **ts.POST_FRANKA)
+    assert sorted(run["batch"]["images"]) == ["front_image", "wrist_image"]
+    assert run["tokens_per_step"] == 2 * (16 + cfg.fused_len + cfg.diff_block_len)
+    assert cfg.fused_len == 16 + 16 * 2 + 1
+    frozen = [leaf for path, leaf in tree_items(run["state"]["params"])
+              if path.startswith(("vision_tower_2d/", "vision_tower_3d/"))]
+    assert frozen and not any(leaf.requires_grad for leaf in frozen)
+    before = [leaf.clone() for leaf in frozen]
+    for _ in range(2):
+        run["state"], m = run["step"](run["state"], run["batch"], run["generator"])
+    assert all(float(m[k]) != 0.0 for k in ("tactile_contrastive_loss", "image_gen_loss", "point_cloud_gen_loss",
+                                            "tactile_gen_loss"))
+    assert all(torch.equal(a, b) for a, b in zip(before, frozen))
+    ts.heads_step(run)()
+    assert all(p.grad is None for p in run["state"]["optimizer"].trainable)

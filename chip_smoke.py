@@ -112,11 +112,36 @@ Phases, each of which fails the run if it fails:
                   exact kernel launch counts of every step; step ms,
                   tokens/s, MFU and peak GiB beside the card's name and
                   power limit.
+  9. phi-agree    the bf16 `mla-phi` (Phi-2 widths, head_dim 80) cut to 4
+                  layers on the card and on the CPU from the same weights:
+                  one DDIM-8 chunk (same noise) within AGREE_RTOL, the
+                  prefill and 7 decode steps fed the CPU's greedy ids with
+                  fp32 logits within AR_AGREE_RTOL; the card's run with
+                  layer 0's attention-output bias shifted must miss both.
+ 10. phi-serve    the full `mla-phi` (32 layers) from a seeded init on the
+                  card: predict_action_diff DDIM-8 and DPM-4,
+                  predict_action_ar x 3, greedy and 4-beam generate_text of
+                  16 tokens, predict_action_diff_ar and predict_action_batch
+                  (B = 2, DiT-B), finite outputs and exact launches (FPS 2
+                  per front-end pass; flash, W8A8 and int8_matmul 0: at
+                  head_dim 80 the attention is plain, by JAX's rule); chunk
+                  wall, prefill, suffix-evaluation and decode ms beside the
+                  decode step's weight-read bound.
+ 11. phi-train-agree  one AdamW step of a small bf16 phi model (hidden
+                  1280, 4 layers, head_dim 80, full-width front-ends; B = 2)
+                  on the card and on the CPU; loss and grad_norm within
+                  TRAIN_AGREE_RTOL, the shifted-bias control must miss both.
+ 12. phi-train    the full `mla-phi` through mla_tpu_torch.train_step:
+                  TRAIN_STEPS AdamW steps at B = 8, S = 563, remat on,
+                  finite loss and grad_norm, exact launches of every step
+                  (FPS 2, nothing else); step ms, tokens/s, MFU and peak
+                  GiB beside the card's name and power limit.
 
 The second-to-last line of output is a JSON object with each kernel's
 numbers (launches counted on the serving path for the kernels of slice 1,
 on the AR serving path for the weight-only int8 product, on the training
-path for the flash backward); the last is
+path for the flash backward; the phi paths' counts are in the log and in
+chip_smoke.json); the last is
 {"ok": true, "device": {...}}. Detailed results go to
 chiprun_out/chip_smoke.json. Without a CUDA device, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -1109,6 +1134,29 @@ STATS = {"rlbench": {"action": {"q01": [-1.0] * 6 + [0.0], "q99": [1.0] * 7}}}
 AR_AGREE_RTOL = 2e-2
 
 
+def drive_ar(torch, pol, img, pc, ids, T: int, feed=None):
+    """A policy's prefill and T cached decode steps: (fp32 logits [T + 1,
+    V] on the CPU, the ids fed, seconds), each step fed feed[i] (None: the
+    run's own greedy id), through the policy's int8 product."""
+    from mla_tpu_torch.models import mla
+
+    dev, cfg = pol.device, pol.cfg
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        prefix = mla.build_prefix_embeds(
+            pol.params, pol.state, cfg, torch.as_tensor(ids, device=dev).long(),
+            {"front_image": torch.as_tensor(img, device=dev)[None]}, torch.as_tensor(pc, device=dev)[None])
+        n = prefix.shape[1]
+        kv, logits = mla.prefill(pol.params, cfg, prefix, n + T + mla.CACHE_MARGIN, int8_mode=pol.int8_mode)
+        out, toks = [logits[0].float().cpu()], []
+        for i in range(T):
+            toks.append(int(logits[0].argmax()) if feed is None else feed[i])
+            logits = mla.decode_step(pol.params, cfg, kv, n + i, torch.tensor([toks[-1]], device=dev),
+                                     int8_mode=pol.int8_mode)
+            out.append(logits[0].float().cpu())
+    return torch.stack(out), toks, time.perf_counter() - t0
+
+
 def check_ar_agreement(torch, report, control):
     from mla_tpu_torch import params as P
     from mla_tpu_torch.conf.models import get_model_config
@@ -1125,25 +1173,9 @@ def check_ar_agreement(torch, report, control):
             for dev in ("cuda", "cpu")}
 
     def drive(pol, feed=None):
-        """fp32 logits [T + 1, V] of the prefill and T decode steps, each step
-        fed feed[i] (None: the run's own greedy id), and the ids fed."""
-        dev = pol.device
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            prefix = mla.build_prefix_embeds(
-                pol.params, pol.state, cfg, torch.as_tensor(ids, device=dev).long(),
-                {"front_image": torch.as_tensor(img, device=dev)[None]}, torch.as_tensor(pc, device=dev)[None])
-            n = prefix.shape[1]
-            kv, logits = mla.prefill(pol.params, cfg, prefix, n + T + mla.CACHE_MARGIN, int8_mode="weight_only")
-            out, toks = [logits[0].float().cpu()], []
-            for i in range(T):
-                toks.append(int(logits[0].argmax()) if feed is None else feed[i])
-                logits = mla.decode_step(pol.params, cfg, kv, n + i, torch.tensor([toks[-1]], device=dev),
-                                         int8_mode="weight_only")
-                out.append(logits[0].float().cpu())
-        log(f"ar-agree mla-small weight-only int8, prefill + {T} decode steps on {dev}: "
-            f"{time.perf_counter() - t0:.2f} s")
-        return torch.stack(out), toks
+        out = drive_ar(torch, pol, img, pc, ids, T, feed)
+        log(f"ar-agree mla-small weight-only int8, prefill + {T} decode steps on {pol.device}: {out[2]:.2f} s")
+        return out[:2]
 
     cpu, cpu_ids = drive(pols["cpu"])
     gpu, _ = drive(pols["cuda"], cpu_ids)
@@ -1380,11 +1412,12 @@ def _draws(cfg, rows: int, seed: int):
     }
 
 
-def agreement_steps(torch, control, cfg, batch, keys, what: str, stage: str = "pretrain"):
+def agreement_steps(torch, control, cfg, batch, keys, what: str, stage: str = "pretrain", perturb=None):
     """One AdamW step of `cfg` from the same seeded weights (a live
     diffusion head), batch, noise, t and FPS starts on the card, on the CPU
-    and on the card through the flash_bwd `control`: {'cuda', 'cpu',
-    'control'}, each the step's metrics named in `keys`."""
+    and on the card through the flash_bwd `control` (or, given `perturb`, on
+    the card from perturb(weights)): {'cuda', 'cpu', 'control'}, each the
+    step's metrics named in `keys`."""
     from mla_tpu_torch import params as P
     from mla_tpu_torch.diffusion import gaussian as gd
     from mla_tpu_torch.ops import cuda
@@ -1395,9 +1428,9 @@ def agreement_steps(torch, control, cfg, batch, keys, what: str, stage: str = "p
     draws = [_draws(cfg, 2, 11)]
     sched = gd.create_schedule("", diffusion_steps=100)
 
-    def one_step(dev):
+    def one_step(dev, weights=params):
         t0 = time.perf_counter()
-        p = P.tree_map(lambda t: t.detach().to(dev, copy=True), params)
+        p = P.tree_map(lambda t: t.detach().to(dev, copy=True), weights)
         opt, _, _ = optim.make_optimizer(p, learning_rate=1e-5, num_training_steps=10, stage=stage)
         tcfg = strategy.TrainConfig(repeated_diffusion_steps=1)
         step = strategy.make_train_step(cfg, tcfg, opt, sched)
@@ -1407,6 +1440,9 @@ def agreement_steps(torch, control, cfg, batch, keys, what: str, stage: str = "p
         return out
 
     out = {"cuda": one_step("cuda"), "cpu": one_step("cpu")}
+    if perturb is not None:
+        out["control"] = one_step("cuda", perturb(params))
+        return out
     with kernel_from(cuda, "flash_bwd", control):
         out["control"] = one_step("cuda")
     return out
@@ -1594,6 +1630,300 @@ def post_train(torch, report):
     return dict(cuda.launches)
 
 
+# --------------------------------------------------------------------------- #
+# The phi decoder family (mla-phi, Phi-2): head_dim 80, so its attention is
+# plain PyTorch on the card, as JAX leaves it to XLA; FPS is its one kernel
+# --------------------------------------------------------------------------- #
+
+PHI_AGREE_LAYERS = 4
+# the phi counts of every call and step: FPS per front-end pass, nothing else
+PHI_KERNELS = ("furthest_point_sample", "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+               "w8a8_matmul", "int8_matmul")
+
+
+def phi_counts(passes: int = 1):
+    return {k: 2 * passes if k == "furthest_point_sample" else 0 for k in PHI_KERNELS}
+
+
+def phi_config(num_layers: int = None, **narrow):
+    """mla-phi (bf16, Phi-2 widths, full-width front-ends), its decoder cut
+    to num_layers or narrowed by `narrow` (PhiConfig fields)."""
+    from dataclasses import replace
+
+    from mla_tpu_torch.conf.models import get_model_config
+
+    cfg = get_model_config("mla-phi")
+    if num_layers is not None:
+        narrow["num_layers"] = num_layers
+    return replace(cfg, llama=replace(cfg.llama, **narrow))
+
+
+def shifted_o_bias(torch, params, seed: int):
+    """The control of the phi checks: the same weights with layer 0's
+    attention-output bias shifted by a seeded normal vector (std 1), a
+    change only the phi decoder's own forward can see."""
+    bb = params["llm_backbone"]
+    o = bb["layers"]["attn"]["o"]
+    b = o["b"].clone()
+    g = torch.Generator(device=b.device).manual_seed(seed)
+    b[0] += torch.randn(b.shape[1:], generator=g, device=b.device).to(b.dtype)
+    attn = {**bb["layers"]["attn"], "o": {**o, "b": b}}
+    return {**params, "llm_backbone": {**bb, "layers": {**bb["layers"], "attn": attn}}}
+
+
+def check_phi_agreement(torch, report):
+    """bf16 mla-phi cut to PHI_AGREE_LAYERS layers on the card and on the CPU
+    from the same weights: one DDIM-8 chunk (same noise) within AGREE_RTOL,
+    and the prefill and 7 decode steps fed the CPU's greedy ids with fp32
+    logits within AR_AGREE_RTOL; the card's run from the shifted-o-bias
+    control must miss both."""
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.models.mla import MLAPolicy
+
+    cfg = phi_config(PHI_AGREE_LAYERS)
+    params, state = P.init(cfg, seed=21, device="cpu")
+    live_head(torch, params, 22)
+    img, pc, ids, noise = request_inputs(cfg, 23)
+    T = cfg.action_dim
+    runs = {"cpu": ("cpu", params), "card": ("cuda", params), "control": ("cuda", shifted_o_bias(torch, params, 24))}
+    chunk, logits = {}, {}
+    cpu_ids = None
+    for name, (dev, p) in runs.items():
+        pol = MLAPolicy(p, state, cfg, norm_stats=STATS, device=dev)
+        t0 = time.perf_counter()
+        chunk[name] = pol.predict_action_diff(img, pc, "", input_ids=ids, noise=noise, return_normalized=True)
+        t1 = time.perf_counter()
+        logits[name], fed, ar_s = drive_ar(torch, pol, img, pc, ids, T, cpu_ids)
+        cpu_ids = cpu_ids or fed
+        log(f"phi-agree mla-phi {PHI_AGREE_LAYERS} layers bf16 ({name}, on {dev}): DDIM-8 chunk {t1 - t0:.2f} s, "
+            f"prefill + {T} decode steps {ar_s:.2f} s")
+        del pol
+    scale, lscale = float(abs(chunk["cpu"]).max()), float(logits["cpu"].abs().max())
+    err = {k: float(abs(chunk[k] - chunk["cpu"]).max()) for k in ("card", "control")}
+    lerr = {k: float((logits[k] - logits["cpu"]).abs().max()) for k in ("card", "control")}
+    log(f"phi-agree: chunk max |gpu - cpu| {err['card']:.4e} of scale {scale:.4e}, rel {err['card'] / scale:.4e} "
+        f"(tol {AGREE_RTOL}), control rel {err['control'] / scale:.4e}; AR logits max |gpu - cpu| "
+        f"{lerr['card']:.4e} of scale {lscale:.4e}, rel {lerr['card'] / lscale:.4e} (tol {AR_AGREE_RTOL}), control "
+        f"rel {lerr['control'] / lscale:.4e}; CPU ids {cpu_ids}")
+    report["phi_agree"] = {"layers": PHI_AGREE_LAYERS, "chunk_max_abs_err": err, "chunk_scale": scale,
+                           "rtol": AGREE_RTOL, "logits_max_abs_err": lerr, "logits_scale": lscale,
+                           "ar_rtol": AR_AGREE_RTOL, "cpu_ids": cpu_ids}
+    if not (chunk["card"].shape == (cfg.action_horizon, cfg.action_dim) and err["card"] <= AGREE_RTOL * scale):
+        raise AssertionError(f"phi-agree: GPU and CPU chunks disagree: {err['card']} vs scale {scale}")
+    if not lerr["card"] <= AR_AGREE_RTOL * lscale:
+        raise AssertionError(f"phi-agree: GPU and CPU logits disagree: {lerr['card']} vs scale {lscale}")
+    if not (err["control"] > AGREE_RTOL * scale and lerr["control"] > AR_AGREE_RTOL * lscale):
+        raise AssertionError(f"phi-agree passes the control: chunk {err['control']}, logits {lerr['control']}")
+
+
+def phi_serve(torch, report):
+    """The full mla-phi (Phi-2, 32 layers, bf16) from a seeded init on the
+    card through every serving entry point, each call with its exact
+    launches (FPS 2 per front-end pass, flash, W8A8 and int8_matmul 0);
+    then the chunk, prefill, suffix-evaluation and decode-step times, the
+    decode step beside its weight-read bound."""
+    import numpy as np
+
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.models import action_model as am
+    from mla_tpu_torch.models import mla
+    from mla_tpu_torch.ops import cuda
+
+    cfg = phi_config()
+    t0 = time.perf_counter()
+    params, state = P.init(cfg, seed=30, device="cuda")
+    live_head(torch, params, 31)
+    policy = mla.MLAPolicy(params, state, cfg, tokenizer=WordTokenizer(), norm_stats=STATS)
+    del params
+    torch.cuda.synchronize()
+    log(f"phi-serve: mla-phi built on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    A, T, dev = cfg.action_dim, AR_TEXT_TOKENS, policy.device
+    dit_cfg = am.dit_config("DiT-B", token_size=cfg.token_size, in_channels=A,
+                            future_action_window_size=cfg.future_action_window_size)
+    dit = am.dit_init(dit_cfg, seed=32, device=dev)
+    fc2 = dit["final_layer"]["mlp"]["fc2"]  # zero in the reference init; drawn so the head is live
+    fc2["w"] = torch.randn(fc2["w"].shape, generator=torch.Generator(dev).manual_seed(33), device=dev) * 0.02
+    reqs = [request_inputs(cfg, 300 + i) for i in range(REQUESTS)]
+    img, pc, ids, noise = reqs[0]
+
+    def chunk_ok(out):
+        return out.shape == (cfg.action_horizon, A) and np.isfinite(out).all()
+
+    def ar_ok(out):
+        actions, probs = out
+        return actions.shape == (A,) and np.isfinite(actions).all() and len(probs) == A and \
+            all(0.0 < p <= 1.0 for p in probs)
+
+    calls = [(f"predict_action_diff {s} {i}", phi_counts(), chunk_ok,
+              lambda r=r, s=s: policy.predict_action_diff(r[0], r[1], "", input_ids=r[2], noise=r[3], sampler=s))
+             for s in ("ddim", "dpm") for i, r in enumerate(reqs)]
+    calls += [(f"predict_action_ar {i}", phi_counts(), ar_ok,
+               lambda r=r: policy.predict_action_ar(r[0], r[1], "", input_ids=r[2], return_probs=True))
+              for i, r in enumerate(reqs)]
+    calls += [
+        (f"generate_text greedy {T}", phi_counts(), lambda out: isinstance(out, str) and len(out.split()) <= T,
+         lambda: policy.generate_text(img, pc, "", max_new_tokens=T, input_ids=ids)),
+        (f"generate_text 4 beams {T}", phi_counts(), lambda out: isinstance(out, str) and len(out.split()) <= T,
+         lambda: policy.generate_text(img, pc, "", max_new_tokens=T, input_ids=ids, num_beams=4)),
+        ("predict_action_diff_ar DDIM-8", phi_counts(passes=2),
+         lambda out: chunk_ok(out["actions"]) and ar_ok((out["ar_actions"], out["ar_max_probs"])),
+         lambda: policy.predict_action_diff_ar(img, pc, INSTRUCTIONS[0], seed=3)),
+        ("predict_action_batch B=2 DiT-B", phi_counts(),
+         lambda out: out.shape == (2, cfg.action_horizon, A) and np.isfinite(out).all(),
+         lambda: policy.predict_action_batch([reqs[1][0], reqs[2][0]], [reqs[1][1], reqs[2][1]], list(INSTRUCTIONS),
+                                             action_model_params=dit, action_model_cfg=dit_cfg)),
+    ]
+    # warm-up (first-call allocations), not counted
+    for sampler in ("ddim", "dpm"):
+        policy.predict_action_diff(img, pc, "", input_ids=ids, noise=noise, sampler=sampler)
+    policy.predict_action_ar(img, pc, "", input_ids=ids)
+    torch.cuda.synchronize()
+    cuda.launches.clear()
+    lat = {}
+    for name, expected, ok, fn in calls:
+        before = dict(cuda.launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        lat[name] = (time.perf_counter() - t) * 1e3
+        got = {k: cuda.launches[k] - before.get(k, 0) for k in expected}
+        log(f"phi-serve {name}: {lat[name]:.2f} ms, launches {got}")
+        if not ok(out):
+            raise AssertionError(f"phi-serve {name}: bad output {out!r:.200}")
+        if got != expected:
+            raise AssertionError(f"phi-serve {name}: launches {got}, expected {expected}")
+    totals = dict(cuda.launches)
+
+    # the parts of a request, outside the counted run
+    bb = policy.params["llm_backbone"]
+    with torch.inference_mode():
+        prefix = mla.build_prefix_embeds(policy.params, policy.state, cfg,
+                                         torch.as_tensor(ids[:, :-1], device=dev).long(),
+                                         {"front_image": torch.as_tensor(img, device=dev)[None]},
+                                         torch.as_tensor(pc, device=dev)[None])
+        n = prefix.shape[1]
+        parts = {}
+
+        def timed(name, fn, reps=5):
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            parts[name] = float(np.median(times))
+            return out
+
+        kv, _ = timed("prefill_ms", lambda: mla.prefill(policy.params, cfg, prefix, n + 2 + cfg.action_horizon + 1
+                                                         + mla.CACHE_MARGIN, compute_logits=False))
+        fn = mla.make_suffix_denoise_fn(policy.params, cfg, kv, n, torch.zeros((1, 1, A), device=dev))
+        x = torch.as_tensor(noise, device=dev)[None]
+        timed("suffix_eval_ms", lambda: fn(x, torch.full((1,), 50, dtype=torch.int32, device=dev)))
+        ar_prefix = mla.build_prefix_embeds(policy.params, policy.state, cfg, torch.as_tensor(ids, device=dev).long(),
+                                            {"front_image": torch.as_tensor(img, device=dev)[None]},
+                                            torch.as_tensor(pc, device=dev)[None])
+        m = ar_prefix.shape[1]
+        kv, last = timed("ar_prefill_ms", lambda: mla.prefill(policy.params, cfg, ar_prefix, m + T + mla.CACHE_MARGIN))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mla.greedy_decode_actions(policy.params, cfg, kv, m, last, T)
+        torch.cuda.synchronize()
+        parts["decode_ms_per_token"] = (time.perf_counter() - t) * 1e3 / T
+    layer_bytes = sum(t.numel() * t.element_size() for t in P.tree_leaves(bb["layers"]))
+    head_bytes = sum(t.numel() * t.element_size() for t in P.tree_leaves(bb["lm_head"]))
+    bound = (layer_bytes + head_bytes) / PEAK_BYTES * 1e3
+    chunk_ms = {s: [lat[f"predict_action_diff {s} {i}"] for i in range(REQUESTS)] for s in ("ddim", "dpm")}
+    log(f"phi-serve mla-phi ({gpu_line()}): DDIM-8 chunk {[round(v, 2) for v in chunk_ms['ddim']]} ms, DPM-4 "
+        f"{[round(v, 2) for v in chunk_ms['dpm']]} ms; prefill of {n} positions {parts['prefill_ms']:.2f} ms, one "
+        f"suffix evaluation {parts['suffix_eval_ms']:.2f} ms; AR prefill of {m} positions {parts['ar_prefill_ms']:.2f} "
+        f"ms, decode {parts['decode_ms_per_token']:.3f} ms per token (host wall, {T} tokens) against a weight-read "
+        f"bound of {bound:.3f} ms ({layer_bytes / 1e9:.3f} GB of bf16 decoder layers + {head_bytes / 1e9:.3f} GB of "
+        f"lm_head); launches {totals}")
+    report["phi_serve"] = {"latency_ms": lat, "launches": totals, "parts_ms": parts, "decode_bound_ms": bound,
+                           "layer_bytes": layer_bytes, "lm_head_bytes": head_bytes, "prefix_len": n,
+                           "ar_prefix_len": m}
+    return totals
+
+
+def check_phi_train_agreement(torch, report):
+    """One AdamW step of a small bf16 phi model (Phi-2's head_dim 80 and
+    rotary_dim 32 at hidden 1280, 4 layers, full-width front-ends; B = 2)
+    on the card and on the CPU from the same weights, batch and draws: loss
+    and grad_norm within TRAIN_AGREE_RTOL; the card's step from the
+    shifted-o-bias control must miss both."""
+    from mla_tpu_torch.vla.dummy import synthetic_batch
+
+    cfg = phi_config(4, hidden_size=1280, intermediate_size=5120, num_heads=16, contrastive_layer=2)
+    out = agreement_steps(torch, None, cfg, synthetic_batch(cfg, B=2, L=32, seed=10),
+                          ("total_loss", "diff_loss", "img_pc_contrastive_loss", "grad_norm"),
+                          "phi-train-agree small phi bf16 B=2", perturb=lambda p: shifted_o_bias(torch, p, 25))
+
+    def rel(dev):
+        return {k: abs(out[dev][k] - out["cpu"][k]) / abs(out["cpu"][k]) for k in ("total_loss", "grad_norm")}
+
+    sound, ctrl = rel("cuda"), rel("control")
+    log(f"phi-train-agree: relative |gpu - cpu| loss {sound['total_loss']:.4e}, grad_norm {sound['grad_norm']:.4e} "
+        f"(tol {TRAIN_AGREE_RTOL}); control: loss {ctrl['total_loss']:.4e}, grad_norm {ctrl['grad_norm']:.4e}")
+    report["phi_train_agree"] = {**out, "rel_err": sound, "control_rel_err": ctrl, "rtol": TRAIN_AGREE_RTOL}
+    if not all(v <= TRAIN_AGREE_RTOL for v in sound.values()):
+        raise AssertionError(f"GPU and CPU phi training steps disagree: {sound}")
+    if not all(v > TRAIN_AGREE_RTOL for v in ctrl.values()):
+        raise AssertionError(f"phi-train-agree passes the control: {ctrl}")
+
+
+def phi_train(torch, report):
+    """The full mla-phi through mla_tpu_torch.train_step: TRAIN_STEPS AdamW
+    steps at B = 8, S = 563, remat on; finite loss and grad_norm and the
+    exact launches of every step (FPS 2, no flash, W8A8 or int8_matmul)."""
+    import numpy as np
+
+    from mla_tpu_torch import train_step
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.training import metrics
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    run = train_step.build("mla-phi", 8, 32, "cuda", seed=0)
+    cfg = run["cfg"]
+    S = 32 + cfg.fused_len + cfg.diff_block_len
+    torch.cuda.synchronize()
+    log(f"phi-train: mla-phi built on the card in {time.perf_counter() - t0:.1f} s, S = {S}, decoder N = "
+        f"{run['flops_per_token'] / 6e9:.4f} B, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    expected = phi_counts()
+    cuda.launches.clear()
+    times, steps = [], []
+    for i in range(TRAIN_STEPS):
+        before = dict(cuda.launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run["state"], m = run["step"](run["state"], run["batch"], run["generator"])
+        loss, gnorm = float(m["total_loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        counts = {k: cuda.launches[k] - before.get(k, 0) for k in expected}
+        log(f"phi-train step {i}: loss {loss:.5f}, grad_norm {gnorm:.5f}, {times[-1]:.1f} ms, launches {counts}")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"phi-train step {i}: non-finite loss {loss} or grad_norm {gnorm}")
+        if counts != expected:
+            raise AssertionError(f"phi-train step {i}: launches {counts}, expected {expected}")
+        steps.append({"loss": loss, "grad_norm": gnorm, "ms": times[-1]})
+    step_ms = float(np.median(times[1:]))
+    tok_s = run["tokens_per_step"] / (step_ms / 1e3)
+    peak = metrics.bf16_peak_flops(torch.cuda.get_device_name(0))
+    mfu = tok_s * run["flops_per_token"] / peak if peak else None
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phi-train mla-phi B=8 S={S} ({gpu_line()}): step {step_ms:.1f} ms (median of steps 1..{TRAIN_STEPS - 1}), "
+        f"{tok_s:.0f} tokens/s ({run['tokens_per_step']} a step), MFU {mfu if mfu is None else round(mfu, 4)}, peak "
+        f"{peak_gib:.2f} GiB; launches {dict(cuda.launches)}")
+    report["phi_train"] = {"steps": steps, "S": S, "step_ms_median": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
+                           "peak_gib": peak_gib, "decoder_params": run["flops_per_token"] / 6,
+                           "launches": dict(cuda.launches), "expected_per_step": expected}
+    return dict(cuda.launches)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.")
     parser.add_argument("--parent", help="a directory holding another version of flash_fwd.cu, flash_bwd.cu, "
@@ -1673,6 +2003,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_post_train_agreement(torch, report, libs["flash_bwd"])
     report["post_train_launches"] = post_train(torch, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_phi_agreement(torch, report)
+    report["phi_serve_launches"] = phi_serve(torch, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_phi_train_agreement(torch, report)
+    report["phi_train_launches"] = phi_train(torch, report)
     for k in kernels:
         k["launches"] = (ar_totals if k["name"] == "int8_matmul" else totals)[k["name"]]
     for k in train_kernels:

@@ -1,9 +1,10 @@
-"""Model-architecture presets (llama family).
+"""Model-architecture presets.
 
 Counterpart of mla_tpu/conf/models.py. The flagship deployment config is
-`mla-7b` (Llama-2-7B backbone); smaller presets exist for checks and tests.
-Each preset carries the generation heads' config at its decoder width, as
-the JAX presets do; `mla-phi` waits for the Phi decoder.
+`mla-7b` (Llama-2-7B backbone); smaller presets exist for checks and tests;
+`mla-mistral` and `mla-phi` (Phi-2, the phi family) swap the decoder under
+the same front-ends. Each preset carries the generation heads' config at
+its decoder width, as the JAX presets do.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from mla_tpu_torch.models import generation as gen_mod
 from mla_tpu_torch.models import llama as llama_mod
+from mla_tpu_torch.models import phi as phi_mod
 from mla_tpu_torch.models import point_tokenizer as pt_mod
 from mla_tpu_torch.models import prismatic
 from mla_tpu_torch.models import vision_tokenizer as vt_mod
@@ -139,6 +141,17 @@ def mla_mistral(use_diff=True, use_pointcloud=True, use_tactile=False, use_contr
     )
 
 
+def mla_phi(use_diff=True, use_pointcloud=True, use_tactile=False, use_contrastive=True,
+            use_generation=False, use_roi=False, camera_name="rlbench_front",
+            param_dtype=torch.bfloat16, **kw) -> prismatic.MLAModelConfig:
+    """Phi-2 backbone (parallel attention + MLP blocks, partial RoPE) with
+    the same front-ends (token_size 2560)."""
+    return _full_width(
+        replace(phi_mod.PHI_2, param_dtype=param_dtype), use_diff, use_pointcloud, use_tactile,
+        use_contrastive, use_generation, use_roi, camera_name, llm_family=kw.pop("llm_family", "phi"), **kw,
+    )
+
+
 MODEL_REGISTRY: Dict[str, Callable[..., prismatic.MLAModelConfig]] = {
     "mla-7b": mla_7b,
     "prism-dinosiglip-224px+7b": mla_7b,
@@ -148,6 +161,7 @@ MODEL_REGISTRY: Dict[str, Callable[..., prismatic.MLAModelConfig]] = {
     "mla-tiny": mla_tiny,
     "mla-golden": mla_golden,
     "mla-mistral": mla_mistral,
+    "mla-phi": mla_phi,
 }
 
 

@@ -12,14 +12,15 @@ jax.checkpoint), which reruns the layer, its flash forward included, in
 the backward. A decode step (cache_len > 0, cache written) writes its k/v
 into the cache in place and attends over the whole cache, causal from
 cache_len, under the key mask. `int8_mode` picks the product of the int8
-linears (nn.linear).
+linears (nn.linear). The layer loop (`run_layers`) and the attention of
+each cache mode (ops/attention.decoder_attention) are shared with the phi
+decoder (models/phi.py).
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -95,53 +96,7 @@ def _layer_fn(lp, h, cache_kv, cfg, cos_table, sin_table, positions, key_mask, c
     k = k.reshape(B, S, Hkv, hd).transpose(1, 2)
     v = v.reshape(B, S, Hkv, hd).transpose(1, 2)
     q, k = rope_ops.apply_rope(q, k, cos_table, sin_table, positions)
-    rep = H // Hkv
-
-    if cache_kv is not None and cache_read_only:
-        # attend over [cached prefix | in-flight block] under one softmax,
-        # without writing the cache
-        k_cache, v_cache = cache_kv
-        if rep > 1:
-            k_cache, v_cache = k_cache.repeat_interleave(rep, 1), v_cache.repeat_interleave(rep, 1)
-            k_rep, v_rep = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
-        else:
-            k_rep, v_rep = k, v
-        scale = 1.0 / math.sqrt(hd)
-        qf = q.float()
-        Sc = k_cache.shape[2]
-        s_cache = (qf @ k_cache.float().transpose(-1, -2)) * scale
-        stale = torch.arange(Sc, device=h.device)[None, None, None, :] >= cache_len
-        if key_mask is not None:
-            stale = stale | ~key_mask[:, None, None, :Sc]
-        s_cache = s_cache.masked_fill(stale, float("-inf"))
-        s_new = (qf @ k_rep.float().transpose(-1, -2)) * scale
-        causal = torch.arange(S, device=h.device)[None, :] > torch.arange(S, device=h.device)[:, None]
-        s_new = s_new.masked_fill(causal[None, None], float("-inf"))
-        if inflight_mask is not None:
-            s_new = s_new.masked_fill(~inflight_mask[:, None, None, :], float("-inf"))
-        attn = torch.softmax(torch.cat([s_cache, s_new], dim=-1), dim=-1).to(v_rep.dtype)
-        out = attn[..., :Sc] @ v_cache + attn[..., Sc:] @ v_rep
-    elif cache_kv is not None and cache_len > 0:
-        # decode step: write k/v in place at [cache_len, cache_len + S), then
-        # attend over the whole cache, causal from cache_len, under the key
-        # mask (plain attention: JAX runs it in XLA, not in Pallas)
-        k_cache, v_cache = cache_kv
-        k_cache[:, :, cache_len : cache_len + S] = k
-        v_cache[:, :, cache_len : cache_len + S] = v
-        if rep > 1:
-            k_cache, v_cache = k_cache.repeat_interleave(rep, 1), v_cache.repeat_interleave(rep, 1)
-        mask = key_mask[:, None, None, :] if key_mask is not None else None
-        out = attn_ops.sdpa_reference(q, k_cache, v_cache, mask=mask, causal_offset=cache_len)
-    else:
-        # uncached forward, or the static prefill: write k/v at [0, S) and
-        # attend over the in-flight block only (the rest of the cache is empty)
-        if cache_kv is not None:
-            cache_kv[0][:, :, :S] = k
-            cache_kv[1][:, :, :S] = v
-        if rep > 1:
-            k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
-        mask = key_mask[:, None, None, :S] if key_mask is not None else None
-        out = attn_ops.sdpa(q, k, v, mask=mask)
+    out = attn_ops.decoder_attention(q, k, v, cache_kv, cache_len, key_mask, cache_read_only, inflight_mask)
     out = out.transpose(1, 2).reshape(B, S, D)
     h = h + nn.linear(lp["attn"]["o"], out, int8_mode=int8_mode)
     return _mlp_block(lp, h, cfg, int8_mode)
@@ -154,6 +109,43 @@ def unstack_layers(layers: Dict[str, Any]) -> List[Dict[str, Any]]:
         n = len(next(iter(subs.values())))
         return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
     return list(layers.unbind(0))
+
+
+def run_layers(
+    layer_fn: Callable[..., torch.Tensor], layers: Dict[str, Any], cfg: Any, inputs_embeds: torch.Tensor,
+    rope_dim: int, *, positions: Optional[torch.Tensor], key_mask: Optional[torch.Tensor],
+    kv_cache: Optional[Dict[str, torch.Tensor]], cache_len: int, cache_read_only: bool, remat: bool,
+    int8_mode: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decoder's layer loop, shared by the llama and phi families: the
+    embeddings cast to cfg.compute_dtype, RoPE tables of `rope_dim`, each
+    stacked layer's view through layer_fn(lp, h, cache_kv, cfg, cos, sin,
+    positions, key_mask, cache_len, cache_read_only, inflight_mask,
+    int8_mode), under torch.utils.checkpoint with remat. Returns (h,
+    hidden_mid), hidden_mid taken before layer cfg.contrastive_layer (the
+    last h when that is past the last layer)."""
+    S = inputs_embeds.shape[1]
+    h = inputs_embeds.to(cfg.compute_dtype)
+    dev = h.device
+    if positions is None:
+        positions = torch.arange(S, device=dev) + cache_len
+    cos_table, sin_table = rope_ops.rope_tables_on(rope_dim, cfg.max_position_embeddings, cfg.rope_theta, str(dev))
+    inflight_mask = None
+    if cache_read_only and key_mask is not None:
+        inflight_mask = key_mask[:, cache_len : cache_len + S]
+    if remat and kv_cache is not None:
+        raise ValueError("remat is for the uncached training forward")
+    hidden_mid = h
+    for i, lp in enumerate(unstack_layers(layers)):
+        if i == cfg.contrastive_layer:
+            hidden_mid = h
+        ck = (kv_cache["k"][i], kv_cache["v"][i]) if kv_cache is not None else None
+        args = (lp, h, ck, cfg, cos_table, sin_table, positions, key_mask, cache_len, cache_read_only, inflight_mask,
+                int8_mode)
+        h = checkpoint(layer_fn, *args, use_reentrant=False) if remat else layer_fn(*args)
+    if cfg.contrastive_layer >= cfg.num_layers:
+        hidden_mid = h
+    return h, hidden_mid
 
 
 def llama_forward(
@@ -181,29 +173,9 @@ def llama_forward(
     remat (uncached only) checkpoints each layer. int8_mode: the product of
     the int8 linears (nn.linear). Returns {'last_hidden', 'hidden_mid',
     'logits'?, 'kv_cache'?}."""
-    B, S, D = inputs_embeds.shape
-    h = inputs_embeds.to(cfg.compute_dtype)
-    dev = h.device
-    if positions is None:
-        positions = torch.arange(S, device=dev) + cache_len
-    cos_table, sin_table = rope_ops.rope_tables_on(
-        cfg.head_dim, cfg.max_position_embeddings, cfg.rope_theta, str(dev)
-    )
-    inflight_mask = None
-    if cache_read_only and key_mask is not None:
-        inflight_mask = key_mask[:, cache_len : cache_len + S]
-    if remat and kv_cache is not None:
-        raise ValueError("remat is for the uncached training forward")
-    hidden_mid = h
-    for i, lp in enumerate(unstack_layers(params["layers"])):
-        if i == cfg.contrastive_layer:
-            hidden_mid = h
-        ck = (kv_cache["k"][i], kv_cache["v"][i]) if kv_cache is not None else None
-        args = (lp, h, ck, cfg, cos_table, sin_table, positions, key_mask, cache_len, cache_read_only, inflight_mask,
-                int8_mode)
-        h = checkpoint(_layer_fn, *args, use_reentrant=False) if remat else _layer_fn(*args)
-    if cfg.contrastive_layer >= cfg.num_layers:
-        hidden_mid = h
+    h, hidden_mid = run_layers(_layer_fn, params["layers"], cfg, inputs_embeds, cfg.head_dim, positions=positions,
+                               key_mask=key_mask, kv_cache=kv_cache, cache_len=cache_len,
+                               cache_read_only=cache_read_only, remat=remat, int8_mode=int8_mode)
     out: Dict[str, Any] = {
         "last_hidden": nn.rms_norm(params["final_ln"], h, cfg.rms_eps),
         "hidden_mid": hidden_mid,
@@ -278,3 +250,7 @@ def fuse_for_serving(params: Dict[str, Any], k_major: bool = False) -> Dict[str,
     mlp["down"] = with_k_major(lp["mlp"]["down"])
     mlp["gateup_fused"] = cat([lp["mlp"]["gate"], lp["mlp"]["up"]])
     return {**params, "layers": {**lp, "attn": attn, "mlp": mlp}}
+
+
+# the decoder-module interface (models/prismatic.get_decoder), as in JAX
+forward = llama_forward

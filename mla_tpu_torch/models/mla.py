@@ -14,6 +14,8 @@ respect to a full recompute, since the prefix is unchanged across steps and
 attention is causal. The AR heads (action tokens, text, beam search) decode
 one token per step against the same cache, writing each step's k/v in
 place; beams ride the batch axis and the cache is regathered along it.
+Every decoder call goes through prismatic.get_decoder, so the llama and
+phi families serve and train through the same functions.
 """
 
 from __future__ import annotations
@@ -148,7 +150,7 @@ def build_prefix_embeds(
     CLIP-normalized here."""
     images = {k: _device_clip_preprocess(v) if v.dtype == torch.uint8 else v for k, v in images.items()}
     fused = prismatic.get_fused_tokens(params, state, cfg, images, point_cloud)["fused"]
-    text_emb = llama_mod.embed_tokens(params["llm_backbone"], input_ids_prefix)
+    text_emb = prismatic.get_decoder(cfg).embed_tokens(params["llm_backbone"], input_ids_prefix)
     prefix = torch.cat([text_emb[:, :1], fused.to(text_emb.dtype), text_emb[:, 1:]], dim=1)
     if with_uncond:
         uncond = params["z_embedder"]["uncondition"].to(prefix.dtype)
@@ -163,17 +165,19 @@ def prefill(
     """Run the prefix through the decoder into a new KV cache; returns
     (kv_cache, fp32 logits [B, V] of the last position, or None when
     compute_logits is off, as on the diffusion path). The lm_head runs on
-    the last position only. On the card the attention is the flash kernel."""
+    the last position only. On the card the attention is the flash kernel
+    where it fits the head_dim (attention.sdpa)."""
     B, P, _ = prefix_embeds.shape
-    cache = llama_mod.init_kv_cache(cfg.llama, B, cache_max_len, device=prefix_embeds.device)
+    decoder = prismatic.get_decoder(cfg)
+    cache = decoder.init_kv_cache(cfg.llama, B, cache_max_len, device=prefix_embeds.device)
     key_mask = (torch.arange(cache_max_len, device=prefix_embeds.device) < P)[None, :].expand(B, -1)
-    out = llama_mod.llama_forward(
+    out = decoder.forward(
         params["llm_backbone"], cfg.llama, prefix_embeds,
         kv_cache=cache, cache_len=0, key_mask=key_mask, compute_logits=False, int8_mode=int8_mode,
     )
     if not compute_logits:
         return out["kv_cache"], None
-    return out["kv_cache"], llama_mod.lm_head_logits(params["llm_backbone"], out["last_hidden"][:, -1])
+    return out["kv_cache"], decoder.lm_head_logits(params["llm_backbone"], out["last_hidden"][:, -1])
 
 
 def make_suffix_denoise_fn(
@@ -187,6 +191,7 @@ def make_suffix_denoise_fn(
     horizon = cfg.action_horizon
     cdt = cfg.llama.compute_dtype
     cache_max = kv_cache["k"].shape[3]
+    decoder = prismatic.get_decoder(cfg)
     proprio_emb = embedders.action_embedder(params["proprio_embedder"], proprio.to(cdt))
     key_mask = (torch.arange(cache_max, device=proprio.device) < prefix_len + 2 + horizon)[None, :].expand(B, -1)
 
@@ -194,7 +199,7 @@ def make_suffix_denoise_fn(
         x_emb = embedders.action_embedder(params["x_embedder"], x.to(cdt))
         t_emb = embedders.timestep_embedder(params["t_embedder"], t_model)[:, None, :]
         suffix = torch.cat([proprio_emb, t_emb.to(x_emb.dtype), x_emb], dim=1)
-        out = llama_mod.llama_forward(
+        out = decoder.forward(
             params["llm_backbone"], cfg.llama, suffix, kv_cache=kv_cache, cache_len=prefix_len,
             key_mask=key_mask, compute_logits=False, cache_read_only=True, int8_mode=int8_mode,
         )
@@ -240,9 +245,10 @@ def decode_step(
     cache's [0, cache_len]. Returns the fp32 next-token logits [B, V]."""
     B = tok.shape[0]
     cache_max = kv_cache["k"].shape[3]
-    emb = llama_mod.embed_tokens(params["llm_backbone"], tok[:, None])
+    decoder = prismatic.get_decoder(cfg)
+    emb = decoder.embed_tokens(params["llm_backbone"], tok[:, None])
     key_mask = (torch.arange(cache_max, device=tok.device) < cache_len + 1)[None, :].expand(B, -1)
-    out = llama_mod.llama_forward(
+    out = decoder.forward(
         params["llm_backbone"], cfg.llama, emb, kv_cache=kv_cache, cache_len=cache_len, key_mask=key_mask,
         int8_mode=int8_mode,
     )
@@ -340,8 +346,8 @@ def cognition_feature(
     the last position of [BOS | fused | ids[1:]], fp32 [B, 1, D] (one
     uncached forward; no mask, as in JAX, so padding ids are attended)."""
     prefix = build_prefix_embeds(params, state, cfg, input_ids, images, point_cloud)
-    out = llama_mod.llama_forward(params["llm_backbone"], cfg.llama, prefix, compute_logits=False,
-                                  int8_mode=int8_mode)
+    out = prismatic.get_decoder(cfg).forward(params["llm_backbone"], cfg.llama, prefix, compute_logits=False,
+                                             int8_mode=int8_mode)
     return out["last_hidden"][:, -1:, :].float()
 
 
@@ -385,9 +391,12 @@ def _resolve_device(device) -> torch.device:
 class MLAPolicy:
     """Deployment-facing policy: load once, call predict_action_* per step.
 
-    The decoder's q|k|v and gate|up weights are fused for serving; with
+    A llama decoder's q|k|v and gate|up weights are fused for serving; with
     int8_mode "w8a8" its int8 weights are laid out K-major for the W8A8
-    kernel (llama.fuse_for_serving(k_major=True)).
+    kernel (llama.fuse_for_serving(k_major=True)). A phi decoder serves its
+    tree as it is (the JAX package fuses and quantizes llama trees only).
+    The action tokenizer takes the 32000 ids below the Llama-2 vocabulary's
+    end whatever the decoder's vocabulary, as in JAX.
     device=None means "cuda" and raises when no card is present; the CPU
     is used only when the caller passes device="cpu". int8_mode picks the
     product of the int8 decoder linears (nn.linear): "w8a8" (default),
@@ -397,15 +406,14 @@ class MLAPolicy:
         self, params: Dict[str, Any], state: Dict[str, Any], cfg: prismatic.MLAModelConfig,
         tokenizer=None, norm_stats: Optional[Dict[str, Any]] = None, device=None, int8_mode: str = "w8a8",
     ) -> None:
-        if cfg.llm_family != "llama":
-            raise NotImplementedError(f"llm_family {cfg.llm_family!r} is not ported yet")
         if int8_mode not in nn.INT8_MODES:
             raise ValueError(f"int8_mode must be one of {nn.INT8_MODES}, got {int8_mode!r}")
         self.int8_mode = int8_mode
         self.device = _resolve_device(device)
         params, state = tree_to(params, self.device), tree_to(state, self.device)
-        params = {**params, "llm_backbone": llama_mod.fuse_for_serving(params["llm_backbone"],
-                                                                      k_major=int8_mode == "w8a8")}
+        if cfg.llm_family == "llama":
+            params = {**params, "llm_backbone": llama_mod.fuse_for_serving(params["llm_backbone"],
+                                                                          k_major=int8_mode == "w8a8")}
         self.params, self.state, self.cfg = params, state, cfg
         self.tokenizer = tokenizer
         self.norm_stats = norm_stats or {}

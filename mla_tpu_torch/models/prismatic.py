@@ -1,5 +1,5 @@
-r"""The composed multimodal model (llama family): config, the fused-token
-front-end, the static splice and the full forward.
+r"""The composed multimodal model: config, the decoder family, the
+fused-token front-end, the static splice and the full forward.
 
 Counterpart of mla_tpu/models/prismatic.py. Token layout:
 
@@ -17,6 +17,7 @@ and, in the post-training stage, the generation heads read its final ones.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from types import ModuleType
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -26,16 +27,29 @@ from mla_tpu_torch.models import contrastive as contrastive_mod
 from mla_tpu_torch.models import embedders
 from mla_tpu_torch.models import generation as gen_mod
 from mla_tpu_torch.models import llama as llama_mod
+from mla_tpu_torch.models import phi as phi_mod
 from mla_tpu_torch.models import point_tokenizer as pt_mod
 from mla_tpu_torch.models import vision_tokenizer as vt_mod
 from mla_tpu_torch.ops import pointops
 from mla_tpu_torch.ops import projection as proj_ops
 
 
+DECODERS = {"llama": llama_mod, "phi": phi_mod}
+
+
+def get_decoder(cfg: "MLAModelConfig") -> ModuleType:
+    """The decoder module of cfg.llm_family: 'llama' (Llama-2, and Mistral
+    through GQA) or 'phi' (Phi-2). Each has init_kv_cache, forward,
+    lm_head_logits and embed_tokens with llama's interface."""
+    return DECODERS[cfg.llm_family]
+
+
 @dataclass(frozen=True)
 class MLAModelConfig:
+    # the decoder's config: a LlamaConfig for llm_family 'llama', a
+    # PhiConfig for 'phi' (the field name is the JAX package's)
     llm_family: str = "llama"
-    llama: llama_mod.LlamaConfig = field(default_factory=lambda: llama_mod.LLAMA2_7B)
+    llama: Any = field(default_factory=lambda: llama_mod.LLAMA2_7B)
     vision: vt_mod.VisionTokenizerConfig = field(default_factory=vt_mod.VisionTokenizerConfig)
     point: pt_mod.PointTokenizerConfig = field(default_factory=pt_mod.PointTokenizerConfig)
     gen: gen_mod.GenerationConfig = field(default_factory=gen_mod.GenerationConfig)
@@ -235,10 +249,11 @@ def vlm_forward(
     input_ids = batch["input_ids"]
     B, L = input_ids.shape
     bb = params["llm_backbone"]
+    decoder = get_decoder(cfg)
 
     if not batch.get("images"):
-        text_emb = llama_mod.embed_tokens(bb, input_ids)
-        out = llama_mod.llama_forward(bb, cfg.llama, text_emb, key_mask=batch["attention_mask"].bool(), remat=remat)
+        text_emb = decoder.embed_tokens(bb, input_ids)
+        out = decoder.forward(bb, cfg.llama, text_emb, key_mask=batch["attention_mask"].bool(), remat=remat)
         outputs = {"last_hidden": out["last_hidden"], "logits": out["logits"]}
         if batch.get("labels") is not None:
             outputs["lm_loss"] = llama_mod.causal_lm_loss(out["logits"], batch["labels"])
@@ -253,7 +268,7 @@ def vlm_forward(
     fused = fused_out["fused"]
     if fused.shape[1] != F:
         raise ValueError(f"fused length {fused.shape[1]} != cfg.fused_len {F}")
-    text_emb = llama_mod.embed_tokens(bb, input_ids)
+    text_emb = decoder.embed_tokens(bb, input_ids)
 
     if use_diff and training and cfg.class_dropout_prob > 0:
         # condition dropout: the text and fused segments of a row share one
@@ -284,7 +299,7 @@ def vlm_forward(
         pad = torch.full((B, F + d_len), -100, dtype=labels.dtype, device=labels.device)
         seq_labels = _gather_seq(torch.cat([labels, pad], dim=1), idx_map)
 
-    out = llama_mod.llama_forward(
+    out = decoder.forward(
         bb, cfg.llama, seq_emb, key_mask=seq_mask, remat=remat,
         compute_logits=(seq_labels is not None) or not use_diff,
     )

@@ -4,9 +4,11 @@ Counterpart of mla_tpu/ops/attention.py: `sdpa_reference` is the einsum
 softmax with fp32 scores, causal from an offset (a decode step's queries sit
 at cache_len and attend over the whole cache; JAX runs that in XLA, and so
 the port in plain PyTorch); `sdpa` is the causal attention with no offset
-(the static prefill and the uncached forward) and sends a CUDA tensor to the
-flash kernel and a CPU tensor to the reference, as the JAX package does off
-the TPU.
+(the static prefill and the uncached forward): it sends a CUDA tensor whose
+head_dim the flash kernel takes (64 or 128, JAX's shape rule) to the kernel,
+and any other tensor to the reference, as the JAX package does off the TPU
+and for Phi-2's head_dim 80 on it. `decoder_attention` is a decoder layer's
+attention in each of its cache modes, shared by the llama and phi decoders.
 
 Mask convention: boolean [B, 1, Sq, Sk] or [B, Sq, Sk], True = may attend.
 """
@@ -14,7 +16,7 @@ Mask convention: boolean [B, 1, Sq, Sk] or [B, Sq, Sk], True = may attend.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,8 +45,76 @@ def sdpa_reference(
     return probs @ v
 
 
+FLASH_HEAD_DIMS = (64, 128)
+
+
+def flash_fits(head_dim: int) -> bool:
+    """JAX's shape rule for its flash kernel (mla_tpu/ops/attention.py): the
+    kernel takes head_dim 64 or 128; any other head_dim (Phi-2's 80) goes to
+    the reference."""
+    return head_dim in FLASH_HEAD_DIMS
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal attention: the flash kernel on CUDA, the reference on the CPU."""
-    if q.is_cuda:
+    """Causal attention: the flash kernel for a CUDA tensor it fits, the
+    reference otherwise."""
+    if q.is_cuda and flash_fits(q.shape[-1]):
         return flash_attention(q, k, v, mask=mask)
     return sdpa_reference(q, k, v, mask=mask)
+
+
+def decoder_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    cache_len: int, key_mask: Optional[torch.Tensor], cache_read_only: bool = False,
+    inflight_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """A decoder layer's attention: q [B, H, S, hd], the block's k/v [B,
+    Hkv, S, hd] (repeated to H heads), cache_kv this layer's (k_cache,
+    v_cache) [B, Hkv, S_max, hd] views or None, key_mask [B, S_keys]. Four
+    modes:
+      * read-only suffix (cache_read_only): one softmax over the cache's
+        [0, cache_len) under the key mask and the in-flight block (causal,
+        under inflight_mask); nothing is written;
+      * decode step (cache_len > 0): k/v written in place at [cache_len,
+        cache_len + S), then the whole cache attended, causal from
+        cache_len, under the key mask (plain attention: JAX runs it in XLA);
+      * static prefill (cache_len 0): k/v written at [0, S), the in-flight
+        block attended through `sdpa`;
+      * uncached (no cache): the block through `sdpa`."""
+    B, H, S, hd = q.shape
+    rep = H // k.shape[1]
+    if cache_kv is not None and cache_read_only:
+        k_cache, v_cache = cache_kv
+        if rep > 1:
+            k_cache, v_cache = k_cache.repeat_interleave(rep, 1), v_cache.repeat_interleave(rep, 1)
+            k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        scale = 1.0 / math.sqrt(hd)
+        qf = q.float()
+        Sc = k_cache.shape[2]
+        s_cache = (qf @ k_cache.float().transpose(-1, -2)) * scale
+        stale = torch.arange(Sc, device=q.device)[None, None, None, :] >= cache_len
+        if key_mask is not None:
+            stale = stale | ~key_mask[:, None, None, :Sc]
+        s_cache = s_cache.masked_fill(stale, float("-inf"))
+        s_new = (qf @ k.float().transpose(-1, -2)) * scale
+        causal = torch.arange(S, device=q.device)[None, :] > torch.arange(S, device=q.device)[:, None]
+        s_new = s_new.masked_fill(causal[None, None], float("-inf"))
+        if inflight_mask is not None:
+            s_new = s_new.masked_fill(~inflight_mask[:, None, None, :], float("-inf"))
+        attn = torch.softmax(torch.cat([s_cache, s_new], dim=-1), dim=-1).to(v.dtype)
+        return attn[..., :Sc] @ v_cache + attn[..., Sc:] @ v
+    if cache_kv is not None and cache_len > 0:
+        k_cache, v_cache = cache_kv
+        k_cache[:, :, cache_len : cache_len + S] = k
+        v_cache[:, :, cache_len : cache_len + S] = v
+        if rep > 1:
+            k_cache, v_cache = k_cache.repeat_interleave(rep, 1), v_cache.repeat_interleave(rep, 1)
+        mask = key_mask[:, None, None, :] if key_mask is not None else None
+        return sdpa_reference(q, k_cache, v_cache, mask=mask, causal_offset=cache_len)
+    if cache_kv is not None:
+        cache_kv[0][:, :, :S] = k
+        cache_kv[1][:, :, :S] = v
+    if rep > 1:
+        k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    mask = key_mask[:, None, None, :S] if key_mask is not None else None
+    return sdpa(q, k, v, mask=mask)

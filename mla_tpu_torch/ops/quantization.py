@@ -67,9 +67,21 @@ def _quantize_stacked(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([p[k] for p in parts]) for k in ("w_q", "w_scale")}
 
 
+def _require_llama(params: Dict[str, Any]) -> None:
+    """Raise unless `params` is a llama decoder tree: the JAX package
+    quantizes llama trees only, so there is no int8 phi tree to mirror."""
+    layers = params["layers"]
+    if "input_ln" not in layers:
+        family = "phi" if "ln" in layers else "unknown"
+        raise ValueError(f"int8 quantization takes a llama decoder tree; this is a {family} tree "
+                         "(the phi family serves and trains its bf16 tree)")
+
+
 def quantize_llama(params: Dict[str, Any]) -> Dict[str, Any]:
     """Quantize every big matmul of a models/llama.py tree (q/k/v/o,
-    gate/up/down, lm_head, embedding). Norm scales stay as they are."""
+    gate/up/down, lm_head, embedding). Norm scales stay as they are. Raises
+    ValueError, naming the family, for any other decoder tree."""
+    _require_llama(params)
     lp = params["layers"]
     return {
         "embed": quantize_embedding(params["embed"]["table"]),
@@ -96,6 +108,7 @@ def quantize_model_host(params: Dict[str, Any]) -> Dict[str, Any]:
     """quantize_model on the host: every leaf is moved to the CPU first and
     the int8 leaves stay there (for checkpoints that are quantized before
     they are moved to the card)."""
+    _require_llama(params["llm_backbone"])
     return {**params, "llm_backbone": quantize_llama(tree_to(params["llm_backbone"], "cpu"))}
 
 

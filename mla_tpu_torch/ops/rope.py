@@ -1,7 +1,8 @@
 """Rotary position embeddings, HF-Llama convention (rotate_half layout).
 
 Counterpart of mla_tpu/ops/rope.py: the tables are built in float64 numpy
-and kept as fp32; the rotation runs in fp32 and casts back.
+and kept as fp32; the rotation runs in fp32 and casts back. Phi's partial
+rotation (the first rotary_dim dims of each head) is models/phi.py's.
 """
 
 from __future__ import annotations
@@ -22,11 +23,12 @@ def rope_tables(head_dim: int, max_len: int, theta: float = 10000.0):
 
 
 @functools.lru_cache(maxsize=8)
-def rope_tables_on(head_dim: int, max_len: int, theta: float, device: str):
-    """rope_tables as tensors on `device`, built once per configuration,
+def rope_tables_on(dim: int, max_len: int, theta: float, device: str):
+    """rope_tables of the rotated width `dim` (llama's head_dim, phi's
+    rotary_dim) as tensors on `device`, built once per configuration,
     outside inference mode even when first asked for by a serving call, so
     a training forward in the same process can use them under autograd."""
-    cos, sin = rope_tables(head_dim, max_len, theta)
+    cos, sin = rope_tables(dim, max_len, theta)
     with torch.inference_mode(False):
         return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
 

@@ -3,7 +3,7 @@
 Trees are nested dicts (and lists) of tensors in the JAX package's layout,
 so a JAX param/state pytree with numpy leaves carries across leaf for leaf
 (`from_jax`). `init` builds the modules of an MLA model that the ported
-paths run (serving, the diffusion training step and the post-training
+paths run (with the decoder of its llm_family, llama or phi) (serving, the diffusion training step and the post-training
 heads) with the JAX init's distributions, directly on the target device
 from a torch.Generator, so a full-width 7B never passes through the host.
 """
@@ -119,6 +119,30 @@ def _llama(it: _Init, cfg) -> Dict[str, Any]:
         "final_ln": {"scale": it.ones((D,), dt)},
         "lm_head": {"w": it.normal((D, cfg.vocab_size), 0.02, dt)},
     }
+
+
+def _phi(it: _Init, cfg) -> Dict[str, Any]:
+    """JAX phi_init: normal(0.02) weights, zero biases, LayerNorms of scale
+    one and bias zero, a biased lm_head."""
+    L, D, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    dt = cfg.param_dtype
+
+    def stacked(shape):
+        return {"w": it.normal((L,) + shape, 0.02, dt), "b": it.zeros((L, shape[-1]), dt)}
+
+    return {
+        "embed": {"table": it.normal((cfg.vocab_size, D), 0.02, dt)},
+        "layers": {
+            "attn": {"q": stacked((D, D)), "k": stacked((D, D)), "v": stacked((D, D)), "o": stacked((D, D))},
+            "mlp": {"fc1": stacked((D, I)), "fc2": stacked((I, D))},
+            "ln": {"scale": it.ones((L, D), dt), "bias": it.zeros((L, D), dt)},
+        },
+        "final_ln": {"scale": it.ones((D,), dt), "bias": it.zeros((D,), dt)},
+        "lm_head": {"w": it.normal((D, cfg.vocab_size), 0.02, dt), "b": it.zeros((cfg.vocab_size,), dt)},
+    }
+
+
+DECODER_INIT = {"llama": _llama, "phi": _phi}
 
 
 def _vision(it: _Init, cfg) -> Dict[str, Any]:
@@ -251,7 +275,7 @@ def init(cfg: MLAModelConfig, seed: int = 0, device="cuda") -> Tuple[Dict[str, A
     it = _Init(seed, device)
     D = cfg.token_size
     params: Dict[str, Any] = {
-        "llm_backbone": _llama(it, cfg.llama),
+        "llm_backbone": DECODER_INIT[cfg.llm_family](it, cfg.llama),
         "vision_tower_2d": _vision(it, cfg.vision),
         "projector_2d": {"layers": [it.linear(cfg.image_hidden_dim, D), it.linear(D, D)]},
         "proprio_embedder": it.mlp(cfg.action_dim, D, D, w_init="normal"),

@@ -1,21 +1,24 @@
 """Where the time of one request goes, on one NVIDIA GPU.
 
-    python3 -m mla_tpu_torch.profile_chunk [--sampler ddim|dpm|ar]
+    python3 -m mla_tpu_torch.profile_chunk [--model mla-7b|mla-phi] [--sampler ddim|dpm|ar]
 
-Builds the int8 mla-7b from a seeded random init on the card (as
-chip_smoke.py does), serves a few warm-up requests, then reports:
+Builds the model from a seeded random init on the card (as chip_smoke.py
+does): the int8 mla-7b, or the bf16 mla-phi (Phi-2; the JAX package
+quantizes llama trees only). It serves a few warm-up requests, then
+reports:
   * host wall time per stage, each ending in a synchronize: for a
-    diffusion chunk (ddim, dpm; W8A8 linears) front-end + prefix embeds,
-    prefill, one suffix evaluation and the whole chunk; for an AR action
-    (ar: predict_action_ar, weight-only int8 linears) front-end + prefix
-    embeds, prefill with the last position's logits, one decode step, the
-    lm_head alone and the whole request, beside the decode step's
-    weight-read bound (the decoder's int8 weight bytes over 3.35 TB/s);
+    diffusion chunk (ddim, dpm; mla-7b's linears W8A8) front-end + prefix
+    embeds, prefill, one suffix evaluation and the whole chunk; for an AR
+    action (ar: predict_action_ar, mla-7b's linears weight-only int8)
+    front-end + prefix embeds, prefill with the last position's logits, one
+    decode step, the lm_head alone and the whole request, beside the decode
+    step's weight-read bound (the bytes of the decoder layers' weights, and
+    with the lm_head's, over 3.35 TB/s);
   * a torch.profiler trace of one request: device time by kernel, the sum
     of device time, the device time and launches of the int8_mm and w8a8
     kernels, and the device's idle share of the unprofiled request's wall
     time (1 - busy / request ms).
-Results print as text and go to chiprun_out/profile_chunk_mla-7b_<sampler>.json.
+Results print as text and go to chiprun_out/profile_chunk_<model>_<sampler>.json.
 """
 
 from __future__ import annotations
@@ -30,8 +33,7 @@ import torch
 
 from mla_tpu_torch import params as P
 from mla_tpu_torch.conf.models import get_model_config
-from mla_tpu_torch.models import llama as llama_mod
-from mla_tpu_torch.models import mla
+from mla_tpu_torch.models import mla, prismatic
 from mla_tpu_torch.ops.quantization import quantize_model
 
 PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s (data sheet)
@@ -74,21 +76,29 @@ def _ar_stages(policy, cfg, ids, images, pc_t):
     with torch.inference_mode():
         stages["prefix_embeds_ms"], prefix = _timed(
             lambda: mla.build_prefix_embeds(policy.params, policy.state, cfg, ids, images, pc_t))
-        P = prefix.shape[1]
-        cache_max = P + cfg.action_dim + mla.CACHE_MARGIN
+        n = prefix.shape[1]
+        cache_max = n + cfg.action_dim + mla.CACHE_MARGIN
         stages["prefill_ms"], (kv, last) = _timed(lambda: mla.prefill(policy.params, cfg, prefix, cache_max,
                                                                         int8_mode=mode))
         tok = last.argmax(-1)
-        stages["decode_step_ms"], _ = _timed(lambda: mla.decode_step(policy.params, cfg, kv, P, tok, int8_mode=mode))
+        stages["decode_step_ms"], _ = _timed(lambda: mla.decode_step(policy.params, cfg, kv, n, tok, int8_mode=mode))
         h = torch.zeros((1, cfg.llama.hidden_size), dtype=cfg.llama.compute_dtype, device="cuda")
-        stages["lm_head_ms"], _ = _timed(lambda: llama_mod.lm_head_logits(bb, h))
-    weight_bytes = sum(leaf["w_q"].numel() for group in ("attn", "mlp") for leaf in bb["layers"][group].values())
+        stages["lm_head_ms"], _ = _timed(lambda: prismatic.get_decoder(cfg).lm_head_logits(bb, h))
+    weight_bytes = sum(_bytes(leaf["w_q" if "w_q" in leaf else "w"])
+                       for group in ("attn", "mlp") for leaf in bb["layers"][group].values())
+    head_bytes = sum(_bytes(t) for t in P.tree_leaves(bb["lm_head"]))
     stages["decode_weight_read_bound_ms"] = weight_bytes / PEAK_BYTES * 1e3
+    stages["decode_weight_and_lm_head_read_bound_ms"] = (weight_bytes + head_bytes) / PEAK_BYTES * 1e3
     return stages
+
+
+def _bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--model", default="mla-7b", choices=("mla-7b", "mla-phi"))
     ap.add_argument("--sampler", default="ddim", choices=("ddim", "dpm", "ar"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -96,14 +106,15 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    cfg = get_model_config("mla-7b")
+    cfg = get_model_config(args.model)
     params, state = P.init(cfg, seed=0, device="cuda")
     fc2 = params["final_layer"]["mlp"]["fc2"]
     fc2["w"] = torch.randn(fc2["w"].shape, generator=torch.Generator("cuda").manual_seed(1), device="cuda") * 0.02
     ar = args.sampler == "ar"
     stats = {"rlbench": {"action": {"q01": [-1.0] * 6 + [0.0], "q99": [1.0] * 7}}}
-    policy = mla.MLAPolicy(quantize_model(params), state, cfg, norm_stats=stats,
-                           int8_mode="weight_only" if ar else "w8a8")
+    if cfg.llm_family == "llama":
+        params = quantize_model(params)
+    policy = mla.MLAPolicy(params, state, cfg, norm_stats=stats, int8_mode="weight_only" if ar else "w8a8")
     del params
     rng = np.random.default_rng(0)
     size = cfg.vision.image_size
@@ -151,7 +162,7 @@ def main() -> None:
     products = {name: {"device_ms": sum(r["device_ms"] for r in rows if name in r["name"]),
                        "launches": sum(r["count"] for r in rows if name in r["name"])}
                 for name in ("int8_mm", "w8a8")}
-    result = {"gpu": torch.cuda.get_device_name(0), "model": "mla-7b", "sampler": args.sampler,
+    result = {"gpu": torch.cuda.get_device_name(0), "model": args.model, "sampler": args.sampler,
               "stages": stages, "profiled_chunk_wall_ms": wall_ms, "device_busy_ms": device_ms,
               "device_idle_share": max(0.0, 1.0 - device_ms / stages["chunk_ms"]), "products": products,
               "kernels": rows[:40]}
@@ -165,7 +176,7 @@ def main() -> None:
         print(f"  {r['device_ms']:9.3f} ms  x{r['count']:5d}  {r['name']}")
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / f"profile_chunk_mla-7b_{args.sampler}.json").write_text(json.dumps(result, indent=1))
+    (out / f"profile_chunk_{args.model}_{args.sampler}.json").write_text(json.dumps(result, indent=1))
 
 
 if __name__ == "__main__":

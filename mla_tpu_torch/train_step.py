@@ -6,8 +6,10 @@ MFU and peak memory.
         [--stage S] [--use_tactile] [--num_extra_views N] [--use_generation]
         [--gen_image] [--use_roi] [--gen_pointcloud] [--gen_tactile]
 
-Counterpart of scripts/tpu_smoke.py. Builds the model from the seeded
-random init on the device (`params.init`), then runs `--steps` AdamW steps
+Counterpart of scripts/tpu_smoke.py. --model is any preset of
+conf/models.py (mla-2b, the llama rung; mla-phi, Phi-2 at full width).
+Builds the model from the seeded random init on the device (`params.init`),
+then runs `--steps` AdamW steps
 of `make_train_step` on `synthetic_batch` (repeated_diffusion_steps 1, remat
 on, learning rate 1e-5), printing each step's loss, grad_norm and wall ms.
 Then: step ms (median of the steps after the first), tokens/s (B x S per

@@ -30,21 +30,22 @@ Phases, each of which fails the run if it fails:
                   counts on both sides of its narrow/wide line, the check
                   rejecting the control at every shape, kernel and
                   torch._int_mm timed as CUDA graphs with the weights cycled
-                  past L2; FPS at both point-tokenizer stages, B = 1 and 8,
-                  starts 0 and 7, indices identical, the control rejected
-                  at each stage; the flash
-                  forward at the serving prefill (BH 32, S 534) and the
-                  mla-2b training shapes (BH 256, S 563, and S 819 of the
-                  post-training step, a ragged last tile of 51 rows), with
-                  and without a padded key tail, o and lse at every valid
-                  row, the check rejecting the forward control without
-                  padding; the flash backward (dQ, dK/dV) at both training
-                  shapes, with and
-                  without a padded key tail, each gradient row within a
-                  bf16 tolerance of its own norm, bit-identical over two
-                  launches; the same check must reject the control;
-                  SDPA's backward, the yardstick, the median of 5 graph
-                  replays.
+                  past L2; FPS at both point-tokenizer stages, B = 1, 2
+                  (the trainer's AR loss mode) and 8, starts 0 and 7,
+                  indices identical, the control rejected at each stage;
+                  the flash forward at the serving prefill (BH 32, S 534),
+                  the mla-2b training shapes (BH 256, S 563, and S 819 of
+                  the post-training step, a ragged last tile of 51 rows)
+                  and the trainer's (BH 256, S 547, a 35-key tail; BH 64,
+                  S 529 of its AR loss mode, a 17-key tail), with and
+                  without a padded key tail, o and lse at every valid row,
+                  the check rejecting the forward control without padding;
+                  the flash backward (dQ, dK/dV) at the four training
+                  shapes, with and without a padded key tail, each
+                  gradient row within a bf16 tolerance of its own norm,
+                  bit-identical over two launches; the same check must
+                  reject the control; SDPA's backward, the yardstick, the
+                  median of 5 graph replays.
                   The weight-only int8 product at M = 1, 4 and 535 rows by
                   the four mla-7b linears, at edge row counts on both sides
                   of its narrow/wide line, and in fp32 at the lm_head's
@@ -136,12 +137,38 @@ Phases, each of which fails the run if it fails:
                   finite loss and grad_norm, exact launches of every step
                   (FPS 2, nothing else); step ms, tokens/s, MFU and peak
                   GiB beside the card's name and power limit.
+ 13. trainer-agree  the trainer's two new step kinds on `mla-small` with
+                  fp32 master weights (bf16 compute), card vs CPU from the
+                  same weights, batch and draws: one step of the AR loss
+                  mode and two Adafactor steps (the second's loss follows
+                  the first's update); loss and grad_norm within
+                  TRAIN_AGREE_RTOL, the flash_bwd control must miss
+                  grad_norm in each.
+ 14. trainer      mla_tpu_torch.train.main at full width: `mla-2b`, fp32
+                  master weights, AdamW, lm_head frozen, per-device batch 2
+                  and global batch 4 (accumulation 2), 2 steps and a
+                  checkpoint under build/chip_smoke_trainer (removed when
+                  the phase ends); the step-2 checkpoint loaded into a fresh
+                  state equals the run's live state bit for bit; a resume
+                  (--is_resume true, async save) to step 3; exact launches
+                  of every run (flash forward 2L, dQ L, dK/dV L, FPS 2 per
+                  micro-batch); step ms, tokens/s, MFU, peak GiB,
+                  checkpoint GiB, save and load seconds. Then 2 steps of the
+                  AR loss mode through the CLI (lm_head trained) and 3
+                  Adafactor steps of train_step's path (bf16 mla-2b, B = 8),
+                  with step ms and peak GiB.
+ 15. trainer-viz  mla-small post-training through the CLI with the image and
+                  point-cloud heads and --visualize_interval 1, one step:
+                  the two PNG panels (prediction beside target) and the
+                  point-cloud NPZ are written.
 
 The second-to-last line of output is a JSON object with each kernel's
-numbers (launches counted on the serving path for the kernels of slice 1,
-on the AR serving path for the weight-only int8 product, on the training
-path for the flash backward; the phi paths' counts are in the log and in
-chip_smoke.json); the last is
+numbers (launches counted on the trainer's first run for the kernels it
+runs: flash forward, dQ, dK/dV and FPS, whose times are then those of the
+trainer's diffusion micro-batch, BH 256 at S 547 and FPS at B = 8; on the
+diffusion serving path for W8A8 and on the AR serving path for the
+weight-only int8 product, timed at their serving shapes; the other paths'
+counts are in the log and in chip_smoke.json); the last is
 {"ok": true, "device": {...}}. Detailed results go to
 chiprun_out/chip_smoke.json. Without a CUDA device, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -154,6 +181,8 @@ import contextlib
 import gc
 import itertools
 import json
+import mmap
+import os
 import shutil
 import subprocess
 import sys
@@ -321,10 +350,13 @@ def check_w8a8(torch, report, control):
     }
 
 
-# FPS: the point tokenizer's two stages, at the serving batch and at mla-2b
-# training's (B = 8), each from start indices 0 and 7
+# FPS: the point tokenizer's two stages, at the serving batch, at the
+# trainer's AR loss mode (2 rows) and at mla-2b training's (B = 8: the
+# trainer's diffusion micro-batch, 2 rows x 4 repeats, the row's shape),
+# each from start indices 0 and 7
 FPS_STAGES = ((1024, 512), (512, 256))
-FPS_BATCHES = (1, 8)
+FPS_BATCHES = (1, 2, 8)
+FPS_ROW_B = 8
 
 
 def check_fps(torch, report, control):
@@ -334,7 +366,7 @@ def check_fps(torch, report, control):
     last cloud of the batch of 8 holds its last point far outside the unit
     cube, so the sound kernel samples it second and the control cannot.
     Times kernel (CUDA graph), plain version and the bound; the row sums the
-    stages at B = 1, the serving path's."""
+    stages at FPS_ROW_B, the trainer's."""
     from mla_tpu_torch.ops import cuda, pointops
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -366,7 +398,7 @@ def check_fps(torch, report, control):
             b, by = bound_ms(nbytes, ops, "fp32")
             readings["ms"][f"B={B} N={N} npoint={npoint}"] = ms
             plain_ms = None
-            if B == 1:
+            if B == FPS_ROW_B:
                 plain_ms = cuda_ms(torch, lambda: pointops.furthest_point_sample_plain(xyz, npoint, zero), 2, 1)
                 tot["ms"] += ms
                 tot["plain_ms"] += plain_ms
@@ -398,9 +430,15 @@ def check_fps(torch, report, control):
 FLASH_ATOL = 2e-2
 FLASH_LSE_ATOL = 1e-3
 # the forward's shapes: the int8 mla-7b serving prefill, the mla-2b
-# training step (B = 8: 32 text + 513 fused + 18 diffusion tokens, 32 heads)
-# and its post-training step (769 fused tokens)
-FLASH_SHAPES = ((32, PREFIX_LEN, "serving prefill"), (8 * 32, 563, "training"), (8 * 32, 819, "post-training"))
+# training step (B = 8: 32 text + 513 fused + 18 diffusion tokens, 32 heads),
+# its post-training step (769 fused tokens), and the trainer's micro-batches
+# (its DummyDataset has 16 text tokens): diffusion, 2 rows x 4 repeats at
+# 16 + 513 + 18, and the AR loss mode, 2 rows at 16 + 513
+TRAINER_S, TRAINER_AR_S = 547, 529
+FLASH_SHAPES = ((32, PREFIX_LEN, "serving prefill"), (8 * 32, 563, "training"), (8 * 32, 819, "post-training"),
+                (8 * 32, TRAINER_S, "trainer"), (2 * 32, TRAINER_AR_S, "trainer AR mode"))
+# the shape whose launches the kernels line counts
+FLASH_ROW_SHAPE = "trainer"
 
 
 def graph_ms(torch, fn, reps: int = 20, windows: int = 3, stream=None) -> float:
@@ -442,8 +480,8 @@ def fwd_call(cuda, q, k, v, mask, o, lse):
 
 
 def check_flash(torch, report, control):
-    """The flash forward at the serving-prefill and training shapes, with
-    and without a padded 40-key tail: o within FLASH_ATOL and lse within
+    """The flash forward at FLASH_SHAPES, with and without a padded 40-key
+    tail: o within FLASH_ATOL and lse within
     FLASH_LSE_ATOL of the plain version at valid rows; the control (its
     last, ragged key tile dropped) must miss that check without padding.
     Times kernel (CUDA graph), plain version, SDPA and the bound."""
@@ -452,7 +490,7 @@ def check_flash(torch, report, control):
     from mla_tpu_torch.ops import cuda
     from mla_tpu_torch.ops import flash_attention as fa
 
-    readings, row = {}, None
+    readings, row, worst = {}, None, 0.0
     for BH, S, what in FLASH_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(3)
         hd = 128
@@ -496,11 +534,12 @@ def check_flash(torch, report, control):
         report["shapes"].append({"kernel": "flash_attention", "BH": BH, "S": S, "hd": hd, "ms": ms,
                                  "plain_ms": plain_ms, "library_ms": lib_ms, "kernel_over_library": ms / lib_ms,
                                  "bound_ms": b, "bound_by": by, "max_abs_err": err, "max_abs_err_vs_sdpa": lib_err})
-        if row is None:  # the serving prefill: the shape whose launches the row counts
+        if what == FLASH_ROW_SHAPE:
             row = {"name": "flash_attention", "route": "cuda", "source": "mla_tpu_torch/csrc/flash_fwd.cu",
-                   "replaces": "mla_tpu/ops/flash_attention.py:39", "max_abs_err": err, "ms": ms,
+                   "replaces": "mla_tpu/ops/flash_attention.py:39", "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": lib_ms}
-        row["max_abs_err"] = max(row["max_abs_err"], err)
+        worst = max(worst, err)
+    row["max_abs_err"] = worst
     report["flash_fwd"] = readings
     return row
 
@@ -523,12 +562,12 @@ ROW_FLOOR = 1e-2
 
 # the controls: copies of a kernel's source with a fault the checks must
 # catch, each built in a temporary directory beside the kernels.
-# flash_fwd.cu with its last, ragged key tile dropped (at S = 534 and 563,
+# flash_fwd.cu with its last, ragged key tile dropped (at S = 529 to 563,
 # keys 512.. of its 64-key tiles, at S = 819 keys 768..): the rows past them
 # lose keys, which only the unpadded case shows
 FLASH_FWD_MUTATIONS = (("const int nk_all = (S + BN - 1) / BN;", "const int nk_all = S / BN;"),)
-# flash_bwd.cu with the last, partial tile of each loop dropped (at S = 563,
-# keys 512..562 for dQ and queries 512..562 for dK/dV; at S = 819, 768..818),
+# flash_bwd.cu with the last, partial tile of each loop dropped (at S = 529
+# to 563, keys 512.. for dQ and queries 512.. for dK/dV; at S = 819, 768..),
 # the ragged-S fault
 FLASH_BWD_MUTATIONS = (
     ("const int nk_all = (S + DQ_BN - 1) / DQ_BN;", "const int nk_all = S / DQ_BN;"),
@@ -616,16 +655,18 @@ def bwd_calls(cuda, ptrs, dq, dk, dv, BH, S, hd):
 
 
 def check_flash_bwd(torch, report, control):
-    """The flash backward at the training shapes of both training paths
-    (flash_bwd_at); returns the kernel-table rows of the diffusion step's
-    shape, S = 563."""
-    rows = flash_bwd_at(torch, report, control, TRAIN_S, "training")
-    flash_bwd_at(torch, report, control, POST_S, "post-training")
+    """The flash backward at the training shapes of every training path
+    (flash_bwd_at); returns the kernel-table rows of the trainer's
+    diffusion micro-batch, BH 256 at S = 547."""
+    flash_bwd_at(torch, report, control, TRAIN_BH, TRAIN_S, "training")
+    flash_bwd_at(torch, report, control, TRAIN_BH, POST_S, "post-training")
+    rows = flash_bwd_at(torch, report, control, TRAIN_BH, TRAINER_S, "trainer")
+    flash_bwd_at(torch, report, control, 2 * 32, TRAINER_AR_S, "trainer AR mode")
     return rows
 
 
-def flash_bwd_at(torch, report, control, S, what):
-    """dQ and dK/dV kernels at BH 256, sequence S, with and without a
+def flash_bwd_at(torch, report, control, BH, S, what):
+    """dQ and dK/dV kernels at BH heads of sequence S, with and without a
     padded key tail: every gradient row within FLASH_BWD_ROW_RTOL of the
     plain version's, bit-identical over two launches; the control
     library must exceed the tolerance in each gradient. Times the kernels
@@ -636,7 +677,7 @@ def flash_bwd_at(torch, report, control, S, what):
     from mla_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    BH, hd = TRAIN_BH, TRAIN_HD
+    hd = TRAIN_HD
     q, k, v, do = (torch.randn((BH, S, hd), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
     mask = torch.ones((BH, S), dtype=torch.int32, device="cuda")
     mask_pad = mask.clone()
@@ -658,12 +699,12 @@ def flash_bwd_at(torch, report, control, S, what):
             a, c, w = a[:, valid], c[:, valid], w[:, valid]
             (rel, row, norm), (rel_c, row_c, _) = row_rel_err(torch, a, w), row_rel_err(torch, c, w)
             e = float((a.float() - w.float()).abs().max())
-            log(f"flash bwd {name} S={S} ({case}): bit-identical repeats, max row |kernel - plain| / |plain| {rel:.3e} "
+            log(f"flash bwd {name} BH={BH} S={S} ({case}): bit-identical repeats, max row |kernel - plain| / |plain| {rel:.3e} "
                 f"(tol {FLASH_BWD_ROW_RTOL}; row {row % int(valid.sum())} of head {row // int(valid.sum())}, "
                 f"norm {norm:.3e}), max |kernel - plain| {e:.3e}; control {rel_c:.3e} "
                 f"(row {row_c % int(valid.sum())})")
             if not rel <= FLASH_BWD_ROW_RTOL:
-                raise AssertionError(f"flash bwd {name} S={S} ({case}): a row is {rel} of its norm from the plain version "
+                raise AssertionError(f"flash bwd {name} BH={BH} S={S} ({case}): a row is {rel} of its norm from the plain version "
                                      f"(tol {FLASH_BWD_ROW_RTOL})")
             key = "dq" if name == "dq" else "dkv"
             errs[key] = max(errs[key], e)
@@ -672,9 +713,9 @@ def flash_bwd_at(torch, report, control, S, what):
     for name in ("dq", "dk", "dv"):
         worst = max(readings["control"][f"{name}, {case}"] for case in ("no padding", "padded tail"))
         if not worst > FLASH_BWD_ROW_RTOL:
-            raise AssertionError(f"flash bwd {name} S={S}: the check passes the control ({worst} <= "
+            raise AssertionError(f"flash bwd {name} BH={BH} S={S}: the check passes the control ({worst} <= "
                                  f"{FLASH_BWD_ROW_RTOL})")
-    report.setdefault("flash_bwd_rows", {})[f"S={S}"] = readings
+    report.setdefault("flash_bwd_rows", {})[f"BH={BH} S={S}"] = readings
 
     o, lse = fa.flash_fwd(q, k, v, mask)
     delta = (do.float() * o.float()).sum(-1)
@@ -1412,29 +1453,35 @@ def _draws(cfg, rows: int, seed: int):
     }
 
 
-def agreement_steps(torch, control, cfg, batch, keys, what: str, stage: str = "pretrain", perturb=None):
-    """One AdamW step of `cfg` from the same seeded weights (a live
-    diffusion head), batch, noise, t and FPS starts on the card, on the CPU
-    and on the card through the flash_bwd `control` (or, given `perturb`, on
-    the card from perturb(weights)): {'cuda', 'cpu', 'control'}, each the
-    step's metrics named in `keys`."""
+def agreement_steps(torch, control, cfg, batch, keys, what: str, stage: str = "pretrain", perturb=None,
+                    optimizer: str = "adamw", learning_rate: float = 1e-5, steps: int = 1):
+    """`steps` steps (AdamW, or `optimizer`) of `cfg` from the same seeded
+    weights (a live diffusion head), batch, noise, t and FPS starts on the
+    card, on the CPU and on the card through the flash_bwd `control` (or,
+    given `perturb`, on the card from perturb(weights)): {'cuda', 'cpu',
+    'control'}, each the last step's metrics named in `keys` (with more than
+    one step, they depend on the optimizer's updates)."""
     from mla_tpu_torch import params as P
     from mla_tpu_torch.diffusion import gaussian as gd
     from mla_tpu_torch.ops import cuda
     from mla_tpu_torch.training import optim, strategy
 
     params, state = P.init(cfg, seed=8, device="cpu")
-    live_head(torch, params, 9)
+    if "final_layer" in params:
+        live_head(torch, params, 9)
     draws = [_draws(cfg, 2, 11)]
     sched = gd.create_schedule("", diffusion_steps=100)
 
     def one_step(dev, weights=params):
         t0 = time.perf_counter()
         p = P.tree_map(lambda t: t.detach().to(dev, copy=True), weights)
-        opt, _, _ = optim.make_optimizer(p, learning_rate=1e-5, num_training_steps=10, stage=stage)
+        opt, _, _ = optim.make_optimizer(p, learning_rate=learning_rate, num_training_steps=10, stage=stage,
+                                         optimizer=optimizer)
         tcfg = strategy.TrainConfig(repeated_diffusion_steps=1)
         step = strategy.make_train_step(cfg, tcfg, opt, sched)
-        _, m = step(strategy.init_train_state(p, opt, P.tree_to(state, dev)), batch, draws=draws)
+        st = strategy.init_train_state(p, opt, P.tree_to(state, dev))
+        for _ in range(steps):
+            st, m = step(st, batch, draws=draws)
         out = {k: float(m[k]) for k in keys}
         log(f"{what} on {dev}: {time.perf_counter() - t0:.2f} s, {out}")
         return out
@@ -1924,6 +1971,329 @@ def phi_train(torch, report):
     return dict(cuda.launches)
 
 
+# --------------------------------------------------------------------------- #
+# The trainer entry point (python -m mla_tpu_torch.train): fp32 master
+# weights, gradient accumulation, checkpoint save and resume, the AR loss
+# mode, Adafactor and the visualization cadence
+# --------------------------------------------------------------------------- #
+
+# the kernels the trainer's diffusion and AR steps launch, per micro-batch of
+# an L-layer llama decoder with remat: the flash forward twice a layer (the
+# forward and its recompute), each backward kernel once a layer, FPS once a
+# point-tokenizer stage; no int8 product
+TRAINER_KERNELS = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "furthest_point_sample",
+                   "w8a8_matmul", "int8_matmul")
+TRAINER_ROOT = Path("build") / "chip_smoke_trainer"
+TRAINER_ARGS = ("--vla.type", "prism-dinosiglip-224px+oxe+diffusion", "--model", "mla-2b",
+                "--per_device_batch_size", "2", "--global_batch_size", "4", "--save_interval", "2")
+
+
+def trainer_counts(cfg, micro_batches: int):
+    L = cfg.llama.num_layers
+    per = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+           "furthest_point_sample": cfg.point.num_stages, "w8a8_matmul": 0, "int8_matmul": 0}
+    return {k: v * micro_batches for k, v in per.items()}
+
+
+def check_trainer_agreement(torch, report, control):
+    """The trainer's two new step kinds on the bf16-compute `mla-small` with
+    fp32 master weights, card vs CPU from the same weights, batch and
+    draws: one step of the AR loss mode (use_diff off, lm_head trained) and
+    two Adafactor steps (the second step's loss and grad_norm follow the
+    first step's Adafactor update). Loss and grad_norm within
+    TRAIN_AGREE_RTOL; the flash_bwd control must miss grad_norm in each."""
+    from dataclasses import replace
+
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.vla.dummy import synthetic_batch
+
+    def fp32_masters(cfg):
+        return replace(cfg, llama=replace(cfg.llama, param_dtype=torch.float32))
+
+    cases = {
+        "ar_loss_mode": dict(cfg=fp32_masters(get_model_config("mla-small", use_diff=False)), keys=("ar_loss",)),
+        "adafactor": dict(cfg=fp32_masters(get_model_config("mla-small")), keys=("diff_loss",),
+                          optimizer="adafactor", learning_rate=1e-3, steps=2),
+    }
+    report["trainer_agree"] = {}
+    for name, c in cases.items():
+        cfg = c.pop("cfg")
+        keys = ("total_loss", "img_pc_contrastive_loss", "grad_norm") + c.pop("keys")
+        out = agreement_steps(torch, control, cfg, synthetic_batch(cfg, B=2, L=32, seed=10), keys,
+                              f"trainer-agree {name} mla-small fp32 masters B=2", **c)
+
+        def rel(dev):
+            return {k: abs(out[dev][k] - out["cpu"][k]) / abs(out["cpu"][k]) for k in ("total_loss", "grad_norm")}
+
+        sound, ctrl = rel("cuda"), rel("control")
+        log(f"trainer-agree {name}: relative |gpu - cpu| loss {sound['total_loss']:.4e}, grad_norm "
+            f"{sound['grad_norm']:.4e} (tol {TRAIN_AGREE_RTOL}); control grad_norm {ctrl['grad_norm']:.4e}")
+        report["trainer_agree"][name] = {**out, "rel_err": sound, "control_rel_err": ctrl, "rtol": TRAIN_AGREE_RTOL}
+        if not all(v <= TRAIN_AGREE_RTOL for v in sound.values()):
+            raise AssertionError(f"trainer-agree {name}: GPU and CPU steps disagree: {sound}")
+        if not ctrl["grad_norm"] > TRAIN_AGREE_RTOL:
+            raise AssertionError(f"trainer-agree {name} passes the control: grad_norm off by {ctrl['grad_norm']}")
+
+
+def _timed_write(path: Path, block, blocks: int, flags: int):
+    """(seconds to write, seconds to write and fsync)."""
+    fd = os.open(path, flags, 0o600)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(blocks):
+            view = memoryview(block)
+            while len(view):
+                view = view[os.write(fd, view):]
+        written = time.perf_counter() - t0
+        os.fsync(fd)
+        return written, time.perf_counter() - t0
+    finally:
+        os.close(fd)
+
+
+def disk_write_gbs(directory: Path, gib: int = 4):
+    """The disk's own sequential write rate under `directory`, the
+    yardstick of the checkpoint writer (which fsyncs): `gib` GiB written in
+    64 MiB blocks past the page cache (O_DIRECT, where the file system
+    takes it), then fsync'd and removed. -> (GB/s of the writes alone, GB/s
+    with the fsync, whether O_DIRECT was used)."""
+    block = mmap.mmap(-1, 64 << 20)  # page-aligned, as O_DIRECT wants
+    block.write(bytes(range(256)) * (len(block) // 256))
+    path = directory / "disk_rate.bin"
+    flags = os.O_WRONLY | os.O_CREAT | os.O_TRUNC
+    try:
+        try:
+            (written, synced), direct = _timed_write(path, block, gib * 16, flags | os.O_DIRECT), True
+        except (AttributeError, OSError):  # no direct I/O on this system or file system
+            (written, synced), direct = _timed_write(path, block, gib * 16, flags), False
+    finally:
+        path.unlink(missing_ok=True)
+        block.close()
+    return gib * 2**30 / written / 1e9, gib * 2**30 / synced / 1e9, direct
+
+
+def _trainer_step_line(out, tokens_per_step: int, flops_per_token: float, peak):
+    """(step ms, tokens/s, MFU) of a run's last step, by the trainer's own
+    clock (VLAMetrics' step time: the wall between two commits)."""
+    ms = out["metrics"].windows["step_time"][-1] * 1e3
+    tok_s = tokens_per_step / (ms / 1e3)
+    return ms, tok_s, (tok_s * flops_per_token / peak if peak else None)
+
+
+def trainer(torch, report):
+    """mla-2b through mla_tpu_torch.train.main at full width with fp32
+    master weights and AdamW: 2 steps of gradient accumulation 2 and a
+    checkpoint at step 2; the step-2 checkpoint loaded into a fresh state
+    equals the run's live state bit for bit; a resume to step 3 (async
+    save); the launches of every run; then 2 steps of the AR loss mode
+    through the CLI and 3 Adafactor steps of train_step's path."""
+    import numpy as np
+
+    from mla_tpu_torch import train, train_step
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.params import tree_items
+    from mla_tpu_torch.training import checkpointing as ckpt
+    from mla_tpu_torch.training import metrics
+
+    shutil.rmtree(TRAINER_ROOT, ignore_errors=True)
+    peak_flops = metrics.bf16_peak_flops(torch.cuda.get_device_name(0))
+    args = list(TRAINER_ARGS) + ["--run_root_dir", str(TRAINER_ROOT)]
+    rep = {}
+    try:
+        # -- 2 steps, a save, the totals of the main path -------------------
+        torch.cuda.reset_peak_memory_stats()
+        cuda.launches.clear()
+        t0 = time.perf_counter()
+        first = train.main(args + ["--run_id", "smoke", "--max_steps", "2"])
+        torch.cuda.synchronize()
+        totals = {k: cuda.launches[k] for k in TRAINER_KERNELS}
+        run_s = time.perf_counter() - t0
+        cfg = first["cfg"]
+        params = first["state"]["params"]
+        n_params = sum(t.numel() for _, t in tree_items(params))
+        n_train = sum(t.numel() for t in first["state"]["optimizer"].trainable)
+        if {t.dtype for path, t in tree_items(params["llm_backbone"])} != {torch.float32}:
+            raise AssertionError("trainer: the decoder's master weights are not fp32")
+        if any("lm_head" in p for p in first["state"]["optimizer"].paths):
+            raise AssertionError("trainer: lm_head is trained in diffusion mode")
+        expected = trainer_counts(cfg, micro_batches=2 * 2)
+        if totals != expected:
+            raise AssertionError(f"trainer: launches {totals} in 2 steps of accumulation 2, expected {expected}")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        S = 16 + cfg.fused_len + cfg.diff_block_len
+        if S != TRAINER_S:
+            raise AssertionError(f"trainer: S = {S}, but the kernels were checked at TRAINER_S = {TRAINER_S}")
+        tokens = 4 * 4 * S  # per-step rows (2 x accumulation 2) x repeated_diffusion_steps 4 x S
+        fpt = first["metrics"].flops_per_token
+        ms, tok_s, mfu = _trainer_step_line(first, tokens, fpt, peak_flops)
+        run_dir = first["run_dir"]
+        step2 = ckpt.latest_checkpoint(run_dir)
+        ckpt_gib = (step2 / ckpt.STATE_FILE).stat().st_size / 2**30
+        losses = list(first["metrics"].windows["total_loss"])
+        if not (step2.name.startswith("step-000002-") and all(np.isfinite(losses))):
+            raise AssertionError(f"trainer: checkpoint {step2}, losses {losses}")
+        log(f"trainer mla-2b fp32 masters ({n_params / 1e9:.3f} B parameters, {n_train / 1e9:.3f} B trained), "
+            f"accumulation 2 x 2 rows x 4 repeats, S = {S} ({gpu_line()}): run {run_s:.1f} s, losses {losses}, "
+            f"step 1 {ms:.1f} ms, {tok_s:.0f} tokens/s, MFU {mfu if mfu is None else round(mfu, 4)}, peak "
+            f"{peak_gib:.2f} GiB, checkpoint {ckpt_gib:.2f} GiB saved in {first['saves'][0][1]:.1f} s, launches "
+            f"{totals}")
+        # the host's share of the trainer's step clock: one synthetic batch
+        from mla_tpu_torch.vla.dummy import DummyDataset
+
+        batches = iter(DummyDataset(cfg, batch_size=4, seed=0))
+        host_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            next(batches)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"trainer: one synthetic batch of 4 rows built on the host in {np.median(host_ms):.1f} ms (median of 3)")
+        disk_gbs, disk_synced_gbs, direct = disk_write_gbs(TRAINER_ROOT)
+        save_gbs = ckpt_gib * 2**30 / first["saves"][0][1] / 1e9
+        log(f"trainer: the disk takes 4 GiB at {disk_gbs:.2f} GB/s "
+            f"({'O_DIRECT' if direct else 'through the page cache'}), {disk_synced_gbs:.2f} GB/s fsync'd; the "
+            f"checkpoint's save (host copy, torch.save, fsync) {save_gbs:.2f} GB/s")
+        rep.update(params=n_params, trained=n_train, S=S, tokens_per_step=tokens, losses=losses, step_ms=ms,
+                   host_batch_ms=float(np.median(host_ms)), disk_gbs=disk_gbs, disk_synced_gbs=disk_synced_gbs,
+                   disk_direct=direct, save_gbs=save_gbs,
+                   tokens_per_s=tok_s, mfu=mfu, peak_gib=peak_gib, checkpoint_gib=ckpt_gib,
+                   save_s=first["saves"][0][1], launches=totals, expected=expected,
+                   step_times_s=list(first["metrics"].windows["step_time"]))
+
+        # -- the step-2 checkpoint loaded into a fresh state ----------------
+        live = first["state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        fresh = train.build(args + ["--run_id", "smoke-fresh", "--max_steps", "2"])["state"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh = ckpt.load_checkpoint(step2, fresh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        pairs = [(f"params/{p}", a, b) for (p, a), (_, b) in zip(tree_items(live["params"]),
+                                                                tree_items(fresh["params"]))]
+        pairs += [(f"model_state/{p}", a, b) for (p, a), (_, b) in zip(tree_items(live["model_state"]),
+                                                                      tree_items(fresh["model_state"]))]
+        lo, fo = live["optimizer"].state_dict(), fresh["optimizer"].state_dict()
+        pairs += [(f"opt/{p}/{n}", t, fo["leaves"][p][n]) for p, d in lo["leaves"].items() for n, t in d.items()]
+        bad = [k for k, a, b in pairs if a.dtype != b.dtype or not torch.equal(a, b)]
+        if bad or lo["count"] != fo["count"] or not live["step"] == fresh["step"] == 2:
+            raise AssertionError(f"trainer: the loaded checkpoint differs from the live state in {bad[:5]} "
+                                 f"({len(bad)} of {len(pairs)} leaves), count {lo['count']} vs {fo['count']}")
+        log(f"trainer: step-2 checkpoint loaded into a fresh state in {load_s:.1f} s, {len(pairs)} leaves "
+            "bit-identical to the live state")
+        rep.update(load_s=load_s, leaves_compared=len(pairs))
+        del first, live, fresh, params, pairs, lo, fo
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- resume to step 3 ------------------------------------------------
+        cuda.launches.clear()
+        resumed = train.main(args + ["--run_id", "smoke", "--max_steps", "3", "--is_resume", "true",
+                                     "--async_checkpoints", "true"])
+        counts = {k: cuda.launches[k] for k in TRAINER_KERNELS}
+        names = sorted(p.name for p in (run_dir / "checkpoints").iterdir())
+        latest = ckpt.latest_checkpoint(run_dir)
+        if not (resumed["load_s"] is not None and any(n.startswith("step-000002-") for n in names)
+                and latest.name.startswith("step-000003-") and "latest" in names):
+            raise AssertionError(f"trainer: after the resume {names}, latest {latest}")
+        if counts != trainer_counts(cfg, micro_batches=2):
+            raise AssertionError(f"trainer: resumed step launches {counts}")
+        ms3, tok_s3, mfu3 = _trainer_step_line(resumed, tokens, fpt, peak_flops)
+        log(f"trainer: resumed from step 2 (loaded in {resumed['load_s']:.1f} s), step 3 {ms3:.1f} ms "
+            f"({tok_s3:.0f} tokens/s, MFU {mfu3 if mfu3 is None else round(mfu3, 4)}), async save handed over in "
+            f"{resumed['saves'][0][1]:.1f} s; checkpoints {names}")
+        rep["resume"] = {"load_s": resumed["load_s"], "step_ms": ms3, "tokens_per_s": tok_s3, "mfu": mfu3,
+                         "async_save_s": resumed["saves"][0][1], "checkpoints": names, "launches": counts}
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(TRAINER_ROOT, ignore_errors=True)
+
+        # -- the AR loss mode at full width: lm_head trained ------------------
+        torch.cuda.reset_peak_memory_stats()
+        cuda.launches.clear()
+        ar = train.main(args + ["--run_id", "smoke-ar", "--max_steps", "2", "--use_diff", "false"])
+        counts = {k: cuda.launches[k] for k in TRAINER_KERNELS}
+        ar_losses = list(ar["metrics"].windows["ar_loss"])
+        if not ("llm_backbone/lm_head/w" in ar["state"]["optimizer"].paths and all(np.isfinite(ar_losses))
+                and min(ar_losses) > 0):
+            raise AssertionError(f"trainer AR mode: ar_loss {ar_losses}")
+        if counts != trainer_counts(ar["cfg"], micro_batches=2 * 2):
+            raise AssertionError(f"trainer AR mode: launches {counts}")
+        S_ar = 16 + ar["cfg"].fused_len
+        if S_ar != TRAINER_AR_S:
+            raise AssertionError(f"trainer AR mode: S = {S_ar}, but the kernels were checked at {TRAINER_AR_S}")
+        ms_ar, tok_ar, mfu_ar = _trainer_step_line(ar, 4 * S_ar, ar["metrics"].flops_per_token, peak_flops)
+        peak_ar = torch.cuda.max_memory_allocated() / 2**30
+        log(f"trainer AR loss mode mla-2b (lm_head trained), 4 rows, S = {S_ar}: ar_loss {ar_losses}, step 1 "
+            f"{ms_ar:.1f} ms, {tok_ar:.0f} tokens/s, MFU {mfu_ar if mfu_ar is None else round(mfu_ar, 4)}, peak "
+            f"{peak_ar:.2f} GiB, launches {counts}")
+        rep["ar_mode"] = {"ar_losses": ar_losses, "S": S_ar, "step_ms": ms_ar, "tokens_per_s": tok_ar, "mfu": mfu_ar,
+                          "peak_gib": peak_ar, "launches": counts}
+        del ar
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(TRAINER_ROOT, ignore_errors=True)
+
+        # -- Adafactor through train_step's path (bf16 mla-2b, B = 8) ---------
+        torch.cuda.reset_peak_memory_stats()
+        run = train_step.build("mla-2b", 8, 32, "cuda", seed=0, optimizer="adafactor")
+        times = []
+        for i in range(3):
+            before = dict(cuda.launches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run["state"], m = run["step"](run["state"], run["batch"], run["generator"])
+            loss, gnorm = float(m["total_loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            counts = {k: cuda.launches[k] - before.get(k, 0) for k in TRAINER_KERNELS}
+            if not (np.isfinite(loss) and np.isfinite(gnorm)) or counts != trainer_counts(run["cfg"], 1):
+                raise AssertionError(f"adafactor step {i}: loss {loss}, grad_norm {gnorm}, launches {counts}")
+            log(f"adafactor mla-2b step {i}: loss {loss:.5f}, grad_norm {gnorm:.5f}, {times[-1]:.1f} ms")
+        peak_af = torch.cuda.max_memory_allocated() / 2**30
+        step_af = float(np.median(times[1:]))
+        log(f"adafactor mla-2b bf16 B=8 S=563: step {step_af:.1f} ms (median of steps 1..2), peak {peak_af:.2f} GiB")
+        rep["adafactor"] = {"step_ms": times, "step_ms_median": step_af, "peak_gib": peak_af}
+        del run
+    finally:
+        shutil.rmtree(TRAINER_ROOT, ignore_errors=True)
+    report["trainer"] = rep
+    return totals
+
+
+def _png_size(path: Path):
+    """(width, height) from a PNG's IHDR, after checking its signature."""
+    head = path.read_bytes()[:24]
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+
+
+def trainer_viz(torch, report):
+    """mla-small post-training through the CLI with the image and point-cloud
+    heads and --visualize_interval 1, one step: the panels are written."""
+    from mla_tpu_torch import train
+
+    shutil.rmtree(TRAINER_ROOT, ignore_errors=True)
+    try:
+        out = train.main(["--vla.type", "prism-dinosiglip-224px+oxe+diffusion", "--model", "mla-small",
+                          "--per_device_batch_size", "2", "--global_batch_size", "2", "--max_steps", "1",
+                          "--use_generation", "true", "--gen_image", "true", "--gen_pointcloud", "true",
+                          "--visualize_interval", "1", "--run_root_dir", str(TRAINER_ROOT), "--run_id", "viz"])
+        viz = out["run_dir"] / "visualizations"
+        names = sorted(p.name for p in viz.iterdir()) if viz.is_dir() else []
+        size = out["cfg"].vision.image_size
+        want = ["step000001_img0.png", "step000001_img1.png", "step000001_pc.npz"]
+        if names != want or any(_png_size(viz / n) != (2 * size, size) for n in want[:2]):
+            raise AssertionError(f"trainer-viz: {names}, expected {want} of {2 * size} x {size} panels")
+        losses = {k: float(out["metrics"].windows[k][-1]) for k in ("image_gen_loss", "point_cloud_gen_loss")}
+        log(f"trainer-viz: mla-small post-training, 1 step, losses {losses}, panels {names}")
+        report["trainer_viz"] = {"files": names, "losses": losses}
+    finally:
+        shutil.rmtree(TRAINER_ROOT, ignore_errors=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.")
     parser.add_argument("--parent", help="a directory holding another version of flash_fwd.cu, flash_bwd.cu, "
@@ -2011,11 +2381,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_phi_train_agreement(torch, report)
     report["phi_train_launches"] = phi_train(torch, report)
-    for k in kernels:
-        k["launches"] = (ar_totals if k["name"] == "int8_matmul" else totals)[k["name"]]
-    for k in train_kernels:
-        k["launches"] = train_totals[k["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_trainer_agreement(torch, report, libs["flash_bwd"])
+    trainer_totals = trainer(torch, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer_viz(torch, report)
+    report["serve_launches"], report["ar_serve_launches"], report["train_launches"] = totals, ar_totals, train_totals
+    # launches: the trainer's run (this slice's main path) for the kernels it
+    # runs; W8A8 from the diffusion serving path, int8_matmul from the AR one
     kernels += train_kernels
+    for k in kernels:
+        k["launches"] = (trainer_totals if trainer_totals[k["name"]] else
+                         ar_totals if k["name"] == "int8_matmul" else totals)[k["name"]]
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

@@ -1,13 +1,13 @@
-"""MLA diffusion training loss and serving: prefix embeds, prefill,
+"""MLA training loss and serving: prefix embeds, prefill,
 cached-suffix denoising, autoregressive decoding and the deployment policy.
 
 Counterpart of mla_tpu/models/mla.py. `mla_train_loss` is the diffusion
 training forward: the batch repeated `repeated_diffusion_steps` times, the
 future-action window q-sampled at random t, the noise regressed, plus the
 contrastive losses (point/image; tactile) and, in the post-training stage,
-the generation heads' losses. The AR loss mode is not ported yet. The
-multimodal prefix
-[BOS | fused | text[1:]] is prefilled once into a KV cache; each denoise
+the generation heads' losses; without cfg.use_diff (the AR loss mode) the
+LM loss of the labels takes the diffusion loss's place. The multimodal
+prefix [BOS | fused | text[1:]] is prefilled once into a KV cache; each denoise
 step then runs only the 18-token suffix [proprio, t, x_0..15] against the
 cached prefix, reading the cache without writing it. This is exact with
 respect to a full recompute, since the prefix is unchanged across steps and
@@ -74,32 +74,35 @@ def mla_train_loss(
     remat: bool = True, override_noise=None, override_t=None, fps_start: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Tuple[Dict[str, torch.Tensor], Dict[str, Any]]]:
     """One training forward -> (total_loss, (loss_dict, new_state)) for a
-    batch of tensors on the parameters' device. The diffusion noise, t and
-    the point tokenizer's FPS starts ([num_stages] x [B * rep]) are drawn
-    from `generator` unless given: override_noise [B * rep, horizon,
-    action_dim], override_t [B * rep] and fps_start replace the draws (the
-    parity tests feed the JAX package's). The generation heads' dropout
-    draws from `generator` too, and is off without one."""
+    batch of tensors on the parameters' device. With cfg.use_diff the batch
+    is repeated `repeated_diffusion_steps` times, the future-action window
+    q-sampled at random t and the noise regressed (diff_loss); without it
+    (the AR loss mode) the total is the LM loss of the labels (ar_loss).
+    The contrastive and generation losses add to either. The diffusion
+    noise, t and the point tokenizer's FPS starts ([num_stages] x [rows])
+    are drawn from `generator` unless given: override_noise [B * rep,
+    horizon, action_dim], override_t [B * rep] and fps_start replace the
+    draws (the parity tests feed the JAX package's). The generation heads'
+    dropout draws from `generator` too, and is off without one."""
+    dev = batch["input_ids"].device
+    rows = batch["input_ids"].shape[0] * (repeated_diffusion_steps if cfg.use_diff else 1)
     if not cfg.use_diff:
-        raise NotImplementedError("the AR loss mode (use_diff=False) is not ported yet")
+        outputs, new_state = prismatic.vlm_forward(
+            params, state, cfg, batch, training=True, use_diff=False, generator=generator, remat=remat,
+            fps_start=fps_starts(cfg, fps_start, rows, generator, dev),
+        )
+        return _add_aux_losses(cfg, outputs, new_state, "ar_loss", outputs["lm_loss"])
     rbatch = _tile_batch(batch, repeated_diffusion_steps)
     future = rbatch["actions"][:, -cfg.action_horizon :, :].float()
-    Br, dev = future.shape[0], future.device
     if override_noise is not None:
         noise = torch.as_tensor(np.array(override_noise), dtype=torch.float32, device=dev).reshape(future.shape)
     else:
         noise = torch.randn(future.shape, generator=generator, device=dev)
     if override_t is not None:
-        t = torch.as_tensor(np.array(override_t), device=dev).long().reshape(Br)
+        t = torch.as_tensor(np.array(override_t), device=dev).long().reshape(rows)
     else:
-        t = torch.randint(0, sched.num_timesteps, (Br,), generator=generator, device=dev)
-    if fps_start is not None:
-        fps_start = [torch.as_tensor(np.array(s), dtype=torch.int32, device=dev) for s in fps_start]
-    elif cfg.use_pointcloud:
-        fps_start = [
-            torch.randint(0, cfg.point.input_points >> si, (Br,), generator=generator, device=dev, dtype=torch.int32)
-            for si in range(cfg.point.num_stages)
-        ]
+        t = torch.randint(0, sched.num_timesteps, (rows,), generator=generator, device=dev)
+    fps_start = fps_starts(cfg, fps_start, rows, generator, dev)
     x = gd.q_sample(sched, future, t, noise)
     rbatch = {**rbatch, "x": x, "t": t}
     # the reference computes the LM loss in diffusion mode and drops it from
@@ -109,9 +112,27 @@ def mla_train_loss(
         params, state, cfg, rbatch, training=True, use_diff=True, generator=generator, remat=remat,
         fps_start=fps_start,
     )
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return _add_aux_losses(cfg, outputs, new_state, "diff_loss", ((outputs["noise_pred"].float() - noise) ** 2).mean())
+
+
+def fps_starts(cfg: prismatic.MLAModelConfig, given, rows: int, generator: Optional[torch.Generator], dev):
+    """The point tokenizer's FPS starts: `given` as int32 tensors, else one
+    draw per stage from `generator` ([rows] each), None without points."""
+    if given is not None:
+        return [torch.as_tensor(np.array(s), dtype=torch.int32, device=dev) for s in given]
+    if not cfg.use_pointcloud:
+        return None
+    return [torch.randint(0, cfg.point.input_points >> si, (rows,), generator=generator, device=dev, dtype=torch.int32)
+            for si in range(cfg.point.num_stages)]
+
+
+def _add_aux_losses(cfg: prismatic.MLAModelConfig, outputs: Dict[str, Any], new_state: Dict[str, Any],
+                    main_key: str, main_loss: torch.Tensor):
+    """(total, (loss_dict, new_state)): `main_loss` under `main_key` plus the
+    contrastive and generation losses the config turns on."""
+    zero = torch.zeros((), dtype=torch.float32, device=main_loss.device)
     loss_dict = {k: zero for k in LOSS_KEYS}
-    total = loss_dict["diff_loss"] = ((outputs["noise_pred"].float() - noise) ** 2).mean()
+    total = loss_dict[main_key] = main_loss
     if cfg.use_contrastive and "img_pc_contrastive_loss" in outputs:
         loss_dict["img_pc_contrastive_loss"] = outputs["img_pc_contrastive_loss"]
         total = total + outputs["img_pc_contrastive_loss"]

@@ -2,16 +2,17 @@
 MFU and peak memory.
 
     python -m mla_tpu_torch.train_step --model mla-2b --batch 8 [--steps 5]
-        [--text_len 32] [--profile] [--device cuda] [--post_franka]
+        [--text_len 32] [--profile] [--device cuda] [--post_franka] [--optimizer adamw|adafactor]
         [--stage S] [--use_tactile] [--num_extra_views N] [--use_generation]
         [--gen_image] [--use_roi] [--gen_pointcloud] [--gen_tactile]
 
 Counterpart of scripts/tpu_smoke.py. --model is any preset of
 conf/models.py (mla-2b, the llama rung; mla-phi, Phi-2 at full width).
 Builds the model from the seeded random init on the device (`params.init`),
-then runs `--steps` AdamW steps
+then runs `--steps` steps
 of `make_train_step` on `synthetic_batch` (repeated_diffusion_steps 1, remat
-on, learning rate 1e-5), printing each step's loss, grad_norm and wall ms.
+on, learning rate 1e-5; AdamW, or Adafactor with --optimizer adafactor, as
+scripts/tpu_smoke.py takes it), printing each step's loss, grad_norm and wall ms.
 Then: step ms (median of the steps after the first), tokens/s (B x S per
 step, S = text + fused + diffusion tokens), MFU (6N decoder FLOPs per token,
 training/metrics.py, over the card's dense bf16 peak: the front-ends and the
@@ -89,13 +90,14 @@ def model_config(model: str, *, use_tactile: bool = False, num_extra_views: int 
 
 
 def build(model: str, batch: int, text_len: int, device, seed: int = 0, stage: str = "pretrain",
-          **flags) -> Dict[str, Any]:
+          optimizer: str = "adamw", **flags) -> Dict[str, Any]:
     """Model, optimizer, train state, step function and batch, as
     scripts/tpu_smoke.py sets them up; `flags` are model_config's."""
     cfg = model_config(model, **flags)
     params, mstate = P.init(cfg, seed=seed, device=device)
     tcfg = strategy.TrainConfig(repeated_diffusion_steps=1, enable_gradient_checkpointing=True)
-    opt, _, _ = optim.make_optimizer(params, learning_rate=LEARNING_RATE, num_training_steps=10, stage=stage)
+    opt, _, _ = optim.make_optimizer(params, learning_rate=LEARNING_RATE, num_training_steps=10, stage=stage,
+                                     optimizer=optimizer)
     sched = gd.create_schedule("", diffusion_steps=100)
     return {
         "cfg": cfg, "tcfg": tcfg, "sched": sched,
@@ -211,6 +213,7 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--post_franka", action="store_true", help="the stage flags of scripts/post_franka.sh")
     ap.add_argument("--stage", default="pretrain", choices=sorted(optim.STAGE_FROZEN_MODULES))
+    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "adafactor"])
     ap.add_argument("--num_extra_views", type=int, default=0)
     for flag in ("use_tactile", "use_generation", "gen_image", "use_roi", "gen_pointcloud", "gen_tactile"):
         ap.add_argument(f"--{flag}", action="store_true")
@@ -228,7 +231,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    run = build(args.model, args.batch, args.text_len, device, **flags)
+    run = build(args.model, args.batch, args.text_len, device, optimizer=args.optimizer, **flags)
     _sync(device)
     print(f"{args.model}: built on {device} in {time.perf_counter() - t0:.1f} s")
     times = []
@@ -248,6 +251,7 @@ def main() -> None:
     tok_s = run["tokens_per_step"] / (step_ms / 1e3)
     result: Dict[str, Any] = {
         "model": args.model, "batch": args.batch, "text_len": args.text_len, "flags": flags,
+        "optimizer": args.optimizer,
         "tokens_per_step": run["tokens_per_step"], "step_ms": times, "step_ms_median": step_ms,
         "tokens_per_s": tok_s, "flops_per_token": run["flops_per_token"],
     }
@@ -274,7 +278,7 @@ def main() -> None:
             print(f"  {r['device_ms']:9.3f} ms  x{r['count']:5d}  {r['name']}")
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    tag = "_post_franka" if args.post_franka else ""
+    tag = ("_post_franka" if args.post_franka else "") + ("_adafactor" if args.optimizer == "adafactor" else "")
     (out / f"train_step_{args.model}{tag}.json").write_text(json.dumps(result, indent=1))
 
 

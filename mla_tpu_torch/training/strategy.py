@@ -1,13 +1,14 @@
-"""The training step: gradient accumulation, clipping, AdamW, step count and
-EMA, on one device.
+"""The training step: gradient accumulation, clipping, the optimizer, step
+count and EMA, on one device; and the visualization forward.
 
 Counterpart of mla_tpu/training/strategy.py without the mesh: sharding
 (FSDP) is not ported yet. `make_train_step` returns train_step(state,
 batch) -> (state, metrics). With grad_accumulation_steps > 1 the batch is
 cut into that many micro-batches along dim 0; their gradients are summed in
-fp32 and averaged, their losses averaged, and the point tokenizer's
-batch-norm state threads from one micro-batch to the next, as the JAX
-lax.scan carry does. The parameters are updated in place.
+fp32 (in .grad itself for fp32 leaves, in an fp32 buffer for the others)
+and averaged, their losses averaged, and the point tokenizer's batch-norm
+state threads from one micro-batch to the next, as the JAX lax.scan carry
+does. The parameters are updated in place.
 """
 
 from __future__ import annotations
@@ -27,12 +28,30 @@ from mla_tpu_torch.training.optim import Optimizer
 
 @dataclass
 class TrainConfig:
-    """The step's settings; the optimizer's go to optim.make_optimizer."""
+    """The JAX package's fields. The step reads grad_accumulation_steps,
+    repeated_diffusion_steps, ema_decay and enable_gradient_checkpointing;
+    `optimizer_settings()` gives optim.make_optimizer the rest but use_ema,
+    which goes to init_train_state."""
 
+    learning_rate: float = 2e-5
+    weight_decay: float = 0.0
+    max_grad_norm: float = 1.0
+    lr_scheduler_type: str = "constant"
+    warmup_ratio: float = 0.0
+    num_training_steps: int = 1000
     grad_accumulation_steps: int = 1
     repeated_diffusion_steps: int = 4
+    stage: str = "pretrain"
+    use_ema: bool = False
     ema_decay: float = 0.9999
     enable_gradient_checkpointing: bool = True
+
+    def optimizer_settings(self) -> Dict[str, Any]:
+        """optim.make_optimizer's keywords, from these fields."""
+        return {"learning_rate": self.learning_rate, "weight_decay": self.weight_decay,
+                "max_grad_norm": self.max_grad_norm, "lr_scheduler_type": self.lr_scheduler_type,
+                "warmup_ratio": self.warmup_ratio, "num_training_steps": self.num_training_steps,
+                "stage": self.stage}
 
 
 def as_tensors(tree: Any, device) -> Any:
@@ -84,7 +103,10 @@ def make_train_step(
         leaves = [p for p in tree_leaves(params) if p.requires_grad]
         batch = as_tensors(batch, leaves[0].device)
         optimizer.zero_grad()
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves] if accum > 1 else None
+        # fp32 leaves sum their micro-batch gradients in .grad (backward adds
+        # into it); the others in an fp32 buffer
+        acc = ([None if p.dtype == torch.float32 else torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for p in leaves] if accum > 1 else None)
         mstate, loss_sum = state["model_state"], None
         for i in range(accum):
             mbatch = _micro(batch, accum, i) if accum > 1 else batch
@@ -98,12 +120,16 @@ def make_train_step(
             loss_sum = loss_dict if loss_sum is None else {k: loss_sum[k] + v for k, v in loss_dict.items()}
             if acc is not None:
                 for a, p in zip(acc, leaves):
-                    if p.grad is not None:
+                    if a is not None and p.grad is not None:
                         a += p.grad.float()
                         p.grad = None
         if acc is not None:
-            for a, p in zip(acc, leaves):
-                p.grad = (a / accum).to(p.dtype)
+            with torch.no_grad():
+                for a, p in zip(acc, leaves):
+                    if a is not None:
+                        p.grad = (a / accum).to(p.dtype)
+                    elif p.grad is not None:
+                        p.grad.div_(accum)
         metrics = {k: v / accum for k, v in loss_sum.items()} if accum > 1 else loss_sum
         metrics["grad_norm"] = optimizer.global_norm()
         optimizer.step(metrics["grad_norm"])
@@ -116,3 +142,29 @@ def make_train_step(
         return new_state, metrics
 
     return train_step
+
+
+def make_visualize_step(cfg: prismatic.MLAModelConfig, sched: gd.Schedule) -> Callable:
+    """viz_step(state, batch, generator) -> the generation heads' outputs:
+    the training forward (noise, t and the FPS starts drawn from
+    `generator`, remat off) without gradients, for the trainer's
+    visualization cadence (JAX make_visualize_step)."""
+
+    @torch.no_grad()
+    def viz_step(state: Dict[str, Any], batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
+        params = state["params"]
+        b = as_tensors(batch, tree_leaves(params)[0].device)
+        rows = b["input_ids"].shape[0]
+        if cfg.use_diff:
+            future = b["actions"][:, -cfg.action_horizon :, :].float()
+            noise = torch.randn(future.shape, generator=generator, device=future.device)
+            t = torch.randint(0, sched.num_timesteps, (rows,), generator=generator, device=future.device)
+            b = {**b, "x": gd.q_sample(sched, future, t, noise), "t": t}
+            b.pop("labels", None)
+        outputs, _ = prismatic.vlm_forward(
+            params, state["model_state"], cfg, b, training=True, use_diff=cfg.use_diff, generator=generator,
+            remat=False, fps_start=mla_mod.fps_starts(cfg, None, rows, generator, b["input_ids"].device),
+        )
+        return outputs.get("generation_outputs", {})
+
+    return viz_step

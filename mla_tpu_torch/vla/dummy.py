@@ -1,13 +1,13 @@
 """Synthetic training batches with the training token layout.
 
-Counterpart of `synthetic_batch` in mla_tpu/vla/dummy.py, with its own copy
-of the special token ids, for smoke-testing the training step without
-data. The same arguments give the same arrays as the JAX package.
+Counterpart of mla_tpu/vla/dummy.py (`synthetic_batch`, `DummyDataset`),
+with its own copy of the special token ids, for smoke-testing training
+without data. The same arguments give the same arrays as the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterator
 
 import numpy as np
 
@@ -92,3 +92,17 @@ def add_extra_views(batch: Dict[str, Any], cfg, seed: int = 1) -> Dict[str, Any]
         views["wrist_image" if i == 0 else f"wrist_image_{i}"] = np.concatenate(
             [img, np.ones((B, 1, S, S), np.float32)], axis=1)
     return {**batch, "images": views}
+
+
+class DummyDataset:
+    """Iterable of synthetic batches (the JAX package's DummyDataset): batch
+    i is synthetic_batch(cfg, batch_size, seq_len, seed=seed + i)."""
+
+    def __init__(self, cfg, batch_size: int = 8, seq_len: int = 16, seed: int = 0) -> None:
+        self.cfg, self.batch_size, self.seq_len, self.seed = cfg, batch_size, seq_len, seed
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        i = 0
+        while True:
+            yield synthetic_batch(self.cfg, self.batch_size, self.seq_len, seed=self.seed + i)
+            i += 1

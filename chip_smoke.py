@@ -26,14 +26,17 @@ Phases, each of which fails the run if it fails:
                   time kernel, plain version, a PyTorch library call
                   (yardstick only) and the roofline bound: W8A8 (int32
                   accumulators and outputs identical) at the shapes of the
-                  int8 mla-7b serving path and at ragged and boundary row
-                  counts on both sides of its narrow/wide line, the check
+                  int8 mla-7b serving host (prefill M = B x 534 and suffix
+                  B x 18 for buckets B = 1, 2, 4) and at ragged and
+                  boundary row counts on both sides of its narrow/wide
+                  line, the check
                   rejecting the control at every shape, kernel and
                   torch._int_mm timed as CUDA graphs with the weights cycled
                   past L2; FPS at both point-tokenizer stages, B = 1, 2
-                  (the trainer's AR loss mode) and 8, starts 0 and 7,
-                  indices identical, the control rejected at each stage;
-                  the flash forward at the serving prefill (BH 32, S 534),
+                  (the trainer's AR loss mode; serving bucket 2), 4 and 8,
+                  starts 0 and 7, indices identical, the control rejected
+                  at each stage; the flash forward at the serving prefill
+                  (BH 32, 64 and 128 at S 534: buckets 1, 2 and 4),
                   the mla-2b training shapes (BH 256, S 563, and S 819 of
                   the post-training step, a ragged last tile of 51 rows)
                   and the trainer's (BH 256, S 547, a 35-key tail; BH 64,
@@ -88,6 +91,40 @@ Phases, each of which fails the run if it fails:
                   decode-step times beside the decode step's weight-read
                   bound, and the lm_head through int8_mm (one launch) beside
                   the widened head it replaced.
+     serve-host   mla_tpu_torch.serving.BatchingServer over serve's W8A8
+                  policy, DPM-4, buckets (1, 2, 4), a 20 ms window: 1, 2
+                  and 4 closed-loop clients of 30 requests each, a distinct
+                  frame per request; every chunk finite [16, 7], every
+                  device call's launches W8A8 4L(1 + 4), flash L and FPS 2
+                  whatever its bucket; 3 requests padded into one bucket-4
+                  call get their own normalized rows exactly; a bucket-4
+                  call's rows within AGREE_RTOL of B = 1 calls fed those
+                  rows' x_T (rotated rows must miss) on the int8 mla-7b cut
+                  to 4 layers, and within FULL_DEPTH_RTOL at 32 random
+                  layers, where a one-ulp batch-dependent rounding of the
+                  front-end grows layer by layer (the relative RMS
+                  difference of the hidden states is read after the first,
+                  middle and last layer); one dispatch under
+                  torch.cuda.set_sync_debug_mode("error") makes no host
+                  sync. Chunks/s per client count, call ms per bucket, e2e
+                  and queue-wait percentiles, the worker's
+                  assemble+dispatch and finalize-block ms, the bucket
+                  histogram.
+     serve-http   a run dir of a seeded bf16 mla-7b (32 layers; config.json
+                  with base_vlm, dataset statistics, a reference-format .pt
+                  under checkpoints/) served by `python -m
+                  mla_tpu_torch.serve` in a subprocess on a free port while
+                  this process loads it with load_vla: 4 concurrent clients
+                  posting raw 672 x 672 frames, a 640 x 480 frame through
+                  the resize, /stats and /metrics parsed, the server warmed
+                  at the prompt length its requests have (22 ids: the
+                  prefill's S = 534, held by the flash checks), one
+                  sequential answer within AGREE_RTOL of the in-process
+                  predict_action_diff_batched (B = 1, seed 0, DPM-4, flash
+                  L and FPS 2 launches), the next frame's answer outside it;
+                  SIGINT must end the server with
+                  exit 0 and no traceback. load_vla seconds and GiB, HTTP
+                  round trip against the in-process call.
   5. train-agree  one AdamW training step of the bf16 `mla-small` (B = 2)
                   on the card and on the CPU from the same weights, batch,
                   noise, t and FPS starts; loss and grad_norm must agree,
@@ -163,12 +200,13 @@ Phases, each of which fails the run if it fails:
                   point-cloud NPZ are written.
 
 The second-to-last line of output is a JSON object with each kernel's
-numbers (launches counted on the trainer's first run for the kernels it
-runs: flash forward, dQ, dK/dV and FPS, whose times are then those of the
-trainer's diffusion micro-batch, BH 256 at S 547 and FPS at B = 8; on the
-diffusion serving path for W8A8 and on the AR serving path for the
-weight-only int8 product, timed at their serving shapes; the other paths'
-counts are in the log and in chip_smoke.json); the last is
+numbers (launches counted on the serving host's client runs for W8A8, the
+flash forward and FPS, timed at its bucket-4 shapes: one layer's W8A8 at
+M = 2136 and 72, flash at BH 128 / S 534, FPS at B = 4; on the trainer's
+first run for dQ and dK/dV, timed at its diffusion micro-batch, BH 256 at
+S 547; on the AR serving path for the weight-only int8 product, timed at
+its serving shapes; the other paths' counts are in the log and in
+chip_smoke.json); the last is
 {"ok": true, "device": {...}}. Detailed results go to
 chiprun_out/chip_smoke.json. Without a CUDA device, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -184,6 +222,7 @@ import json
 import mmap
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -248,13 +287,22 @@ def weight_copies(torch, gen, K, N):
             for _ in range(max(2, int(4 * L2_BYTES // (K * N)) + 1))]
 
 
+# the serving host's rows: a bucket of B requests runs the prefill at M =
+# B x 534 and each suffix evaluation at B x 18 (B = 1, 2, 4); the kernels
+# line sums one layer's linears at the largest bucket's two shapes
+SERVE_BUCKETS = (1, 2, 4)
+W8A8_LAYER_M = tuple(b * m for b in SERVE_BUCKETS for m in (PREFIX_LEN, SUFFIX_LEN))
+W8A8_ROW_M = (SERVE_BUCKETS[-1] * PREFIX_LEN, SERVE_BUCKETS[-1] * SUFFIX_LEN)
+
+
 def check_w8a8(torch, report, control):
     """W8A8 against its plain version: the int32 accumulators and outputs
-    identical at the serving shapes (M = 534 and 18 by the four mla-7b
-    linears) and at W8A8_EDGE_M; the control (its last K tile dropped) must
-    miss at every shape. Times kernel (CUDA graph, weights K-major and
-    cycled past L2), plain version, torch._int_mm with the quantization and
-    rescale around it (the yardstick, timed the same way) and the bound."""
+    identical at the serving host's shapes (M = B x 534 and B x 18 for B =
+    1, 2, 4, by the four mla-7b linears) and at W8A8_EDGE_M; the control (its
+    last K tile dropped) must miss at every shape. Times kernel (CUDA graph,
+    weights K-major and cycled past L2), plain version, torch._int_mm with
+    the quantization and rescale around it (the yardstick, timed the same
+    way) and the bound; the row sums W8A8_ROW_M."""
     from mla_tpu_torch.ops import cuda
     from mla_tpu_torch.ops import quantization as q
 
@@ -289,7 +337,7 @@ def check_w8a8(torch, report, control):
         log(f"w8a8 K={K} N={N}: acc and output identical at M = {W8A8_EDGE_M}, the control missed")
         del w_q, w_qt
 
-    for M in (PREFIX_LEN, SUFFIX_LEN):
+    for M in W8A8_LAYER_M:
         layer = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
         for K, N in LINEARS:
             x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
@@ -316,13 +364,14 @@ def check_w8a8(torch, report, control):
             report["shapes"].append({"kernel": "w8a8_matmul", "M": M, "K": K, "N": N, "ms": ms, "plain_ms": plain_ms,
                                      "library_ms": lib_ms, "bound_ms": b, "bound_by": by, "max_abs_err": err,
                                      "splits": plan.splits, "narrow": plan.narrow})
-            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b), ("library_ms", lib_ms)):
-                tot[k] += v
             for k, v in (("ms", ms), ("bound_ms", b), ("library_ms", lib_ms)):
                 layer[k] += v
-            tot["b_bytes"] += nbytes / PEAK_BYTES * 1e3
-            tot["b_ops"] += ops / PEAK_OPS["int8"] * 1e3
             tot["err"] = max(tot["err"], err)
+            if M in W8A8_ROW_M:
+                for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b), ("library_ms", lib_ms)):
+                    tot[k] += v
+                tot["b_bytes"] += nbytes / PEAK_BYTES * 1e3
+                tot["b_ops"] += ops / PEAK_OPS["int8"] * 1e3
             del copies, kmajor
         readings["per_layer_ms"][M] = layer
         log(f"w8a8 M={M}: one layer's 4 linears {layer['ms']:.4f} ms, _int_mm {layer['library_ms']:.4f} ms, "
@@ -350,23 +399,23 @@ def check_w8a8(torch, report, control):
     }
 
 
-# FPS: the point tokenizer's two stages, at the serving batch, at the
-# trainer's AR loss mode (2 rows) and at mla-2b training's (B = 8: the
-# trainer's diffusion micro-batch, 2 rows x 4 repeats, the row's shape),
-# each from start indices 0 and 7
+# FPS: the point tokenizer's two stages, at the serving host's buckets (1,
+# 2, 4; bucket 4 the row's shape), at the trainer's AR loss mode (2 rows)
+# and at mla-2b training's (B = 8: the trainer's diffusion micro-batch, 2
+# rows x 4 repeats), each from start indices 0 and 7
 FPS_STAGES = ((1024, 512), (512, 256))
-FPS_BATCHES = (1, 2, 8)
-FPS_ROW_B = 8
+FPS_BATCHES = (1, 2, 4, 8)
+FPS_ROW_B = 4
 
 
 def check_fps(torch, report, control):
-    """FPS at both stages, B = 1 and 8, starts 0 and 7: indices identical to
+    """FPS at both stages, FPS_BATCHES, starts 0 and 7: indices identical to
     the plain version's; the control (the last point left out of the
     distance field, so it is never sampled) must differ at every stage. The
-    last cloud of the batch of 8 holds its last point far outside the unit
+    last cloud of each batch holds its last point far outside the unit
     cube, so the sound kernel samples it second and the control cannot.
     Times kernel (CUDA graph), plain version and the bound; the row sums the
-    stages at FPS_ROW_B, the trainer's."""
+    stages at FPS_ROW_B, the serving host's largest bucket."""
     from mla_tpu_torch.ops import cuda, pointops
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -429,16 +478,19 @@ def check_fps(torch, report, control):
 # which moves an output by about one bf16 ulp (2^-8 relative)
 FLASH_ATOL = 2e-2
 FLASH_LSE_ATOL = 1e-3
-# the forward's shapes: the int8 mla-7b serving prefill, the mla-2b
-# training step (B = 8: 32 text + 513 fused + 18 diffusion tokens, 32 heads),
-# its post-training step (769 fused tokens), and the trainer's micro-batches
-# (its DummyDataset has 16 text tokens): diffusion, 2 rows x 4 repeats at
-# 16 + 513 + 18, and the AR loss mode, 2 rows at 16 + 513
+# the forward's shapes: the int8 mla-7b serving prefill and the serving
+# host's buckets 2 and 4, the mla-2b training step (B = 8: 32 text + 513
+# fused + 18 diffusion tokens, 32 heads), its post-training step (769 fused
+# tokens), and the trainer's micro-batches (its DummyDataset has 16 text
+# tokens): diffusion, 2 rows x 4 repeats at 16 + 513 + 18, and the AR loss
+# mode, 2 rows at 16 + 513
 TRAINER_S, TRAINER_AR_S = 547, 529
-FLASH_SHAPES = ((32, PREFIX_LEN, "serving prefill"), (8 * 32, 563, "training"), (8 * 32, 819, "post-training"),
-                (8 * 32, TRAINER_S, "trainer"), (2 * 32, TRAINER_AR_S, "trainer AR mode"))
-# the shape whose launches the kernels line counts
-FLASH_ROW_SHAPE = "trainer"
+FLASH_SHAPES = ((32, PREFIX_LEN, "serving prefill"), (2 * 32, PREFIX_LEN, "serving host bucket 2"),
+                (4 * 32, PREFIX_LEN, "serving host bucket 4"), (8 * 32, 563, "training"),
+                (8 * 32, 819, "post-training"), (8 * 32, TRAINER_S, "trainer"),
+                (2 * 32, TRAINER_AR_S, "trainer AR mode"))
+# the shape the kernels line times
+FLASH_ROW_SHAPE = "serving host bucket 4"
 
 
 def graph_ms(torch, fn, reps: int = 20, windows: int = 3, stream=None) -> float:
@@ -1312,7 +1364,7 @@ def serve(torch, report):
     totals = dict(cuda.launches)
     report["serve"] = {"latency_ms": lat, "launches": totals, "expected_per_chunk": expected,
                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    return totals, ar_policy
+    return totals, policy, ar_policy
 
 
 AR_TEXT_TOKENS = 16
@@ -1437,6 +1489,515 @@ def ar_serve(torch, report, policy):
 # the loss and the gradient norm, which agree to about 1e-4 relative; the
 # step through the control (flash_bwd.cu with its last tiles dropped) must
 # miss the CPU's gradient norm by more than this
+# --------------------------------------------------------------------------- #
+# the serving host: BatchingServer over the int8 mla-7b, and the HTTP entry
+# --------------------------------------------------------------------------- #
+
+SERVE_WAIT_MS = 20.0  # the batching window (scripts/bench_serve_host.py's)
+SERVE_ROUNDS = 30     # requests per closed-loop client: enough for a p95
+SERVE_CLIENTS = (1, 2, 4)
+SERVE_KERNELS = ("w8a8_matmul", "flash_attention", "furthest_point_sample")
+SERVE_STATS = {"rlbench": {"action": {"q01": [-1.0] * 6 + [0.0], "q99": [1.0] * 7},
+                           "proprio": {"q01": [-1.0] * 7, "q99": [1.0] * 7}}}
+
+
+class CountingPolicy:
+    """The policy behind the server, with each dispatch's kernel launches,
+    batch and host milliseconds recorded. Only the server's worker thread
+    launches kernels while a client run lasts, so the counts between the
+    two reads are that dispatch's. With `normalized` set, each call returns
+    the normalized rows (a random head drives nearly every action past the
+    q01/q99 clip, so only these tell rows apart)."""
+
+    def __init__(self, policy):
+        self.policy, self.cfg, self.tokenizer = policy, policy.cfg, policy.tokenizer
+        self.calls = []
+        self.normalized = False
+
+    def dispatch_action_diff_batched(self, images, *args, **kw):
+        from mla_tpu_torch.ops import cuda
+
+        before, t0 = dict(cuda.launches), time.perf_counter()
+        finalize = self.policy.dispatch_action_diff_batched(images, *args, return_normalized=self.normalized, **kw)
+        rec = {"B": int(images.shape[0]), "dispatch_ms": (time.perf_counter() - t0) * 1e3,
+               "launches": {k: cuda.launches[k] - before.get(k, 0) for k in SERVE_KERNELS}}
+        self.calls.append(rec)
+
+        def timed_finalize():
+            t1 = time.perf_counter()
+            out = finalize()
+            rec["finalize_ms"] = (time.perf_counter() - t1) * 1e3
+            return out
+
+        return timed_finalize
+
+
+def serve_frames(cfg, n: int, seed: int):
+    """n distinct raw uint8 [3, S, S] frames and [P, 3] clouds."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    size = cfg.vision.image_size
+    lo, hi = [-0.3, -0.45, 0.75], [0.7, 0.45, 1.6]
+    return ([rng.integers(0, 256, size=(3, size, size), dtype=np.uint8) for _ in range(n)],
+            [rng.uniform(lo, hi, size=(cfg.point.input_points, 3)).astype(np.float32) for _ in range(n)])
+
+
+BUCKET_ROWS_LAYERS = 4
+# a bucket-4 row against its B = 1 call at 32 random layers: the front-end's
+# one-ulp batch-dependent roundings grow layer by layer to ~8e-2 of the
+# chunk; a row mix-up gives ~1
+FULL_DEPTH_RTOL = 0.3
+
+
+def cut_policy(torch, cfg, num_layers: int):
+    """The int8 W8A8 mla-7b policy (widths and front-ends of `cfg`) with its
+    decoder cut to num_layers, from a seeded init with a live head."""
+    from dataclasses import replace
+
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.models.mla import MLAPolicy
+    from mla_tpu_torch.ops.quantization import quantize_model
+
+    cut = replace(cfg, llama=replace(cfg.llama, num_layers=num_layers))
+    params, state = P.init(cut, seed=45, device="cuda")
+    live_head(torch, params, 46)
+    return MLAPolicy(quantize_model(params), state, cut, norm_stats=SERVE_STATS)
+
+
+def bucket_rows(torch, policy, frames, clouds, ids) -> dict:
+    """A bucket-4 DPM-4 call's normalized rows against B = 1 calls fed each
+    row's x_T (the call's generator, seed 3): rel = max error / max |B = 1|,
+    per row, against rotated rows (the control), and the relative RMS
+    difference of the prefix embeds, where the batch first enters, and of
+    the decoder's hidden states after its first, middle and last layer
+    (an uncached forward of each prefix)."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from mla_tpu_torch.models import mla, prismatic
+
+    dev = policy.device
+    dpm = dict(input_ids=ids, sampler="dpm", num_dpm_steps=mla.DPM_STEPS, return_normalized=True)
+    rows = policy.predict_action_diff_batched(np.stack(frames), np.stack(clouds), seed=3, **dpm)
+    x_t = torch.randn((len(frames),) + rows.shape[1:], generator=torch.Generator(device=dev).manual_seed(3),
+                      device=dev).cpu().numpy()
+    single = np.stack([policy.predict_action_diff(f, c, "", noise=x, **dpm) for f, c, x in zip(frames, clouds, x_t)])
+    scale = float(np.abs(single).max())
+    with torch.inference_mode():
+        pid = torch.as_tensor(np.repeat(ids[:, :-1], len(frames), 0), device=dev).long()
+        img, pc = torch.as_tensor(np.stack(frames), device=dev), torch.as_tensor(np.stack(clouds), device=dev)
+        pre = mla.build_prefix_embeds(policy.params, policy.state, policy.cfg, pid, {"front_image": img}, pc).float()
+        pre1 = torch.cat([mla.build_prefix_embeds(policy.params, policy.state, policy.cfg, pid[b:b + 1],
+                                                  {"front_image": img[b:b + 1]}, pc[b:b + 1])
+                          for b in range(len(frames))]).float()
+        growth = {"prefix": float((pre - pre1).norm() / pre1.norm())}
+        decoder, lcfg = prismatic.get_decoder(policy.cfg), policy.cfg.llama
+        for k in (1, lcfg.num_layers // 2, lcfg.num_layers):
+            # hidden_mid is h before layer contrastive_layer (the last h at num_layers)
+            cut = replace(lcfg, contrastive_layer=k)
+            h = [decoder.forward(policy.params["llm_backbone"], cut, x, compute_logits=False,
+                                 int8_mode=policy.int8_mode)["hidden_mid"].float()
+                 for x in [pre.to(lcfg.compute_dtype)] + [pre1[b:b + 1].to(lcfg.compute_dtype)
+                                                          for b in range(len(frames))]]
+            growth[f"after layer {k - 1}"] = float((h[0] - torch.cat(h[1:])).norm() / torch.cat(h[1:]).norm())
+    return {"max_abs_err": float(np.abs(rows - single).max()), "scale": scale,
+            "rel": float(np.abs(rows - single).max()) / scale,
+            "row_rel": [float(np.abs(rows[b] - single[b]).max() / np.abs(single[b]).max()) for b in range(len(rows))],
+            "rotated_rel": float(np.abs(rows - np.roll(single, 1, axis=0)).max()) / scale,
+            "rel_rms_by_layer": growth}
+
+
+def serve_host(torch, report, policy):
+    """BatchingServer over the W8A8 int8 mla-7b with DPM-4, buckets (1, 2,
+    4) and a 20 ms window: 1, 2 and 4 closed-loop clients of SERVE_ROUNDS
+    requests each, a distinct frame per request; every chunk finite [16, 7]
+    and every device call's launches W8A8 4L(1 + 4), flash L, FPS 2,
+    whatever the bucket; three requests padded to bucket 4 get their own
+    normalized rows exactly; a bucket-4 call's rows agree with B = 1 calls
+    fed those rows' x_T (a row mix-up must not) within AGREE_RTOL on the
+    int8 mla-7b cut to BUCKET_ROWS_LAYERS layers and within FULL_DEPTH_RTOL
+    at full depth; one dispatch under sync debug mode
+    'error' makes no host sync. Returns the launches of the client runs."""
+    import threading
+
+    import numpy as np
+
+    from mla_tpu_torch.models.mla import DPM_STEPS
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.serve import warm_buckets
+    from mla_tpu_torch.serving import BatchingServer
+
+    cfg = policy.cfg
+    L = cfg.llama.num_layers
+    want = {"w8a8_matmul": L * 4 * (1 + DPM_STEPS), "flash_attention": L,
+            "furthest_point_sample": cfg.point.num_stages}
+    policy.norm_stats = SERVE_STATS
+    _, _, ids, _ = request_inputs(cfg, 100)
+    dpm = dict(input_ids=ids, sampler="dpm", num_dpm_steps=DPM_STEPS)
+    counting = CountingPolicy(policy)
+    server = BatchingServer(counting, buckets=SERVE_BUCKETS, max_wait_ms=SERVE_WAIT_MS, sampler="dpm",
+                            num_dpm_steps=DPM_STEPS)
+    readings = {"expected_per_call": want, "runs": {}}
+    try:
+        t0 = time.perf_counter()
+        warm_buckets(server, [ids.shape[1]], log=False)
+        log(f"serve-host: buckets {SERVE_BUCKETS} warmed in {time.perf_counter() - t0:.1f} s")
+        frames, clouds = serve_frames(cfg, max(SERVE_CLIENTS) * SERVE_ROUNDS, 41)
+        torch.cuda.synchronize()
+        cuda.launches.clear()
+        counting.calls.clear()
+        for n in SERVE_CLIENTS:
+            server.reset_latency_stats()
+            hist0 = dict(server.stats()["batch_size_hist"])
+            calls0 = len(counting.calls)
+            results, errors = [], []
+
+            def client(c):
+                try:
+                    for r in range(SERVE_ROUNDS):
+                        k = c * SERVE_ROUNDS + r
+                        results.append(server.submit(frames[k], clouds[k], input_ids=ids).result(timeout=600))
+                except BaseException as e:  # re-raised below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(n)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = time.perf_counter() - t
+            if errors:
+                raise errors[0]
+            for chunk in results:
+                if chunk.shape != (cfg.action_horizon, cfg.action_dim) or not np.isfinite(chunk).all():
+                    raise AssertionError(f"serve-host {n} clients: a bad chunk {chunk.shape}")
+            s = server.stats()
+            calls = counting.calls[calls0:]
+            hist = {b: c - hist0.get(b, 0) for b, c in s["batch_size_hist"].items() if c - hist0.get(b, 0)}
+            run = {"chunks": len(results), "wall_s": wall, "chunks_per_s": len(results) / wall, "device_calls": len(calls),
+                   "batch_hist": hist, **{k: s[k] for k in ("queue_wait_ms", "e2e_ms", "assemble_dispatch_ms",
+                                                            "finalize_block_ms")},
+                   "dispatch_ms_by_bucket": {b: float(np.mean([c["dispatch_ms"] for c in calls if c["B"] == b]))
+                                             for b in sorted({c["B"] for c in calls})},
+                   "finalize_ms_by_bucket": {b: float(np.mean([c["finalize_ms"] for c in calls if c["B"] == b]))
+                                             for b in sorted({c["B"] for c in calls})}}
+            readings["runs"][n] = run
+            log(f"serve-host {n} client(s) x {SERVE_ROUNDS}: {run['chunks_per_s']:.2f} chunks/s ({len(results)} in "
+                f"{wall:.2f} s, {len(calls)} device calls, buckets {hist}); e2e p50 {s['e2e_ms']['p50']} p95 "
+                f"{s['e2e_ms']['p95']} ms, queue wait p50 {s['queue_wait_ms']['p50']} p95 {s['queue_wait_ms']['p95']} "
+                f"ms, assemble+dispatch p50 {s['assemble_dispatch_ms']['p50']} ms, finalize block p50 "
+                f"{s['finalize_block_ms']['p50']} ms; host dispatch ms by bucket "
+                f"{ {b: round(v, 2) for b, v in run['dispatch_ms_by_bucket'].items()} }")
+        totals = {k: cuda.launches[k] for k in SERVE_KERNELS}
+        for c in counting.calls:
+            if c["launches"] != want:
+                raise AssertionError(f"serve-host: a bucket-{c['B']} call launched {c['launches']}, expected {want}")
+        if totals != {k: v * len(counting.calls) for k, v in want.items()}:
+            raise AssertionError(f"serve-host: launches {totals} over {len(counting.calls)} calls")
+        log(f"serve-host: every one of {len(counting.calls)} device calls launched {want}; totals {totals}")
+        readings["launches"] = totals
+
+        # three requests at once coalesce into one call padded to bucket 4;
+        # each gets its own normalized row of the padded batch's direct call
+        f3, c3 = serve_frames(cfg, 3, 43)
+        n0 = len(counting.calls)
+        counting.normalized = True
+        futs = [server.submit(f3[i], c3[i], input_ids=ids, seed=9) for i in range(3)]
+        got = np.stack([f.result(timeout=600) for f in futs])
+        counting.normalized = False
+        if [c["B"] for c in counting.calls[n0:]] != [4]:
+            raise AssertionError(f"serve-host: 3 requests gave calls {[c['B'] for c in counting.calls[n0:]]}, not [4]")
+    finally:
+        server.close()
+    direct = policy.predict_action_diff_batched(np.stack(f3 + f3[-1:]), np.stack(c3 + c3[-1:]), seed=9,
+                                                return_normalized=True, **dpm)[:3]
+    pad_err = float(np.abs(got - direct).max())
+    swap_err = float(np.abs(got - direct[[1, 2, 0]]).max())
+    inside = float((np.abs(direct) <= 1).mean())
+    log(f"serve-host padding: 3 requests in one bucket-4 call, normalized rows: max |row - own row| {pad_err:.3e} "
+        f"(must be 0), against a rotated row {swap_err:.3e}, scale {np.abs(direct).max():.4e}; {inside:.3f} of "
+        f"the entries inside the [-1, 1] clip")
+    if not (pad_err == 0 and swap_err > AGREE_RTOL * float(np.abs(direct).max())):
+        raise AssertionError(f"serve-host padding: rows {pad_err} from their own, {swap_err} from others")
+    readings["padding"] = {"max_abs_err": pad_err, "rotated_max_abs_err": swap_err,
+                           "scale": float(np.abs(direct).max()), "share_inside_clip": inside}
+
+    # a bucket-4 call's rows against B = 1 calls fed each row's x_T. The
+    # front-end's cuBLAS products round a row by one bf16 step or not
+    # depending on the batch, and 32 random decoder layers amplify that
+    # (held to FULL_DEPTH_RTOL, the growth read layer by layer); AGREE_RTOL
+    # holds on the same int8 mla-7b cut to BUCKET_ROWS_LAYERS layers, as
+    # agree and phi-agree cut depth
+    f4, c4 = serve_frames(cfg, 4, 44)
+    readings["rows_full_depth"] = bucket_rows(torch, policy, f4, c4, ids)
+    r = readings["rows_full_depth"]
+    log(f"serve-host rows at {L} layers: bucket-4 rows vs B = 1 calls with their x_T rel {r['rel']:.4e} "
+        f"(per row {[round(x, 4) for x in r['row_rel']]}; tol {FULL_DEPTH_RTOL}), against rotated rows "
+        f"{r['rotated_rel']:.4e}; rel rms by layer { {k: float(f'{v:.3e}') for k, v in r['rel_rms_by_layer'].items()} }")
+    if not (r["rel"] <= FULL_DEPTH_RTOL and r["rotated_rel"] > FULL_DEPTH_RTOL):
+        raise AssertionError(f"serve-host rows at {L} layers: rel {r['rel']} (rotated {r['rotated_rel']}), "
+                             f"tol {FULL_DEPTH_RTOL}")
+    cut = cut_policy(torch, cfg, BUCKET_ROWS_LAYERS)
+    r = readings["rows"] = bucket_rows(torch, cut, f4, c4, ids)
+    del cut
+    log(f"serve-host rows at {BUCKET_ROWS_LAYERS} layers: bucket-4 rows vs B = 1 calls with their x_T, max err "
+        f"{r['max_abs_err']:.4e}, scale {r['scale']:.4e}, rel {r['rel']:.4e} (tol {AGREE_RTOL}); against rotated "
+        f"rows {r['rotated_rel']:.4e}; rel rms by layer "
+        f"{ {k: float(f'{v:.3e}') for k, v in r['rel_rms_by_layer'].items()} }")
+    if not (r["rel"] <= AGREE_RTOL and r["rotated_rel"] > AGREE_RTOL):
+        raise AssertionError(f"serve-host rows: rel {r['rel']} (rotated {r['rotated_rel']}), tol {AGREE_RTOL}")
+
+    # the blocking call's wall per bucket, and one dispatch that must not sync
+    call_ms = {}
+    for b in SERVE_BUCKETS:
+        times = []
+        for r in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            policy.predict_action_diff_batched(np.stack(f4[:b]), np.stack(c4[:b]), seed=r, **dpm)
+            times.append((time.perf_counter() - t) * 1e3)
+        call_ms[b] = times
+    log(f"serve-host: predict_action_diff_batched wall ms per bucket {call_ms}")
+    readings["call_ms"] = call_ms
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        finalize = policy.dispatch_action_diff_batched(np.stack(f4), np.stack(c4), seed=5, **dpm)
+        dispatch_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    t = time.perf_counter()
+    out = finalize()
+    block_ms = (time.perf_counter() - t) * 1e3
+    if out.shape != (4, cfg.action_horizon, cfg.action_dim) or not np.isfinite(out).all():
+        raise AssertionError("serve-host: the no-sync dispatch gave a bad result")
+    log(f"serve-host: one bucket-4 dispatch under sync debug mode 'error': no sync, {dispatch_ms:.1f} ms to "
+        f"enqueue, then {block_ms:.1f} ms blocked in finalize")
+    readings["no_sync_dispatch"] = {"dispatch_ms": dispatch_ms, "finalize_ms": block_ms}
+    report["serve_host"] = readings
+    return totals
+
+
+SERVE_HTTP_ROOT = Path("build") / "chip_smoke_serve"
+HTTP_CLIENTS, HTTP_ROUNDS, HTTP_SEQUENTIAL = 4, 2, 3
+# 22 ids through SimpleTokenizer (BOS, 20 pieces, the trailing 29871), as
+# request_inputs' prompt: the prefill is S = PREFIX_LEN, which FLASH_SHAPES holds
+HTTP_INSTRUCTION = "put the red block on the green plate"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _post_npz(base: str, timeout: float = 600, **arrays):
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    req = urllib.request.Request(f"{base}/predict", data=buf.getvalue(), method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return np.asarray(json.load(r)["actions"])
+
+
+def serve_http(torch, report):
+    """A run dir of a seeded bf16 mla-7b (full width; config.json with
+    base_vlm mla-7b, dataset statistics, a reference-format .pt with bf16
+    decoder leaves) served by `python -m mla_tpu_torch.serve` in a
+    subprocess on a free port, while this process loads the same dir with
+    load_vla: 4 concurrent clients posting raw 672 x 672 frames, a 640 x 480
+    frame through the resize, /stats and /metrics parsed, one sequential
+    answer against the in-process predict_action_diff_batched (B = 1, seed
+    0, DPM-4) within AGREE_RTOL, the next frame's answer outside it (the
+    control); SIGINT must stop it with exit 0 and no
+    traceback. Returns the in-process launches of the agreement call."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.models.load import load_vla
+    from mla_tpu_torch.models.mla import DPM_STEPS, build_prompt_ids
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.serve import _prep_image
+    from mla_tpu_torch.training.checkpointing import export_reference_pt, write_run_metadata
+    from mla_tpu_torch.vla.tokenizer import SimpleTokenizer
+
+    readings = {}
+    shutil.rmtree(SERVE_HTTP_ROOT, ignore_errors=True)
+    run = SERVE_HTTP_ROOT / "mla-7b"
+    cfg = get_model_config("mla-7b")
+    warm_len = build_prompt_ids(SimpleTokenizer(), HTTP_INSTRUCTION).shape[1]
+    if warm_len - 1 + cfg.fused_len != PREFIX_LEN:
+        raise AssertionError(f"serve-http: a {warm_len}-id prompt gives a prefill of "
+                             f"{warm_len - 1 + cfg.fused_len}, not the checked {PREFIX_LEN}")
+    t = time.perf_counter()
+    params, state = P.init(cfg, seed=31, device="cuda")
+    live_head(torch, params, 32)
+    write_run_metadata(run, {"base_vlm": "mla-7b"}, cfg, SERVE_STATS)
+    (run / "checkpoints").mkdir()
+    pt = run / "checkpoints" / "mla-7b.pt"
+    export_reference_pt(pt, {"params": params, "model_state": state}, cfg, llm_dtype=torch.bfloat16)
+    readings["write_s"], readings["pt_gib"] = time.perf_counter() - t, pt.stat().st_size / 2**30
+    log(f"serve-http: bf16 mla-7b run dir written in {readings['write_s']:.1f} s ({readings['pt_gib']:.2f} GiB .pt)")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    server_log = SERVE_HTTP_ROOT / "serve.log"
+    t_start = time.perf_counter()
+    with open(server_log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mla_tpu_torch.serve", "--checkpoint", str(run), "--port", str(port),
+             "--warm_len", str(warm_len), "--max_wait_ms", str(SERVE_WAIT_MS)],
+            cwd=Path(__file__).resolve().parent, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        policy = load_vla(run, tokenizer=SimpleTokenizer())
+        torch.cuda.synchronize()
+        readings["load_vla_s"] = time.perf_counter() - t
+        readings["load_vla_gib"] = (torch.cuda.memory_allocated() - before) / 2**30
+        log(f"serve-http: in-process load_vla {readings['load_vla_s']:.1f} s, {readings['load_vla_gib']:.2f} GiB "
+            f"on the card (the fused serving tree)")
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"serve-http: the server exited {proc.returncode}:\n{server_log.read_text()}")
+            try:
+                with urllib.request.urlopen(f"{base}/healthz", timeout=5) as r:
+                    if json.load(r) == {"ok": True}:
+                        break
+            except OSError:
+                if time.perf_counter() - t_start > 600:
+                    raise AssertionError(f"serve-http: no /healthz in 600 s:\n{server_log.read_text()}")
+                time.sleep(0.5)
+        readings["ready_s"] = time.perf_counter() - t_start
+        log(f"serve-http: the server answered /healthz {readings['ready_s']:.1f} s after its start (load and "
+            f"warm-up of 3 buckets)")
+
+        size = cfg.vision.image_size
+        rng = np.random.default_rng(51)
+        pc = rng.uniform([-0.3, -0.45, 0.75], [0.7, 0.45, 1.6], size=(cfg.point.input_points, 3)).astype(np.float32)
+        frames = [rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8)
+                  for _ in range(HTTP_CLIENTS * HTTP_ROUNDS + HTTP_SEQUENTIAL)]
+        chunks, errors, rtt = [], [], []
+
+        def client(c):
+            try:
+                for r in range(HTTP_ROUNDS):
+                    t0 = time.perf_counter()
+                    chunks.append(_post_npz(base, image=frames[c * HTTP_ROUNDS + r], pointcloud=pc,
+                                            instruction=np.asarray(HTTP_INSTRUCTION)))
+                    rtt.append((time.perf_counter() - t0) * 1e3)
+            except BaseException as e:  # re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(HTTP_CLIENTS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t
+        if errors:
+            raise errors[0]
+        odd = rng.integers(0, 256, size=(480, 640, 3), dtype=np.uint8)
+        chunks.append(_post_npz(base, image=odd, pointcloud=pc, instruction=np.asarray(HTTP_INSTRUCTION)))
+        for a in chunks:
+            if a.shape != (cfg.action_horizon, cfg.action_dim) or not np.isfinite(a).all():
+                raise AssertionError(f"serve-http: a bad answer {a.shape}")
+        readings["concurrent"] = {"clients": HTTP_CLIENTS, "requests": HTTP_CLIENTS * HTTP_ROUNDS, "wall_s": wall,
+                                  "chunks_per_s": HTTP_CLIENTS * HTTP_ROUNDS / wall,
+                                  "rtt_ms_p50": float(np.percentile(rtt, 50)), "rtt_ms_max": float(max(rtt))}
+        log(f"serve-http: {HTTP_CLIENTS} clients x {HTTP_ROUNDS} raw 672 px frames in {wall:.2f} s "
+            f"({readings['concurrent']['chunks_per_s']:.2f} chunks/s, round trip p50 "
+            f"{readings['concurrent']['rtt_ms_p50']:.1f} ms), and a 640 x 480 frame through the resize")
+
+        seq, seq_ms = [], []
+        for k in range(HTTP_SEQUENTIAL):
+            t0 = time.perf_counter()
+            seq.append(_post_npz(base, image=frames[-1 - k], pointcloud=pc, instruction=np.asarray(HTTP_INSTRUCTION)))
+            seq_ms.append((time.perf_counter() - t0) * 1e3)
+        with urllib.request.urlopen(f"{base}/stats", timeout=60) as r:
+            stats = json.load(r)
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        samples = {}
+        for line in metrics.splitlines():
+            if line and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                samples[name] = float(value)
+        n_req = HTTP_CLIENTS * HTTP_ROUNDS + 1 + HTTP_SEQUENTIAL
+        if stats["requests"] != n_req + 7 or samples["mla_serve_requests"] != stats["requests"] or stats["errors"]:
+            raise AssertionError(f"serve-http: /stats {stats}, /metrics {samples}")
+        readings["stats"] = stats
+
+        # the sequential answer against this process's load_vla of the dir
+        ids = build_prompt_ids(policy.tokenizer, HTTP_INSTRUCTION)
+        img = _prep_image(frames[-1], size)[None]
+        cuda.launches.clear()
+        want = policy.predict_action_diff_batched(img, pc[None], input_ids=ids, seed=0, sampler="dpm",
+                                                  num_dpm_steps=DPM_STEPS)[0]
+        launches = dict(cuda.launches)
+        local_ms = []
+        for _ in range(HTTP_SEQUENTIAL):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            policy.predict_action_diff_batched(img, pc[None], input_ids=ids, seed=0, sampler="dpm",
+                                               num_dpm_steps=DPM_STEPS)
+            local_ms.append((time.perf_counter() - t0) * 1e3)
+        scale = float(np.abs(want).max())
+        err = float(np.abs(seq[0] - want).max())
+        # the control: the answer to the next sequential frame must miss it
+        err_c = float(np.abs(seq[1] - want).max())
+        readings["agreement"] = {"max_abs_err": err, "scale": scale, "rtol": AGREE_RTOL, "launches": launches,
+                                 "control_max_abs_err": err_c}
+        readings["http_ms"], readings["in_process_ms"] = seq_ms, local_ms
+        log(f"serve-http: the HTTP answer vs in-process load_vla + predict_action_diff_batched: max err {err:.4e}, "
+            f"scale {scale:.4e} (tol {AGREE_RTOL}), control (another frame's answer) {err_c:.4e}; HTTP round trip "
+            f"ms {[round(x, 1) for x in seq_ms]} vs "
+            f"in-process call ms {[round(x, 1) for x in local_ms]}; in-process launches {launches}")
+        if not (err <= AGREE_RTOL * scale and err_c > AGREE_RTOL * scale):
+            raise AssertionError(f"serve-http: the HTTP answer vs the in-process call {err}, another frame's "
+                                 f"answer {err_c}, scale {scale}")
+        L = cfg.llama.num_layers
+        if launches != {"flash_attention": L, "furthest_point_sample": cfg.point.num_stages}:
+            raise AssertionError(f"serve-http: in-process launches {launches}")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise
+    text = server_log.read_text()
+    log("serve-http: the server's log:\n" + "\n".join("  " + line for line in text.strip().splitlines()))
+    if rc != 0 or "Traceback" in text:
+        raise AssertionError(f"serve-http: the server ended with exit {rc}")
+    readings["server_log"] = text
+    report["serve_http"] = readings
+    del policy
+    shutil.rmtree(SERVE_HTTP_ROOT, ignore_errors=True)
+    return launches
+
+
+
 TRAIN_AGREE_RTOL = 2e-3
 TRAIN_STEPS = 5
 
@@ -2363,9 +2924,16 @@ def main() -> int:
                        int8_layout)
     check_agreement(torch, report)
     check_ar_agreement(torch, report, libs["int8_mm"])
-    totals, ar_policy = serve(torch, report)
+    totals, policy, ar_policy = serve(torch, report)
     ar_totals = ar_serve(torch, report, ar_policy)
     del ar_policy
+    torch.cuda.empty_cache()
+    host_totals = serve_host(torch, report, policy)
+    del policy
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["serve_http_launches"] = serve_http(torch, report)
+    gc.collect()
     torch.cuda.empty_cache()
     check_train_agreement(torch, report, libs["flash_bwd"])
     train_totals = train(torch, report)
@@ -2389,12 +2957,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     trainer_viz(torch, report)
     report["serve_launches"], report["ar_serve_launches"], report["train_launches"] = totals, ar_totals, train_totals
-    # launches: the trainer's run (this slice's main path) for the kernels it
-    # runs; W8A8 from the diffusion serving path, int8_matmul from the AR one
+    report["serve_host_launches"] = host_totals
+    # launches: the serving host's client runs (this slice's main path) for
+    # the kernels it runs (W8A8, flash forward, FPS); the trainer's run for
+    # the backward kernels; the AR serving path for int8_matmul
     kernels += train_kernels
     for k in kernels:
-        k["launches"] = (trainer_totals if trainer_totals[k["name"]] else
-                         ar_totals if k["name"] == "int8_matmul" else totals)[k["name"]]
+        k["launches"] = (host_totals if k["name"] in host_totals else
+                         ar_totals if k["name"] == "int8_matmul" else trainer_totals)[k["name"]]
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

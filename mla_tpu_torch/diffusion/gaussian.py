@@ -105,8 +105,14 @@ def create_schedule(timestep_respacing: str = "", diffusion_steps: int = 100) ->
     return Schedule(betas=np.array(new_betas), timestep_map=np.array(use_timesteps))
 
 
-def _extract(arr: np.ndarray, t: torch.Tensor, broadcast_shape) -> torch.Tensor:
-    """arr[t] as fp32 on t's device, broadcastable to broadcast_shape."""
+def _extract(arr: np.ndarray, t, broadcast_shape, device=None) -> torch.Tensor:
+    """arr[t] as fp32, broadcastable to broadcast_shape: a tensor t [B]
+    gathers on t's device; a Python int t (the samplers' loop index) fills
+    [B, 1, ...] on `device` with the one value, so no table is copied to the
+    card inside a serving call."""
+    if isinstance(t, int):
+        shape = (broadcast_shape[0],) + (1,) * (len(broadcast_shape) - 1)
+        return torch.full(shape, float(np.float32(arr[t])), dtype=torch.float32, device=device)
     out = torch.as_tensor(np.asarray(arr, np.float32), device=t.device)[t.long()]
     return out.reshape(out.shape + (1,) * (len(broadcast_shape) - out.dim()))
 
@@ -121,15 +127,15 @@ def q_sample(sched: Schedule, x_start, t, noise):
 
 def pred_xstart_from_eps(sched: Schedule, x_t, t, eps):
     return (
-        _extract(sched.sqrt_recip_alphas_cumprod, t, x_t.shape) * x_t
-        - _extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.shape) * eps
+        _extract(sched.sqrt_recip_alphas_cumprod, t, x_t.shape, x_t.device) * x_t
+        - _extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.shape, x_t.device) * eps
     )
 
 
 def q_posterior_mean(sched: Schedule, x_start, x_t, t):
     return (
-        _extract(sched.posterior_mean_coef1, t, x_t.shape) * x_start
-        + _extract(sched.posterior_mean_coef2, t, x_t.shape) * x_t
+        _extract(sched.posterior_mean_coef1, t, x_t.shape, x_t.device) * x_start
+        + _extract(sched.posterior_mean_coef2, t, x_t.shape, x_t.device) * x_t
     )
 
 
@@ -137,23 +143,22 @@ def q_posterior_mean(sched: Schedule, x_start, x_t, t):
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def _model_eps(sched: Schedule, denoise_fn: DenoiseFn, x, t_local):
-    t_model = torch.as_tensor(np.asarray(sched.timestep_map), dtype=torch.int32, device=x.device)[t_local.long()]
+def _model_eps(sched: Schedule, denoise_fn: DenoiseFn, x, t_scalar: int):
+    """eps at local step t_scalar: the model sees the original timestep."""
+    t_model = torch.full((x.shape[0],), int(sched.timestep_map[t_scalar]), dtype=torch.int32, device=x.device)
     return denoise_fn(x, t_model)
 
 
 def ddim_sample_loop(sched: Schedule, denoise_fn: DenoiseFn, noise: torch.Tensor) -> torch.Tensor:
     """Deterministic DDIM (eta = 0) from t = T-1 down to 0."""
-    B = noise.shape[0]
     x = noise
-    for t_scalar in range(sched.num_timesteps - 1, -1, -1):
-        t = torch.full((B,), t_scalar, dtype=torch.int32, device=x.device)
+    for t in range(sched.num_timesteps - 1, -1, -1):
         eps = _model_eps(sched, denoise_fn, x, t)
         x0 = pred_xstart_from_eps(sched, x, t, eps)
-        eps = (_extract(sched.sqrt_recip_alphas_cumprod, t, x.shape) * x - x0) / _extract(
-            sched.sqrt_recipm1_alphas_cumprod, t, x.shape
+        eps = (_extract(sched.sqrt_recip_alphas_cumprod, t, x.shape, x.device) * x - x0) / _extract(
+            sched.sqrt_recipm1_alphas_cumprod, t, x.shape, x.device
         )
-        alpha_bar_prev = _extract(sched.alphas_cumprod_prev, t, x.shape)
+        alpha_bar_prev = _extract(sched.alphas_cumprod_prev, t, x.shape, x.device)
         x = x0 * torch.sqrt(alpha_bar_prev) + torch.sqrt(1 - alpha_bar_prev) * eps
     return x
 
@@ -161,11 +166,10 @@ def ddim_sample_loop(sched: Schedule, denoise_fn: DenoiseFn, noise: torch.Tensor
 def ddpm_step(sched: Schedule, denoise_fn: DenoiseFn, x: torch.Tensor, t_scalar: int, z: torch.Tensor) -> torch.Tensor:
     """One ancestral (DDPM, FIXED_SMALL) step at local timestep t_scalar with
     the given standard-normal draw z."""
-    t = torch.full((x.shape[0],), t_scalar, dtype=torch.int32, device=x.device)
-    eps = _model_eps(sched, denoise_fn, x, t)
-    x0 = pred_xstart_from_eps(sched, x, t, eps)
-    mean = q_posterior_mean(sched, x0, x, t)
-    log_var = _extract(sched.posterior_log_variance_clipped, t, x.shape)
+    eps = _model_eps(sched, denoise_fn, x, t_scalar)
+    x0 = pred_xstart_from_eps(sched, x, t_scalar, eps)
+    mean = q_posterior_mean(sched, x0, x, t_scalar)
+    log_var = _extract(sched.posterior_log_variance_clipped, t_scalar, x.shape, x.device)
     nonzero = float(t_scalar != 0)
     return mean + nonzero * torch.exp(0.5 * log_var) * z
 

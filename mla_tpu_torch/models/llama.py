@@ -78,7 +78,7 @@ def _mlp_block(lp, h, cfg, int8_mode="w8a8"):
 
 
 def _layer_fn(lp, h, cache_kv, cfg, cos_table, sin_table, positions, key_mask, cache_len,
-              cache_read_only=False, inflight_mask=None, int8_mode="w8a8"):
+              cache_read_only=False, inflight_mask=None, int8_mode="w8a8", scores_dtype=None):
     """One decoder layer. cache_kv: this layer's (k_cache, v_cache)
     [B, Hkv, S_max, hd] views, or None. Returns h."""
     B, S, D = h.shape
@@ -96,7 +96,8 @@ def _layer_fn(lp, h, cache_kv, cfg, cos_table, sin_table, positions, key_mask, c
     k = k.reshape(B, S, Hkv, hd).transpose(1, 2)
     v = v.reshape(B, S, Hkv, hd).transpose(1, 2)
     q, k = rope_ops.apply_rope(q, k, cos_table, sin_table, positions)
-    out = attn_ops.decoder_attention(q, k, v, cache_kv, cache_len, key_mask, cache_read_only, inflight_mask)
+    out = attn_ops.decoder_attention(q, k, v, cache_kv, cache_len, key_mask, cache_read_only, inflight_mask,
+                                     scores_dtype)
     out = out.transpose(1, 2).reshape(B, S, D)
     h = h + nn.linear(lp["attn"]["o"], out, int8_mode=int8_mode)
     return _mlp_block(lp, h, cfg, int8_mode)
@@ -115,13 +116,13 @@ def run_layers(
     layer_fn: Callable[..., torch.Tensor], layers: Dict[str, Any], cfg: Any, inputs_embeds: torch.Tensor,
     rope_dim: int, *, positions: Optional[torch.Tensor], key_mask: Optional[torch.Tensor],
     kv_cache: Optional[Dict[str, torch.Tensor]], cache_len: int, cache_read_only: bool, remat: bool,
-    int8_mode: str,
+    int8_mode: str, scores_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The decoder's layer loop, shared by the llama and phi families: the
     embeddings cast to cfg.compute_dtype, RoPE tables of `rope_dim`, each
     stacked layer's view through layer_fn(lp, h, cache_kv, cfg, cos, sin,
     positions, key_mask, cache_len, cache_read_only, inflight_mask,
-    int8_mode), under torch.utils.checkpoint with remat. Returns (h,
+    int8_mode, scores_dtype), under torch.utils.checkpoint with remat. Returns (h,
     hidden_mid), hidden_mid taken before layer cfg.contrastive_layer (the
     last h when that is past the last layer)."""
     S = inputs_embeds.shape[1]
@@ -141,7 +142,7 @@ def run_layers(
             hidden_mid = h
         ck = (kv_cache["k"][i], kv_cache["v"][i]) if kv_cache is not None else None
         args = (lp, h, ck, cfg, cos_table, sin_table, positions, key_mask, cache_len, cache_read_only, inflight_mask,
-                int8_mode)
+                int8_mode, scores_dtype)
         h = checkpoint(layer_fn, *args, use_reentrant=False) if remat else layer_fn(*args)
     if cfg.contrastive_layer >= cfg.num_layers:
         hidden_mid = h
@@ -161,6 +162,7 @@ def llama_forward(
     cache_read_only: bool = False,
     remat: bool = False,
     int8_mode: str = "w8a8",
+    scores_dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, Any]:
     """Decoder forward from embeddings [B, S, D] (cast to compute_dtype).
 
@@ -171,11 +173,14 @@ def llama_forward(
     over the whole cache; the read-only suffix (cache_read_only) attends over
     the cache's [0, cache_len) and the in-flight block without writing.
     remat (uncached only) checkpoints each layer. int8_mode: the product of
-    the int8 linears (nn.linear). Returns {'last_hidden', 'hidden_mid',
+    the int8 linears (nn.linear). scores_dtype: the score dtype of the
+    plain attention of the prefill and the uncached forward (None: fp32).
+    Returns {'last_hidden', 'hidden_mid',
     'logits'?, 'kv_cache'?}."""
     h, hidden_mid = run_layers(_layer_fn, params["layers"], cfg, inputs_embeds, cfg.head_dim, positions=positions,
                                key_mask=key_mask, kv_cache=kv_cache, cache_len=cache_len,
-                               cache_read_only=cache_read_only, remat=remat, int8_mode=int8_mode)
+                               cache_read_only=cache_read_only, remat=remat, int8_mode=int8_mode,
+                               scores_dtype=scores_dtype)
     out: Dict[str, Any] = {
         "last_hidden": nn.rms_norm(params["final_ln"], h, cfg.rms_eps),
         "hidden_mid": hidden_mid,

@@ -20,6 +20,8 @@ phi families serve and train through the same functions.
 
 from __future__ import annotations
 
+import functools
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -36,9 +38,18 @@ from mla_tpu_torch.models import prismatic
 from mla_tpu_torch.params import tree_to
 from mla_tpu_torch.vla.action_tokenizer import ActionTokenizer
 
-DDIM_STEPS = 8     # the reference's DDIM respacing
-DPM_STEPS = 4      # DPM-Solver++(2M) model evaluations
-CACHE_MARGIN = 32  # spare KV-cache slots past the prefix and the suffix
+DDIM_STEPS = 8     # the reference's DDIM respacing (MLAPolicy's default)
+DPM_STEPS = 4      # DPM-Solver++(2M) model evaluations (the default)
+CACHE_MARGIN = 32  # spare KV-cache slots past the prefix and the suffix (the default)
+
+
+def serving_scores_dtype_from_env() -> torch.dtype:
+    """The serving prefill's score dtype from MLA_PREFILL_SCORES ('bf16' or
+    'fp32', the default), read when a policy is built, never at import, as
+    the JAX package does. bf16 halves the score tensor of the plain
+    attention (softmax still reduces in fp32); the flash kernel never
+    materializes scores, so it is untouched."""
+    return torch.bfloat16 if os.environ.get("MLA_PREFILL_SCORES", "fp32") == "bf16" else torch.float32
 
 # token ids of the Llama-2 + MLA vocabulary
 BOS_ID = 1
@@ -150,12 +161,21 @@ def _add_aux_losses(cfg: prismatic.MLAModelConfig, outputs: Dict[str, Any], new_
     return total, (loss_dict, new_state)
 
 
+@functools.lru_cache(maxsize=8)
+def _clip_constants(device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CLIP mean and std [1, 3, 1, 1] on `device`, copied there once (a
+    serving call then makes no host-to-device copy that waits), outside
+    inference mode so a training forward can use them too."""
+    with torch.inference_mode(False):
+        return (torch.from_numpy(CLIP_MEAN).reshape(1, 3, 1, 1).to(device),
+                torch.from_numpy(CLIP_STD).reshape(1, 3, 1, 1).to(device))
+
+
 def _device_clip_preprocess(img_u8: torch.Tensor) -> torch.Tensor:
     """Raw uint8 [B, 3, S, S] -> CLIP-normalized fp32 [B, 4, S, S] with the
     all-ones mask channel, on the frame's device."""
     x = img_u8.float() / 255.0
-    mean = torch.as_tensor(CLIP_MEAN, device=x.device).reshape(1, 3, 1, 1)
-    std = torch.as_tensor(CLIP_STD, device=x.device).reshape(1, 3, 1, 1)
+    mean, std = _clip_constants(str(x.device))
     x = (x - mean) / std
     return torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
 
@@ -181,13 +201,14 @@ def build_prefix_embeds(
 
 def prefill(
     params: Dict[str, Any], cfg: prismatic.MLAModelConfig, prefix_embeds: torch.Tensor, cache_max_len: int,
-    compute_logits: bool = True, *, int8_mode: str = "w8a8",
+    compute_logits: bool = True, *, int8_mode: str = "w8a8", scores_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
     """Run the prefix through the decoder into a new KV cache; returns
     (kv_cache, fp32 logits [B, V] of the last position, or None when
     compute_logits is off, as on the diffusion path). The lm_head runs on
     the last position only. On the card the attention is the flash kernel
-    where it fits the head_dim (attention.sdpa)."""
+    where it fits the head_dim (attention.sdpa); scores_dtype (None: fp32)
+    is the score dtype of the plain attention where it runs instead."""
     B, P, _ = prefix_embeds.shape
     decoder = prismatic.get_decoder(cfg)
     cache = decoder.init_kv_cache(cfg.llama, B, cache_max_len, device=prefix_embeds.device)
@@ -195,6 +216,7 @@ def prefill(
     out = decoder.forward(
         params["llm_backbone"], cfg.llama, prefix_embeds,
         kv_cache=cache, cache_len=0, key_mask=key_mask, compute_logits=False, int8_mode=int8_mode,
+        scores_dtype=scores_dtype,
     )
     if not compute_logits:
         return out["kv_cache"], None
@@ -234,10 +256,10 @@ def ddim_denoise_actions(
     params: Dict[str, Any], cfg: prismatic.MLAModelConfig, sched: gd.Schedule,
     kv_cache: Dict[str, torch.Tensor], prefix_len: int, proprio: torch.Tensor, noise: torch.Tensor,
     *, use_ddpm: bool = False, generator: Optional[torch.Generator] = None, cfg_scale: float = 0.0,
-    sampler: str = "ddim", int8_mode: str = "w8a8",
+    sampler: str = "ddim", num_dpm_steps: int = DPM_STEPS, int8_mode: str = "w8a8",
 ) -> torch.Tensor:
     """Denoise loop over cached-suffix evaluations: DDIM (eta 0), DDPM, or
-    DPM-Solver++(2M) with DPM_STEPS evaluations (`sched` is then the
+    DPM-Solver++(2M) with num_dpm_steps evaluations (`sched` is then the
     unspaced training schedule). With cfg_scale > 1 the cache holds
     [cond; uncond] rows and noise/proprio the doubled batch; the guided eps
     is uncond + scale * (cond - uncond)."""
@@ -251,7 +273,7 @@ def ddim_denoise_actions(
     else:
         denoise_fn = base_fn
     if sampler == "dpm":
-        return dpm_solver_pp_2m(sched, denoise_fn, noise, num_steps=DPM_STEPS)
+        return dpm_solver_pp_2m(sched, denoise_fn, noise, num_steps=num_dpm_steps)
     if use_ddpm:
         return gd.ddpm_sample_loop(sched, denoise_fn, noise, generator=generator)
     return gd.ddim_sample_loop(sched, denoise_fn, noise)
@@ -421,11 +443,17 @@ class MLAPolicy:
     device=None means "cuda" and raises when no card is present; the CPU
     is used only when the caller passes device="cpu". int8_mode picks the
     product of the int8 decoder linears (nn.linear): "w8a8" (default),
-    "weight_only" or "dequant"."""
+    "weight_only" or "dequant". num_ddim_steps is the DDIM respacing used
+    when a call names none; cache_margin the spare KV-cache slots;
+    prefill_scores_dtype the diffusion prefill's score dtype (torch.bfloat16
+    or torch.float32; None reads MLA_PREFILL_SCORES here), which only the
+    plain attention reads."""
 
     def __init__(
         self, params: Dict[str, Any], state: Dict[str, Any], cfg: prismatic.MLAModelConfig,
         tokenizer=None, norm_stats: Optional[Dict[str, Any]] = None, device=None, int8_mode: str = "w8a8",
+        num_ddim_steps: int = DDIM_STEPS, cache_margin: int = CACHE_MARGIN,
+        prefill_scores_dtype: Optional[torch.dtype] = None,
     ) -> None:
         if int8_mode not in nn.INT8_MODES:
             raise ValueError(f"int8_mode must be one of {nn.INT8_MODES}, got {int8_mode!r}")
@@ -440,7 +468,9 @@ class MLAPolicy:
         self.norm_stats = norm_stats or {}
         self.action_tokenizer = ActionTokenizer(tokenizer, vocab_size=32000)
         self.sched_full = gd.create_schedule("", diffusion_steps=100)
-        self.sched_ddim = gd.create_schedule(f"ddim{DDIM_STEPS}", diffusion_steps=100)
+        self.sched_ddim = gd.create_schedule(f"ddim{num_ddim_steps}", diffusion_steps=100)
+        self.cache_margin = cache_margin
+        self.prefill_scores_dtype = prefill_scores_dtype or serving_scores_dtype_from_env()
 
     def _stats(self, unnorm_key: Optional[str], kind: str) -> Dict[str, Any]:
         if unnorm_key is None:
@@ -456,7 +486,13 @@ class MLAPolicy:
         return self._stats(unnorm_key, "proprio")
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), device=self.device, dtype=dtype)
+        """A host array on the policy's device. The copy is enqueued on the
+        current stream without waiting (the staging copy is done when this
+        returns), so a serving call issues no host sync before its result."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if dtype is not None:
+            t = t.to(dtype)
+        return t.to(self.device, non_blocking=True)
 
     def _images(self, image) -> Dict[str, torch.Tensor]:
         img = self._tensor(image)
@@ -465,22 +501,34 @@ class MLAPolicy:
     def _points(self, pointcloud) -> Optional[torch.Tensor]:
         if pointcloud is None:
             return None
-        pc = self._tensor(pointcloud, torch.float32)
+        pc = self._tensor(np.asarray(pointcloud, np.float32))
         return pc[None] if pc.dim() == 2 else pc
 
+    def _sched(self, use_ddpm: bool, sampler: str, num_ddim_steps: Optional[int]) -> gd.Schedule:
+        """The schedule of a call, as JAX's _diff_fn picks it: the training
+        schedule for DDPM and DPM, else the DDIM respacing num_ddim_steps
+        (None: the policy's)."""
+        if use_ddpm or sampler == "dpm":
+            return self.sched_full
+        if num_ddim_steps is None:
+            return self.sched_ddim
+        return gd.create_schedule(f"ddim{num_ddim_steps}", diffusion_steps=100)
+
     def _run(self, ids: np.ndarray, images, pc, proprio, noise, *, use_ddpm=False, cfg_scale=0.0,
-             sampler="ddim", generator=None) -> torch.Tensor:
-        """The serving graph: prefix embeds -> prefill -> denoise loop."""
+             sampler="ddim", num_dpm_steps=DPM_STEPS, num_ddim_steps=None, generator=None) -> torch.Tensor:
+        """The serving graph: prefix embeds -> prefill -> denoise loop,
+        enqueued on the current stream; nothing in it waits for the card."""
         cfg = self.cfg
-        prefix_ids = self._tensor(ids[:, :-1], torch.long)
+        prefix_ids = self._tensor(np.asarray(ids[:, :-1], np.int64))
         tail_len = 1
         embed_len = prefix_ids.shape[1] + cfg.fused_len
-        cache_max = embed_len + 2 + cfg.action_horizon + tail_len + CACHE_MARGIN
-        sched = self.sched_full if (use_ddpm or sampler == "dpm") else self.sched_ddim
+        cache_max = embed_len + 2 + cfg.action_horizon + tail_len + self.cache_margin
+        sched = self._sched(use_ddpm, sampler, num_ddim_steps)
         use_cfg = cfg_scale > 1.0
         with torch.inference_mode():
             prefix = build_prefix_embeds(self.params, self.state, cfg, prefix_ids, images, pc, with_uncond=use_cfg)
-            kv, _ = prefill(self.params, cfg, prefix, cache_max, compute_logits=False, int8_mode=self.int8_mode)
+            kv, _ = prefill(self.params, cfg, prefix, cache_max, compute_logits=False, int8_mode=self.int8_mode,
+                            scores_dtype=self.prefill_scores_dtype)
             if use_cfg:
                 proprio, noise_x = torch.cat([proprio, proprio]), torch.cat([noise, noise])
             else:
@@ -488,17 +536,19 @@ class MLAPolicy:
             samples = ddim_denoise_actions(
                 self.params, cfg, sched, kv, prefix.shape[1], proprio, noise_x,
                 use_ddpm=use_ddpm, generator=generator, cfg_scale=cfg_scale, sampler=sampler,
-                int8_mode=self.int8_mode,
+                num_dpm_steps=num_dpm_steps, int8_mode=self.int8_mode,
             )
         return samples[: noise.shape[0]]
 
     def predict_action_diff(
         self, image, pointcloud, instruction: str, cur_robot_state=None, unnorm_key: Optional[str] = None,
-        use_ddim: bool = True, cfg_scale: float = 0.0, seed: int = 0, input_ids: Optional[np.ndarray] = None,
-        noise: Optional[np.ndarray] = None, sampler: str = "ddim", return_normalized: bool = False,
+        num_ddim_steps: Optional[int] = None, use_ddim: bool = True, cfg_scale: float = 0.0, seed: int = 0,
+        input_ids: Optional[np.ndarray] = None, noise: Optional[np.ndarray] = None, sampler: str = "ddim",
+        num_dpm_steps: int = DPM_STEPS, return_normalized: bool = False,
     ) -> np.ndarray:
-        """A [horizon, action_dim] chunk for one observation: DDIM-8 by
-        default, DPM-Solver++(2M) with 4 evaluations with sampler='dpm', DDPM with
+        """A [horizon, action_dim] chunk for one observation: DDIM with the
+        policy's respacing (8) or num_ddim_steps, DPM-Solver++(2M) with
+        num_dpm_steps evaluations with sampler='dpm', DDPM with
         use_ddim=False; `noise` overrides the seeded x_T; return_normalized
         returns the chunk before clip / binarize / unnormalization."""
         cfg = self.cfg
@@ -517,10 +567,11 @@ class MLAPolicy:
         if noise is None:
             x_t = torch.randn(shape, generator=gen, device=self.device)
         else:
-            x_t = self._tensor(noise, torch.float32).reshape(shape)
+            x_t = self._tensor(np.asarray(noise, np.float32)).reshape(shape)
         samples = self._run(
-            np.asarray(input_ids), images, pc, self._tensor(proprio, torch.float32), x_t,
-            use_ddpm=not use_ddim, cfg_scale=cfg_scale, sampler=sampler, generator=gen,
+            np.asarray(input_ids), images, pc, self._tensor(np.asarray(proprio, np.float32)), x_t,
+            use_ddpm=not use_ddim, cfg_scale=cfg_scale, sampler=sampler, num_dpm_steps=num_dpm_steps,
+            num_ddim_steps=num_ddim_steps, generator=gen,
         )
         normalized = samples[0].cpu().numpy()
         if return_normalized:
@@ -530,12 +581,32 @@ class MLAPolicy:
     def predict_action_diff_batched(
         self, images, pointclouds, instruction: Optional[str] = None, unnorm_key: Optional[str] = None,
         seed: int = 0, input_ids: Optional[np.ndarray] = None, cur_robot_states=None, sampler: str = "ddim",
-        return_normalized: bool = False,
+        num_dpm_steps: int = DPM_STEPS, num_ddim_steps: Optional[int] = None, return_normalized: bool = False,
     ) -> np.ndarray:
-        """One prefill + denoise for B observations [B, 4, H, W] / [B, P, 3].
-        Prompts share a token length: input_ids [B, L], or one row / one
-        instruction broadcast. Rows of cur_robot_states may be None (then
-        normalized zero). Returns [B, horizon, action_dim]."""
+        """One prefill + denoise for B observations [B, 4, H, W] (or raw
+        uint8 [B, 3, H, W]) / [B, P, 3]. Prompts share a token length:
+        input_ids [B, L], or one row / one instruction broadcast. Rows of
+        cur_robot_states may be None (then normalized zero). Returns [B,
+        horizon, action_dim]. dispatch_action_diff_batched(...)()."""
+        return self.dispatch_action_diff_batched(
+            images, pointclouds, instruction, unnorm_key=unnorm_key, seed=seed, input_ids=input_ids,
+            cur_robot_states=cur_robot_states, sampler=sampler, num_dpm_steps=num_dpm_steps,
+            num_ddim_steps=num_ddim_steps, return_normalized=return_normalized,
+        )()
+
+    def dispatch_action_diff_batched(
+        self, images, pointclouds, instruction: Optional[str] = None, unnorm_key: Optional[str] = None,
+        seed: int = 0, input_ids: Optional[np.ndarray] = None, cur_robot_states=None, sampler: str = "ddim",
+        num_dpm_steps: int = DPM_STEPS, num_ddim_steps: Optional[int] = None, return_normalized: bool = False,
+    ) -> Callable[[], np.ndarray]:
+        """The asynchronous form of predict_action_diff_batched: builds the
+        ids, the proprio rows and x_T (a torch.Generator on the device seeded
+        with `seed`, one [B, horizon, action_dim] draw), enqueues the
+        prefill and the denoise loop on the current stream without a host
+        sync, and returns finalize(), which makes the one device-to-host
+        copy (waiting for the call) and unnormalizes. A serving host
+        dispatches the next batch while this one runs
+        (serving.BatchingServer)."""
         cfg = self.cfg
         if input_ids is None:
             if instruction is None:
@@ -549,6 +620,8 @@ class MLAPolicy:
             raise ValueError(f"input_ids rows {ids.shape[0]} != batch {B}")
         proprio = np.zeros((B, 1, cfg.action_dim), np.float32)
         if cur_robot_states is not None and any(s is not None for s in cur_robot_states):
+            # a row without proprio gets the normalized zero of the solo
+            # path, whatever batch it lands in
             pstats = self.get_proprio_stats(unnorm_key)
             for b, s in enumerate(cur_robot_states):
                 if s is not None:
@@ -557,14 +630,19 @@ class MLAPolicy:
         gen.manual_seed(seed)
         x_t = torch.randn((B, cfg.action_horizon, cfg.action_dim), generator=gen, device=self.device)
         samples = self._run(
-            ids, {"front_image": self._tensor(images)}, self._tensor(pointclouds, torch.float32),
-            self._tensor(proprio), x_t, sampler=sampler,
+            ids, {"front_image": self._tensor(np.asarray(images))},
+            self._tensor(np.asarray(pointclouds, np.float32)), self._tensor(proprio), x_t, sampler=sampler,
+            num_dpm_steps=num_dpm_steps, num_ddim_steps=num_ddim_steps,
         )
-        out = samples.cpu().numpy()
-        if return_normalized:
-            return out
-        stats = self.get_action_stats(unnorm_key)
-        return np.stack([unnormalize_actions(out[b], stats) for b in range(B)])
+
+        def finalize() -> np.ndarray:
+            out = samples.cpu().numpy()  # waits for the call
+            if return_normalized:
+                return out
+            stats = self.get_action_stats(unnorm_key)
+            return np.stack([unnormalize_actions(out[b], stats) for b in range(B)])
+
+        return finalize
 
     # --- autoregressive heads ----------------------------------------------
     def generate_ids(self, image, pointcloud, input_ids: np.ndarray, num_tokens: int, *, num_beams: int = 1,
@@ -575,19 +653,19 @@ class MLAPolicy:
         one [4, H, W] frame) -> prefill with logits -> greedy / sampled
         decode, or beam search with num_beams > 1. Returns ([B, num_tokens]
         ids, [B, num_tokens] max probabilities, or [B] beam scores). The
-        cache holds the prefix, the new tokens and CACHE_MARGIN spare
+        cache holds the prefix, the new tokens and cache_margin spare
         slots."""
         if num_beams > 1 and temperature > 0:
             raise ValueError("beam search and sampling are mutually exclusive")
         cfg = self.cfg
         ids = np.asarray(input_ids)
-        cache_max = ids.shape[1] + cfg.fused_len + num_tokens + CACHE_MARGIN
+        cache_max = ids.shape[1] + cfg.fused_len + num_tokens + self.cache_margin
         gen = None
         if temperature > 0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
         with torch.inference_mode():
-            prefix = build_prefix_embeds(self.params, self.state, cfg, self._tensor(ids, torch.long),
+            prefix = build_prefix_embeds(self.params, self.state, cfg, self._tensor(ids.astype(np.int64)),
                                          self._images(image), self._points(pointcloud))
             kv, last = prefill(self.params, cfg, prefix, cache_max, int8_mode=self.int8_mode)
             if num_beams > 1:

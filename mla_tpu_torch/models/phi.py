@@ -80,7 +80,7 @@ def apply_partial_rope(q, k, cos_table, sin_table, positions, rotary_dim: int):
 
 
 def _layer_fn(lp, h, cache_kv, cfg, cos_table, sin_table, positions, key_mask, cache_len,
-              cache_read_only=False, inflight_mask=None, int8_mode="w8a8"):
+              cache_read_only=False, inflight_mask=None, int8_mode="w8a8", scores_dtype=None):
     """One parallel block; cache_kv as in llama._layer_fn. Returns h."""
     B, S, D = h.shape
     H, hd = cfg.num_heads, cfg.head_dim
@@ -88,7 +88,8 @@ def _layer_fn(lp, h, cache_kv, cfg, cos_table, sin_table, positions, key_mask, c
     q, k, v = (nn.linear(lp["attn"][n], x, int8_mode=int8_mode).reshape(B, S, H, hd).transpose(1, 2)
                for n in ("q", "k", "v"))
     q, k = apply_partial_rope(q, k, cos_table, sin_table, positions, cfg.rotary_dim)
-    out = attn_ops.decoder_attention(q, k, v, cache_kv, cache_len, key_mask, cache_read_only, inflight_mask)
+    out = attn_ops.decoder_attention(q, k, v, cache_kv, cache_len, key_mask, cache_read_only, inflight_mask,
+                                     scores_dtype)
     attn_out = nn.linear(lp["attn"]["o"], out.transpose(1, 2).reshape(B, S, D), int8_mode=int8_mode)
     mlp_out = nn.linear(lp["mlp"]["fc2"], nn.gelu_tanh(nn.linear(lp["mlp"]["fc1"], x, int8_mode=int8_mode)),
                         int8_mode=int8_mode)
@@ -109,6 +110,7 @@ def phi_forward(
     cache_read_only: bool = False,
     remat: bool = False,
     int8_mode: str = "w8a8",
+    scores_dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, Any]:
     """Decoder forward from embeddings [B, S, D]; the arguments and the
     cache modes are llama_forward's. Returns {'last_hidden', 'hidden_mid',
@@ -116,6 +118,7 @@ def phi_forward(
     h, hidden_mid = llama_mod.run_layers(
         _layer_fn, params["layers"], cfg, inputs_embeds, cfg.rotary_dim, positions=positions, key_mask=key_mask,
         kv_cache=kv_cache, cache_len=cache_len, cache_read_only=cache_read_only, remat=remat, int8_mode=int8_mode,
+        scores_dtype=scores_dtype,
     )
     out: Dict[str, Any] = {"last_hidden": nn.layer_norm(params["final_ln"], h, cfg.ln_eps), "hidden_mid": hidden_mid}
     if kv_cache is not None:

@@ -27,21 +27,32 @@ NEG_INF = -2.3819763e38  # most negative bf16-representable
 
 def sdpa_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None,
-    causal: bool = True, causal_offset: int = 0,
+    causal: bool = True, causal_offset: int = 0, scores_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """q [B,H,Sq,hd], k/v [B,H,Sk,hd] -> [B,H,Sq,hd]; softmax in fp32, the
     probabilities cast to v's dtype before PV. With `causal`, query i (at
-    absolute position i + causal_offset) sees keys 0..i + causal_offset."""
+    absolute position i + causal_offset) sees keys 0..i + causal_offset.
+    scores_dtype (the serving prefill's bf16) holds the score tensor in that
+    dtype, scaled there and masked with its most negative value, as JAX's
+    einsum with preferred_element_type does; the softmax still reduces in
+    fp32. None and torch.float32 are the fp32 path."""
     Sq, Sk, hd = q.shape[2], k.shape[2], q.shape[3]
-    scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+    if scores_dtype not in (None, torch.float32):
+        # the scale rounded to scores_dtype first, as JAX's asarray(scale, dtype)
+        scale = float(torch.tensor(1.0 / math.sqrt(hd)).to(scores_dtype))
+        scores = (q.float() @ k.float().transpose(-1, -2)).to(scores_dtype) * scale
+        neg = torch.finfo(scores_dtype).min
+    else:
+        scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+        neg = NEG_INF
     if causal:
         q_pos = torch.arange(Sq, device=q.device)[:, None] + causal_offset
-        scores = torch.where((torch.arange(Sk, device=q.device)[None, :] <= q_pos)[None, None], scores, NEG_INF)
+        scores = torch.where((torch.arange(Sk, device=q.device)[None, :] <= q_pos)[None, None], scores, neg)
     if mask is not None:
         if mask.dim() == 3:
             mask = mask[:, None]
-        scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        scores = torch.where(mask, scores, neg)
+    probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
     return probs @ v
 
 
@@ -55,18 +66,20 @@ def flash_fits(head_dim: int) -> bool:
     return head_dim in FLASH_HEAD_DIMS
 
 
-def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal attention: the flash kernel for a CUDA tensor it fits, the
-    reference otherwise."""
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None,
+         scores_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Causal attention: the flash kernel for a CUDA tensor it fits (it never
+    materializes scores, so scores_dtype does not reach it), the reference
+    otherwise."""
     if q.is_cuda and flash_fits(q.shape[-1]):
         return flash_attention(q, k, v, mask=mask)
-    return sdpa_reference(q, k, v, mask=mask)
+    return sdpa_reference(q, k, v, mask=mask, scores_dtype=scores_dtype)
 
 
 def decoder_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
     cache_len: int, key_mask: Optional[torch.Tensor], cache_read_only: bool = False,
-    inflight_mask: Optional[torch.Tensor] = None,
+    inflight_mask: Optional[torch.Tensor] = None, scores_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """A decoder layer's attention: q [B, H, S, hd], the block's k/v [B,
     Hkv, S, hd] (repeated to H heads), cache_kv this layer's (k_cache,
@@ -80,7 +93,9 @@ def decoder_attention(
         cache_len, under the key mask (plain attention: JAX runs it in XLA);
       * static prefill (cache_len 0): k/v written at [0, S), the in-flight
         block attended through `sdpa`;
-      * uncached (no cache): the block through `sdpa`."""
+      * uncached (no cache): the block through `sdpa`.
+    scores_dtype reaches `sdpa` only (the prefill and the uncached
+    forward), as in JAX."""
     B, H, S, hd = q.shape
     rep = H // k.shape[1]
     if cache_kv is not None and cache_read_only:
@@ -117,4 +132,4 @@ def decoder_attention(
     if rep > 1:
         k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
     mask = key_mask[:, None, None, :S] if key_mask is not None else None
-    return sdpa(q, k, v, mask=mask)
+    return sdpa(q, k, v, mask=mask, scores_dtype=scores_dtype)

@@ -9,6 +9,7 @@ package (rlbench_front, franka_right, franka_front).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, eq=False)  # hashed by identity: a key of _camera_tensors' cache
 class CameraParams:
     K: np.ndarray  # [3, 3] intrinsics
     R: np.ndarray  # [3, 3] camera -> world rotation
@@ -90,6 +91,25 @@ def get_camera_params(name: str) -> CameraParams:
     return CAMERA_CONFIGS[name]
 
 
+@functools.lru_cache(maxsize=16)
+def _camera_tensors(camera: CameraParams, image_size_resize: Tuple[int, int], device: str) -> Tuple[torch.Tensor, ...]:
+    """(R_w2c^T, t_w2c, K^T) fp32 on `device` for the resized frame: K scaled
+    to it in float64 on the host, as in JAX. Copied to the device once per
+    (camera, size, device), outside inference mode, so a serving call makes
+    no host-to-device copy that waits."""
+    K = np.array(camera.K, dtype=np.float64)
+    sx = image_size_resize[1] / camera.image_size_orig[1]
+    sy = image_size_resize[0] / camera.image_size_orig[0]
+    K[0, 0] *= sx
+    K[1, 1] *= sy
+    K[0, 2] *= sx
+    K[1, 2] *= sy
+    R_w2c = np.array(camera.R, dtype=np.float64).T
+    t_w2c = -R_w2c @ np.array(camera.t, dtype=np.float64)
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, dtype=torch.float32, device=device) for a in (R_w2c.T, t_w2c, K.T))
+
+
 def project_3d_to_2d(
     xyz_3d: torch.Tensor, camera: CameraParams, image_size_resize: Tuple[int, int] = (672, 672),
     patch_stride: int = 14, conv_stride: int = 3,
@@ -100,21 +120,9 @@ def project_3d_to_2d(
     and -R^T t, then through the pinhole; the pixel is floor-divided by the
     total stride (14 * 3 = 42). Valid means in front of the camera and
     inside the frame; indices are clamped into the grid."""
-    K = np.array(camera.K, dtype=np.float64)
-    sx = image_size_resize[1] / camera.image_size_orig[1]
-    sy = image_size_resize[0] / camera.image_size_orig[0]
-    K[0, 0] *= sx
-    K[1, 1] *= sy
-    K[0, 2] *= sx
-    K[1, 2] *= sy
-    R_w2c = np.array(camera.R, dtype=np.float64).T
-    t_w2c = -R_w2c @ np.array(camera.t, dtype=np.float64)
-
-    dev = xyz_3d.device
-    xyz_cam = xyz_3d.float() @ torch.as_tensor(R_w2c.T, dtype=torch.float32, device=dev) + torch.as_tensor(
-        t_w2c, dtype=torch.float32, device=dev
-    )
-    uvw = xyz_cam @ torch.as_tensor(K.T, dtype=torch.float32, device=dev)
+    rot, trans, intr = _camera_tensors(camera, tuple(image_size_resize), str(xyz_3d.device))
+    xyz_cam = xyz_3d.float() @ rot + trans
+    uvw = xyz_cam @ intr
     z = uvw[..., 2:]
     xy = uvw[..., :2] / (z + 1e-6)
 

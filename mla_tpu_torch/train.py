@@ -23,9 +23,11 @@ steps and at the last; SIGTERM or SIGUSR1 sets a flag that the loop drains
 at the next step boundary with one synchronous checkpoint, then exits 0;
 generation panels every visualize_interval steps in the post-training
 stage. A resumed run starts the synthetic data again at batch 0, as the JAX
-loop does (it makes a new iterator). Not ported (they raise): --dp / --tp
-other than 1, --vlm_stage, --hf_llama_dir, --data_root_dir and
-pretrained_checkpoint.
+loop does (it makes a new iterator). --pretrained_checkpoint starts from
+load_vla(..., load_for_training=True) of a run dir or a .pt, whose model
+config then replaces the run's, as scripts/train.py does. Not ported (they
+raise): --dp / --tp other than 1, --vlm_stage, --hf_llama_dir and
+--data_root_dir.
 """
 
 from __future__ import annotations
@@ -121,8 +123,8 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     tc = get_vla_config(args.vla_type, **_coerce(type(tc0), overrides))
     if args.dp != 1 or args.tp != 1:
         raise NotImplementedError(f"--dp {args.dp} --tp {args.tp}: the port trains on one device ({ROADMAP_DP})")
-    if args.hf_llama_dir or tc.pretrained_checkpoint:
-        raise NotImplementedError(f"--hf_llama_dir and pretrained_checkpoint are not ported yet ({ROADMAP_LOAD})")
+    if args.hf_llama_dir:
+        raise NotImplementedError(f"--hf_llama_dir is not ported yet ({ROADMAP_LOAD})")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
@@ -154,7 +156,13 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     # originals); the decoder still computes in cfg.llama.compute_dtype
     if tc.enable_mixed_precision_training and cfg.llama.param_dtype != torch.float32:
         cfg = dataclasses.replace(cfg, llama=dataclasses.replace(cfg.llama, param_dtype=torch.float32))
-    params, mstate = P.init(cfg, seed=seed, device=device)
+    if tc.pretrained_checkpoint:
+        from mla_tpu_torch.models.load import load_vla
+
+        params, mstate, cfg, _ = load_vla(tc.pretrained_checkpoint, model_id=model_id, load_for_training=True,
+                                          device=device)
+    else:
+        params, mstate = P.init(cfg, seed=seed, device=device)
 
     # --- strategy sizing -----------------------------------------------------
     global_bsz_per_step = tc.per_device_batch_size * world

@@ -242,14 +242,16 @@ def latest_checkpoint(run_dir) -> Optional[Path]:
     return dirs[-1] if dirs else None
 
 
-def export_reference_pt(path, train_state: Dict[str, Any], model_cfg: Any) -> None:
+def export_reference_pt(path, train_state: Dict[str, Any], model_cfg: Any, llm_dtype: Optional[torch.dtype] = None) -> None:
     """Write the reference-format module-keyed .pt, so tooling of the
-    reference's ecosystem can read our checkpoints."""
+    reference's ecosystem (and load_vla) can read our checkpoints: fp32, or
+    the decoder's leaves in llm_dtype (a bf16 7B without an fp32 copy)."""
     from mla_tpu_torch.models.convert import export_reference_checkpoint
 
-    blob = export_reference_checkpoint(train_state["params"], train_state.get("model_state", {}), model_cfg)
-    torch.save({"model": {mod: {k: torch.tensor(v) for k, v in sd.items()} for mod, sd in blob["model"].items()}},
-               path)
+    blob = export_reference_checkpoint(train_state["params"], train_state.get("model_state", {}), model_cfg,
+                                       llm_dtype=llm_dtype)
+    torch.save({"model": {mod: {k: v if isinstance(v, torch.Tensor) else torch.tensor(v) for k, v in sd.items()}
+                          for mod, sd in blob["model"].items()}}, path)
 
 
 def parse_step_epoch(ckpt_path) -> Tuple[int, int]:

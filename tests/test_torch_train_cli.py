@@ -158,11 +158,16 @@ def test_ar_loss_mode_trains_lm_head(tmp_path):
     (["--tp", "2"], NotImplementedError, "item 5"),
     (["--vlm_stage", "align"], NotImplementedError, "item 6"),
     (["--data_root_dir", "/data/rlds"], NotImplementedError, "item 6"),
-    (["--pretrained_checkpoint", "/ckpt"], NotImplementedError, "item 6"),
-], ids=["unknown-flag", "dp", "tp", "vlm-stage", "data-root", "pretrained"])
+    (["--hf_llama_dir", "/hf"], NotImplementedError, "item 6"),
+    # a JAX orbax run dir: the port cannot read it without JAX
+    (["--pretrained_checkpoint", "{tmp}/orbax_run"], ValueError, "export_reference_pt"),
+], ids=["unknown-flag", "dp", "tp", "vlm-stage", "data-root", "hf-llama-dir", "pretrained"])
 def test_refusals(tmp_path, extra, err, match):
+    step = tmp_path / "orbax_run" / "checkpoints" / "step-000001-epoch-00-loss=0.5000"
+    step.mkdir(parents=True)
+    (step / "_CHECKPOINT_METADATA").write_text("{}")
     with pytest.raises(err, match=match):
-        train.main(argv(tmp_path, "--max_steps", "1", *extra))
+        train.main(argv(tmp_path, "--max_steps", "1", *(a.format(tmp=tmp_path) for a in extra)))
 
 
 def test_default_device_needs_a_card(tmp_path):

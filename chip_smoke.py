@@ -124,7 +124,10 @@ Phases, each of which fails the run if it fails:
                   L and FPS 2 launches), the next frame's answer outside it;
                   SIGINT must end the server with
                   exit 0 and no traceback. load_vla seconds and GiB, HTTP
-                  round trip against the in-process call.
+                  round trip against the in-process call. Then serve-host's
+                  bucket-4 row check on this bf16 policy (no W8A8), the
+                  hidden states' growth layer by layer beside the W8A8
+                  policy's (a reading, not a pass/fail check).
   5. train-agree  one AdamW training step of the bf16 `mla-small` (B = 2)
                   on the card and on the CPU from the same weights, batch,
                   noise, t and FPS starts; loss and grad_norm must agree,
@@ -198,15 +201,39 @@ Phases, each of which fails the run if it fails:
                   point-cloud heads and --visualize_interval 1, one step:
                   the two PNG panels (prediction beside target) and the
                   point-cloud NPZ are written.
+ 16. data         the RLDS pipeline (mla_tpu_torch/vla/rlds/, no
+                  TensorFlow) and the trainer on real frames: a franka
+                  fixture written by the port's own writer under
+                  build/chip_smoke_data (6 episodes x 40 steps in 2 shards,
+                  third-person and wrist views as 640 x 480 PNG, the
+                  fixture's choice of camera; 8192-point clouds, tactile
+                  pads, gripper xyz) and a 672 x 672 episode whose frames
+                  must come back exactly through the writer, the reader,
+                  PNG, Lanczos and the CLIP transform, its normalized
+                  action chunks and proprio equal to a numpy recomputation
+                  from the written values; a record with a flipped byte must
+                  fail its CRC; the pipeline alone at the trainer's 4 rows a
+                  step (frames/s, host batch ms p50 and p95, time to the
+                  first batch, the shuffle buffer's host RAM); then
+                  train.main with scripts/sft_franka.sh's flags on mla-2b
+                  (fp32 masters, per-device 2, global 4, buffer 256), 3
+                  steps: S = DATA_S (979), exact launches, finite losses,
+                  step ms, tokens/s, MFU, peak GiB and the loop's data wait
+                  per step. The flash forward, dQ and dK/dV are held at its
+                  BH 256 / S 979 in the kernels phase.
 
 The second-to-last line of output is a JSON object with each kernel's
-numbers (launches counted on the serving host's client runs for W8A8, the
+numbers, each row naming its path and, for the flash kernels, its shape
+(launches counted on the serving host's client runs for W8A8, the
 flash forward and FPS, timed at its bucket-4 shapes: one layer's W8A8 at
 M = 2136 and 72, flash at BH 128 / S 534, FPS at B = 4; on the trainer's
 first run for dQ and dK/dV, timed at its diffusion micro-batch, BH 256 at
 S 547; on the AR serving path for the weight-only int8 product, timed at
-its serving shapes; the other paths' counts are in the log and in
-chip_smoke.json); the last is
+its serving shapes; and on the data phase's trainer run for the flash
+forward, dQ and dK/dV, timed at BH 256 / S 979; the other paths' counts
+are in the log and in chip_smoke.json); an earlier line says whether
+tensorflow, tensorflow_datasets, protobuf and Pillow are installed; the
+last is
 {"ok": true, "device": {...}}. Detailed results go to
 chiprun_out/chip_smoke.json. Without a CUDA device, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -485,12 +512,16 @@ FLASH_LSE_ATOL = 1e-3
 # tokens): diffusion, 2 rows x 4 repeats at 16 + 513 + 18, and the AR loss
 # mode, 2 rows at 16 + 513
 TRAINER_S, TRAINER_AR_S = 547, 529
+# the data phase's trainer on real frames: the collated prompt of 192 ids,
+# the fused block of 256 point, 256 front, 256 wrist and 1 tactile tokens,
+# the 18-token diffusion block; 2 rows x 4 repeats x 32 heads
+DATA_S, DATA_BH = 192 + 769 + 18, 2 * 4 * 32
 FLASH_SHAPES = ((32, PREFIX_LEN, "serving prefill"), (2 * 32, PREFIX_LEN, "serving host bucket 2"),
                 (4 * 32, PREFIX_LEN, "serving host bucket 4"), (8 * 32, 563, "training"),
                 (8 * 32, 819, "post-training"), (8 * 32, TRAINER_S, "trainer"),
-                (2 * 32, TRAINER_AR_S, "trainer AR mode"))
-# the shape the kernels line times
-FLASH_ROW_SHAPE = "serving host bucket 4"
+                (2 * 32, TRAINER_AR_S, "trainer AR mode"), (DATA_BH, DATA_S, "data trainer"))
+# the shapes the kernels line times: the serving host's, and the data phase's
+FLASH_ROW_SHAPES = {"serving host bucket 4": "serve-host", "data trainer": "data"}
 
 
 def graph_ms(torch, fn, reps: int = 20, windows: int = 3, stream=None) -> float:
@@ -536,13 +567,14 @@ def check_flash(torch, report, control):
     tail: o within FLASH_ATOL and lse within
     FLASH_LSE_ATOL of the plain version at valid rows; the control (its
     last, ragged key tile dropped) must miss that check without padding.
-    Times kernel (CUDA graph), plain version, SDPA and the bound."""
+    Times kernel (CUDA graph), plain version, SDPA and the bound. Returns
+    the kernels-line rows of FLASH_ROW_SHAPES."""
     import torch.nn.functional as F
 
     from mla_tpu_torch.ops import cuda
     from mla_tpu_torch.ops import flash_attention as fa
 
-    readings, row, worst = {}, None, 0.0
+    readings, rows, worst = {}, [], 0.0
     for BH, S, what in FLASH_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(3)
         hd = 128
@@ -586,14 +618,16 @@ def check_flash(torch, report, control):
         report["shapes"].append({"kernel": "flash_attention", "BH": BH, "S": S, "hd": hd, "ms": ms,
                                  "plain_ms": plain_ms, "library_ms": lib_ms, "kernel_over_library": ms / lib_ms,
                                  "bound_ms": b, "bound_by": by, "max_abs_err": err, "max_abs_err_vs_sdpa": lib_err})
-        if what == FLASH_ROW_SHAPE:
-            row = {"name": "flash_attention", "route": "cuda", "source": "mla_tpu_torch/csrc/flash_fwd.cu",
-                   "replaces": "mla_tpu/ops/flash_attention.py:39", "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": lib_ms}
+        if what in FLASH_ROW_SHAPES:
+            rows.append({"name": "flash_attention", "route": "cuda", "source": "mla_tpu_torch/csrc/flash_fwd.cu",
+                         "replaces": "mla_tpu/ops/flash_attention.py:39", "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b, "bound_by": by, "library_ms": lib_ms, "path": FLASH_ROW_SHAPES[what],
+                         "shape": f"BH {BH}, S {S}"})
         worst = max(worst, err)
-    row["max_abs_err"] = worst
+    for row in rows:
+        row["max_abs_err"] = worst
     report["flash_fwd"] = readings
-    return row
+    return rows
 
 
 # training shape of mla-2b at B = 8: 32 text + 513 fused + 18 diffusion
@@ -709,12 +743,16 @@ def bwd_calls(cuda, ptrs, dq, dk, dv, BH, S, hd):
 def check_flash_bwd(torch, report, control):
     """The flash backward at the training shapes of every training path
     (flash_bwd_at); returns the kernel-table rows of the trainer's
-    diffusion micro-batch, BH 256 at S = 547."""
+    diffusion micro-batch, BH 256 at S = 547, and of the data phase's, BH
+    256 at DATA_S."""
     flash_bwd_at(torch, report, control, TRAIN_BH, TRAIN_S, "training")
     flash_bwd_at(torch, report, control, TRAIN_BH, POST_S, "post-training")
     rows = flash_bwd_at(torch, report, control, TRAIN_BH, TRAINER_S, "trainer")
     flash_bwd_at(torch, report, control, 2 * 32, TRAINER_AR_S, "trainer AR mode")
-    return rows
+    data_rows = flash_bwd_at(torch, report, control, DATA_BH, DATA_S, "data trainer")
+    for row in data_rows:
+        row["path"] = "data"
+    return rows + data_rows
 
 
 def flash_bwd_at(torch, report, control, BH, S, what):
@@ -811,7 +849,8 @@ def flash_bwd_at(torch, report, control, BH, S, what):
         out_rows.append({
             "name": name, "route": "cuda", "source": "mla_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"mla_tpu/ops/flash_attention.py:{src_line}", "max_abs_err": errs[key], "ms": ms[key],
-            "plain_ms": plain_ms[key], "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
+            "plain_ms": plain_ms[key], "bound_ms": b, "bound_by": by, "library_ms": lib_ms, "path": "trainer",
+            "shape": f"BH {BH}, S {S}",
         })
     return out_rows
 
@@ -1991,6 +2030,22 @@ def serve_http(torch, report):
     if rc != 0 or "Traceback" in text:
         raise AssertionError(f"serve-http: the server ended with exit {rc}")
     readings["server_log"] = text
+
+    # the bucket-4 row fault (ROADMAP.md section 3): serve-host's check of a
+    # bucket-4 call's rows against B = 1 calls, the same frames, prompt and
+    # x_T, on this bf16 policy, which has no W8A8. If the jump after layer 0
+    # goes, W8A8's per-row requantization is its cause
+    f4, c4 = serve_frames(cfg, 4, 44)
+    _, _, rows_ids, _ = request_inputs(cfg, 100)
+    r = readings["rows_bf16"] = bucket_rows(torch, policy, f4, c4, rows_ids)
+    w8a8 = report.get("serve_host", {}).get("rows_full_depth", {}).get("rel_rms_by_layer", {})
+    jump, jump_w8a8 = r["rel_rms_by_layer"]["after layer 0"], w8a8.get("after layer 0")
+    readings["bucket_rows_fault"] = "confirmed" if jump_w8a8 and jump < 0.1 * jump_w8a8 else "open"
+    log(f"serve-http rows at 32 layers, bf16 (no W8A8): bucket-4 rows vs B = 1 calls with their x_T rel "
+        f"{r['rel']:.4e}, rotated {r['rotated_rel']:.4e}; rel rms by layer "
+        f"{ {k: float(f'{v:.3e}') for k, v in r['rel_rms_by_layer'].items()} } against the W8A8 policy's "
+        f"{ {k: float(f'{v:.3e}') for k, v in w8a8.items()} }: the layer-0 jump's cause (W8A8) is "
+        f"{readings['bucket_rows_fault']} (confirmed when the bf16 jump is under a tenth of the W8A8 one)")
     report["serve_http"] = readings
     del policy
     shutil.rmtree(SERVE_HTTP_ROOT, ignore_errors=True)
@@ -2855,6 +2910,353 @@ def trainer_viz(torch, report):
         shutil.rmtree(TRAINER_ROOT, ignore_errors=True)
 
 
+# the data phase: scripts/sft_franka.sh's trainer on the port's RLDS
+# pipeline, from a franka fixture the port's own writer puts under build/
+DATA_ROOT = Path("build") / "chip_smoke_data"
+DATA_RUNS = Path("build") / "chip_smoke_data_runs"
+# the fixture's choice: the repo names no camera size
+DATA_CAMERA = (480, 640)
+DATA_EPISODES, DATA_STEPS, DATA_SHARDS, DATA_POINTS = 6, 40, 2, 8192
+DATA_EXACT_SIZE, DATA_EXACT_STEPS = 672, 4
+DATA_BUFFER = 256  # frames in the shuffle buffer: 240 distinct ones and the first of the next pass
+DATA_TIMED_BATCHES = 20
+DATA_RUN_STEPS = 3
+DATA_ARGS = ("--vla.type", "prism-dinosiglip-224px+oxe+diffusion", "--model", "mla-2b",
+             "--data_mix", "franka", "--camera_name", "franka_front", "--freeze_vision_tower", "true",
+             "--use_diff", "true", "--use_pointcloud", "true", "--use_contrastive", "true", "--use_tactile", "true",
+             "--num_extra_views", "1", "--per_device_batch_size", "2", "--global_batch_size", "4")
+DATA_MODULES = ("tensorflow", "tensorflow_datasets", "google.protobuf", "PIL")
+
+
+def installed(name: str) -> bool:
+    """Whether `name` can be imported here (without importing it)."""
+    import importlib.util
+
+    try:
+        return importlib.util.find_spec(name) is not None
+    except ModuleNotFoundError:  # its parent package is missing
+        return False
+
+
+def _camera_frame(seed, size, t: int):
+    """A smooth gradient that moves with t, plus noise: real work for zlib
+    and for Paeth."""
+    import numpy as np
+
+    h, w = size
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    base = np.stack([(xx + 5 * t) * 255 / w, (yy + 3 * t) * 255 / h, (xx + yy + 7 * t) * 127 / (h + w)], -1)
+    return np.clip(base % 256 + rng.normal(0, 3, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def data_fixture(root: Path, name: str, episodes: int, steps: int, size, points: int, shards: int, seed: int,
+                 keep_images: bool = False):
+    """Franka-schema episodes (third-person and wrist views as PNG, point
+    clouds, proprio, gripper xyz, tactile pads with some 65535 sentinels,
+    7-DoF actions, an instruction) written by the port's writer; the PNGs
+    encoded in a pool of threads. Returns the raw episodes (images as PNG
+    bytes, and as arrays under 'pixels' with keep_images)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from mla_tpu_torch.vla.rlds import png
+    from mla_tpu_torch.vla.rlds.tfds_compat import write_rlds_dataset
+
+    def encoded(key):
+        e, t, view = key
+        img = _camera_frame((seed, e, t, view), size, t + 17 * view)
+        return img, png.encode(img)
+
+    keys = [(e, t, v) for e in range(episodes) for t in range(steps) for v in range(2)]
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        images = dict(zip(keys, pool.map(encoded, keys)))
+    rng = np.random.default_rng(seed)
+    out = []
+    for e in range(episodes):
+        # right and left pads, 6 readings each: the model's tactile_dim of 12
+        tactile = rng.uniform(0, 200, (2, steps, 6)).astype(np.float32)
+        tactile[rng.random(tactile.shape) < 0.05] = 65535
+        walk = np.cumsum(rng.normal(0, 0.1, (steps, 7)), axis=0)
+        obs = {
+            "image_third": np.asarray([images[e, t, 0][1] for t in range(steps)], object),
+            "image_wrist": np.asarray([images[e, t, 1][1] for t in range(steps)], object),
+            "point_cloud": rng.uniform([-0.3, -0.45, 0.75], [0.7, 0.45, 1.6], (steps, points, 3)).astype(np.float32),
+            "proprio": rng.normal(size=(steps, 7)).astype(np.float32),
+            "gripper_xyz": rng.uniform([0.0, -0.2, 0.9], [0.4, 0.2, 1.3], (steps, 3)).astype(np.float32),
+            "tactile_right": tactile[0],
+            "tactile_left": tactile[1],
+        }
+        ep = {"steps": {"observation": obs, "action": np.tanh(walk).astype(np.float32),
+                        "language_instruction": np.asarray([b"wipe the table"] * steps, object)}}
+        out.append(ep)
+    write_rlds_dataset(root, name, out, num_shards=shards)
+    if keep_images:
+        for e, ep in enumerate(out):
+            ep["pixels"] = {v: np.stack([images[e, t, i][0] for t in range(steps)])
+                            for i, v in enumerate(("image_third", "image_wrist"))}
+    return out
+
+
+def held_bytes(frames) -> int:
+    """The bytes a list of frames keeps alive: each encoded image once, and
+    each numpy buffer a leaf views (a frame's leaves view its trajectory's
+    arrays) once."""
+    import numpy as np
+
+    seen, total = set(), 0
+
+    def visit(x):
+        nonlocal total
+        if isinstance(x, dict):
+            for v in x.values():
+                visit(v)
+        elif isinstance(x, bytes):
+            if id(x) not in seen:
+                seen.add(id(x))
+                total += len(x)
+        elif isinstance(x, np.ndarray):
+            root = x
+            while isinstance(root.base, np.ndarray):
+                root = root.base
+            if id(root) not in seen:
+                seen.add(id(root))
+                total += root.nbytes
+            if x.dtype == object:
+                for v in x.reshape(-1):
+                    visit(v)
+
+    for f in frames:
+        visit(f)
+    return total
+
+
+def data_exact(root: Path, written) -> dict:
+    """The 672 x 672 episode through the writer, the reader, PNG, Lanczos
+    (672 -> 672) and the CLIP transform: every decoded frame equals the
+    written pixels, every CLIP image equals numpy's CLIP normalization of
+    them, and the normalized action chunks and proprio equal a numpy
+    recomputation from the written values and the statistics' q01/q99, in
+    float32 as TensorFlow computes them."""
+    import numpy as np
+
+    from mla_tpu_torch.vla.datasets import CLIP_MEAN, CLIP_STD, RLDSBatchTransform
+    from mla_tpu_torch.vla.rlds.dataset import make_interleaved_dataset
+    from mla_tpu_torch.vla.tokenizer import SimpleTokenizer
+
+    ds, n, stats = make_interleaved_dataset("franka", str(root), shuffle_buffer_size=1, load_pointcloud=True,
+                                            load_tactile=True, image_size=DATA_EXACT_SIZE,
+                                            stats_cache_dir=str(root / "cache"))
+    T = DATA_EXACT_STEPS
+    frames = list(ds.take(n))
+    if n != T:
+        raise AssertionError(f"data exact: {n} transitions, wrote {T}")
+    st, ep = stats["franka"], written[0]
+
+    def norm(x, s):
+        lo, hi = np.asarray(s["q01"]), np.asarray(s["q99"])
+        y = np.clip(np.float32(2) * (x - lo.astype(np.float32)) / (hi - lo + 1e-8).astype(np.float32)
+                    - np.float32(1), np.float32(-1), np.float32(1))
+        return np.where(np.asarray(s["min"]) == np.asarray(s["max"]), np.float32(0), y)
+
+    act = norm(ep["steps"]["action"], st["action"])
+    prop = norm(ep["steps"]["observation"]["proprio"], st["proprio"])
+    lo, hi = np.asarray(st["action"]["q01"]), np.asarray(st["action"]["q99"])
+    zero = (2 * (0 - lo) / (hi - lo + 1e-8) - 1).astype(np.float32)
+    transform = RLDSBatchTransform(None, SimpleTokenizer(), image_size=DATA_EXACT_SIZE, use_pointcloud=True,
+                                   use_tactile=True, num_points=1024)
+    third, wrist = ep["pixels"]["image_third"], ep["pixels"]["image_wrist"]
+
+    def clip(img):
+        return ((img.astype(np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD).transpose(2, 0, 1)
+
+    bad = {}
+    for t, f in enumerate(frames):
+        obs = f["observation"]
+        chunk = np.stack([act[t + k] if t + k < T else zero for k in range(16)])
+        batch = transform(f)
+        checks = {
+            "image_primary": (obs["image_primary"][0], third[t]),
+            "image_next_primary": (obs["image_next_primary"][0], third[min(t + 1, T - 1)]),
+            "image_wrist_right": (obs["image_wrist_right"][0], wrist[t]),
+            "clip front_image": (batch["images"]["front_image"][:3], clip(third[t])),
+            "clip wrist_right_image": (batch["images"]["wrist_right_image"][:3], clip(wrist[t])),
+            "clip next_images": (batch["next_images"], clip(third[min(t + 1, T - 1)])),
+            "action chunk": (f["action"], chunk),
+            "proprio": (obs["proprio"][0], prop[t]),
+        }
+        for k, (got, want) in checks.items():
+            if got.shape != want.shape or got.dtype != want.dtype or not np.array_equal(got, want):
+                bad[f"step {t} {k}"] = (str(got.dtype), list(got.shape), int(np.sum(got != want)) if
+                                        got.shape == want.shape else -1)
+    return {"frames": len(frames), "checks": 8 * len(frames), "mismatches": bad}
+
+
+def data_crc_control(root: Path, tmp: Path) -> str:
+    """A copy of one shard with one byte of its first record's data flipped
+    must be refused by the CRC check (the unflipped copy reads)."""
+    from mla_tpu_torch.vla.rlds.tfds_compat import DataLossError, read_records
+
+    shard = sorted((root / "franka" / "1.0.0").glob("franka-train.tfrecord-*"))[0]
+    raw = bytearray(shard.read_bytes())
+    good, bad = tmp / "good.tfrecord", tmp / "bad.tfrecord"
+    good.write_bytes(bytes(raw))
+    raw[len(raw) // 3] ^= 0x01
+    bad.write_bytes(bytes(raw))
+    n = sum(1 for _ in read_records(good))
+    try:
+        for _ in read_records(bad):
+            pass
+    except DataLossError as e:
+        return f"refused: {e} (the unflipped copy reads {n} records)"
+    raise AssertionError("data: a record with a flipped byte passed the CRC check")
+
+
+def data(torch, report):
+    """The RLDS pipeline on the card's host and the trainer on real frames:
+    the fixtures (a franka data root of DATA_EPISODES x DATA_STEPS steps in
+    DATA_SHARDS shards, 640 x 480 PNG views, 8192-point clouds; a 672 x 672
+    episode held exactly through PNG, Lanczos and the CLIP transform); the
+    CRC control; the pipeline alone at the trainer's 4 rows a step (frames/s,
+    host batch ms, time to the first batch, the buffer's host RAM); then
+    train.main with scripts/sft_franka.sh's flags on the data root: exact
+    launches, finite losses, S = DATA_S, step ms, tokens/s, MFU, peak GiB
+    and the loop's data wait. Returns the trainer run's launches."""
+    import numpy as np
+
+    from mla_tpu_torch import train
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.training import metrics
+    from mla_tpu_torch.vla import datasets as vdata
+    from mla_tpu_torch.vla.materialize import get_vla_dataset_and_collator
+    from mla_tpu_torch.vla.rlds import dataset as rds
+
+    rep = {"modules_installed": {m: installed(m) for m in DATA_MODULES}, "camera": DATA_CAMERA}
+    home = os.environ.get("HOME")
+    for d in (DATA_ROOT, DATA_RUNS):
+        shutil.rmtree(d, ignore_errors=True)
+    # the statistics cache (~/.cache/mla_tpu_torch) stays inside the checkout
+    os.environ["HOME"] = str((DATA_ROOT / "home").resolve())
+    try:
+        t = time.perf_counter()
+        data_fixture(DATA_ROOT, "franka", DATA_EPISODES, DATA_STEPS, DATA_CAMERA, DATA_POINTS, DATA_SHARDS, 61)
+        exact = data_fixture(DATA_ROOT / "exact", "franka", 1, DATA_EXACT_STEPS,
+                             (DATA_EXACT_SIZE, DATA_EXACT_SIZE), DATA_POINTS, 1, 62, keep_images=True)
+        shard_mb = sum(p.stat().st_size for p in (DATA_ROOT / "franka" / "1.0.0").glob("*.tfrecord-*")) / 1e6
+        rep["fixture"] = {"write_s": time.perf_counter() - t, "steps": DATA_EPISODES * DATA_STEPS,
+                          "episodes": DATA_EPISODES, "shards": DATA_SHARDS, "shard_mb": shard_mb}
+        log(f"data: franka fixture of {DATA_EPISODES} x {DATA_STEPS} steps ({DATA_CAMERA[1]} x {DATA_CAMERA[0]} PNG "
+            f"views, {DATA_POINTS}-point clouds) in {DATA_SHARDS} shards, {shard_mb:.1f} MB, and a "
+            f"{DATA_EXACT_SIZE} px episode, written in {rep['fixture']['write_s']:.1f} s")
+
+        t = time.perf_counter()
+        rep["exact"] = data_exact(DATA_ROOT / "exact", exact)
+        log(f"data: the {DATA_EXACT_SIZE} px episode through writer, reader, PNG, Lanczos and CLIP: "
+            f"{rep['exact']['checks']} checks over {rep['exact']['frames']} frames, mismatches "
+            f"{rep['exact']['mismatches'] or 'none'} ({time.perf_counter() - t:.1f} s)")
+        if rep["exact"]["mismatches"]:
+            raise AssertionError(f"data: the exact round trip failed: {rep['exact']['mismatches']}")
+        with tempfile.TemporaryDirectory(dir=DATA_ROOT) as tmp:
+            rep["crc_control"] = data_crc_control(DATA_ROOT, Path(tmp))
+        log(f"data: CRC control {rep['crc_control']}")
+
+        # -- the pipeline alone, at the trainer's rows a step -----------------
+        cfg = get_model_config("mla-2b", use_pointcloud=True, use_tactile=True, use_contrastive=True,
+                               camera_name="franka_front", num_extra_views=1)
+        rows = 4
+        t = time.perf_counter()
+        ds, collator, stats, n = get_vla_dataset_and_collator(
+            data_root_dir=str(DATA_ROOT), data_mix="franka", model_cfg=cfg, per_host_batch_size=rows,
+            shuffle_buffer_size=DATA_BUFFER, seed=0)
+        stats_s = time.perf_counter() - t
+        it = iter(ds)
+        t = time.perf_counter()
+        first = collator([next(it) for _ in range(rows)])
+        first_s = time.perf_counter() - t
+        batch_ms = []
+        for _ in range(DATA_TIMED_BATCHES):
+            t = time.perf_counter()
+            collator([next(it) for _ in range(rows)])
+            batch_ms.append((time.perf_counter() - t) * 1e3)
+        it.close()
+        frames_s = rows * DATA_TIMED_BATCHES / (sum(batch_ms) / 1e3)
+        shapes = {k: list(v.shape) for k, v in first.items() if hasattr(v, "shape")}
+        shapes.update({f"images/{k}": list(v.shape) for k, v in first["images"].items()})
+        trajs, st = rds.make_dataset_from_rlds("franka", str(DATA_ROOT), load_pointcloud=True, load_tactile=True,
+                                               dataset_statistics=stats["franka"])
+        buffered = list(rds.flatten_to_frames(rds.apply_trajectory_transforms(
+            trajs.repeat(), dataset_statistics=st)).take(DATA_BUFFER))
+        buf_bytes = held_bytes(buffered)
+        del buffered
+        decoded = sum(v.nbytes for k, v in first["images"].items()) / rows + first["next_images"][0].nbytes
+        rep["pipeline"] = {
+            "rows_per_batch": rows, "transitions": n, "stats_pass_s": stats_s, "first_batch_s": first_s,
+            "host_batch_ms": batch_ms, "host_batch_ms_p50": float(np.percentile(batch_ms, 50)),
+            "host_batch_ms_p95": float(np.percentile(batch_ms, 95)), "frames_per_s": frames_s,
+            "buffer_frames": DATA_BUFFER, "buffer_bytes": buf_bytes, "buffer_bytes_per_frame": buf_bytes / DATA_BUFFER,
+            "decoded_bytes_per_frame": decoded, "batch_shapes": shapes, "threads": os.cpu_count()}
+        log(f"data pipeline (franka, {rows} rows a batch, buffer {DATA_BUFFER}, {os.cpu_count()} host threads): "
+            f"statistics pass {stats_s:.2f} s, first batch {first_s:.2f} s, host batch p50 "
+            f"{rep['pipeline']['host_batch_ms_p50']:.1f} ms p95 {rep['pipeline']['host_batch_ms_p95']:.1f} ms over "
+            f"{DATA_TIMED_BATCHES}, {frames_s:.1f} frames/s; the buffer's frames hold {buf_bytes / 2**20:.1f} MiB "
+            f"({buf_bytes / DATA_BUFFER / 2**20:.3f} MiB a frame, images encoded; decoded, a frame's CLIP views "
+            f"are {decoded / 2**20:.1f} MiB); batch {shapes}")
+
+        # -- the trainer on the data root -------------------------------------
+        args = list(DATA_ARGS) + ["--data_root_dir", str(DATA_ROOT), "--shuffle_buffer_size", str(DATA_BUFFER),
+                                  "--max_steps", str(DATA_RUN_STEPS), "--save_interval", str(DATA_RUN_STEPS),
+                                  "--run_root_dir", str(DATA_RUNS), "--run_id", "data"]
+        torch.cuda.reset_peak_memory_stats()
+        cuda.launches.clear()
+        t = time.perf_counter()
+        out = train.main(args)
+        torch.cuda.synchronize()
+        totals = {k: cuda.launches[k] for k in TRAINER_KERNELS}
+        run_s = time.perf_counter() - t
+        cfg = out["cfg"]
+        S = vdata.PaddedCollatorForActionPrediction().max_prompt_len + cfg.fused_len + cfg.diff_block_len
+        if S != DATA_S:
+            raise AssertionError(f"data: S = {S}, but the kernels were checked at DATA_S = {DATA_S}")
+        expected = trainer_counts(cfg, micro_batches=DATA_RUN_STEPS * 2)
+        if totals != expected:
+            raise AssertionError(f"data: launches {totals} in {DATA_RUN_STEPS} steps of accumulation 2, "
+                                 f"expected {expected}")
+        losses = {k: list(out["metrics"].windows[k]) for k in ("total_loss", "diff_loss", "img_pc_contrastive_loss",
+                                                               "tactile_contrastive_loss")}
+        if not all(np.isfinite(v).all() and len(v) == DATA_RUN_STEPS for v in losses.values()):
+            raise AssertionError(f"data: losses {losses}")
+        tokens = rows * 4 * S
+        peak_flops = metrics.bf16_peak_flops(torch.cuda.get_device_name(0))
+        ms, tok_s, mfu = _trainer_step_line(out, tokens, out["metrics"].flops_per_token, peak_flops)
+        wait_ms = [w * 1e3 for w in out["data_wait_s"]]
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        rep["trainer"] = {"S": S, "BH": DATA_BH, "tokens_per_step": tokens, "losses": losses, "step_ms": ms,
+                          "step_times_s": list(out["metrics"].windows["step_time"]), "tokens_per_s": tok_s,
+                          "mfu": mfu, "peak_gib": peak_gib, "data_wait_ms": wait_ms,
+                          "data_wait_ms_p50": float(np.percentile(wait_ms, 50)), "data_wait_ms_max": max(wait_ms),
+                          "launches": totals, "launches_per_step": {k: v // DATA_RUN_STEPS for k, v in totals.items()},
+                          "run_s": run_s, "save_s": out["saves"][-1][1]}
+        log(f"data trainer mla-2b ({' '.join(DATA_ARGS[4:])}), fp32 masters, buffer {DATA_BUFFER}, S = {S} "
+            f"({gpu_line()}): run {run_s:.1f} s, total losses {losses['total_loss']}, step {ms:.1f} ms (the last), "
+            f"{tok_s:.0f} tokens/s, MFU {mfu if mfu is None else round(mfu, 4)}, peak {peak_gib:.2f} GiB, data wait "
+            f"ms {[round(w, 1) for w in wait_ms]} (p50 {rep['trainer']['data_wait_ms_p50']:.1f}, max "
+            f"{rep['trainer']['data_wait_ms_max']:.1f}), launches a step {rep['trainer']['launches_per_step']}, "
+            f"save {rep['trainer']['save_s']:.1f} s")
+        del out
+    finally:
+        if home is None:
+            os.environ.pop("HOME", None)
+        else:
+            os.environ["HOME"] = home
+        gc.collect()
+        for d in (DATA_ROOT, DATA_RUNS):
+            shutil.rmtree(d, ignore_errors=True)
+    report["data"] = rep
+    return totals
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.")
     parser.add_argument("--parent", help="a directory holding another version of flash_fwd.cu, flash_bwd.cu, "
@@ -2882,6 +3284,8 @@ def main() -> int:
     line = gpu_line()
     log(line)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    log("installed (the data path needs none of them): "
+        + ", ".join(f"{m} {'yes' if installed(m) else 'no'}" for m in DATA_MODULES))
     report = {"gpu": line, "shapes": []}
     t = time.perf_counter()
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
@@ -2901,6 +3305,10 @@ def main() -> int:
         raise
     for name, text in built.items():
         log(f"built {name}.cu\n" + "\n".join("  " + l for l in text.strip().splitlines() if "registers" in l or "spill" in l))
+    from mla_tpu_torch.native import rlds_host
+
+    rlds_host.load()
+    log(f"built {rlds_host.SRC.name} (the data pipeline's host helper, g++)")
     w8a8_layout = w8a8_abi((Path(args.parent) / "w8a8.cu").read_text()) if args.parent else None
     int8_layout = int8_mm_abi((Path(args.parent) / "int8_mm.cu").read_text()) if args.parent else None
     libs = {}
@@ -2915,9 +3323,8 @@ def main() -> int:
             libs[key] = finish_build(cuda, key[1] if isinstance(key, tuple) else key, lib, proc)
     log(f"build: {time.perf_counter() - t:.1f} s (with the control copies of {', '.join(CONTROLS)}"
         f"{' and the parent kernels' if args.parent else ''})")
-    kernels = [check_w8a8(torch, report, libs["w8a8"]), check_fps(torch, report, libs["fps"]),
-               check_flash(torch, report, libs["flash_fwd"]),
-               check_int8_mm(torch, report, libs["int8_mm"])]
+    kernels = ([check_w8a8(torch, report, libs["w8a8"]), check_fps(torch, report, libs["fps"])]
+               + check_flash(torch, report, libs["flash_fwd"]) + [check_int8_mm(torch, report, libs["int8_mm"])])
     train_kernels = check_flash_bwd(torch, report, libs["flash_bwd"])
     if args.parent:
         compare_parent(torch, report, {name: libs[("parent", name)] for name in PARENT_KERNELS}, w8a8_layout,
@@ -2956,22 +3363,28 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trainer_viz(torch, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    data_totals = data(torch, report)
     report["serve_launches"], report["ar_serve_launches"], report["train_launches"] = totals, ar_totals, train_totals
-    report["serve_host_launches"] = host_totals
-    # launches: the serving host's client runs (this slice's main path) for
-    # the kernels it runs (W8A8, flash forward, FPS); the trainer's run for
-    # the backward kernels; the AR serving path for int8_matmul
+    report["serve_host_launches"], report["data_launches"] = host_totals, data_totals
+    # launches, by each row's path: the serving host's client runs for the
+    # kernels it runs (W8A8, flash forward, FPS); the trainer's run for the
+    # backward kernels; the AR serving path for int8_matmul; the data
+    # phase's trainer run for the flash kernels at its shape
     kernels += train_kernels
+    by_path = {"serve-host": host_totals, "ar-serve": ar_totals, "trainer": trainer_totals, "data": data_totals}
     for k in kernels:
-        k["launches"] = (host_totals if k["name"] in host_totals else
-                         ar_totals if k["name"] == "int8_matmul" else trainer_totals)[k["name"]]
+        k.setdefault("path", "serve-host" if k["name"] in host_totals else
+                     "ar-serve" if k["name"] == "int8_matmul" else "trainer")
+        k["launches"] = by_path[k["path"]][k["name"]]
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-             "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}))
+             "bound_by", "library_ms", "path", "shape")
+    print(json.dumps({"kernels": [{key: k[key] for key in order if key in k} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -4,10 +4,11 @@ Counterpart of mla_tpu/ops/attention.py: `sdpa_reference` is the einsum
 softmax with fp32 scores, causal from an offset (a decode step's queries sit
 at cache_len and attend over the whole cache; JAX runs that in XLA, and so
 the port in plain PyTorch); `sdpa` is the causal attention with no offset
-(the static prefill and the uncached forward): it sends a CUDA tensor whose
-head_dim the flash kernel takes (64 or 128, JAX's shape rule) to the kernel,
-and any other tensor to the reference, as the JAX package does off the TPU
-and for Phi-2's head_dim 80 on it. `decoder_attention` is a decoder layer's
+(the static prefill and the uncached forward): it sends a CUDA tensor of a
+shape the flash kernel takes (at least 256 queries, head_dim 64 or 128:
+JAX's shape rule) to the kernel, and any other tensor to the reference, as
+the JAX package does off the TPU, for short blocks and for Phi-2's head_dim
+80 on it. `decoder_attention` is a decoder layer's
 attention in each of its cache modes, shared by the llama and phi decoders.
 
 Mask convention: boolean [B, 1, Sq, Sk] or [B, Sq, Sk], True = may attend.
@@ -57,13 +58,15 @@ def sdpa_reference(
 
 
 FLASH_HEAD_DIMS = (64, 128)
+FLASH_MIN_S = 256
 
 
-def flash_fits(head_dim: int) -> bool:
-    """JAX's shape rule for its flash kernel (mla_tpu/ops/attention.py): the
-    kernel takes head_dim 64 or 128; any other head_dim (Phi-2's 80) goes to
-    the reference."""
-    return head_dim in FLASH_HEAD_DIMS
+def flash_fits(seq_len: int, head_dim: int) -> bool:
+    """JAX's shape rule for its flash kernel (mla_tpu/ops/attention.py): a
+    causal self-attending block of at least 256 queries, head_dim 64 or 128;
+    a shorter block or any other head_dim (Phi-2's 80) goes to the
+    reference."""
+    return seq_len >= FLASH_MIN_S and head_dim in FLASH_HEAD_DIMS
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -71,7 +74,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch
     """Causal attention: the flash kernel for a CUDA tensor it fits (it never
     materializes scores, so scores_dtype does not reach it), the reference
     otherwise."""
-    if q.is_cuda and flash_fits(q.shape[-1]):
+    if q.is_cuda and flash_fits(q.shape[-2], q.shape[-1]):
         return flash_attention(q, k, v, mask=mask)
     return sdpa_reference(q, k, v, mask=mask, scores_dtype=scores_dtype)
 

@@ -25,9 +25,11 @@ generation panels every visualize_interval steps in the post-training
 stage. A resumed run starts the synthetic data again at batch 0, as the JAX
 loop does (it makes a new iterator). --pretrained_checkpoint starts from
 load_vla(..., load_for_training=True) of a run dir or a .pt, whose model
-config then replaces the run's, as scripts/train.py does. Not ported (they
-raise): --dp / --tp other than 1, --vlm_stage, --hf_llama_dir and
---data_root_dir.
+config then replaces the run's, as scripts/train.py does. --data_root_dir
+trains on an RLDS data root through the port's pipeline (vla/rlds/), with
+the experiment's shuffle_buffer_size and action_tokenizer_exist, each step
+collating per-device batch x accumulation frames. Not ported (they raise):
+--dp / --tp other than 1, --vlm_stage and --hf_llama_dir.
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ import torch
 from mla_tpu_torch.utils.overwatch import initialize_overwatch
 
 overwatch = initialize_overwatch("train")
-ROADMAP_DP = "ROADMAP.md queue 1, item 5 (data parallel)"
-ROADMAP_LOAD = "ROADMAP.md queue 1, item 6 (loading, the data pipeline and the VLM stages)"
+ROADMAP_DP = "ROADMAP.md queue 1, item 7 (data parallel)"
+ROADMAP_HF = "ROADMAP.md queue 1, item 4 (HF loaders)"
+ROADMAP_VLM = "ROADMAP.md queue 1, item 5 (the VLM stage)"
 
 
 def parse_args(argv: Optional[List[str]] = None) -> Tuple[argparse.Namespace, Dict[str, str]]:
@@ -107,7 +110,7 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     'steps_per_epoch', 'num_steps', 'world'}. Writes the run metadata."""
     args, overrides = parse_args(argv)
     if args.vlm_stage:
-        raise NotImplementedError(f"--vlm_stage is not ported yet ({ROADMAP_LOAD})")
+        raise NotImplementedError(f"--vlm_stage is not ported yet ({ROADMAP_VLM})")
 
     from mla_tpu_torch import params as P
     from mla_tpu_torch.conf.models import get_model_config
@@ -124,7 +127,7 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if args.dp != 1 or args.tp != 1:
         raise NotImplementedError(f"--dp {args.dp} --tp {args.tp}: the port trains on one device ({ROADMAP_DP})")
     if args.hf_llama_dir:
-        raise NotImplementedError(f"--hf_llama_dir is not ported yet ({ROADMAP_LOAD})")
+        raise NotImplementedError(f"--hf_llama_dir is not ported yet ({ROADMAP_HF})")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
@@ -172,7 +175,7 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     # --- data ----------------------------------------------------------------
     dataset, collator, dataset_statistics, dataset_len = get_vla_dataset_and_collator(
         data_root_dir=args.data_root_dir, data_mix=tc.data_mix, model_cfg=cfg, per_host_batch_size=per_host_batch,
-        seed=tc.seed,
+        shuffle_buffer_size=tc.shuffle_buffer_size, action_tokenizer_exist=tc.action_tokenizer_exist, seed=tc.seed,
     )
     steps_per_epoch = max((dataset_len or tc.shuffle_buffer_size) // tc.global_batch_size, 1)
     num_steps = tc.max_steps or (tc.epochs * steps_per_epoch)
@@ -202,7 +205,9 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Run the loop; returns {'state', 'run_dir', 'metrics' (VLAMetrics),
-    'saves' [(step, seconds)], 'load_s' (None without a resume), 'cfg'}."""
+    'saves' [(step, seconds)], 'load_s' (None without a resume), 'cfg',
+    'data_wait_s' (per step, the seconds the loop blocked for its host
+    batch)}."""
     from mla_tpu_torch.training import checkpointing as ckpt_mod
     from mla_tpu_torch.training import metrics as metrics_mod
     from mla_tpu_torch.training import strategy
@@ -247,6 +252,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
     prev_handlers = {s: signal.signal(s, _on_preempt) for s in (signal.SIGTERM, signal.SIGUSR1)}
     saves: List[Tuple[int, float]] = []
+    data_wait_s: List[float] = []
 
     def save(step_done: int, loss: float, async_save: bool) -> None:
         t0 = time.perf_counter()
@@ -260,10 +266,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     try:
         data_iter = iter(run["dataset"])
         for step in range(start_step, num_steps):
+            t_wait = time.perf_counter()
             if collator is not None:
                 host_batch = collator([next(data_iter) for _ in range(per_host_batch)])
             else:
                 host_batch = next(data_iter)
+            data_wait_s.append(time.perf_counter() - t_wait)
             gen = step_generator(seed, step, device)
             state, step_metrics = step_fn(state, host_batch, gen)
             # decoder tokens run this step: prompt + fused block (+ the
@@ -302,7 +310,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ckpt_mod.wait_for_async_saves()
     metrics.finalize()
     overwatch.info("done")
-    return {"state": state, "run_dir": run_dir, "metrics": metrics, "saves": saves, "load_s": load_s, "cfg": cfg}
+    return {"state": state, "run_dir": run_dir, "metrics": metrics, "saves": saves, "load_s": load_s, "cfg": cfg,
+            "data_wait_s": data_wait_s}
 
 
 def _sync(device: torch.device) -> None:

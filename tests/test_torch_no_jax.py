@@ -1,5 +1,7 @@
 """The port stands alone: no module of mla_tpu_torch/, and not chip_smoke.py,
-imports jax or anything of the JAX package mla_tpu."""
+imports jax or anything of the JAX package mla_tpu, nor TensorFlow,
+tensorflow_datasets, protobuf or Pillow, which the machine with the card
+does not have (the data pipeline reads TFRecords and PNG itself)."""
 
 import ast
 from pathlib import Path
@@ -8,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "mla_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "mla_tpu", "flax", "optax")
+FORBIDDEN = ("jax", "jaxlib", "mla_tpu", "flax", "optax", "tensorflow", "tensorflow_datasets", "google.protobuf", "PIL")
 
 
 def _imports(path: Path):
@@ -31,11 +33,14 @@ def test_port_module_imports_no_jax(path):
 
 def test_checker_sees_the_imports():
     """The walk catches every import form it must refuse, nested ones too."""
-    src = "import jax.numpy as jnp\nfrom mla_tpu.ops import rope\ndef f():\n    import mla_tpu\nimport mla_tpu_torch\n"
+    src = ("import jax.numpy as jnp\nfrom mla_tpu.ops import rope\ndef f():\n    import mla_tpu\nimport mla_tpu_torch\n"
+           "def g():\n    from PIL import Image\nimport tensorflow_datasets as tfds\nimport google.protobuf\n"
+           "import google\nimport PILlow\n")
     tmp = ROOT / "build" / "_import_probe.py"
     tmp.parent.mkdir(exist_ok=True)
     tmp.write_text(src)
     try:
-        assert [n for n in _imports(tmp) if _forbidden(n)] == ["jax.numpy", "mla_tpu.ops", "mla_tpu"]
+        assert sorted(n for n in _imports(tmp) if _forbidden(n)) == sorted(
+            ["jax.numpy", "mla_tpu.ops", "mla_tpu", "PIL", "tensorflow_datasets", "google.protobuf"])
     finally:
         tmp.unlink()

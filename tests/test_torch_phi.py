@@ -195,9 +195,10 @@ def test_partial_rope_matches_jax():
 @pytest.mark.parametrize("head_dim,kernel", [(32, False), (64, True), (80, False), (96, False), (128, True),
                                              (256, False)])
 def test_sdpa_routing_predicate(monkeypatch, head_dim, kernel):
-    """JAX's shape rule: head_dim 64 and 128 go to the flash kernel, any
-    other to the reference; a CPU tensor always takes the reference."""
-    assert tattn.flash_fits(head_dim) is kernel
+    """JAX's shape rule: head_dim 64 and 128 go to the flash kernel (at S =
+    256), any other to the reference; a CPU tensor always takes the
+    reference."""
+    assert tattn.flash_fits(256, head_dim) is kernel
     monkeypatch.setattr(tattn, "flash_attention", lambda *a, **k: pytest.fail("the CPU took the flash kernel"))
     q = torch.from_numpy(_rand((1, 2, 5, head_dim), head_dim))
     np.testing.assert_array_equal(_np(tattn.sdpa(q, q, q)), _np(tattn.sdpa_reference(q, q, q)))

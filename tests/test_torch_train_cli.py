@@ -154,11 +154,12 @@ def test_ar_loss_mode_trains_lm_head(tmp_path):
 
 @pytest.mark.parametrize("extra,err,match", [
     (["--bogus_flag", "1"], ValueError, "unknown override --bogus_flag"),
-    (["--dp", "2"], NotImplementedError, "item 5"),
-    (["--tp", "2"], NotImplementedError, "item 5"),
-    (["--vlm_stage", "align"], NotImplementedError, "item 6"),
-    (["--data_root_dir", "/data/rlds"], NotImplementedError, "item 6"),
-    (["--hf_llama_dir", "/hf"], NotImplementedError, "item 6"),
+    (["--dp", "2"], NotImplementedError, "item 7"),
+    (["--tp", "2"], NotImplementedError, "item 7"),
+    (["--vlm_stage", "align"], NotImplementedError, "item 5"),
+    # a data root is read now: one without the mix's dataset is refused
+    (["--data_root_dir", "{tmp}/no_data"], FileNotFoundError, "no dataset directory"),
+    (["--hf_llama_dir", "/hf"], NotImplementedError, "item 4"),
     # a JAX orbax run dir: the port cannot read it without JAX
     (["--pretrained_checkpoint", "{tmp}/orbax_run"], ValueError, "export_reference_pt"),
 ], ids=["unknown-flag", "dp", "tp", "vlm-stage", "data-root", "hf-llama-dir", "pretrained"])

@@ -40,9 +40,12 @@ Phases, each of which fails the run if it fails:
                   the mla-2b training shapes (BH 256, S 563, and S 819 of
                   the post-training step, a ragged last tile of 51 rows)
                   and the trainer's (BH 256, S 547, a 35-key tail; BH 64,
-                  S 529 of its AR loss mode, a 17-key tail), with and
-                  without a padded key tail, o and lse at every valid row,
-                  the check rejecting the forward control without padding;
+                  S 529 of its AR loss mode, a 17-key tail), the data
+                  phase's (BH 256, S 979) and the VLM stage's (BH 512, S
+                  1025, one key in the last tile; S 512, no ragged tile),
+                  with and without a padded key tail, o and lse at every
+                  valid row, the check rejecting the forward control
+                  without padding wherever S has a ragged tile;
                   the flash backward (dQ, dK/dV) at the four training
                   shapes, with and without a padded key tail, each
                   gradient row within a bf16 tolerance of its own norm,
@@ -221,6 +224,41 @@ Phases, each of which fails the run if it fails:
                   step ms, tokens/s, MFU, peak GiB and the loop's data wait
                   per step. The flash forward, dQ and dK/dV are held at its
                   BH 256 / S 979 in the kernels phase.
+ 17. vlm-agree    one vlm-finetune AdamW step of the bf16 `mla-small` in its
+                  VLM config (no point, tactile, contrastive or diffusion
+                  parts) on the card and on the CPU from the same weights
+                  and batch: two multimodal rows of the synthetic finetune
+                  data through the LM collator (32 ids, S = 545, the flash
+                  route); loss and grad_norm within TRAIN_AGREE_RTOL, the
+                  flash_bwd control must miss grad_norm.
+     hf-vlm       training from public-layout weights: a directory in
+                  meta-llama/Llama-2-7b-hf's layout (its config.json widths,
+                  32 layers, model.safetensors.index.json, two float16
+                  shards, 13.5 GB) written by the port's own safetensors
+                  writer from seeded values (write s and GB/s); then
+                  `python -m mla_tpu_torch.train --vlm_stage align --model
+                  mla-2b --hf_llama_dir DIR --global_batch_size 16
+                  --max_steps 4` through train.main: the decoder equal bit
+                  for bit to the files' first 8 layers cast to bf16, the 64
+                  mean rows of the padded vocabulary included (numpy's
+                  float16 means, as the JAX converter takes them), the
+                  vision tower equal to the seeded init's, the projector
+                  moved; then --vlm_stage finetune, 4 steps: the decoder's
+                  weights moved, the tower unchanged. Each run has a
+                  language-only batch and a multimodal one past the first
+                  step. Exact launches of every step (flash forward 2L,
+                  dQ L, dK/dV L; L forwards and no backward for a
+                  language-only align step, which reaches no trained leaf;
+                  FPS, W8A8 and int8_matmul 0), finite losses, the last
+                  step of each kind's ms, tokens/s and MFU, peak GiB, the
+                  load's seconds and the bytes it read against the
+                  directory's; then, on each run's final state, a
+                  multimodal and a language-only batch timed apart: the
+                  host's batch, and the step to a synchronize (median of
+                  3). The flash
+                  kernels are held at the stage's BH 512 / S 1025
+                  (multimodal) and S 512 (language-only) in the kernels
+                  phase. The fixture and the runs are removed at the end.
 
 The second-to-last line of output is a JSON object with each kernel's
 numbers, each row naming its path and, for the flash kernels, its shape
@@ -229,8 +267,10 @@ flash forward and FPS, timed at its bucket-4 shapes: one layer's W8A8 at
 M = 2136 and 72, flash at BH 128 / S 534, FPS at B = 4; on the trainer's
 first run for dQ and dK/dV, timed at its diffusion micro-batch, BH 256 at
 S 547; on the AR serving path for the weight-only int8 product, timed at
-its serving shapes; and on the data phase's trainer run for the flash
-forward, dQ and dK/dV, timed at BH 256 / S 979; the other paths' counts
+its serving shapes; on the data phase's trainer run for the flash
+forward, dQ and dK/dV, timed at BH 256 / S 979; and on the hf-vlm phase's
+align and finetune runs for the same three, timed at BH 512 / S 1025;
+the other paths' counts
 are in the log and in chip_smoke.json); an earlier line says whether
 tensorflow, tensorflow_datasets, protobuf and Pillow are installed; the
 last is
@@ -516,12 +556,22 @@ TRAINER_S, TRAINER_AR_S = 547, 529
 # the fused block of 256 point, 256 front, 256 wrist and 1 tactile tokens,
 # the 18-token diffusion block; 2 rows x 4 repeats x 32 heads
 DATA_S, DATA_BH = 192 + 769 + 18, 2 * 4 * 32
+# the hf-vlm phase's VLM stage on mla-2b: 16 rows, the LM collator's 512
+# ids (--vlm_max_length's default) with the 513-token fused block spliced
+# after BOS (multimodal batches), or the 512 ids alone (language-only)
+VLM_ROWS, VLM_MAX_LENGTH = 16, 512
+VLM_S, VLM_LANG_S, VLM_BH = VLM_MAX_LENGTH + 513, VLM_MAX_LENGTH, VLM_ROWS * 32
 FLASH_SHAPES = ((32, PREFIX_LEN, "serving prefill"), (2 * 32, PREFIX_LEN, "serving host bucket 2"),
                 (4 * 32, PREFIX_LEN, "serving host bucket 4"), (8 * 32, 563, "training"),
                 (8 * 32, 819, "post-training"), (8 * 32, TRAINER_S, "trainer"),
-                (2 * 32, TRAINER_AR_S, "trainer AR mode"), (DATA_BH, DATA_S, "data trainer"))
-# the shapes the kernels line times: the serving host's, and the data phase's
-FLASH_ROW_SHAPES = {"serving host bucket 4": "serve-host", "data trainer": "data"}
+                (2 * 32, TRAINER_AR_S, "trainer AR mode"), (DATA_BH, DATA_S, "data trainer"),
+                (VLM_BH, VLM_S, "hf-vlm"), (VLM_BH, VLM_LANG_S, "hf-vlm language-only"))
+# the shapes the kernels line times: the serving host's, the data phase's
+# and the VLM stage's multimodal batch
+FLASH_ROW_SHAPES = {"serving host bucket 4": "serve-host", "data trainer": "data", "hf-vlm": "hf-vlm"}
+# the controls drop the last, ragged tile of 64 keys (queries): at a length
+# that is a multiple of 64 there is none, and a control is the kernel itself
+FLASH_TILE = 64
 
 
 def graph_ms(torch, fn, reps: int = 20, windows: int = 3, stream=None) -> float:
@@ -566,7 +616,8 @@ def check_flash(torch, report, control):
     """The flash forward at FLASH_SHAPES, with and without a padded 40-key
     tail: o within FLASH_ATOL and lse within
     FLASH_LSE_ATOL of the plain version at valid rows; the control (its
-    last, ragged key tile dropped) must miss that check without padding.
+    last, ragged key tile dropped) must miss that check without padding
+    wherever S has a ragged tile.
     Times kernel (CUDA graph), plain version, SDPA and the bound. Returns
     the kernels-line rows of FLASH_ROW_SHAPES."""
     import torch.nn.functional as F
@@ -599,7 +650,7 @@ def check_flash(torch, report, control):
             if not (e <= FLASH_ATOL and e_lse <= FLASH_LSE_ATOL):
                 raise AssertionError(f"flash fwd BH={BH} S={S} ({case}): max |o - plain| {e} (tol {FLASH_ATOL}), "
                                      f"max |lse - plain| {e_lse} (tol {FLASH_LSE_ATOL})")
-            if case == "no padding" and ec <= FLASH_ATOL and ec_lse <= FLASH_LSE_ATOL:
+            if case == "no padding" and S % FLASH_TILE and ec <= FLASH_ATOL and ec_lse <= FLASH_LSE_ATOL:
                 raise AssertionError(f"flash fwd BH={BH} S={S}: the check passes the control ({ec}, lse {ec_lse})")
             err = max(err, e)
             readings[f"BH={BH} S={S}, {case}"] = {"o": e, "lse": e_lse, "control_o": ec, "control_lse": ec_lse}
@@ -743,8 +794,9 @@ def bwd_calls(cuda, ptrs, dq, dk, dv, BH, S, hd):
 def check_flash_bwd(torch, report, control):
     """The flash backward at the training shapes of every training path
     (flash_bwd_at); returns the kernel-table rows of the trainer's
-    diffusion micro-batch, BH 256 at S = 547, and of the data phase's, BH
-    256 at DATA_S."""
+    diffusion micro-batch, BH 256 at S = 547, of the data phase's, BH 256
+    at DATA_S, and of the hf-vlm phase's multimodal batch, VLM_BH at
+    VLM_S."""
     flash_bwd_at(torch, report, control, TRAIN_BH, TRAIN_S, "training")
     flash_bwd_at(torch, report, control, TRAIN_BH, POST_S, "post-training")
     rows = flash_bwd_at(torch, report, control, TRAIN_BH, TRAINER_S, "trainer")
@@ -752,14 +804,19 @@ def check_flash_bwd(torch, report, control):
     data_rows = flash_bwd_at(torch, report, control, DATA_BH, DATA_S, "data trainer")
     for row in data_rows:
         row["path"] = "data"
-    return rows + data_rows
+    vlm_rows = flash_bwd_at(torch, report, control, VLM_BH, VLM_S, "hf-vlm")
+    for row in vlm_rows:
+        row["path"] = "hf-vlm"
+    flash_bwd_at(torch, report, control, VLM_BH, VLM_LANG_S, "hf-vlm language-only")
+    return rows + data_rows + vlm_rows
 
 
 def flash_bwd_at(torch, report, control, BH, S, what):
     """dQ and dK/dV kernels at BH heads of sequence S, with and without a
     padded key tail: every gradient row within FLASH_BWD_ROW_RTOL of the
     plain version's, bit-identical over two launches; the control
-    library must exceed the tolerance in each gradient. Times the kernels
+    library must exceed the tolerance in each gradient wherever S has a
+    ragged tile. Times the kernels
     (CUDA graph), the plain versions, SDPA's backward and the bound."""
     import torch.nn.functional as F
 
@@ -802,7 +859,7 @@ def flash_bwd_at(torch, report, control, BH, S, what):
             readings["control"][f"{name}, {case}"] = rel_c
     for name in ("dq", "dk", "dv"):
         worst = max(readings["control"][f"{name}, {case}"] for case in ("no padding", "padded tail"))
-        if not worst > FLASH_BWD_ROW_RTOL:
+        if S % FLASH_TILE and not worst > FLASH_BWD_ROW_RTOL:
             raise AssertionError(f"flash bwd {name} BH={BH} S={S}: the check passes the control ({worst} <= "
                                  f"{FLASH_BWD_ROW_RTOL})")
     report.setdefault("flash_bwd_rows", {})[f"BH={BH} S={S}"] = readings
@@ -3257,6 +3314,328 @@ def data(torch, report):
     return totals
 
 
+HF_ROOT = Path("build") / "chip_smoke_hf"
+HF_RUNS = Path("build") / "chip_smoke_hf_runs"
+# meta-llama/Llama-2-7b-hf's published config.json (its widths and the
+# float16 of its files); the fixture writes this layout from seeded values
+HF_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "bos_token_id": 1, "eos_token_id": 2, "hidden_act": "silu",
+    "hidden_size": 4096, "initializer_range": 0.02, "intermediate_size": 11008, "max_position_embeddings": 4096,
+    "model_type": "llama", "num_attention_heads": 32, "num_hidden_layers": 32, "num_key_value_heads": 32,
+    "pretraining_tp": 1, "rms_norm_eps": 1e-05, "rope_scaling": None, "tie_word_embeddings": False,
+    "torch_dtype": "float16", "transformers_version": "4.31.0.dev0", "use_cache": True, "vocab_size": 32000,
+}
+HF_SHARDS = 2
+# 4 steps: the 12 synthetic examples make one multimodal and one
+# language-only batch an epoch, so the second epoch's multimodal batch gives
+# a step time past the first step's warm-up
+VLM_STEPS = 4
+VLM_KERNELS = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "furthest_point_sample",
+               "w8a8_matmul", "int8_matmul")
+
+
+def hf_layer_shapes(c) -> dict:
+    """{HF name suffix: shape} of one Llama decoder layer of config `c`."""
+    D, I = c["hidden_size"], c["intermediate_size"]
+    return {"self_attn.q_proj.weight": (D, D), "self_attn.k_proj.weight": (D, D), "self_attn.v_proj.weight": (D, D),
+            "self_attn.o_proj.weight": (D, D), "mlp.gate_proj.weight": (I, D), "mlp.up_proj.weight": (I, D),
+            "mlp.down_proj.weight": (D, I), "input_layernorm.weight": (D,), "post_attention_layernorm.weight": (D,)}
+
+
+def hf_fixture(torch, root: Path, seed: int) -> dict:
+    """A directory in meta-llama/Llama-2-7b-hf's layout: config.json,
+    model.safetensors.index.json and HF_SHARDS float16 shards written by
+    the port's save_file, from values drawn on the card (normal(0, 0.02)
+    weights, norm scales 1 + normal(0, 0.02)). -> {write_s, gb, files}."""
+    from mla_tpu_torch.models.safetensors_io import save_file
+
+    c = HF_CONFIG
+    L = c["num_hidden_layers"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(shape, norm=False):
+        t = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float16) * 0.02
+        return (t + 1 if norm else t).cpu()
+
+    root.mkdir(parents=True)
+    (root / "config.json").write_text(json.dumps(c, indent=2))
+    per = -(-L // HF_SHARDS)
+    weight_map, total, write_s = {}, 0, 0.0
+    for shard in range(HF_SHARDS):
+        name = f"model-{shard + 1:05d}-of-{HF_SHARDS:05d}.safetensors"
+        tensors = {}
+        if shard == 0:
+            tensors["model.embed_tokens.weight"] = draw((c["vocab_size"], c["hidden_size"]))
+        for i in range(shard * per, min(L, (shard + 1) * per)):
+            for suffix, shape in hf_layer_shapes(c).items():
+                tensors[f"model.layers.{i}.{suffix}"] = draw(shape, norm=suffix.endswith("layernorm.weight"))
+        if shard == HF_SHARDS - 1:
+            tensors["model.norm.weight"] = draw((c["hidden_size"],), norm=True)
+            tensors["lm_head.weight"] = draw((c["vocab_size"], c["hidden_size"]))
+        t0 = time.perf_counter()
+        save_file(tensors, root / name, metadata={"format": "pt"})
+        write_s += time.perf_counter() - t0
+        weight_map.update({k: name for k in tensors})
+        total += sum(t.numel() * 2 for t in tensors.values())
+        del tensors
+    (root / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": dict(sorted(weight_map.items()))}, indent=2))
+    return {"write_s": write_s, "gb": total / 1e9, "files": sorted(p.name for p in root.iterdir())}
+
+
+def hf_expected_decoder(torch, root: Path, cfg) -> dict:
+    """The decoder the port must load from `root`: each file tensor (read
+    with safetensors_io) of the first cfg.llama.num_layers layers,
+    transposed to [in, out] and stacked, cast to cfg.llama.param_dtype on
+    the card; the vocabulary padded with the mean rows as the JAX
+    converter computes them (np.mean of the float16 arrays, rounded to
+    float16). -> {path: tensor}."""
+    import numpy as np
+
+    from mla_tpu_torch.models.safetensors_io import SafetensorsFile
+
+    files = [SafetensorsFile(f) for f in sorted(root.glob("*.safetensors"))]
+    where = {k: f for f in files for k in f.keys()}
+    dt, L, V = cfg.llama.param_dtype, cfg.llama.num_layers, cfg.llama.vocab_size
+
+    def get(k):
+        return where[k].get_tensor(k)
+
+    def stack(suffix, t=True):
+        return torch.stack([(get(f"model.layers.{i}.{suffix}").t() if t else get(f"model.layers.{i}.{suffix}"))
+                            .to("cuda") for i in range(L)]).to(dt)
+
+    emb = get("model.embed_tokens.weight").numpy()
+    head = get("lm_head.weight").numpy()
+    n_new = V - emb.shape[0]
+    emb_pad = np.concatenate([emb, np.tile(emb.mean(axis=0, keepdims=True), (n_new, 1))], axis=0)
+    head_pad = np.concatenate([head.T, np.tile(head.T.mean(axis=1, keepdims=True), (1, n_new))], axis=1)
+    out = {"embed/table": torch.from_numpy(emb_pad).to("cuda").to(dt),
+           "lm_head/w": torch.from_numpy(np.ascontiguousarray(head_pad)).to("cuda").to(dt),
+           "final_ln/scale": get("model.norm.weight").to("cuda").to(dt),
+           "layers/input_ln/scale": stack("input_layernorm.weight", t=False),
+           "layers/post_ln/scale": stack("post_attention_layernorm.weight", t=False)}
+    for group, names in (("attn", ("q", "k", "v", "o")), ("mlp", ("gate", "up", "down"))):
+        for n in names:
+            hf = f"self_attn.{n}_proj.weight" if group == "attn" else f"mlp.{n}_proj.weight"
+            out[f"layers/{group}/{n}/w"] = stack(hf)
+    return out
+
+
+def vlm_counts(cfg, multimodal, llm_trained: bool) -> dict:
+    """The kernel launches of VLM steps, one per entry of `multimodal`: a
+    step whose loss reaches a trained leaf runs the forward twice (remat)
+    and the backward once per layer; a language-only align step reaches
+    none, so it runs the forward once and no backward."""
+    L = cfg.llama.num_layers
+    out = dict.fromkeys(VLM_KERNELS, 0)
+    for mm in multimodal:
+        backward = llm_trained or mm
+        out["flash_attention"] += (2 if backward else 1) * L
+        out["flash_attention_bwd_dq"] += L if backward else 0
+        out["flash_attention_bwd_dkv"] += L if backward else 0
+    return out
+
+
+def check_vlm_agreement(torch, report, control):
+    """One vlm-finetune AdamW step of the bf16 mla-small (the VLM config:
+    no point, tactile, contrastive or diffusion parts) on the card and on
+    the CPU from the same weights and batch: two multimodal rows of the
+    synthetic finetune data, 32 collated ids, S = 32 + 513 = 545, so the
+    flash kernels run on the card. Loss and grad_norm within
+    TRAIN_AGREE_RTOL; the flash_bwd control must miss grad_norm."""
+    from mla_tpu_torch.conf.datasets import get_dataset_config
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.train import vlm_model_batch
+    from mla_tpu_torch.vla.tokenizer import SimpleTokenizer
+    from mla_tpu_torch.vla.vlm_datasets import get_vlm_dataset_and_collator
+
+    cfg = get_model_config("mla-small", use_diff=False, use_pointcloud=False, use_tactile=False,
+                           use_contrastive=False, use_generation=False)
+    ds, collator = get_vlm_dataset_and_collator("finetune", get_dataset_config("llava-v15"), None, SimpleTokenizer(),
+                                                image_size=cfg.vision.image_size, max_length=32)
+    batch = vlm_model_batch(collator([ds[0], ds[1]]))
+    S = batch["input_ids"].shape[1] + cfg.fused_len
+    out = agreement_steps(torch, control, cfg, batch, ("total_loss", "ar_loss", "grad_norm"),
+                          f"vlm-agree vlm-finetune mla-small bf16 B=2 S={S}", stage="vlm-finetune")
+
+    def rel(dev):
+        return {k: abs(out[dev][k] - out["cpu"][k]) / abs(out["cpu"][k]) for k in ("total_loss", "grad_norm")}
+
+    sound, ctrl = rel("cuda"), rel("control")
+    log(f"vlm-agree: relative |gpu - cpu| loss {sound['total_loss']:.4e}, grad_norm {sound['grad_norm']:.4e} "
+        f"(tol {TRAIN_AGREE_RTOL}); control grad_norm {ctrl['grad_norm']:.4e}")
+    report["vlm_agree"] = {**out, "S": S, "rel_err": sound, "control_rel_err": ctrl, "rtol": TRAIN_AGREE_RTOL}
+    if S < 256:
+        raise AssertionError(f"vlm-agree: S = {S} does not take the flash route")
+    if not all(v <= TRAIN_AGREE_RTOL for v in sound.values()):
+        raise AssertionError(f"vlm-agree: GPU and CPU steps disagree: {sound}")
+    if not ctrl["grad_norm"] > TRAIN_AGREE_RTOL:
+        raise AssertionError(f"vlm-agree passes the control: grad_norm off by {ctrl['grad_norm']}")
+
+
+def _vlm_run(torch, train, stage: str, extra=()):
+    """train.main(--vlm_stage stage) on mla-2b from HF_ROOT: the run's
+    output, its kernel launches and its seconds."""
+    from mla_tpu_torch.ops import cuda
+
+    args = ["--vlm_stage", stage, "--model", "mla-2b", "--hf_llama_dir", str(HF_ROOT), "--global_batch_size",
+            str(VLM_ROWS), "--max_steps", str(VLM_STEPS), "--run_root_dir", str(HF_RUNS), "--run_id", stage, *extra]
+    torch.cuda.reset_peak_memory_stats()
+    cuda.launches.clear()
+    t0 = time.perf_counter()
+    out = train.main(args)
+    torch.cuda.synchronize()
+    return out, {k: cuda.launches[k] for k in VLM_KERNELS}, time.perf_counter() - t0
+
+
+def vlm_step_split(torch, out, stage: str, peak_flops) -> dict:
+    """Where a VLM step's time goes, on a run's final state: for a
+    multimodal and a language-only batch of VLM_ROWS rows (the synthetic
+    examples of that kind cycled, as the sampler pads a batch), the host's
+    batch (items, collator, vlm_model_batch) and then the step from its
+    first launch to a synchronize, each the median of 3, with the step's
+    tokens/s and MFU (6N). The trainer's own clock runs from one step's
+    commit to the next and does not wait for the card, so it mixes the
+    two. These steps go on training the run's state."""
+    import numpy as np
+
+    from mla_tpu_torch.conf.datasets import get_dataset_config
+    from mla_tpu_torch.diffusion import gaussian as gd
+    from mla_tpu_torch.train import vlm_model_batch
+    from mla_tpu_torch.training import strategy
+    from mla_tpu_torch.vla.tokenizer import SimpleTokenizer
+    from mla_tpu_torch.vla.vlm_datasets import get_vlm_dataset_and_collator
+
+    cfg, state = out["cfg"], out["state"]
+    ds, collator = get_vlm_dataset_and_collator(stage, get_dataset_config("llava-v15"), None, SimpleTokenizer(),
+                                                image_size=cfg.vision.image_size, max_length=VLM_MAX_LENGTH)
+    step = strategy.make_train_step(cfg, strategy.TrainConfig(repeated_diffusion_steps=1, stage=f"vlm-{stage}"),
+                                    state["optimizer"], gd.create_schedule("", diffusion_steps=100))
+    split = {}
+    for kind, S in (("multimodal", VLM_S), ("language-only", VLM_LANG_S)):
+        rows = [i for i, ex in enumerate(ds.examples) if ("image" in ex) == (kind == "multimodal")]
+        rows = (rows * VLM_ROWS)[:VLM_ROWS]
+        host, dev = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            batch = vlm_model_batch(collator([ds[i] for i in rows]))
+            t1 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            host.append((t1 - t0) * 1e3)
+            dev.append((time.perf_counter() - t1) * 1e3)
+        ms = float(np.median(dev))
+        tok_s = VLM_ROWS * S / (ms / 1e3)
+        split[kind] = {"host_batch_ms": float(np.median(host)), "step_ms": ms, "tokens_per_s": tok_s,
+                       "mfu": tok_s * out["metrics"].flops_per_token / peak_flops if peak_flops else None}
+    return split
+
+
+def hf_vlm(torch, report):
+    """Training from public-layout weights: the HF fixture (hf_fixture, the
+    full Llama-2-7b-hf layout), then `python -m mla_tpu_torch.train
+    --vlm_stage align --model mla-2b --hf_llama_dir` (VLM_ROWS rows,
+    VLM_STEPS steps): the decoder equal to the files' first 8 layers cast
+    to bf16, the mean rows included, bit for bit (the decoder is frozen in
+    align, so the run's last state shows the load); the vision tower
+    unchanged and the projector moved; then --vlm_stage finetune: the
+    decoder's weights moved, the tower unchanged. Each run has a
+    language-only batch and a multimodal one past the first step. Exact
+    launches per step; the last step of each kind: ms, tokens/s, MFU; peak
+    GiB, the load's seconds and bytes; then vlm_step_split. Returns the
+    launches of both runs."""
+    import numpy as np
+
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch import train
+    from mla_tpu_torch.training import metrics
+
+    rep = {}
+    for d in (HF_ROOT, HF_RUNS):
+        shutil.rmtree(d, ignore_errors=True)
+    totals = dict.fromkeys(VLM_KERNELS, 0)
+    try:
+        rep["fixture"] = hf_fixture(torch, HF_ROOT, 71)
+        fx = rep["fixture"]
+        log(f"hf-vlm: a Llama-2-7b-hf layout ({HF_CONFIG['num_hidden_layers']} layers, float16, {HF_SHARDS} shards, "
+            f"{fx['files']}) written by the port's save_file: {fx['gb']:.2f} GB in {fx['write_s']:.1f} s, "
+            f"{fx['gb'] / fx['write_s']:.2f} GB/s (the writes, through the page cache)")
+        peak_flops = metrics.bf16_peak_flops(torch.cuda.get_device_name(0))
+        for stage in ("align", "finetune"):
+            out, launches, run_s = _vlm_run(torch, train, stage)
+            cfg, params, load = out["cfg"], out["state"]["params"], out["hf_load"]
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            mm = out["multimodal"]
+            expected = vlm_counts(cfg, mm, llm_trained=stage == "finetune")
+            if launches != expected:
+                raise AssertionError(f"hf-vlm {stage}: launches {launches} over steps {mm} (multimodal?), expected "
+                                     f"{expected}")
+            for k in VLM_KERNELS:
+                totals[k] += launches[k]
+            losses = list(out["metrics"].windows["ar_loss"])
+            if not (len(losses) == VLM_STEPS and np.isfinite(losses).all()):
+                raise AssertionError(f"hf-vlm {stage}: losses {losses}")
+            if False not in mm or True not in mm[1:]:
+                raise AssertionError(f"hf-vlm {stage}: steps {mm} (multimodal?) lack a language-only batch or a "
+                                     "multimodal one past the first step")
+            step_s = list(out["metrics"].windows["step_time"])
+            # the last step of each kind (the first step is the warm-up): ms,
+            # tokens/s and MFU (the trainer's 6N a token) at its S
+            by_kind = {}
+            for kind, S in (("multimodal", VLM_S), ("language-only", VLM_LANG_S)):
+                i = max(j for j, m in enumerate(mm) if m == (kind == "multimodal"))
+                tok_s = VLM_ROWS * S / step_s[i]
+                by_kind[kind] = {"step": i, "S": S, "ms": step_s[i] * 1e3, "tokens_per_s": tok_s,
+                                 "mfu": tok_s * out["metrics"].flops_per_token / peak_flops if peak_flops else None}
+            # the decoder against the files, the tower and projector against the seeded init
+            want = hf_expected_decoder(torch, HF_ROOT, cfg)
+            llm = dict(P.tree_items(params["llm_backbone"]))
+            differ = [k for k, w in want.items() if llm[k].dtype != w.dtype or not torch.equal(llm[k], w)]
+            init, _ = P.init(cfg, seed=7, device="cuda")  # train_vlm's default seed
+            tower_same = all(torch.equal(a, b) for (_, a), (_, b) in zip(P.tree_items(params["vision_tower_2d"]),
+                                                                         P.tree_items(init["vision_tower_2d"])))
+            proj_moved = any(not torch.equal(a, b) for (_, a), (_, b) in zip(P.tree_items(params["projector_2d"]),
+                                                                             P.tree_items(init["projector_2d"])))
+            del init, want
+            pad_rows = cfg.llama.vocab_size - HF_CONFIG["vocab_size"]
+            steps_line = ", ".join(
+                f"{k} (step {v['step']}, S = {v['S']}) {v['ms']:.1f} ms, {v['tokens_per_s']:.0f} tokens/s, MFU "
+                f"{v['mfu'] if v['mfu'] is None else round(v['mfu'], 4)}" for k, v in by_kind.items())
+            log(f"hf-vlm {stage} mla-2b ({gpu_line()}): run {run_s:.1f} s; the HF load {load['seconds']:.1f} s, "
+                f"{load['bytes_read'] / 1e9:.2f} GB of tensors read of the directory's {load['dir_bytes'] / 1e9:.2f} "
+                f"GB; steps {['multimodal' if m else 'language-only' for m in mm]}, ar losses {losses}, step ms "
+                f"{[round(t * 1e3, 1) for t in step_s]}; the last {steps_line}; peak {peak_gib:.2f} GiB; launches "
+                f"{launches}; decoder leaves differing from the files' {differ or 'none'} ({len(llm)} leaves, "
+                f"{pad_rows} mean rows); vision tower unchanged {tower_same}, projector moved {proj_moved}")
+            if stage == "align" and differ:
+                raise AssertionError(f"hf-vlm align: the decoder differs from the files in {differ}")
+            # finetune moves every weight matrix; a bf16 norm scale near 1
+            # (a step of 2^-7) may stay put under updates of lr 2e-5
+            stayed = sorted(k for k in set(llm) - set(differ) if not k.endswith("/scale"))
+            if stage == "finetune" and stayed:
+                raise AssertionError(f"hf-vlm finetune: decoder weights unchanged from the files: {stayed}")
+            if not tower_same or not proj_moved:
+                raise AssertionError(f"hf-vlm {stage}: vision tower unchanged {tower_same}, projector moved "
+                                     f"{proj_moved}")
+            split = vlm_step_split(torch, out, stage, peak_flops)
+            log(f"hf-vlm {stage}: the host's batch, then the step to a synchronize (median of 3): " + ", ".join(
+                f"{k} {v['host_batch_ms']:.1f} ms + {v['step_ms']:.1f} ms ({v['tokens_per_s']:.0f} tokens/s, MFU "
+                f"{v['mfu'] if v['mfu'] is None else round(v['mfu'], 4)})" for k, v in split.items()))
+            rep[stage] = {"run_s": run_s, "hf_load": load, "multimodal": mm, "losses": losses, "steps": by_kind,
+                          "split": split, "peak_gib": peak_gib, "step_times_s": step_s, "launches": launches,
+                          "expected": expected, "decoder_leaves_differing": differ, "pad_rows": pad_rows}
+            del out, params
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        gc.collect()
+        for d in (HF_ROOT, HF_RUNS):
+            shutil.rmtree(d, ignore_errors=True)
+    report["hf_vlm"] = rep
+    return totals
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.")
     parser.add_argument("--parent", help="a directory holding another version of flash_fwd.cu, flash_bwd.cu, "
@@ -3366,14 +3745,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     data_totals = data(torch, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_vlm_agreement(torch, report, libs["flash_bwd"])
+    hf_totals = hf_vlm(torch, report)
     report["serve_launches"], report["ar_serve_launches"], report["train_launches"] = totals, ar_totals, train_totals
     report["serve_host_launches"], report["data_launches"] = host_totals, data_totals
+    report["hf_vlm_launches"] = hf_totals
     # launches, by each row's path: the serving host's client runs for the
     # kernels it runs (W8A8, flash forward, FPS); the trainer's run for the
     # backward kernels; the AR serving path for int8_matmul; the data
-    # phase's trainer run for the flash kernels at its shape
+    # phase's trainer run and the hf-vlm phase's align and finetune runs
+    # for the flash kernels at their shapes
     kernels += train_kernels
-    by_path = {"serve-host": host_totals, "ar-serve": ar_totals, "trainer": trainer_totals, "data": data_totals}
+    by_path = {"serve-host": host_totals, "ar-serve": ar_totals, "trainer": trainer_totals, "data": data_totals,
+               "hf-vlm": hf_totals}
     for k in kernels:
         k.setdefault("path", "serve-host" if k["name"] in host_totals else
                      "ar-serve" if k["name"] == "int8_matmul" else "trainer")

@@ -12,21 +12,24 @@ module-keyed {"model": {"llm_backbone": {...}, "vision_tower_2d": {...},
 
 Import (`convert_*`, `load_reference_checkpoint`): torch tensors in,
 tensors out, each leaf in its source dtype (JAX widens bf16 to fp32 here and
-casts to the model's param dtype after, which gives the same values; the
-vocabulary padding means are taken in fp32 as in JAX). A state dict is read
-through `_OnDevice`, so every leaf is moved to the target device as it is
-converted and a full-width decoder is stacked there, never on the host.
+casts to the model's param dtype after, which gives the same values). A
+state dict is read through `_OnDevice`, so every leaf is moved to the target
+device as it is converted and a full-width decoder is stacked there, never
+on the host.
 Export (`export_*`): our (params, state) -> fp32 numpy state dicts, which
 training/checkpointing.export_reference_pt saves with torch.save; it is the
-one checkpoint format both packages write and read. The HF loaders
-(`load_hf_llama`, `merge_hf_shards`, `load_openvla`, `load_base_llm`) are
-not ported: they need checkpoint files the repository does not have.
+one checkpoint format both packages write and read. HF directories
+(`merge_hf_shards`, `load_hf_llama`; `convert_mistral`, `convert_phi`) are
+read through models/safetensors_io, without the safetensors package, and
+lazily; the vocabulary is padded with the mean rows JAX computes (np.mean
+on the host in the source dtype), bit for bit.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Any, Dict, Optional, Tuple
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,11 +114,40 @@ def _decoder_layer(sd, prefix: str) -> Dict[str, Any]:
     }
 
 
+def _host(x: torch.Tensor) -> np.ndarray:
+    """A leaf as the JAX converter holds it: a C-ordered numpy array on the
+    host, bf16 widened to fp32 (numpy has no bf16), other dtypes kept."""
+    x = x.detach().cpu()
+    return np.ascontiguousarray((x.float() if x.dtype == torch.bfloat16 else x).numpy())
+
+
+def _pad_rows(table: torch.Tensor, head_w: torch.Tensor, head_b: Optional[torch.Tensor], n_new: int):
+    """(table, head_w, head_b) with `n_new` rows (columns of head_w [D, V],
+    entries of head_b) appended, each the mean of the existing ones. The
+    means are the JAX converter's, bit for bit: np.mean on the host over the
+    same layouts ([V, D] tables, the transposed view of the lm_head weight),
+    in the source dtype (float16 means are float32 sums rounded to float16),
+    bf16 widened to fp32 first. A bf16 leaf that gets rows comes out fp32,
+    as JAX's does."""
+
+    def grow(x: torch.Tensor, mean: np.ndarray, dim: int) -> torch.Tensor:
+        m = torch.from_numpy(np.ascontiguousarray(mean)).to(x.device)
+        x = x.to(m.dtype)
+        return torch.cat([x, m.expand(*(n_new if d == dim else -1 for d in range(x.dim())))], dim)
+
+    table = grow(table, _host(table).mean(axis=0, keepdims=True), 0)
+    head_w = grow(head_w, _host(head_w.t()).T.mean(axis=1, keepdims=True), 1)
+    if head_b is not None:
+        b = _host(head_b)
+        head_b = grow(head_b, np.full((1,), b.mean(), b.dtype), 0)
+    return table, head_w, head_b
+
+
 def convert_llama(sd, num_layers: int, prefix: str = "llm.", target_vocab: Optional[int] = None) -> Dict[str, Any]:
     """The reference's LlamaForCausalLM (wrapped as `self.llm`) -> the
     stacked llama tree. `target_vocab` pads the embedding and lm_head rows
-    with their fp32 means, the reference's resize for <PAD>/<BOD>/<EOD> plus
-    the pad to 64 (the padded leaves then are fp32, as JAX's)."""
+    with their means, the reference's resize for <PAD>/<BOD>/<EOD> plus the
+    pad to 64 (`_pad_rows`: JAX's means, bit for bit)."""
 
     def k(s):
         return f"{prefix}{s}"
@@ -129,10 +161,7 @@ def convert_llama(sd, num_layers: int, prefix: str = "llm.", target_vocab: Optio
     embed_table = sd[k("model.embed_tokens.weight")]
     lm_head_w = _T(sd[k("lm_head.weight")])
     if target_vocab is not None and embed_table.shape[0] < target_vocab:
-        n_new = target_vocab - embed_table.shape[0]
-        embed_table, lm_head_w = embed_table.float(), lm_head_w.float()
-        embed_table = torch.cat([embed_table, embed_table.mean(0, keepdim=True).expand(n_new, -1)], 0)
-        lm_head_w = torch.cat([lm_head_w, lm_head_w.mean(1, keepdim=True).expand(-1, n_new)], 1)
+        embed_table, lm_head_w, _ = _pad_rows(embed_table, lm_head_w, None, target_vocab - embed_table.shape[0])
 
     return {
         "embed": {"table": embed_table},
@@ -154,6 +183,27 @@ def convert_llama(sd, num_layers: int, prefix: str = "llm.", target_vocab: Optio
         "final_ln": {"scale": sd[k("model.norm.weight")]},
         "lm_head": {"w": lm_head_w},
     }
+
+
+def convert_mistral(sd, num_layers: int, prefix: str = "llm.", target_vocab: Optional[int] = None) -> Dict[str, Any]:
+    """HF MistralForCausalLM -> the stacked llama tree. Mistral shares
+    Llama-2's key layout; only the shapes differ (GQA: k and v project to
+    num_kv_heads * head_dim)."""
+    return convert_llama(sd, num_layers, prefix=prefix, target_vocab=target_vocab)
+
+
+def convert_phi(sd, num_layers: int, prefix: str = "llm.", target_vocab: Optional[int] = None) -> Dict[str, Any]:
+    """HF PhiForCausalLM (the reference wraps it as `self.llm`) -> the
+    stacked phi tree, with convert_llama's mean padding of the vocabulary
+    (the lm_head bias too)."""
+    from mla_tpu_torch.models.phi import convert_hf_phi
+
+    params = convert_hf_phi(sd, num_layers, prefix=prefix)
+    table, head = params["embed"]["table"], params["lm_head"]
+    if target_vocab is not None and table.shape[0] < target_vocab:
+        params["embed"]["table"], head["w"], head["b"] = _pad_rows(table, head["w"], head["b"],
+                                                                   target_vocab - table.shape[0])
+    return params
 
 
 def convert_contrastive(sd, prefix: str = "llm.") -> Dict[str, Any]:
@@ -368,6 +418,78 @@ def load_reference_checkpoint(
         # state dict; recreate it
         params["z_embedder"] = {"uncondition": torch.zeros((1, cfg.token_size), device=device)}
     return params, state
+
+
+# --------------------------------------------------------------------------- #
+# Hugging Face checkpoint directories
+# --------------------------------------------------------------------------- #
+
+
+class LazyStateDict(Mapping):
+    """A state dict whose tensors are read when asked for: each value comes
+    from a loader, called on every access (a safetensors tensor over the
+    mapped file costs nothing until touched). `bytes_read` counts the
+    bytes of the tensors handed out, shared with the views `renamed`
+    makes."""
+
+    def __init__(self, loaders: Dict[str, Callable[[], torch.Tensor]], _count: Optional[list] = None) -> None:
+        self._loaders = loaders
+        self._count = _count if _count is not None else [0]
+
+    @property
+    def bytes_read(self) -> int:
+        return self._count[0]
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        t = self._loaders[key]()
+        self._count[0] += t.numel() * t.element_size()
+        return t
+
+    def __contains__(self, key) -> bool:
+        return key in self._loaders
+
+    def __iter__(self):
+        return iter(self._loaders)
+
+    def __len__(self) -> int:
+        return len(self._loaders)
+
+    def renamed(self, names: Dict[str, str]) -> "LazyStateDict":
+        """A view holding names[new] = old for each pair."""
+        return LazyStateDict({new: self._loaders[old] for new, old in names.items()}, self._count)
+
+
+def merge_hf_shards(model_dir, bin_globs=("*.bin", "*.pt")) -> LazyStateDict:
+    """An HF-style checkpoint directory as one flat state dict: its
+    *.safetensors shards in sorted order when there are any (read with
+    models/safetensors_io, no index file needed), else the torch-pickled
+    shards matching `bin_globs`, in order (mapped, weights only). A key in
+    a later shard replaces an earlier one, as JAX's dict update does. The
+    tensors are read lazily and come back in their file's dtype, so a
+    caller that converts 8 of 32 layers reads 8."""
+    from mla_tpu_torch.models.safetensors_io import SafetensorsFile
+
+    model_dir = Path(model_dir)
+    loaders: Dict[str, Callable[[], torch.Tensor]] = {}
+    st_files = sorted(model_dir.glob("*.safetensors"))
+    if st_files:
+        for path in st_files:
+            f = SafetensorsFile(path)
+            loaders.update({key: (lambda f=f, key=key: f.get_tensor(key)) for key in f.keys()})
+    else:
+        for pat in bin_globs:
+            for path in sorted(model_dir.glob(pat)):
+                sd = torch.load(str(path), map_location="cpu", mmap=True, weights_only=True)
+                loaders.update({key: (lambda t=t: t) for key, t in sd.items()})
+    return LazyStateDict(loaders)
+
+
+def load_hf_llama(model_dir, cfg, device="cpu") -> Dict[str, Any]:
+    """An HF Llama checkpoint directory (safetensors or pytorch_model*.bin)
+    -> the stacked llama tree on `device`, in the files' dtype, the
+    vocabulary padded to cfg.llama.vocab_size with the mean rows."""
+    sd = merge_hf_shards(model_dir, bin_globs=("pytorch_model*.bin",))
+    return convert_llama(_OnDevice(sd, device), cfg.llama.num_layers, prefix="", target_vocab=cfg.llama.vocab_size)
 
 
 # --------------------------------------------------------------------------- #

@@ -13,13 +13,19 @@ Counterpart of mla_tpu/models/load.py (`load_vla`, `_resolve_checkpoint`,
     naming export_reference_pt as the way across.
 The model is built from a seeded init on the target device, and the
 checkpoint's module groups replace the init's; a reference checkpoint's
-floating leaves then go to cfg.llama.param_dtype, as in JAX. The HF loaders
-(`load_openvla`, `load_base_llm`) are not ported.
+floating leaves then go to cfg.llama.param_dtype, as in JAX.
+
+The HF loaders: `load_base_llm` puts an HF Llama directory's decoder into
+an existing tree (the trainer's --hf_llama_dir), and `load_openvla` splits
+an OpenVLA-style directory into the decoder and the legacy towers. Both
+read through models/convert.merge_hf_shards (safetensors without the
+safetensors package, lazily).
 """
 
 from __future__ import annotations
 
 import json
+import time
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -146,3 +152,73 @@ def load_vla(
     if load_for_training:
         return params, state, cfg, norm_stats
     return MLAPolicy(params, state, cfg, tokenizer=tokenizer, norm_stats=norm_stats, device=device)
+
+
+def load_openvla(
+    model_dir, cfg, params: Dict[str, Any], *, vision_backbone_id: str = "dinosiglip-vit-so-224px", device=None,
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """An OpenVLA-style checkpoint directory (safetensors, else *.bin /
+    *.pt) split by module prefix: 'language_model.' -> llm_backbone (the
+    vocabulary padded to cfg.llama.vocab_size with the mean rows),
+    'vision_backbone.featurizer.' and '.fused_featurizer.' -> the two timm
+    towers of `vision_backbone_id`, 'projector.' -> the fused GELU MLP
+    projector (fc1, fc2, fc3). Returns (params, legacy): a shallow copy of
+    `params` with llm_backbone replaced, and the towers (with their
+    ViTConfigs) and projector, which no prediction path runs. Leaves on
+    `device` (None: the card) in the files' dtypes."""
+    from mla_tpu_torch.models import vision_backbones as vb
+
+    device = _resolve_device(device)
+    merged = convert.merge_hf_shards(Path(model_dir), bin_globs=("*.bin", "*.pt"))
+
+    def part(pick, old: str) -> convert._OnDevice:
+        return convert._OnDevice(merged.renamed({k.replace(old, ""): k for k in merged if pick(k)}), device)
+
+    llm_sd = part(lambda k: "language_model" in k, "language_model.")
+    dino_sd = part(lambda k: "vision_backbone.featurizer" in k, "vision_backbone.featurizer.")
+    siglip_sd = part(lambda k: "vision_backbone.fused_featurizer" in k, "vision_backbone.fused_featurizer.")
+    proj_sd = part(lambda k: k.startswith("projector."), "projector.")
+
+    params = dict(params)
+    if len(llm_sd):
+        params["llm_backbone"] = convert.convert_llama(llm_sd, cfg.llama.num_layers, prefix="",
+                                                       target_vocab=cfg.llama.vocab_size)
+    legacy: Dict[str, Any] = {}
+    fused_ids = vb.FUSED_BACKBONES.get(vision_backbone_id)
+    if len(dino_sd) and fused_ids:
+        legacy["dino_cfg"] = vb.VIT_CONFIGS[fused_ids[0]]
+        legacy["dino_featurizer"] = vb.convert_timm_vit(dino_sd, legacy["dino_cfg"])
+    if len(siglip_sd) and fused_ids:
+        legacy["siglip_cfg"] = vb.VIT_CONFIGS[fused_ids[1]]
+        legacy["siglip_featurizer"] = vb.convert_timm_vit(siglip_sd, legacy["siglip_cfg"])
+    if len(proj_sd):
+        legacy["projector"] = {name: convert._lin(proj_sd, name) for name in ("fc1", "fc2", "fc3")}
+    return params, legacy
+
+
+def load_base_llm(hf_dir, cfg, params: Dict[str, Any], *, device=None,
+                  report: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """An HF Llama base (a directory of safetensors or pytorch_model*.bin
+    shards) into a shallow copy of `params`: llm_backbone replaced by the
+    directory's first cfg.llama.num_layers layers on `device` (None: the
+    card), in cfg.llama.param_dtype, the vocabulary padded to
+    cfg.llama.vocab_size with the mean rows. `report`, if given, gets the
+    load's seconds, the bytes of the tensors read and the directory's
+    bytes."""
+    device = _resolve_device(device)
+    t0 = time.perf_counter()
+    sd = convert.merge_hf_shards(Path(hf_dir), bin_globs=("pytorch_model*.bin",))
+    params = dict(params)
+    dt = cfg.llama.param_dtype
+    llm = convert.convert_llama(convert._OnDevice(sd, device), cfg.llama.num_layers, prefix="",
+                                target_vocab=cfg.llama.vocab_size)
+    params["llm_backbone"] = P.tree_map(lambda x: x.to(dt), llm)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    dir_bytes = sum(f.stat().st_size for f in Path(hf_dir).iterdir() if f.is_file())
+    overwatch.info(f"HF base {hf_dir}: {cfg.llama.num_layers} layers in {seconds:.1f} s, {sd.bytes_read / 1e9:.2f} "
+                   f"GB of tensors read of the directory's {dir_bytes / 1e9:.2f} GB")
+    if report is not None:
+        report.update(seconds=seconds, bytes_read=sd.bytes_read, dir_bytes=dir_bytes)
+    return params

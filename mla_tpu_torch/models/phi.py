@@ -144,6 +144,40 @@ def phi_init(cfg: PhiConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
     return P._phi(P._Init(seed, device), cfg)
 
 
+def convert_hf_phi(sd, num_layers: int, prefix: str = "") -> Dict[str, Any]:
+    """HF PhiForCausalLM state dict (model.layers.N.{self_attn.{q,k,v}_proj,
+    self_attn.dense, mlp.fc1, mlp.fc2, input_layernorm}, model.final_layernorm,
+    lm_head) -> the stacked phi tree: linears transposed to [in, out], each
+    leaf in its source dtype."""
+
+    def k(s):
+        return f"{prefix}{s}"
+
+    def stack(fmt: str, transpose: bool = False) -> torch.Tensor:
+        return torch.stack([sd[k(fmt.format(i=i))].t() if transpose else sd[k(fmt.format(i=i))]
+                            for i in range(num_layers)])
+
+    def stack_lin(fmt: str) -> Dict[str, torch.Tensor]:
+        return {"w": stack(fmt + ".weight", transpose=True), "b": stack(fmt + ".bias")}
+
+    return {
+        "embed": {"table": sd[k("model.embed_tokens.weight")]},
+        "layers": {
+            "attn": {
+                "q": stack_lin("model.layers.{i}.self_attn.q_proj"),
+                "k": stack_lin("model.layers.{i}.self_attn.k_proj"),
+                "v": stack_lin("model.layers.{i}.self_attn.v_proj"),
+                "o": stack_lin("model.layers.{i}.self_attn.dense"),
+            },
+            "mlp": {"fc1": stack_lin("model.layers.{i}.mlp.fc1"), "fc2": stack_lin("model.layers.{i}.mlp.fc2")},
+            "ln": {"scale": stack("model.layers.{i}.input_layernorm.weight"),
+                   "bias": stack("model.layers.{i}.input_layernorm.bias")},
+        },
+        "final_ln": {"scale": sd[k("model.final_layernorm.weight")], "bias": sd[k("model.final_layernorm.bias")]},
+        "lm_head": {"w": sd[k("lm_head.weight")].t().contiguous(), "b": sd[k("lm_head.bias")]},
+    }
+
+
 # the decoder-module interface (models/prismatic.get_decoder)
 init = phi_init
 forward = phi_forward

@@ -28,8 +28,17 @@ load_vla(..., load_for_training=True) of a run dir or a .pt, whose model
 config then replaces the run's, as scripts/train.py does. --data_root_dir
 trains on an RLDS data root through the port's pipeline (vla/rlds/), with
 the experiment's shuffle_buffer_size and action_tokenizer_exist, each step
-collating per-device batch x accumulation frames. Not ported (they raise):
---dp / --tp other than 1, --vlm_stage and --hf_llama_dir.
+collating per-device batch x accumulation frames. --hf_llama_dir loads an
+HF Llama base into the seeded init (models/load.load_base_llm), not over
+--pretrained_checkpoint, as scripts/train.py does.
+
+--vlm_stage align|finetune runs the VLM pretraining loop instead
+(`train_vlm`, scripts/train.py's): the LLaVA-era data of --vlm_dataset
+(conf/datasets.py; synthetic examples without --data_root_dir) through
+SplitModalitySampler and the LM collator (--vlm_max_length), tokenized by
+--tokenizer (default SimpleTokenizer), into the same train step with the
+AR loss at stage vlm-align (projectors only) or vlm-finetune (the decoder
+too). Not ported (they raise): --dp / --tp other than 1.
 """
 
 from __future__ import annotations
@@ -47,8 +56,6 @@ from mla_tpu_torch.utils.overwatch import initialize_overwatch
 
 overwatch = initialize_overwatch("train")
 ROADMAP_DP = "ROADMAP.md queue 1, item 7 (data parallel)"
-ROADMAP_HF = "ROADMAP.md queue 1, item 4 (HF loaders)"
-ROADMAP_VLM = "ROADMAP.md queue 1, item 5 (the VLM stage)"
 
 
 def parse_args(argv: Optional[List[str]] = None) -> Tuple[argparse.Namespace, Dict[str, str]]:
@@ -59,7 +66,14 @@ def parse_args(argv: Optional[List[str]] = None) -> Tuple[argparse.Namespace, Di
     p.add_argument("--dp", type=int, default=1, help="data-parallel mesh axis")
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh axis")
     p.add_argument("--hf_llama_dir", default=None, help="HF Llama base weights to initialize from")
-    p.add_argument("--vlm_stage", default=None, choices=["align", "finetune"], help="the VLM-pretraining loop")
+    p.add_argument("--vlm_stage", default=None, choices=["align", "finetune"],
+                   help="run the VLM-pretraining loop instead of the VLA loop: align = projector warm-up, "
+                        "finetune = instruct tuning")
+    p.add_argument("--vlm_dataset", default="llava-v15", help="conf/datasets.py dataset id for --vlm_stage")
+    p.add_argument("--vlm_max_length", type=int, default=512,
+                   help="pad/truncate length for the LM collator (--vlm_stage)")
+    p.add_argument("--tokenizer", default=None,
+                   help="HF tokenizer path/id for --vlm_stage (default: the deterministic SimpleTokenizer)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args, unknown = p.parse_known_args(argv)
 
@@ -107,10 +121,9 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     resume: {'tc' (VLATrainConfig), 'cfg', 'device', 'seed', 'run_id',
     'run_dir', 'state' (a fresh train state), 'step_fn', 'schedule',
     'sched', 'dataset', 'collator', 'per_host_batch', 'grad_accum',
-    'steps_per_epoch', 'num_steps', 'world'}. Writes the run metadata."""
+    'steps_per_epoch', 'num_steps', 'world', 'hf_load' (load_base_llm's
+    report with --hf_llama_dir, else empty)}. Writes the run metadata."""
     args, overrides = parse_args(argv)
-    if args.vlm_stage:
-        raise NotImplementedError(f"--vlm_stage is not ported yet ({ROADMAP_VLM})")
 
     from mla_tpu_torch import params as P
     from mla_tpu_torch.conf.models import get_model_config
@@ -124,13 +137,7 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
     tc0 = get_vla_config(args.vla_type)
     tc = get_vla_config(args.vla_type, **_coerce(type(tc0), overrides))
-    if args.dp != 1 or args.tp != 1:
-        raise NotImplementedError(f"--dp {args.dp} --tp {args.tp}: the port trains on one device ({ROADMAP_DP})")
-    if args.hf_llama_dir:
-        raise NotImplementedError(f"--hf_llama_dir is not ported yet ({ROADMAP_HF})")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
+    device = _device(args)
     model_id = args.model or tc.base_vlm
     stage = tc.stage
     overwatch.info(f"MLA :: vla={tc.vla_id} model={model_id} stage={stage} device={device}")
@@ -159,6 +166,7 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     # originals); the decoder still computes in cfg.llama.compute_dtype
     if tc.enable_mixed_precision_training and cfg.llama.param_dtype != torch.float32:
         cfg = dataclasses.replace(cfg, llama=dataclasses.replace(cfg.llama, param_dtype=torch.float32))
+    hf_load: Dict[str, Any] = {}
     if tc.pretrained_checkpoint:
         from mla_tpu_torch.models.load import load_vla
 
@@ -166,6 +174,10 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                                           device=device)
     else:
         params, mstate = P.init(cfg, seed=seed, device=device)
+        if args.hf_llama_dir:
+            from mla_tpu_torch.models.load import load_base_llm
+
+            params = load_base_llm(args.hf_llama_dir, cfg, params, device=device, report=hf_load)
 
     # --- strategy sizing -----------------------------------------------------
     global_bsz_per_step = tc.per_device_batch_size * world
@@ -199,7 +211,7 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "state": strategy.init_train_state(params, opt, mstate, use_ema=train_cfg.use_ema),
         "step_fn": strategy.make_train_step(cfg, train_cfg, opt, sched), "schedule": schedule, "sched": sched,
         "dataset": dataset, "collator": collator, "per_host_batch": per_host_batch, "grad_accum": grad_accum,
-        "steps_per_epoch": steps_per_epoch, "num_steps": num_steps,
+        "steps_per_epoch": steps_per_epoch, "num_steps": num_steps, "hf_load": hf_load,
     }
 
 
@@ -207,12 +219,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Run the loop; returns {'state', 'run_dir', 'metrics' (VLAMetrics),
     'saves' [(step, seconds)], 'load_s' (None without a resume), 'cfg',
     'data_wait_s' (per step, the seconds the loop blocked for its host
-    batch)}."""
+    batch), 'hf_load'}; with --vlm_stage, train_vlm's result."""
     from mla_tpu_torch.training import checkpointing as ckpt_mod
     from mla_tpu_torch.training import metrics as metrics_mod
     from mla_tpu_torch.training import strategy
     from mla_tpu_torch.utils import step_generator
 
+    args, overrides = parse_args(argv)
+    if args.vlm_stage:
+        return train_vlm(args, overrides)
     run = build(argv)
     tc, cfg, device, seed, run_dir = run["tc"], run["cfg"], run["device"], run["seed"], run["run_dir"]
     state, step_fn, schedule = run["state"], run["step_fn"], run["schedule"]
@@ -311,7 +326,150 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     metrics.finalize()
     overwatch.info("done")
     return {"state": state, "run_dir": run_dir, "metrics": metrics, "saves": saves, "load_s": load_s, "cfg": cfg,
-            "data_wait_s": data_wait_s}
+            "data_wait_s": data_wait_s, "hf_load": run["hf_load"]}
+
+
+def _device(args: argparse.Namespace) -> torch.device:
+    """The run's device; --dp / --tp other than 1 and a card-less cuda
+    raise."""
+    if args.dp != 1 or args.tp != 1:
+        raise NotImplementedError(f"--dp {args.dp} --tp {args.tp}: the port trains on one device ({ROADMAP_DP})")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
+    return device
+
+
+def vlm_model_batch(cb: Dict[str, Any]) -> Dict[str, Any]:
+    """The LM collator's output as a vlm_forward batch. The sampler's
+    batches are of one modality: all multimodal (the image block spliced
+    right after BOS, splice_idx 1, no diffusion block) or all
+    language-only (no images)."""
+    import numpy as np
+
+    n_mm, B = len(cb["multimodal_indices"]), cb["input_ids"].shape[0]
+    assert n_mm in (0, B), f"mixed-modality batch ({n_mm}/{B} multimodal)"
+    out = {"input_ids": cb["input_ids"], "attention_mask": cb["attention_mask"], "labels": cb["labels"]}
+    if n_mm:
+        out["images"] = {"front_image": cb["pixel_values"]}
+        out["splice_idx"] = np.ones((B,), np.int32)
+    return out
+
+
+def train_vlm(args: argparse.Namespace, overrides: Dict[str, str]) -> Dict[str, Any]:
+    """The VLM pretraining loop, scripts/train.py's train_vlm in its order:
+    the vision-language config (no diffusion, point cloud, tactile,
+    contrastive or generation heads) of --model (default mla-7b); the
+    seeded init, then --hf_llama_dir; the --vlm_dataset stage data through
+    SplitModalitySampler (drop_last off) and the LM collator; AdamW at
+    stage vlm-align (lr 1e-3) or vlm-finetune (2e-5) and the shared train
+    step with the AR loss, on vlm_model_batch's batches; VLAMetrics every
+    step; one checkpoint at the end. Overrides read: seed, epochs, max_steps, global_batch_size, learning_rate,
+    run_root_dir, run_id, trackers, enable_gradient_checkpointing. Returns
+    {'state', 'run_dir', 'metrics', 'cfg', 'hf_load', 'multimodal' (per
+    step, whether its batch had images), 'num_steps'}."""
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.conf.datasets import get_dataset_config
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.diffusion import gaussian as gd
+    from mla_tpu_torch.training import checkpointing as ckpt_mod
+    from mla_tpu_torch.training import metrics as metrics_mod
+    from mla_tpu_torch.training import optim, strategy
+    from mla_tpu_torch.utils import set_global_seed, step_generator
+    from mla_tpu_torch.utils.overwatch import process_count, process_index
+    from mla_tpu_torch.vla.sampler import SplitModalitySampler
+    from mla_tpu_torch.vla.tokenizer import SimpleTokenizer, load_llama_tokenizer
+    from mla_tpu_torch.vla.vlm_datasets import get_vlm_dataset_and_collator
+
+    stage = f"vlm-{args.vlm_stage}"
+    model_id = args.model or "mla-7b"
+    device = _device(args)
+
+    def g(k, d):
+        if k not in overrides:
+            return d
+        v = overrides[k]
+        if isinstance(d, bool):
+            return str(v).lower() in ("1", "true", "yes")
+        return type(d)(v)
+
+    seed = g("seed", 7)
+    epochs = g("epochs", 1)
+    max_steps = g("max_steps", 0) or None
+    global_batch_size = g("global_batch_size", 4)
+    learning_rate = g("learning_rate", 1e-3 if args.vlm_stage == "align" else 2e-5)
+    run_root_dir = g("run_root_dir", "runs")
+
+    cfg = get_model_config(model_id, use_diff=False, use_pointcloud=False, use_tactile=False,
+                           use_contrastive=False, use_generation=False)
+    seed = set_global_seed(seed)
+    params, mstate = P.init(cfg, seed=seed, device=device)
+    hf_load: Dict[str, Any] = {}
+    if args.hf_llama_dir:
+        from mla_tpu_torch.models.load import load_base_llm
+
+        params = load_base_llm(args.hf_llama_dir, cfg, params, device=device, report=hf_load)
+
+    tokenizer = load_llama_tokenizer(args.tokenizer) if args.tokenizer else SimpleTokenizer()
+    ds, collator = get_vlm_dataset_and_collator(
+        stage=args.vlm_stage, dataset_cfg=get_dataset_config(args.vlm_dataset), data_root_dir=args.data_root_dir,
+        tokenizer=tokenizer, image_size=cfg.vision.image_size, max_length=args.vlm_max_length,
+    )
+    lengths = (ds.get_modality_lengths(n_image_patches=cfg.fused_len) if args.vlm_stage == "align"
+               else ds.get_modality_lengths())
+    world = process_count()
+    sampler = SplitModalitySampler(lengths, global_batch_size=global_batch_size, num_replicas=world,
+                                   rank=process_index(), seed=seed, drop_last=False)
+    per_host = global_batch_size // world
+    steps_per_epoch = max(len(sampler) // per_host, 1)
+    num_steps = max_steps or epochs * steps_per_epoch
+    overwatch.info(f"VLM {stage} :: model={model_id} dataset={args.vlm_dataset} examples={len(ds)} "
+                   f"gbs={global_batch_size} steps={num_steps} device={device}")
+
+    tcfg = strategy.TrainConfig(
+        learning_rate=learning_rate, grad_accumulation_steps=1, repeated_diffusion_steps=1, stage=stage,
+        num_training_steps=num_steps, enable_gradient_checkpointing=g("enable_gradient_checkpointing", True),
+    )
+    opt, schedule, _ = optim.make_optimizer(params, learning_rate=learning_rate, num_training_steps=num_steps,
+                                            stage=stage)
+    state = strategy.init_train_state(params, opt, mstate)
+    del params, mstate
+    step_fn = strategy.make_train_step(cfg, tcfg, opt, gd.create_schedule("", diffusion_steps=100))
+
+    run_id = g("run_id", f"vlm-{args.vlm_stage}+{args.vlm_dataset}+x{seed}")
+    run_dir = Path(run_root_dir) / run_id
+    metrics = metrics_mod.VLAMetrics(
+        g("trackers", "jsonl").split(","), run_id, run_dir,
+        hparams={"stage": stage, "dataset": args.vlm_dataset, "global_batch_size": global_batch_size,
+                 "lr": learning_rate},
+        flops_per_token=metrics_mod.decoder_flops_per_token(state["params"]["llm_backbone"], use_diff=False),
+        peak_flops=metrics_mod.bf16_peak_flops(torch.cuda.get_device_name(device)) if device.type == "cuda" else None,
+    )
+
+    step, epoch, step_metrics, multimodal = 0, 0, None, []
+    for epoch in range(epochs if max_steps is None else 10**6):
+        sampler.set_epoch(epoch)
+        idx = list(iter(sampler))
+        for bstart in range(0, len(idx) - per_host + 1, per_host):
+            host_batch = vlm_model_batch(collator([ds[i] for i in idx[bstart : bstart + per_host]]))
+            state, step_metrics = step_fn(state, host_batch, step_generator(seed, step, device))
+            multimodal.append("images" in host_batch)
+            B, L = host_batch["input_ids"].shape
+            metrics.commit(global_step=step, epoch=epoch, lr=float(schedule(step)), update_step_time=True,
+                           tokens=B * world * L, **step_metrics)
+            if step % 10 == 0 or step == num_steps - 1:
+                overwatch.info(metrics.push())
+            step += 1
+            if step >= num_steps:
+                break
+        if step >= num_steps:
+            break
+    ckpt_mod.save_checkpoint(run_dir, state, step=step, epoch=epoch, loss=float(step_metrics["total_loss"]),
+                             model_cfg=cfg, async_save=False)
+    metrics.finalize()
+    overwatch.info("done")
+    return {"state": state, "run_dir": run_dir, "metrics": metrics, "cfg": cfg, "hf_load": hf_load,
+            "multimodal": multimodal, "num_steps": num_steps}
 
 
 def _sync(device: torch.device) -> None:

@@ -32,6 +32,7 @@ import threading
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from mla_tpu_torch.params import tree_items, tree_map
@@ -58,8 +59,10 @@ def _config_to_jsonable(obj: Any) -> Any:
         return [_config_to_jsonable(v) for v in obj]
     if isinstance(obj, torch.dtype):
         return str(obj).removeprefix("torch.")  # "float32", as the JAX package writes a dtype
-    if isinstance(obj, torch.Tensor):
-        return str(obj)
+    if isinstance(obj, (torch.Tensor, np.ndarray, np.generic)):
+        # lists, the reference's format: the run dir's dataset statistics
+        # must load back into numbers (load_vla -> unnormalize_actions)
+        return obj.tolist()
     if isinstance(obj, type):
         return obj.__name__
     try:

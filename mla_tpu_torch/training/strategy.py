@@ -115,7 +115,8 @@ def make_train_step(
                 repeated_diffusion_steps=train_cfg.repeated_diffusion_steps,
                 remat=train_cfg.enable_gradient_checkpointing, **(draws[i] if draws else {}),
             )
-            total.backward()
+            if total.requires_grad:  # not when no trained leaf is on the path (vlm-align, language-only)
+                total.backward()
             loss_dict = {k: v.detach() for k, v in loss_dict.items()}
             loss_sum = loss_dict if loss_sum is None else {k: loss_sum[k] + v for k, v in loss_dict.items()}
             if acc is not None:

@@ -1,7 +1,8 @@
 """The port stands alone: no module of mla_tpu_torch/, and not chip_smoke.py,
 imports jax or anything of the JAX package mla_tpu, nor TensorFlow,
-tensorflow_datasets, protobuf or Pillow, which the machine with the card
-does not have (the data pipeline reads TFRecords and PNG itself)."""
+tensorflow_datasets, protobuf, Pillow or safetensors, which the machine
+with the card does not have (the data pipeline reads TFRecords and PNG
+itself, the HF loaders safetensors files)."""
 
 import ast
 from pathlib import Path
@@ -10,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "mla_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "mla_tpu", "flax", "optax", "tensorflow", "tensorflow_datasets", "google.protobuf", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "mla_tpu", "flax", "optax", "tensorflow", "tensorflow_datasets", "google.protobuf", "PIL",
+             "safetensors")
 
 
 def _imports(path: Path):
@@ -35,12 +37,12 @@ def test_checker_sees_the_imports():
     """The walk catches every import form it must refuse, nested ones too."""
     src = ("import jax.numpy as jnp\nfrom mla_tpu.ops import rope\ndef f():\n    import mla_tpu\nimport mla_tpu_torch\n"
            "def g():\n    from PIL import Image\nimport tensorflow_datasets as tfds\nimport google.protobuf\n"
-           "import google\nimport PILlow\n")
+           "import google\nimport PILlow\nfrom safetensors.torch import load_file\nimport safetensors_io\n")
     tmp = ROOT / "build" / "_import_probe.py"
     tmp.parent.mkdir(exist_ok=True)
     tmp.write_text(src)
     try:
         assert sorted(n for n in _imports(tmp) if _forbidden(n)) == sorted(
-            ["jax.numpy", "mla_tpu.ops", "mla_tpu", "PIL", "tensorflow_datasets", "google.protobuf"])
+            ["jax.numpy", "mla_tpu.ops", "mla_tpu", "PIL", "tensorflow_datasets", "google.protobuf", "safetensors.torch"])
     finally:
         tmp.unlink()

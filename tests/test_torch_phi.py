@@ -280,7 +280,7 @@ def test_quantizing_a_phi_tree_names_the_family(small):
 
 def test_phi_matches_hf():
     """The port's phi_forward against transformers' PhiForCausalLM on the
-    same weights (converted by the JAX package's convert_hf_phi), as
+    same weights (converted by the port's own convert_hf_phi), as
     tests/test_phi.py holds the JAX decoder."""
     hf = pytest.importorskip("transformers")
     cfg = tphi.PHI_TEST
@@ -292,7 +292,7 @@ def test_phi_matches_hf():
     )
     torch.manual_seed(0)
     model = hf.PhiForCausalLM(config).eval()
-    tp = tparams.from_jax(jphi.convert_hf_phi({k: v for k, v in model.state_dict().items()}, cfg.num_layers))
+    tp = tphi.convert_hf_phi({k: v.detach() for k, v in model.state_dict().items()}, cfg.num_layers)
     ids = torch.tensor([[3, 17, 42, 9, 88, 200]])
     with torch.no_grad():
         want = model(ids).logits

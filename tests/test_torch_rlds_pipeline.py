@@ -2,7 +2,7 @@
 JAX's writer puts in tmp_path: the frame resize, the trajectories and
 statistics of make_dataset_from_rlds and apply_trajectory_transforms, the
 frames of make_interleaved_dataset across its .repeat(), RLDSBatchTransform
-and the collator, and the trainer on a data root.
+and the collator, and the trainer on a data root (its run dir served).
 
 Images may differ by one step of uint8 on at most 1e-3 of their pixels
 (TensorFlow's Lanczos weights through another route); everything else is
@@ -254,27 +254,64 @@ def test_not_ported_raises(data_root, what, call):
         call(str(data_root))
 
 
-def test_trainer_on_a_data_root(tmp_path):
+@pytest.fixture(scope="module")
+def data_root_run(tmp_path_factory):
     """python -m mla_tpu_torch.train --device cpu --data_root_dir <fixture>:
-    one step on real frames and a checkpoint; its dataset_statistics.json
-    equals what JAX's trainer writes for the same root (arrays as their
-    numpy strings, in both packages)."""
-    write_rlbench_fixture(tmp_path / "data")
-    run_root = tmp_path / "runs"
+    one step on real frames and a checkpoint. -> the temporary dir (the
+    fixture under data/, the run under runs/ondisk)."""
+    tmp = tmp_path_factory.mktemp("data_root_run")
+    write_rlbench_fixture(tmp / "data")
     cmd = [sys.executable, "-m", "mla_tpu_torch.train", "--device", "cpu", "--vla.type", "mla-tiny-debug",
-           "--data_root_dir", str(tmp_path / "data"), "--data_mix", "rlbench", "--shuffle_buffer_size", "16",
-           "--max_steps", "1", "--save_interval", "1", "--run_root_dir", str(run_root), "--run_id", "ondisk"]
-    env = {**os.environ, "HOME": str(tmp_path / "home")}  # the statistics cache goes under HOME
+           "--data_root_dir", str(tmp / "data"), "--data_mix", "rlbench", "--shuffle_buffer_size", "16",
+           "--max_steps", "1", "--save_interval", "1", "--run_root_dir", str(tmp / "runs"), "--run_id", "ondisk"]
+    env = {**os.environ, "HOME": str(tmp / "home")}  # the statistics cache goes under HOME
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600, env=env)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    run = run_root / "ondisk"
+    return tmp
+
+
+def _as_lists(tree):
+    """A statistics tree with its numpy arrays and scalars as lists and
+    numbers (the reference's run-dir format)."""
+    if isinstance(tree, dict):
+        return {k: _as_lists(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_as_lists(v) for v in tree]
+    return tree.tolist() if isinstance(tree, (np.ndarray, np.generic)) else tree
+
+
+def test_trainer_on_a_data_root(data_root_run):
+    """The trainer's run dir on a data root: a step-1 checkpoint, the
+    statistics cache, and a dataset_statistics.json that holds, exactly, the
+    statistics JAX's pipeline computes for the same root, as lists (JAX's
+    own run metadata writes the arrays as their numpy strings, which no
+    loader reads back; the port writes numbers)."""
+    run = data_root_run / "runs" / "ondisk"
     assert list((run / "checkpoints").glob("step-000001-*/state.pt"))
-    assert list((tmp_path / "home/.cache/mla_tpu_torch").glob("dataset_statistics_*.json"))
-    _, _, jstats = jds.make_interleaved_dataset("rlbench", str(tmp_path / "data"), shuffle_buffer_size=16,
-                                                stats_cache_dir=str(tmp_path / "jcache"))
+    assert list((data_root_run / "home/.cache/mla_tpu_torch").glob("dataset_statistics_*.json"))
+    _, _, jstats = jds.make_interleaved_dataset("rlbench", str(data_root_run / "data"), shuffle_buffer_size=16,
+                                                stats_cache_dir=str(data_root_run / "jcache"))
     written = json.loads((run / "dataset_statistics.json").read_text())
-    # JAX's run metadata writer, as scripts/train.py writes the file
-    assert written == json.loads(json.dumps(jckpt._config_to_jsonable(jstats)))
+    assert written == json.loads(json.dumps(_as_lists(jstats)))
+    assert isinstance(written["rlbench"]["action"]["q01"], list)
+
+
+def test_data_root_run_dir_serves(data_root_run):
+    """load_vla of a run dir trained on a data root: its q01/q99 are
+    numbers, so a served chunk unnormalizes to finite actions inside the
+    statistics' bounds."""
+    from mla_tpu_torch.models.load import load_vla
+
+    pol = load_vla(data_root_run / "runs" / "ondisk", device="cpu")
+    stats = pol.norm_stats["rlbench"]["action"]
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 255, (3, IMAGE_SIZE, IMAGE_SIZE), np.uint8)
+    pc = rng.normal(size=(64, 3)).astype(np.float32)
+    out = pol.predict_action_diff(img, pc, "", input_ids=np.array([[1, 5, 6, 29871]], np.int32), unnorm_key="rlbench",
+                                  sampler="dpm")
+    assert out.shape == (16, 7) and np.isfinite(out).all()
+    lo, hi = np.asarray(stats["q01"]), np.asarray(stats["q99"])
+    assert ((out[:, :6] >= lo[:6] - 1e-6) & (out[:, :6] <= hi[:6] + 1e-6)).all()
 
 
 @pytest.mark.parametrize("kind", ["bounds_q99", "bounds", "normal"])

@@ -156,13 +156,11 @@ def test_ar_loss_mode_trains_lm_head(tmp_path):
     (["--bogus_flag", "1"], ValueError, "unknown override --bogus_flag"),
     (["--dp", "2"], NotImplementedError, "item 7"),
     (["--tp", "2"], NotImplementedError, "item 7"),
-    (["--vlm_stage", "align"], NotImplementedError, "item 5"),
     # a data root is read now: one without the mix's dataset is refused
     (["--data_root_dir", "{tmp}/no_data"], FileNotFoundError, "no dataset directory"),
-    (["--hf_llama_dir", "/hf"], NotImplementedError, "item 4"),
     # a JAX orbax run dir: the port cannot read it without JAX
     (["--pretrained_checkpoint", "{tmp}/orbax_run"], ValueError, "export_reference_pt"),
-], ids=["unknown-flag", "dp", "tp", "vlm-stage", "data-root", "hf-llama-dir", "pretrained"])
+], ids=["unknown-flag", "dp", "tp", "data-root", "pretrained"])
 def test_refusals(tmp_path, extra, err, match):
     step = tmp_path / "orbax_run" / "checkpoints" / "step-000001-epoch-00-loss=0.5000"
     step.mkdir(parents=True)

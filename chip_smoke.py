@@ -224,7 +224,32 @@ Phases, each of which fails the run if it fails:
                   step ms, tokens/s, MFU, peak GiB and the loop's data wait
                   per step. The flash forward, dQ and dK/dV are held at its
                   BH 256 / S 979 in the kernels phase.
- 17. vlm-agree    one vlm-finetune AdamW step of the bf16 `mla-small` in its
+ 17. oxe          the Open-X path: a bridge_rt_1 data root written by the
+                  port under build/chip_smoke_oxe (bridge_orig with two
+                  256 x 256 views, fractal20220817_data at 256 x 320, each
+                  8 episodes x 40 steps in 2 shards, in their raw schemas,
+                  JPEG frames of quality 95, 4:2:0, from the port's
+                  encoder); the JPEG decoder on the card's host: its C++
+                  loops against their plain versions in both IDCTs on every
+                  frame of one fractal episode and on the golden streams
+                  (progressive and restart-interval ones), the golden
+                  SHA-256 digests (JPEG_DIGESTS: the port's streams and
+                  TensorFlow's and Pillow's decodes of them), a truncated
+                  stream refused, decode ms a frame (p50, one thread) at
+                  256 x 256 and 640 x 480 beside the host's CPU model; the
+                  interleaved stream at the trainer's 4 rows a step
+                  (frames/s, host batch ms p50 and p95, the first batch),
+                  its statistics against a recount of the written episodes,
+                  each dataset's share of 2000 frames within 4 binomial
+                  standard deviations of the balanced weights; then
+                  train.main --data_mix bridge_rt_1 --use_pointcloud false
+                  --use_contrastive false on mla-2b (fp32 masters,
+                  per-device 2, global 4, buffer 256), 3 steps: S = OXE_S
+                  (723), exact launches (no FPS), finite losses, step ms,
+                  tokens/s, MFU, peak GiB and the loop's data wait. The
+                  flash forward, dQ and dK/dV are held at its BH 256 / S
+                  723 in the kernels phase.
+ 18. vlm-agree    one vlm-finetune AdamW step of the bf16 `mla-small` in its
                   VLM config (no point, tactile, contrastive or diffusion
                   parts) on the card and on the CPU from the same weights
                   and batch: two multimodal rows of the synthetic finetune
@@ -243,8 +268,12 @@ Phases, each of which fails the run if it fails:
                   mean rows of the padded vocabulary included (numpy's
                   float16 means, as the JAX converter takes them), the
                   vision tower equal to the seeded init's, the projector
-                  moved; then --vlm_stage finetune, 4 steps: the decoder's
-                  weights moved, the tower unchanged. Each run has a
+                  moved; then --vlm_stage finetune, 4 steps, on a
+                  LLaVA-layout data root of 16 JPEG images at 640 x 480
+                  (the port's encoder; build/chip_smoke_llava): the
+                  decoder's weights moved, the tower unchanged, the
+                  multimodal batch's pixels the plain accurate-IDCT
+                  decoder's through the CLIP transform. Each run has a
                   language-only batch and a multimodal one past the first
                   step. Exact launches of every step (flash forward 2L,
                   dQ L, dK/dV L; L forwards and no backward for a
@@ -268,7 +297,8 @@ M = 2136 and 72, flash at BH 128 / S 534, FPS at B = 4; on the trainer's
 first run for dQ and dK/dV, timed at its diffusion micro-batch, BH 256 at
 S 547; on the AR serving path for the weight-only int8 product, timed at
 its serving shapes; on the data phase's trainer run for the flash
-forward, dQ and dK/dV, timed at BH 256 / S 979; and on the hf-vlm phase's
+forward, dQ and dK/dV, timed at BH 256 / S 979; on the oxe phase's
+trainer run for the same three, timed at BH 256 / S 723; and on the hf-vlm phase's
 align and finetune runs for the same three, timed at BH 512 / S 1025;
 the other paths' counts
 are in the log and in chip_smoke.json); an earlier line says whether
@@ -556,6 +586,10 @@ TRAINER_S, TRAINER_AR_S = 547, 529
 # the fused block of 256 point, 256 front, 256 wrist and 1 tactile tokens,
 # the 18-token diffusion block; 2 rows x 4 repeats x 32 heads
 DATA_S, DATA_BH = 192 + 769 + 18, 2 * 4 * 32
+# the oxe phase's trainer on bridge_rt_1 without point clouds: the prompt
+# of 192 ids, the fused block of 513 tokens, the 18-token diffusion block;
+# 2 rows x 4 repeats x 32 heads
+OXE_S, OXE_BH = 192 + 513 + 18, 2 * 4 * 32
 # the hf-vlm phase's VLM stage on mla-2b: 16 rows, the LM collator's 512
 # ids (--vlm_max_length's default) with the 513-token fused block spliced
 # after BOS (multimodal batches), or the 512 ids alone (language-only)
@@ -565,10 +599,11 @@ FLASH_SHAPES = ((32, PREFIX_LEN, "serving prefill"), (2 * 32, PREFIX_LEN, "servi
                 (4 * 32, PREFIX_LEN, "serving host bucket 4"), (8 * 32, 563, "training"),
                 (8 * 32, 819, "post-training"), (8 * 32, TRAINER_S, "trainer"),
                 (2 * 32, TRAINER_AR_S, "trainer AR mode"), (DATA_BH, DATA_S, "data trainer"),
-                (VLM_BH, VLM_S, "hf-vlm"), (VLM_BH, VLM_LANG_S, "hf-vlm language-only"))
-# the shapes the kernels line times: the serving host's, the data phase's
-# and the VLM stage's multimodal batch
-FLASH_ROW_SHAPES = {"serving host bucket 4": "serve-host", "data trainer": "data", "hf-vlm": "hf-vlm"}
+                (OXE_BH, OXE_S, "oxe trainer"), (VLM_BH, VLM_S, "hf-vlm"), (VLM_BH, VLM_LANG_S, "hf-vlm language-only"))
+# the shapes the kernels line times: the serving host's, the data phase's,
+# the oxe phase's and the VLM stage's multimodal batch
+FLASH_ROW_SHAPES = {"serving host bucket 4": "serve-host", "data trainer": "data", "oxe trainer": "oxe",
+                    "hf-vlm": "hf-vlm"}
 # the controls drop the last, ragged tile of 64 keys (queries): at a length
 # that is a multiple of 64 there is none, and a control is the kernel itself
 FLASH_TILE = 64
@@ -795,8 +830,8 @@ def check_flash_bwd(torch, report, control):
     """The flash backward at the training shapes of every training path
     (flash_bwd_at); returns the kernel-table rows of the trainer's
     diffusion micro-batch, BH 256 at S = 547, of the data phase's, BH 256
-    at DATA_S, and of the hf-vlm phase's multimodal batch, VLM_BH at
-    VLM_S."""
+    at DATA_S, of the oxe phase's, BH 256 at OXE_S, and of the hf-vlm
+    phase's multimodal batch, VLM_BH at VLM_S."""
     flash_bwd_at(torch, report, control, TRAIN_BH, TRAIN_S, "training")
     flash_bwd_at(torch, report, control, TRAIN_BH, POST_S, "post-training")
     rows = flash_bwd_at(torch, report, control, TRAIN_BH, TRAINER_S, "trainer")
@@ -804,11 +839,14 @@ def check_flash_bwd(torch, report, control):
     data_rows = flash_bwd_at(torch, report, control, DATA_BH, DATA_S, "data trainer")
     for row in data_rows:
         row["path"] = "data"
+    oxe_rows = flash_bwd_at(torch, report, control, OXE_BH, OXE_S, "oxe trainer")
+    for row in oxe_rows:
+        row["path"] = "oxe"
     vlm_rows = flash_bwd_at(torch, report, control, VLM_BH, VLM_S, "hf-vlm")
     for row in vlm_rows:
         row["path"] = "hf-vlm"
     flash_bwd_at(torch, report, control, VLM_BH, VLM_LANG_S, "hf-vlm language-only")
-    return rows + data_rows + vlm_rows
+    return rows + data_rows + oxe_rows + vlm_rows
 
 
 def flash_bwd_at(torch, report, control, BH, S, what):
@@ -3056,6 +3094,144 @@ def data_fixture(root: Path, name: str, episodes: int, steps: int, size, points:
     return out
 
 
+# the oxe phase: `--data_mix bridge_rt_1` (scripts/pretrain.sh's OXE
+# lineage) from bridge_orig and fractal20220817_data in their raw schemas,
+# JPEG frames from the port's encoder, written by the port's writer
+OXE_ROOT = Path("build") / "chip_smoke_oxe"
+OXE_SIZES = {"bridge_orig": (256, 256), "fractal20220817_data": (256, 320)}  # the datasets' published frames
+OXE_QUALITY = 95
+OXE_INSTRUCTIONS = {"bridge_orig": (b"put the spoon in the pot", b"open the drawer"),
+                    "fractal20220817_data": (b"pick coke can", b"move the apple near the sponge")}
+
+
+# seeded frames through the port's encoder, and the SHA-256 of TensorFlow's
+# decode_image (the fast IDCT, "ifast") and of Pillow's convert("RGB") (the
+# accurate one, "islow") of each; tests/test_torch_jpeg.py recomputes them
+# with TensorFlow and Pillow
+JPEG_GOLDEN = {  # name: (height, width, quality, subsampling, progressive, restart interval)
+    "bridge 4:2:0": (256, 256, 95, "4:2:0", False, 0),
+    "fractal 4:2:0 progressive": (256, 320, 95, "4:2:0", True, 0),
+    "llava 4:4:4 restarts": (480, 640, 90, "4:4:4", False, 7),
+    "odd 4:2:0 restarts progressive": (97, 131, 75, "4:2:0", True, 5),
+}
+JPEG_DIGESTS = {  # name: SHA-256 of the stream and of each decode's uint8 [H, W, 3] bytes
+    "bridge 4:2:0": {
+        "stream": "0c8fa220568af6d66387018a3a3cba4c22be103650c9f9144238a2d6e94aa363",
+        "ifast": "8214932368feb52a1b3ad0d4b5f870fe98218ab26b6c0e4bfe3975833e0788a3",
+        "islow": "d85f14038fd7d4587ee48fa84cd80b14263f12459f1cd71536b9c8c74e19645c"},
+    "fractal 4:2:0 progressive": {
+        "stream": "7b2cca6073b57a19b3b67fe0b1eec6fe36dd99d62ec09c146b0daddfaceb3c87",
+        "ifast": "c80b11d1011b26ec6f62d13a46bdb124bd770c45edba5e2cd9a6fdad4cda5102",
+        "islow": "615b401365c0254f83b6950edd9aad30edcf636064f9ee81151a11ae889cbe9f"},
+    "llava 4:4:4 restarts": {
+        "stream": "19d6d11f88e2633835b7e6dedbe238f7dde2a643a3a685deed04a2379564edae",
+        "ifast": "a75101d1f4b1b57abd7e1943c9c1ab629f3d70ef406ab1d9b448a5b0d0efc319",
+        "islow": "017f106967d300c6acd89af6a403a63447d60a1fe642acce274808ba6125240d"},
+    "odd 4:2:0 restarts progressive": {
+        "stream": "2ecea245932bbc201e32feb0a3ac5c4c15fe8ccd7d793b2d60655d0fd4c13139",
+        "ifast": "187861e1de99424433770285deec0b0e705b652e3f1ad93c9bbd9cede8fe2edd",
+        "islow": "ada6fc54515eb3ce09e116515f2c776f3850225afd609ab17ba9f471e15f27f9"},
+}
+
+
+def jpeg_golden_streams() -> dict:
+    """{name: JPEG bytes} of JPEG_GOLDEN, each frame _camera_frame's."""
+    from mla_tpu_torch.vla.rlds import jpeg
+
+    return {name: jpeg.encode(_camera_frame((81, i), (h, w), i), q, sub, prog, rst)
+            for i, (name, (h, w, q, sub, prog, rst)) in enumerate(JPEG_GOLDEN.items())}
+
+
+def oxe_fixture(root: Path, episodes: int, steps: int, shards: int, seed: int, keep_pixels: bool = False) -> dict:
+    """bridge_orig (image_0 and image_1, the 7-float state, flat 7-DoF
+    actions with a continuous gripper, an instruction a step) and
+    fractal20220817_data (image, base_pose_tool_reached, gripper_closed,
+    the dict action with a relative gripper, natural_language_instruction
+    in the observation), `episodes` each of `steps` steps in `shards`
+    shards, frames JPEG (quality OXE_QUALITY, 4:2:0) from the port's
+    encoder, encoded in a pool of threads. Returns {name: raw episodes}
+    (the frames as JPEG bytes, and decoded by the port's IFAST decoder
+    under 'pixels' with keep_pixels)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from mla_tpu_torch.vla.rlds import jpeg
+    from mla_tpu_torch.vla.rlds.tfds_compat import write_rlds_dataset
+
+    views = {"bridge_orig": ("image_0", "image_1"), "fractal20220817_data": ("image",)}
+    keys = [(name, e, t, v) for name in views for e in range(episodes) for t in range(steps)
+            for v in range(len(views[name]))]
+
+    def encoded(key):
+        name, e, t, v = key
+        img = _camera_frame((seed, len(name), e, t, v), OXE_SIZES[name], t + 11 * v + 3 * e)
+        return jpeg.encode(img, OXE_QUALITY, "4:2:0")
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        frames = dict(zip(keys, pool.map(encoded, keys)))
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, cams in views.items():
+        eps = []
+        for e in range(episodes):
+            imgs = {cam: np.asarray([frames[name, e, t, v] for t in range(steps)], object)
+                    for v, cam in enumerate(cams)}
+            lang = np.asarray([OXE_INSTRUCTIONS[name][e % 2]] * steps, object)
+            if name == "bridge_orig":
+                grip = np.clip(rng.choice([0.0, 1.0, 0.5], steps, p=[0.45, 0.45, 0.1]) + rng.normal(0, 0.01, steps),
+                               0, 1)
+                act = np.concatenate([rng.normal(0, 0.02, (steps, 6)), grip[:, None]], 1).astype(np.float32)
+                act[0] = 0.0  # bridge's all-zero first action
+                obs = {**imgs, "state": np.cumsum(rng.normal(0, 0.01, (steps, 7)), 0).astype(np.float32)}
+                step = {"observation": obs, "action": act, "language_instruction": lang}
+            else:
+                obs = {**imgs, "natural_language_instruction": lang,
+                       "base_pose_tool_reached": rng.normal(0, 0.3, (steps, 7)).astype(np.float32),
+                       "gripper_closed": rng.integers(0, 2, (steps, 1)).astype(np.float32)}
+                action = {"world_vector": rng.normal(0, 0.05, (steps, 3)).astype(np.float32),
+                          "rotation_delta": rng.normal(0, 0.05, (steps, 3)).astype(np.float32),
+                          "gripper_closedness_action": rng.choice([-1.0, 0.0, 1.0], (steps, 1),
+                                                                  p=[0.1, 0.8, 0.1]).astype(np.float32)}
+                step = {"observation": obs, "action": action}
+            eps.append({"steps": step})
+        write_rlds_dataset(root, name, eps, num_shards=shards)
+        if keep_pixels:
+            for ep in eps:
+                ep["pixels"] = {cam: np.stack([jpeg.decode(b, "ifast") for b in ep["steps"]["observation"][cam]])
+                                for cam in cams}
+        out[name] = eps
+    return out
+
+
+def llava_jpeg_fixture(root: Path, images: int, size, seed: int, stage: str = "finetune") -> Path:
+    """A LLaVA-layout data root (conf/datasets.py's llava-v15 paths) for the
+    VLM stage: a chat json of `images` multimodal examples, every image a
+    JPEG (quality 90, 4:2:0) from the port's encoder, and two language-only
+    ones. Returns the image directory."""
+    from mla_tpu_torch.conf.datasets import get_dataset_config
+    from mla_tpu_torch.vla.rlds import jpeg
+
+    cfg = get_dataset_config("llava-v15")
+    ann_rel, img_rel = cfg.components_for_stage(stage)
+    base = Path(root) / cfg.dataset_root_dir
+    img_dir = base / img_rel
+    (img_dir / "coco").mkdir(parents=True, exist_ok=True)
+    examples = []
+    for i in range(images):
+        rel = f"coco/{i:06d}.jpg"
+        (img_dir / rel).write_bytes(jpeg.encode(_camera_frame((seed, i), size, i), 90, "4:2:0"))
+        examples.append({"id": str(i), "image": rel, "conversations": [
+            {"from": "human", "value": "<image>\nWhat is on the table?"},
+            {"from": "gpt", "value": f"a red block and {i % 5 + 1} cups"}]})
+    for i in range(2):
+        examples.append({"id": f"text{i}", "conversations": [
+            {"from": "human", "value": "Say hello."}, {"from": "gpt", "value": "Hello there."}]})
+    (base / ann_rel).parent.mkdir(parents=True, exist_ok=True)
+    (base / ann_rel).write_text(json.dumps(examples))
+    return img_dir
+
+
 def held_bytes(frames) -> int:
     """The bytes a list of frames keeps alive: each encoded image once, and
     each numpy buffer a leaf views (a frame's leaves view its trajectory's
@@ -3102,9 +3278,11 @@ def data_exact(root: Path, written) -> dict:
     from mla_tpu_torch.vla.rlds.dataset import make_interleaved_dataset
     from mla_tpu_torch.vla.tokenizer import SimpleTokenizer
 
+    # fitted to the written proprio's own width: no frame's proprio is zeroed
     ds, n, stats = make_interleaved_dataset("franka", str(root), shuffle_buffer_size=1, load_pointcloud=True,
                                             load_tactile=True, image_size=DATA_EXACT_SIZE,
-                                            stats_cache_dir=str(root / "cache"))
+                                            stats_cache_dir=str(root / "cache"),
+                                            proprio_dim=written[0]["steps"]["observation"]["proprio"].shape[-1])
     T = DATA_EXACT_STEPS
     frames = list(ds.take(n))
     if n != T:
@@ -3314,8 +3492,240 @@ def data(torch, report):
     return totals
 
 
+OXE_EPISODES, OXE_STEPS, OXE_SHARDS = 8, 40, 2
+OXE_BUFFER = 256
+OXE_TIMED_BATCHES = 20
+OXE_SHARE_FRAMES = 2000
+OXE_DECODE_REPS = 30
+OXE_RUN_STEPS = 3
+OXE_ARGS = ("--vla.type", "prism-dinosiglip-224px+oxe+diffusion", "--model", "mla-2b", "--data_mix", "bridge_rt_1",
+            "--use_diff", "true", "--use_pointcloud", "false", "--use_contrastive", "false",
+            "--per_device_batch_size", "2", "--global_batch_size", "4")
+
+
+def host_cpu() -> str:
+    """The host's CPU model, as lscpu or the kernel reports it, and its
+    architecture."""
+    import platform
+
+    model = None
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        model = next((l.split(":", 1)[1].strip() for l in out.splitlines() if l.startswith("Model name")), None)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if not model:
+        try:
+            with open("/proc/cpuinfo") as f:
+                model = next((l.split(":", 1)[1].strip() for l in f if l.startswith("model name")), None)
+        except OSError:
+            pass
+    return f"{model or platform.processor() or 'model unknown'} ({platform.machine()}, {os.cpu_count()} threads)"
+
+
+def _sha(a) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(a if isinstance(a, bytes) else np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def oxe_jpeg_checks(written) -> dict:
+    """The decoder on the card's host: the C++ loops against their plain
+    versions, both IDCTs, on every frame of one fractal episode and on the
+    golden streams (progressive and restart-interval ones among them); the
+    golden digests (the port's encoder gives the same bytes here, and its
+    fast and accurate decodes TensorFlow's and Pillow's pixels); the
+    control, a truncated stream, refused; decode ms a frame (p50 of
+    OXE_DECODE_REPS, one thread) at 256 x 256 and 640 x 480."""
+    import numpy as np
+
+    from mla_tpu_torch.native import jpeg_host
+    from mla_tpu_torch.vla.rlds import jpeg
+
+    frames = list(written["fractal20220817_data"][0]["steps"]["observation"]["image"])
+    golden = jpeg_golden_streams()
+    bad = []
+    for i, data in enumerate(frames + list(golden.values())):
+        for dct in ("ifast", "islow"):
+            if not np.array_equal(jpeg.decode(data, dct), jpeg.decode(data, dct, jpeg_host.PLAIN)):
+                bad.append((i, dct))
+    digests = {name: {"stream": _sha(data), "ifast": _sha(jpeg.decode(data, "ifast")),
+                      "islow": _sha(jpeg.decode(data, "islow"))} for name, data in golden.items()}
+    wrong = {name: sorted(k for k in d if d[k] != JPEG_DIGESTS[name][k]) for name, d in digests.items()}
+    wrong = {k: v for k, v in wrong.items() if v}
+    data = golden["bridge 4:2:0"]
+    try:
+        jpeg.decode(data[:len(data) // 2])
+        control = None
+    except ValueError as e:
+        control = str(e)
+    timing = {}
+    for label, img in (("256x256", _camera_frame((91,), (256, 256), 1)), ("640x480", _camera_frame((92,), (480, 640), 2))):
+        data = jpeg.encode(img, OXE_QUALITY, "4:2:0")
+        for dct in ("ifast", "islow"):
+            jpeg.decode(data, dct)
+            ms = []
+            for _ in range(OXE_DECODE_REPS):
+                t = time.perf_counter()
+                jpeg.decode(data, dct)
+                ms.append((time.perf_counter() - t) * 1e3)
+            timing[f"{label} {dct}"] = float(np.percentile(ms, 50))
+    return {"plain_vs_cpp_frames": len(frames) + len(golden), "plain_vs_cpp_mismatches": bad, "digests": digests,
+            "digests_differing": wrong, "truncated_control": control, "decode_ms_p50": timing, "cpu": host_cpu()}
+
+
+def oxe(torch, report):
+    """The Open-X path: the bridge_rt_1 fixture (oxe_fixture: OXE_EPISODES x
+    OXE_STEPS steps of bridge_orig and of fractal20220817_data in
+    OXE_SHARDS shards, JPEG frames); oxe_jpeg_checks; the interleaved
+    stream at the trainer's 4 rows a step (frames/s, host batch ms, the
+    first batch), its statistics against a numpy recount of the written
+    episodes, each dataset's share of OXE_SHARE_FRAMES frames against the
+    balanced weights (4 binomial standard deviations); then train.main with
+    OXE_ARGS at mla-2b: exact launches, finite losses, S = OXE_S, step ms,
+    tokens/s, MFU, peak GiB and the loop's data wait. Returns the trainer
+    run's launches."""
+    import numpy as np
+
+    from mla_tpu_torch import train
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.training import metrics
+    from mla_tpu_torch.vla import datasets as vdata
+    from mla_tpu_torch.vla.materialize import get_vla_dataset_and_collator
+    from mla_tpu_torch.vla.rlds import dataset as rds
+
+    rep = report["oxe"] = {}
+    runs = OXE_ROOT.parent / "chip_smoke_oxe_runs"
+    home = os.environ.get("HOME")
+    for d in (OXE_ROOT, runs):
+        shutil.rmtree(d, ignore_errors=True)
+    os.environ["HOME"] = str((OXE_ROOT / "home").resolve())
+    try:
+        t = time.perf_counter()
+        written = oxe_fixture(OXE_ROOT, OXE_EPISODES, OXE_STEPS, OXE_SHARDS, 63)
+        mb = sum(p.stat().st_size for p in OXE_ROOT.rglob("*.tfrecord-*")) / 1e6
+        rep["fixture"] = {"write_s": time.perf_counter() - t, "episodes": OXE_EPISODES, "steps": OXE_STEPS,
+                          "shards": OXE_SHARDS, "mb": mb}
+        log(f"oxe: bridge_orig (2 views 256 x 256) and fractal20220817_data (256 x 320), {OXE_EPISODES} x "
+            f"{OXE_STEPS} steps each in {OXE_SHARDS} shards, JPEG q{OXE_QUALITY} 4:2:0 from the port's encoder: "
+            f"{mb:.1f} MB in {rep['fixture']['write_s']:.1f} s")
+
+        t = time.perf_counter()
+        rep["jpeg"] = j = oxe_jpeg_checks(written)
+        log(f"oxe jpeg (host {j['cpu']}): C++ vs plain on {j['plain_vs_cpp_frames']} streams x 2 IDCTs, mismatches "
+            f"{j['plain_vs_cpp_mismatches'] or 'none'}; golden digests differing {j['digests_differing'] or 'none'}; "
+            f"truncated control {'refused: ' + j['truncated_control'] if j['truncated_control'] else 'DECODED'}; "
+            f"decode ms a frame (p50, one thread) {j['decode_ms_p50']} ({time.perf_counter() - t:.1f} s)")
+        if j["plain_vs_cpp_mismatches"] or j["digests_differing"] or not j["truncated_control"]:
+            raise AssertionError(f"oxe jpeg: {j}")
+
+        # -- the interleaved stream at the trainer's rows ---------------------
+        cfg = get_model_config("mla-2b", use_pointcloud=False, use_contrastive=False)
+        rows = 4
+        t = time.perf_counter()
+        ds, collator, stats, n = get_vla_dataset_and_collator(
+            data_root_dir=str(OXE_ROOT), data_mix="bridge_rt_1", model_cfg=cfg, per_host_batch_size=rows,
+            shuffle_buffer_size=OXE_BUFFER, seed=0)
+        stats_s = time.perf_counter() - t
+        it = iter(ds)
+        t = time.perf_counter()
+        first = collator([next(it) for _ in range(rows)])
+        first_s = time.perf_counter() - t
+        batch_ms = []
+        for _ in range(OXE_TIMED_BATCHES):
+            t = time.perf_counter()
+            collator([next(it) for _ in range(rows)])
+            batch_ms.append((time.perf_counter() - t) * 1e3)
+        it.close()
+        frames_s = rows * OXE_TIMED_BATCHES / (sum(batch_ms) / 1e3)
+        sizes = {"bridge_orig": OXE_EPISODES * (OXE_STEPS - 2), "fractal20220817_data": OXE_EPISODES * OXE_STEPS}
+        counted = {k: int(stats[k]["num_transitions"]) for k in sizes}
+        p = {k: v / sum(sizes.values()) for k, v in sizes.items()}
+        want_len = int(max(v / p[k] for k, v in sizes.items()))
+        if counted != sizes or n != want_len:
+            raise AssertionError(f"oxe: transitions {counted}, dataset_len {n}; a recount gives {sizes}, {want_len}")
+        shares_ds, _, _ = rds.make_interleaved_dataset("bridge_rt_1", str(OXE_ROOT), shuffle_buffer_size=OXE_BUFFER,
+                                                       load_pointcloud=False, image_size=32, proprio_dim=cfg.action_dim)
+        names = [bytes(f["dataset_name"]).decode() for f in shares_ds.take(OXE_SHARE_FRAMES)]
+        shares = {}
+        for k, pk in p.items():
+            c, sigma = names.count(k), (OXE_SHARE_FRAMES * pk * (1 - pk)) ** 0.5
+            shares[k] = {"count": c, "expected": OXE_SHARE_FRAMES * pk, "sigma": sigma,
+                         "z": (c - OXE_SHARE_FRAMES * pk) / sigma}
+        if any(abs(v["z"]) > 4 for v in shares.values()):
+            raise AssertionError(f"oxe: shares {shares}")
+        shapes = {k: list(v.shape) for k, v in first.items() if hasattr(v, "shape")}
+        shapes.update({f"images/{k}": list(v.shape) for k, v in first["images"].items()})
+        rep["pipeline"] = {
+            "rows_per_batch": rows, "transitions": counted, "dataset_len": n, "stats_pass_s": stats_s,
+            "first_batch_s": first_s, "host_batch_ms": batch_ms, "host_batch_ms_p50": float(np.percentile(batch_ms, 50)),
+            "host_batch_ms_p95": float(np.percentile(batch_ms, 95)), "frames_per_s": frames_s, "shares": shares,
+            "batch_shapes": shapes, "threads": os.cpu_count()}
+        log(f"oxe pipeline (bridge_rt_1, {rows} rows a batch, buffer {OXE_BUFFER}, {host_cpu()}): statistics pass {stats_s:.2f} s, first batch {first_s:.2f} s, host batch p50 "
+            f"{rep['pipeline']['host_batch_ms_p50']:.1f} ms p95 {rep['pipeline']['host_batch_ms_p95']:.1f} ms over "
+            f"{OXE_TIMED_BATCHES}, {frames_s:.1f} frames/s; transitions {counted} (a recount agrees), dataset_len {n}; "
+            f"shares of {OXE_SHARE_FRAMES} frames {{{', '.join(f'{k}: {v['count']} (z {v['z']:+.2f})' for k, v in shares.items())}}}; "
+            f"batch {shapes}")
+
+        # -- the trainer on the mixture ---------------------------------------
+        args = list(OXE_ARGS) + ["--data_root_dir", str(OXE_ROOT), "--shuffle_buffer_size", str(OXE_BUFFER),
+                                 "--max_steps", str(OXE_RUN_STEPS), "--save_interval", str(OXE_RUN_STEPS),
+                                 "--run_root_dir", str(runs), "--run_id", "oxe"]
+        torch.cuda.reset_peak_memory_stats()
+        cuda.launches.clear()
+        t = time.perf_counter()
+        out = train.main(args)
+        torch.cuda.synchronize()
+        totals = {k: cuda.launches[k] for k in TRAINER_KERNELS}
+        run_s = time.perf_counter() - t
+        cfg = out["cfg"]
+        S = vdata.PaddedCollatorForActionPrediction().max_prompt_len + cfg.fused_len + cfg.diff_block_len
+        if S != OXE_S:
+            raise AssertionError(f"oxe: S = {S}, but the kernels were checked at OXE_S = {OXE_S}")
+        # no point cloud: no point tokenizer, so no FPS
+        expected = {**trainer_counts(cfg, micro_batches=OXE_RUN_STEPS * 2), "furthest_point_sample": 0}
+        if totals != expected:
+            raise AssertionError(f"oxe: launches {totals} in {OXE_RUN_STEPS} steps of accumulation 2, "
+                                 f"expected {expected}")
+        losses = {k: list(out["metrics"].windows[k]) for k in ("total_loss", "diff_loss")}
+        if not all(np.isfinite(v).all() and len(v) == OXE_RUN_STEPS for v in losses.values()):
+            raise AssertionError(f"oxe: losses {losses}")
+        tokens = rows * 4 * S
+        peak_flops = metrics.bf16_peak_flops(torch.cuda.get_device_name(0))
+        ms, tok_s, mfu = _trainer_step_line(out, tokens, out["metrics"].flops_per_token, peak_flops)
+        wait_ms = [w * 1e3 for w in out["data_wait_s"]]
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        rep["trainer"] = {"S": S, "BH": OXE_BH, "tokens_per_step": tokens, "losses": losses, "step_ms": ms,
+                          "step_times_s": list(out["metrics"].windows["step_time"]), "tokens_per_s": tok_s,
+                          "mfu": mfu, "peak_gib": peak_gib, "data_wait_ms": wait_ms,
+                          "data_wait_ms_p50": float(np.percentile(wait_ms, 50)), "data_wait_ms_max": max(wait_ms),
+                          "launches": totals, "launches_per_step": {k: v // OXE_RUN_STEPS for k, v in totals.items()},
+                          "run_s": run_s, "save_s": out["saves"][-1][1]}
+        log(f"oxe trainer mla-2b ({' '.join(OXE_ARGS[4:])}), fp32 masters, buffer {OXE_BUFFER}, S = {S} "
+            f"({gpu_line()}): run {run_s:.1f} s, total losses {losses['total_loss']}, step {ms:.1f} ms (the last), "
+            f"{tok_s:.0f} tokens/s, MFU {mfu if mfu is None else round(mfu, 4)}, peak {peak_gib:.2f} GiB, data wait "
+            f"ms {[round(w, 1) for w in wait_ms]}, launches a step {rep['trainer']['launches_per_step']}, save "
+            f"{rep['trainer']['save_s']:.1f} s")
+        del out
+    finally:
+        if home is None:
+            os.environ.pop("HOME", None)
+        else:
+            os.environ["HOME"] = home
+        gc.collect()
+        for d in (OXE_ROOT, runs):
+            shutil.rmtree(d, ignore_errors=True)
+    return totals
+
+
 HF_ROOT = Path("build") / "chip_smoke_hf"
 HF_RUNS = Path("build") / "chip_smoke_hf_runs"
+# the finetune run's LLaVA-layout root: VLM_ROWS JPEG images at 640 x 480
+LLAVA_ROOT = Path("build") / "chip_smoke_llava"
+LLAVA_SIZE = (480, 640)
 # meta-llama/Llama-2-7b-hf's published config.json (its widths and the
 # float16 of its files); the fixture writes this layout from seeded values
 HF_CONFIG = {
@@ -3489,15 +3899,37 @@ def _vlm_run(torch, train, stage: str, extra=()):
     return out, {k: cuda.launches[k] for k in VLM_KERNELS}, time.perf_counter() - t0
 
 
-def vlm_step_split(torch, out, stage: str, peak_flops) -> dict:
+def jpeg_rows_equal(ds, rows, pixels, image_size: int) -> int:
+    """How many rows of a collated batch hold the CLIP transform of the plain
+    decoder's accurate-IDCT decode of their JPEG image."""
+    import numpy as np
+
+    from mla_tpu_torch.native import jpeg_host
+    from mla_tpu_torch.vla.rlds import jpeg
+    from mla_tpu_torch.vla.vlm_datasets import default_image_transform
+
+    transform = default_image_transform(image_size)
+    equal = 0
+    for r, i in enumerate(rows):
+        data = (ds.image_dir / ds.examples[i]["image"]).read_bytes()
+        want = transform(jpeg.decode(data, "islow", jpeg_host.PLAIN))
+        equal += int(np.array_equal(np.asarray(pixels[r]), want))
+    return equal
+
+
+def vlm_step_split(torch, out, stage: str, peak_flops, data_root=None) -> dict:
     """Where a VLM step's time goes, on a run's final state: for a
-    multimodal and a language-only batch of VLM_ROWS rows (the synthetic
-    examples of that kind cycled, as the sampler pads a batch), the host's
-    batch (items, collator, vlm_model_batch) and then the step from its
-    first launch to a synchronize, each the median of 3, with the step's
-    tokens/s and MFU (6N). The trainer's own clock runs from one step's
-    commit to the next and does not wait for the card, so it mixes the
-    two. These steps go on training the run's state."""
+    multimodal and a language-only batch of VLM_ROWS rows (the examples of
+    that kind, synthetic or under `data_root`, cycled, as the sampler pads
+    a batch), the host's batch (items, collator, vlm_model_batch) and then
+    the step from its first launch to a synchronize, each the median of 3,
+    with the step's tokens/s and MFU (6N). The trainer's own clock runs
+    from one step's commit to the next and does not wait for the card, so
+    it mixes the two. These steps go on training the run's state. Under a
+    data root of JPEG images, the multimodal batch's pixels must equal the
+    CLIP transform of the plain decoder's (the accurate IDCT, Pillow's)
+    decode of each image: the count of rows that do is returned under
+    'jpeg_rows_equal'."""
     import numpy as np
 
     from mla_tpu_torch.conf.datasets import get_dataset_config
@@ -3508,7 +3940,7 @@ def vlm_step_split(torch, out, stage: str, peak_flops) -> dict:
     from mla_tpu_torch.vla.vlm_datasets import get_vlm_dataset_and_collator
 
     cfg, state = out["cfg"], out["state"]
-    ds, collator = get_vlm_dataset_and_collator(stage, get_dataset_config("llava-v15"), None, SimpleTokenizer(),
+    ds, collator = get_vlm_dataset_and_collator(stage, get_dataset_config("llava-v15"), data_root, SimpleTokenizer(),
                                                 image_size=cfg.vision.image_size, max_length=VLM_MAX_LENGTH)
     step = strategy.make_train_step(cfg, strategy.TrainConfig(repeated_diffusion_steps=1, stage=f"vlm-{stage}"),
                                     state["optimizer"], gd.create_schedule("", diffusion_steps=100))
@@ -3517,10 +3949,13 @@ def vlm_step_split(torch, out, stage: str, peak_flops) -> dict:
         rows = [i for i, ex in enumerate(ds.examples) if ("image" in ex) == (kind == "multimodal")]
         rows = (rows * VLM_ROWS)[:VLM_ROWS]
         host, dev = [], []
-        for _ in range(3):
+        for rep in range(3):
             t0 = time.perf_counter()
-            batch = vlm_model_batch(collator([ds[i] for i in rows]))
+            collated = collator([ds[i] for i in rows])
+            batch = vlm_model_batch(collated)
             t1 = time.perf_counter()
+            if data_root is not None and kind == "multimodal" and rep == 0:
+                split["jpeg_rows_equal"] = jpeg_rows_equal(ds, rows, collated["pixel_values"], cfg.vision.image_size)
             state, _ = step(state, batch)
             torch.cuda.synchronize()
             host.append((t1 - t0) * 1e3)
@@ -3539,8 +3974,11 @@ def hf_vlm(torch, report):
     VLM_STEPS steps): the decoder equal to the files' first 8 layers cast
     to bf16, the mean rows included, bit for bit (the decoder is frozen in
     align, so the run's last state shows the load); the vision tower
-    unchanged and the projector moved; then --vlm_stage finetune: the
-    decoder's weights moved, the tower unchanged. Each run has a
+    unchanged and the projector moved; then --vlm_stage finetune on a
+    LLaVA-layout data root of VLM_ROWS JPEG images at 640 x 480
+    (llava_jpeg_fixture): the decoder's weights moved, the tower unchanged,
+    the multimodal batch's pixels those of the plain decoder's accurate
+    IDCT (Pillow's) through the CLIP transform. Each run has a
     language-only batch and a multimodal one past the first step. Exact
     launches per step; the last step of each kind: ms, tokens/s, MFU; peak
     GiB, the load's seconds and bytes; then vlm_step_split. Returns the
@@ -3552,10 +3990,13 @@ def hf_vlm(torch, report):
     from mla_tpu_torch.training import metrics
 
     rep = {}
-    for d in (HF_ROOT, HF_RUNS):
+    for d in (HF_ROOT, HF_RUNS, LLAVA_ROOT):
         shutil.rmtree(d, ignore_errors=True)
     totals = dict.fromkeys(VLM_KERNELS, 0)
     try:
+        t = time.perf_counter()
+        llava_jpeg_fixture(LLAVA_ROOT, VLM_ROWS, LLAVA_SIZE, 73)
+        rep["llava_fixture"] = {"images": VLM_ROWS, "size": LLAVA_SIZE, "write_s": time.perf_counter() - t}
         rep["fixture"] = hf_fixture(torch, HF_ROOT, 71)
         fx = rep["fixture"]
         log(f"hf-vlm: a Llama-2-7b-hf layout ({HF_CONFIG['num_hidden_layers']} layers, float16, {HF_SHARDS} shards, "
@@ -3563,7 +4004,8 @@ def hf_vlm(torch, report):
             f"{fx['gb'] / fx['write_s']:.2f} GB/s (the writes, through the page cache)")
         peak_flops = metrics.bf16_peak_flops(torch.cuda.get_device_name(0))
         for stage in ("align", "finetune"):
-            out, launches, run_s = _vlm_run(torch, train, stage)
+            data_root = str(LLAVA_ROOT) if stage == "finetune" else None
+            out, launches, run_s = _vlm_run(torch, train, stage, ("--data_root_dir", data_root) if data_root else ())
             cfg, params, load = out["cfg"], out["state"]["params"], out["hf_load"]
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
             mm = out["multimodal"]
@@ -3618,11 +4060,18 @@ def hf_vlm(torch, report):
             if not tower_same or not proj_moved:
                 raise AssertionError(f"hf-vlm {stage}: vision tower unchanged {tower_same}, projector moved "
                                      f"{proj_moved}")
-            split = vlm_step_split(torch, out, stage, peak_flops)
-            log(f"hf-vlm {stage}: the host's batch, then the step to a synchronize (median of 3): " + ", ".join(
-                f"{k} {v['host_batch_ms']:.1f} ms + {v['step_ms']:.1f} ms ({v['tokens_per_s']:.0f} tokens/s, MFU "
-                f"{v['mfu'] if v['mfu'] is None else round(v['mfu'], 4)})" for k, v in split.items()))
+            split = vlm_step_split(torch, out, stage, peak_flops, data_root)
+            jpeg_equal = split.pop("jpeg_rows_equal", None)
+            log(f"hf-vlm {stage}{' on ' + str(VLM_ROWS) + ' JPEG images ' + str(LLAVA_SIZE[1]) + ' x ' + str(LLAVA_SIZE[0]) if data_root else ''}: "
+                "the host's batch, then the step to a synchronize (median of 3): " + ", ".join(
+                    f"{k} {v['host_batch_ms']:.1f} ms + {v['step_ms']:.1f} ms ({v['tokens_per_s']:.0f} tokens/s, MFU "
+                    f"{v['mfu'] if v['mfu'] is None else round(v['mfu'], 4)})" for k, v in split.items())
+                + (f"; the multimodal batch's rows equal to the plain accurate-IDCT decode: {jpeg_equal} of {VLM_ROWS}"
+                   if data_root else ""))
+            if data_root and jpeg_equal != VLM_ROWS:
+                raise AssertionError(f"hf-vlm {stage}: {jpeg_equal} of {VLM_ROWS} JPEG rows equal the plain decode")
             rep[stage] = {"run_s": run_s, "hf_load": load, "multimodal": mm, "losses": losses, "steps": by_kind,
+                          "data_root": data_root, "jpeg_rows_equal": jpeg_equal,
                           "split": split, "peak_gib": peak_gib, "step_times_s": step_s, "launches": launches,
                           "expected": expected, "decoder_leaves_differing": differ, "pad_rows": pad_rows}
             del out, params
@@ -3630,7 +4079,7 @@ def hf_vlm(torch, report):
             torch.cuda.empty_cache()
     finally:
         gc.collect()
-        for d in (HF_ROOT, HF_RUNS):
+        for d in (HF_ROOT, HF_RUNS, LLAVA_ROOT):
             shutil.rmtree(d, ignore_errors=True)
     report["hf_vlm"] = rep
     return totals
@@ -3684,10 +4133,11 @@ def main() -> int:
         raise
     for name, text in built.items():
         log(f"built {name}.cu\n" + "\n".join("  " + l for l in text.strip().splitlines() if "registers" in l or "spill" in l))
-    from mla_tpu_torch.native import rlds_host
+    from mla_tpu_torch.native import jpeg_host, rlds_host
 
     rlds_host.load()
-    log(f"built {rlds_host.SRC.name} (the data pipeline's host helper, g++)")
+    jpeg_host.load()
+    log(f"built {rlds_host.SRC.name} and {jpeg_host.SRC.name} (the data pipeline's host helpers, g++)")
     w8a8_layout = w8a8_abi((Path(args.parent) / "w8a8.cu").read_text()) if args.parent else None
     int8_layout = int8_mm_abi((Path(args.parent) / "int8_mm.cu").read_text()) if args.parent else None
     libs = {}
@@ -3747,19 +4197,23 @@ def main() -> int:
     data_totals = data(torch, report)
     gc.collect()
     torch.cuda.empty_cache()
+    oxe_totals = oxe(torch, report)
+    gc.collect()
+    torch.cuda.empty_cache()
     check_vlm_agreement(torch, report, libs["flash_bwd"])
     hf_totals = hf_vlm(torch, report)
     report["serve_launches"], report["ar_serve_launches"], report["train_launches"] = totals, ar_totals, train_totals
     report["serve_host_launches"], report["data_launches"] = host_totals, data_totals
+    report["oxe_launches"] = oxe_totals
     report["hf_vlm_launches"] = hf_totals
     # launches, by each row's path: the serving host's client runs for the
     # kernels it runs (W8A8, flash forward, FPS); the trainer's run for the
     # backward kernels; the AR serving path for int8_matmul; the data
-    # phase's trainer run and the hf-vlm phase's align and finetune runs
-    # for the flash kernels at their shapes
+    # phase's and the oxe phase's trainer runs and the hf-vlm phase's align
+    # and finetune runs for the flash kernels at their shapes
     kernels += train_kernels
     by_path = {"serve-host": host_totals, "ar-serve": ar_totals, "trainer": trainer_totals, "data": data_totals,
-               "hf-vlm": hf_totals}
+               "oxe": oxe_totals, "hf-vlm": hf_totals}
     for k in kernels:
         k.setdefault("path", "serve-host" if k["name"] in host_totals else
                      "ar-serve" if k["name"] == "int8_matmul" else "trainer")

@@ -6,50 +6,25 @@ types; Paeth depends on the left pixel and the row above) and the two
 passes of TensorFlow's ScaleAndTranslate resampling, each a float32 sum in
 its tap order; and the C library's float sine, which TensorFlow's Lanczos
 kernel calls (numpy's float32 sine differs from it in the last bit). It is
-built with g++ into `build/native/` beside the package (a directory
-`.gitignore` lists) at first use, and again when the source is newer than
-the library. A failed build raises: nothing falls back to the
-plain versions, which stand beside each function for the tests.
+built at first use (`native/build.py`); a failed build raises: nothing
+falls back to the plain versions, which stand beside each function for the
+tests.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import tempfile
 import threading
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parent.parent / "csrc" / "rlds_host.cpp"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "native"
-LIB_PATH = BUILD_DIR / "librlds_host.so"
-# -ffp-contract=off: no multiply-add is fused, so each sum rounds as
-# TensorFlow's CPU kernel rounds it
-COMPILE_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
+from mla_tpu_torch.native.build import CSRC, load_library
+
+SRC = CSRC / "rlds_host.cpp"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-
-
-def _build() -> None:
-    """g++ into a temporary file, then an atomic rename: processes that build
-    at once never leave a half-written library for another to load."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(["g++", *COMPILE_FLAGS, str(SRC), "-o", tmp], capture_output=True, text=True,
-                              timeout=300)
-        if proc.returncode != 0:
-            raise RuntimeError(f"the build of {SRC.name} failed:\n{proc.stdout}{proc.stderr}")
-        os.rename(tmp, LIB_PATH)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
 
 
 def load() -> ctypes.CDLL:
@@ -57,9 +32,7 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            if not LIB_PATH.exists() or LIB_PATH.stat().st_mtime < SRC.stat().st_mtime:
-                _build()
-            lib = ctypes.CDLL(str(LIB_PATH))
+            lib = load_library("rlds_host")
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.rlds_masked_crc32c.argtypes, lib.rlds_masked_crc32c.restype = [p, ctypes.c_size_t], ctypes.c_uint32
             lib.rlds_png_unfilter.argtypes, lib.rlds_png_unfilter.restype = [p, i, i, i, p], i

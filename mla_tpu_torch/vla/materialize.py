@@ -3,7 +3,8 @@
 Counterpart of mla_tpu/vla/materialize.py. Two paths:
   * data_root_dir set: the RLDS pipeline (vla/rlds/dataset.py), each frame
     through RLDSBatchTransform in the frame stage's pool of threads, and the
-    fixed-shape collator; the trainer's thread only collates.
+    fixed-shape collator; the trainer's thread only collates. The frames
+    carry a proprio as wide as the model's actions (`fit_mixture`).
   * data_root_dir None: the synthetic DummyDataset (batches come assembled,
     no collator) and the JAX package's statistics dict.
 """
@@ -66,6 +67,7 @@ def get_vla_dataset_and_collator(
         image_size=model_cfg.vision.image_size,
         augment=augment,
         seed=seed,
+        proprio_dim=model_cfg.action_dim,
     )
     transform = RLDSBatchTransform(
         action_tokenizer=action_tokenizer,

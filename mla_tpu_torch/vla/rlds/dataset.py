@@ -13,18 +13,23 @@ place of tf.data, with the same stages in the same order:
     max_proprio, pad masks, window and future-action chunking.
   * flatten_to_frames, apply_per_dataset_frame_transforms,
     apply_frame_transforms (decode and resize every image_* key).
-  * make_interleaved_dataset: statistics, `.repeat()` for training, the
-    trajectory transforms, frames, the frame shuffle buffer (placed before
-    decoding, so it holds frames with their images still encoded), then the
-    frame transforms in an order-preserving pool of threads that also
-    prefetches.
+  * make_interleaved_dataset: each dataset of the mixture (its kwargs from
+    the views it has, or from the OXE kwargs factory, oxe/materialize.py,
+    where `load_camera_views` is given) with its statistics, fitted to
+    the mixture's common views and the model's proprio width
+    (`fit_mixture`, where JAX refuses), `.repeat()` for training, the
+    trajectory transforms, frames and its frame filter;
+    the datasets interleaved by their size-balanced weights
+    (`Dataset.sample_from_datasets`); the frame shuffle buffer (placed
+    before decoding, so it holds frames with their images still encoded),
+    then the frame transforms in an order-preserving pool of threads that
+    also prefetches.
   * RLDSDataset and EpisodicRLDSDataset.
 
 The port runs in one process, so there is no host sharding: the JAX
 package's per-host shard of the episodes is the whole split here. Not
-ported yet (each raises NotImplementedError naming its ROADMAP.md item): a
-mixture of more than one dataset, explicit camera views, image
-augmentation, goal relabelling, task augmentation and subsampling.
+ported yet (each raises NotImplementedError naming its ROADMAP.md item):
+image augmentation, goal relabelling, task augmentation and subsampling.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from mla_tpu_torch.utils.overwatch import initialize_overwatch
 from mla_tpu_torch.vla.rlds import tfds_compat
 from mla_tpu_torch.vla.rlds import transforms as T
 from mla_tpu_torch.vla.rlds.oxe.configs import OXE_DATASET_CONFIGS, POINTCLOUD_KEYS, TACTILE_KEYS
+from mla_tpu_torch.vla.rlds.oxe.materialize import get_oxe_dataset_kwargs_and_weights
 from mla_tpu_torch.vla.rlds.oxe.mixtures import OXE_NAMED_MIXTURES
 from mla_tpu_torch.vla.rlds.oxe.transforms import get_standardization_transform
 from mla_tpu_torch.vla.rlds.stream import AUTOTUNE, Dataset
@@ -47,7 +53,7 @@ from mla_tpu_torch.vla.rlds.stream import AUTOTUNE, Dataset
 overwatch = initialize_overwatch(__name__)
 
 _DEFAULT_STATS_CACHE = "~/.cache/mla_tpu_torch"
-ROADMAP_DATA = "ROADMAP.md queue 1, item 2 (the next data slice)"
+ROADMAP_DATA = "ROADMAP.md queue 1, item 2 (the data path's last part)"
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -332,22 +338,66 @@ def _dataset_kwargs_for_mix(
     load_camera_views: Optional[Sequence[str]],
     load_pointcloud: bool,
     load_tactile: bool,
-) -> Tuple[List[Dict], List[float]]:
-    """Per-dataset kwargs and raw weights of the mix (each view its dataset
-    has; a repeated dataset keeps its first weight)."""
-    if load_camera_views is not None:
-        raise _not_ported(f"loading the camera views {list(load_camera_views)} through the OXE kwargs factory")
+) -> Tuple[List[Tuple[Dict, Dict]], List[float]]:
+    """Per dataset of the mix, its `make_dataset_from_rlds` kwargs and its
+    frame-transform kwargs, and the raw weights (a repeated dataset keeps
+    its first weight). With `load_camera_views`, the OXE kwargs factory's;
+    without, each dataset loads the views its config has, as in JAX."""
     mixture = OXE_NAMED_MIXTURES.get(data_mix, [(data_mix, 1.0)])
-    per_dataset_kwargs, weights, seen = [], [], set()
-    for ds_name, w in mixture:
-        if ds_name in seen:
-            overwatch.warning(f"Skipping duplicate dataset `{(ds_name, w)}`")
-            continue
-        seen.add(ds_name)
-        per_dataset_kwargs.append({"name": ds_name, "data_dir": data_dir, "load_pointcloud": load_pointcloud,
-                                   "load_tactile": load_tactile})
-        weights.append(w)
-    return per_dataset_kwargs, weights
+    if load_camera_views is not None:
+        per_dataset_kwargs, weights = get_oxe_dataset_kwargs_and_weights(
+            data_dir, mixture, load_camera_views=load_camera_views, load_pointcloud=load_pointcloud,
+            load_tactile=load_tactile, action_proprio_normalization_type=T.NormalizationType.BOUNDS_Q99)
+    else:
+        per_dataset_kwargs, weights, seen = [], [], set()
+        for ds_name, w in mixture:
+            if ds_name in seen:
+                overwatch.warning(f"Skipping duplicate dataset `{(ds_name, w)}`")
+                continue
+            seen.add(ds_name)
+            per_dataset_kwargs.append({"name": ds_name, "data_dir": data_dir, "load_pointcloud": load_pointcloud,
+                                       "load_tactile": load_tactile})
+            weights.append(w)
+    return [(kw, kw.pop("dataset_frame_transform_kwargs", {})) for kw in per_dataset_kwargs], weights
+
+
+def fit_mixture(per_dataset_kwargs: Sequence[Dict], all_stats: Dict[str, Dict], proprio_dim: int) -> List[bool]:
+    """Fit the mixture's frames to one structure and to the model's proprio
+    width, where JAX refuses (ROADMAP.md section 3):
+      * each dataset loads only the camera views that every dataset of the
+        mixture has (JAX's tf.data refuses to interleave frames of
+        different views); a dataset alone keeps its own, as in JAX. Sets
+        each kwargs' `image_obs_keys`.
+      * a dataset whose proprio is not `proprio_dim` floats wide (the OXE
+        datasets' 8-float states beside a 7-dim model) gets zeros of the
+        model's width, JAX's restructure rule for a dataset without state
+        keys (JAX's model raises on such a batch).
+    Logs once per dataset what it drops; returns, per dataset, whether its
+    proprio is zeroed."""
+    views = [kw.get("image_obs_keys") or {k: v for k, v in OXE_DATASET_CONFIGS.get(kw["name"], {})
+                                          .get("image_obs_keys", {}).items() if v is not None}
+             for kw in per_dataset_kwargs]
+    common = [k for k in views[0] if all(k in v for v in views[1:])]
+    if len(views) > 1 and not common:
+        raise ValueError(f"the datasets of the mixture share no camera view: {views}")
+    zero = []
+    for kw, v in zip(per_dataset_kwargs, views):
+        kw["image_obs_keys"] = {k: v[k] for k in common}
+        width = len(all_stats[kw["name"]]["proprio"]["q01"])
+        zero.append(width != proprio_dim)
+        dropped = [k for k in v if k not in common]
+        if dropped:
+            overwatch.warning(f"data: `{kw['name']}` drops camera views {dropped}, not in every dataset of the mix")
+        if zero[-1]:
+            overwatch.warning(f"data: `{kw['name']}` has a {width}-float proprio, the model embeds {proprio_dim}: "
+                              "its frames carry a zero proprio")
+    return zero
+
+
+def _zero_proprio(traj: Dict, width: int) -> Dict:
+    obs = dict(traj["observation"])
+    obs["proprio"] = np.zeros((len(obs["proprio"]), width), np.float32)
+    return {**traj, "observation": obs}
 
 
 def compute_sample_weights(raw_weights: Sequence[float], sizes: Sequence[int], balance: bool
@@ -393,42 +443,50 @@ def make_interleaved_dataset(
     stats_sample_trajectories: Optional[int] = None,
     stats_cache_dir: str = _DEFAULT_STATS_CACHE,
     seed: int = 0,
+    proprio_dim: int,
 ) -> Tuple[Dataset, int, Dict]:
     """The mixture's frame stream: (dataset, effective length, per-dataset
-    statistics). With `balance_weights` each raw weight is multiplied by the
-    dataset's transition count. One dataset a mixture in this port."""
+    statistics), its frames fitted to a model that embeds a `proprio_dim`
+    proprio (`fit_mixture`). With `balance_weights` each raw weight is
+    multiplied by the dataset's transition count; the datasets' frames are
+    interleaved by those weights, each stage of a dataset in a pool of its
+    share of `traj_transform_threads`."""
     if augment or image_augment_kwargs is not None:
         raise _not_ported("image augmentation")
-    per_dataset_kwargs, raw_weights = _dataset_kwargs_for_mix(
+    per_dataset, raw_weights = _dataset_kwargs_for_mix(
         data_mix, data_dir, load_camera_views=load_camera_views, load_pointcloud=load_pointcloud,
         load_tactile=load_tactile)
-    if not per_dataset_kwargs:
+    if not per_dataset:
         raise ValueError(f"Mixture `{data_mix}` resolved to zero loadable datasets")
-    if len(per_dataset_kwargs) > 1:
-        raise _not_ported(f"interleaving the {len(per_dataset_kwargs)} datasets of mixture `{data_mix}`")
 
     # pass 1: statistics (cached), and the sizes for the weights
     all_stats: Dict[str, Dict] = {}
     sizes = []
-    for kwargs in per_dataset_kwargs:
+    for kwargs, _ in per_dataset:
         _, stats = make_dataset_from_rlds(**kwargs, train=train, stats_sample_trajectories=stats_sample_trajectories,
                                           stats_cache_dir=stats_cache_dir)
         all_stats[kwargs["name"]] = stats
         sizes.append(int(stats["num_transitions"]))
     weights, dataset_len = compute_sample_weights(raw_weights, sizes, balance_weights)
     threads_per = T.allocate_threads(traj_transform_threads, np.array(weights))
+    zero_proprio = fit_mixture([kwargs for kwargs, _ in per_dataset], all_stats, proprio_dim)
 
-    (kwargs,), (n_threads,) = per_dataset_kwargs, threads_per
-    ds, stats = make_dataset_from_rlds(**kwargs, train=train, dataset_statistics=all_stats[kwargs["name"]],
-                                       num_parallel_calls=int(n_threads))
-    ds = apply_trajectory_transforms(
-        ds.repeat() if train else ds, train=train, window_size=window_size,
-        future_action_window_size=future_action_window_size, goal_relabeling_strategy=goal_relabeling_strategy,
-        task_augment_strategy=task_augment_strategy, task_augment_kwargs=task_augment_kwargs,
-        subsample_length=subsample_length, max_action=max_action, max_proprio=max_proprio,
-        dataset_statistics=stats, num_parallel_calls=int(n_threads),
-    )
-    ds = apply_per_dataset_frame_transforms(flatten_to_frames(ds))
+    datasets = []
+    for (kwargs, frame_kwargs), zero, n_threads in zip(per_dataset, zero_proprio, threads_per):
+        ds, stats = make_dataset_from_rlds(**kwargs, train=train, dataset_statistics=all_stats[kwargs["name"]],
+                                           num_parallel_calls=int(n_threads))
+        if zero:
+            ds = ds.map(partial(_zero_proprio, width=proprio_dim), num_parallel_calls=int(n_threads))
+        ds = apply_trajectory_transforms(
+            ds.repeat() if train else ds, train=train, window_size=window_size,
+            future_action_window_size=future_action_window_size, goal_relabeling_strategy=goal_relabeling_strategy,
+            task_augment_strategy=task_augment_strategy, task_augment_kwargs=task_augment_kwargs,
+            subsample_length=subsample_length, max_action=max_action, max_proprio=max_proprio,
+            dataset_statistics=stats, num_parallel_calls=int(n_threads),
+        )
+        datasets.append(apply_per_dataset_frame_transforms(flatten_to_frames(ds), **frame_kwargs))
+
+    ds = datasets[0] if len(datasets) == 1 else Dataset.sample_from_datasets(datasets, weights.tolist(), seed=seed)
     if not train:
         # one buffer of validation data, fixed and cached
         ds = ds.take(shuffle_buffer_size).cache()
@@ -443,12 +501,12 @@ class RLDSDataset:
     def __init__(self, data_root_dir: str, data_mix: str, *, train: bool = True, shuffle_buffer_size: int = 10_000,
                  future_action_window_size: int = 15, load_pointcloud: bool = True, load_tactile: bool = False,
                  image_size: int = 672, augment: bool = False, seed: int = 0, balance_weights: bool = True,
-                 load_camera_views: Optional[Sequence[str]] = None) -> None:
+                 load_camera_views: Optional[Sequence[str]] = None, proprio_dim: int) -> None:
         self.dataset, self.dataset_length, self.dataset_statistics = make_interleaved_dataset(
             data_mix, data_root_dir, train=train, shuffle_buffer_size=shuffle_buffer_size,
             future_action_window_size=future_action_window_size, load_pointcloud=load_pointcloud,
             load_tactile=load_tactile, image_size=image_size, augment=augment, seed=seed,
-            balance_weights=balance_weights, load_camera_views=load_camera_views,
+            balance_weights=balance_weights, load_camera_views=load_camera_views, proprio_dim=proprio_dim,
         )
 
     def __iter__(self):

@@ -1,2 +1,2 @@
-"""Open-X-Embodiment dataset configs, named mixtures and the MLA suites'
-standardization transforms."""
+"""Open-X-Embodiment dataset configs, named mixtures, every dataset's
+standardization transform and the kwargs factory."""

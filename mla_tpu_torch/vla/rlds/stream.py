@@ -3,7 +3,8 @@
 `Dataset` wraps a function that starts an iterator; each `iter()` runs the
 pipeline anew from its source, as iterating a tf.data graph again does. Its
 stages are map, filter, flat_map, repeat, take, skip, concatenate, cache
-and shuffle. A map given `num_parallel_calls` (a count, or AUTOTUNE for one
+and shuffle, and `Dataset.sample_from_datasets` interleaves several by their
+weights. A map given `num_parallel_calls` (a count, or AUTOTUNE for one
 thread per core) runs in an order-preserving pool of threads: inputs are
 pulled and submitted by a feeder thread, at most `lookahead` ahead of the
 consumer, and results come out in input order, as tf.data's deterministic
@@ -20,7 +21,7 @@ import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Iterable, Iterator, Optional
+from typing import Any, Callable, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -112,6 +113,43 @@ class Dataset:
                 i = int(rng.integers(len(buf)))
                 buf[i], buf[-1] = buf[-1], buf[i]
                 yield buf.pop()
+
+        return Dataset(run)
+
+
+    @staticmethod
+    def sample_from_datasets(datasets: Sequence["Dataset"], weights: Sequence[float],
+                             seed: Optional[int] = None) -> "Dataset":
+        """tf.data's Dataset.sample_from_datasets with its default
+        stop_on_empty_dataset=False: each element is drawn from one input,
+        picked with probability proportional to its weight; an exhausted
+        input leaves and the others' weights are renormalized. The picks
+        come from numpy's generator seeded with `seed`: their distribution
+        is TensorFlow's, their sequence cannot be."""
+        n = len(datasets)
+        w = np.asarray(weights, np.float64)
+        if w.shape != (n,) or n == 0 or (w < 0).any() or w.sum() <= 0:
+            raise ValueError(f"weights {weights} for {n} datasets")
+
+        def run():
+            rng = np.random.default_rng(seed)
+            its = [iter(d) for d in datasets]
+            live = np.ones(n, bool)
+            try:
+                while live.any():
+                    cdf = np.cumsum(np.where(live, w, 0.0))
+                    i = min(int(np.searchsorted(cdf, rng.random() * cdf[-1], side="right")), n - 1)
+                    try:
+                        x = next(its[i])
+                    except StopIteration:
+                        live[i] = False
+                        continue
+                    yield x
+            finally:
+                for it in its:  # stops each input's pool of threads
+                    close = getattr(it, "close", None)
+                    if close is not None:
+                        close()
 
         return Dataset(run)
 

@@ -4,12 +4,17 @@ The port's copy of mla_tpu/vla/rlds/transforms.py, which builds TensorFlow
 graph ops. A trajectory is a nested dict of numpy arrays with time leading;
 strings are object arrays of bytes.
 
+  * binarize_gripper_actions, invert_gripper_actions,
+    rel2abs_gripper_actions: the gripper conventions of the OXE transforms,
+    TensorFlow's scans as fills.
   * normalize_action_and_proprio, to_padding, tree_merge, add_pad_mask_dict,
     chunk_act_obs: TensorFlow meets a float64 numpy operand (the q01/q99
     bounds, high - low + 1e-8, chunk_act_obs's normalized zero action) by
     converting it to float32 first; so does this copy, and the normalized
     actions and proprio come out bit for bit as JAX's pipeline gives them.
-  * decode_and_resize_image: PNG decode (png.py), then TensorFlow's
+  * decode_and_resize_image: the decode of tf.io.decode_image(channels=3)
+    by the stream's signature, PNG (png.py) or JPEG (jpeg.py, the fast
+    IDCT TensorFlow runs), then TensorFlow's
     tf.image.resize(method="lanczos3") with antialias off, which is
     ScaleAndTranslate: each axis a float32 sum over at most 7 taps of the
     Lanczos-3 kernel (weights normalized to sum 1), the vertical pass first,
@@ -32,7 +37,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 
 from mla_tpu_torch.native import rlds_host
-from mla_tpu_torch.vla.rlds import png
+from mla_tpu_torch.vla.rlds import jpeg, png
 
 
 class NormalizationType(str, Enum):
@@ -77,6 +82,38 @@ def normalize_action_and_proprio(traj: Dict, metadata: Dict, normalization_type:
         traj["observation"]["proprio"] = norm(
             traj["observation"]["proprio"], {k: np.asarray(v) for k, v in metadata["proprio"].items()})
     return traj
+
+
+def binarize_gripper_actions(actions: np.ndarray) -> np.ndarray:
+    """A continuous [0, 1] gripper -> 0/1 (float32): above 0.95 open, below
+    0.05 closed, and a value in between takes the next decided one (the
+    last step's own value where none follows): TensorFlow's reverse scan,
+    as a fill from the right."""
+    a = np.asarray(actions)
+    is_open = (a > 0.95).astype(np.float32)
+    decided = (a > 0.95) | (a < 0.05)
+    n = len(a)
+    nxt = np.minimum.accumulate(np.where(decided, np.arange(n), n)[::-1])[::-1]
+    return np.where(nxt < n, is_open[np.minimum(nxt, n - 1)], a[-1]).astype(np.float32)
+
+
+def invert_gripper_actions(actions: np.ndarray) -> np.ndarray:
+    return 1 - np.asarray(actions)
+
+
+def rel2abs_gripper_actions(actions: np.ndarray) -> np.ndarray:
+    """A relative gripper (+1 close, -1 open, 0 hold) -> absolute (0 closed,
+    1 open) float32: each step holds the last nonzero command, and before
+    the first the opposite of the first (open where there is none):
+    TensorFlow's forward scan, as a fill from the left."""
+    a = np.asarray(actions)
+    thresholded = np.where(a < -0.1, 1, np.where(a > 0.1, -1, 0)).astype(np.int32)
+    nonzero = thresholded != 0
+    start = -thresholded[int(np.argmax(nonzero))]
+    start = 1 if start == 0 else start
+    last = np.maximum.accumulate(np.where(nonzero, np.arange(len(a)), -1))
+    held = np.where(last >= 0, thresholded[np.maximum(last, 0)], start)
+    return held.astype(np.float32) / 2 + 0.5
 
 
 # --------------------------------------------------------------------------- #
@@ -219,6 +256,17 @@ def resize_lanczos3(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     return rlds_host.resample(img, lanczos3_spans(img.shape[0], size[0]), lanczos3_spans(img.shape[1], size[1]))
 
 
+def decode_image(data) -> np.ndarray:
+    """Encoded bytes -> uint8 [H, W, 3], as tf.io.decode_image(data,
+    channels=3) decodes PNG and JPEG; any other format raises."""
+    head = bytes(data[:8])
+    if head.startswith(png.SIGNATURE):
+        return png.decode(data)
+    if head.startswith(jpeg.SIGNATURE):
+        return jpeg.decode(data, "ifast")
+    raise ValueError(f"an image that is neither PNG nor JPEG (it starts {head.hex()})")
+
+
 def decode_and_resize_image(image, size=672) -> np.ndarray:
     """Encoded bytes (or a uint8 [H, W, 3] array) -> uint8 [h, w, 3]; an
     empty string, a padded view, decodes to zeros."""
@@ -227,7 +275,7 @@ def decode_and_resize_image(image, size=672) -> np.ndarray:
     if isinstance(image, (bytes, bytearray, memoryview)):
         if len(image) == 0:
             return np.zeros((*size, 3), np.uint8)
-        image = png.decode(image)
+        image = decode_image(image)
     out = resize_lanczos3(image, size)
     return np.clip(np.round(out), 0, 255).astype(np.uint8)
 

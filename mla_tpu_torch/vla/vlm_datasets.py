@@ -20,10 +20,11 @@ the two stage behaviours of the Prismatic lineage:
 `image_transform` defaults to the model's CLIP preprocessing (resize,
 center crop, normalize, mask channel -> [4, S, S] float32), what
 `prismatic.get_fused_tokens` expects. Images are read from disk by
-`_load_image`, which decodes PNG with the port's own decoder
-(vla/rlds/png.py); JPEG, what the LLaVA files hold, is not decoded yet and
-raises (ROADMAP.md item 2). With no data root the examples and frames are
-synthetic (`synthetic_vlm_examples`), as in JAX.
+`_load_image`, which decodes PNG and JPEG (what the LLaVA files hold)
+with the port's own decoders (vla/rlds/png.py, vla/rlds/jpeg.py with
+Pillow's accurate IDCT); any other format raises (ROADMAP.md item 2). With
+no data root the examples and frames are synthetic
+(`synthetic_vlm_examples`), as in JAX.
 
 Token ids come from any tokenizer on the repo's contract (`tok(text,
 add_special_tokens=...)` -> {"input_ids": [...]} or an object with
@@ -43,8 +44,7 @@ from mla_tpu_torch.vla.datasets import add_mask_channel, clip_preprocess
 from mla_tpu_torch.vla.tokenizer import EOS_ID
 
 IGNORE_INDEX = -100
-ROADMAP_JPEG = "ROADMAP.md queue 1, item 2 (the next data slice: JPEG decoding)"
-_JPEG_SIGNATURE = b"\xff\xd8\xff"
+ROADMAP_IMAGES = "ROADMAP.md queue 1, item 2 (the data path's last part)"
 
 
 def _encode(tokenizer, text: str, add_special_tokens: bool = True) -> List[int]:
@@ -65,17 +65,19 @@ def default_image_transform(image_size: int) -> Callable[[np.ndarray], np.ndarra
 
 def _load_image(image_dir: Path, rel: str) -> np.ndarray:
     """An image file as uint8 [H, W, 3], as Pillow's convert("RGB") gives
-    it: grey repeated into three channels, alpha dropped, a palette
-    expanded. PNG only: a JPEG or any other format raises
-    NotImplementedError."""
-    from mla_tpu_torch.vla.rlds import png
+    it: PNG (grey repeated into three channels, alpha dropped, a palette
+    expanded) or JPEG (libjpeg-turbo's accurate integer IDCT, the one
+    Pillow runs). Any other format raises NotImplementedError."""
+    from mla_tpu_torch.vla.rlds import jpeg, png
 
     path = Path(image_dir) / rel
     data = path.read_bytes()
     if data.startswith(png.SIGNATURE):
         return png.decode(data)
-    kind = "JPEG" if data.startswith(_JPEG_SIGNATURE) else "a format other than PNG"
-    raise NotImplementedError(f"{path} is {kind}: the port decodes PNG images only ({ROADMAP_JPEG})")
+    if data.startswith(jpeg.SIGNATURE):
+        return jpeg.decode(data, "islow")
+    raise NotImplementedError(f"{path} is a format other than PNG and JPEG, which the port decodes "
+                              f"({ROADMAP_IMAGES})")
 
 
 class VLMAlignDataset:

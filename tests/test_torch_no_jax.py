@@ -1,8 +1,8 @@
 """The port stands alone: no module of mla_tpu_torch/, and not chip_smoke.py,
 imports jax or anything of the JAX package mla_tpu, nor TensorFlow,
-tensorflow_datasets, protobuf, Pillow or safetensors, which the machine
-with the card does not have (the data pipeline reads TFRecords and PNG
-itself, the HF loaders safetensors files)."""
+tensorflow_datasets, protobuf, Pillow, safetensors or OpenCV, which the
+machine with the card does not have (the data pipeline reads TFRecords,
+PNG and JPEG itself, the HF loaders safetensors files)."""
 
 import ast
 from pathlib import Path
@@ -12,7 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "mla_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "mla_tpu", "flax", "optax", "tensorflow", "tensorflow_datasets", "google.protobuf", "PIL",
-             "safetensors")
+             "safetensors", "cv2")
 
 
 def _imports(path: Path):

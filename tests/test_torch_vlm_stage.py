@@ -173,14 +173,53 @@ def test_png_data_root_items_match_jax(tmp_path, stage):
 
 
 def test_a_jpeg_is_refused(tmp_path):
+    """(The name is the test's from before the port decoded JPEG.) A JPEG
+    now loads as Pillow's convert("RGB") gives it, bit for bit, as JAX's
+    loader reads it; a GIF is still refused, citing the ROADMAP item."""
     from PIL import Image
 
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "a.jpg")
+    rng = np.random.default_rng(4)
+    yy, xx = np.mgrid[:37, :53]
+    img = np.clip(np.stack([xx * 4, yy * 6, xx + yy], -1) + rng.normal(0, 5, (37, 53, 3)), 0, 255).astype(np.uint8)
+    Image.fromarray(img).save(tmp_path / "a.jpg", quality=90)
+    Image.fromarray(img[..., 0]).save(tmp_path / "grey.jpg", quality=90)
     (tmp_path / "b.gif").write_bytes(b"GIF89a" + bytes(20))
-    with pytest.raises(NotImplementedError, match="item 2.*JPEG"):
-        tvlm._load_image(tmp_path, "a.jpg")
-    with pytest.raises(NotImplementedError, match="other than PNG"):
+    for name in ("a.jpg", "grey.jpg"):
+        want = np.asarray(Image.open(tmp_path / name).convert("RGB"))
+        assert np.array_equal(tvlm._load_image(tmp_path, name), want)
+        assert np.array_equal(jvlm._load_image(tmp_path, name), want)
+    with pytest.raises(NotImplementedError, match=r"other than PNG and JPEG.*item 2"):
         tvlm._load_image(tmp_path, "b.gif")
+
+
+@pytest.mark.parametrize("stage", ["align", "finetune"])
+def test_jpeg_data_root_items_match_jax(tmp_path, stage):
+    """A LLaVA-layout data root of JPEG images (the port's encoder): the
+    stage's items through get_vlm_dataset_and_collator, Pillow's
+    convert("RGB") in JAX and the port's accurate-IDCT decoder here: ids,
+    labels and pixels exactly."""
+    import chip_smoke
+
+    chip_smoke.llava_jpeg_fixture(tmp_path, 5, (29, 45), 3, stage)
+    kw = dict(image_size=24, max_length=40)
+    tds, _ = tvlm.get_vlm_dataset_and_collator(stage, tdatasets.get_dataset_config("llava-v15"), str(tmp_path),
+                                                TTokenizer(), **kw)
+    jds, _ = jvlm.get_vlm_dataset_and_collator(stage, jdatasets.get_dataset_config("llava-v15"), str(tmp_path),
+                                                JTokenizer(), **kw)
+    assert len(tds) == len(jds) == 7
+    for i in range(len(jds)):
+        assert_items_equal(tds[i], jds[i])
+
+
+def test_cli_vlm_stage_on_a_jpeg_data_root(tmp_path):
+    """--vlm_stage finetune --data_root_dir on JPEG images: two steps,
+    finite losses."""
+    import chip_smoke
+
+    chip_smoke.llava_jpeg_fixture(tmp_path / "data", 12, (40, 56), 5)
+    out = train.main(vlm_argv(tmp_path, "finetune", "--data_root_dir", str(tmp_path / "data")))
+    losses = out["metrics"].windows["ar_loss"]
+    assert len(losses) == 2 and np.isfinite(losses).all()
 
 
 def test_get_vlm_dataset_and_collator_matches_jax(tmp_path):

@@ -131,6 +131,34 @@ Phases, each of which fails the run if it fails:
                   bucket-4 row check on this bf16 policy (no W8A8), the
                   hidden states' growth layer by layer beside the W8A8
                   policy's (a reading, not a pass/fail check).
+     eval         `python -m mla_tpu_torch.eval_rlbench` through its main()
+                  on serve-http's bf16 mla-7b run dir (kept until this phase
+                  ends): the offline replay of a trace of 8 distinct 640 x
+                  480 frames with raw clouds of 16 384 points (--voxel_cell
+                  0.01 brings them to 1024 through the C++ host ops), DDIM-8
+                  then DPM-4; then the simulator loop over a stub lift3d
+                  RLBenchEnv replaying the trace, 2 tasks x 2 episodes x 3
+                  steps in --predict_mode diff_ar. Exact launches (flash L
+                  and FPS 2 a chunk, twice that a diff_ar step, no W8A8 or
+                  int8_matmul), chunks [8, 16, 7], finite, the gripper
+                  binarized; the reference's output layout (the mp4 only
+                  where imageio can write it), a written PNG frame decoded
+                  equal to the trace's, results.json and the success-rate
+                  files; step latency p50 / p95 per sampler and each head's
+                  of diff_ar, prepare_pointcloud's host ms; one DDIM-8 step
+                  profiled (host preprocessing, wall, device busy, idle
+                  share; on the float frame and on the uint8 frame). Then a
+                  bf16 mla-small run dir through the same entry on the card
+                  and on the CPU, the same x_T injected through a wrapped
+                  load_policy: the normalized chunks within AGREE_RTOL.
+     diffusion    CogACT's DiT-B action head (token_size 4096) at B = 64,
+                  fp32, TF32 off: dit_loss forward and backward,
+                  training_losses (MSE, KL, RESCALED_KL) and the 100-step
+                  calc_bpd_loop on the card and on the CPU from the same
+                  weights, inputs and replayed draws; the loss, each
+                  gradient leaf (of its scale) and each row's terms within
+                  DIFF_RTOL (the decoder's ill-conditioned elements at t = 0
+                  allowed their gap, ILL_MASS); the seconds of each.
   5. train-agree  one AdamW training step of the bf16 `mla-small` (B = 2)
                   on the card and on the CPU from the same weights, batch,
                   noise, t and FPS starts; loss and grad_norm must agree,
@@ -298,9 +326,10 @@ first run for dQ and dK/dV, timed at its diffusion micro-batch, BH 256 at
 S 547; on the AR serving path for the weight-only int8 product, timed at
 its serving shapes; on the data phase's trainer run for the flash
 forward, dQ and dK/dV, timed at BH 256 / S 979; on the oxe phase's
-trainer run for the same three, timed at BH 256 / S 723; and on the hf-vlm phase's
+trainer run for the same three, timed at BH 256 / S 723; on the hf-vlm phase's
 align and finetune runs for the same three, timed at BH 512 / S 1025;
-the other paths' counts
+and on the eval phase's three mla-7b runs for the flash forward and FPS,
+timed at B = 1 (BH 32 / S 534; FPS at B = 1); the other paths' counts
 are in the log and in chip_smoke.json); an earlier line says whether
 tensorflow, tensorflow_datasets, protobuf and Pillow are installed; the
 last is
@@ -316,6 +345,7 @@ import contextlib
 import gc
 import itertools
 import json
+import math
 import mmap
 import os
 import shutil
@@ -502,7 +532,9 @@ def check_w8a8(torch, report, control):
 # rows x 4 repeats), each from start indices 0 and 7
 FPS_STAGES = ((1024, 512), (512, 256))
 FPS_BATCHES = (1, 2, 4, 8)
-FPS_ROW_B = 4
+# the kernels line's rows: the serving host's largest bucket, and the eval
+# entry's one observation a call
+FPS_ROW_B = {4: "serve-host", 1: "eval"}
 
 
 def check_fps(torch, report, control):
@@ -511,12 +543,12 @@ def check_fps(torch, report, control):
     distance field, so it is never sampled) must differ at every stage. The
     last cloud of each batch holds its last point far outside the unit
     cube, so the sound kernel samples it second and the control cannot.
-    Times kernel (CUDA graph), plain version and the bound; the row sums the
-    stages at FPS_ROW_B, the serving host's largest bucket."""
+    Times kernel (CUDA graph), plain version and the bound; each row sums
+    the stages at one batch of FPS_ROW_B."""
     from mla_tpu_torch.ops import cuda, pointops
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "b_bytes": 0.0, "b_ops": 0.0}
+    tots = {B: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "b_bytes": 0.0, "b_ops": 0.0} for B in FPS_ROW_B}
     readings = {"control_differs": {}, "ms": {}}
     for N, npoint in FPS_STAGES:
         differs = 0
@@ -544,8 +576,9 @@ def check_fps(torch, report, control):
             b, by = bound_ms(nbytes, ops, "fp32")
             readings["ms"][f"B={B} N={N} npoint={npoint}"] = ms
             plain_ms = None
-            if B == FPS_ROW_B:
+            if B in FPS_ROW_B:
                 plain_ms = cuda_ms(torch, lambda: pointops.furthest_point_sample_plain(xyz, npoint, zero), 2, 1)
+                tot = tots[B]
                 tot["ms"] += ms
                 tot["plain_ms"] += plain_ms
                 tot["bound_ms"] += b
@@ -562,12 +595,13 @@ def check_fps(torch, report, control):
             raise AssertionError(f"fps N={N} npoint={npoint}: the check passes the control")
         log(f"fps N={N} npoint={npoint}: the control differs in {differs} indices")
     report["fps"] = readings
-    return {
+    return [{
         "name": "furthest_point_sample", "route": "cuda", "source": "mla_tpu_torch/csrc/fps.cu",
         "replaces": "mla_tpu/ops/pointops_pallas.py:28", "max_abs_err": 0.0,
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
         "bound_by": "bytes" if tot["b_bytes"] >= tot["b_ops"] else "operations", "library_ms": None,
-    }
+        "path": FPS_ROW_B[B], "shape": f"B {B}",
+    } for B, tot in tots.items()]
 
 
 # kernel vs plain version, both bf16 out: P is rounded to bf16 in both, but
@@ -601,9 +635,10 @@ FLASH_SHAPES = ((32, PREFIX_LEN, "serving prefill"), (2 * 32, PREFIX_LEN, "servi
                 (2 * 32, TRAINER_AR_S, "trainer AR mode"), (DATA_BH, DATA_S, "data trainer"),
                 (OXE_BH, OXE_S, "oxe trainer"), (VLM_BH, VLM_S, "hf-vlm"), (VLM_BH, VLM_LANG_S, "hf-vlm language-only"))
 # the shapes the kernels line times: the serving host's, the data phase's,
-# the oxe phase's and the VLM stage's multimodal batch
+# the oxe phase's, the VLM stage's multimodal batch and the eval entry's
+# B = 1 prefill
 FLASH_ROW_SHAPES = {"serving host bucket 4": "serve-host", "data trainer": "data", "oxe trainer": "oxe",
-                    "hf-vlm": "hf-vlm"}
+                    "hf-vlm": "hf-vlm", "serving prefill": "eval"}
 # the controls drop the last, ragged tile of 64 keys (queries): at a length
 # that is a multiple of 64 there is none, and a control is the kernel itself
 FLASH_TILE = 64
@@ -2143,8 +2178,534 @@ def serve_http(torch, report):
         f"{readings['bucket_rows_fault']} (confirmed when the bf16 jump is under a tenth of the W8A8 one)")
     report["serve_http"] = readings
     del policy
-    shutil.rmtree(SERVE_HTTP_ROOT, ignore_errors=True)
     return launches
+
+
+# --------------------------------------------------------------------------- #
+# the eval entry: python -m mla_tpu_torch.eval_rlbench on serve-http's run dir
+# --------------------------------------------------------------------------- #
+
+EVAL_ROOT = Path("build") / "chip_smoke_eval"
+EVAL_FRAMES, EVAL_CAMERA = 8, (480, 640)
+# a raw sensor cloud of 16 384 returns, brought to the model's 1024 points by
+# the voxel pass (1 cm cells) and the exact-count step
+EVAL_RAW_POINTS, EVAL_VOXEL = 16384, 0.01
+# the stub simulator: close_box ends in success at the last step, close_fridge
+# runs out of steps; every step is a diff_ar step (both heads)
+EVAL_TASKS, EVAL_EPISODES, EVAL_STEPS = ("close_box", "close_fridge"), 2, 3
+EVAL_AGREE_FRAMES = 3
+EVAL_KERNELS = ("flash_attention", "furthest_point_sample", "w8a8_matmul", "int8_matmul")
+
+
+def check_launches(got: dict, expected: dict, what: str) -> None:
+    if got != expected:
+        raise AssertionError(f"{what}: launches {got}, expected {expected}")
+
+
+def eval_trace(path: Path, frames: int, seed: int) -> dict:
+    """An offline trace in eval_rlbench's format, written to `path`:
+    distinct 640 x 480 uint8 frames, raw clouds of EVAL_RAW_POINTS returns (a
+    table plane with 2 mm of sensor noise and an object on it, in a shuffled
+    order), depths, the instruction (serve-http's 22-id prompt: S = 534)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = EVAL_CAMERA
+    n_obj = EVAL_RAW_POINTS // 4
+    n_tab = EVAL_RAW_POINTS - n_obj
+    table = np.stack([rng.uniform(-0.3, 0.7, (frames, n_tab)), rng.uniform(-0.45, 0.45, (frames, n_tab)),
+                      0.75 + rng.normal(0, 0.002, (frames, n_tab))], -1)
+    obj = rng.uniform([0.0, -0.2, 0.8], [0.4, 0.2, 0.9], (frames, 1, 3)) + rng.normal(0, 0.04, (frames, n_obj, 3))
+    trace = {"images": rng.integers(0, 256, size=(frames, h, w, 3), dtype=np.uint8),
+             "point_clouds": rng.permutation(np.concatenate([table, obj], 1), axis=1).astype(np.float32),
+             "depths": rng.uniform(0.3, 2.0, (frames, h, w)).astype(np.float32),
+             "instruction": np.asarray(HTTP_INSTRUCTION)}
+    np.savez(path, **trace)
+    return trace
+
+
+class EvalEnv:
+    """A stub of lift3d's RLBenchEnv replaying a trace: reset gives frame 0,
+    the k-th step frame k; close_box is done, with success, at its
+    EVAL_STEPS-th step, any other task never. Steps and teardowns are kept."""
+
+    trace: dict = {}
+    steps: list = []
+    closed: list = []
+
+    def __init__(self, task_name, camera_name):
+        self.task, self.t = task_name, 0
+
+    def _obs(self):
+        import numpy as np
+
+        i = self.t % len(EvalEnv.trace["images"])
+        return {"image": EvalEnv.trace["images"][i], "point_cloud": EvalEnv.trace["point_clouds"][i],
+                "depth": EvalEnv.trace["depths"][i], "instruction": HTTP_INSTRUCTION,
+                "robot_state": np.linspace(-0.5, 0.5, 7, dtype=np.float32)}
+
+    def reset(self):
+        self.t = 0
+        return self._obs()
+
+    def step(self, action):
+        EvalEnv.steps.append((self.task, action))
+        self.t += 1
+        done = self.task == "close_box" and self.t >= EVAL_STEPS
+        return self._obs(), float(done), done, {"success": done}
+
+    def shutdown(self):
+        EvalEnv.closed.append(self.task)
+
+
+def _eval_run(torch, argv, noise=None, timings=None, keep=None) -> None:
+    """mla_tpu_torch.eval_rlbench.main(argv) in this process, through a
+    wrapped load_policy: with `noise`, the policy's x_T and the chunk before
+    its clip and unnormalization; with `timings`, each
+    predict_action_diff_ar's output (its "timings": [AR s, diffusion s]);
+    `keep` takes the policy."""
+    from mla_tpu_torch import eval_rlbench as ev
+
+    real = ev.load_policy
+
+    def load_policy(args):
+        pol = real(args)
+        if keep is not None:
+            keep.append(pol)
+        if noise is not None:
+            diff = pol.predict_action_diff
+            pol.predict_action_diff = lambda *a, **k: diff(*a, noise=noise, return_normalized=True, **k)
+        if timings is not None:
+            both = pol.predict_action_diff_ar
+            pol.predict_action_diff_ar = lambda *a, **k: timings.append(both(*a, **k)) or timings[-1]
+        return pol
+
+    ev.load_policy = load_policy
+    try:
+        rc = ev.main(list(argv))
+    finally:
+        ev.load_policy = real
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rc != 0:
+        raise AssertionError(f"eval: eval_rlbench.main({argv}) returned {rc}")
+
+
+def _files(root: Path) -> set:
+    return {str(p.relative_to(root)) for p in root.rglob("*") if p.is_file()}
+
+
+def _media(task: str, episode: int, steps: int, depths: bool = True) -> set:
+    out = {f"{task}/images/episode{episode}/frame_{j:04d}.png" for j in range(steps)}
+    if depths:
+        out |= {f"{task}/depths/episode{episode}/depth_{j:04d}.npy" for j in range(steps)}
+    return out
+
+
+def _layout(out: Path, want: set, videos: set) -> bool:
+    """The output tree is `want`, with the episodes' videos or without them
+    (imageio writes mp4 only where it has a backend); True with videos."""
+    got = _files(out)
+    if got not in (want, want | videos):
+        raise AssertionError(f"eval: {out} holds {sorted(got ^ want)[:8]} beyond or short of the reference layout")
+    return got == want | videos
+
+
+def eval_step_profile(torch, policy, trace) -> dict:
+    """Where an eval step's time goes: the host's preprocessing of a 640 x
+    480 frame (eval_rlbench's: resize, crop, CLIP normalization, mask), then
+    predict_action_diff (DDIM-8) on that float frame as the entry calls it,
+    and on the uint8 frame resized on the host (the serving host's route,
+    CLIP on the card): host wall ms, median of 3, and the device's busy ms
+    under torch.profiler, so its idle share."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from mla_tpu_torch.eval_rlbench import _frame
+    from mla_tpu_torch.native.pointops_host import prepare_pointcloud
+    from mla_tpu_torch.serve import _prep_image
+
+    size = policy.cfg.vision.image_size
+    frame = trace["images"][1]
+    pc = prepare_pointcloud(trace["point_clouds"][1], policy.cfg.point.input_points, cell=EVAL_VOXEL)
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        img = _frame(frame, policy)
+        host.append((time.perf_counter() - t0) * 1e3)
+    out = {"host_preprocess_ms": float(np.median(host))}
+    for name, im in (("float", img), ("uint8", _prep_image(frame, size))):
+        def call():
+            policy.predict_action_diff(im, pc, HTTP_INSTRUCTION, unnorm_key="rlbench")
+
+        call()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        wall = float(np.median(walls))
+        out[name] = {"wall_ms": wall, "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall)}
+    return out
+
+
+def _pcts(ms) -> dict:
+    import numpy as np
+
+    return {"p50": float(np.percentile(ms, 50)), "p95": float(np.percentile(ms, 95))}
+
+
+def eval_phase(torch, report):
+    """python -m mla_tpu_torch.eval_rlbench through main([...]) on serve-http's
+    bf16 mla-7b run dir: the offline replay of EVAL_FRAMES 640 x 480 frames
+    with 16 384-point raw clouds (--voxel_cell 0.01) with DDIM-8, then DPM-4;
+    then the simulator loop over a stub lift3d RLBenchEnv replaying the
+    trace, 2 tasks x 2 episodes x 3 steps in --predict_mode diff_ar. Exact
+    launches of every run, the chunks' shape, finiteness and gripper, the
+    reference output layout, a PNG frame decoded equal to its trace frame,
+    results.json; per-step latency percentiles and prepare_pointcloud's host
+    ms; one DDIM-8 step profiled (eval_step_profile). Then mla-small (bf16, no int8) through the same entry on the card
+    and on the CPU, the same x_T injected: the chunks within AGREE_RTOL.
+    Returns the launches of the three counted mla-7b runs."""
+    import numpy as np
+
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.native.pointops_host import grid_subsample, prepare_pointcloud
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.training.checkpointing import export_reference_pt, write_run_metadata
+    from mla_tpu_torch.vla.rlds import png
+
+    readings, totals = {}, {k: 0 for k in EVAL_KERNELS}
+    cfg = get_model_config("mla-7b")
+    L, S, H, A = cfg.llama.num_layers, cfg.point.num_stages, cfg.action_horizon, cfg.action_dim
+    shutil.rmtree(EVAL_ROOT, ignore_errors=True)
+    EVAL_ROOT.mkdir(parents=True)
+    trace_path = EVAL_ROOT / "trace.npz"
+    trace = eval_trace(trace_path, EVAL_FRAMES, 61)
+
+    prep_ms, voxels = [], []
+    for c in trace["point_clouds"]:
+        t0 = time.perf_counter()
+        pts = prepare_pointcloud(c, cfg.point.input_points, cell=EVAL_VOXEL)
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+        voxels.append(int(grid_subsample(c, EVAL_VOXEL).shape[0]))
+        if pts.shape != (cfg.point.input_points, 3):
+            raise AssertionError(f"eval: prepare_pointcloud gave {pts.shape}")
+    readings["prepare_pointcloud_ms"], readings["voxels_kept"] = prep_ms, voxels
+    log(f"eval: prepare_pointcloud {EVAL_RAW_POINTS} -> {cfg.point.input_points} points (voxel {EVAL_VOXEL} m keeps "
+        f"{min(voxels)}-{max(voxels)}) on the host: p50 {np.percentile(prep_ms, 50):.2f} ms, max {max(prep_ms):.2f} ms "
+        f"over {EVAL_FRAMES} clouds")
+
+    common = ["--run_dir", str(SERVE_HTTP_ROOT / "mla-7b"), "--model", "mla-7b", "--unnorm_key", "rlbench",
+              "--device", "cuda", "--voxel_cell", str(EVAL_VOXEL)]
+    per_chunk = {"flash_attention": L, "furthest_point_sample": S, "w8a8_matmul": 0, "int8_matmul": 0}
+    videos = {"offline/videos/episode0_video_steps.mp4"}
+    # the gripper is binarized to 0 or 1 before the q01/q99 map
+    low, high = (SERVE_STATS["rlbench"]["action"][q][-1] for q in ("q01", "q99"))
+    gripper = {0.5 * (b + 1) * (high - low) + low for b in (0.0, 1.0)}
+    for name, extra in (("DDIM-8", ()), ("DPM-4", ("--sampler", "dpm", "--num_dpm_steps", "4"))):
+        out = EVAL_ROOT / name
+        cuda.launches.clear()
+        t0 = time.perf_counter()
+        _eval_run(torch, common + ["--offline_trace", str(trace_path), "--output_dir", str(out), *extra])
+        wall = time.perf_counter() - t0
+        got = {k: cuda.launches[k] for k in EVAL_KERNELS}
+        check_launches(got, {k: v * EVAL_FRAMES for k, v in per_chunk.items()}, f"eval offline {name}")
+        for k in EVAL_KERNELS:
+            totals[k] += got[k]
+        blob = np.load(out / "predicted_actions.npz")
+        a, lat = blob["actions"], blob["latencies"] * 1e3
+        if a.shape != (EVAL_FRAMES, H, A) or not np.isfinite(a).all() or not set(np.unique(a[..., -1])) <= gripper:
+            raise AssertionError(f"eval offline {name}: actions {a.shape}, finite {np.isfinite(a).all()}, gripper "
+                                 f"{np.unique(a[..., -1])[:4]}")
+        video = _layout(out, {"eval.log", "predicted_actions.npz"} | _media("offline", 0, EVAL_FRAMES), videos)
+        last = EVAL_FRAMES - 1
+        frame = png.decode((out / f"offline/images/episode0/frame_{last:04d}.png").read_bytes())
+        if not np.array_equal(frame, trace["images"][last]):
+            raise AssertionError(f"eval offline {name}: the written frame {last} is not the trace's")
+        readings[name] = {"step_ms": lat.tolist(), "warm": _pcts(lat[1:]), "wall_s": wall, "launches": got,
+                          "video": video}
+        log(f"eval offline {name}: {EVAL_FRAMES} steps in {wall:.1f} s (load_vla included), step ms "
+            f"{[round(float(x), 1) for x in lat]}: p50 {np.percentile(lat[1:], 50):.1f}, p95 "
+            f"{np.percentile(lat[1:], 95):.1f} (steps 2-{EVAL_FRAMES}); launches {got} "
+            f"({per_chunk['flash_attention']} flash and {S} FPS a chunk); layout as the reference's"
+            f"{', with' if video else ', without'} the mp4")
+
+    EvalEnv.trace, EvalEnv.steps, EvalEnv.closed = trace, [], []
+    stubs = {"lift3d": None, "lift3d.envs": None, "lift3d.envs.rlbench_env": None}
+    for mod in stubs:
+        stubs[mod] = sys.modules.get(mod)
+        sys.modules[mod] = type(sys)(mod)
+    sys.modules["lift3d.envs.rlbench_env"].RLBenchEnv = EvalEnv
+    out, timings, kept = EVAL_ROOT / "sim", [], []
+    try:
+        cuda.launches.clear()
+        t0 = time.perf_counter()
+        _eval_run(torch, common + ["--tasks", *EVAL_TASKS, "--num_episodes", str(EVAL_EPISODES), "--max_steps",
+                                   str(EVAL_STEPS), "--predict_mode", "diff_ar", "--output_dir", str(out)],
+                  timings=timings, keep=kept)
+        wall = time.perf_counter() - t0
+        got = {k: cuda.launches[k] for k in EVAL_KERNELS}
+    finally:
+        for mod, old in stubs.items():
+            if old is None:
+                sys.modules.pop(mod, None)
+            else:
+                sys.modules[mod] = old
+    steps = len(EVAL_TASKS) * EVAL_EPISODES * EVAL_STEPS
+    # a diff_ar step: predict_action_ar's prefill (P = 535) and
+    # predict_action_diff's (P = 534) through flash, each front-end pass 2 FPS;
+    # the decode steps and the suffix evaluations attend plainly
+    check_launches(got, {k: 2 * v * steps for k, v in per_chunk.items()}, "eval simulator diff_ar")
+    for k in EVAL_KERNELS:
+        totals[k] += got[k]
+    if len(EvalEnv.steps) != steps or EvalEnv.closed != list(EVAL_TASKS) or len(timings) != steps:
+        raise AssertionError(f"eval simulator: {len(EvalEnv.steps)} steps, teardowns {EvalEnv.closed}, "
+                             f"{len(timings)} timed")
+    for task, action in EvalEnv.steps:
+        if np.asarray(action).shape != (A,) or not np.isfinite(action).all():
+            raise AssertionError(f"eval simulator {task}: executed action {np.asarray(action).shape}")
+    if json.loads((out / "results.json").read_text()) != {"close_box": 1.0, "close_fridge": 0.0}:
+        raise AssertionError(f"eval simulator: results {(out / 'results.json').read_text()}")
+    text = (out / "eval.log").read_text()
+    episodes = len(EVAL_TASKS) * EVAL_EPISODES
+    if not (text.count("average ar infer time") == text.count("average diff infer time") == episodes
+            and (out / "close_box_success_rate.txt").read_text() == "1.0000\n"
+            and (out / "close_fridge_success_rate.txt").read_text() == "0.0000\n"):
+        raise AssertionError("eval simulator: the log's telemetry lines or the success-rate files")
+    want = {"eval.log", "results.json"} | {f"{t}_success_rate.txt" for t in EVAL_TASKS}
+    vids = set()
+    for task in EVAL_TASKS:
+        for ep in range(EVAL_EPISODES):
+            want |= _media(task, ep, EVAL_STEPS)
+            vids.add(f"{task}/videos/episode{ep}_video_steps.mp4")
+    video = _layout(out, want, vids)
+    ar_ms, diff_ms = (np.array([out_["timings"][i] for out_ in timings]) * 1e3 for i in (0, 1))
+    readings["diff_ar"] = {"ar_ms": ar_ms.tolist(), "diff_ms": diff_ms.tolist(), "ar": _pcts(ar_ms[1:]),
+                           "diff": _pcts(diff_ms[1:]), "wall_s": wall, "launches": got, "video": video}
+    log(f"eval simulator diff_ar: {len(EVAL_TASKS)} tasks x {EVAL_EPISODES} episodes x {EVAL_STEPS} steps in "
+        f"{wall:.1f} s, results {{'close_box': 1.0, 'close_fridge': 0.0}}; AR head ms p50 "
+        f"{np.percentile(ar_ms[1:], 50):.1f}, p95 {np.percentile(ar_ms[1:], 95):.1f}; diffusion head (DDIM-8) ms p50 "
+        f"{np.percentile(diff_ms[1:], 50):.1f}, p95 {np.percentile(diff_ms[1:], 95):.1f} (steps 2-{steps}); "
+        f"launches {got} ({2 * L} flash and {2 * S} FPS a step); layout as the reference's"
+        f"{', with' if video else ', without'} the mp4s")
+    prof = readings["step_profile"] = eval_step_profile(torch, kept[0], trace)
+    log(f"eval step profile (DDIM-8, B = 1): the host's preprocessing of a 640 x 480 frame "
+        f"{prof['host_preprocess_ms']:.1f} ms, then predict_action_diff on the float frame "
+        f"{prof['float']['wall_ms']:.1f} ms (device busy {prof['float']['device_busy_ms']:.1f}, idle share "
+        f"{prof['float']['idle_share']:.3f}); on the uint8 frame (CLIP on the card) {prof['uint8']['wall_ms']:.1f} "
+        f"ms (busy {prof['uint8']['device_busy_ms']:.1f}, idle {prof['uint8']['idle_share']:.3f})")
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the card against the CPU through the same entry: mla-small, no int8
+    scfg = get_model_config("mla-small")
+    small = EVAL_ROOT / "mla-small"
+    params, state = P.init(scfg, seed=63, device="cpu")
+    live_head(torch, params, 64)
+    write_run_metadata(small, {"base_vlm": "mla-small"}, scfg, SERVE_STATS)
+    (small / "checkpoints").mkdir()
+    export_reference_pt(small / "checkpoints" / "mla-small.pt", {"params": params, "model_state": state}, scfg)
+    del params, state
+    short = EVAL_ROOT / "trace_agree.npz"
+    eval_trace(short, EVAL_AGREE_FRAMES, 62)
+    noise = np.random.default_rng(65).standard_normal((scfg.action_horizon, scfg.action_dim)).astype(np.float32)
+    chunks = {}
+    for dev in ("cuda", "cpu"):
+        out = EVAL_ROOT / f"agree_{dev}"
+        t0 = time.perf_counter()
+        _eval_run(torch, ["--run_dir", str(small), "--model", "mla-small", "--unnorm_key", "rlbench", "--device",
+                          dev, "--voxel_cell", str(EVAL_VOXEL), "--offline_trace", str(short), "--output_dir", str(out),
+                          "--no-save_media"], noise=noise)
+        chunks[dev] = np.load(out / "predicted_actions.npz")["actions"]
+        log(f"eval agree mla-small on {dev}: {EVAL_AGREE_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+    card, cpu = chunks["cuda"], chunks["cpu"]
+    scale = float(np.abs(cpu).max())
+    err = float(np.abs(card - cpu).max())
+    other = float(np.abs(card[1] - cpu[0]).max())
+    readings["agree"] = {"max_abs_err": err, "scale": scale, "rtol": AGREE_RTOL, "another_frame": other}
+    log(f"eval agree: the card's normalized chunks vs the CPU's (same run dir, frames, x_T): max err {err:.4e}, scale "
+        f"{scale:.4e}, rel {err / scale:.4e} (tol {AGREE_RTOL}); another frame's chunk differs by {other:.4e} "
+        f"(a reading)")
+    if card.shape != (EVAL_AGREE_FRAMES, scfg.action_horizon, scfg.action_dim) or not err <= AGREE_RTOL * scale:
+        raise AssertionError(f"eval agree: card vs CPU {err} against scale {scale}")
+    report["eval"] = readings
+    shutil.rmtree(EVAL_ROOT, ignore_errors=True)
+    return totals
+
+
+# --------------------------------------------------------------------------- #
+# the diffusion modules off the policy's path: DiT-B's loss, the bound, bpd
+# --------------------------------------------------------------------------- #
+
+# CogACT's action head (DiT-B on a 4096-wide condition) at B = 64, fp32 with
+# TF32 off (main turns it off): card against CPU on the same inputs and
+# draws. The sums of the products run in other orders (~1e-6 relative
+# through 12 blocks), and the KL terms divide by posterior variances down to
+# ~1e-4, which scales that up
+DIFF_B, DIFF_BPD_ROWS, DIFF_RTOL = 64, 4, 1e-4
+# the decoder's term at t = 0 is log(cdf_plus - cdf_min); where a bin's mass
+# is tiny but its fp32 cdfs are not saturated, that difference is a few ulps
+# of ~1 and keeps no correct digit on either device (each rounds its own
+# tanh): such an element may move its row's mean by up to ILL_GAP nats
+ILL_MASS = 1e-5
+ILL_GAP = math.log(ILL_MASS) + 1.0 - math.log(1e-12)
+
+
+def decoder_ill(x0, mean, log_var):
+    """[rows, elements]: the decoder term's elements whose bin mass, in
+    float64, lies under ILL_MASS."""
+    import numpy as np
+
+    x, m, s = (np.asarray(a.detach().float().cpu() if hasattr(a, "detach") else a, np.float64)
+               for a in (x0, mean, log_var))
+
+    def cdf(v):
+        return 0.5 * (1.0 + np.tanh(np.sqrt(2.0 / np.pi) * (v + 0.044715 * v**3)))
+
+    inv = np.exp(-0.5 * s)
+    plus, minus = cdf(inv * (x - m + 1 / 255)), cdf(inv * (x - m - 1 / 255))
+    mass = np.where(x < -0.999, plus, np.where(x > 0.999, 1 - minus, plus - minus))
+    return (mass < ILL_MASS).reshape(len(x), -1)
+
+
+def bits_close(got, want, ill, scale: float = 1.0):
+    """(worst |got - want| / |want|, within DIFF_RTOL and the slack):
+    per-row values, the rows' decoder elements in `ill` each allowed
+    ILL_GAP nats over the row's mean (times `scale`). Rows of a [rows, T]
+    array (the loop's per-step terms) are held to DIFF_RTOL of their own
+    largest magnitude: at the smallest t, x_0 -> eps divides by
+    sqrt(1 / alpha_bar - 1) ~ 1e-2, which scales fp32 rounding up where
+    the terms are smallest."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    slack = np.asarray(ill).sum(1) * ILL_GAP / (np.asarray(ill).shape[1] * np.log(2.0)) * scale
+    slack = slack.reshape(slack.shape + (1,) * (got.ndim - 1))
+    ref = np.abs(want) if want.ndim == 1 else np.abs(want).max(axis=1, keepdims=True)
+    return float((np.abs(got - want) / np.maximum(ref, 1e-30)).max()), \
+        bool((np.abs(got - want) <= DIFF_RTOL * ref + slack).all())
+
+
+def diffusion(torch, report):
+    """dit_loss forward and backward, training_losses (MSE, KL,
+    RESCALED_KL) and calc_bpd_loop over all 100 steps on DiT-B at B = 64,
+    fp32, on the card and on the CPU from the same weights, inputs and
+    replayed draws (noise, t, the condition dropout; the loop's per-step
+    noise): the loss and each gradient leaf, each row's losses and the
+    loop's outputs within DIFF_RTOL (the loop on the CPU for its first
+    DIFF_BPD_ROWS rows, which it computes independently of the others). The
+    seconds each took on each device."""
+    import numpy as np
+
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.diffusion import gaussian as gd
+    from mla_tpu_torch.diffusion import likelihood as lk
+    from mla_tpu_torch.models import action_model as am
+
+    cfg = am.dit_config("DiT-B", token_size=4096, in_channels=7, future_action_window_size=15)
+    base = am.dit_init(cfg, seed=71, device="cpu")
+    fc2 = base["final_layer"]["mlp"]["fc2"]  # zero in the reference init
+    fc2["w"] = torch.randn(fc2["w"].shape, generator=torch.Generator().manual_seed(72)) * 0.02
+    sched = gd.create_schedule("")
+    T, H, C = sched.num_timesteps, cfg.future_action_window_size + 1, cfg.in_channels
+    rng = np.random.default_rng(73)
+    x = np.clip(rng.normal(0, 0.5, (DIFF_B, H, C)), -1, 1).astype(np.float32)
+    z = rng.normal(size=(DIFF_B, 1, cfg.token_size)).astype(np.float32)
+    noise = rng.standard_normal(x.shape).astype(np.float32)
+    t = (np.arange(DIFF_B) * 37 % T).astype(np.int64)  # t = 0 in row 0, the rest spread over the schedule
+    drop = (rng.uniform(size=DIFF_B) < 0.25).astype(np.int64)
+    bpd_noise = rng.standard_normal((T, DIFF_B) + x.shape[1:]).astype(np.float32)
+    losses = (lk.LossType.MSE, lk.LossType.KL, lk.LossType.RESCALED_KL)
+    res, secs = {}, {}
+
+    def timed(dev, key, fn):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs.setdefault(dev, {})[key] = time.perf_counter() - t0
+        return out
+
+    for dev in ("cuda", "cpu"):
+        p = P.tree_to(base, dev)
+        leaves = dict(P.tree_items(p))
+        for v in leaves.values():
+            v.requires_grad_()
+        X, Z, N, TT, D = (torch.from_numpy(a).to(dev) for a in (x, z, noise, t, drop))
+        out = {}
+
+        def loss_backward():
+            loss = am.dit_loss(p, cfg, sched, X, Z, None, override_noise=N, override_t=TT, override_drop=D)
+            loss.backward()
+            return loss
+
+        out["dit_loss"] = float(timed(dev, "dit_loss fwd+bwd", loss_backward).detach())
+        out["grads"] = {k: v.grad.detach().cpu().numpy() for k, v in leaves.items()}
+        with torch.no_grad():
+            def fn(xx, tt):
+                return am.dit_forward(p, cfg, xx, tt, Z[: xx.shape[0]])
+
+            for lt in losses:
+                out[lt.name] = timed(dev, f"training_losses {lt.name}", lambda: lk.training_losses(
+                    sched, fn, X, TT, N, loss_type=lt)["loss"]).cpu().numpy()
+            rows = DIFF_B if dev == "cuda" else DIFF_BPD_ROWS
+            bpd = timed(dev, f"calc_bpd_loop {T} steps, {rows} rows", lambda: lk.calc_bpd_loop(
+                sched, fn, X[:rows], noise=torch.from_numpy(bpd_noise[:, :rows]).to(dev)))
+            out["bpd"] = {k: v.cpu().numpy() for k, v in bpd.items()}
+            if dev == "cuda":  # the decoder terms' moments, the card's: rows with t = 0, the loop's last step
+                m = lk.p_mean_variance(sched, fn, gd.q_sample(sched, X, TT, N), TT, clip_denoised=False)
+                out["ill_losses"] = decoder_ill(x, m["mean"], m["log_variance"]) & (t == 0)[:, None]
+                t0s = torch.zeros((DIFF_BPD_ROWS,), dtype=torch.long, device=dev)
+                x1 = gd.q_sample(sched, X[:DIFF_BPD_ROWS], t0s, torch.from_numpy(bpd_noise[-1, :DIFF_BPD_ROWS]).to(dev))
+                m = lk.p_mean_variance(sched, fn, x1, t0s)
+                out["ill_bpd"] = decoder_ill(x[:DIFF_BPD_ROWS], m["mean"], m["log_variance"])
+        res[dev] = out
+        del p, leaves
+    card, cpu = res["cuda"], res["cpu"]
+    k = DIFF_BPD_ROWS
+    errs, oks = {}, {}
+    errs["dit_loss"] = abs(card["dit_loss"] - cpu["dit_loss"]) / abs(cpu["dit_loss"])
+    oks["dit_loss"] = errs["dit_loss"] <= DIFF_RTOL
+    g = max(float(np.abs(card["grads"][n] - cpu["grads"][n]).max()) / max(float(np.abs(cpu["grads"][n]).max()), 1e-30)
+            for n in cpu["grads"])
+    errs["gradient leaves (of their scale)"], oks["gradient leaves (of their scale)"] = g, g <= DIFF_RTOL
+    none = np.zeros((DIFF_B, 1), bool)
+    for lt in losses:
+        errs[lt.name], oks[lt.name] = bits_close(card[lt.name], cpu[lt.name],
+                                                 card["ill_losses"] if lt.is_vb() else none,
+                                                 T if lt == lk.LossType.RESCALED_KL else 1.0)
+    cb, pb = card["bpd"], cpu["bpd"]
+    for name in ("prior_bpd", "xstart_mse", "mse"):
+        errs[f"bpd {name}"], oks[f"bpd {name}"] = bits_close(cb[name][:k], pb[name], np.zeros((k, 1), bool))
+    errs["bpd vb, t > 0"], oks["bpd vb, t > 0"] = bits_close(cb["vb"][:k, :-1], pb["vb"][:, :-1],
+                                                             np.zeros((k, 1), bool))
+    for name, got, want in (("bpd vb, t = 0", cb["vb"][:k, -1], pb["vb"][:, -1]),
+                            ("bpd total_bpd", cb["total_bpd"][:k], pb["total_bpd"])):
+        errs[name], oks[name] = bits_close(got, want, card["ill_bpd"])
+    finite = all(np.isfinite(v).all() for v in cb.values()) and all(np.isfinite(card[lt.name]).all() for lt in losses)
+    ill = {"training_losses t = 0 rows": int(card["ill_losses"].sum()), "bpd t = 0": int(card["ill_bpd"].sum())}
+    report["diffusion"] = {"rel_err": errs, "ok": oks, "seconds": secs, "rtol": DIFF_RTOL, "ill_conditioned": ill,
+                           "tf32": bool(torch.backends.cuda.matmul.allow_tf32)}
+    log(f"diffusion DiT-B B={DIFF_B} fp32 (TF32 {'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}), card vs "
+        f"CPU, relative errors (tol {DIFF_RTOL}; decoder elements with a bin mass under {ILL_MASS}: {ill}): "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    for dev in ("cuda", "cpu"):
+        log(f"diffusion seconds on {dev}: " + ", ".join(f"{n} {s:.3f}" for n, s in secs[dev].items()))
+    if not finite or not all(oks.values()):
+        raise AssertionError(f"diffusion: card vs CPU out of tolerance {[n for n, ok in oks.items() if not ok]} "
+                             f"or non-finite ({finite})")
 
 
 
@@ -4133,11 +4694,13 @@ def main() -> int:
         raise
     for name, text in built.items():
         log(f"built {name}.cu\n" + "\n".join("  " + l for l in text.strip().splitlines() if "registers" in l or "spill" in l))
-    from mla_tpu_torch.native import jpeg_host, rlds_host
+    from mla_tpu_torch.native import jpeg_host, pointops_host, rlds_host
 
     rlds_host.load()
     jpeg_host.load()
-    log(f"built {rlds_host.SRC.name} and {jpeg_host.SRC.name} (the data pipeline's host helpers, g++)")
+    pointops_host.load()
+    log(f"built {rlds_host.SRC.name} and {jpeg_host.SRC.name} (the data pipeline's host helpers) and "
+        f"{pointops_host.SRC.name} (the eval entry's), g++")
     w8a8_layout = w8a8_abi((Path(args.parent) / "w8a8.cu").read_text()) if args.parent else None
     int8_layout = int8_mm_abi((Path(args.parent) / "int8_mm.cu").read_text()) if args.parent else None
     libs = {}
@@ -4152,7 +4715,7 @@ def main() -> int:
             libs[key] = finish_build(cuda, key[1] if isinstance(key, tuple) else key, lib, proc)
     log(f"build: {time.perf_counter() - t:.1f} s (with the control copies of {', '.join(CONTROLS)}"
         f"{' and the parent kernels' if args.parent else ''})")
-    kernels = ([check_w8a8(torch, report, libs["w8a8"]), check_fps(torch, report, libs["fps"])]
+    kernels = ([check_w8a8(torch, report, libs["w8a8"])] + check_fps(torch, report, libs["fps"])
                + check_flash(torch, report, libs["flash_fwd"]) + [check_int8_mm(torch, report, libs["int8_mm"])])
     train_kernels = check_flash_bwd(torch, report, libs["flash_bwd"])
     if args.parent:
@@ -4168,7 +4731,16 @@ def main() -> int:
     del policy
     gc.collect()
     torch.cuda.empty_cache()
-    report["serve_http_launches"] = serve_http(torch, report)
+    try:
+        report["serve_http_launches"] = serve_http(torch, report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        eval_totals = eval_phase(torch, report)
+    finally:
+        shutil.rmtree(SERVE_HTTP_ROOT, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    diffusion(torch, report)
     gc.collect()
     torch.cuda.empty_cache()
     check_train_agreement(torch, report, libs["flash_bwd"])
@@ -4205,7 +4777,7 @@ def main() -> int:
     report["serve_launches"], report["ar_serve_launches"], report["train_launches"] = totals, ar_totals, train_totals
     report["serve_host_launches"], report["data_launches"] = host_totals, data_totals
     report["oxe_launches"] = oxe_totals
-    report["hf_vlm_launches"] = hf_totals
+    report["hf_vlm_launches"], report["eval_launches"] = hf_totals, eval_totals
     # launches, by each row's path: the serving host's client runs for the
     # kernels it runs (W8A8, flash forward, FPS); the trainer's run for the
     # backward kernels; the AR serving path for int8_matmul; the data
@@ -4213,7 +4785,7 @@ def main() -> int:
     # and finetune runs for the flash kernels at their shapes
     kernels += train_kernels
     by_path = {"serve-host": host_totals, "ar-serve": ar_totals, "trainer": trainer_totals, "data": data_totals,
-               "oxe": oxe_totals, "hf-vlm": hf_totals}
+               "oxe": oxe_totals, "hf-vlm": hf_totals, "eval": eval_totals}
     for k in kernels:
         k.setdefault("path", "serve-host" if k["name"] in host_totals else
                      "ar-serve" if k["name"] == "int8_matmul" else "trainer")

@@ -1,18 +1,19 @@
 """Gaussian diffusion schedules and samplers for the action head.
 
 Counterpart of mla_tpu/diffusion/gaussian.py (the sampling side and the
-training forward process `q_sample`): squaredcos_cap_v2 betas, 100 train
-steps, epsilon prediction, FIXED_SMALL variance, "ddimN" respacing (the
-only respacing the policy uses). The
-schedule tables are float64 numpy, cast to fp32 at use. The loops are
-Python loops over a denoise closure.
+training forward process `q_sample`): the named beta schedules (MLA's
+squaredcos_cap_v2 and linear), 100 train steps, epsilon prediction,
+FIXED_SMALL variance, and IDDPM respacing, "ddimN" (the policy's) or
+section counts ("10,10,10" or a list). The schedule tables are float64
+numpy, cast to fp32 at use. The loops are Python loops over a denoise
+closure.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -31,17 +32,45 @@ def cosine_betas(num_steps: int) -> np.ndarray:
     return betas_for_alpha_bar(num_steps, lambda t: math.cos((t + 0.008) / 1.008 * math.pi / 2) ** 2)
 
 
-def space_timesteps(num_timesteps: int, respacing: str) -> set:
-    """The original timesteps a "ddimN" respacing keeps (IDDPM respace)."""
-    if not respacing.startswith("ddim"):
-        raise ValueError(f"unsupported respacing {respacing!r}: only 'ddimN' is ported")
-    desired_count = int(respacing[len("ddim"):])
-    if desired_count == 1:
-        return {50} if num_timesteps > 50 else {num_timesteps // 2}
-    for i in range(1, num_timesteps):
-        if len(range(0, num_timesteps, i)) == desired_count:
-            return set(range(0, num_timesteps, i))
-    raise ValueError(f"cannot create exactly {desired_count} steps with an integer stride")
+def get_named_beta_schedule(name: str, num_steps: int) -> np.ndarray:
+    """"linear" (DDPM's, scaled to num_steps) or "squaredcos_cap_v2"."""
+    if name == "linear":
+        scale = 1000 / num_steps
+        return np.linspace(scale * 0.0001, scale * 0.02, num_steps, dtype=np.float64)
+    if name == "squaredcos_cap_v2":
+        return cosine_betas(num_steps)
+    raise NotImplementedError(f"unknown beta schedule: {name}")
+
+
+def space_timesteps(num_timesteps: int, section_counts: Union[str, Sequence[int]]) -> set:
+    """The original timesteps a respacing keeps (IDDPM respace): "ddimN",
+    N steps at an integer stride (with IDDPM's {50} for N = 1 on a schedule
+    longer than 50 steps); or section counts, "10,15,20" or a list, the
+    schedule cut into that many equal sections (the first ones one step
+    longer where it does not divide), each strided to its count."""
+    if isinstance(section_counts, str):
+        if section_counts.startswith("ddim"):
+            desired_count = int(section_counts[len("ddim"):])
+            if desired_count == 1:
+                return {50} if num_timesteps > 50 else {num_timesteps // 2}
+            for i in range(1, num_timesteps):
+                if len(range(0, num_timesteps, i)) == desired_count:
+                    return set(range(0, num_timesteps, i))
+            raise ValueError(f"cannot create exactly {desired_count} steps with an integer stride")
+        section_counts = [int(x) for x in section_counts.split(",")]
+    size_per, extra = divmod(num_timesteps, len(section_counts))
+    start_idx, all_steps = 0, []
+    for i, section_count in enumerate(section_counts):
+        size = size_per + (1 if i < extra else 0)
+        if size < section_count:
+            raise ValueError(f"cannot divide section of {size} steps into {section_count}")
+        frac_stride = 1 if section_count <= 1 else (size - 1) / (section_count - 1)
+        cur_idx = 0.0
+        for _ in range(section_count):
+            all_steps.append(start_idx + round(cur_idx))
+            cur_idx += frac_stride
+        start_idx += size
+    return set(all_steps)
 
 
 @dataclass(frozen=True)
@@ -89,11 +118,12 @@ class Schedule:
         return int(self.betas.shape[0])
 
 
-def create_schedule(timestep_respacing: str = "", diffusion_steps: int = 100) -> Schedule:
-    """The cosine schedule, respaced when asked: respaced schedules
+def create_schedule(timestep_respacing: Union[str, Sequence[int]] = "", noise_schedule: str = "squaredcos_cap_v2",
+                    diffusion_steps: int = 100) -> Schedule:
+    """The named schedule, respaced when asked: respaced schedules
     recompute betas from the kept alphas_cumprod and carry the
     original-timestep map."""
-    base_betas = cosine_betas(diffusion_steps)
+    base_betas = get_named_beta_schedule(noise_schedule, diffusion_steps)
     if not timestep_respacing:
         return Schedule(betas=base_betas, timestep_map=np.arange(diffusion_steps))
     use_timesteps = sorted(space_timesteps(diffusion_steps, timestep_respacing))

@@ -2,9 +2,10 @@
 
 Counterpart of mla_tpu/models/action_model.py: a small conditional DiT that
 denoises action chunks from one LLM condition token, used by
-MLAPolicy.predict_action_batch. x/t/z embedders -> [c | x tokens] + a
-learned positional embedding -> pre-norm self-attention blocks -> the final
-RMSNorm + MLP head; classifier-free guidance by the doubled batch.
+MLAPolicy.predict_action_batch, and its training loss `dit_loss`. x/t/z
+embedders -> [c | x tokens] + a learned positional embedding -> pre-norm
+self-attention blocks -> the final RMSNorm + MLP head; classifier-free
+guidance by the doubled batch.
 `dit_init` draws the JAX init's distributions from a torch.Generator (the
 values differ from JAX's); `params.from_jax` carries a JAX tree across.
 """
@@ -13,11 +14,12 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from mla_tpu_torch import nn
+from mla_tpu_torch.diffusion import gaussian as gd
 from mla_tpu_torch.models import embedders
 
 
@@ -87,9 +89,18 @@ def dit_init(cfg: DiTConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
 
 
 def dit_forward(params: Dict[str, Any], cfg: DiTConfig, x: torch.Tensor, t: torch.Tensor,
-                z: torch.Tensor) -> torch.Tensor:
+                z: torch.Tensor, *, training: bool = False, generator: Optional[torch.Generator] = None,
+                force_drop_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [B, T, in_ch] noised actions, t [B], z [B, 1, token_size] the
-    condition -> eps [B, T, in_ch] (inference: no condition dropout)."""
+    condition -> eps [B, T, in_ch]. In training with class_dropout_prob > 0
+    and a generator, whole rows' conditions become the `uncondition` vector,
+    each with that probability (the input classifier-free guidance feeds at
+    inference, so it must be trained); `force_drop_ids` ([B], 1 = drop)
+    replaces the draw (the tests replay JAX's)."""
+    if training and cfg.class_dropout_prob > 0 and (generator is not None or force_drop_ids is not None):
+        z = embedders.label_embedder({"uncondition": params["uncondition"]}, z,
+                                     dropout_prob=cfg.class_dropout_prob, training=True, generator=generator,
+                                     force_drop_ids=force_drop_ids)
     xe = embedders.action_embedder(params["x_embedder"], x)
     te = embedders.timestep_embedder(params["t_embedder"], t)
     c = te[:, None, :] + nn.linear(params["z_proj"], z)
@@ -110,3 +121,20 @@ def dit_forward_with_cfg(params: Dict[str, Any], cfg: DiTConfig, x: torch.Tensor
     cond, uncond = eps.chunk(2, dim=0)
     guided = uncond + cfg_scale * (cond - uncond)
     return torch.cat([guided, guided], dim=0)
+
+
+def dit_loss(params: Dict[str, Any], cfg: DiTConfig, sched: gd.Schedule, x: torch.Tensor, z: torch.Tensor,
+             generator: Optional[torch.Generator], override_noise: Optional[torch.Tensor] = None,
+             override_t: Optional[torch.Tensor] = None, override_drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The training loss: noise and t drawn from `generator` (in that
+    order), x noised to x_t, the condition dropout of dit_forward, the mean
+    squared error of the predicted eps. The overrides replace the draws
+    (noise [B, T, in_ch], t [B], drop [B]; the tests replay JAX's)."""
+    noise = (torch.randn(x.shape, generator=generator, device=x.device) if override_noise is None
+             else torch.as_tensor(override_noise, dtype=torch.float32, device=x.device).reshape(x.shape))
+    t = (torch.randint(0, sched.num_timesteps, (x.shape[0],), generator=generator, device=x.device)
+         if override_t is None else torch.as_tensor(override_t, device=x.device).long())
+    x_t = gd.q_sample(sched, x.float(), t, noise)
+    eps = dit_forward(params, cfg, x_t, t, z, training=True, generator=generator,
+                      force_drop_ids=None if override_drop is None else torch.as_tensor(override_drop, device=x.device))
+    return torch.mean((eps - noise) ** 2)

@@ -745,11 +745,12 @@ class MLAPolicy:
 
     def predict_action_diff_ar(
         self, front_image, pointcloud, instruction: str, cur_robot_state=None, unnorm_key: Optional[str] = None,
-        seed: int = 0, sampler: str = "ddim",
+        num_ddim_steps: int = 8, seed: int = 0, sampler: str = "ddim", num_dpm_steps: int = DPM_STEPS,
     ) -> Dict[str, Any]:
         """Both heads for one observation: the AR action (with its per-token
-        confidences) and the diffusion chunk (DDIM-8, or DPM-4 with
-        sampler='dpm'), with the host wall time of each."""
+        confidences) and the diffusion chunk (DDIM with num_ddim_steps, or
+        DPM-Solver++(2M) with num_dpm_steps evaluations with sampler='dpm'),
+        with the host wall time of each."""
         ar_ids = build_prompt_ids(self.tokenizer, instruction, mode="ar")
         t0 = time.perf_counter()
         ar_actions, ar_max_probs = self.predict_action_ar(
@@ -759,7 +760,7 @@ class MLAPolicy:
         t0 = time.perf_counter()
         diff_actions = self.predict_action_diff(
             front_image, pointcloud, instruction, cur_robot_state=cur_robot_state, unnorm_key=unnorm_key,
-            seed=seed, sampler=sampler,
+            num_ddim_steps=num_ddim_steps, seed=seed, sampler=sampler, num_dpm_steps=num_dpm_steps,
         )
         t_diff = time.perf_counter() - t0
         return {"actions": diff_actions, "ar_actions": ar_actions,

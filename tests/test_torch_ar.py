@@ -371,6 +371,39 @@ def test_predict_action_diff_ar(monkeypatch, model, record_property):
     assert t["actions"].shape == (16, 7) and len(t["timings"]) == 2 and min(t["timings"]) > 0
 
 
+@pytest.mark.parametrize("steps", [dict(sampler="dpm", num_dpm_steps=3), dict(num_ddim_steps=5)],
+                         ids=["dpm3", "ddim5"])
+def test_predict_action_diff_ar_step_counts(monkeypatch, model, steps, record_property):
+    """num_dpm_steps and num_ddim_steps reach the diffusion half as in JAX:
+    the same x_T injected into both policies' predict_action_diff (and the
+    chunk returned before the clip, which saturates mla-tiny's), a live
+    final layer (the init's zero fc2 makes eps 0), and the chunk held at the
+    fp32 chunk tolerance of tests/test_torch_policy_fp32.py (1e-4); the AR
+    half as in test_predict_action_diff_ar. The default step count gives
+    another chunk, so the argument is not ignored."""
+    jcfg, tcfg, params, state = model
+    params = jax.tree_util.tree_map(lambda x: x, params)
+    fc2 = params["final_layer"]["mlp"]["fc2"]
+    fc2["w"] = jnp.asarray(np.random.default_rng(11).normal(size=fc2["w"].shape).astype(np.float32) * 0.05)
+    monkeypatch.setenv("MLA_INT8_MODE", JAX_MODE["none"])
+    jpol = jmla.MLAPolicy(params, state, jcfg, tokenizer=ToyTokenizer(), norm_stats=tpp.STATS)
+    tpol = tmla.MLAPolicy(from_jax(params), from_jax(state), tcfg, tokenizer=ToyTokenizer(), norm_stats=tpp.STATS,
+                          device="cpu")
+    img, pc, _, noise, rstate = tpp.request()
+    for pol in (jpol, tpol):
+        real = pol.predict_action_diff
+        monkeypatch.setattr(pol, "predict_action_diff", lambda *a, real=real, **k: real(*a, noise=noise, return_normalized=True, **k))
+    j = jpol.predict_action_diff_ar(img, pc, "close the box", cur_robot_state=rstate, unnorm_key="rlbench", **steps)
+    t = tpol.predict_action_diff_ar(img, pc, "close the box", cur_robot_state=rstate, unnorm_key="rlbench", **steps)
+    np.testing.assert_array_equal(t["ar_actions"], np.asarray(j["ar_actions"]))
+    np.testing.assert_allclose(t["ar_max_probs"], j["ar_max_probs"], rtol=1e-5)
+    record_property("max_abs_err", float(np.abs(t["actions"] - np.asarray(j["actions"])).max()))
+    np.testing.assert_allclose(t["actions"], np.asarray(j["actions"]), rtol=1e-4, atol=1e-4)
+    default = tpol.predict_action_diff_ar(img, pc, "close the box", cur_robot_state=rstate, unnorm_key="rlbench",
+                                          sampler=steps.get("sampler", "ddim"))
+    assert np.abs(default["actions"] - t["actions"]).max() > 1e-3
+
+
 # --------------------------------------------------------------------------- #
 # predict_action_batch: cognition feature and DiT head
 # --------------------------------------------------------------------------- #

@@ -5,7 +5,9 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-or, to time this tree's flash forward, dQ, dK/dV, W8A8, weight-only int8
+(`--only PHASES` runs the build, the kernels phase and only the named
+phases among mistral-agree ... pointlib, and prints no result line), or, to
+time this tree's flash forward, dQ, dK/dV, W8A8, weight-only int8
 and FPS kernels against another version of them (such as the parent
 commit's, written out with `git show HEAD~1:mla_tpu_torch/csrc/flash_fwd.cu`,
 the same for flash_bwd.cu, w8a8.cu, int8_mm.cu, fps.cu and hopper.cuh), add
@@ -208,6 +210,46 @@ Phases, each of which fails the run if it fails:
                   finite loss and grad_norm, exact launches of every step
                   (FPS 2, nothing else); step ms, tokens/s, MFU and peak
                   GiB beside the card's name and power limit.
+ 12a. mistral-agree  a narrow GQA `mla-mistral` (hidden 1024, 8 query heads
+                  over 2 KV heads, intermediate 3584, 4 layers) in int8 on
+                  the card and on the CPU: a W8A8 DDIM-8 chunk within
+                  AGREE_RTOL; the weight-only prefill and 7 decode steps fed
+                  the CPU's ids, fp32 logits within AR_AGREE_RTOL, the
+                  int8_mm control outside it.
+     mistral-serve  the int8 `mla-mistral` at full width and depth (GQA
+                  32:8, intermediate 14336): DDIM-8 and DPM-4 chunks through
+                  W8A8 (launches W8A8 1152 / 640, flash 32, FPS 2), then
+                  predict_action_ar through a weight-only policy (1032
+                  int8_matmul, flash 32, FPS 2); p50 ms, the trees' GiB.
+     mistral-train-agree  one AdamW step of the narrow GQA mistral card vs
+                  CPU within TRAIN_AGREE_RTOL; the flash_bwd control must
+                  miss grad_norm.
+     mistral-train  `mla-mistral` at full width, its decoder cut to 8 layers
+                  (train_step.ONE_CARD_LAYERS): TRAIN_STEPS AdamW steps at B
+                  = 8, S = 563, launches 16 / 8 / 8 / 2 a step; step ms, MFU
+                  by 6N (N = 1.745 B), peak GiB.
+     int4-agree   int4_linear's integer partial sums (group 128) identical
+                  card vs CPU at mla-7b's four linears, M = 534 and 18, TF32
+                  off and on; an int4 mla-7b cut to 4 layers, one DDIM-8
+                  chunk card vs CPU within AGREE_RTOL.
+     int4-serve   mla-7b-int4 at full depth: DDIM-8, DPM-4 and
+                  predict_action_ar with exact launches (flash 32, FPS 2; no
+                  W8A8, no int8_matmul: int4 is plain PyTorch, as in JAX);
+                  p50 ms, the decoder tree's GiB against the int8 trees'.
+     phi-post-agree  a hidden-1280 phi (4 layers, head_dim 80) with the
+                  generation heads at its width, one post-training AdamW
+                  step card vs CPU (the heads' dropout 0): the losses within
+                  TRAIN_AGREE_RTOL, the shifted-o-bias control must miss
+                  grad_norm.
+     phi-post-train  `train_step --model mla-phi --post_franka` at full
+                  width and depth: TRAIN_STEPS AdamW steps at B = 8, S =
+                  819, FPS 2 and no other launch a step; step ms, MFU, peak
+                  GiB.
+     pointlib     models/pointlib on 8 clouds of 8192 points card vs CPU:
+                  KMeansEmbed into 256 groups (one FPS launch, counted; FPS
+                  8192 -> 256 is also held and timed in the kernels phase,
+                  as are W8A8 and int8_mm at mla-mistral's shapes), dilated
+                  kNN, the graph convolutions, PCViews' depth images.
  13. trainer-agree  the trainer's two new step kinds on `mla-small` with
                   fp32 master weights (bf16 compute), card vs CPU from the
                   same weights, batch and draws: one step of the AR loss
@@ -1532,7 +1574,9 @@ def serve(torch, report):
                 f"chunk |max| {float(np.abs(chunk).max()):.3f}")
     totals = dict(cuda.launches)
     report["serve"] = {"latency_ms": lat, "launches": totals, "expected_per_chunk": expected,
-                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "decoder_tree_gib": {"w8a8": tree_gib(policy.params["llm_backbone"]),
+                                            "weight_only": tree_gib(ar_policy.params["llm_backbone"])}}
     return totals, policy, ar_policy
 
 
@@ -2789,50 +2833,19 @@ def check_train_agreement(torch, report, control):
         raise AssertionError(f"train-agree passes the control: grad_norm off by {ctrl['grad_norm']}")
 
 
-def train(torch, report):
-    import numpy as np
-
-    from mla_tpu_torch import train_step
-    from mla_tpu_torch.ops import cuda
-    from mla_tpu_torch.training import metrics
-
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    run = train_step.build("mla-2b", 8, 32, "cuda", seed=0)
-    cfg = run["cfg"]
-    torch.cuda.synchronize()
-    log(f"train: mla-2b built on the card in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+def llama_step_counts(cfg) -> dict:
+    """The launches of one llama training step with remat: the flash
+    forward twice a layer (the forward and its recompute), dQ and dK/dV
+    once, FPS once a point-tokenizer stage, no int8 product."""
     L = cfg.llama.num_layers
-    expected = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
-                "furthest_point_sample": cfg.point.num_stages, "w8a8_matmul": 0}
-    cuda.launches.clear()
-    times, steps = [], []
-    for i in range(TRAIN_STEPS):
-        before = dict(cuda.launches)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        run["state"], m = run["step"](run["state"], run["batch"], run["generator"])
-        loss, gnorm = float(m["total_loss"]), float(m["grad_norm"])
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-        counts = {k: cuda.launches[k] - before.get(k, 0) for k in expected}
-        log(f"train step {i}: loss {loss:.5f}, grad_norm {gnorm:.5f}, {times[-1]:.1f} ms, launches {counts}")
-        if not (np.isfinite(loss) and np.isfinite(gnorm)):
-            raise AssertionError(f"train step {i}: non-finite loss {loss} or grad_norm {gnorm}")
-        if counts != expected:
-            raise AssertionError(f"train step {i}: launches {counts}, expected {expected}")
-        steps.append({"loss": loss, "grad_norm": gnorm, "ms": times[-1]})
-    step_ms = float(np.median(times[1:]))
-    tok_s = run["tokens_per_step"] / (step_ms / 1e3)
-    peak = metrics.bf16_peak_flops(torch.cuda.get_device_name(0))
-    mfu = tok_s * run["flops_per_token"] / peak if peak else None
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log(f"train mla-2b B=8 S=563: step {step_ms:.1f} ms (median of steps 1..{TRAIN_STEPS - 1}), "
-        f"{tok_s:.0f} tokens/s, MFU {mfu if mfu is None else round(mfu, 4)}, peak {peak_gib:.2f} GiB")
-    report["train"] = {"steps": steps, "step_ms_median": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
-                       "peak_gib": peak_gib, "launches": dict(cuda.launches), "expected_per_step": expected}
-    return dict(cuda.launches)
+    return {"flash_attention": 2 * L, "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+            "furthest_point_sample": cfg.point.num_stages, "w8a8_matmul": 0, "int8_matmul": 0}
+
+
+def train(torch, report):
+    """mla-2b through train_step: TRAIN_STEPS AdamW steps at B = 8, S = 563,
+    remat on, llama_step_counts a step."""
+    return train_steps(torch, report, "train", "mla-2b", llama_step_counts, {})
 
 
 # the post-training losses compared card vs CPU within TRAIN_AGREE_RTOL of
@@ -2884,69 +2897,13 @@ def check_post_train_agreement(torch, report, control):
 
 def post_train(torch, report):
     """mla-2b in the Franka post-training stage (train_step --post_franka):
-    TRAIN_STEPS AdamW steps at B = 8, S = 819, remat on; finite losses, the
-    three generation losses and the tactile contrastive loss non-zero, the
-    frozen vision towers without gradients and unchanged, the exact kernel
-    launches of every step."""
-    import numpy as np
-
-    from mla_tpu_torch import params as P
+    TRAIN_STEPS AdamW steps at B = 8, S = 819, remat on; the three
+    generation losses and the tactile contrastive loss non-zero, the frozen
+    vision towers without gradients and unchanged, llama_step_counts a
+    step."""
     from mla_tpu_torch import train_step as ts
-    from mla_tpu_torch.models.mla import LOSS_KEYS
-    from mla_tpu_torch.ops import cuda
-    from mla_tpu_torch.training import metrics
 
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    run = ts.build("mla-2b", 8, 32, "cuda", seed=0, **ts.POST_FRANKA)
-    cfg, params = run["cfg"], run["state"]["params"]
-    S = 32 + cfg.fused_len + cfg.diff_block_len
-    heads_n = sum(t.numel() for t in P.tree_leaves(params["generation_manager"]))
-    towers = {p: t.detach().clone() for p, t in P.tree_items(params)
-              if p.startswith(("vision_tower_2d/", "vision_tower_3d/"))}
-    torch.cuda.synchronize()
-    log(f"post-train: mla-2b built on the card in {time.perf_counter() - t0:.1f} s, S = {S}, generation heads "
-        f"{heads_n / 1e9:.3f} B parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    L = cfg.llama.num_layers
-    expected = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
-                "furthest_point_sample": cfg.point.num_stages, "w8a8_matmul": 0, "int8_matmul": 0}
-    cuda.launches.clear()
-    times, steps = [], []
-    for i in range(TRAIN_STEPS):
-        before = dict(cuda.launches)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        run["state"], m = run["step"](run["state"], run["batch"], run["generator"])
-        losses = {k: float(m[k]) for k in LOSS_KEYS}
-        gnorm = float(m["grad_norm"])
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-        counts = {k: cuda.launches[k] - before.get(k, 0) for k in expected}
-        log(f"post-train step {i}: {losses}, grad_norm {gnorm:.5f}, {times[-1]:.1f} ms, launches {counts}")
-        if not all(np.isfinite(v) for v in (*losses.values(), gnorm)):
-            raise AssertionError(f"post-train step {i}: non-finite loss or grad_norm: {losses}, {gnorm}")
-        for k in ("tactile_contrastive_loss", "image_gen_loss", "point_cloud_gen_loss", "tactile_gen_loss"):
-            if losses[k] == 0.0:
-                raise AssertionError(f"post-train step {i}: {k} is 0")
-        if counts != expected:
-            raise AssertionError(f"post-train step {i}: launches {counts}, expected {expected}")
-        steps.append({**losses, "grad_norm": gnorm, "ms": times[-1]})
-    for p, t in P.tree_items(params):
-        if p in towers and (t.requires_grad or t.grad is not None or not torch.equal(t, towers[p])):
-            raise AssertionError(f"post-train: the frozen leaf {p} got a gradient or moved")
-    step_ms = float(np.median(times[1:]))
-    tok_s = run["tokens_per_step"] / (step_ms / 1e3)
-    peak = metrics.bf16_peak_flops(torch.cuda.get_device_name(0))
-    mfu = tok_s * run["flops_per_token"] / peak if peak else None
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log(f"post-train mla-2b B=8 S={S} ({gpu_line()}): step {step_ms:.1f} ms (median of steps 1..{TRAIN_STEPS - 1}), "
-        f"{tok_s:.0f} tokens/s, MFU {mfu if mfu is None else round(mfu, 4)} (decoder 6N only: the front-ends and "
-        f"the {heads_n / 1e9:.3f} B generation-head parameters not counted), peak {peak_gib:.2f} GiB")
-    report["post_train"] = {"steps": steps, "S": S, "step_ms_median": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
-                            "peak_gib": peak_gib, "generation_head_params": heads_n,
-                            "frozen_leaves_checked": len(towers), "launches": dict(cuda.launches),
-                            "expected_per_step": expected}
-    return dict(cuda.launches)
+    return train_steps(torch, report, "post-train", "mla-2b", llama_step_counts, dict(ts.POST_FRANKA))
 
 
 # --------------------------------------------------------------------------- #
@@ -3194,24 +3151,373 @@ def check_phi_train_agreement(torch, report):
 
 
 def phi_train(torch, report):
-    """The full mla-phi through mla_tpu_torch.train_step: TRAIN_STEPS AdamW
-    steps at B = 8, S = 563, remat on; finite loss and grad_norm and the
-    exact launches of every step (FPS 2, no flash, W8A8 or int8_matmul)."""
+    """The full mla-phi through train_step: TRAIN_STEPS AdamW steps at B =
+    8, S = 563, remat on; FPS 2 a step and no other launch (head_dim 80)."""
+    return train_steps(torch, report, "phi-train", "mla-phi", lambda cfg: phi_counts(), {})
+
+
+# --------------------------------------------------------------------------- #
+# mla-mistral (Mistral-7B widths, GQA 32:8, intermediate 14336): served in
+# int8 (W8A8 chunks, weight-only AR) at full depth and trained at 8 layers;
+# the int4 weight path (mla-7b-int4: int4 products in plain PyTorch, as JAX
+# runs them in XLA); Phi-2 post-training; the point-cloud library
+# --------------------------------------------------------------------------- #
+
+# (K, N) of mla-mistral's fused q|k|v (32 + 2 x 8 heads of 128), o, fused
+# gate|up and down linears
+MISTRAL_LINEARS = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)]
+MISTRAL_W8A8_M = (PREFIX_LEN, SUFFIX_LEN)
+MISTRAL_INT8_M = INT8_M
+MISTRAL_AGREE_LAYERS = 4
+# the narrow GQA model of the agreement checks: mla-small's widths with
+# Mistral's 4:1 heads and its MLP ratio
+MISTRAL_NARROW = dict(hidden_size=1024, intermediate_size=3584, num_heads=8, num_kv_heads=2, contrastive_layer=2)
+MISTRAL_TRAIN_PARAMS = 1.745e9  # the 8-layer decoder's N, for MFU by 6N
+INT4_AGREE_LAYERS = 4
+# pointlib: KMeansEmbed's grouping of raw clouds (8192 points, 256 groups)
+POINTLIB_B, POINTLIB_N, POINTLIB_GROUPS = 8, 8192, 256
+# card vs CPU k-means: the centroids' fp32 sums differ in order, so a point
+# equidistant to two centroids within that may change sides; at most this
+# share of the labels may differ, each of them such a near tie
+POINTLIB_LABEL_SHARE = 1e-3
+POINTLIB_RTOL = 1e-4
+
+
+def check_mistral_kernels(torch, report, w8a8_control, int8_control):
+    """W8A8 and int8_mm at mla-mistral's shapes: W8A8 at M = 534 and 18 by
+    MISTRAL_LINEARS, int32 accumulators identical to the plain version's,
+    the control (last K tile dropped) missed at every shape; int8_mm at M =
+    1, 4, 535 by the same linears, each column within INT8_COL_RTOL, two
+    launches identical, the control missed. Each timed (CUDA graphs,
+    weights cycled past L2) beside its plain version, the PyTorch call and
+    the bound; one layer's sum per row count."""
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.ops import quantization as q
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    readings = {"w8a8": {}, "int8_mm": {}}
+    for M in MISTRAL_W8A8_M:
+        layer = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        for K, N in MISTRAL_LINEARS:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            copies = weight_copies(torch, gen, K, N)
+            kmajor = [c.t().contiguous() for c in copies]
+            ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
+            y, acc = q.w8a8_matmul(x, kmajor[0], ws, return_acc=True)
+            yp, accp = q.w8a8_matmul_plain(x, copies[0].t(), ws, return_acc=True)
+            with kernel_from(cuda, "w8a8", w8a8_control):
+                _, acc_c = q.w8a8_matmul(x, kmajor[0], ws, return_acc=True)
+            torch.cuda.synchronize()
+            where = f"mistral w8a8 M={M} K={K} N={N}"
+            if not torch.equal(acc, accp) or not torch.equal(y, yp):
+                raise AssertionError(f"{where}: the kernel differs from the plain version "
+                                     f"({int((acc != accp).sum())} accumulators)")
+            if torch.equal(acc_c, accp):
+                raise AssertionError(f"{where}: the check passes the control")
+
+            def library(w):
+                xq, sx = q.quantize_rows(x)
+                return (torch._int_mm(xq, w).float() * sx * ws).to(torch.bfloat16)
+
+            cyc, cyc_lib = itertools.cycle(kmajor), itertools.cycle(copies)
+            ms = graph_ms(torch, lambda: q.w8a8_matmul(x, next(cyc), ws))
+            plain_ms = cuda_ms(torch, lambda: q.w8a8_matmul_plain(x, kmajor[0], ws), 3, 1)
+            lib_ms = graph_ms(torch, lambda: library(next(cyc_lib)))
+            b, by = bound_ms(M * K * 2 + K * N + N * 4 + M * N * 2, 2.0 * M * K * N, "int8")
+            plan = q.w8a8_plan(M, K, N, sms)
+            log(f"{where}: acc identical, control missed in {int((acc_c != accp).sum())} entries; kernel {ms:.4f} ms "
+                f"({'narrow' if plan.narrow else 'wide'}, {plan.tiles} tiles x {plan.splits} splits), plain "
+                f"{plain_ms:.4f} ms, _int_mm {lib_ms:.4f} ms, bound {b:.4f} ms ({by})")
+            report["shapes"].append({"kernel": "w8a8_matmul", "model": "mla-mistral", "M": M, "K": K, "N": N,
+                                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b,
+                                     "bound_by": by, "max_abs_err": 0.0, "splits": plan.splits,
+                                     "narrow": plan.narrow})
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms), ("bound_ms", b)):
+                layer[k] += v
+            del copies, kmajor
+        readings["w8a8"][M] = layer
+        log(f"mistral w8a8 M={M}: one layer's 4 linears {layer['ms']:.4f} ms, plain {layer['plain_ms']:.4f} ms, "
+            f"_int_mm {layer['library_ms']:.4f} ms, bound {layer['bound_ms']:.4f} ms")
+    for M in MISTRAL_INT8_M:
+        layer = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        for K, N in MISTRAL_LINEARS:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            copies = weight_copies(torch, gen, K, N)
+            ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
+            y, again, want = (q.int8_matmul(x, copies[0], ws), q.int8_matmul(x, copies[0], ws),
+                              q.int8_matmul_plain(x, copies[0], ws))
+            with kernel_from(cuda, "int8_mm", int8_control):
+                bad = q.int8_matmul(x, copies[0], ws)
+            torch.cuda.synchronize()
+            where = f"mistral int8_mm M={M} K={K} N={N}"
+            rel, rel_c = col_rel_err(y, want), col_rel_err(bad, want)
+            if not torch.equal(y, again):
+                raise AssertionError(f"{where}: two launches differ")
+            if not rel <= INT8_COL_RTOL:
+                raise AssertionError(f"{where}: a column is {rel} of its norm from the plain version")
+            if not rel_c > INT8_COL_RTOL:
+                raise AssertionError(f"{where}: the check passes the control ({rel_c})")
+            cyc = itertools.cycle(copies)
+            ms = graph_ms(torch, lambda: q.int8_matmul(x, next(cyc), ws))
+            plain_ms = cuda_ms(torch, lambda: q.int8_matmul_plain(x, copies[0], ws), 3, 1)
+            w_t = itertools.cycle([c.t().contiguous() for c in copies])
+            s_b = ws.to(torch.bfloat16)
+            lib_ms = graph_ms(torch, lambda: torch._weight_int8pack_mm(x, next(w_t), s_b))
+            b, by = bound_ms(M * K * 2 + K * N + N * 4 + M * N * 2, 2.0 * M * K * N, "bf16")
+            plan = q.int8_mm_plan(M, K, N, sms, False)
+            log(f"{where}: columns within {rel:.3e} (tol {INT8_COL_RTOL}), control {rel_c:.3e}; kernel {ms:.4f} ms "
+                f"({'narrow' if plan.narrow else 'wide'}, {plan.tiles} tiles x {plan.splits} splits), plain "
+                f"{plain_ms:.4f} ms, _weight_int8pack_mm {lib_ms:.4f} ms, bound {b:.4f} ms ({by})")
+            report["shapes"].append({"kernel": "int8_matmul", "model": "mla-mistral", "M": M, "K": K, "N": N,
+                                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b,
+                                     "bound_by": by, "max_abs_err": float((y.float() - want.float()).abs().max()),
+                                     "col_rel_err": rel, "control_col_rel_err": rel_c, "narrow": plan.narrow,
+                                     "splits": plan.splits})
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms), ("bound_ms", b)):
+                layer[k] += v
+            del copies, w_t
+        readings["int8_mm"][M] = layer
+        log(f"mistral int8_mm M={M}: one layer's 4 linears {layer['ms']:.4f} ms, plain {layer['plain_ms']:.4f} ms, "
+            f"_weight_int8pack_mm {layer['library_ms']:.4f} ms, bound {layer['bound_ms']:.4f} ms")
+    report["mistral_kernels"] = readings
+
+
+def check_fps_pointlib(torch, report, control):
+    """FPS at pointlib's k-means start, POINTLIB_N -> POINTLIB_GROUPS points,
+    B = POINTLIB_B: indices identical to the plain version's at starts 0
+    and 7, the control (the last point left out) missed; timed beside its
+    plain version and the bound."""
+    from mla_tpu_torch.ops import cuda, pointops
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    B, N, npoint = POINTLIB_B, POINTLIB_N, POINTLIB_GROUPS
+    xyz = torch.rand((B, N, 3), generator=gen, device="cuda")
+    xyz[-1, -1] = 2.0
+    differs = 0
+    for start in (0, 7):
+        s = torch.full((B,), start, dtype=torch.int32, device="cuda")
+        got, want = pointops.furthest_point_sample(xyz, npoint, s), pointops.furthest_point_sample_plain(xyz, npoint, s)
+        with kernel_from(cuda, "fps", control):
+            bad = pointops.furthest_point_sample(xyz, npoint, s)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"fps B={B} N={N} npoint={npoint} start={start}: indices differ")
+        differs += int((bad != want).sum())
+    if differs == 0:
+        raise AssertionError(f"fps N={N} npoint={npoint}: the check passes the control")
+    out = torch.empty((B, npoint), dtype=torch.int32, device="cuda")
+    zero = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    ms = graph_ms(torch, lambda: cuda.call("fps", xyz.data_ptr(), zero.data_ptr(), out.data_ptr(), B, N, npoint), 10)
+    plain_ms = cuda_ms(torch, lambda: pointops.furthest_point_sample_plain(xyz, npoint, zero), 2, 1)
+    b, by = bound_ms(B * (N * 12 + npoint * 4), 9.0 * B * N * npoint, "fp32")
+    log(f"fps B={B} N={N} npoint={npoint} (pointlib's k-means start): indices identical at starts 0 and 7, the "
+        f"control differs in {differs}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by})")
+    report["shapes"].append({"kernel": "furthest_point_sample", "model": "pointlib", "B": B, "N": N,
+                             "npoint": npoint, "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": b,
+                             "bound_by": by, "max_abs_err": 0.0, "control_differs": differs})
+
+
+def mistral_config(num_layers: int = None, **narrow):
+    """mla-mistral (bf16, Mistral-7B widths, full-width front-ends), its
+    decoder cut to num_layers or narrowed by `narrow` (LlamaConfig fields)."""
+    from dataclasses import replace
+
+    from mla_tpu_torch.conf.models import get_model_config
+
+    cfg = get_model_config("mla-mistral")
+    if num_layers is not None:
+        narrow["num_layers"] = num_layers
+    return replace(cfg, llama=replace(cfg.llama, **narrow))
+
+
+def int8_agree(torch, report, key: str, cfg, seed: int, control):
+    """An int8 model card vs CPU from the same weights: a W8A8 DDIM-8 chunk
+    within AGREE_RTOL of its scale; the weight-only prefill and 7 decode
+    steps fed the CPU's greedy ids, fp32 logits within AR_AGREE_RTOL, the
+    card's run through the int8_mm control outside it."""
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.models.mla import MLAPolicy
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.ops.quantization import quantize_model
+
+    params, state = P.init(cfg, seed=seed, device="cpu")
+    live_head(torch, params, seed + 1)
+    params = quantize_model(params)
+    img, pc, ids, noise = request_inputs(cfg, seed + 2)
+    chunk = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        pol = MLAPolicy(params, state, cfg, device=dev)
+        chunk[dev] = pol.predict_action_diff(img, pc, "", input_ids=ids, noise=noise, return_normalized=True)
+        log(f"{key} W8A8 DDIM-8 on {dev}: {time.perf_counter() - t0:.2f} s")
+    scale, err = float(abs(chunk["cpu"]).max()), float(abs(chunk["cuda"] - chunk["cpu"]).max())
+    T = cfg.action_dim
+    pols = {dev: MLAPolicy(params, state, cfg, device=dev, int8_mode="weight_only") for dev in ("cuda", "cpu")}
+    cpu, cpu_ids, _ = drive_ar(torch, pols["cpu"], img, pc, ids, T)
+    gpu, _, ar_s = drive_ar(torch, pols["cuda"], img, pc, ids, T, cpu_ids)
+    with kernel_from(cuda, "int8_mm", control):
+        ctrl, _, _ = drive_ar(torch, pols["cuda"], img, pc, ids, T, cpu_ids)
+    lscale = float(cpu.abs().max())
+    lerr, lerr_c = float((gpu - cpu).abs().max()), float((ctrl - cpu).abs().max())
+    log(f"{key}: chunk max |gpu - cpu| {err:.4e} of scale {scale:.4e}, rel {err / scale:.4e} (tol {AGREE_RTOL}); "
+        f"AR logits rel {lerr / lscale:.4e} (tol {AR_AGREE_RTOL}, card prefill + {T} steps {ar_s:.2f} s), the "
+        f"int8_mm control rel {lerr_c / lscale:.4e}; CPU ids {cpu_ids}")
+    report[key.replace("-", "_")] = {"chunk_max_abs_err": err, "chunk_scale": scale, "rtol": AGREE_RTOL,
+                                     "logits_max_abs_err": lerr, "logits_scale": lscale, "ar_rtol": AR_AGREE_RTOL,
+                                     "control_logits_max_abs_err": lerr_c, "cpu_ids": cpu_ids}
+    if not (chunk["cuda"].shape == (cfg.action_horizon, cfg.action_dim) and err <= AGREE_RTOL * scale):
+        raise AssertionError(f"{key}: GPU and CPU chunks disagree: {err} vs scale {scale}")
+    if not lerr <= AR_AGREE_RTOL * lscale:
+        raise AssertionError(f"{key}: GPU and CPU logits disagree: {lerr} vs scale {lscale}")
+    if not lerr_c > AR_AGREE_RTOL * lscale:
+        raise AssertionError(f"{key} passes the int8_mm control: {lerr_c} vs scale {lscale}")
+
+
+def check_mistral_agreement(torch, report, control):
+    """A narrow GQA mla-mistral (MISTRAL_NARROW, 4 layers) in int8, card vs
+    CPU: int8_agree."""
+    cfg = mistral_config(MISTRAL_AGREE_LAYERS, **MISTRAL_NARROW)
+    int8_agree(torch, report, "mistral-agree", cfg, 50, control)
+
+
+def serve_calls(torch, key: str, policy, cfg, expected: dict, requests: int = REQUESTS, samplers=("ddim", "dpm"),
+                ar: bool = False) -> dict:
+    """`requests` chunks a sampler (and, with ar, predict_action_ar) through
+    the policy after one warm-up each: finite outputs of their shapes, each
+    call's launches expected[call], the launch counts set to 0 before the
+    timed calls; returns {call: [ms]} and the totals."""
     import numpy as np
 
-    from mla_tpu_torch import train_step
+    from mla_tpu_torch.ops import cuda
+
+    img, pc, ids, noise = request_inputs(cfg, 100)
+    calls = {s: (lambda s=s: policy.predict_action_diff(img, pc, "", input_ids=ids, noise=noise, sampler=s))
+             for s in samplers}
+    if ar:
+        calls["ar"] = lambda: policy.predict_action_ar(img, pc, "", input_ids=ids)
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    cuda.launches.clear()
+    lat = {name: [] for name in calls}
+    for i in range(requests):
+        img, pc, ids, noise = request_inputs(cfg, i)
+        for name, fn in calls.items():
+            before = dict(cuda.launches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            ms = (time.perf_counter() - t) * 1e3
+            counts = {k: cuda.launches[k] - before.get(k, 0) for k in expected[name]}
+            shape = (cfg.action_dim,) if name == "ar" else (cfg.action_horizon, cfg.action_dim)
+            if out.shape != shape or not np.isfinite(out).all():
+                raise AssertionError(f"{key} {name} request {i}: bad shape {out.shape} or non-finite values")
+            if counts != expected[name]:
+                raise AssertionError(f"{key} {name} request {i}: launches {counts}, expected {expected[name]}")
+            lat[name].append(ms)
+            log(f"{key} {name} request {i}: {ms:.2f} ms, launches {counts}")
+    return {"latency_ms": lat, "p50_ms": {k: float(np.median(v)) for k, v in lat.items()},
+            "launches": dict(cuda.launches), "expected_per_call": expected}
+
+
+def tree_gib(tree) -> float:
+    from mla_tpu_torch import params as P
+
+    return sum(t.numel() * t.element_size() for t in P.tree_leaves(tree)) / 2**30
+
+
+def mistral_serve(torch, report):
+    """The int8 mla-mistral at full width and depth from a seeded init on the
+    card: W8A8 DDIM-8 and DPM-4 chunks (launches W8A8 4L(1 + 8) / 4L(1 + 4),
+    flash L, FPS 2), then a weight-only policy over the same int8 leaves:
+    predict_action_ar (int8_matmul 4L x 8 forwards + 8 lm_heads, flash L,
+    FPS 2); p50 ms of each."""
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.models.mla import MLAPolicy
+    from mla_tpu_torch.ops.quantization import quantize_model
+
+    cfg = mistral_config()
+    t0 = time.perf_counter()
+    params, state = P.init(cfg, seed=51, device="cuda")
+    live_head(torch, params, 52)
+    params = quantize_model(params)
+    torch.cuda.empty_cache()
+    L, stages = cfg.llama.num_layers, cfg.point.num_stages
+    out = {}
+    for mode, calls in (("w8a8", ("ddim", "dpm")), ("weight_only", ("ar",))):
+        policy = MLAPolicy(params, state, cfg, norm_stats=STATS, int8_mode=mode)
+        torch.cuda.synchronize()
+        log(f"mistral-serve: int8 mla-mistral ({L} layers, GQA {cfg.llama.num_heads}:{cfg.llama.num_kv_heads}) "
+            f"{mode} policy built on the card ({time.perf_counter() - t0:.1f} s), its tree "
+            f"{tree_gib(policy.params):.2f} GiB, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        common = {"flash_attention": L, "furthest_point_sample": stages}
+        expected = {"ddim": {**common, "w8a8_matmul": 4 * L * (1 + 8), "int8_matmul": 0},
+                    "dpm": {**common, "w8a8_matmul": 4 * L * (1 + 4), "int8_matmul": 0},
+                    "ar": {**common, "w8a8_matmul": 0, "int8_matmul": 4 * L * (1 + cfg.action_dim) + 1 + cfg.action_dim}}
+        res = serve_calls(torch, "mistral-serve", policy, cfg, {c: expected[c] for c in calls},
+                          samplers=[c for c in calls if c != "ar"], ar="ar" in calls)
+        res["policy_tree_gib"] = tree_gib(policy.params)
+        out[mode] = res
+        del policy
+        torch.cuda.empty_cache()
+    log(f"mistral-serve ({gpu_line()}): p50 DDIM-8 {out['w8a8']['p50_ms']['ddim']:.2f} ms, DPM-4 "
+        f"{out['w8a8']['p50_ms']['dpm']:.2f} ms, predict_action_ar {out['weight_only']['p50_ms']['ar']:.2f} ms; "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    report["mistral_serve"] = out
+    del params
+    return {**out["w8a8"]["launches"], "int8_matmul": out["weight_only"]["launches"].get("int8_matmul", 0)}
+
+
+def check_mistral_train_agreement(torch, report, control):
+    """One AdamW step of the narrow GQA mla-mistral (bf16, 4 layers; B = 2)
+    on the card and on the CPU from the same weights, batch and draws: loss
+    and grad_norm within TRAIN_AGREE_RTOL; the card's step through the
+    flash_bwd control must miss grad_norm."""
+    from mla_tpu_torch.vla.dummy import synthetic_batch
+
+    cfg = mistral_config(MISTRAL_AGREE_LAYERS, **MISTRAL_NARROW)
+    out = agreement_steps(torch, control, cfg, synthetic_batch(cfg, B=2, L=32, seed=10),
+                          ("total_loss", "diff_loss", "img_pc_contrastive_loss", "grad_norm"),
+                          "mistral-train-agree narrow GQA mistral bf16 B=2")
+    sound = {k: abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k]) for k in ("total_loss", "grad_norm")}
+    ctrl = {k: abs(out["control"][k] - out["cpu"][k]) / abs(out["cpu"][k]) for k in ("total_loss", "grad_norm")}
+    log(f"mistral-train-agree: relative |gpu - cpu| loss {sound['total_loss']:.4e}, grad_norm "
+        f"{sound['grad_norm']:.4e} (tol {TRAIN_AGREE_RTOL}); control grad_norm {ctrl['grad_norm']:.4e}")
+    report["mistral_train_agree"] = {**out, "rel_err": sound, "control_rel_err": ctrl, "rtol": TRAIN_AGREE_RTOL}
+    if not all(v <= TRAIN_AGREE_RTOL for v in sound.values()):
+        raise AssertionError(f"GPU and CPU mistral training steps disagree: {sound}")
+    if not ctrl["grad_norm"] > TRAIN_AGREE_RTOL:
+        raise AssertionError(f"mistral-train-agree passes the control: grad_norm off by {ctrl['grad_norm']}")
+
+
+def train_steps(torch, report, key: str, model: str, counts, flags: dict) -> dict:
+    """TRAIN_STEPS AdamW steps of train_step.build(model, B = 8, text 32,
+    **flags) on the card: finite losses (with the generation heads on, every
+    head's and the tactile contrastive loss non-zero; in the post-training
+    stage the frozen towers without gradients and unchanged), each step's
+    launches counts(cfg); step ms (median past the first), tokens/s, MFU by
+    6N (N the decoder's), peak GiB."""
+    import numpy as np
+
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch import train_step as ts
+    from mla_tpu_torch.models.mla import LOSS_KEYS
     from mla_tpu_torch.ops import cuda
     from mla_tpu_torch.training import metrics
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    run = train_step.build("mla-phi", 8, 32, "cuda", seed=0)
-    cfg = run["cfg"]
+    run = ts.build(model, 8, 32, "cuda", seed=0, **flags)
+    cfg, params = run["cfg"], run["state"]["params"]
     S = 32 + cfg.fused_len + cfg.diff_block_len
+    towers = {p: t.detach().clone() for p, t in P.tree_items(params)
+              if p.startswith(("vision_tower_2d/", "vision_tower_3d/")) and flags.get("stage") == "post-training"}
+    n = run["flops_per_token"] / 6
+    expected = counts(cfg)
     torch.cuda.synchronize()
-    log(f"phi-train: mla-phi built on the card in {time.perf_counter() - t0:.1f} s, S = {S}, decoder N = "
-        f"{run['flops_per_token'] / 6e9:.4f} B, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    expected = phi_counts()
+    log(f"{key}: {model} ({cfg.llama.num_layers} layers) built on the card in {time.perf_counter() - t0:.1f} s, S = "
+        f"{S}, decoder N = {n / 1e9:.4f} B, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     cuda.launches.clear()
     times, steps = [], []
     for i in range(TRAIN_STEPS):
@@ -3219,28 +3525,289 @@ def phi_train(torch, report):
         torch.cuda.synchronize()
         t = time.perf_counter()
         run["state"], m = run["step"](run["state"], run["batch"], run["generator"])
-        loss, gnorm = float(m["total_loss"]), float(m["grad_norm"])
+        losses = {k: float(m[k]) for k in LOSS_KEYS}
+        gnorm = float(m["grad_norm"])
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         counts = {k: cuda.launches[k] - before.get(k, 0) for k in expected}
-        log(f"phi-train step {i}: loss {loss:.5f}, grad_norm {gnorm:.5f}, {times[-1]:.1f} ms, launches {counts}")
-        if not (np.isfinite(loss) and np.isfinite(gnorm)):
-            raise AssertionError(f"phi-train step {i}: non-finite loss {loss} or grad_norm {gnorm}")
+        log(f"{key} step {i}: loss {losses['total_loss']:.5f}, grad_norm {gnorm:.5f}, {times[-1]:.1f} ms, "
+            f"launches {counts}")
+        if not all(np.isfinite(v) for v in (*losses.values(), gnorm)):
+            raise AssertionError(f"{key} step {i}: non-finite loss or grad_norm: {losses}, {gnorm}")
+        if cfg.use_generation:
+            for k in ("tactile_contrastive_loss", "image_gen_loss", "point_cloud_gen_loss", "tactile_gen_loss"):
+                if losses[k] == 0.0:
+                    raise AssertionError(f"{key} step {i}: {k} is 0")
         if counts != expected:
-            raise AssertionError(f"phi-train step {i}: launches {counts}, expected {expected}")
-        steps.append({"loss": loss, "grad_norm": gnorm, "ms": times[-1]})
+            raise AssertionError(f"{key} step {i}: launches {counts}, expected {expected}")
+        steps.append({**losses, "grad_norm": gnorm, "ms": times[-1]})
+    for p, t in P.tree_items(params):
+        if p in towers and (t.requires_grad or t.grad is not None or not torch.equal(t, towers[p])):
+            raise AssertionError(f"{key}: the frozen leaf {p} got a gradient or moved")
     step_ms = float(np.median(times[1:]))
     tok_s = run["tokens_per_step"] / (step_ms / 1e3)
     peak = metrics.bf16_peak_flops(torch.cuda.get_device_name(0))
-    mfu = tok_s * run["flops_per_token"] / peak if peak else None
+    mfu = tok_s * 6 * n / peak if peak else None
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log(f"phi-train mla-phi B=8 S={S} ({gpu_line()}): step {step_ms:.1f} ms (median of steps 1..{TRAIN_STEPS - 1}), "
-        f"{tok_s:.0f} tokens/s ({run['tokens_per_step']} a step), MFU {mfu if mfu is None else round(mfu, 4)}, peak "
+    log(f"{key} {model} B=8 S={S} ({gpu_line()}): step {step_ms:.1f} ms (median of steps 1..{TRAIN_STEPS - 1}), "
+        f"{tok_s:.0f} tokens/s, MFU {mfu if mfu is None else round(mfu, 4)} (6N, N = {n / 1e9:.4f} B), peak "
         f"{peak_gib:.2f} GiB; launches {dict(cuda.launches)}")
-    report["phi_train"] = {"steps": steps, "S": S, "step_ms_median": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
-                           "peak_gib": peak_gib, "decoder_params": run["flops_per_token"] / 6,
-                           "launches": dict(cuda.launches), "expected_per_step": expected}
+    report[key.replace("-", "_")] = {"steps": steps, "S": S, "layers": cfg.llama.num_layers, "step_ms_median": step_ms,
+                                     "tokens_per_s": tok_s, "mfu": mfu, "decoder_params": n, "peak_gib": peak_gib,
+                                     "frozen_leaves_checked": len(towers), "launches": dict(cuda.launches),
+                                     "expected_per_step": expected}
+    del run, params
     return dict(cuda.launches)
+
+
+def mistral_train(torch, report):
+    """mla-mistral at full width with its decoder cut to 8 layers
+    (train_step.ONE_CARD_LAYERS): TRAIN_STEPS AdamW steps at B = 8, S =
+    563, remat on; launches flash forward 2L, dQ L, dK/dV L, FPS 2."""
+    return train_steps(torch, report, "mistral-train", "mla-mistral", llama_step_counts, {})
+
+
+def check_int4_agreement(torch, report):
+    """int4 on the card against the CPU: int4_linear's integer partial sums
+    (group 128) at mla-7b's four linears, M = 534 and 18, with TF32 off and
+    on, identical to the exact sums (float64 on the CPU) of the first 32
+    and last 16 rows; then an int4 mla-7b cut to INT4_AGREE_LAYERS layers,
+    one DDIM-8 chunk card vs CPU within AGREE_RTOL of its scale."""
+    from dataclasses import replace
+
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.models.mla import MLAPolicy
+    from mla_tpu_torch.ops import quantization as q
+
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    checked = []
+    for K, N in LINEARS:
+        w = P.tree_to(q.quantize_weight_int4(torch.randn((K, N), generator=gen, device="cuda") * 0.02), "cpu")
+        w4 = q.unpack_int4(w["w_q4"])
+        groups = w["w_scale4"].shape[0]
+        for M in (PREFIX_LEN, SUFFIX_LEN):
+            xq, _ = q.quantize_rows(torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16).cpu())
+            # the exact sums (float64) of the first 32 and last 16 rows: a
+            # row's sums do not depend on the others, and the card runs all M
+            rows = torch.arange(M) if M <= 48 else torch.cat([torch.arange(32), torch.arange(M - 16, M)])
+            want = torch.bmm(xq[rows].double().reshape(len(rows), groups, -1).transpose(0, 1),
+                             w4.double().reshape(groups, K // groups, N))
+            for tf32 in (False, True):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                got = q.int4_partials(xq.cuda(), q.unpack_int4(w["w_q4"].cuda()), groups)[:, rows.cuda()].cpu()
+                torch.backends.cuda.matmul.allow_tf32 = False
+                if not torch.equal(got.double(), want):
+                    raise AssertionError(f"int4-agree K={K} N={N} M={M} tf32={tf32}: the partial sums differ in "
+                                         f"{int((got.double() != want).sum())} entries")
+            checked.append(f"K={K} N={N} M={M}")
+    log(f"int4-agree: integer partial sums identical card vs CPU (TF32 off and on) at {checked}")
+    cfg = get_model_config("mla-7b")
+    cfg = replace(cfg, llama=replace(cfg.llama, num_layers=INT4_AGREE_LAYERS))
+    params, state = P.init(cfg, seed=61, device="cuda")
+    live_head(torch, params, 62)
+    params = P.tree_to(q.quantize_model_int4(params), "cpu")
+    state = P.tree_to(state, "cpu")
+    img, pc, ids, noise = request_inputs(cfg, 63)
+    chunk = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        pol = MLAPolicy(params, state, cfg, device=dev)
+        chunk[dev] = pol.predict_action_diff(img, pc, "", input_ids=ids, noise=noise, return_normalized=True)
+        log(f"int4-agree mla-7b-int4 {INT4_AGREE_LAYERS} layers DDIM-8 on {dev}: {time.perf_counter() - t0:.2f} s")
+        del pol
+    scale, err = float(abs(chunk["cpu"]).max()), float(abs(chunk["cuda"] - chunk["cpu"]).max())
+    log(f"int4-agree: chunk max |gpu - cpu| {err:.4e} of scale {scale:.4e}, rel {err / scale:.4e} (tol {AGREE_RTOL})")
+    report["int4_agree"] = {"partials_identical": checked, "chunk_max_abs_err": err, "chunk_scale": scale,
+                            "rtol": AGREE_RTOL}
+    if not err <= AGREE_RTOL * scale:
+        raise AssertionError(f"int4-agree: GPU and CPU chunks disagree: {err} vs scale {scale}")
+
+
+def int4_serve(torch, report):
+    """mla-7b-int4 (group 128) at full depth from a seeded init on the card:
+    DDIM-8 and DPM-4 chunks and predict_action_ar, each with its exact
+    launches (flash L and FPS 2 a call; no W8A8 and no int8_matmul: the int4
+    products and the dequantized int4 lm_head are plain PyTorch); p50 ms,
+    the int4 tree's GiB against the int8 trees' (serve)."""
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.models.mla import MLAPolicy
+    from mla_tpu_torch.ops.quantization import quantize_model_int4
+
+    cfg = get_model_config("mla-7b")
+    t0 = time.perf_counter()
+    params, state = P.init(cfg, seed=64, device="cuda")
+    live_head(torch, params, 65)
+    params = quantize_model_int4(params)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    policy = MLAPolicy(params, state, cfg, norm_stats=STATS)
+    del params
+    torch.cuda.synchronize()
+    L = cfg.llama.num_layers
+    gib = tree_gib(policy.params["llm_backbone"])
+    int8_gib = report.get("serve", {}).get("decoder_tree_gib")  # the serve phase's int8 mla-7b policies
+    log(f"int4-serve: mla-7b-int4 built on the card in {time.perf_counter() - t0:.1f} s; its decoder tree "
+        f"{gib:.2f} GiB (the int8 mla-7b's, W8A8 and weight-only: {int8_gib}), "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated ({(torch.cuda.memory_allocated() - before) / 2**30:.2f} "
+        f"by the fused serving tree)")
+    common = {"flash_attention": L, "furthest_point_sample": cfg.point.num_stages, "w8a8_matmul": 0, "int8_matmul": 0}
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_calls(torch, "int4-serve", policy, cfg, {"ddim": common, "dpm": common, "ar": common}, ar=True)
+    res.update({"decoder_tree_gib": gib, "int8_decoder_tree_gib": int8_gib,
+                "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    log(f"int4-serve ({gpu_line()}): p50 DDIM-8 {res['p50_ms']['ddim']:.2f} ms, DPM-4 {res['p50_ms']['dpm']:.2f} ms, "
+        f"predict_action_ar {res['p50_ms']['ar']:.2f} ms; peak {res['peak_gib']:.2f} GiB in the calls")
+    report["int4_serve"] = res
+    del policy
+    return res["launches"]
+
+
+def phi_post_config(num_layers: int = None, **narrow):
+    """mla-phi in the Franka post-training stage (train_step.POST_FRANKA's
+    flags, the heads at the decoder's width), its decoder cut or narrowed
+    as phi_config, the heads' dropout 0 (the card's and the CPU's
+    generators differ)."""
+    from dataclasses import replace
+
+    from mla_tpu_torch import train_step as ts
+    from mla_tpu_torch.conf.models import _gen_cfg
+
+    flags = {k: v for k, v in ts.POST_FRANKA.items() if k != "stage"}
+    cfg = ts.model_config("mla-phi", **flags)
+    if num_layers is not None:
+        narrow["num_layers"] = num_layers
+    cfg = replace(cfg, llama=replace(cfg.llama, **narrow))
+    g = _gen_cfg(cfg.llama.hidden_size, True, True, True)
+    g = replace(g, use_image=flags["gen_image"], use_pointcloud=flags["gen_pointcloud"],
+                use_tactile=flags["gen_tactile"], image=replace(g.image, dropout=0.0),
+                point=replace(g.point, dropout=0.0), tactile=replace(g.tactile, dropout=0.0))
+    return replace(cfg, gen=g)
+
+
+def check_phi_post_agreement(torch, report):
+    """One AdamW step of a hidden-1280 phi (4 layers, head_dim 80) with the
+    generation heads at its width, in the Franka post-training stage, on the
+    card and on the CPU from the same weights, batch, wrist view and draws:
+    the losses (POST_AGREE_KEYS; image_gen_loss of |total_loss|) within
+    TRAIN_AGREE_RTOL; the card's step from the shifted-o-bias control must
+    miss grad_norm."""
+    from mla_tpu_torch import train_step as ts
+    from mla_tpu_torch.models.mla import LOSS_KEYS
+    from mla_tpu_torch.vla.dummy import add_extra_views, synthetic_batch
+
+    cfg = phi_post_config(4, hidden_size=1280, intermediate_size=5120, num_heads=16, contrastive_layer=2)
+    batch = add_extra_views(synthetic_batch(cfg, B=2, L=32, seed=10), cfg, seed=12)
+    S = 32 + cfg.fused_len + cfg.diff_block_len
+    out = agreement_steps(torch, None, cfg, batch, LOSS_KEYS + ("grad_norm",),
+                          f"phi-post-agree phi hidden 1280 with heads, bf16 B=2 S={S}",
+                          stage=ts.POST_FRANKA["stage"], perturb=lambda p: shifted_o_bias(torch, p, 66))
+
+    def rel(dev):
+        r = {k: abs(out[dev][k] - out["cpu"][k]) / abs(out["cpu"][k]) for k in POST_AGREE_KEYS}
+        r["image_gen_loss (of |total_loss|)"] = (abs(out[dev]["image_gen_loss"] - out["cpu"]["image_gen_loss"])
+                                                 / abs(out["cpu"]["total_loss"]))
+        return r
+
+    sound, ctrl = rel("cuda"), rel("control")
+    log(f"phi-post-agree: relative |gpu - cpu| {({k: float(f'{v:.4e}') for k, v in sound.items()})} "
+        f"(tol {TRAIN_AGREE_RTOL}); control grad_norm {ctrl['grad_norm']:.4e}")
+    report["phi_post_agree"] = {**out, "S": S, "rel_err": sound, "control_rel_err": ctrl, "rtol": TRAIN_AGREE_RTOL}
+    for k in ("tactile_contrastive_loss", "image_gen_loss", "point_cloud_gen_loss", "tactile_gen_loss"):
+        if out["cpu"][k] == 0.0:
+            raise AssertionError(f"phi-post-agree: {k} is 0 on the CPU, the head did not run")
+    if not all(v <= TRAIN_AGREE_RTOL for v in sound.values()):
+        raise AssertionError(f"GPU and CPU phi post-training steps disagree: {sound}")
+    if not ctrl["grad_norm"] > TRAIN_AGREE_RTOL:
+        raise AssertionError(f"phi-post-agree passes the control: grad_norm off by {ctrl['grad_norm']}")
+
+
+def phi_post_train(torch, report):
+    """train_step --model mla-phi --post_franka at full width and depth:
+    TRAIN_STEPS AdamW steps at B = 8, S = 819, remat on, the heads' dropout
+    as in the stage; FPS 2 a step and no other kernel (head_dim 80)."""
+    from mla_tpu_torch import train_step as ts
+
+    return train_steps(torch, report, "phi-post-train", "mla-phi", lambda cfg: phi_counts(), dict(ts.POST_FRANKA))
+
+
+def pointlib_phase(torch, report):
+    """The point-cloud library on the card against the CPU: KMeansEmbed on
+    POINTLIB_B clouds of POINTLIB_N points into POINTLIB_GROUPS groups (its
+    k-means starts from one FPS launch, counted), dilated kNN, the edge and
+    max-relative graph convolutions (on the CPU's neighbours) and PCViews'
+    six depth images. The k-means labels and kNN indices may differ only at
+    near ties (POINTLIB_LABEL_SHARE); the centroids and group features of
+    the groups whose members agree, and every other float, within
+    POINTLIB_RTOL of their scale."""
+    import numpy as np
+
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.models import pointlib as pl
+    from mla_tpu_torch.ops import cuda
+
+    rng = np.random.default_rng(70)
+    B, N, K = POINTLIB_B, POINTLIB_N, POINTLIB_GROUPS
+    xyz = rng.uniform([-0.3, -0.45, 0.75], [0.7, 0.45, 1.6], size=(B, N, 3)).astype(np.float32)
+    p = pl.kmeans_embed_init(71, encoder_dim=256)
+    gp = pl.graph_conv_init(72, 3, 64)
+    out, ms, launches, cpu_idx = {}, {}, {}, None
+    for dev in ("cpu", "cuda"):
+        x = torch.from_numpy(xyz).to(dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            cuda.launches.clear()
+        t0 = time.perf_counter()
+        cent, feats, _, labels = pl.kmeans_embed(P.tree_to(p, dev), x, num_groups=K)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(cuda.launches)
+        ms[dev] = (time.perf_counter() - t0) * 1e3
+        small = x[:, :1024]
+        idx = pl.dilated_knn(8, 2, small)
+        nbr = idx if cpu_idx is None else cpu_idx.to(dev)
+        cpu_idx = idx.cpu() if cpu_idx is None else cpu_idx
+        out[dev] = {k: v.cpu() for k, v in {
+            "centroids": cent, "features": feats, "labels": labels, "dilated_knn": idx,
+            "edge_conv": pl.edge_conv(P.tree_to(gp, dev), small, nbr),
+            "mr_conv": pl.mr_conv(P.tree_to(gp, dev), small, nbr),
+            "depth": pl.PCViews(device=dev).get_img(small - small.mean(1, keepdim=True), resolution=128),
+        }.items()}
+    if launches.get("furthest_point_sample") != 1:
+        raise AssertionError(f"pointlib: the k-means launched FPS {launches.get('furthest_point_sample')} times, not 1")
+    got, want = out["cuda"], out["cpu"]
+    moved = got["labels"] != want["labels"]
+    labels_differ = int(moved.sum())
+    # a group is compared where no point joined or left it
+    touched = torch.zeros((B, K), dtype=torch.bool)
+    for lab in (got["labels"], want["labels"]):
+        for b in range(B):
+            touched[b, lab[b][moved[b]]] = True
+    kept = ~touched
+    errs = {}
+    for k in ("centroids", "features"):
+        w = want[k].float()
+        errs[k] = float((got[k].float() - w)[kept].abs().max()) / float(w.abs().max())
+    for k in ("edge_conv", "mr_conv", "depth"):
+        w = want[k].float()
+        errs[k] = float((got[k].float() - w).abs().max()) / float(w.abs().max())
+    knn_differ = int((got["dilated_knn"] != want["dilated_knn"]).sum())
+    log(f"pointlib ({B} clouds x {N} points -> {K} groups): KMeansEmbed on the card {ms['cuda']:.1f} ms, on the CPU "
+        f"{ms['cpu']:.1f} ms; FPS launches {launches.get('furthest_point_sample')}; labels differing {labels_differ} "
+        f"of {B * N} ({int(kept.sum())} of {B * K} groups compared); dilated kNN indices differing {knn_differ} of "
+        f"{want['dilated_knn'].numel()}; max error of scale {({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+        f"(tol {POINTLIB_RTOL})")
+    report["pointlib"] = {"card_ms": ms["cuda"], "cpu_ms": ms["cpu"], "launches": launches,
+                          "labels_differ": labels_differ, "groups_compared": int(kept.sum()),
+                          "dilated_knn_differ": knn_differ, "rel_err": errs, "rtol": POINTLIB_RTOL}
+    if labels_differ > POINTLIB_LABEL_SHARE * B * N or knn_differ > POINTLIB_LABEL_SHARE * want["dilated_knn"].numel():
+        raise AssertionError(f"pointlib: {labels_differ} labels and {knn_differ} kNN indices differ card vs CPU")
+    bad = {k: v for k, v in errs.items() if not v <= POINTLIB_RTOL}
+    if bad:
+        raise AssertionError(f"pointlib: card and CPU disagree: {bad}")
+    return launches
 
 
 # --------------------------------------------------------------------------- #
@@ -3258,6 +3825,28 @@ TRAINER_KERNELS = ("flash_attention", "flash_attention_bwd_dq", "flash_attention
 TRAINER_ROOT = Path("build") / "chip_smoke_trainer"
 TRAINER_ARGS = ("--vla.type", "prism-dinosiglip-224px+oxe+diffusion", "--model", "mla-2b",
                 "--per_device_batch_size", "2", "--global_batch_size", "4", "--save_interval", "2")
+
+
+@contextlib.contextmanager
+def checkpoint_writes_skipped():
+    """Within the block, train.main's checkpoint saves write nothing and
+    take no time; the steps they were asked for are collected. For the runs
+    that repeat the trainer phase's ~20 GiB save, which that phase times
+    and checks bit for bit (the AR loss mode's, data's, oxe's and
+    trainer-viz's), so the script keeps to its time."""
+    from mla_tpu_torch.training import checkpointing
+
+    real, steps = checkpointing.save_checkpoint, []
+
+    def skip(run_dir, train_state, *, step, epoch=0, loss=None, **_):
+        steps.append(step)
+        return Path(run_dir) / "checkpoints" / checkpointing._ckpt_name(step, epoch, loss)
+
+    checkpointing.save_checkpoint = skip
+    try:
+        yield steps
+    finally:
+        checkpointing.save_checkpoint = real
 
 
 def trainer_counts(cfg, micro_batches: int):
@@ -3484,7 +4073,8 @@ def trainer(torch, report):
         # -- the AR loss mode at full width: lm_head trained ------------------
         torch.cuda.reset_peak_memory_stats()
         cuda.launches.clear()
-        ar = train.main(args + ["--run_id", "smoke-ar", "--max_steps", "2", "--use_diff", "false"])
+        with checkpoint_writes_skipped():
+            ar = train.main(args + ["--run_id", "smoke-ar", "--max_steps", "2", "--use_diff", "false"])
         counts = {k: cuda.launches[k] for k in TRAINER_KERNELS}
         ar_losses = list(ar["metrics"].windows["ar_loss"])
         if not ("llm_backbone/lm_head/w" in ar["state"]["optimizer"].paths and all(np.isfinite(ar_losses))
@@ -3549,10 +4139,11 @@ def trainer_viz(torch, report):
 
     shutil.rmtree(TRAINER_ROOT, ignore_errors=True)
     try:
-        out = train.main(["--vla.type", "prism-dinosiglip-224px+oxe+diffusion", "--model", "mla-small",
-                          "--per_device_batch_size", "2", "--global_batch_size", "2", "--max_steps", "1",
-                          "--use_generation", "true", "--gen_image", "true", "--gen_pointcloud", "true",
-                          "--visualize_interval", "1", "--run_root_dir", str(TRAINER_ROOT), "--run_id", "viz"])
+        with checkpoint_writes_skipped():
+            out = train.main(["--vla.type", "prism-dinosiglip-224px+oxe+diffusion", "--model", "mla-small",
+                              "--per_device_batch_size", "2", "--global_batch_size", "2", "--max_steps", "1",
+                              "--use_generation", "true", "--gen_image", "true", "--gen_pointcloud", "true",
+                              "--visualize_interval", "1", "--run_root_dir", str(TRAINER_ROOT), "--run_id", "viz"])
         viz = out["run_dir"] / "visualizations"
         names = sorted(p.name for p in viz.iterdir()) if viz.is_dir() else []
         size = out["cfg"].vision.image_size
@@ -4007,7 +4598,8 @@ def data(torch, report):
         torch.cuda.reset_peak_memory_stats()
         cuda.launches.clear()
         t = time.perf_counter()
-        out = train.main(args)
+        with checkpoint_writes_skipped() as skipped:
+            out = train.main(args)
         torch.cuda.synchronize()
         totals = {k: cuda.launches[k] for k in TRAINER_KERNELS}
         run_s = time.perf_counter() - t
@@ -4033,13 +4625,13 @@ def data(torch, report):
                           "mfu": mfu, "peak_gib": peak_gib, "data_wait_ms": wait_ms,
                           "data_wait_ms_p50": float(np.percentile(wait_ms, 50)), "data_wait_ms_max": max(wait_ms),
                           "launches": totals, "launches_per_step": {k: v // DATA_RUN_STEPS for k, v in totals.items()},
-                          "run_s": run_s, "save_s": out["saves"][-1][1]}
+                          "run_s": run_s, "save_skipped_at_step": skipped}
         log(f"data trainer mla-2b ({' '.join(DATA_ARGS[4:])}), fp32 masters, buffer {DATA_BUFFER}, S = {S} "
             f"({gpu_line()}): run {run_s:.1f} s, total losses {losses['total_loss']}, step {ms:.1f} ms (the last), "
             f"{tok_s:.0f} tokens/s, MFU {mfu if mfu is None else round(mfu, 4)}, peak {peak_gib:.2f} GiB, data wait "
             f"ms {[round(w, 1) for w in wait_ms]} (p50 {rep['trainer']['data_wait_ms_p50']:.1f}, max "
             f"{rep['trainer']['data_wait_ms_max']:.1f}), launches a step {rep['trainer']['launches_per_step']}, "
-            f"save {rep['trainer']['save_s']:.1f} s")
+            f"the save skipped at step {skipped}")
         del out
     finally:
         if home is None:
@@ -4238,7 +4830,8 @@ def oxe(torch, report):
         torch.cuda.reset_peak_memory_stats()
         cuda.launches.clear()
         t = time.perf_counter()
-        out = train.main(args)
+        with checkpoint_writes_skipped() as skipped:
+            out = train.main(args)
         torch.cuda.synchronize()
         totals = {k: cuda.launches[k] for k in TRAINER_KERNELS}
         run_s = time.perf_counter() - t
@@ -4264,12 +4857,12 @@ def oxe(torch, report):
                           "mfu": mfu, "peak_gib": peak_gib, "data_wait_ms": wait_ms,
                           "data_wait_ms_p50": float(np.percentile(wait_ms, 50)), "data_wait_ms_max": max(wait_ms),
                           "launches": totals, "launches_per_step": {k: v // OXE_RUN_STEPS for k, v in totals.items()},
-                          "run_s": run_s, "save_s": out["saves"][-1][1]}
+                          "run_s": run_s, "save_skipped_at_step": skipped}
         log(f"oxe trainer mla-2b ({' '.join(OXE_ARGS[4:])}), fp32 masters, buffer {OXE_BUFFER}, S = {S} "
             f"({gpu_line()}): run {run_s:.1f} s, total losses {losses['total_loss']}, step {ms:.1f} ms (the last), "
             f"{tok_s:.0f} tokens/s, MFU {mfu if mfu is None else round(mfu, 4)}, peak {peak_gib:.2f} GiB, data wait "
-            f"ms {[round(w, 1) for w in wait_ms]}, launches a step {rep['trainer']['launches_per_step']}, save "
-            f"{rep['trainer']['save_s']:.1f} s")
+            f"ms {[round(w, 1) for w in wait_ms]}, launches a step {rep['trainer']['launches_per_step']}, the save "
+            f"skipped at step {skipped}")
         del out
     finally:
         if home is None:
@@ -4646,11 +5239,19 @@ def hf_vlm(torch, report):
     return totals
 
 
+# the phases of mla-mistral, the int4 weight path, Phi-2 post-training and
+# the point-cloud library, which --only can run alone
+NEW_PHASES = ("mistral-agree", "mistral-serve", "mistral-train-agree", "mistral-train", "int4-agree", "int4-serve",
+              "phi-post-agree", "phi-post-train", "pointlib")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.")
     parser.add_argument("--parent", help="a directory holding another version of flash_fwd.cu, flash_bwd.cu, "
                         "w8a8.cu, int8_mm.cu and fps.cu (such as the parent commit's, with its hopper.cuh) to time "
                         "against this tree's kernels")
+    parser.add_argument("--only", help="a probe: the build, the kernels phase and only these comma-separated phases "
+                        f"of {', '.join(NEW_PHASES)}; prints no result line")
     args = parser.parse_args()
     try:
         import torch
@@ -4715,65 +5316,84 @@ def main() -> int:
             libs[key] = finish_build(cuda, key[1] if isinstance(key, tuple) else key, lib, proc)
     log(f"build: {time.perf_counter() - t:.1f} s (with the control copies of {', '.join(CONTROLS)}"
         f"{' and the parent kernels' if args.parent else ''})")
+    only = set(args.only.split(",")) if args.only else None
+    if only and not only <= set(NEW_PHASES):
+        raise SystemExit(f"chip_smoke: --only takes phases of {NEW_PHASES}, got {sorted(only - set(NEW_PHASES))}")
+
+    def phase(name, fn, *a):
+        """Run one phase (unless --only leaves it out), then free the card's
+        cache; its seconds go to the log and to report['phase_s']."""
+        if only is not None and name not in only:
+            return None
+        t = time.perf_counter()
+        out = fn(*a)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report.setdefault("phase_s", {})[name] = time.perf_counter() - t
+        log(f"phase {name}: {report['phase_s'][name]:.1f} s")
+        return out
+
+    t = time.perf_counter()
     kernels = ([check_w8a8(torch, report, libs["w8a8"])] + check_fps(torch, report, libs["fps"])
                + check_flash(torch, report, libs["flash_fwd"]) + [check_int8_mm(torch, report, libs["int8_mm"])])
     train_kernels = check_flash_bwd(torch, report, libs["flash_bwd"])
+    check_mistral_kernels(torch, report, libs["w8a8"], libs["int8_mm"])
+    check_fps_pointlib(torch, report, libs["fps"])
+    report.setdefault("phase_s", {})["kernels"] = time.perf_counter() - t
+    log(f"phase kernels: {report['phase_s']['kernels']:.1f} s")
     if args.parent:
         compare_parent(torch, report, {name: libs[("parent", name)] for name in PARENT_KERNELS}, w8a8_layout,
                        int8_layout)
-    check_agreement(torch, report)
-    check_ar_agreement(torch, report, libs["int8_mm"])
-    totals, policy, ar_policy = serve(torch, report)
-    ar_totals = ar_serve(torch, report, ar_policy)
-    del ar_policy
-    torch.cuda.empty_cache()
-    host_totals = serve_host(torch, report, policy)
-    del policy
-    gc.collect()
-    torch.cuda.empty_cache()
-    try:
-        report["serve_http_launches"] = serve_http(torch, report)
+    if only is None:
+        phase("agree", check_agreement, torch, report)
+        phase("ar-agree", check_ar_agreement, torch, report, libs["int8_mm"])
+        t = time.perf_counter()
+        totals, policy, ar_policy = serve(torch, report)
+        ar_totals = ar_serve(torch, report, ar_policy)
+        del ar_policy
+        torch.cuda.empty_cache()
+        host_totals = serve_host(torch, report, policy)
+        del policy
         gc.collect()
         torch.cuda.empty_cache()
-        eval_totals = eval_phase(torch, report)
-    finally:
-        shutil.rmtree(SERVE_HTTP_ROOT, ignore_errors=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    diffusion(torch, report)
-    gc.collect()
-    torch.cuda.empty_cache()
-    check_train_agreement(torch, report, libs["flash_bwd"])
-    train_totals = train(torch, report)
-    gc.collect()
-    torch.cuda.empty_cache()
-    check_post_train_agreement(torch, report, libs["flash_bwd"])
-    report["post_train_launches"] = post_train(torch, report)
-    gc.collect()
-    torch.cuda.empty_cache()
-    check_phi_agreement(torch, report)
-    report["phi_serve_launches"] = phi_serve(torch, report)
-    gc.collect()
-    torch.cuda.empty_cache()
-    check_phi_train_agreement(torch, report)
-    report["phi_train_launches"] = phi_train(torch, report)
-    gc.collect()
-    torch.cuda.empty_cache()
-    check_trainer_agreement(torch, report, libs["flash_bwd"])
-    trainer_totals = trainer(torch, report)
-    gc.collect()
-    torch.cuda.empty_cache()
-    trainer_viz(torch, report)
-    gc.collect()
-    torch.cuda.empty_cache()
-    data_totals = data(torch, report)
-    gc.collect()
-    torch.cuda.empty_cache()
-    oxe_totals = oxe(torch, report)
-    gc.collect()
-    torch.cuda.empty_cache()
-    check_vlm_agreement(torch, report, libs["flash_bwd"])
-    hf_totals = hf_vlm(torch, report)
+        report["phase_s"]["serve, ar-serve, serve-host"] = time.perf_counter() - t
+        log(f"phase serve, ar-serve, serve-host: {report['phase_s']['serve, ar-serve, serve-host']:.1f} s")
+        try:
+            report["serve_http_launches"] = phase("serve-http", serve_http, torch, report)
+            eval_totals = phase("eval", eval_phase, torch, report)
+        finally:
+            shutil.rmtree(SERVE_HTTP_ROOT, ignore_errors=True)
+        phase("diffusion", diffusion, torch, report)
+        phase("train-agree", check_train_agreement, torch, report, libs["flash_bwd"])
+        train_totals = phase("train", train, torch, report)
+        phase("post-train-agree", check_post_train_agreement, torch, report, libs["flash_bwd"])
+        report["post_train_launches"] = phase("post-train", post_train, torch, report)
+        phase("phi-agree", check_phi_agreement, torch, report)
+        report["phi_serve_launches"] = phase("phi-serve", phi_serve, torch, report)
+        phase("phi-train-agree", check_phi_train_agreement, torch, report)
+        report["phi_train_launches"] = phase("phi-train", phi_train, torch, report)
+    phase("mistral-agree", check_mistral_agreement, torch, report, libs["int8_mm"])
+    report["mistral_serve_launches"] = phase("mistral-serve", mistral_serve, torch, report)
+    phase("mistral-train-agree", check_mistral_train_agreement, torch, report, libs["flash_bwd"])
+    report["mistral_train_launches"] = phase("mistral-train", mistral_train, torch, report)
+    phase("int4-agree", check_int4_agreement, torch, report)
+    report["int4_serve_launches"] = phase("int4-serve", int4_serve, torch, report)
+    phase("phi-post-agree", check_phi_post_agreement, torch, report)
+    report["phi_post_train_launches"] = phase("phi-post-train", phi_post_train, torch, report)
+    report["pointlib_launches"] = phase("pointlib", pointlib_phase, torch, report)
+    if only is not None:
+        log(f"total: {time.perf_counter() - t_all:.1f} s (only {sorted(only)}: a partial run prints no result)")
+        out_dir = Path("chiprun_out")
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_partial.json").write_text(json.dumps(report, indent=1))
+        return 0
+    phase("trainer-agree", check_trainer_agreement, torch, report, libs["flash_bwd"])
+    trainer_totals = phase("trainer", trainer, torch, report)
+    phase("trainer-viz", trainer_viz, torch, report)
+    data_totals = phase("data", data, torch, report)
+    oxe_totals = phase("oxe", oxe, torch, report)
+    phase("vlm-agree", check_vlm_agreement, torch, report, libs["flash_bwd"])
+    hf_totals = phase("hf-vlm", hf_vlm, torch, report)
     report["serve_launches"], report["ar_serve_launches"], report["train_launches"] = totals, ar_totals, train_totals
     report["serve_host_launches"], report["data_launches"] = host_totals, data_totals
     report["oxe_launches"] = oxe_totals

@@ -11,6 +11,8 @@ Counterpart of mla_tpu/models/contrastive.py:
   * `tactile_contrastive_loss`: each tactile token against its sample's
     point-cloud tokens (positive: the one nearest the gripper) and image
     tokens (positive: that point's patch).
+  * `scene_contrastive_{init,loss}`: the mean-pooled scene-level loss, off
+    the active path (library surface).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Any, Dict
 import torch
 
 from mla_tpu_torch import nn
+from mla_tpu_torch.params import _Init
 
 NEG_INF = -1e9
 
@@ -73,3 +76,20 @@ def tactile_contrastive_loss(
     loss_pc = ce(tac @ pc.transpose(1, 2) / temperature, positive_pc_indices)
     loss_img = ce(tac @ img.transpose(1, 2) / temperature, positive_img_indices)
     return (loss_pc + loss_img) / 2.0
+
+
+def scene_contrastive_init(seed: int, token_dim: int, embedding_dim: int = 256, device="cpu") -> Dict[str, Any]:
+    """The scene head: token_dim -> token_dim / 2 -> embedding_dim (xavier)."""
+    it = _Init(seed, device)
+    return {"fc1": it.linear(token_dim, token_dim // 2), "fc2": it.linear(token_dim // 2, embedding_dim)}
+
+
+def scene_contrastive_loss(params: Dict[str, Any], image_tokens: torch.Tensor, pointcloud_tokens: torch.Tensor,
+                           temperature: float = 0.07) -> torch.Tensor:
+    """The mean-pooled scene-level CLIP loss over the batch, image->cloud
+    and cloud->image averaged (off the model's active path, as in JAX)."""
+    img = _l2norm(nn.proj_head(params, image_tokens.mean(1)).float())
+    pc = _l2norm(nn.proj_head(params, pointcloud_tokens.mean(1)).float())
+    logits = img @ pc.T / temperature
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    return (torch.nn.functional.cross_entropy(logits, labels) + torch.nn.functional.cross_entropy(logits.T, labels)) / 2.0

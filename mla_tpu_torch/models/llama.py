@@ -196,9 +196,13 @@ def lm_head_logits(params: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor
     """fp32 logits from final-normed hidden states [..., D]. An int8 head
     takes JAX's formula, (hf @ float(w_q)) * w_scale with the scale after
     the dot, through the weight-only product in fp32 (on the card its
-    kernel reads the int8 bytes; nothing widens the head)."""
+    kernel reads the int8 bytes; nothing widens the head). An int4 head is
+    dequantized and multiplied in fp32, with no activation quantization, as
+    in JAX."""
     head = params["lm_head"]
     hf = hidden.float()
+    if "w_q4" in head:
+        return hf @ quantization.dequantize_weight_int4(head, torch.float32)
     if "w_q" in head:
         y = quantization.int8_matmul(hf.reshape(-1, hf.shape[-1]).contiguous(), head["w_q"], head["w_scale"])
         return y.reshape(*hf.shape[:-1], y.shape[-1])
@@ -223,18 +227,22 @@ def embed_tokens(params: Dict[str, Any], ids: torch.Tensor) -> torch.Tensor:
 
 
 def fuse_for_serving(params: Dict[str, Any], k_major: bool = False) -> Dict[str, Any]:
-    """Concatenate q|k|v and gate|up on the output dim (fp or int8 leaves;
-    per-output-channel scales concatenate too).
+    """Concatenate q|k|v and gate|up on the output dim (fp, int8 or int4
+    leaves; per-output-channel scales concatenate too, and an int4 leaf's
+    nibble pairs lie within its own out dim, so its packed bytes
+    concatenate as they are).
 
     k_major (the W8A8 serving tree): the int8 decoder weights are also laid
     out K-major, 'w_qt' int8 [L, out, in], the layout the W8A8 kernel reads
     (the card's int8 tensor cores take both operands K-major). The fused
     leaves hold only that copy; o and down keep JAX's w_q beside it. Built
-    once, on the leaves' device."""
+    once, on the leaves' device. An int4 tree gets no K-major copy."""
 
     def cat(leaves):
         if "w" in leaves[0]:
             return {"w": torch.cat([l["w"] for l in leaves], dim=-1)}
+        if "w_q4" in leaves[0]:
+            return {k: torch.cat([l[k] for l in leaves], dim=-1) for k in ("w_q4", "w_scale4")}
         out = {"w_scale": torch.cat([l["w_scale"] for l in leaves], dim=-1)}
         if k_major:
             out["w_qt"] = torch.cat([l["w_q"].transpose(-1, -2) for l in leaves], dim=-2)

@@ -15,6 +15,8 @@ reads:
                 for 2-D leaves whose K and N are multiples of 128, the
                 dequantizing branch for any other leaf, as in JAX [pallas];
   "dequant"     `x @ w_q * scale` in x's dtype [dequant].
+An int4 leaf ({'w_q4','w_scale4'}) runs ops/quantization.int4_linear
+whatever the mode, as in JAX.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from mla_tpu_torch.ops.quantization import int8_linear, w8a8_linear
+from mla_tpu_torch.ops.quantization import int4_linear, int8_linear, w8a8_linear
 
 Params = Dict[str, Any]
 
@@ -40,6 +42,8 @@ def weight_only_eligible(p: Params) -> bool:
 
 
 def linear(p: Params, x: torch.Tensor, *, int8_mode: str = "w8a8") -> torch.Tensor:
+    if "w_q4" in p:
+        return int4_linear(p, x)
     if "w_q" in p or "w_qt" in p:
         if int8_mode not in INT8_MODES:
             raise ValueError(f"int8_mode must be one of {INT8_MODES}, got {int8_mode!r}")

@@ -21,6 +21,16 @@ activations stay in their dtype and the int8 weights are widened on the
 way, y = (x @ float(w_q)) * w_scale. On a CUDA tensor it launches
 csrc/int8_mm.cu along the path and split of K that `int8_mm_plan` picks; on
 a CPU tensor it runs `int8_matmul_plain`.
+
+The int4 weight path is JAX's memory mode: a leaf {'w_q4': int8 [..., in,
+out/2] (two output channels a byte, the even one in the low nibble),
+'w_scale4': fp32 [..., in/group, out]}. `int4_linear` quantizes the rows
+as W8A8 does and multiplies them group by group with the unpacked nibbles.
+JAX has no Pallas kernel here (an XLA dot), so neither has the port: the
+product is plain PyTorch on the CPU and on the card, in fp32 on
+integer-valued operands, which gives JAX's int32 partial sums exactly
+(|int8| <= 127 and |int4| <= 7 are exact even in TF32, and every group's
+or channel's sum stays under 2^24).
 """
 
 from __future__ import annotations
@@ -110,6 +120,115 @@ def quantize_model_host(params: Dict[str, Any]) -> Dict[str, Any]:
     they are moved to the card)."""
     _require_llama(params["llm_backbone"])
     return {**params, "llm_backbone": quantize_llama(tree_to(params["llm_backbone"], "cpu"))}
+
+
+# --------------------------------------------------------------------------- #
+# int4 weights (JAX's memory mode: half the bytes of int8, no kernel)
+# --------------------------------------------------------------------------- #
+
+INT4_GROUP = 128
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int4-valued [..., K, N] (any integer dtype) -> packed int8 [..., K,
+    N/2]: adjacent output channels share a byte, the even one in the low
+    nibble (JAX's bytes)."""
+    q = q.to(torch.int16)
+    lo, hi = q[..., 0::2] & 0xF, q[..., 1::2] & 0xF
+    return ((hi << 4) | lo).to(torch.uint8).view(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Packed int8 [..., K, N/2] -> int8 [..., K, N] of the signed nibbles
+    (JAX's unpack_int4_reference)."""
+    b = packed.to(torch.int16)
+    lo, hi = ((b & 0xF) ^ 8) - 8, b >> 4
+    return torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], 2 * packed.shape[-1]).to(torch.int8)
+
+
+def quantize_weight_int4(w: torch.Tensor, group_size: int = INT4_GROUP) -> Dict[str, torch.Tensor]:
+    """Symmetric int4 with a scale per (group of `group_size` input rows,
+    output channel); group_size 0 or None is one group (per channel).
+    Leading dims are batch (stacked layers, quantized one at a time)."""
+    if w.dim() > 2:
+        parts = [quantize_weight_int4(w[i], group_size) for i in range(w.shape[0])]
+        return {k: torch.stack([p[k] for p in parts]) for k in ("w_q4", "w_scale4")}
+    K, N = w.shape
+    gs = group_size or K
+    if K % gs or N % 2:
+        raise ValueError(f"quantize_weight_int4: K={K} must be a multiple of the group {gs} and N={N} even")
+    g = w.float().reshape(K // gs, gs, N)
+    amax = g.abs().amax(dim=-2, keepdim=True).clamp_min(1e-8)
+    scale = amax / torch.full_like(amax, 7.0)
+    q = torch.round(g / scale).clamp(-7, 7).to(torch.int8).reshape(K, N)
+    return {"w_q4": pack_int4(q), "w_scale4": scale[:, 0, :]}
+
+
+def dequantize_weight_int4(p: Dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch.Tensor:
+    """The int4 leaf's weight [..., K, N] in `dtype` (stacked leaves too)."""
+    q = unpack_int4(p["w_q4"])
+    K, N = q.shape[-2:]
+    G = p["w_scale4"].shape[-2]
+    w = q.float().reshape(*q.shape[:-2], G, K // G, N) * p["w_scale4"].float()[..., :, None, :]
+    return w.reshape(*q.shape[:-2], K, N).to(dtype)
+
+
+def int4_partials(xq: torch.Tensor, w: torch.Tensor, groups: int) -> torch.Tensor:
+    """The integer products of int8 rows xq [M, K] and int4 values w [K, N]
+    by input group: fp32 [groups, M, N], each an exact integer (JAX's int32
+    partial sums)."""
+    M, K = xq.shape
+    gs = K // groups
+    xg = xq.float().reshape(M, groups, gs).transpose(0, 1)
+    return torch.bmm(xg, w.float().reshape(groups, gs, -1))
+
+
+def int4_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """nn.linear entry for an int4 leaf; x [..., K]. The rows quantized to
+    int8 as W8A8 does, each group's product rescaled by its scales and
+    summed, then the row scale, as JAX's int4_linear."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    xq, sx = quantize_rows(x.reshape(-1, K))
+    w = unpack_int4(p["w_q4"])
+    scales = p["w_scale4"].float()
+    acc = int4_partials(xq, w, scales.shape[0])
+    if scales.shape[0] == 1:
+        y = acc[0] * sx * scales[0]
+    else:
+        y = (acc * scales[:, None, :]).sum(0) * sx
+    y = y.to(x.dtype).reshape(*lead, y.shape[-1])
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def quantize_llama_int4(params: Dict[str, Any], group_size: int = INT4_GROUP) -> Dict[str, Any]:
+    """int4 the big matmuls of a models/llama.py tree (q/k/v/o, gate/up/down
+    and the lm_head); the embedding stays int8 (a gather reads rows) and the
+    norms as they are. Raises ValueError, naming the family, for any other
+    decoder tree."""
+    _require_llama(params)
+    lp = params["layers"]
+
+    def q4(leaf):
+        return quantize_weight_int4(leaf["w"], group_size)
+
+    return {
+        "embed": quantize_embedding(params["embed"]["table"]),
+        "layers": {
+            "attn": {k: q4(lp["attn"][k]) for k in ("q", "k", "v", "o")},
+            "mlp": {k: q4(lp["mlp"][k]) for k in ("gate", "up", "down")},
+            "input_ln": lp["input_ln"],
+            "post_ln": lp["post_ln"],
+        },
+        "final_ln": params["final_ln"],
+        "lm_head": q4(params["lm_head"]),
+    }
+
+
+def quantize_model_int4(params: Dict[str, Any], group_size: int = INT4_GROUP) -> Dict[str, Any]:
+    """int4 the LLM backbone of a full MLA tree on its leaves' device."""
+    return {**params, "llm_backbone": quantize_llama_int4(params["llm_backbone"], group_size)}
 
 
 # --------------------------------------------------------------------------- #

@@ -1,11 +1,15 @@
 """Where the time of one request goes, on one NVIDIA GPU.
 
-    python3 -m mla_tpu_torch.profile_chunk [--model mla-7b|mla-phi] [--sampler ddim|dpm|ar]
+    python3 -m mla_tpu_torch.profile_chunk [--model MODEL] [--sampler ddim|dpm|ar]
 
 Builds the model from a seeded random init on the card (as chip_smoke.py
-does): the int8 mla-7b, or the bf16 mla-phi (Phi-2; the JAX package
-quantizes llama trees only). It serves a few warm-up requests, then
-reports:
+does). MODEL is mla-7b, mla-mistral or mla-phi, with bench.py's suffix
+rule for the llama family: a bare llama id is its int8 tree, as
+`--model mla-7b` has always measured (so earlier figures stay
+comparable), `-int8` names the same, and `-int4` serves the int4 tree
+(group 128: ops/quantization.quantize_model_int4, int4 products in plain
+PyTorch, no kernel). mla-phi is the bf16 Phi-2 (the JAX package quantizes
+llama trees only). It serves a few warm-up requests, then reports:
   * host wall time per stage, each ending in a synchronize: for a
     diffusion chunk (ddim, dpm; mla-7b's linears W8A8) front-end + prefix
     embeds, prefill, one suffix evaluation and the whole chunk; for an AR
@@ -13,7 +17,8 @@ reports:
     front-end + prefix embeds, prefill with the last position's logits, one
     decode step, the lm_head alone and the whole request, beside the decode
     step's weight-read bound (the bytes of the decoder layers' weights, and
-    with the lm_head's, over 3.35 TB/s);
+    with the lm_head's, over 3.35 TB/s; int4 trees count their packed
+    bytes and run int4_linear in every mode);
   * a torch.profiler trace of one request: device time by kernel, the sum
     of device time, the device time and launches of the int8_mm and w8a8
     kernels, and the device's idle share of the unprofiled request's wall
@@ -34,9 +39,28 @@ import torch
 from mla_tpu_torch import params as P
 from mla_tpu_torch.conf.models import get_model_config
 from mla_tpu_torch.models import mla, prismatic
-from mla_tpu_torch.ops.quantization import quantize_model
+from mla_tpu_torch.ops.quantization import quantize_model, quantize_model_int4
 
 PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s (data sheet)
+MODELS = ("mla-7b", "mla-mistral", "mla-phi")
+QUANTIZE = {"int8": quantize_model, "int4": quantize_model_int4}
+
+
+def parse_model_id(model_id: str):
+    """(preset, quantization) of a model id after bench.py's suffix rule:
+    '-int8' / '-int4' name the llama tree's quantization, a bare llama id is
+    int8, and mla-phi serves its bf16 tree (None)."""
+    base, quant = model_id, None
+    for suffix in ("-int8", "-int4"):
+        if model_id.endswith(suffix):
+            base, quant = model_id[: -len(suffix)], suffix[1:]
+    if base not in MODELS:
+        raise ValueError(f"unknown model {model_id!r}: one of {MODELS}, a llama id may end in -int8 or -int4")
+    if base == "mla-phi":
+        if quant:
+            raise ValueError("mla-phi serves its bf16 tree: the JAX package quantizes llama trees only")
+        return base, None
+    return base, quant or "int8"
 
 
 def _timed(fn, reps: int = 5):
@@ -84,7 +108,7 @@ def _ar_stages(policy, cfg, ids, images, pc_t):
         stages["decode_step_ms"], _ = _timed(lambda: mla.decode_step(policy.params, cfg, kv, n, tok, int8_mode=mode))
         h = torch.zeros((1, cfg.llama.hidden_size), dtype=cfg.llama.compute_dtype, device="cuda")
         stages["lm_head_ms"], _ = _timed(lambda: prismatic.get_decoder(cfg).lm_head_logits(bb, h))
-    weight_bytes = sum(_bytes(leaf["w_q" if "w_q" in leaf else "w"])
+    weight_bytes = sum(_bytes(leaf[next(k for k in ("w_q4", "w_q", "w") if k in leaf)])
                        for group in ("attn", "mlp") for leaf in bb["layers"][group].values())
     head_bytes = sum(_bytes(t) for t in P.tree_leaves(bb["lm_head"]))
     stages["decode_weight_read_bound_ms"] = weight_bytes / PEAK_BYTES * 1e3
@@ -98,7 +122,9 @@ def _bytes(t: torch.Tensor) -> int:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--model", default="mla-7b", choices=("mla-7b", "mla-phi"))
+    ap.add_argument("--model", default="mla-7b",
+                    help="mla-7b, mla-mistral or mla-phi; a llama id is int8 (its -int8 id too) or, as "
+                         "mla-7b-int4 / mla-mistral-int4, the int4 tree")
     ap.add_argument("--sampler", default="ddim", choices=("ddim", "dpm", "ar"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -106,14 +132,15 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    cfg = get_model_config(args.model)
+    base, quant = parse_model_id(args.model)
+    cfg = get_model_config(base)
     params, state = P.init(cfg, seed=0, device="cuda")
     fc2 = params["final_layer"]["mlp"]["fc2"]
     fc2["w"] = torch.randn(fc2["w"].shape, generator=torch.Generator("cuda").manual_seed(1), device="cuda") * 0.02
     ar = args.sampler == "ar"
     stats = {"rlbench": {"action": {"q01": [-1.0] * 6 + [0.0], "q99": [1.0] * 7}}}
-    if cfg.llm_family == "llama":
-        params = quantize_model(params)
+    if quant:
+        params = QUANTIZE[quant](params)
     policy = mla.MLAPolicy(params, state, cfg, norm_stats=stats, int8_mode="weight_only" if ar else "w8a8")
     del params
     rng = np.random.default_rng(0)

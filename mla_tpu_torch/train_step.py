@@ -7,7 +7,10 @@ MFU and peak memory.
         [--gen_image] [--use_roi] [--gen_pointcloud] [--gen_tactile]
 
 Counterpart of scripts/tpu_smoke.py. --model is any preset of
-conf/models.py (mla-2b, the llama rung; mla-phi, Phi-2 at full width).
+conf/models.py (mla-2b, the llama rung; mla-phi, Phi-2 at full width;
+mla-mistral, Mistral-7B's widths with its decoder cut to ONE_CARD_LAYERS'
+8 layers, as mla-2b cuts mla-7b: its 7.2 B decoder with AdamW does not fit
+one card).
 Builds the model from the seeded random init on the device (`params.init`),
 then runs `--steps` steps
 of `make_train_step` on `synthetic_batch` (repeated_diffusion_steps 1, remat
@@ -70,6 +73,10 @@ KERNEL_CLASSES = (
 )
 
 
+# presets whose whole decoder with AdamW does not fit one card: the depth
+# they train at here, widths kept (mla-2b's cut of mla-7b)
+ONE_CARD_LAYERS = {"mla-mistral": 8}
+
 # the stage of scripts/post_franka.sh
 POST_FRANKA = dict(stage="post-training", use_tactile=True, num_extra_views=1, use_generation=True, gen_image=True,
                    use_roi=True, gen_pointcloud=True, gen_tactile=True)
@@ -80,9 +87,11 @@ def model_config(model: str, *, use_tactile: bool = False, num_extra_views: int 
                  gen_image: bool = False, use_roi: bool = False, gen_pointcloud: bool = False,
                  gen_tactile: bool = False) -> prismatic.MLAModelConfig:
     """The preset with the stage flags, mapped onto the gen config as
-    scripts/train.py maps them."""
+    scripts/train.py maps them, its decoder cut to ONE_CARD_LAYERS."""
     cfg = get_model_config(model, use_tactile=use_tactile, use_generation=use_generation, use_roi=use_roi,
                            num_extra_views=num_extra_views)
+    if model in ONE_CARD_LAYERS:
+        cfg = replace(cfg, llama=replace(cfg.llama, num_layers=ONE_CARD_LAYERS[model]))
     if use_generation:
         cfg = replace(cfg, gen=replace(cfg.gen, use_image=gen_image, use_pointcloud=gen_pointcloud,
                                        use_tactile=gen_tactile))
@@ -233,7 +242,9 @@ def main() -> None:
     t0 = time.perf_counter()
     run = build(args.model, args.batch, args.text_len, device, optimizer=args.optimizer, **flags)
     _sync(device)
-    print(f"{args.model}: built on {device} in {time.perf_counter() - t0:.1f} s")
+    layers = run["cfg"].llama.num_layers
+    print(f"{args.model}: built on {device} in {time.perf_counter() - t0:.1f} s"
+          + (f" (decoder cut to {layers} layers)" if args.model in ONE_CARD_LAYERS else ""))
     times = []
     for i in range(args.steps):
         _sync(device)
@@ -250,7 +261,7 @@ def main() -> None:
     step_ms = float(np.median(times[1:] if len(times) > 1 else times))
     tok_s = run["tokens_per_step"] / (step_ms / 1e3)
     result: Dict[str, Any] = {
-        "model": args.model, "batch": args.batch, "text_len": args.text_len, "flags": flags,
+        "model": args.model, "num_layers": layers, "batch": args.batch, "text_len": args.text_len, "flags": flags,
         "optimizer": args.optimizer,
         "tokens_per_step": run["tokens_per_step"], "step_ms": times, "step_ms_median": step_ms,
         "tokens_per_s": tok_s, "flops_per_token": run["flops_per_token"],

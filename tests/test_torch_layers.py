@@ -120,7 +120,7 @@ def _small_llama(num_kv_heads=4):
     return jcfg, tcfg, params
 
 
-@pytest.mark.parametrize("quantized,num_kv_heads", [(False, 4), (False, 2), (True, 4)])
+@pytest.mark.parametrize("quantized,num_kv_heads", [(False, 4), (False, 2), (True, 4), (True, 2)])
 def test_llama_prefill_and_readonly_suffix_match_jax(monkeypatch, quantized, num_kv_heads, record_property):
     monkeypatch.setenv("MLA_INT8_MODE", "w8a8")
     jcfg, tcfg, jp = _small_llama(num_kv_heads)

@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (`--only PHASES` runs the build, the kernels phase and only the named
-phases among mistral-agree ... pointlib, and prints no result line), or, to
+phases among mistral-agree ... augment, and prints no result line), or, to
 time this tree's flash forward, dQ, dK/dV, W8A8, weight-only int8
 and FPS kernels against another version of them (such as the parent
 commit's, written out with `git show HEAD~1:mla_tpu_torch/csrc/flash_fwd.cu`,
@@ -223,7 +223,12 @@ Phases, each of which fails the run if it fails:
                   int8_matmul, flash 32, FPS 2); p50 ms, the trees' GiB.
      mistral-train-agree  one AdamW step of the narrow GQA mistral card vs
                   CPU within TRAIN_AGREE_RTOL; the flash_bwd control must
-                  miss grad_norm.
+                  miss grad_norm. Then one forward and backward of it (no
+                  optimizer) with GQA (8:2 heads) and without (8:8), card
+                  vs CPU: each attention leaf's gradient (q, k, v, o) and
+                  the worst leaf, ||g_card - g_cpu|| / ||g_cpu||, and the
+                  global norm each way (the fp32 sum of squares the step
+                  takes, torch.linalg.vector_norm in fp32, float64).
      mistral-train  `mla-mistral` at full width, its decoder cut to 8 layers
                   (train_step.ONE_CARD_LAYERS): TRAIN_STEPS AdamW steps at B
                   = 8, S = 563, launches 16 / 8 / 8 / 2 a step; step ms, MFU
@@ -250,6 +255,26 @@ Phases, each of which fails the run if it fails:
                   8192 -> 256 is also held and timed in the kernels phase,
                   as are W8A8 and int8_mm at mla-mistral's shapes), dilated
                   kNN, the graph convolutions, PCViews' depth images.
+     dp-agree     training over a process group (parallel/, the sharded
+                  train step): NCCL at world size 1 in this process, 2
+                  steps of mla-small (fp32 masters, bf16 compute,
+                  accumulation 2) over the NCCL world-1 mesh and over the
+                  one-process mesh without a group (twice) from the same
+                  weights, batches
+                  and per-step generators, deterministic algorithms on: the
+                  same losses and launches, grad_norm and every updated
+                  master within 1e-6.
+     dp           `python -m torch.distributed.run --nproc_per_node 1 -m
+                  mla_tpu_torch.train --model mla-2b --dp 1` (2 steps and
+                  a checkpoint), resumed in this process at world size 1
+                  for 2 more steps (re-sharded from the file, which is the
+                  same at every world size; the last save skipped): exact launches, step ms,
+                  tokens/s, MFU, peak GiB and the rank's optimizer GiB
+                  beside the one-device trainer's.
+     augment      the RLDS frame stage on a franka root (640 x 480 PNG
+                  views) with augment=True and without: frames/s of each,
+                  and augment_image's host ms per frame (both views, the
+                  default kwargs) on one thread.
  13. trainer-agree  the trainer's two new step kinds on `mla-small` with
                   fp32 master weights (bf16 compute), card vs CPU from the
                   same weights, batch and draws: one step of the AR loss
@@ -2794,7 +2819,7 @@ def agreement_steps(torch, control, cfg, batch, keys, what: str, stage: str = "p
         opt, _, _ = optim.make_optimizer(p, learning_rate=learning_rate, num_training_steps=10, stage=stage,
                                          optimizer=optimizer)
         tcfg = strategy.TrainConfig(repeated_diffusion_steps=1)
-        step = strategy.make_train_step(cfg, tcfg, opt, sched)
+        step = strategy.make_train_step(cfg, tcfg, sched)
         st = strategy.init_train_state(p, opt, P.tree_to(state, dev))
         for _ in range(steps):
             st, m = step(st, batch, draws=draws)
@@ -3489,6 +3514,66 @@ def check_mistral_train_agreement(torch, report, control):
         raise AssertionError(f"GPU and CPU mistral training steps disagree: {sound}")
     if not ctrl["grad_norm"] > TRAIN_AGREE_RTOL:
         raise AssertionError(f"mistral-train-agree passes the control: grad_norm off by {ctrl['grad_norm']}")
+    report["mistral_train_agree"]["grads"] = {
+        heads: grad_agreement(torch, mistral_config(MISTRAL_AGREE_LAYERS, **{**MISTRAL_NARROW, "num_kv_heads": kv}),
+                              f"mistral-train-agree grads {heads}")
+        for heads, kv in (("gqa 8:2", MISTRAL_NARROW["num_kv_heads"]), ("mha 8:8", MISTRAL_NARROW["num_heads"]))}
+
+
+GRAD_LEAVES = ("attn/q/w", "attn/k/w", "attn/v/w", "attn/o/w")
+
+
+def grad_agreement(torch, cfg, what: str) -> dict:
+    """One forward and backward of `cfg` (no optimizer, no clipping) from
+    agreement_steps' weights, batch and draws on the card and on the CPU:
+    ||g_card - g_cpu|| / ||g_cpu|| of each decoder attention leaf (q, k, v,
+    o; stacked over layers) and of the worst leaf, and the global gradient
+    norm each way: the fp32 sum of squares of optim.global_norm, the
+    fp32 torch.linalg.vector_norm the step took before, and float64."""
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.diffusion import gaussian as gd
+    from mla_tpu_torch.models import mla as mla_mod
+    from mla_tpu_torch.training.strategy import as_tensors
+    from mla_tpu_torch.vla.dummy import synthetic_batch
+
+    params, state = P.init(cfg, seed=8, device="cpu")
+    if "final_layer" in params:
+        live_head(torch, params, 9)
+    batch, draws = synthetic_batch(cfg, B=2, L=32, seed=10), _draws(cfg, 2, 11)
+    sched = gd.create_schedule("", diffusion_steps=100)
+    grads, norms = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = P.tree_map(lambda t: t.detach().to(dev, copy=True).requires_grad_(t.is_floating_point()), params)
+        total, _ = mla_mod.mla_train_loss(p, P.tree_to(state, dev), cfg, sched, as_tensors(batch, dev),
+                                          repeated_diffusion_steps=1, remat=True, **draws)
+        total.backward()
+        g = {path: t.grad.detach() for path, t in P.tree_items(p) if t.grad is not None}
+        norms[dev] = {
+            "sum_sq_fp32": float(torch.sqrt(sum(torch.sum(torch.square(v.float())) for v in g.values()))),
+            "vector_norm_fp32": float(torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(v, dtype=torch.float32) for v in g.values()]))),
+            "float64": float(torch.sqrt(sum(torch.sum(torch.square(v.double())) for v in g.values()))),
+        }
+        grads[dev] = {path: v.float().cpu() for path, v in g.items()}
+        del p, total, g
+    rel = {path: float((grads["cuda"][path] - w).norm() / max(float(w.norm()), 1e-30))
+           for path, w in grads["cpu"].items()}
+    total_sq = sum(float(w.double().norm()) ** 2 for w in grads["cpu"].values())
+    # each leaf's share of the card-vs-CPU difference of the squared norm
+    share = {path: (float(grads["cuda"][path].double().norm()) ** 2 - float(w.double().norm()) ** 2) / total_sq
+             for path, w in grads["cpu"].items()}
+    top = sorted(share, key=lambda k: -abs(share[k]))[:4]
+    attn = {leaf: rel[f"llm_backbone/layers/{leaf}"] for leaf in GRAD_LEAVES}
+    worst = max(rel, key=rel.get)
+    norm_rel = {dev: {k: v / n["float64"] - 1 for k, v in n.items() if k != "float64"} for dev, n in norms.items()}
+    log(f"{what}: attention gradients card vs CPU {', '.join(f'{k} {v:.3e}' for k, v in attn.items())}; worst leaf "
+        f"{worst} {rel[worst]:.3e}; global norm vs float64: card sum-of-squares {norm_rel['cuda']['sum_sq_fp32']:.3e}, "
+        f"vector_norm {norm_rel['cuda']['vector_norm_fp32']:.3e}; CPU sum-of-squares "
+        f"{norm_rel['cpu']['sum_sq_fp32']:.3e}, vector_norm {norm_rel['cpu']['vector_norm_fp32']:.3e}; float64 card "
+        f"vs CPU {norms['cuda']['float64'] / norms['cpu']['float64'] - 1:.3e}, the squared norm's difference by leaf "
+        f"{', '.join(f'{k} {share[k]:+.3e} (rel {rel[k]:.2e})' for k in top)}")
+    return {"attn_rel": attn, "worst_leaf": worst, "worst_rel": rel[worst], "norms": norms, "norm_rel": norm_rel,
+            "norm_sq_share": {k: share[k] for k in top}}
 
 
 def train_steps(torch, report, key: str, model: str, counts, flags: dict) -> dict:
@@ -3973,8 +4058,10 @@ def trainer(torch, report):
         params = first["state"]["params"]
         n_params = sum(t.numel() for _, t in tree_items(params))
         n_train = sum(t.numel() for t in first["state"]["optimizer"].trainable)
-        if {t.dtype for path, t in tree_items(params["llm_backbone"])} != {torch.float32}:
+        shards = first["state"]["shards"]
+        if {m.dtype for p, m in zip(shards.paths, shards.masters) if p.startswith("llm_backbone/")} != {torch.float32}:
             raise AssertionError("trainer: the decoder's master weights are not fp32")
+        del shards
         if any("lm_head" in p for p in first["state"]["optimizer"].paths):
             raise AssertionError("trainer: lm_head is trained in diffusion mode")
         expected = trainer_counts(cfg, micro_batches=2 * 2)
@@ -4034,6 +4121,8 @@ def trainer(torch, report):
                                                                 tree_items(fresh["params"]))]
         pairs += [(f"model_state/{p}", a, b) for (p, a), (_, b) in zip(tree_items(live["model_state"]),
                                                                       tree_items(fresh["model_state"]))]
+        pairs += [(f"masters/{p}", a, b) for p, a, b in zip(live["shards"].paths, live["shards"].masters,
+                                                            fresh["shards"].masters)]
         lo, fo = live["optimizer"].state_dict(), fresh["optimizer"].state_dict()
         pairs += [(f"opt/{p}/{n}", t, fo["leaves"][p][n]) for p, d in lo["leaves"].items() for n, t in d.items()]
         bad = [k for k, a, b in pairs if a.dtype != b.dtype or not torch.equal(a, b)]
@@ -5097,7 +5186,7 @@ def vlm_step_split(torch, out, stage: str, peak_flops, data_root=None) -> dict:
     ds, collator = get_vlm_dataset_and_collator(stage, get_dataset_config("llava-v15"), data_root, SimpleTokenizer(),
                                                 image_size=cfg.vision.image_size, max_length=VLM_MAX_LENGTH)
     step = strategy.make_train_step(cfg, strategy.TrainConfig(repeated_diffusion_steps=1, stage=f"vlm-{stage}"),
-                                    state["optimizer"], gd.create_schedule("", diffusion_steps=100))
+                                    gd.create_schedule("", diffusion_steps=100))
     split = {}
     for kind, S in (("multimodal", VLM_S), ("language-only", VLM_LANG_S)):
         rows = [i for i, ex in enumerate(ds.examples) if ("image" in ex) == (kind == "multimodal")]
@@ -5239,10 +5328,292 @@ def hf_vlm(torch, report):
     return totals
 
 
-# the phases of mla-mistral, the int4 weight path, Phi-2 post-training and
-# the point-cloud library, which --only can run alone
+# --------------------------------------------------------------------------- #
+# dp: training over a process group
+# --------------------------------------------------------------------------- #
+
+DP_ROOT = Path("build") / "chip_smoke_dp"
+DP_EQ_STEPS = 2
+DP_EQ_RTOL = 1e-6
+DP_PLAIN_TRAINER_MS = (606.0, 613.7)  # the one-device trainer's step at mla-2b, as PERF.md section 5 records it
+DP_LAUNCH = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+@contextlib.contextmanager
+def nccl_world_of_one(torch):
+    """A one-rank NCCL process group in this process (NCCL refuses two ranks
+    on one device) and torchrun's variables for it, which train.main reads,
+    for the block; both gone after it."""
+    import torch.distributed as dist
+
+    from mla_tpu_torch.parallel.mesh import initialize_distributed
+
+    saved = {k: os.environ.get(k) for k in DP_LAUNCH}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(_free_port()))
+    try:
+        initialize_distributed("cuda")
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_equality(torch, report) -> dict:
+    """DP_EQ_STEPS steps of mla-small (fp32 masters, bf16 compute,
+    accumulation 2, 2 diffusion repeats, B = 4) from the same weights, batch
+    and per-step generators over the one-process mesh (no group, no
+    collective) and over the NCCL world-1 mesh: the losses and launches equal,
+    grad_norm and every updated master within DP_EQ_RTOL of its largest
+    magnitude."""
+    from dataclasses import replace
+
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.diffusion import gaussian as gd
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.parallel.mesh import make_mesh
+    from mla_tpu_torch.training import optim, strategy
+    from mla_tpu_torch.utils import step_generator
+    from mla_tpu_torch.vla.dummy import synthetic_batch
+
+    base = get_model_config("mla-small")
+    cfg = replace(base, llama=replace(base.llama, param_dtype=torch.float32))
+    params, state = P.init(cfg, seed=8, device="cuda")
+    live_head(torch, params, 9)
+    batch = synthetic_batch(cfg, B=4, L=32, seed=10)
+    sched = gd.create_schedule("", diffusion_steps=100)
+    tcfg = strategy.TrainConfig(grad_accumulation_steps=2, repeated_diffusion_steps=2, learning_rate=1e-4)
+    runs = {}
+    # the card's gather / scatter backward sums with atomics unless asked
+    # not to; a step that differs from itself cannot be held to another
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for mode in ("plain", "plain-again", "sharded"):
+        p = P.tree_map(lambda t: t.detach().clone(), params)
+        opt, _, _ = optim.make_optimizer(p, **tcfg.optimizer_settings())
+        st = strategy.init_train_state(p, opt, P.tree_map(lambda t: t.clone(), state),
+                                       mesh=make_mesh(dp=1) if mode == "sharded" else None,
+                                       compute_dtype=cfg.llama.compute_dtype)
+        step = strategy.make_train_step(cfg, tcfg, sched)
+        cuda.launches.clear()
+        metrics = []
+        for i in range(DP_EQ_STEPS):
+            st, m = step(st, batch, step_generator(0, i, "cuda"))
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        launches = {k: cuda.launches[k] for k in TRAINER_KERNELS}
+        masters = st["shards"].host_state(st)["params"]
+        copies = sorted({str(t.dtype) for path, t in P.tree_items(st["params"]["llm_backbone"]["layers"])})
+        runs[mode] = {"metrics": metrics, "launches": launches, "masters": dict(P.tree_items(masters)),
+                      "layer_dtypes": copies}
+        del st, step, opt, p
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    a, b, c = runs["sharded"], runs["plain"], runs["plain-again"]
+    repeat = {"loss_equal": all(x["total_loss"] == y["total_loss"] for x, y in zip(c["metrics"], b["metrics"])),
+              "leaves_identical": sum(torch.equal(c["masters"][p], w) for p, w in b["masters"].items())}
+    loss_equal = all(x["total_loss"] == y["total_loss"] for x, y in zip(a["metrics"], b["metrics"]))
+    gn = max(abs(x["grad_norm"] / y["grad_norm"] - 1) for x, y in zip(a["metrics"], b["metrics"]))
+    leaf = {p: float((a["masters"][p].double() - w.double()).abs().max() / max(float(w.abs().max()), 1e-30))
+            for p, w in b["masters"].items()}
+    worst = max(leaf, key=leaf.get)
+    identical = sum(torch.equal(a["masters"][p], w) for p, w in b["masters"].items())
+    out = {"losses": [m["total_loss"] for m in a["metrics"]], "plain_losses": [m["total_loss"] for m in b["metrics"]],
+           "plain_repeat": repeat, "loss_equal": loss_equal, "grad_norm_rel": gn,
+           "worst_leaf": worst, "worst_leaf_rel": leaf[worst], "leaves_identical": identical,
+           "leaves": len(leaf), "launches": a["launches"], "plain_launches": b["launches"],
+           "sharded_layer_dtypes": a["layer_dtypes"], "plain_layer_dtypes": b["layer_dtypes"]}
+    log(f"dp equality mla-small fp32 masters, NCCL world 1, {DP_EQ_STEPS} steps of accumulation 2: losses "
+        f"{out['losses']} ({'equal' if loss_equal else 'DIFFERENT'} to the one-process step's {out['plain_losses']}; "
+        f"the one-process step run again: losses {'equal' if repeat['loss_equal'] else 'DIFFERENT'}, "
+        f"{repeat['leaves_identical']} masters bit-identical), grad_norm rel "
+        f"{gn:.3e}, worst master {worst} {leaf[worst]:.3e} (tol {DP_EQ_RTOL}), {identical} of {len(leaf)} masters "
+        f"bit-identical; decoder layers held in {a['layer_dtypes']} (one-process: {b['layer_dtypes']}); launches "
+        f"{a['launches']} vs {b['launches']}")
+    if not (loss_equal and a["launches"] == b["launches"] and gn <= DP_EQ_RTOL and leaf[worst] <= DP_EQ_RTOL):
+        raise AssertionError(f"dp: the NCCL world-1 step differs from the one-process step: {out}")
+    return out
+
+
+def dp_agree(torch, report):
+    """dp_equality over a world-1 NCCL group in this process."""
+    with nccl_world_of_one(torch):
+        report["dp_agree"] = dp_equality(torch, report)
+
+
+def dp_phase(torch, report):
+    """`python -m
+    torch.distributed.run --nproc_per_node 1 -m mla_tpu_torch.train --model
+    mla-2b --dp 1` (the trainer phase's flags: fp32 masters, accumulation
+    2) for 2 steps and its checkpoint; that run resumed in this process at
+    world size 1 (the checkpoint re-sharded) for steps 3 and 4 with exact
+    launches, the save skipped; step ms, tokens/s, MFU, peak GiB and the
+    rank's optimizer GiB (fp32 masters and moments) beside the one-device
+    trainer's. Returns the resumed run's launches."""
+    import numpy as np
+
+    from mla_tpu_torch import train
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.training import checkpointing as ckpt
+    from mla_tpu_torch.training import metrics
+
+    rep = {}
+    shutil.rmtree(DP_ROOT, ignore_errors=True)
+    runs = DP_ROOT / "runs"
+    args = list(TRAINER_ARGS) + ["--run_root_dir", str(runs), "--run_id", "dp", "--dp", "1"]
+    try:
+        # -- the trainer through torchrun: 2 steps and a checkpoint ----------
+        env = {k: v for k, v in os.environ.items() if k not in DP_LAUNCH}
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
+               "--master_port", str(_free_port()), "-m", "mla_tpu_torch.train", *args, "--max_steps", "2"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=300)
+        run_s = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        if proc.returncode != 0:
+            raise AssertionError(f"dp: torchrun trainer exited {proc.returncode}:\n" + "\n".join(lines[-30:]))
+        strategy = [l for l in lines if "strategy ::" in l]
+        saved = [l for l in lines if "checkpoint step-" in l]
+        jsonl = runs / "dp" / "dp.jsonl"
+        records = [json.loads(l) for l in jsonl.read_text().splitlines()] if jsonl.exists() else []
+        step2 = ckpt.latest_checkpoint(runs / "dp")
+        if not (strategy and "mesh={'dp': 1, 'fsdp': 1, 'tp': 1}" in strategy[0] and step2 is not None
+                and step2.name.startswith("step-000002-")):
+            raise AssertionError(f"dp: torchrun trainer wrote {step2}, strategy {strategy}")
+        log(f"dp: torchrun --nproc_per_node 1 -m mla_tpu_torch.train --model mla-2b --dp 1, 2 steps: {run_s:.1f} s "
+            f"(process start, init, 2 steps, a {(step2 / ckpt.STATE_FILE).stat().st_size / 2**30:.2f} GiB "
+            f"checkpoint); {strategy[0].split('>> ')[-1]}; {saved[-1].split('>> ')[-1] if saved else ''}")
+        rep["torchrun"] = {"run_s": run_s, "strategy": strategy[0].split(">> ")[-1], "records": records[-2:],
+                           "checkpoint": step2.name}
+
+        # -- resumed in this process at world size 1 ---------------------------
+        with nccl_world_of_one(torch):
+            torch.cuda.reset_peak_memory_stats()
+            cuda.launches.clear()
+            with checkpoint_writes_skipped() as skipped:
+                out = train.main(args + ["--max_steps", "4", "--is_resume", "true"])
+            torch.cuda.synchronize()
+            totals = {k: cuda.launches[k] for k in TRAINER_KERNELS}
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            shards = out["state"]["shards"]
+            opt_gib = shards.optimizer_bytes()["held"] / 2**30
+            masters_gib = sum(m.numel() * m.element_size() for m in shards.masters if m is not None) / 2**30
+            cfg, state = out["cfg"], out["state"]
+            copies = sorted({str(t.dtype) for t in shards.compute})
+        expected = trainer_counts(cfg, micro_batches=2 * 2)
+        if totals != expected:
+            raise AssertionError(f"dp: resumed steps 3-4 launched {totals}, expected {expected}")
+        losses = list(out["metrics"].windows["total_loss"])
+        if not (out["load_s"] is not None and int(state["step"]) == 4 and all(np.isfinite(losses))):
+            raise AssertionError(f"dp: resume loaded {out['load_s']}, step {state['step']}, losses {losses}")
+        S = 16 + cfg.fused_len + cfg.diff_block_len
+        tokens = 4 * 4 * S
+        peak = metrics.bf16_peak_flops(torch.cuda.get_device_name(0))
+        ms, tok_s, mfu = _trainer_step_line(out, tokens, out["metrics"].flops_per_token, peak)
+        rep["resumed"] = {"load_s": out["load_s"], "losses": losses, "step_ms": ms, "tokens_per_s": tok_s, "mfu": mfu,
+                          "peak_gib": peak_gib, "optimizer_gib": opt_gib, "masters_gib": masters_gib,
+                          "compute_dtypes": copies, "launches": totals, "save_skipped_at_step": skipped,
+                          "step_times_s": list(out["metrics"].windows["step_time"]),
+                          "plain_trainer_ms": DP_PLAIN_TRAINER_MS}
+        log(f"dp: resumed at world 1 from {step2.name} (loaded and re-sharded in {out['load_s']:.1f} s), steps 3-4 "
+            f"of mla-2b ({gpu_line()}): losses {losses}, step 4 {ms:.1f} ms (one-device trainer "
+            f"{DP_PLAIN_TRAINER_MS[0]}-{DP_PLAIN_TRAINER_MS[1]} ms in PERF.md), {tok_s:.0f} tokens/s, MFU "
+            f"{mfu if mfu is None else round(mfu, 4)}, peak {peak_gib:.2f} GiB, the rank's optimizer "
+            f"{opt_gib:.2f} GiB (masters {masters_gib:.2f} GiB; N ranks hold 1/N of it), compute tensors in "
+            f"{copies}, launches {totals}, the save skipped at step {skipped}")
+        del out, state, shards
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(DP_ROOT, ignore_errors=True)
+    report["dp"] = rep
+    return totals
+
+
+AUGMENT_ROOT = Path("build") / "chip_smoke_augment"
+AUGMENT_EPISODES, AUGMENT_STEPS = 2, 24
+AUGMENT_FRAMES = 16
+AUGMENT_TIMED = 6  # frames augmented on one thread
+
+
+def augment_phase(torch, report):
+    """The franka frame stream at mla-2b's image size with augment=True and
+    without (frames/s of each), and augment_image on one thread over the
+    frames' decoded views (ms a frame, both views, the default kwargs); the
+    augmented frames move and repeat with the seed."""
+    import numpy as np
+
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.vla.rlds import dataset as rds
+    from mla_tpu_torch.vla.rlds import transforms as T
+
+    rep = {}
+    home = os.environ.get("HOME")
+    shutil.rmtree(AUGMENT_ROOT, ignore_errors=True)
+    os.environ["HOME"] = str((AUGMENT_ROOT / "home").resolve())
+    try:
+        data_fixture(AUGMENT_ROOT, "franka", AUGMENT_EPISODES, AUGMENT_STEPS, DATA_CAMERA, DATA_POINTS, 1, 71)
+        size = get_model_config("mla-2b").vision.image_size
+
+        def frames(augment: bool):
+            ds, _, _ = rds.make_interleaved_dataset("franka", str(AUGMENT_ROOT), shuffle_buffer_size=16,
+                                                    image_size=size, augment=augment, seed=5, proprio_dim=7,
+                                                    load_tactile=True)
+            it = iter(ds)
+            next(it)
+            t = time.perf_counter()
+            got = [next(it) for _ in range(AUGMENT_FRAMES)]
+            return got, AUGMENT_FRAMES / (time.perf_counter() - t)
+
+        plain, plain_fps = frames(False)
+        aug, aug_fps = frames(True)
+        again, _ = frames(True)
+        keys = sorted(k for k in plain[0]["observation"] if k.startswith("image_"))
+        moved = sum(not np.array_equal(a["observation"][k], b["observation"][k]) for a, b in zip(plain, aug)
+                    for k in keys)
+        same = all(np.array_equal(a["observation"][k], b["observation"][k]) for a, b in zip(aug, again) for k in keys)
+        views = [[f["observation"][k][0] if f["observation"][k].ndim == 4 else f["observation"][k] for k in keys]
+                 for f in plain]
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        ms = []
+        for i, vs in enumerate(views[:AUGMENT_TIMED]):
+            t = time.perf_counter()
+            for j, v in enumerate(vs):
+                T.augment_image(v, [i, j], **rds.DEFAULT_IMAGE_AUGMENT_KWARGS)
+            ms.append((time.perf_counter() - t) * 1e3)
+        torch.set_num_threads(threads)
+        rep = {"image_size": size, "views": keys, "frames": AUGMENT_FRAMES, "frames_per_s_plain": plain_fps,
+               "frames_per_s_augment": aug_fps, "augment_ms_per_frame": float(np.median(ms)),
+               "augment_ms_per_frame_p95": float(np.percentile(ms, 95)), "moved_views": moved,
+               "repeats_with_seed": same, "host_threads": os.cpu_count()}
+        log(f"augment: franka frames at {size} px ({len(keys)} views, {os.cpu_count()} host threads): "
+            f"{plain_fps:.1f} frames/s plain, {aug_fps:.1f} frames/s with augment=True; augment_image on one "
+            f"thread {rep['augment_ms_per_frame']:.1f} ms a frame (median of {len(ms)}, p95 "
+            f"{rep['augment_ms_per_frame_p95']:.1f}); {moved} of {len(keys) * AUGMENT_FRAMES} views moved, the "
+            f"same seed {'repeats' if same else 'DOES NOT repeat'} the stream")
+        if moved < len(keys) * AUGMENT_FRAMES // 2 or not same:
+            raise AssertionError(f"augment: {rep}")
+    finally:
+        if home is None:
+            os.environ.pop("HOME", None)
+        else:
+            os.environ["HOME"] = home
+        shutil.rmtree(AUGMENT_ROOT, ignore_errors=True)
+    report["augment"] = rep
+
+
+# the phases of mla-mistral, the int4 weight path, Phi-2 post-training, the
+# point-cloud library, training over a process group and the train-time
+# frame augmentation, which --only can run alone
 NEW_PHASES = ("mistral-agree", "mistral-serve", "mistral-train-agree", "mistral-train", "int4-agree", "int4-serve",
-              "phi-post-agree", "phi-post-train", "pointlib")
+              "phi-post-agree", "phi-post-train", "pointlib", "dp-agree", "dp", "augment")
 
 
 def main() -> int:
@@ -5381,6 +5752,9 @@ def main() -> int:
     phase("phi-post-agree", check_phi_post_agreement, torch, report)
     report["phi_post_train_launches"] = phase("phi-post-train", phi_post_train, torch, report)
     report["pointlib_launches"] = phase("pointlib", pointlib_phase, torch, report)
+    phase("dp-agree", dp_agree, torch, report)
+    report["dp_launches"] = phase("dp", dp_phase, torch, report)
+    phase("augment", augment_phase, torch, report)
     if only is not None:
         log(f"total: {time.perf_counter() - t_all:.1f} s (only {sorted(only)}: a partial run prints no result)")
         out_dir = Path("chiprun_out")

@@ -22,6 +22,7 @@ from typing import Any, Dict
 import torch
 
 from mla_tpu_torch import nn
+from mla_tpu_torch.parallel import collectives
 from mla_tpu_torch.params import _Init
 
 NEG_INF = -1e9
@@ -53,9 +54,36 @@ def coordinate_contrastive_loss(
     idx = (patch_indices[..., 0] * patch_w + patch_indices[..., 1]).long()
     target = torch.gather(img, 1, idx[..., None].expand(-1, -1, img.shape[-1]))
     valid = valid_mask.reshape(B * N)
-    logits = (pc.reshape(B * N, -1) @ target.reshape(B * N, -1).T) / temperature
-    loss = (_masked_infonce(logits, valid) + _masked_infonce(logits.T, valid)) / 2.0
-    return torch.where(valid.sum() > 0, loss, 0.0)
+    if collectives.active("contrastive") is None:
+        logits = (pc.reshape(B * N, -1) @ target.reshape(B * N, -1).T) / temperature
+        loss = (_masked_infonce(logits, valid) + _masked_infonce(logits.T, valid)) / 2.0
+        return torch.where(valid.sum() > 0, loss, 0.0)
+    return _global_infonce(pc.reshape(B * N, -1), target.reshape(B * N, -1), valid, temperature)
+
+
+def _global_infonce(pc: torch.Tensor, target: torch.Tensor, valid: torch.Tensor, temperature: float) -> torch.Tensor:
+    """coordinate_contrastive_loss over the global batch of a distributed
+    step: the features of every rank are gathered, and this rank computes
+    its rows of the [B*N, B*N] logits (point -> image) and of their
+    transpose (image -> point) against every column. Returns this rank's
+    part: its rows' sums over the global count of valid rows
+    (collectives.share), so the ranks' mean is the one-device loss."""
+    M = pc.shape[0]
+    pc_all = collectives.all_gather_rows(pc, "contrastive")
+    target_all = collectives.all_gather_rows(target, "contrastive")
+    valid_all = collectives.all_gather_rows(valid.float(), "contrastive") > 0.5
+    rows = torch.arange(M, device=pc.device)
+    cols = rows + collectives.row_offset(M, "contrastive")
+
+    def part(logits):
+        logits = torch.where(valid_all[None, :], logits, NEG_INF)
+        per_row = torch.logsumexp(logits, dim=-1) - logits[rows, cols]
+        return torch.where(valid, per_row, 0.0).sum()
+
+    count = collectives.global_count(valid.sum(), "contrastive")
+    denom = collectives.share(count.clamp_min(1), "contrastive")
+    loss = (part(pc @ target_all.T / temperature) / denom + part(target @ pc_all.T / temperature) / denom) / 2.0
+    return torch.where(count > 0, loss, 0.0)
 
 
 def tactile_contrastive_loss(

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from mla_tpu_torch import nn
 from mla_tpu_torch.ops.chamfer import chamfer_distance_l2
+from mla_tpu_torch.parallel import collectives
 from mla_tpu_torch.ops.pointops import furthest_point_sample, index_points
 
 
@@ -323,9 +324,11 @@ def generation_manager_forward(
 
 def _masked_mean(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of the rows of err [B, P, D] where mask [B, P] is set: sum over
-    them / max(count * D, 1)."""
+    them / max(count * D, 1), the count of the global batch inside a
+    distributed step (parallel/collectives.py)."""
     w = mask.to(err.dtype)[..., None]
-    return (err * w).sum() / (w.sum() * err.shape[-1]).clamp_min(1.0)
+    count = (collectives.global_count(w.sum(), "mask_count") * err.shape[-1]).clamp_min(1.0)
+    return (err * w).sum() / collectives.share(count, "mask_count")
 
 
 def compute_generation_losses(

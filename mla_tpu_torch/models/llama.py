@@ -30,6 +30,7 @@ from mla_tpu_torch import nn
 from mla_tpu_torch.ops import attention as attn_ops
 from mla_tpu_torch.ops import quantization
 from mla_tpu_torch.ops import rope as rope_ops
+from mla_tpu_torch.parallel import collectives
 
 
 @dataclass(frozen=True)
@@ -210,11 +211,14 @@ def lm_head_logits(params: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
-    """Shifted cross-entropy, mean over the labels that are not ignored."""
+    """Shifted cross-entropy, mean over the labels that are not ignored (of
+    the global batch inside a distributed step: the count is reduced over
+    the ranks, parallel/collectives.py)."""
     shift_logits, shift_labels = logits[:, :-1].float(), labels[:, 1:].long()
     valid = shift_labels != ignore_index
     nll = F.cross_entropy(shift_logits.transpose(1, 2), torch.where(valid, shift_labels, 0), reduction="none")
-    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp_min(1)
+    count = collectives.global_count(valid.sum(), "label_count").clamp_min(1)
+    return torch.where(valid, nll, 0.0).sum() / collectives.share(count, "label_count")
 
 
 def embed_tokens(params: Dict[str, Any], ids: torch.Tensor) -> torch.Tensor:

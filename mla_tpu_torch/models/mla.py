@@ -70,6 +70,13 @@ LOSS_KEYS = (
 )
 
 
+def _as_tensor(x, dtype, dev) -> torch.Tensor:
+    """An injected draw (numpy array or tensor) as a tensor on dev."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=dtype or x.dtype)
+    return torch.as_tensor(np.array(x), dtype=dtype, device=dev)
+
+
 def _tile_batch(tree, rep: int):
     """Repeat every tensor leaf of dim > 0 `rep` times along dim 0."""
     if isinstance(tree, dict):
@@ -106,11 +113,11 @@ def mla_train_loss(
     rbatch = _tile_batch(batch, repeated_diffusion_steps)
     future = rbatch["actions"][:, -cfg.action_horizon :, :].float()
     if override_noise is not None:
-        noise = torch.as_tensor(np.array(override_noise), dtype=torch.float32, device=dev).reshape(future.shape)
+        noise = _as_tensor(override_noise, torch.float32, dev).reshape(future.shape)
     else:
         noise = torch.randn(future.shape, generator=generator, device=dev)
     if override_t is not None:
-        t = torch.as_tensor(np.array(override_t), device=dev).long().reshape(rows)
+        t = _as_tensor(override_t, None, dev).long().reshape(rows)
     else:
         t = torch.randint(0, sched.num_timesteps, (rows,), generator=generator, device=dev)
     fps_start = fps_starts(cfg, fps_start, rows, generator, dev)
@@ -126,11 +133,28 @@ def mla_train_loss(
     return _add_aux_losses(cfg, outputs, new_state, "diff_loss", ((outputs["noise_pred"].float() - noise) ** 2).mean())
 
 
+def draw_train_randomness(cfg: prismatic.MLAModelConfig, sched: gd.Schedule, batch_rows: int,
+                          generator: Optional[torch.Generator], dev, *,
+                          repeated_diffusion_steps: int = 4) -> Dict[str, Any]:
+    """The draws mla_train_loss makes from `generator` for a batch of
+    `batch_rows` rows, in its order, as its override keywords: the
+    diffusion noise and t (diffusion mode) and the FPS starts. A
+    distributed step draws them for the global micro-batch on every rank
+    and gives each rank its rows."""
+    rows = batch_rows * (repeated_diffusion_steps if cfg.use_diff else 1)
+    out: Dict[str, Any] = {}
+    if cfg.use_diff:
+        out["override_noise"] = torch.randn((rows, cfg.action_horizon, cfg.action_dim), generator=generator, device=dev)
+        out["override_t"] = torch.randint(0, sched.num_timesteps, (rows,), generator=generator, device=dev)
+    out["fps_start"] = fps_starts(cfg, None, rows, generator, dev)
+    return out
+
+
 def fps_starts(cfg: prismatic.MLAModelConfig, given, rows: int, generator: Optional[torch.Generator], dev):
     """The point tokenizer's FPS starts: `given` as int32 tensors, else one
     draw per stage from `generator` ([rows] each), None without points."""
     if given is not None:
-        return [torch.as_tensor(np.array(s), dtype=torch.int32, device=dev) for s in given]
+        return [_as_tensor(s, torch.int32, dev) for s in given]
     if not cfg.use_pointcloud:
         return None
     return [torch.randint(0, cfg.point.input_points >> si, (rows,), generator=generator, device=dev, dtype=torch.int32)

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from mla_tpu_torch.ops.quantization import int4_linear, int8_linear, w8a8_linear
+from mla_tpu_torch.parallel import collectives
 
 Params = Dict[str, Any]
 
@@ -159,14 +160,22 @@ def batch_norm(
     (y, new_state). Eval mode normalizes with the running statistics and
     returns the state as it is. Training mode normalizes with the batch mean
     and biased variance, and moves the running mean and the unbiased
-    variance by `momentum`, outside the autograd graph."""
+    variance by `momentum`, outside the autograd graph. Inside a
+    distributed step the batch is the global one: the sums and the count
+    are reduced over the ranks (parallel/collectives.py), as GSPMD reduces
+    them in JAX."""
     xf = x.float()
     if training:
         dims = tuple(range(x.dim() - 1))
-        mean = xf.mean(dims)
-        var = xf.var(dims, unbiased=False)
+        n = math.prod(x.shape[:-1])
+        if collectives.active("batch_norm") is None:
+            mean = xf.mean(dims)
+            var = xf.var(dims, unbiased=False)
+        else:
+            n = int(collectives.global_count(torch.tensor(n, device=x.device), "batch_norm"))
+            mean = collectives.all_sum(xf.sum(dims), "batch_norm") / n
+            var = collectives.all_sum(((xf - mean) ** 2).sum(dims), "batch_norm") / n
         with torch.no_grad():
-            n = math.prod(x.shape[:-1])
             new_s = {
                 "mean": (1 - momentum) * s["mean"] + momentum * mean,
                 "var": (1 - momentum) * s["var"] + momentum * (var * (n / max(n - 1, 1))),

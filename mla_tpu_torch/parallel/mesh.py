@@ -1,0 +1,142 @@
+"""The process world and its mesh of process groups.
+
+Counterpart of mla_tpu/parallel/mesh.py. One process drives one card (or,
+with device cpu, one CPU process); torchrun or the JAX package's variables
+say how many there are:
+
+  * torchrun's RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT;
+  * MLA_COORDINATOR_ADDRESS (host:port), MLA_NUM_PROCESSES, MLA_PROCESS_ID.
+
+`initialize_distributed` joins that world (NCCL on cuda:LOCAL_RANK, gloo for
+device cpu). A partial set of either raises: a half-configured launch would
+otherwise train N unsynchronized single-process replicas. `make_mesh`
+splits the world as JAX's ('dp', 'fsdp', 'tp') mesh does: rank
+(d * fsdp + f) * tp + t. Optimizer state is sharded over 'fsdp' and
+replicated over 'dp'; the global batch splits over both. Tensor
+parallelism is not ported (`--tp` > 1 raises).
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+import torch
+
+ROADMAP_TP = "ROADMAP.md queue 1, item 13 (tensor parallelism for training and serving)"
+
+_TORCHRUN = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+_MLA = ("MLA_COORDINATOR_ADDRESS", "MLA_NUM_PROCESSES", "MLA_PROCESS_ID")
+
+
+def _launch_env(env: Dict[str, str]) -> Optional[Dict[str, Any]]:
+    """{'rank', 'world', 'local_rank', 'init_method'} from the environment,
+    None when neither set of variables is there; a partial set raises."""
+    for names in (_TORCHRUN, _MLA):
+        have = [n for n in names if env.get(n)]
+        if have and len(have) != len(names):
+            missing = [n for n in names if n not in have]
+            raise RuntimeError(f"partial distributed environment: {have} set but {missing} missing")
+    if env.get("RANK"):
+        rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+        addr = f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+    elif env.get("MLA_PROCESS_ID"):
+        rank, world = int(env["MLA_PROCESS_ID"]), int(env["MLA_NUM_PROCESSES"])
+        addr = f"tcp://{env['MLA_COORDINATOR_ADDRESS']}"
+    else:
+        return None
+    if not 0 <= rank < world:
+        raise RuntimeError(f"rank {rank} outside a world of {world}")
+    return {"rank": rank, "world": world, "local_rank": int(env.get("LOCAL_RANK", rank)), "init_method": addr}
+
+
+def initialize_distributed(device: str = "cuda", env: Optional[Dict[str, str]] = None) -> Optional[Dict[str, Any]]:
+    """Join the launch's process group, once. Returns {'rank', 'world',
+    'local_rank', 'device'}, or None for a plain single-process run (no
+    variables set). With device cuda the process binds cuda:LOCAL_RANK and
+    NCCL; with device cpu, gloo."""
+    import torch.distributed as dist
+
+    launch = _launch_env(dict(os.environ) if env is None else env)
+    if launch is None:
+        return None
+    if device.startswith("cuda"):
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
+        dev = torch.device("cuda", launch["local_rank"] % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    else:
+        dev, backend = torch.device("cpu"), "gloo"
+    if not dist.is_initialized():
+        kw = {"device_id": dev} if backend == "nccl" else {}
+        dist.init_process_group(backend, init_method=launch["init_method"], rank=launch["rank"],
+                                world_size=launch["world"], **kw)
+    return {**{k: launch[k] for k in ("rank", "world", "local_rank")}, "device": dev}
+
+
+@dataclass
+class Mesh:
+    """The ('dp', 'fsdp', 'tp') split of the world and this rank's groups:
+    `group` spans the world (the global batch), `fsdp_group` the ranks that
+    share this rank's dp index (an optimizer shard each; the dp ranks hold
+    the same shards). Groups are None without a process group (a
+    one-process mesh)."""
+
+    dp: int
+    fsdp: int
+    tp: int
+    rank: int
+    group: Any = None
+    fsdp_group: Any = None
+
+    @property
+    def world(self) -> int:
+        return self.dp * self.fsdp * self.tp
+
+    @property
+    def fsdp_rank(self) -> int:
+        return (self.rank // self.tp) % self.fsdp
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // (self.fsdp * self.tp)
+
+    def fsdp_peer(self, fsdp_rank: int) -> int:
+        """The global rank of fsdp rank `fsdp_rank` of this rank's fsdp
+        group."""
+        return (self.dp_rank * self.fsdp + fsdp_rank) * self.tp + self.rank % self.tp
+
+
+def fsdp_ranks(dp: int, fsdp: int, tp: int) -> List[List[int]]:
+    """The ranks of each fsdp group (one per dp index), in JAX's
+    devices.reshape(dp, fsdp, tp) order."""
+    return [[(d * fsdp + f) * tp for f in range(fsdp)] for d in range(dp)]
+
+
+def make_mesh(dp: int = 1, fsdp: Optional[int] = None, tp: int = 1, world: Optional[int] = None) -> Mesh:
+    """JAX's make_mesh over the processes: all of them to fsdp by default
+    (fsdp = world / (dp * tp)), dp * fsdp * tp must equal the world. tp > 1
+    raises (tensor parallelism is not ported). With a process group every
+    rank must call this, in the same order (it makes the groups)."""
+    import torch.distributed as dist
+
+    if tp != 1:
+        raise NotImplementedError(f"--tp {tp}: tensor parallelism is not ported ({ROADMAP_TP})")
+    live = dist.is_available() and dist.is_initialized()
+    n = world if world is not None else (dist.get_world_size() if live else 1)
+    if fsdp is None:
+        if n % (dp * tp) != 0:
+            raise ValueError(f"{n} processes not divisible by dp*tp={dp * tp}")
+        fsdp = n // (dp * tp)
+    if dp * fsdp * tp != n:
+        raise ValueError(f"dp*fsdp*tp={dp * fsdp * tp} != {n} processes")
+    if not live:
+        return Mesh(dp, fsdp, tp, rank=0)
+    rank, mine = dist.get_rank(), None
+    for ranks in fsdp_ranks(dp, fsdp, tp):
+        g = dist.new_group(ranks)  # every rank makes every group, in order
+        if rank in ranks:
+            mine = g
+    return Mesh(dp, fsdp, tp, rank=rank, group=dist.group.WORLD, fsdp_group=mine)

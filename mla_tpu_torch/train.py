@@ -38,7 +38,17 @@ HF Llama base into the seeded init (models/load.load_base_llm), not over
 SplitModalitySampler and the LM collator (--vlm_max_length), tokenized by
 --tokenizer (default SimpleTokenizer), into the same train step with the
 AR loss at stage vlm-align (projectors only) or vlm-finetune (the decoder
-too). Not ported (they raise): --dp / --tp other than 1.
+too).
+
+Over N processes, one per card: `torchrun --nproc_per_node N -m
+mla_tpu_torch.train ... [--dp D]` (or the JAX package's
+MLA_COORDINATOR_ADDRESS / MLA_NUM_PROCESSES / MLA_PROCESS_ID). The world
+splits as JAX's mesh, fsdp = world / (dp * tp): the master weights and
+optimizer state are sharded over fsdp, the global batch over every rank
+(training/strategy.py), each rank reads its own shard of the RLDS episodes
+and the sampler's rows; logs, trackers and checkpoints are written on rank
+0, and a checkpoint resumes at any world size. tokens/s and MFU count
+every rank. --tp other than 1 raises (ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -55,7 +65,6 @@ import torch
 from mla_tpu_torch.utils.overwatch import initialize_overwatch
 
 overwatch = initialize_overwatch("train")
-ROADMAP_DP = "ROADMAP.md queue 1, item 7 (data parallel)"
 
 
 def parse_args(argv: Optional[List[str]] = None) -> Tuple[argparse.Namespace, Dict[str, str]]:
@@ -63,8 +72,8 @@ def parse_args(argv: Optional[List[str]] = None) -> Tuple[argparse.Namespace, Di
     p.add_argument("--vla.type", dest="vla_type", default="prism-dinosiglip-224px+oxe+diffusion")
     p.add_argument("--model", default=None, help="model registry id (default: config.base_vlm)")
     p.add_argument("--data_root_dir", default=None, help="RLDS/TFDS data root (dummy data if unset)")
-    p.add_argument("--dp", type=int, default=1, help="data-parallel mesh axis")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh axis")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel mesh axis (fsdp = world / (dp * tp))")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh axis (not ported: only 1)")
     p.add_argument("--hf_llama_dir", default=None, help="HF Llama base weights to initialize from")
     p.add_argument("--vlm_stage", default=None, choices=["align", "finetune"],
                    help="run the VLM-pretraining loop instead of the VLA loop: align = projector warm-up, "
@@ -121,8 +130,9 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     resume: {'tc' (VLATrainConfig), 'cfg', 'device', 'seed', 'run_id',
     'run_dir', 'state' (a fresh train state), 'step_fn', 'schedule',
     'sched', 'dataset', 'collator', 'per_host_batch', 'grad_accum',
-    'steps_per_epoch', 'num_steps', 'world', 'hf_load' (load_base_llm's
-    report with --hf_llama_dir, else empty)}. Writes the run metadata."""
+    'steps_per_epoch', 'num_steps', 'world', 'mesh' (None for one process),
+    'hf_load' (load_base_llm's report with --hf_llama_dir, else empty)}.
+    Writes the run metadata."""
     args, overrides = parse_args(argv)
 
     from mla_tpu_torch import params as P
@@ -137,7 +147,7 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
     tc0 = get_vla_config(args.vla_type)
     tc = get_vla_config(args.vla_type, **_coerce(type(tc0), overrides))
-    device = _device(args)
+    device, mesh = _device(args)
     model_id = args.model or tc.base_vlm
     stage = tc.stage
     overwatch.info(f"MLA :: vla={tc.vla_id} model={model_id} stage={stage} device={device}")
@@ -150,7 +160,10 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     world = process_count()
     run_id = tc.run_id or f"{tc.vla_id}+n{world}+b{tc.per_device_batch_size}+x{tc.seed}"
     run_dir = Path(tc.run_root_dir) / run_id
-    seed = set_global_seed(tc.seed)
+    # the host generators take the rank-folded seed; the model's init and
+    # the per-step draws take the run's seed on every rank (rank 0's fold)
+    set_global_seed(tc.seed)
+    seed = tc.seed
 
     # --- model ---------------------------------------------------------------
     cfg = get_model_config(
@@ -206,12 +219,15 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         extra_frozen = extra_frozen + ("lm_head",)
     opt, schedule, _ = optim.make_optimizer(params, **train_cfg.optimizer_settings(), extra_frozen=extra_frozen)
     sched = gd.create_schedule("", diffusion_steps=100)
+    state = strategy.init_train_state(params, opt, mstate, use_ema=train_cfg.use_ema, mesh=mesh,
+                                      compute_dtype=cfg.llama.compute_dtype)
+    del params, opt
     return {
         "tc": tc, "cfg": cfg, "device": device, "seed": seed, "run_id": run_id, "run_dir": run_dir, "world": world,
-        "state": strategy.init_train_state(params, opt, mstate, use_ema=train_cfg.use_ema),
-        "step_fn": strategy.make_train_step(cfg, train_cfg, opt, sched), "schedule": schedule, "sched": sched,
-        "dataset": dataset, "collator": collator, "per_host_batch": per_host_batch, "grad_accum": grad_accum,
-        "steps_per_epoch": steps_per_epoch, "num_steps": num_steps, "hf_load": hf_load,
+        "state": state, "step_fn": strategy.make_train_step(cfg, train_cfg, sched),
+        "schedule": schedule, "sched": sched, "dataset": dataset, "collator": collator,
+        "per_host_batch": per_host_batch, "grad_accum": grad_accum, "steps_per_epoch": steps_per_epoch,
+        "num_steps": num_steps, "hf_load": hf_load, "mesh": mesh,
     }
 
 
@@ -245,12 +261,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         start_step = int(state["step"])
         overwatch.info(f"checkpoint loaded in {load_s:.1f} s")
 
-    overwatch.info(
-        f"single-device strategy :: device={device} global_bsz={tc.global_batch_size} "
-        f"per-device={tc.per_device_batch_size} grad_accum={run['grad_accum']} steps={num_steps}")
+    overwatch.info(_strategy_line(run["mesh"], device, tc.global_batch_size, tc.per_device_batch_size,
+                                  run["grad_accum"], num_steps))
 
-    # throughput: 6N model FLOPs per decoder token against the card's bf16 peak
-    peak_flops = metrics_mod.bf16_peak_flops(torch.cuda.get_device_name(device)) if device.type == "cuda" else None
+    # throughput: 6N model FLOPs per decoder token against the bf16 peak of
+    # every card of the world
+    peak_flops = _peak_flops(device, world)
     metrics = metrics_mod.VLAMetrics(
         tc.trackers.split(","), run["run_id"], run_dir, hparams=dataclasses.asdict(tc), resume_step=start_step or None,
         flops_per_token=metrics_mod.decoder_flops_per_token(state["params"]["llm_backbone"], tc.use_diff),
@@ -329,15 +345,43 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             "data_wait_s": data_wait_s, "hf_load": run["hf_load"]}
 
 
-def _device(args: argparse.Namespace) -> torch.device:
-    """The run's device; --dp / --tp other than 1 and a card-less cuda
-    raise."""
-    if args.dp != 1 or args.tp != 1:
-        raise NotImplementedError(f"--dp {args.dp} --tp {args.tp}: the port trains on one device ({ROADMAP_DP})")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
-    return device
+def _device(args: argparse.Namespace) -> Tuple[torch.device, Any]:
+    """(device, mesh): the launch's process group joined
+    (parallel/mesh.initialize_distributed: cuda:LOCAL_RANK and NCCL, or
+    gloo with --device cpu) and its mesh, or the one device and None
+    without a launch. --tp other than 1, a --dp that does not divide the
+    world, a partial launch environment and a card-less cuda raise."""
+    from mla_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    launch = initialize_distributed(args.device)
+    if launch is None:
+        if args.dp != 1 or args.tp != 1:
+            make_mesh(dp=args.dp, tp=args.tp)  # raises: tp is not ported, one process holds no dp > 1
+        device = torch.device(args.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
+        return device, None
+    return launch["device"], make_mesh(dp=args.dp, tp=args.tp)
+
+
+def _strategy_line(mesh: Any, device: torch.device, global_bsz: int, per_device: int, grad_accum: int,
+                   steps: int) -> str:
+    """The strategy log line (scripts/train.py's 'GSPMD strategy ::')."""
+    if mesh is None:
+        return (f"single-device strategy :: device={device} global_bsz={global_bsz} per-device={per_device} "
+                f"grad_accum={grad_accum} steps={steps}")
+    shape = {"dp": mesh.dp, "fsdp": mesh.fsdp, "tp": mesh.tp}
+    return (f"distributed strategy :: mesh={shape} global_bsz={global_bsz} per-device={per_device} "
+            f"grad_accum={grad_accum} steps={steps}")
+
+
+def _peak_flops(device: torch.device, world: int) -> Optional[float]:
+    from mla_tpu_torch.training import metrics as metrics_mod
+
+    if device.type != "cuda":
+        return None
+    peak = metrics_mod.bf16_peak_flops(torch.cuda.get_device_name(device))
+    return peak * world if peak is not None else None
 
 
 def vlm_model_batch(cb: Dict[str, Any]) -> Dict[str, Any]:
@@ -383,7 +427,7 @@ def train_vlm(args: argparse.Namespace, overrides: Dict[str, str]) -> Dict[str, 
 
     stage = f"vlm-{args.vlm_stage}"
     model_id = args.model or "mla-7b"
-    device = _device(args)
+    device, mesh = _device(args)
 
     def g(k, d):
         if k not in overrides:
@@ -402,7 +446,7 @@ def train_vlm(args: argparse.Namespace, overrides: Dict[str, str]) -> Dict[str, 
 
     cfg = get_model_config(model_id, use_diff=False, use_pointcloud=False, use_tactile=False,
                            use_contrastive=False, use_generation=False)
-    seed = set_global_seed(seed)
+    set_global_seed(seed)  # the host's, rank-folded; the init and the draws take `seed`
     params, mstate = P.init(cfg, seed=seed, device=device)
     hf_load: Dict[str, Any] = {}
     if args.hf_llama_dir:
@@ -432,9 +476,10 @@ def train_vlm(args: argparse.Namespace, overrides: Dict[str, str]) -> Dict[str, 
     )
     opt, schedule, _ = optim.make_optimizer(params, learning_rate=learning_rate, num_training_steps=num_steps,
                                             stage=stage)
-    state = strategy.init_train_state(params, opt, mstate)
-    del params, mstate
-    step_fn = strategy.make_train_step(cfg, tcfg, opt, gd.create_schedule("", diffusion_steps=100))
+    state = strategy.init_train_state(params, opt, mstate, mesh=mesh, compute_dtype=cfg.llama.compute_dtype)
+    del params, mstate, opt
+    step_fn = strategy.make_train_step(cfg, tcfg, gd.create_schedule("", diffusion_steps=100))
+    overwatch.info(_strategy_line(mesh, device, global_batch_size, per_host, 1, num_steps))
 
     run_id = g("run_id", f"vlm-{args.vlm_stage}+{args.vlm_dataset}+x{seed}")
     run_dir = Path(run_root_dir) / run_id
@@ -443,7 +488,7 @@ def train_vlm(args: argparse.Namespace, overrides: Dict[str, str]) -> Dict[str, 
         hparams={"stage": stage, "dataset": args.vlm_dataset, "global_batch_size": global_batch_size,
                  "lr": learning_rate},
         flops_per_token=metrics_mod.decoder_flops_per_token(state["params"]["llm_backbone"], use_diff=False),
-        peak_flops=metrics_mod.bf16_peak_flops(torch.cuda.get_device_name(device)) if device.type == "cuda" else None,
+        peak_flops=_peak_flops(device, world),
     )
 
     step, epoch, step_metrics, multimodal = 0, 0, None, []

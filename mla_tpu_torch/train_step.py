@@ -38,9 +38,20 @@ its top kernels. With the generation heads on, their forward and backward
 on the step's hidden states are profiled alone too, and their device time
 is a class of its own, taken out of the classes of the step's kernels.
 
+Over N processes, one per card:
+
+    torchrun --nproc_per_node N -m mla_tpu_torch.train_step --model mla-7b
+        --fp32_masters --batch 2
+
+shards the state over all of them (fsdp = N; training/strategy.py;
+--batch rows a rank), with --fp32_masters as the trainer holds it (fp32
+masters, bf16 compute copies of the decoder's layer matrices); rank 0
+prints the global batch's numbers and each rank's build peak, step peak
+and optimizer GiB.
+
 Runs on the card unless given --device cpu. Results go to
-chiprun_out/train_step_<model>.json (train_step_<model>_post_franka.json
-with --post_franka).
+chiprun_out/train_step_<model>.json (with _post_franka, _adafactor,
+_fp32_masters and _w<N> for those options).
 """
 
 from __future__ import annotations
@@ -60,6 +71,8 @@ from mla_tpu_torch.conf.models import get_model_config
 from mla_tpu_torch.diffusion import gaussian as gd
 from mla_tpu_torch.models import mla as mla_mod
 from mla_tpu_torch.models import prismatic
+from mla_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+from mla_tpu_torch.parallel.sharding import shard_batch
 from mla_tpu_torch.training import metrics, optim, strategy
 from mla_tpu_torch.vla.dummy import add_extra_views, synthetic_batch
 
@@ -99,10 +112,16 @@ def model_config(model: str, *, use_tactile: bool = False, num_extra_views: int 
 
 
 def build(model: str, batch: int, text_len: int, device, seed: int = 0, stage: str = "pretrain",
-          optimizer: str = "adamw", **flags) -> Dict[str, Any]:
+          optimizer: str = "adamw", mesh: Any = None, fp32_masters: bool = False, **flags) -> Dict[str, Any]:
     """Model, optimizer, train state, step function and batch, as
-    scripts/tpu_smoke.py sets them up; `flags` are model_config's."""
+    scripts/tpu_smoke.py sets them up; `flags` are model_config's. With
+    fp32_masters, the trainer's mixed precision: fp32 masters, the
+    decoder's layer matrices as bf16 compute copies. Over `mesh` the state
+    is sharded and `batch` rows a rank (its rows of the global batch)."""
     cfg = model_config(model, **flags)
+    if fp32_masters:
+        cfg = replace(cfg, llama=replace(cfg.llama, param_dtype=torch.float32))
+    world, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
     params, mstate = P.init(cfg, seed=seed, device=device)
     tcfg = strategy.TrainConfig(repeated_diffusion_steps=1, enable_gradient_checkpointing=True)
     opt, _, _ = optim.make_optimizer(params, learning_rate=LEARNING_RATE, num_training_steps=10, stage=stage,
@@ -110,11 +129,14 @@ def build(model: str, batch: int, text_len: int, device, seed: int = 0, stage: s
     sched = gd.create_schedule("", diffusion_steps=100)
     return {
         "cfg": cfg, "tcfg": tcfg, "sched": sched,
-        "state": strategy.init_train_state(params, opt, mstate),
-        "step": strategy.make_train_step(cfg, tcfg, opt, sched),
-        "batch": strategy.as_tensors(add_extra_views(synthetic_batch(cfg, B=batch, L=text_len), cfg), device),
+        "state": strategy.init_train_state(params, opt, mstate, mesh=mesh,
+                                           compute_dtype=cfg.llama.compute_dtype if fp32_masters else None),
+        "step": strategy.make_train_step(cfg, tcfg, sched),
+        "batch": strategy.as_tensors(shard_batch(add_extra_views(synthetic_batch(cfg, B=batch * world, L=text_len), cfg),
+                                                 rank, world), device),
         "flops_per_token": metrics.decoder_flops_per_token(params["llm_backbone"], cfg.use_diff),
-        "tokens_per_step": batch * (text_len + cfg.fused_len + cfg.diff_block_len) * tcfg.repeated_diffusion_steps,
+        "tokens_per_step": batch * world * (text_len + cfg.fused_len + cfg.diff_block_len)
+        * tcfg.repeated_diffusion_steps,
         "generator": torch.Generator(device=device).manual_seed(seed + 1),
     }
 
@@ -223,6 +245,7 @@ def main() -> None:
     ap.add_argument("--post_franka", action="store_true", help="the stage flags of scripts/post_franka.sh")
     ap.add_argument("--stage", default="pretrain", choices=sorted(optim.STAGE_FROZEN_MODULES))
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "adafactor"])
+    ap.add_argument("--fp32_masters", action="store_true", help="the trainer's fp32 masters and bf16 compute copies")
     ap.add_argument("--num_extra_views", type=int, default=0)
     for flag in ("use_tactile", "use_generation", "gen_image", "use_roi", "gen_pointcloud", "gen_tactile"):
         ap.add_argument(f"--{flag}", action="store_true")
@@ -236,15 +259,28 @@ def main() -> None:
         raise SystemExit("train_step: no CUDA device is available; pass --device cpu to run on the CPU")
     if args.profile and not on_card:
         raise SystemExit("train_step: --profile measures device time and needs the card")
+    launch = initialize_distributed(args.device)
+    mesh = make_mesh() if launch is not None else None
+    if launch is not None:
+        device = launch["device"]
+        if args.profile:
+            raise SystemExit("train_step: --profile runs in one process")
+    world, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
+    say = print if rank == 0 else (lambda *a, **k: None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    run = build(args.model, args.batch, args.text_len, device, optimizer=args.optimizer, **flags)
+    run = build(args.model, args.batch, args.text_len, device, optimizer=args.optimizer, mesh=mesh,
+                fp32_masters=args.fp32_masters, **flags)
     _sync(device)
+    build_peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     layers = run["cfg"].llama.num_layers
-    print(f"{args.model}: built on {device} in {time.perf_counter() - t0:.1f} s"
-          + (f" (decoder cut to {layers} layers)" if args.model in ONE_CARD_LAYERS else ""))
+    say(f"{args.model}: built on {device} in {time.perf_counter() - t0:.1f} s"
+        + (f" (decoder cut to {layers} layers)" if args.model in ONE_CARD_LAYERS else "")
+        + (f" over {world} processes, mesh dp {mesh.dp} x fsdp {mesh.fsdp}" if mesh is not None else ""))
     times = []
     for i in range(args.steps):
         _sync(device)
@@ -254,7 +290,7 @@ def main() -> None:
         _sync(device)
         times.append((time.perf_counter() - t) * 1e3)
         parts = ", ".join(f"{k.replace('_loss', '')} {float(m[k]):.5f}" for k in mla_mod.LOSS_KEYS[1:] if float(m[k]))
-        print(f"step {i}: loss {loss:.5f} ({parts}), grad_norm {gnorm:.5f}, {times[-1]:.1f} ms")
+        say(f"step {i}: loss {loss:.5f} ({parts}), grad_norm {gnorm:.5f}, {times[-1]:.1f} ms")
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise SystemExit(f"step {i}: non-finite loss {loss} or grad_norm {gnorm}")
 
@@ -262,7 +298,8 @@ def main() -> None:
     tok_s = run["tokens_per_step"] / (step_ms / 1e3)
     result: Dict[str, Any] = {
         "model": args.model, "num_layers": layers, "batch": args.batch, "text_len": args.text_len, "flags": flags,
-        "optimizer": args.optimizer,
+        "optimizer": args.optimizer, "fp32_masters": args.fp32_masters, "world": world,
+        "mesh": {"dp": mesh.dp, "fsdp": mesh.fsdp} if mesh is not None else None,
         "tokens_per_step": run["tokens_per_step"], "step_ms": times, "step_ms_median": step_ms,
         "tokens_per_s": tok_s, "flops_per_token": run["flops_per_token"],
     }
@@ -271,9 +308,25 @@ def main() -> None:
         peak = metrics.bf16_peak_flops(name)
         result.update({
             "device": name, "bf16_peak_flops": peak,
-            "mfu": tok_s * run["flops_per_token"] / peak if peak else None,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "mfu": tok_s * run["flops_per_token"] / (peak * world) if peak else None,
+            "peak_gib": max(build_peak, torch.cuda.max_memory_allocated() / 2**30),
         })
+    # per rank: the build's and the steps' peaks and the optimizer's bytes
+    # (master parts and moments)
+    held = run["state"]["shards"].optimizer_bytes()["held"] / 2**30
+    per_rank = {"build_peak_gib": build_peak, "step_peak_gib": torch.cuda.max_memory_allocated() / 2**30
+                if on_card else None, "optimizer_gib": held}
+    if mesh is not None:
+        import torch.distributed as dist
+
+        ranks = [None] * world
+        dist.all_gather_object(ranks, per_rank)
+        result["ranks"] = ranks
+        dist.destroy_process_group()
+        if rank != 0:
+            return
+    else:
+        result["ranks"] = [per_rank]
         if args.profile:
             result["profile"] = prof = profile_step(run)
             prof["device_idle_share"] = 1.0 - prof["step_device_ms"] / prof["profiled_step_wall_ms"]
@@ -290,6 +343,7 @@ def main() -> None:
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     tag = ("_post_franka" if args.post_franka else "") + ("_adafactor" if args.optimizer == "adafactor" else "")
+    tag += ("_fp32_masters" if args.fp32_masters else "") + (f"_w{world}" if mesh is not None else "")
     (out / f"train_step_{args.model}{tag}.json").write_text(json.dumps(result, indent=1))
 
 

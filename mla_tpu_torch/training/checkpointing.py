@@ -19,6 +19,12 @@ renames it to `<name>` when the file is complete, as orbax does. With
 async_save only the write overlaps training, one write in flight at a time.
 A load maps the file (mmap) and copies each leaf into the live state's
 tensors, so the card never holds a second copy of the state.
+
+The state may be sharded over a mesh (strategy.init_train_state): the
+file is the same at every world size. Every rank takes part in gathering
+the whole masters, optimizer state and EMA, and rank 0 writes; every rank
+loads the whole file and keeps its own parts, so a save at any world size
+resumes at any other.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from mla_tpu_torch.params import tree_items, tree_map
+from mla_tpu_torch.params import tree_items
 from mla_tpu_torch.utils.overwatch import initialize_overwatch
 
 overwatch = initialize_overwatch(__name__)
@@ -122,24 +128,6 @@ def wait_for_async_saves() -> None:
     _ASYNC.wait()
 
 
-def _host_state(train_state: Dict[str, Any]) -> Dict[str, Any]:
-    """A copy of the train state in host memory, as saved."""
-
-    def host(t):
-        return t.detach().to("cpu", copy=True)
-
-    out = {
-        "params": tree_map(host, train_state["params"]),
-        "opt_state": tree_map(lambda v: host(v) if isinstance(v, torch.Tensor) else v,
-                              train_state["optimizer"].state_dict()),
-        "model_state": tree_map(host, train_state["model_state"]),
-        "step": int(train_state["step"]),
-    }
-    if "ema_params" in train_state:
-        out["ema_params"] = tree_map(host, train_state["ema_params"])
-    return out
-
-
 def _write(path: Path, blob: Dict[str, Any]) -> None:
     tmp = path.with_name(f"{path.name}{_TMP}{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
@@ -174,18 +162,19 @@ def save_checkpoint(
     name = _ckpt_name(step, epoch, loss)
     path = (ckpt_dir / name).absolute()
     _ASYNC.wait()
-    blob = _host_state(train_state)
-    if async_save:
-        _ASYNC.submit(lambda: _write(path, blob))
-    else:
-        _write(path, blob)
-    del blob
-    if overwatch.is_rank_zero():
+    # every rank takes part in the gathers; rank 0 gets the blob and writes
+    blob = train_state["shards"].host_state(train_state)
+    if blob is not None:
+        if also_reference_format:
+            export_reference_pt(path.with_suffix(".pt"), blob, model_cfg)
+        if async_save:
+            _ASYNC.submit(lambda: _write(path, blob))
+        else:
+            _write(path, blob)
         with open(ckpt_dir / "latest", "w") as f:
             f.write(name)
         _gc_old_checkpoints(ckpt_dir, keep)
-    if also_reference_format and overwatch.is_rank_zero():
-        export_reference_pt(path.with_suffix(".pt"), train_state, model_cfg)
+    del blob
     return path
 
 
@@ -221,12 +210,9 @@ def load_checkpoint(path, train_state: Dict[str, Any]) -> Dict[str, Any]:
     allocates the moments it has not made yet) and return it with the saved
     step."""
     blob = torch.load(Path(path) / STATE_FILE, map_location="cpu", mmap=True, weights_only=True)
+    train_state["shards"].load(blob, train_state)
     with torch.no_grad():
-        _copy_tree(train_state["params"], blob["params"], "params")
         _copy_tree(train_state["model_state"], blob["model_state"], "model_state")
-        if "ema_params" in train_state:
-            _copy_tree(train_state["ema_params"], blob["ema_params"], "ema_params")
-        train_state["optimizer"].load_state_dict(blob["opt_state"])
     return {**train_state, "step": int(blob["step"])}
 
 

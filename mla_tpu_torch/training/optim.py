@@ -97,12 +97,39 @@ class Optimizer:
         self.schedule, self.max_grad_norm = schedule, max_grad_norm
         self.trainable, self.paths = trainable, paths
         self.count = 0
+        # over master shards: the process group whose ranks together hold
+        # every leaf once (a slice each, or the whole leaf on its owner)
+        self.norm_group: Any = None
+
+    def over(self, parts: List[Optional[torch.Tensor]], group: Any) -> "Optimizer":
+        """A fresh optimizer of this rule, schedule and hyperparameters (the
+        no-decay split included) over this rank's parts of the trainable
+        leaves: parts[i] is a slice of trainable[i], the whole leaf, or
+        None (another rank's); its global norm sums over `group`."""
+        kept = [(path, part, whole) for path, part, whole in zip(self.paths, parts, self.trainable)
+                if part is not None]
+        opt = self._over([part for _, part, _ in kept], [path for path, _, _ in kept],
+                         {id(whole): part for _, part, whole in kept})
+        opt.norm_group = group
+        return opt
+
+    def _over(self, leaves: List[torch.Tensor], paths: List[str], part_of: Dict[int, torch.Tensor]) -> "Optimizer":
+        raise NotImplementedError
 
     def global_norm(self) -> torch.Tensor:
-        """Global norm of the trainable leaves' gradients, each leaf's norm
-        reduced in fp32."""
-        norms = [torch.linalg.vector_norm(p.grad, dtype=torch.float32) for p in self.trainable if p.grad is not None]
-        return torch.linalg.vector_norm(torch.stack(norms)) if norms else torch.zeros(())
+        """Global norm of the trainable leaves' gradients: each leaf's sum of
+        squares reduced in fp32 by torch.sum (a cascade on the CPU, a tree
+        on the card: torch.linalg.vector_norm's CPU kernel loses ~2e-4 of a
+        2M-element leaf), then the root of their sum; over shards, the
+        ranks' sums are added across norm_group first."""
+        sq = [torch.sum(torch.square(p.grad.float())) for p in self.trainable if p.grad is not None]
+        dev = self.trainable[0].device if self.trainable else torch.device("cpu")
+        total = torch.stack(sq).sum() if sq else torch.zeros((), device=dev)
+        if self.norm_group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(total, group=self.norm_group)
+        return torch.sqrt(total)
 
     def step(self, norm: Optional[torch.Tensor] = None) -> None:
         """One update; `norm` is global_norm() if the caller has it."""
@@ -153,6 +180,13 @@ class AdamW(Optimizer):
         super().__init__(schedule, max_grad_norm, trainable, paths)
         self.adamw = adamw
 
+    def _over(self, leaves, paths, part_of):
+        groups = [dict(g, params=[part_of[id(p)] for p in g["params"] if id(p) in part_of])
+                  for g in self.adamw.param_groups]
+        d = self.adamw.defaults
+        adamw = torch.optim.AdamW(groups, lr=d["lr"], betas=d["betas"], eps=d["eps"])
+        return AdamW(adamw, self.schedule, self.max_grad_norm, leaves, paths)
+
     def _update(self, lr: float) -> None:
         for group in self.adamw.param_groups:
             group["lr"] = lr
@@ -194,6 +228,32 @@ class Adafactor(Optimizer):
     def __init__(self, schedule, max_grad_norm, trainable, paths):
         super().__init__(schedule, max_grad_norm, trainable, paths)
         self.state: Dict[int, Dict[str, torch.Tensor]] = {}
+        # leaves that are slices of a leaf cut over ranks: id -> (process
+        # group, the whole leaf's numel); their update clip and parameter
+        # RMS are means over the whole leaf, summed across the group
+        self.sliced: Dict[int, Tuple[Any, int]] = {}
+
+    def over(self, parts: List[Optional[torch.Tensor]], group: Any) -> "Adafactor":
+        opt = super().over(parts, group)
+        for part, whole in zip(parts, self.trainable):
+            if part is not None and part.numel() != whole.numel():
+                opt.sliced[id(part)] = (group, whole.numel())
+        return opt
+
+    def _over(self, leaves, paths, part_of):
+        return Adafactor(self.schedule, self.max_grad_norm, leaves, paths)
+
+    def _means(self, p: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """mean(u * u) and mean(p * p) over the whole leaf."""
+        if id(p) not in self.sliced:
+            return (u * u).mean(), (p * p).mean()
+        import torch.distributed as dist
+
+        group, numel = self.sliced[id(p)]
+        sums = torch.stack([(u.float() * u.float()).sum(), (p.float() * p.float()).sum()])
+        dist.all_reduce(sums, group=group)
+        sums = sums / numel
+        return sums[0].to(u.dtype), sums[1].to(p.dtype)
 
     def _leaf_state(self, p: torch.Tensor, create: bool = False) -> Dict[str, torch.Tensor]:
         st = self.state.setdefault(id(p), {})
@@ -225,9 +285,10 @@ class Adafactor(Optimizer):
             else:
                 st["v"].copy_(decay * st["v"].float() + (1.0 - decay) * g_sq.float())
                 u = g * st["v"] ** -0.5
-            u = u / torch.clamp(torch.sqrt((u * u).mean()) / self.CLIP, min=1.0)
+            u_ms, p_ms = self._means(p, u)
+            u = u / torch.clamp(torch.sqrt(u_ms) / self.CLIP, min=1.0)
             u = torch.tensor(lr, dtype=u.dtype, device=u.device) * u
-            rms = torch.sqrt((p * p).mean())
+            rms = torch.sqrt(p_ms)
             u = u * torch.where(rms > self.MIN_SCALE, rms, torch.tensor(self.MIN_SCALE, dtype=dt, device=p.device))
             p.add_((-u).to(dt))
 

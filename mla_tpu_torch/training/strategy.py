@@ -1,20 +1,37 @@
 """The training step: gradient accumulation, clipping, the optimizer, step
-count and EMA, on one device; and the visualization forward.
+count and EMA over a mesh of processes (one process by default); and the
+visualization forward.
 
-Counterpart of mla_tpu/training/strategy.py without the mesh: sharding
-(FSDP) is not ported yet. `make_train_step` returns train_step(state,
-batch) -> (state, metrics). With grad_accumulation_steps > 1 the batch is
-cut into that many micro-batches along dim 0; their gradients are summed in
-fp32 (in .grad itself for fp32 leaves, in an fp32 buffer for the others)
-and averaged, their losses averaged, and the point tokenizer's batch-norm
-state threads from one micro-batch to the next, as the JAX lax.scan carry
-does. The parameters are updated in place.
+Counterpart of mla_tpu/training/strategy.py. `init_train_state` lays the
+state out over the mesh (parallel/mesh.py; JAX's init_train_state and
+shard_train_state); `make_train_step` returns train_step(state, batch) ->
+(state, metrics). Each rank keeps the compute parameters whole: the
+decoder's layer matrices in the decoder's compute dtype (bf16) where the
+tree holds fp32 masters and the caller asks for it, every other leaf as
+the tree holds it. The master weights, the optimizer state and the
+reduced gradients are sharded over the fsdp group
+(parallel/sharding.py). A step runs this rank's rows of each global
+micro-batch (sharding.shard_batch) with the global-batch reductions on
+(parallel/collectives.py). With grad_accumulation_steps > 1 the rows are
+cut into that many micro-batches along dim 0; their gradients are summed
+in fp32 (in .grad itself for fp32 leaves, in an fp32 buffer for the
+others), their losses averaged, and the point tokenizer's batch-norm
+state threads from one micro-batch to the next, as the JAX lax.scan
+carry does. The gradients are then all-reduced over the world in fp32
+buckets and divided by world x accumulation (an all-reduce, then each
+rank keeps its slice: one collective whatever the cut dim); the step
+takes the global norm of the sharded gradients, steps only its own
+masters, and re-assembles the compute parameters on every rank
+(all-gather of the slices, broadcast of the leaves owned whole, in
+buckets). The layer loop (llama.run_layers) is untouched. On one process
+there is no collective: the masters are the tree's own leaves and the
+optimizer the caller's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -22,8 +39,13 @@ import torch
 from mla_tpu_torch.diffusion import gaussian as gd
 from mla_tpu_torch.models import mla as mla_mod
 from mla_tpu_torch.models import prismatic
-from mla_tpu_torch.params import tree_leaves, tree_map
+from mla_tpu_torch.parallel import collectives
+from mla_tpu_torch.parallel import mesh as mesh_mod
+from mla_tpu_torch.parallel import sharding as shard_mod
+from mla_tpu_torch.params import tree_items, tree_leaves, tree_map
+from mla_tpu_torch.training import optim as optim_mod
 from mla_tpu_torch.training.optim import Optimizer
+from mla_tpu_torch.utils.tree import map_with_path
 
 
 @dataclass
@@ -77,70 +99,144 @@ def _micro(tree: Any, accum: int, i: int) -> Any:
     return tree
 
 
-def init_train_state(params: Any, optimizer: Optimizer, model_state: Any, use_ema: bool = False) -> Dict[str, Any]:
-    state = {"params": params, "optimizer": optimizer, "model_state": model_state, "step": 0}
+def init_train_state(params: Any, optimizer: Optimizer, model_state: Any, use_ema: bool = False, mesh: Any = None,
+                     compute_dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """The train state of `params` (a tree of leaf tensors), `optimizer`
+    (optim.make_optimizer's over them, not yet stepped) and the model
+    state, laid out over `mesh` (one process and no group when None).
+    Each trainable leaf's master part on this rank (sharding.plan over the
+    fsdp group; Adafactor keeps its factored dims whole): on an fsdp group
+    of one the tree's own leaf, else a copy of this rank's slice, or of
+    the whole leaf on its owner; the optimizer over those parts
+    (`optimizer` itself on an fsdp group of one); state['params'] the
+    whole compute tensors (the decoder's layer matrices in `compute_dtype`
+    when given, else the masters themselves); EMA parts with use_ema."""
+    mesh = mesh if mesh is not None else mesh_mod.Mesh(1, 1, 1, rank=0)
+    if any(optimizer.state_dict()["leaves"].values()):
+        raise ValueError("init_train_state takes a fresh optimizer; load a checkpoint into the state instead")
+    whole = dict(zip(optimizer.paths, optimizer.trainable))
+    paths = [p for p, _ in tree_items(params) if p in whole]
+    adafactor = isinstance(optimizer, optim_mod.Adafactor)
+    keep = (lambda shape: optim_mod.factored_dims(shape) or ()) if adafactor else (lambda shape: ())
+    specs = shard_mod.plan([(p, tuple(whole[p].shape), whole[p].numel() * whole[p].element_size()) for p in paths],
+                           mesh.fsdp, keep)
+    fr, fs = mesh.fsdp_rank, mesh.fsdp
+
+    def part(p: str) -> Optional[torch.Tensor]:
+        got = shard_mod.local_part(whole[p].detach(), specs[p], fr, fs)
+        return got.clone().contiguous() if got is not None else None
+
+    if fs == 1:
+        masters = dict(whole)
+    else:
+        masters = {p: part(p) for p in paths}
+        optimizer = optimizer.over([masters[p] for p in optimizer.paths], mesh.fsdp_group)
+    compute: Dict[str, torch.Tensor] = {}
+
+    def swap(path, leaf):
+        if path not in whole:
+            return leaf
+        dt = _compute_copy_dtype(path, leaf, compute_dtype)
+        compute[path] = leaf.detach().to(dt).requires_grad_(True) if dt != leaf.dtype else leaf
+        return compute[path]
+
+    ema = frozen_ema = None
     if use_ema:
-        state["ema_params"] = tree_map(lambda p: p.detach().clone(), params)
-    return state
+        ema = [part(p) for p in paths]
+        frozen_ema = {p: t.detach().clone() for p, t in tree_items(params) if p not in whole}
+    tree = map_with_path(swap, params)
+    shards = ShardedState(mesh, paths, specs, [compute[p] for p in paths], [masters[p] for p in paths], optimizer,
+                          ema, frozen_ema)
+    return {"params": tree, "optimizer": optimizer, "model_state": model_state, "step": 0, "shards": shards}
 
 
-def make_train_step(
-    cfg: prismatic.MLAModelConfig, train_cfg: TrainConfig, optimizer: Optimizer, sched: gd.Schedule,
-) -> Callable:
+def make_train_step(cfg: prismatic.MLAModelConfig, train_cfg: TrainConfig, sched: gd.Schedule) -> Callable:
     """train_step(state, batch, generator=None, draws=None) -> (state,
-    metrics). `batch` holds numpy arrays or tensors (moved to the
-    parameters' device); its leading dim must divide by
-    grad_accumulation_steps. `generator` draws the diffusion noise, t and
-    the FPS starts; `draws`, one dict per micro-batch of mla_train_loss's
-    override_noise / override_t / fps_start, replaces them. metrics: the
-    loss dict (averaged over micro-batches) and grad_norm, the global norm
-    of the averaged gradients before clipping."""
+    metrics) over init_train_state's state. `batch` is this rank's rows of
+    the global batch (shard_batch; all of it on one process), numpy arrays
+    or tensors (moved to the parameters' device); its leading dim must
+    divide by grad_accumulation_steps. `generator` draws the global
+    micro-batch's diffusion noise, t and FPS starts on every rank (each
+    takes its rows); `draws`, one dict per global micro-batch of
+    mla_train_loss's override_noise / override_t / fps_start, replaces
+    them. metrics: the global batch's loss dict (averaged over
+    micro-batches) and grad_norm, the global norm of the averaged
+    gradients before clipping."""
     accum = train_cfg.grad_accumulation_steps
+    rep = train_cfg.repeated_diffusion_steps if cfg.use_diff else 1
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
                    draws: Optional[List[Dict[str, Any]]] = None):
-        params = state["params"]
-        leaves = [p for p in tree_leaves(params) if p.requires_grad]
-        batch = as_tensors(batch, leaves[0].device)
-        optimizer.zero_grad()
+        import torch.distributed as dist
+
+        sh: ShardedState = state["shards"]
+        mesh = sh.mesh
+        world, rank = mesh.world, mesh.rank
+        leaves = sh.compute
+        dev = leaves[0].device
+        batch = as_tensors(batch, dev)
+        global_rows = batch["input_ids"].shape[0] // accum * world
+        fwd_gen = generator
+        if generator is not None and rank != 0:
+            fwd_gen = torch.Generator(device=generator.device).manual_seed(
+                (generator.initial_seed() + 0x9E3779B97F4A7C15 * rank) % (1 << 63))
+        for p in leaves:
+            p.grad = None
         # fp32 leaves sum their micro-batch gradients in .grad (backward adds
         # into it); the others in an fp32 buffer
-        acc = ([None if p.dtype == torch.float32 else torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = ([None if p.dtype == torch.float32 else torch.zeros(p.shape, dtype=torch.float32, device=dev)
                 for p in leaves] if accum > 1 else None)
         mstate, loss_sum = state["model_state"], None
-        for i in range(accum):
-            mbatch = _micro(batch, accum, i) if accum > 1 else batch
-            total, (loss_dict, mstate) = mla_mod.mla_train_loss(
-                params, mstate, cfg, sched, mbatch, generator,
-                repeated_diffusion_steps=train_cfg.repeated_diffusion_steps,
-                remat=train_cfg.enable_gradient_checkpointing, **(draws[i] if draws else {}),
-            )
-            if total.requires_grad:  # not when no trained leaf is on the path (vlm-align, language-only)
-                total.backward()
-            loss_dict = {k: v.detach() for k, v in loss_dict.items()}
-            loss_sum = loss_dict if loss_sum is None else {k: loss_sum[k] + v for k, v in loss_dict.items()}
-            if acc is not None:
-                for a, p in zip(acc, leaves):
-                    if a is not None and p.grad is not None:
-                        a += p.grad.float()
-                        p.grad = None
-        if acc is not None:
-            with torch.no_grad():
-                for a, p in zip(acc, leaves):
-                    if a is not None:
-                        p.grad = (a / accum).to(p.dtype)
-                    elif p.grad is not None:
-                        p.grad.div_(accum)
-        metrics = {k: v / accum for k, v in loss_sum.items()} if accum > 1 else loss_sum
-        metrics["grad_norm"] = optimizer.global_norm()
-        optimizer.step(metrics["grad_norm"])
-        new_state = {**state, "model_state": mstate, "step": state["step"] + 1}
-        if "ema_params" in state:
+        with collectives.batch_group(mesh.group):
+            for i in range(accum):
+                if draws is not None:
+                    overrides = shard_mod.shard_batch(draws[i], rank, world, 1, rep)
+                elif generator is not None:
+                    overrides = shard_mod.shard_batch(mla_mod.draw_train_randomness(
+                        cfg, sched, global_rows, generator, dev,
+                        repeated_diffusion_steps=train_cfg.repeated_diffusion_steps), rank, world, 1, rep)
+                else:
+                    overrides = {}
+                total, (loss_dict, mstate) = mla_mod.mla_train_loss(
+                    state["params"], mstate, cfg, sched, _micro(batch, accum, i) if accum > 1 else batch, fwd_gen,
+                    repeated_diffusion_steps=train_cfg.repeated_diffusion_steps,
+                    remat=train_cfg.enable_gradient_checkpointing, **overrides,
+                )
+                if total.requires_grad:  # not when no trained leaf is on the path (vlm-align, language-only)
+                    total.backward()
+                # rank 0's forward drew from the step's generator: every rank
+                # continues from its state, so the next global draws agree
+                if generator is not None and world > 1 and i + 1 < accum:
+                    _sync_generator(generator, mesh)
+                loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+                loss_sum = loss_dict if loss_sum is None else {k: loss_sum[k] + v for k, v in loss_dict.items()}
+                if acc is not None:
+                    for a, p in zip(acc, leaves):
+                        if a is not None and p.grad is not None:
+                            a += p.grad.float()
+                            p.grad = None
+        sh.reduce_gradients(acc, world * accum)
+        del acc
+        keys = sorted(loss_sum)
+        losses = torch.stack([loss_sum[k] for k in keys])
+        if mesh.group is not None:
+            dist.all_reduce(losses, group=mesh.group)
+        metrics = dict(zip(keys, (losses / (world * accum)).unbind(0)))
+        opt = sh.optimizer
+        metrics["grad_norm"] = opt.global_norm()
+        opt.step(metrics["grad_norm"])
+        opt.zero_grad()
+        sh.assemble()
+        if sh.ema is not None:
             d = train_cfg.ema_decay
             with torch.no_grad():
-                for e, p in zip(tree_leaves(state["ema_params"]), tree_leaves(params)):
-                    e.mul_(d).add_(p, alpha=1 - d)
-        return new_state, metrics
+                for e, m in zip(sh.ema, sh.masters):
+                    if e is not None:
+                        e.mul_(d).add_(m, alpha=1 - d)
+                params = dict(tree_items(state["params"]))
+                for path, e in sh.frozen_ema.items():
+                    e.mul_(d).add_(params[path], alpha=1 - d)
+        return {**state, "model_state": mstate, "step": state["step"] + 1}, metrics
 
     return train_step
 
@@ -169,3 +265,272 @@ def make_visualize_step(cfg: prismatic.MLAModelConfig, sched: gd.Schedule) -> Ca
         return outputs.get("generation_outputs", {})
 
     return viz_step
+
+
+# --------------------------------------------------------------------------- #
+# the sharded state
+# --------------------------------------------------------------------------- #
+
+BUCKET_ELEMS = 1 << 25  # elements per gradient all-reduce (128 MiB of fp32) and per re-assembly gather
+
+
+def _buckets(ks: List[int], numel: Callable[[int], int]) -> Iterator[List[int]]:
+    """Consecutive runs of ks of at most BUCKET_ELEMS elements together (a
+    larger leaf alone)."""
+    run: List[int] = []
+    elems = 0
+    for k in ks:
+        if run and elems + numel(k) > BUCKET_ELEMS:
+            yield run
+            run, elems = [], 0
+        run.append(k)
+        elems += numel(k)
+    if run:
+        yield run
+
+
+def _compute_copy_dtype(path: str, leaf: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The dtype a rank keeps the whole leaf in: the decoder's compute dtype
+    for its layer matrices (every use casts them to it first), else the
+    leaf's own."""
+    if (compute_dtype is not None and path.startswith("llm_backbone/layers/") and path.endswith("/w")
+            and leaf.is_floating_point()):
+        return compute_dtype
+    return leaf.dtype
+
+
+class ShardedState:
+    """The sharded half of a train state over a mesh: per trainable leaf
+    (in the optimizer's order) its path, Spec, whole compute tensor (in
+    state['params']) and this rank's master part (None where another rank
+    owns the leaf); the optimizer over the master parts; EMA parts."""
+
+    def __init__(self, mesh: Any, paths: List[str], specs: Dict[str, shard_mod.Spec], compute: List[torch.Tensor],
+                 masters: List[Optional[torch.Tensor]], optimizer: Optimizer,
+                 ema: Optional[List[Optional[torch.Tensor]]], frozen_ema: Optional[Dict[str, torch.Tensor]]):
+        self.mesh, self.paths, self.specs = mesh, paths, specs
+        self.compute, self.masters, self.optimizer = compute, masters, optimizer
+        self.ema, self.frozen_ema = ema, frozen_ema
+        self.shapes = [tuple(c.shape) for c in compute]
+
+    # -- collectives ---------------------------------------------------------
+    def _fsdp(self) -> bool:
+        return self.mesh.fsdp > 1
+
+    def reduce_gradients(self, acc: Optional[List[Optional[torch.Tensor]]], divisor: int) -> None:
+        """Sum this rank's gradients (acc[k] where the step accumulated in a
+        buffer, else the compute leaf's .grad) over the world in fp32
+        buckets, divide, and hand each master part its slice (in the
+        master's dtype). Each gradient is copied into its bucket and freed
+        (its .grad and its buffer) as the bucket fills: no whole fp32
+        gradient beyond the buffers and one bucket exists."""
+        import torch.distributed as dist
+
+        dev = self.compute[0].device
+        for run in _buckets(list(range(len(self.paths))), lambda k: self.compute[k].numel()):
+            flat = torch.empty(sum(self.compute[k].numel() for k in run), dtype=torch.float32, device=dev)
+            off = 0
+            for k in run:
+                c = self.compute[k]
+                src = acc[k] if acc is not None and acc[k] is not None else c.grad
+                view = flat[off : off + c.numel()]
+                if src is None:
+                    view.zero_()
+                else:
+                    view.copy_(src.reshape(-1))
+                c.grad = None
+                if acc is not None:
+                    acc[k] = None
+                off += c.numel()
+            if self.mesh.group is not None:
+                dist.all_reduce(flat, group=self.mesh.group)
+            flat.div_(divisor)
+            off = 0
+            for k in run:
+                size = self.compute[k].numel()
+                if self.masters[k] is not None:
+                    g = flat[off : off + size].view(self.shapes[k])
+                    part = shard_mod.local_part(g, self.specs[self.paths[k]], self.mesh.fsdp_rank, self.mesh.fsdp)
+                    self.masters[k].grad = part.to(self.masters[k].dtype).contiguous()
+                off += size
+
+    def assemble(self) -> None:
+        """Copy the updated masters into every rank's whole compute tensors:
+        slices are all-gathered, owned leaves broadcast by their owner,
+        packed per dtype (and owner) in buckets of BUCKET_ELEMS."""
+        import torch.distributed as dist
+
+        with torch.no_grad():
+            if not self._fsdp():
+                for c, m in zip(self.compute, self.masters):
+                    if c is not m:
+                        c.copy_(m)
+                return
+            fs = self.mesh.fsdp
+            cut = [k for k, p in enumerate(self.paths) if self.specs[p].dim is not None]
+            for dt in sorted({self.compute[k].dtype for k in cut}, key=str):
+                for ks in _buckets([k for k in cut if self.compute[k].dtype == dt], lambda k: self.compute[k].numel()):
+                    dims = [self.specs[self.paths[k]].dim for k in ks]
+                    mine = torch.cat([self.masters[k].to(dt).movedim(d, 0).reshape(-1) for k, d in zip(ks, dims)])
+                    parts = [torch.empty_like(mine) for _ in range(fs)]
+                    dist.all_gather(parts, mine, group=self.mesh.fsdp_group)
+                    off = 0
+                    for k, d in zip(ks, dims):
+                        moved = self.compute[k].movedim(d, 0)
+                        size = moved.numel() // fs
+                        shape = (moved.shape[0] // fs,) + tuple(moved.shape[1:])
+                        self.compute[k].copy_(torch.cat([p[off : off + size].view(shape) for p in parts], 0).movedim(0, d))
+                        off += size
+            owned = [k for k, p in enumerate(self.paths) if self.specs[p].dim is None]
+            for owner in range(fs):
+                for dt in sorted({self.compute[k].dtype for k in owned}, key=str):
+                    mine = [k for k in owned if self.specs[self.paths[k]].owner == owner and self.compute[k].dtype == dt]
+                    for ks in _buckets(mine, lambda k: self.compute[k].numel()):
+                        if owner == self.mesh.fsdp_rank:
+                            flat = torch.cat([self.masters[k].to(dt).reshape(-1) for k in ks])
+                        else:
+                            flat = torch.empty(sum(self.compute[k].numel() for k in ks), dtype=dt,
+                                               device=self.compute[ks[0]].device)
+                        dist.broadcast(flat, src=self.mesh.fsdp_peer(owner), group=self.mesh.fsdp_group)
+                        off = 0
+                        for k in ks:
+                            c = self.compute[k]
+                            c.copy_(flat[off : off + c.numel()].view(c.shape))
+                            off += c.numel()
+
+    def _gather(self, k: int, part: Optional[torch.Tensor], dim: Optional[int]) -> Optional[torch.Tensor]:
+        """The whole tensor of which `part` is this rank's piece along `dim`
+        (leaf k's spec; dim is where its cut lies in this tensor), on host
+        memory of rank 0 (None elsewhere)."""
+        import torch.distributed as dist
+
+        spec = self.specs[self.paths[k]]
+        if not self._fsdp():
+            return _to_host(part) if self.mesh.rank == 0 else None
+        if spec.dim is None:
+            obj = [_to_host(part)]
+            dist.broadcast_object_list(obj, src=self.mesh.fsdp_peer(spec.owner), group=self.mesh.fsdp_group,
+                                       device=self.compute[k].device)
+            return obj[0] if self.mesh.rank == 0 else None
+        part = part.detach().contiguous()
+        if part.dim() == 0:
+            return part.to("cpu", copy=True) if self.mesh.rank == 0 else None
+        pieces = [torch.empty_like(part) for _ in range(self.mesh.fsdp)]
+        dist.all_gather(pieces, part, group=self.mesh.fsdp_group)
+        return torch.cat(pieces, dim).cpu() if self.mesh.rank == 0 else None
+
+    def _state_dim(self, k: int, name: str, t: torch.Tensor) -> Optional[int]:
+        """Where leaf k's cut lies in its optimizer state tensor `name`."""
+        d = self.specs[self.paths[k]].dim
+        if d is None or t.dim() == 0:
+            return None
+        if t.dim() == len(self.shapes[k]):
+            return d
+        d1, d0 = optim_mod.factored_dims(self.shapes[k])
+        removed = d0 if name == "v_row" else d1
+        return d - (1 if removed < d else 0)
+
+    # -- checkpoints -----------------------------------------------------------
+    def host_state(self, train_state: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """A one-device run's checkpoint blob, gathered on rank 0 (None on
+        the other ranks, which take part in the gathers): the whole masters
+        as 'params', the optimizer's state_dict of whole leaves, EMA."""
+        rank0 = self.mesh.rank == 0
+        whole = {}
+        for k, path in enumerate(self.paths):
+            whole[path] = self._gather(k, self.masters[k], self.specs[path].dim)
+        opt = self.optimizer.state_dict()
+        leaves = {}
+        for k, path in enumerate(self.paths):
+            mine = opt["leaves"].get(path, {}) if self.masters[k] is not None else None
+            if self.specs[path].dim is None:
+                got = self._gather(k, mine, None)
+                leaves[path] = got
+                continue
+            out = {}
+            for name in sorted(mine):
+                out[name] = self._gather(k, mine[name], self._state_dim(k, name, mine[name]))
+            leaves[path] = out
+        ema = None
+        if self.ema is not None:
+            ema = {path: self._gather(k, self.ema[k], self.specs[path].dim) for k, path in enumerate(self.paths)}
+        if not rank0:
+            return None
+
+        def host(path, t):
+            return whole[path] if path in whole else t.detach().to("cpu", copy=True)
+
+        out = {
+            "params": map_with_path(host, train_state["params"]),
+            "opt_state": {"count": opt["count"], "leaves": leaves},
+            "model_state": tree_map(lambda t: t.detach().to("cpu", copy=True), train_state["model_state"]),
+            "step": int(train_state["step"]),
+        }
+        if ema is not None:
+            out["ema_params"] = map_with_path(
+                lambda p, t: ema[p] if p in ema else self.frozen_ema[p].detach().to("cpu", copy=True), train_state["params"])
+        return out
+
+    def load(self, blob: Dict[str, Any], train_state: Dict[str, Any]) -> None:
+        """Copy a one-device checkpoint blob (whole leaves, any world size's
+        save) into this rank's compute tensors, master parts, optimizer
+        state and EMA: re-sharded by this mesh's plan."""
+        saved = dict(tree_items(blob["params"]))
+        live = dict(tree_items(train_state["params"]))
+        with torch.no_grad():
+            for path, t in live.items():
+                s = saved[path]
+                if tuple(s.shape) != tuple(t.shape):
+                    raise ValueError(f"params/{path}: checkpoint {tuple(s.shape)}, live {tuple(t.shape)}")
+                t.copy_(s)
+            fr, fs = self.mesh.fsdp_rank, self.mesh.fsdp
+            held = {}
+            ema_saved = dict(tree_items(blob["ema_params"])) if "ema_params" in blob else {}
+            for k, path in enumerate(self.paths):
+                if self.masters[k] is None:
+                    continue
+                spec = self.specs[path]
+                self.masters[k].copy_(shard_mod.local_part(saved[path], spec, fr, fs))
+                st = blob["opt_state"]["leaves"][path]
+                held[path] = {name: (v if self._state_dim(k, name, v) is None else
+                                     shard_mod.local_part(v, shard_mod.Spec(dim=self._state_dim(k, name, v)), fr, fs))
+                              for name, v in st.items()}
+                if self.ema is not None:
+                    self.ema[k].copy_(shard_mod.local_part(ema_saved[path], spec, fr, fs))
+            self.optimizer.load_state_dict({"count": blob["opt_state"]["count"], "leaves": held})
+            if self.frozen_ema is not None:
+                for path, t in self.frozen_ema.items():
+                    t.copy_(ema_saved[path])
+
+    def optimizer_bytes(self) -> Dict[str, int]:
+        """This rank's bytes of master parts and optimizer state, and the
+        largest leaf it holds whole ('unit': masters + state)."""
+        state = self.optimizer.state_dict()["leaves"]
+        held, unit = 0, 0
+        for k, path in enumerate(self.paths):
+            m = self.masters[k]
+            if m is None:
+                continue
+            b = m.numel() * m.element_size() + sum(v.numel() * v.element_size() for v in state.get(path, {}).values())
+            held += b
+            if self.specs[path].dim is None:
+                unit = max(unit, b)
+        return {"held": held, "unit": unit}
+
+
+def _to_host(obj: Any) -> Any:
+    """Tensors (in dicts) copied to host memory."""
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    return obj.detach().to("cpu", copy=True) if isinstance(obj, torch.Tensor) else obj
+
+
+def _sync_generator(gen: torch.Generator, mesh: Any) -> None:
+    """Give every rank rank 0's generator state."""
+    import torch.distributed as dist
+
+    st = gen.get_state()
+    dev = torch.device("cuda", torch.cuda.current_device()) if gen.device.type == "cuda" else torch.device("cpu")
+    buf = st.to(dev)
+    dist.broadcast(buf, src=0, group=mesh.group)
+    gen.set_state(buf.cpu())

@@ -10,9 +10,13 @@ place of tf.data, with the same stages in the same order:
     config, point-cloud and tactile passthrough, full-pass hash-cached
     statistics over split "all", BOUNDS_Q99 normalization.
   * apply_trajectory_transforms: the unlabelled filter, max_action and
-    max_proprio, pad masks, window and future-action chunking.
+    max_proprio, pad masks, goal relabelling, task augmentation (training),
+    window and future-action chunking, subsampling (training); the draws of
+    trajectory n from numpy's generator of (seed, n).
   * flatten_to_frames, apply_per_dataset_frame_transforms,
-    apply_frame_transforms (decode and resize every image_* key).
+    apply_frame_transforms (decode and resize every image_* key, then, in
+    training, augment_image with one seed per frame: seed + i for the i-th
+    key in sorted order, the padding frames zeroed).
   * make_interleaved_dataset: each dataset of the mixture (its kwargs from
     the views it has, or from the OXE kwargs factory, oxe/materialize.py,
     where `load_camera_views` is given) with its statistics, fitted to
@@ -26,10 +30,14 @@ place of tf.data, with the same stages in the same order:
     also prefetches.
   * RLDSDataset and EpisodicRLDSDataset.
 
-The port runs in one process, so there is no host sharding: the JAX
-package's per-host shard of the episodes is the whole split here. Not
-ported yet (each raises NotImplementedError naming its ROADMAP.md item):
-image augmentation, goal relabelling, task augmentation and subsampling.
+Over several processes (torchrun) each rank reads its own shard of every
+dataset's episodes: every world-th episode from its rank, cut from the
+canonical file order with no per-rank file shuffle, as JAX's
+ds.shard(process_count, process_index) does; a mixture is sharded per
+dataset. The trajectory draws cannot be TensorFlow's (its stateful RNG
+replays nowhere else); the frame augmentation's are (stateless Philox),
+given the frame's seed. Each rank draws both from its own seed
+(draw_seed), as JAX's processes draw independently.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from mla_tpu_torch.utils.overwatch import initialize_overwatch
+from mla_tpu_torch.utils.overwatch import initialize_overwatch, process_count, process_index
 from mla_tpu_torch.vla.rlds import tfds_compat
 from mla_tpu_torch.vla.rlds import transforms as T
 from mla_tpu_torch.vla.rlds.oxe.configs import OXE_DATASET_CONFIGS, POINTCLOUD_KEYS, TACTILE_KEYS
@@ -53,11 +61,32 @@ from mla_tpu_torch.vla.rlds.stream import AUTOTUNE, Dataset
 overwatch = initialize_overwatch(__name__)
 
 _DEFAULT_STATS_CACHE = "~/.cache/mla_tpu_torch"
-ROADMAP_DATA = "ROADMAP.md queue 1, item 2 (the data path's last part)"
+
+# the default train-time augmentation set (JAX dataset.py:332-345)
+DEFAULT_IMAGE_AUGMENT_KWARGS: Dict[str, Any] = {
+    "random_resized_crop": {"scale": [0.9, 0.9], "ratio": [1.0, 1.0]},
+    "random_brightness": [0.2],
+    "random_contrast": [0.8, 1.2],
+    "random_saturation": [0.8, 1.2],
+    "random_hue": [0.05],
+    "augment_order": ["random_resized_crop", "random_brightness", "random_contrast", "random_saturation",
+                      "random_hue"],
+}
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({ROADMAP_DATA})")
+def draw_seed(seed: int) -> int:
+    """The seed of this rank's train-time draws (the trajectory transforms'
+    and the frames' augmentation seeds): seed + 1_000_003 * rank, the fold
+    of utils.set_global_seed. The ranks then draw independently, as JAX's
+    processes do from TensorFlow's unseeded RNG, and a run on one process
+    draws from `seed` itself. The shuffle and the mixture's sampling keep
+    `seed` on every rank, as JAX's do."""
+    return seed + 1_000_003 * process_index()
+
+
+def _enumerated(ds: Dataset) -> Dataset:
+    """(index, element) pairs, the index counting over repeats too."""
+    return Dataset(lambda: enumerate(iter(ds)))
 
 
 def _strings(value: bytes, n: int) -> np.ndarray:
@@ -160,7 +189,9 @@ def make_dataset_from_rlds(
 ) -> Tuple[Dataset, Dict]:
     """One standardized, normalized trajectory stream and its statistics.
     The key maps default to the dataset's OXE config entry; episodes are
-    parsed, restructured and normalized in one pool of threads."""
+    parsed, restructured and normalized in one pool of threads. Over
+    several processes, this rank's shard of the episodes (statistics over
+    all of them)."""
     cfg = OXE_DATASET_CONFIGS.get(name, {})
     if standardize_fn is None:
         standardize_fn = get_standardization_transform(name)
@@ -214,7 +245,13 @@ def make_dataset_from_rlds(
     if load_all_data_for_training and train:
         split = "train"
 
-    ds = episodes_to_trajs(builder.as_dataset(split=split, shuffle_files=shuffle and train))
+    num_shards, index = process_count(), process_index()
+    # shards are cut from the canonical file order: a per-rank file shuffle
+    # would make shard(P, i) take every P-th episode of P different orders
+    ds = builder.as_dataset(split=split, shuffle_files=shuffle and train and num_shards == 1)
+    if num_shards > 1:
+        ds = ds.shard(num_shards, index)
+    ds = episodes_to_trajs(ds)
     ds = ds.map(
         partial(T.normalize_action_and_proprio, metadata=dataset_statistics,
                 normalization_type=action_proprio_normalization_type),
@@ -238,15 +275,18 @@ def apply_trajectory_transforms(
     subsample_length: Optional[int] = None,
     dataset_statistics: Optional[Dict] = None,
     num_parallel_calls: Optional[int] = None,
+    seed: int = 0,
 ) -> Dataset:
-    """Trajectory-level filters, pad masks and chunking."""
-    if goal_relabeling_strategy is not None:
-        raise _not_ported(f"goal relabelling ({goal_relabeling_strategy!r})")
-    if train and task_augment_strategy is not None:
-        raise _not_ported(f"task augmentation ({task_augment_strategy!r}, {task_augment_kwargs})")
-    if train and subsample_length is not None:
-        raise _not_ported(f"trajectory subsampling (subsample_length={subsample_length})")
+    """Trajectory-level filters, pad masks, goal relabelling, task
+    augmentation (training), chunking and subsampling (training), in JAX's
+    order; trajectory n draws from numpy's generator of (this rank's
+    draw_seed(seed), n)."""
+    if goal_relabeling_strategy not in (None, "uniform"):
+        raise KeyError(goal_relabeling_strategy)
+    if train and task_augment_strategy not in (None, "delete_task_conditioning"):
+        raise KeyError(task_augment_strategy)
     n_calls = AUTOTUNE if num_parallel_calls in (None, -1) else num_parallel_calls
+    seed = draw_seed(seed)
 
     if skip_unlabeled:
         ds = ds.filter(lambda traj: bool(np.any(np.asarray(traj["task"]["language_instruction"]) != b"")))
@@ -255,11 +295,20 @@ def apply_trajectory_transforms(
     if max_proprio is not None:
         ds = ds.filter(lambda traj: bool(np.all(np.abs(traj["observation"]["proprio"]) <= max_proprio)))
 
-    def transform(traj):
+    def transform(item):
+        n, traj = item
+        rng = np.random.default_rng([seed, n])
         traj = T.add_pad_mask_dict(traj)
-        return T.chunk_act_obs(traj, window_size, future_action_window_size, dataset_statistics)
+        if goal_relabeling_strategy is not None:
+            traj = T.goal_relabel_uniform(traj, rng)
+        if train and task_augment_strategy is not None:
+            traj = T.delete_task_conditioning(traj, rng=rng, **(task_augment_kwargs or {}))
+        traj = T.chunk_act_obs(traj, window_size, future_action_window_size, dataset_statistics)
+        if train and subsample_length is not None:
+            traj = T.subsample(traj, subsample_length, rng)
+        return traj
 
-    return ds.map(transform, num_parallel_calls=n_calls)
+    return _enumerated(ds).map(transform, num_parallel_calls=n_calls)
 
 
 def flatten_to_frames(ds: Dataset) -> Dataset:
@@ -279,10 +328,15 @@ def apply_per_dataset_frame_transforms(ds: Dataset, chunk_filter_fn: Optional[Ca
     return ds
 
 
-def _transform_image_dict(d: Dict, size_for: Callable[[str], Tuple[int, int]]) -> Dict:
+def _transform_image_dict(d: Dict, size_for: Callable[[str], Tuple[int, int]],
+                          augment_for: Callable[[str], Optional[Dict]] = lambda key: None,
+                          seed: Optional[np.ndarray] = None) -> Dict:
     """Decode and resize every image_* entry of one dict, whatever its
-    leading dims ([window], [T, window] or none)."""
-    for k in sorted(d):
+    leading dims ([window], [T, window] or none); then augment (where
+    augment_for gives kwargs, and only frames: at most one leading dim) the
+    i-th key of the sorted dict with seed + i, padding frames zeroed."""
+    pad_masks = d.get("pad_mask_dict", {})
+    for i, k in enumerate(sorted(d)):
         if not k.startswith("image_"):
             continue
         size = size_for(k[len("image_"):])
@@ -296,6 +350,15 @@ def _transform_image_dict(d: Dict, size_for: Callable[[str], Tuple[int, int]]) -
         imgs = [T.decode_and_resize_image(im, size) for im in flat]
         d[k] = np.stack(imgs).reshape(tuple(lead) + (size[0], size[1], 3)) if imgs else np.zeros(
             tuple(lead) + (size[0], size[1], 3), np.uint8)
+        kw = augment_for(k[len("image_"):]) if len(lead) <= 1 else None
+        if kw:
+            s = np.asarray(seed, np.int32) + np.int32(i)
+            if not lead:
+                d[k] = T.augment_image(d[k], s, **kw)
+            else:
+                d[k] = np.stack([T.augment_image(im, s, **kw) for im in d[k]])
+                if k in pad_masks:
+                    d[k] = d[k] * np.asarray(pad_masks[k]).astype(d[k].dtype).reshape(-1, 1, 1, 1)
     return d
 
 
@@ -308,27 +371,40 @@ def apply_frame_transforms(
     augment: bool = False,
     image_augment_kwargs: Optional[Dict] = None,
     num_parallel_calls: Optional[int] = AUTOTUNE,
+    seed: int = 0,
 ) -> Dataset:
     """Frame-level decode and resize of the observation's and the task's
     image_* keys; `resize_size` maps key suffixes to (h, w), others get
-    `image_size` square."""
-    if augment or image_augment_kwargs is not None:
-        raise _not_ported("image augmentation")
-    del train
+    `image_size` square. In training with `augment` (the default kwargs,
+    DEFAULT_IMAGE_AUGMENT_KWARGS) or `image_augment_kwargs` (one dict with
+    `augment_order`, or one per key suffix), each frame's images are
+    augmented with one seed, two int32 in [0, 2**31 - 1) drawn for frame n
+    from numpy's generator of (this rank's draw_seed(seed), n) (JAX draws
+    them from TensorFlow's stateful RNG)."""
+    aug = image_augment_kwargs if image_augment_kwargs is not None else (
+        DEFAULT_IMAGE_AUGMENT_KWARGS if augment else None)
+    seed = draw_seed(seed)
 
     def size_for(key: str) -> Tuple[int, int]:
         if resize_size and key in resize_size:
             return tuple(resize_size[key])
         return (image_size, image_size)
 
-    def fn(frame):
+    def augment_for(key: str) -> Optional[Dict]:
+        if aug is None or not train:
+            return None
+        return aug if "augment_order" in aug else aug.get(key)
+
+    def fn(item):
+        n, frame = item
         frame = dict(frame)
-        frame["observation"] = _transform_image_dict(dict(frame["observation"]), size_for)
+        frame_seed = np.random.default_rng([seed, n]).integers(0, 2**31 - 1, 2, dtype=np.int32) if aug else None
+        frame["observation"] = _transform_image_dict(dict(frame["observation"]), size_for, augment_for, frame_seed)
         if isinstance(frame.get("task"), dict):
-            frame["task"] = _transform_image_dict(dict(frame["task"]), size_for)
+            frame["task"] = _transform_image_dict(dict(frame["task"]), size_for, augment_for, frame_seed)
         return frame
 
-    return ds.map(fn, num_parallel_calls=num_parallel_calls)
+    return _enumerated(ds).map(fn, num_parallel_calls=num_parallel_calls)
 
 
 def _dataset_kwargs_for_mix(
@@ -450,9 +526,8 @@ def make_interleaved_dataset(
     proprio (`fit_mixture`). With `balance_weights` each raw weight is
     multiplied by the dataset's transition count; the datasets' frames are
     interleaved by those weights, each stage of a dataset in a pool of its
-    share of `traj_transform_threads`."""
-    if augment or image_augment_kwargs is not None:
-        raise _not_ported("image augmentation")
+    share of `traj_transform_threads`. The train-time transforms draw from
+    `seed` (dataset k's trajectories from seed + k)."""
     per_dataset, raw_weights = _dataset_kwargs_for_mix(
         data_mix, data_dir, load_camera_views=load_camera_views, load_pointcloud=load_pointcloud,
         load_tactile=load_tactile)
@@ -472,7 +547,7 @@ def make_interleaved_dataset(
     zero_proprio = fit_mixture([kwargs for kwargs, _ in per_dataset], all_stats, proprio_dim)
 
     datasets = []
-    for (kwargs, frame_kwargs), zero, n_threads in zip(per_dataset, zero_proprio, threads_per):
+    for k, ((kwargs, frame_kwargs), zero, n_threads) in enumerate(zip(per_dataset, zero_proprio, threads_per)):
         ds, stats = make_dataset_from_rlds(**kwargs, train=train, dataset_statistics=all_stats[kwargs["name"]],
                                            num_parallel_calls=int(n_threads))
         if zero:
@@ -482,7 +557,7 @@ def make_interleaved_dataset(
             future_action_window_size=future_action_window_size, goal_relabeling_strategy=goal_relabeling_strategy,
             task_augment_strategy=task_augment_strategy, task_augment_kwargs=task_augment_kwargs,
             subsample_length=subsample_length, max_action=max_action, max_proprio=max_proprio,
-            dataset_statistics=stats, num_parallel_calls=int(n_threads),
+            dataset_statistics=stats, num_parallel_calls=int(n_threads), seed=seed + k,
         )
         datasets.append(apply_per_dataset_frame_transforms(flatten_to_frames(ds), **frame_kwargs))
 
@@ -491,7 +566,8 @@ def make_interleaved_dataset(
         # one buffer of validation data, fixed and cached
         ds = ds.take(shuffle_buffer_size).cache()
     ds = ds.shuffle(shuffle_buffer_size, seed=seed)
-    ds = apply_frame_transforms(ds, image_size=image_size, resize_size=resize_size, train=train)
+    ds = apply_frame_transforms(ds, image_size=image_size, resize_size=resize_size, train=train, augment=augment,
+                                image_augment_kwargs=image_augment_kwargs, seed=seed)
     return ds, dataset_len, all_stats
 
 

@@ -39,7 +39,7 @@ import numpy as np
 from mla_tpu_torch.native import jpeg_host
 
 SIGNATURE = b"\xff\xd8\xff"
-ROADMAP_JPEG = "ROADMAP.md queue 1, item 2 (the data path's last part: JPEG variants)"
+ROADMAP_JPEG = "ROADMAP.md queue 1, item 2 (frame formats: JPEG variants)"
 _DCT = {"ifast": jpeg_host.IFAST, "islow": jpeg_host.ISLOW}
 _SOF_SUPPORTED = {0xC0: False, 0xC1: False, 0xC2: True}  # marker -> progressive
 _SOF_OTHER = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical", 0xC7: "hierarchical",

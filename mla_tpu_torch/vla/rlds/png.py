@@ -25,7 +25,7 @@ import numpy as np
 from mla_tpu_torch.native import rlds_host
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-ROADMAP_PNG = "ROADMAP.md queue 1, item 2 (the data path's last part: PNG variants)"
+ROADMAP_PNG = "ROADMAP.md queue 1, item 2 (frame formats: PNG variants)"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # by colour type
 _CRITICAL = (b"IHDR", b"PLTE", b"IDAT", b"IEND")
 

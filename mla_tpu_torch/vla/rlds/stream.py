@@ -60,6 +60,12 @@ class Dataset:
     def take(self, n: int) -> "Dataset":
         return Dataset(lambda: itertools.islice(self, n))
 
+    def shard(self, num_shards: int, index: int) -> "Dataset":
+        """Every num_shards-th element from `index` (tf.data's shard)."""
+        if not 0 <= index < num_shards:
+            raise ValueError(f"shard {index} of {num_shards}")
+        return Dataset(lambda: itertools.islice(iter(self), index, None, num_shards))
+
     def skip(self, n: int) -> "Dataset":
         return Dataset(lambda: itertools.islice(self, n, None))
 

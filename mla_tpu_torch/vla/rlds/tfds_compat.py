@@ -42,7 +42,7 @@ import numpy as np
 from mla_tpu_torch.native import rlds_host
 from mla_tpu_torch.vla.rlds.stream import AUTOTUNE, Dataset
 
-ROADMAP_TFDS = "ROADMAP.md queue 1, item 2 (the data path's last part: directories written by tensorflow_datasets)"
+ROADMAP_TFDS = "ROADMAP.md queue 1, item 2 (frame formats: directories written by tensorflow_datasets)"
 
 
 class DataLossError(OSError):

@@ -44,7 +44,7 @@ from mla_tpu_torch.vla.datasets import add_mask_channel, clip_preprocess
 from mla_tpu_torch.vla.tokenizer import EOS_ID
 
 IGNORE_INDEX = -100
-ROADMAP_IMAGES = "ROADMAP.md queue 1, item 2 (the data path's last part)"
+ROADMAP_IMAGES = "ROADMAP.md queue 1, item 2 (frame formats)"
 
 
 def _encode(tokenizer, text: str, add_special_tokens: bool = True) -> List[int]:

@@ -81,7 +81,7 @@ def _state(seed: int, optimizer: str = "adamw", steps: int = 1):
     opt, _, _ = optim.make_optimizer(params, learning_rate=1e-3, num_training_steps=10, optimizer=optimizer,
                                      extra_frozen=("lm_head",))
     state = strategy.init_train_state(params, opt, mstate, use_ema=True)
-    step = strategy.make_train_step(cfg, strategy.TrainConfig(repeated_diffusion_steps=1, ema_decay=0.9), opt,
+    step = strategy.make_train_step(cfg, strategy.TrainConfig(repeated_diffusion_steps=1, ema_decay=0.9),
                                     tgd.create_schedule("", diffusion_steps=100))
     for i in range(steps):
         state, _ = step(state, synthetic_batch(cfg, B=2, L=16, seed=i), torch.Generator().manual_seed(i))
@@ -91,7 +91,7 @@ def _state(seed: int, optimizer: str = "adamw", steps: int = 1):
 def _leaves(state):
     out = {f"params/{p}": t for p, t in P.tree_items(state["params"])}
     out.update({f"model_state/{p}": t for p, t in P.tree_items(state["model_state"])})
-    out.update({f"ema_params/{p}": t for p, t in P.tree_items(state["ema_params"])})
+    out.update({f"ema_params/{p}": t for p, t in P.tree_items(state["shards"].host_state(state)["ema_params"])})
     opt = state["optimizer"].state_dict()
     out.update({f"opt/{p}/{n}": t for p, d in opt["leaves"].items() for n, t in d.items()})
     return out, opt["count"], state["step"]

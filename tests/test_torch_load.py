@@ -180,7 +180,7 @@ def test_load_vla_on_a_port_run_dir(trained_run, use_ema):
     live = trained_run["state"]
     params, state, cfg, stats = tload.load_vla(trained_run["run_dir"], load_for_training=True, use_ema=use_ema,
                                                device="cpu")
-    want = live["ema_params"] if use_ema else live["params"]
+    want = live["shards"].host_state(live)["ema_params"] if use_ema else live["params"]
     assert_trees_equal(params, P.tree_map(lambda t: t.detach().numpy(), want))
     assert_trees_equal(state, P.tree_map(lambda t: t.detach().numpy(), live["model_state"]))
     assert cfg.llama.num_layers == tconfig("mla-tiny").llama.num_layers and "dummy" in stats

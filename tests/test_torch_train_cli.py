@@ -45,7 +45,7 @@ def hand_run():
     params, mstate = P.init(cfg, seed=SEED, device="cpu")
     opt, _, _ = optim.make_optimizer(params, learning_rate=2e-5, num_training_steps=4, extra_frozen=("lm_head",))
     tcfg = strategy.TrainConfig(grad_accumulation_steps=2, repeated_diffusion_steps=4)
-    step = strategy.make_train_step(cfg, tcfg, opt, gd.create_schedule("", diffusion_steps=100))
+    step = strategy.make_train_step(cfg, tcfg, gd.create_schedule("", diffusion_steps=100))
     return strategy.init_train_state(params, opt, mstate), step, iter(DummyDataset(cfg, batch_size=4, seed=SEED))
 
 
@@ -154,8 +154,11 @@ def test_ar_loss_mode_trains_lm_head(tmp_path):
 
 @pytest.mark.parametrize("extra,err,match", [
     (["--bogus_flag", "1"], ValueError, "unknown override --bogus_flag"),
-    (["--dp", "2"], NotImplementedError, "item 7"),
-    (["--tp", "2"], NotImplementedError, "item 7"),
+    # one process without a launch cannot hold dp 2 (a torchrun launch trains
+    # over --dp, tests/test_torch_distributed.py); tensor parallelism is
+    # ROADMAP item 13
+    (["--dp", "2"], ValueError, "not divisible by dp"),
+    (["--tp", "2"], NotImplementedError, r"ROADMAP\.md queue 1, item 13 \(tensor parallelism"),
     # a data root is read now: one without the mix's dataset is refused
     (["--data_root_dir", "{tmp}/no_data"], FileNotFoundError, "no dataset directory"),
     # a JAX orbax run dir: the port cannot read it without JAX

@@ -298,7 +298,7 @@ def test_vlm_train_step_freezes_by_stage(vlm_model, stage):
     params = P.from_jax(vlm_model[0])
     before = P.tree_map(lambda t: t.clone(), params)
     opt, _, mask = optim.make_optimizer(params, learning_rate=1e-3, num_training_steps=4, stage=f"vlm-{stage}")
-    step = strategy.make_train_step(cfg, strategy.TrainConfig(repeated_diffusion_steps=1), opt,
+    step = strategy.make_train_step(cfg, strategy.TrainConfig(repeated_diffusion_steps=1),
                                     tgd.create_schedule("", diffusion_steps=100))
     st = strategy.init_train_state(params, opt, P.from_jax(vlm_model[1]))
     st, m = step(st, vlm_batch(stage, True))

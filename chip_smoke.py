@@ -6,7 +6,8 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (`--only PHASES` runs the build, the kernels phase and only the named
-phases among mistral-agree ... augment, and prints no result line), or, to
+phases among mistral-agree ... augment, qualify and formats, the oxe
+phase's format checks alone, and prints no result line), or, to
 time this tree's flash forward, dQ, dK/dV, W8A8, weight-only int8
 and FPS kernels against another version of them (such as the parent
 commit's, written out with `git show HEAD~1:mla_tpu_torch/csrc/flash_fwd.cu`,
@@ -275,6 +276,14 @@ Phases, each of which fails the run if it fails:
                   views) with augment=True and without: frames/s of each,
                   and augment_image's host ms per frame (both views, the
                   default kwargs) on one thread.
+     qualify      the sampler qualification entry
+                  (mla_tpu_torch.qualify_samplers) at mla-small, full width,
+                  QUALIFY_ARGS: QUALIFY_TRAIN_STEPS production train steps,
+                  then DDIM-8 and DPM-4 against DDIM-100 and W8A8 against
+                  bf16 on 2 scenarios, one weight seed: finite metrics,
+                  W8A8 within QUALIFY_INT8_RMS of the chunk's rms, exact
+                  launches of the flash forward and backward, FPS and W8A8
+                  (qualify_counts).
  13. trainer-agree  the trainer's two new step kinds on `mla-small` with
                   fp32 master weights (bf16 compute), card vs CPU from the
                   same weights, batch and draws: one step of the AR loss
@@ -332,6 +341,11 @@ Phases, each of which fails the run if it fails:
                   TensorFlow's and Pillow's decodes of them), a truncated
                   stream refused, decode ms a frame (p50, one thread) at
                   256 x 256 and 640 x 480 beside the host's CPU model; the
+                  other formats (oxe_format_checks: every golden stream of
+                  tests/data/frames, PNG, GIF, BMP, WebP and the JPEG
+                  variants, in both flavours from the C++ and the plain
+                  loops against its recorded digests, a truncated stream of
+                  each new format refused, decode ms at both sizes); the
                   interleaved stream at the trainer's 4 rows a step
                   (frames/s, host batch ms p50 and p95, the first batch),
                   its statistics against a recount of the written episodes,
@@ -1544,7 +1558,7 @@ def check_ar_agreement(torch, report, control):
                           "steps_above_margin": held}
 
 
-REQUESTS = 3  # requests per sampler in the serve phase
+REQUESTS = 2  # requests per sampler in the serve phases
 
 
 def serve(torch, report):
@@ -2779,7 +2793,7 @@ def diffusion(torch, report):
 
 
 TRAIN_AGREE_RTOL = 2e-3
-TRAIN_STEPS = 5
+TRAIN_STEPS = 3  # steps of each train phase: the first, then two timed
 
 
 def _draws(cfg, rows: int, seed: int):
@@ -3072,7 +3086,7 @@ def phi_serve(torch, report):
          lambda: policy.predict_action_diff_ar(img, pc, INSTRUCTIONS[0], seed=3)),
         ("predict_action_batch B=2 DiT-B", phi_counts(),
          lambda out: out.shape == (2, cfg.action_horizon, A) and np.isfinite(out).all(),
-         lambda: policy.predict_action_batch([reqs[1][0], reqs[2][0]], [reqs[1][1], reqs[2][1]], list(INSTRUCTIONS),
+         lambda: policy.predict_action_batch([r[0] for r in reqs[:2]], [r[1] for r in reqs[:2]], list(INSTRUCTIONS),
                                              action_model_params=dit, action_model_cfg=dit_cfg)),
     ]
     # warm-up (first-call allocations), not counted
@@ -4818,6 +4832,86 @@ def oxe_jpeg_checks(written) -> dict:
             "digests_differing": wrong, "truncated_control": control, "decode_ms_p50": timing, "cpu": host_cpu()}
 
 
+FRAMES_DIR = Path(__file__).resolve().parent / "tests" / "data" / "frames"
+# one golden stream a format or variant new since the JPEG decoder: each is cut in half and must be refused
+FORMAT_DECODE_REPS = 15
+FORMAT_CUTS = ("png16_adam7.png", "gif_offset_transparent.gif", "bmp_top_down.bmp", "webp_simple_filter.webp",
+               "webp_lossless.webp", "jpeg_arith_progressive.jpg", "jpeg_ycck.jpg", "jpeg_lossless.jpg")
+
+
+def oxe_format_checks() -> dict:
+    """The other frame formats on the card's host (vla/rlds/frames.py):
+    every golden stream of tests/data/frames/ decoded in both flavours by
+    the C++ loops and (but for the larger timing frames) the plain ones,
+    each against digests.json (TensorFlow's and Pillow's pixels, recorded
+    where both ran; null where one refuses, and then the port must raise);
+    a truncated stream of each new format refused in both flavours; decode
+    ms a frame (p50 of FORMAT_DECODE_REPS, one thread, TensorFlow's flavour) at
+    256 x 256 and 640 x 480: 16-bit Adam7 PNG, GIF, BMP and arithmetic-coded
+    JPEG from the port's encoders, lossy and lossless WebP from the timing
+    frames (the port writes no WebP)."""
+    import numpy as np
+
+    from mla_tpu_torch.vla.rlds import bmp, frames, gif, jpeg, png
+
+    index = json.loads((FRAMES_DIR / "digests.json").read_text())
+    wrong, checked = [], 0
+    for name, want in index.items():
+        data = (FRAMES_DIR / name).read_bytes()
+        for flavour in ("tf", "pillow"):
+            for plain in ((False,) if want.get("timing") else (False, True)):
+                try:
+                    got = frames.digest(frames.decode(data, flavour, plain=plain))
+                except (ValueError, NotImplementedError):
+                    got = None
+                checked += 1
+                if got != want[flavour]:
+                    wrong.append((name, flavour, "plain" if plain else "C++"))
+    refused = {}
+    for name in FORMAT_CUTS:
+        data = (FRAMES_DIR / name).read_bytes()
+        msgs = []
+        for flavour in ("tf", "pillow"):
+            try:
+                frames.decode(data[:len(data) // 2], flavour)
+                msgs.append(None)
+            except ValueError as e:
+                msgs.append(str(e))
+        refused[name] = msgs
+    timing = {}
+    for label, size in (("256x256", (256, 256)), ("640x480", (480, 640))):
+        img = _camera_frame((93,), size, 3)
+        h, w = size
+        idx = ((img[..., 0] >> 5) << 5 | (img[..., 1] >> 5) << 2 | img[..., 2] >> 6).astype(np.uint8)
+        table = np.stack([(np.arange(256) >> 5) << 5, ((np.arange(256) >> 2) & 7) << 5, (np.arange(256) & 3) << 6], -1)
+        streams = {
+            "png 16-bit adam7": png.encode_samples(img.astype(np.uint16) * 257, 2, 16, interlace=True),
+            "gif": gif.encode([idx], table),
+            "bmp": bmp.encode(img[:, :, ::-1].tobytes(), w, h, 24, top_down=True),
+            "jpeg arithmetic": jpeg.encode(img, OXE_QUALITY, "4:2:0", arithmetic=True),
+            "webp lossy": (FRAMES_DIR / f"webp_lossy_{label}.webp").read_bytes(),
+            "webp lossless": (FRAMES_DIR / f"webp_lossless_{label}.webp").read_bytes(),
+        }
+        for kind, data in streams.items():
+            frames.decode(data)
+            ms = []
+            for _ in range(FORMAT_DECODE_REPS):
+                t = time.perf_counter()
+                frames.decode(data)
+                ms.append((time.perf_counter() - t) * 1e3)
+            timing[f"{label} {kind}"] = float(np.percentile(ms, 50))
+    return {"streams": len(index), "decodes_checked": checked, "digests_differing": wrong,
+            "truncated_refused": refused, "decode_ms_p50": timing, "cpu": host_cpu()}
+
+
+def formats_phase(torch, report):
+    """oxe_format_checks alone (the oxe phase runs them in a whole run)."""
+    rep = report["formats"] = oxe_format_checks()
+    log(f"formats: {rep}")
+    if rep["digests_differing"] or not all(all(m) for m in rep["truncated_refused"].values()):
+        raise AssertionError(f"formats: {rep}")
+
+
 def oxe(torch, report):
     """The Open-X path: the bridge_rt_1 fixture (oxe_fixture: OXE_EPISODES x
     OXE_STEPS steps of bridge_orig and of fractal20220817_data in
@@ -4863,6 +4957,14 @@ def oxe(torch, report):
             f"decode ms a frame (p50, one thread) {j['decode_ms_p50']} ({time.perf_counter() - t:.1f} s)")
         if j["plain_vs_cpp_mismatches"] or j["digests_differing"] or not j["truncated_control"]:
             raise AssertionError(f"oxe jpeg: {j}")
+        t = time.perf_counter()
+        rep["formats"] = fm = oxe_format_checks()
+        log(f"oxe formats (host {fm['cpu']}): {fm['streams']} golden streams, {fm['decodes_checked']} decodes (C++ "
+            f"and plain, both flavours) against their digests, differing {fm['digests_differing'] or 'none'}; "
+            f"truncated streams refused {sorted(k for k, m in fm['truncated_refused'].items() if all(m))}; decode "
+            f"ms a frame (p50, one thread) {fm['decode_ms_p50']} ({time.perf_counter() - t:.1f} s)")
+        if fm["digests_differing"] or not all(all(m) for m in fm["truncated_refused"].values()):
+            raise AssertionError(f"oxe formats: {fm}")
 
         # -- the interleaved stream at the trainer's rows ---------------------
         cfg = get_model_config("mla-2b", use_pointcloud=False, use_contrastive=False)
@@ -5536,6 +5638,65 @@ def dp_phase(torch, report):
     return totals
 
 
+# the qualification entry at mla-small, full width: 1 weight seed, 2
+# scenarios, DDIM-8 and DPM-4 against DDIM-100, W8A8 against bf16
+QUALIFY_TRAIN_STEPS = 10
+QUALIFY_ARGS = ("--model", "mla-small", "--compare_int8", "--weight_seeds", "0", "--scenarios", "2", "--samplers",
+                "ddim8", "dpm4", "--train_steps", str(QUALIFY_TRAIN_STEPS))
+QUALIFY_INT8_RMS = 0.1  # W8A8 against bf16, relative to the chunk's rms (5.2e-3 after 120 steps, PERF.md)
+
+
+def qualify_counts(cfg, steps: int, scenarios: int, samplers) -> dict:
+    """The launches of `python -m mla_tpu_torch.qualify_samplers` with
+    QUALIFY_ARGS: each train step (no remat) the flash forward, dQ and dK/dV
+    once a layer and FPS once a stage; each policy call one prefill (flash
+    a layer) and one front-end pass (FPS a stage): a scenario's DDIM-100,
+    its samplers, the bf16 DDIM-8 base and the W8A8 DDIM-8, whose every
+    decoder linear (4 a layer) runs W8A8 at the prefill and at each of its
+    8 evaluations."""
+    L, stages = cfg.llama.num_layers, cfg.point.num_stages
+    calls = scenarios * (1 + len(samplers) + 2)
+    return {"flash_attention": L * (steps + calls), "flash_attention_bwd_dq": L * steps,
+            "flash_attention_bwd_dkv": L * steps, "furthest_point_sample": stages * (steps + calls),
+            "w8a8_matmul": scenarios * 4 * L * (1 + 8), "int8_matmul": 0}
+
+
+def qualify_phase(torch, report):
+    """The sampler qualification entry on the card
+    (mla_tpu_torch.qualify_samplers.run with QUALIFY_ARGS): its training
+    phase through the production step, then DDIM-8 and DPM-4 against
+    DDIM-100 and W8A8 against bf16 on the same weights and x_T; finite
+    metrics, W8A8 within QUALIFY_INT8_RMS, exact launches (counts set to 0
+    just before the entry, read just after). Returns the launches."""
+    import numpy as np
+
+    from mla_tpu_torch import qualify_samplers as qs
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.ops import cuda
+
+    args = qs.parser().parse_args(list(QUALIFY_ARGS))
+    cfg = get_model_config(args.model, use_contrastive=False)
+    expected = qualify_counts(cfg, args.train_steps, args.scenarios, args.samplers)
+    torch.cuda.synchronize()
+    cuda.launches.clear()
+    t = time.perf_counter()
+    result = qs.run(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    totals = {k: cuda.launches[k] for k in expected}
+    values = [v for m in result["samplers"].values() for v in m.values()] + list(result["int8_vs_bf16"].values())
+    log(f"qualify: {' '.join(QUALIFY_ARGS)} on the card ({gpu_line()}) in {run_s:.1f} s: {json.dumps(result)}; "
+        f"launches {totals}")
+    report["qualify"] = {"args": list(QUALIFY_ARGS), "result": result, "run_s": run_s, "launches": totals,
+                         "expected": expected}
+    if not all(np.isfinite(v) for v in values):
+        raise AssertionError(f"qualify: non-finite metrics {result}")
+    if not result["int8_vs_bf16"]["rel_rms"] < QUALIFY_INT8_RMS:
+        raise AssertionError(f"qualify: W8A8 against bf16 {result['int8_vs_bf16']} (limit {QUALIFY_INT8_RMS})")
+    check_launches(totals, expected, "qualify")
+    return totals
+
+
 AUGMENT_ROOT = Path("build") / "chip_smoke_augment"
 AUGMENT_EPISODES, AUGMENT_STEPS = 2, 24
 AUGMENT_FRAMES = 16
@@ -5613,7 +5774,7 @@ def augment_phase(torch, report):
 # point-cloud library, training over a process group and the train-time
 # frame augmentation, which --only can run alone
 NEW_PHASES = ("mistral-agree", "mistral-serve", "mistral-train-agree", "mistral-train", "int4-agree", "int4-serve",
-              "phi-post-agree", "phi-post-train", "pointlib", "dp-agree", "dp", "augment")
+              "phi-post-agree", "phi-post-train", "pointlib", "dp-agree", "dp", "augment", "qualify", "formats")
 
 
 def main() -> int:
@@ -5666,13 +5827,14 @@ def main() -> int:
         raise
     for name, text in built.items():
         log(f"built {name}.cu\n" + "\n".join("  " + l for l in text.strip().splitlines() if "registers" in l or "spill" in l))
-    from mla_tpu_torch.native import jpeg_host, pointops_host, rlds_host
+    from mla_tpu_torch.native import jpeg_host, pointops_host, rlds_host, webp_host
 
     rlds_host.load()
     jpeg_host.load()
+    webp_host.load()
     pointops_host.load()
-    log(f"built {rlds_host.SRC.name} and {jpeg_host.SRC.name} (the data pipeline's host helpers) and "
-        f"{pointops_host.SRC.name} (the eval entry's), g++")
+    log(f"built {rlds_host.SRC.name}, {jpeg_host.SRC.name} and {webp_host.SRC.name} (the data pipeline's host "
+        f"helpers) and {pointops_host.SRC.name} (the eval entry's), g++")
     w8a8_layout = w8a8_abi((Path(args.parent) / "w8a8.cu").read_text()) if args.parent else None
     int8_layout = int8_mm_abi((Path(args.parent) / "int8_mm.cu").read_text()) if args.parent else None
     libs = {}
@@ -5755,7 +5917,9 @@ def main() -> int:
     phase("dp-agree", dp_agree, torch, report)
     report["dp_launches"] = phase("dp", dp_phase, torch, report)
     phase("augment", augment_phase, torch, report)
+    report["qualify_launches"] = phase("qualify", qualify_phase, torch, report)
     if only is not None:
+        phase("formats", formats_phase, torch, report)
         log(f"total: {time.perf_counter() - t_all:.1f} s (only {sorted(only)}: a partial run prints no result)")
         out_dir = Path("chiprun_out")
         out_dir.mkdir(exist_ok=True)
@@ -5784,6 +5948,7 @@ def main() -> int:
         k.setdefault("path", "serve-host" if k["name"] in host_totals else
                      "ar-serve" if k["name"] == "int8_matmul" else "trainer")
         k["launches"] = by_path[k["path"]][k["name"]]
+    log(f"phase_s: {json.dumps({k: round(v, 1) for k, v in report['phase_s'].items()})}")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

@@ -8,6 +8,7 @@
 // (vla/rlds/jpeg.py); each function here has a plain version beside its
 // wrapper, and the two give the same bytes.
 
+#include <climits>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -149,9 +150,271 @@ struct ScanComp {
   int pred;
 };
 
+
+// The QM-coder of ITU T.81 Annex D as jdarith.c runs it: `c`, `a` and
+// `ct` its registers, the Qe table packed as libjpeg packs it
+// ((Qe << 16) | (next MPS << 8) | (switch << 7) | next LPS). A marker
+// inside the data stops the input, and zeros are fed from there, as the
+// standard allows; reading past the end of the data is a truncation.
+struct Arith {
+  const uint8_t* d;
+  int64_t n, pos;
+  const int32_t* tab;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  bool at_marker = false, past_end = false;
+  int64_t marker = 0;
+  int byte() {
+    if (at_marker) return 0;
+    if (pos >= n) {
+      past_end = true;
+      return 0;
+    }
+    int b = d[pos++];
+    if (b != 0xFF) return b;
+    int64_t p = pos;
+    while (p < n && d[p] == 0xFF) ++p;
+    if (p >= n) {
+      past_end = true;
+      return 0;
+    }
+    if (d[p] == 0) {
+      pos = p + 1;
+      return 0xFF;
+    }
+    at_marker = true;
+    marker = pos - 1;
+    return 0;
+  }
+  void restart(int64_t at) {
+    pos = at, c = 0, a = 0, ct = -16, at_marker = false;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = tab[sv & 0x7F];
+    const int nl = int(qe & 0xFF);
+    qe >>= 8;
+    const int nm = int(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 }  // namespace
 
 extern "C" {
+
+// Entropy-decode one arithmetic-coded scan (jdarith.c), with the arguments
+// of jpeg_decode_scan but for the tables: `cond` holds the conditioning of
+// the DAC segments, [DC L of tables 0..3, DC U of 0..3, AC K of 0..3], and
+// `aritab` the 114 packed Qe entries. A spectral or magnitude overflow
+// stops the scan's decoding as libjpeg does (a warning there). Returns 0,
+// or 1 with a message.
+int jpeg_decode_scan_arith(const uint8_t* data, int64_t n, int64_t start, const int32_t* scan, const int32_t* comps,
+                           int16_t* const* coefs, const int32_t* cond, const int32_t* aritab, int64_t* end, char* err,
+                           int errlen) {
+  Error e{err, errlen};
+  const int ns = scan[0], Ss = scan[1], Se = scan[2], Ah = scan[3], Al = scan[4], interval = scan[5];
+  const int mcus_x = scan[6], mcus_y = scan[7], progressive = scan[8];
+  if (ns < 1 || ns > 4) return e.fail("a scan of no or more than 4 components");
+  ScanComp sc[4];
+  for (int i = 0; i < ns; ++i) {
+    const int32_t* c = comps + 8 * i;
+    sc[i] = ScanComp{c[0], c[1], c[2], c[3], c[4], c[5], c[6], coefs[i], 0};
+  }
+  static thread_local uint8_t dc_stats[4][64], ac_stats[4][256];
+  int dc_context[4] = {0, 0, 0, 0};
+  uint8_t fixed = 113;
+  auto reset = [&]() {
+    for (int i = 0; i < ns; ++i) {
+      if (!progressive || (Ss == 0 && Ah == 0)) memset(dc_stats[sc[i].dc], 0, 64);
+      if (!progressive || Ss) memset(ac_stats[sc[i].ac], 0, 256);
+      sc[i].pred = 0;
+      dc_context[i] = 0;
+    }
+  };
+  reset();
+  Arith ar{data, n, start, aritab};
+  const int64_t total = ns == 1 ? int64_t(sc[0].bw) * sc[0].bh : int64_t(mcus_x) * mcus_y;
+  const int p1 = 1 << Al, m1 = -(1 << Al);
+  bool stopped = false;  // after a spectral or magnitude overflow
+  int rst = 0;
+  auto block_at = [&](const ScanComp& c, int64_t row, int64_t col) { return c.coef + (row * c.stride + col) * 64; };
+  // F.1.4.4.1 / G.1.3.1: a DC difference of component i into b[0]
+  auto dc_diff = [&](int i, int& out) -> bool {
+    ScanComp& c = sc[i];
+    uint8_t* st = dc_stats[c.dc] + dc_context[i];
+    if (ar.decode(st) == 0) {
+      dc_context[i] = 0;
+      out = 0;
+      return true;
+    }
+    const int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m = ar.decode(st);
+    if (m) {
+      st = dc_stats[c.dc] + 20;
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        ++st;
+      }
+    }
+    if (m < int((1L << cond[c.dc]) >> 1)) dc_context[i] = 0;
+    else if (m > int((1L << cond[4 + c.dc]) >> 1)) dc_context[i] = 12 + sign * 4;
+    else dc_context[i] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    out = sign ? -v : v;
+    return true;
+  };
+  // F.1.4.4.2 / G.1.3.2: an AC magnitude at band position k, its st at SP
+  auto ac_value = [&](int tbl, int k, uint8_t* st, int& out) -> bool {
+    const int sign = ar.decode(&fixed);
+    st += 2;
+    int m = ar.decode(st);
+    if (m && ar.decode(st)) {
+      m <<= 1;
+      st = ac_stats[tbl] + (k <= cond[8 + tbl] ? 189 : 217);
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        ++st;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    out = sign ? -v : v;
+    return true;
+  };
+  auto decode_block = [&](int i, int16_t* b) -> bool {
+    ScanComp& c = sc[i];
+    if (!progressive || (Ss == 0 && Ah == 0)) {
+      int diff;
+      if (!dc_diff(i, diff)) return false;
+      c.pred = (c.pred + diff) & 0xFFFF;
+      b[0] = int16_t(progressive ? int16_t(c.pred) * (1 << Al) : int16_t(c.pred));
+      if (progressive) return true;
+    } else if (Ss == 0) {
+      if (ar.decode(&fixed)) b[0] = int16_t(b[0] | p1);
+      return true;
+    }
+    const int lo = progressive ? Ss : 1, hi = progressive ? Se : 63;
+    if (!progressive || Ah == 0) {
+      for (int k = lo; k <= hi; ++k) {
+        uint8_t* st = ac_stats[c.ac] + 3 * (k - 1);
+        if (ar.decode(st)) break;
+        while (ar.decode(st + 1) == 0) {
+          st += 3;
+          if (++k > hi) return false;
+        }
+        int v;
+        if (!ac_value(c.ac, k, st, v)) return false;
+        b[kNatural[k]] = int16_t(progressive ? v * (1 << Al) : v);
+      }
+      return true;
+    }
+    int kex = Se;
+    for (; kex > 0; --kex)
+      if (b[kNatural[kex]]) break;
+    for (int k = Ss; k <= Se; ++k) {
+      uint8_t* st = ac_stats[c.ac] + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;
+      for (;;) {
+        int16_t* coef = b + kNatural[k];
+        if (*coef) {
+          if (ar.decode(st + 2)) *coef = int16_t(*coef < 0 ? *coef + m1 : *coef + p1);
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          *coef = int16_t(ar.decode(&fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > Se) return false;
+      }
+    }
+    return true;
+  };
+  for (int64_t m = 0; m < total; ++m) {
+    if (interval && m && m % interval == 0) {
+      int64_t p = ar.at_marker ? ar.marker : ar.pos;
+      // the marker reader skips anything up to the next marker
+      for (;;) {
+        while (p < n && data[p] != 0xFF) ++p;
+        while (p < n && data[p] == 0xFF) ++p;
+        if (p >= n) return e.fail("the data ends inside a scan (truncated)");
+        if (data[p] != 0) break;
+        ++p;
+      }
+      if (data[p] != 0xD0 + (rst & 7)) return e.fail("a missing or misnumbered restart marker");
+      ++rst;
+      ar.restart(p + 1);
+      reset();
+      stopped = false;
+    }
+    if (!stopped) {
+      bool ok = true;
+      if (ns == 1) {
+        ScanComp& c = sc[0];
+        ok = decode_block(0, block_at(c, m / c.bw, m % c.bw));
+      } else {
+        const int64_t my = m / mcus_x, mx = m % mcus_x;
+        for (int i = 0; i < ns && ok; ++i)
+          for (int y = 0; y < sc[i].v && ok; ++y)
+            for (int x = 0; x < sc[i].h && ok; ++x)
+              ok = decode_block(i, block_at(sc[i], my * sc[i].v + y, mx * sc[i].h + x));
+      }
+      stopped = !ok;
+    }
+    if (ar.past_end) return e.fail("the data ends inside a scan (truncated)");
+  }
+  int64_t p = ar.at_marker ? ar.marker : ar.pos;
+  for (;;) {  // the next marker, past any bytes the decoder left
+    while (p < n && data[p] != 0xFF) ++p;
+    int64_t q = p;
+    while (q < n && data[q] == 0xFF) ++q;
+    if (q >= n) return e.fail("the data ends inside a scan (truncated)");
+    if (data[q] != 0) {
+      *end = p;
+      return 0;
+    }
+    p = q + 1;
+  }
+}
 
 // Entropy-decode one scan. `scan` holds [components in the scan, Ss, Se,
 // Ah, Al, restart interval (MCUs, 0 for none), MCUs across, MCUs down,
@@ -319,6 +582,108 @@ int jpeg_decode_scan(const uint8_t* data, int64_t n, int64_t start, const int32_
   return 0;
 }
 
+// Entropy-decode one scan of a lossless frame (ITU T.81 Annex H, as
+// jdlhuff.c, jddiffct.c and jdlossls.c run it) and undo its prediction:
+// `scan` holds [components, predictor (1..7), 0, 0, point transform,
+// restart interval, MCUs across, MCUs down, sample precision]; `comps` 8
+// ints a component: [h, v, samples a row of its plane, samples across and
+// down that it codes alone, DC table slot, 0, 0]; `planes` a pointer a
+// component to its int32 [rows, stride] samples, written with the values
+// before the point transform is undone. An interleaved MCU is h x v samples
+// of each component; the restart interval must cover whole MCU rows, and
+// the first sample row of the scan and of each restart interval is
+// predicted from 2^(P - Pt - 1) and its left neighbours. Returns 0, or 1
+// with a message.
+int jpeg_decode_scan_lossless(const uint8_t* data, int64_t n, int64_t start, const int32_t* scan, const int32_t* comps,
+                              int32_t* const* planes, const uint8_t* tables, int64_t* end, char* err, int errlen) {
+  Error e{err, errlen};
+  const int ns = scan[0], predictor = scan[1], Pt = scan[4], interval = scan[5];
+  const int mcus_x = scan[6], mcus_y = scan[7], precision = scan[8];
+  if (ns < 1 || ns > 4) return e.fail("a scan of no or more than 4 components");
+  Huffman huff[4];
+  ScanComp sc[4];
+  for (int i = 0; i < ns; ++i) {
+    const int32_t* c = comps + 8 * i;
+    sc[i] = ScanComp{c[0], c[1], c[2], c[3], c[4], c[5], 0, nullptr, 0};
+    if (!huff[i].build(tables + 272 * c[5], tables + 272 * c[5] + 16))
+      return e.fail("a Huffman table whose counts overflow its code space");
+  }
+  const int64_t per_row = ns == 1 ? sc[0].bw : mcus_x;
+  const int64_t rows = ns == 1 ? sc[0].bh : mcus_y;
+  if (interval && interval % per_row) return e.fail("a restart interval that is not a whole number of MCU rows");
+  Bits br{data, n, start};
+  int rst = 0;
+  auto diff = [&](int i) -> int64_t {  // H.1.2.2: a difference, category 16 being 32768
+    const int t = br.decode(huff[i]);
+    if (t < 0 || t > 16) return INT64_MIN;
+    if (t == 16) return 32768;
+    return extend(br.get(t), t);
+  };
+  for (int64_t m = 0; m < rows * per_row; ++m) {
+    if (interval && m && m % interval == 0) {
+      br.fill();
+      if (!br.at_marker || br.bits - br.phantom >= 8) return e.fail("data past the end of a restart interval");
+      int64_t p = br.marker;
+      while (p < n && data[p] == 0xFF) ++p;
+      if (p >= n) return e.fail("the data ends inside a scan (truncated)");
+      if (data[p] != 0xD0 + (rst & 7)) return e.fail("a missing or misnumbered restart marker");
+      ++rst;
+      br.restart(p + 1);
+    }
+    const int64_t my = m / per_row, mx = m % per_row;
+    for (int i = 0; i < ns; ++i) {
+      const int h = ns == 1 ? 1 : sc[i].h, v = ns == 1 ? 1 : sc[i].v;
+      for (int y = 0; y < v; ++y)
+        for (int x = 0; x < h; ++x) {
+          const int64_t d = diff(i);
+          if (d == INT64_MIN) return e.fail("a bad Huffman code in a sample difference");
+          planes[i][(my * v + y) * sc[i].stride + mx * h + x] = int32_t(d);
+        }
+    }
+    if (br.overrun()) return e.fail(br.marker >= n ? "the data ends inside a scan (truncated)"
+                                                   : "a scan's data ends before its last sample");
+  }
+  br.fill();
+  if (!br.at_marker || br.bits - br.phantom >= 8) return e.fail("data past the end of a scan");
+  *end = br.marker;
+  // undo the prediction, row by row (jdlossls.c's undifferencing)
+  const int initial = 1 << (precision - Pt - 1);
+  const int64_t reset = interval ? interval / per_row : rows;  // MCU rows a restart interval
+  for (int i = 0; i < ns; ++i) {
+    const int v = ns == 1 ? 1 : sc[i].v;
+    const int64_t width = ns == 1 ? sc[i].bw : int64_t(mcus_x) * sc[i].h;
+    int32_t* pl = planes[i];
+    for (int64_t r = 0; r < rows * v; ++r) {
+      int32_t* row = pl + r * sc[i].stride;
+      const int32_t* up = row - sc[i].stride;
+      if (r % (reset * v) == 0) {
+        int ra = (row[0] + initial) & 0xFFFF;
+        row[0] = ra;
+        for (int64_t c = 1; c < width; ++c) row[c] = ra = (row[c] + ra) & 0xFFFF;
+        continue;
+      }
+      int rb = up[0];
+      int ra = row[0] = (row[0] + rb) & 0xFFFF;
+      for (int64_t c = 1; c < width; ++c) {
+        const int rc = rb;
+        rb = up[c];
+        int pred;
+        switch (predictor) {
+          case 1: pred = ra; break;
+          case 2: pred = rb; break;
+          case 3: pred = rc; break;
+          case 4: pred = ra + rb - rc; break;
+          case 5: pred = ra + ((rb - rc) >> 1); break;
+          case 6: pred = rb + ((ra - rc) >> 1); break;
+          default: pred = (ra + rb) >> 1; break;
+        }
+        row[c] = ra = (row[c] + pred) & 0xFFFF;
+      }
+    }
+  }
+  return 0;
+}
+
 // Dequantize and inverse-DCT `nblocks` blocks of int16 coefficients
 // (natural order, [rows, cols, 64]) with the quantization table `qt`
 // (natural order) into the uint8 plane [rows * 8, cols * 8]. method 0:
@@ -470,11 +835,14 @@ void jpeg_idct(const int16_t* coef, int rows, int cols, const uint16_t* qt, int 
 // libjpeg-turbo's jdsample.c does with fancy upsampling: the triangle
 // filter across (h2v1, h2v2, only where cw > 2, else the sample repeated)
 // and down (h1v2, h2v2), the edge row or column standing for its missing
-// neighbour.
+// neighbour; any other integral ratio (h4v1, h3v1, h1v4, ...) repeats each
+// sample hf x vf times.
 void jpeg_upsample(const uint8_t* in, int64_t stride, int cw, int ch, int hf, int vf, uint8_t* out, int out_w,
                    int out_h) {
-  const bool fancy_h = hf == 2 && cw > 2;
-  const bool fancy_v = vf == 2 && (hf == 1 || cw > 2);
+  // fancy only for h2v1 and h2v2 (where cw > 2) and h1v2; any other
+  // integral ratio repeats each sample (int_upsample)
+  const bool fancy_h = hf == 2 && vf <= 2 && cw > 2;
+  const bool fancy_v = vf == 2 && (hf == 1 || (hf == 2 && cw > 2));
   for (int r = 0; r < out_h; ++r) {
     uint8_t* o = out + int64_t(r) * out_w;
     const int i = r / vf;

@@ -1,7 +1,8 @@
 // Host loops of the RLDS data pipeline, loaded through ctypes by
 // mla_tpu_torch/native/rlds_host.py. Each is sequential (a CRC's running
-// state, a PNG row's dependence on its left pixel and the row above, a
-// float sum in a fixed tap order) and too slow in Python, or, for the
+// state, a PNG row's dependence on its left pixel and the row above, a GIF
+// code's dependence on the table its predecessors built, a float sum in a
+// fixed tap order) and too slow in Python, or, for the
 // Lanczos kernel's sines, must be the C library's float sin. Built with
 // -ffp-contract=off: the resampling sums must round after every multiply
 // and every add, as TensorFlow's CPU kernel does.
@@ -96,6 +97,68 @@ int rlds_png_unfilter(const uint8_t* raw, int height, int stride, int bpp, uint8
       default:
         return y + 1;
     }
+  }
+  return 0;
+}
+
+// GIF's LZW: `n` bytes of code stream (the data sub-blocks joined), codes
+// of min_code + 1 bits growing to 12, the clear code 1 << min_code and the
+// end code after it, as giflib decodes them. Writes `npix` indices into
+// out and stops there. Returns 0, 1 where the data ends (or an end code
+// comes) before npix pixels, 2 for a code past the table.
+int rlds_gif_lzw(const uint8_t* data, int64_t n, int min_code, uint8_t* out, int64_t npix) {
+  const int clear = 1 << min_code, eoi = clear + 1;
+  static thread_local uint16_t prefix[4096];
+  static thread_local uint8_t suffix[4096], first[4096];
+  static thread_local uint8_t stack[4097];
+  for (int i = 0; i < clear; ++i) prefix[i] = 0xffff, suffix[i] = first[i] = uint8_t(i);
+  int size = min_code + 1, next = clear + 2, prev = -1;
+  uint32_t acc = 0;
+  int bits = 0;
+  int64_t pos = 0, o = 0;
+  while (o < npix) {
+    while (bits < size) {
+      if (pos >= n) return 1;
+      acc |= uint32_t(data[pos++]) << bits;
+      bits += 8;
+    }
+    const int code = int(acc & ((1u << size) - 1));
+    acc >>= size;
+    bits -= size;
+    if (code == clear) {
+      size = min_code + 1, next = clear + 2, prev = -1;
+      continue;
+    }
+    if (code == eoi) return 1;
+    if (prev < 0) {
+      if (code >= clear) return 2;
+      out[o++] = uint8_t(code);
+      prev = code;
+      continue;
+    }
+    int c = code, sp = 0;
+    uint8_t head;
+    if (code < next) {
+      head = first[code];
+    } else if (code == next && next < 4096) {
+      head = first[prev];
+      stack[sp++] = head;  // KwKwK: the previous string and its own first byte
+      c = prev;
+    } else {
+      return 2;
+    }
+    while (c >= clear) {
+      stack[sp++] = suffix[c];
+      c = prefix[c];
+    }
+    stack[sp++] = uint8_t(c);
+    while (sp && o < npix) out[o++] = stack[--sp];
+    if (next < 4096) {
+      prefix[next] = uint16_t(prev), suffix[next] = head, first[next] = first[prev];
+      ++next;
+      if (next == (1 << size) && size < 12) ++size;
+    }
+    prev = code;
   }
   return 0;
 }

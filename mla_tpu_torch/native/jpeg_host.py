@@ -1,7 +1,9 @@
 """ctypes wrapper of the JPEG decoder's host loops, with their plain versions.
 
 `csrc/jpeg_host.cpp` holds the loops of `vla/rlds/jpeg.py` that are too
-slow in Python: the entropy decoding of a scan, the two inverse DCTs, the
+slow in Python: the entropy decoding of a scan (Huffman, and arithmetic
+by the QM-coder of ITU T.81 Annex D; a lossless scan's differences and
+their prediction undone), the two inverse DCTs, the
 fancy upsampling and the YCbCr -> RGB conversion. It is built at first use
 (`native/build.py`); a failed build raises. Each function has a plain
 version here (Python and numpy, the same arithmetic), and `NATIVE` and
@@ -37,6 +39,10 @@ def load() -> ctypes.CDLL:
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.jpeg_decode_scan.argtypes = [p, i64, i64, p, p, p, p, p, ctypes.c_char_p, i]
             lib.jpeg_decode_scan.restype = i
+            lib.jpeg_decode_scan_arith.argtypes = [p, i64, i64, p, p, p, p, p, p, ctypes.c_char_p, i]
+            lib.jpeg_decode_scan_arith.restype = i
+            lib.jpeg_decode_scan_lossless.argtypes = [p, i64, i64, p, p, p, p, p, ctypes.c_char_p, i]
+            lib.jpeg_decode_scan_lossless.restype = i
             lib.jpeg_idct.argtypes, lib.jpeg_idct.restype = [p, i, i, p, i, p], None
             lib.jpeg_upsample.argtypes, lib.jpeg_upsample.restype = [p, i64, i, i, i, i, p, i, i], None
             lib.jpeg_ycc_to_rgb.argtypes, lib.jpeg_ycc_to_rgb.restype = [p, p, p, i64, p], None
@@ -335,6 +341,413 @@ def decode_scan_plain(data, start: int, scan, comps, coefs: Sequence[np.ndarray]
 
 
 # --------------------------------------------------------------------------- #
+# arithmetic decoding of one scan
+# --------------------------------------------------------------------------- #
+
+# ITU T.81 table D.2 as libjpeg packs it: (Qe << 16) | (next MPS << 8) |
+# (switch MPS << 7) | next LPS; entry 113 is the fixed, non-adapting one
+ARITAB = np.array([
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x80b0412, 0x3d80514, 0x1da0617, 0xe50719, 0x6f081c, 0x36091e, 0x1a0a21,
+    0xd0b23, 0x60c09, 0x30d0a, 0x10d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a,
+    0xcef152b, 0x9a1162d, 0x72f172e, 0x55c1830, 0x4061931, 0x3031a33, 0x2401b34, 0x1b11c36, 0x1441d38, 0xf51e39,
+    0xb71f3b, 0x8a203c, 0x68213e, 0x4e223f, 0x3b2320, 0x2c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843,
+    0x261f2944, 0x1f332a45, 0x19a82b46, 0x15182c48, 0x11772d49, 0xe742e4a, 0xbfb2f4b, 0x9f8304d, 0x861314e,
+    0x706324f, 0x5cd3330, 0x4de3432, 0x40f3532, 0x3633633, 0x2d43734, 0x25c3835, 0x1f83936, 0x1a43a37, 0x1603b38,
+    0x1253c39, 0xf63d3a, 0xcb3e3b, 0xab3f3d, 0x8f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553,
+    0x293c4654, 0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0xf6b4d4a, 0xd514e4b,
+    0xbb64f4d, 0xa40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a, 0x34ee555b, 0x2eae565c, 0x299a575d,
+    0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171], np.int32)
+
+
+def _check_cond(cond) -> np.ndarray:
+    cond = np.ascontiguousarray(cond, np.int32)
+    if cond.shape != (12,):
+        raise ValueError(f"conditioning {cond.shape}, expected [DC L x 4, DC U x 4, AC K x 4]")
+    return cond
+
+
+def decode_scan_arith(data, start: int, scan, comps, coefs: Sequence[np.ndarray], cond) -> int:
+    """Entropy-decode an arithmetic-coded scan (jdarith.c), as
+    decode_scan does a Huffman one; comps' table slots are the DC and AC
+    conditioning tables (0..3), `cond` their DAC values [DC L of tables
+    0..3, DC U of 0..3, AC K of 0..3]. Returns where the next marker
+    starts; a truncated scan raises ValueError."""
+    buf, scan, comps, _ = _check_scan(data, scan, comps, coefs, np.zeros((8, 272), np.uint8))
+    cond = _check_cond(cond)
+    ptrs = (ctypes.c_void_p * len(coefs))(*[_ptr(c) for c in coefs])
+    end = ctypes.c_int64(0)
+    err = ctypes.create_string_buffer(256)
+    if load().jpeg_decode_scan_arith(_ptr(buf), buf.size, start, _ptr(scan), _ptr(comps), ptrs, _ptr(cond),
+                                     _ptr(ARITAB), ctypes.byref(end), err, len(err)):
+        raise ValueError(f"corrupt JPEG data: {err.value.decode()}")
+    return int(end.value)
+
+
+class _PlainArith:
+    """The plain version of the QM-coder's decoder."""
+
+    def __init__(self, d: bytes, pos: int) -> None:
+        self.d, self.n = d, len(d)
+        self.restart(pos)
+        self.past_end = False
+
+    def restart(self, pos: int) -> None:
+        self.pos, self.c, self.a, self.ct, self.at_marker, self.marker = pos, 0, 0, -16, False, 0
+
+    def byte(self) -> int:
+        if self.at_marker:
+            return 0
+        d, n = self.d, self.n
+        if self.pos >= n:
+            self.past_end = True
+            return 0
+        b = d[self.pos]
+        self.pos += 1
+        if b != 0xFF:
+            return b
+        p = self.pos
+        while p < n and d[p] == 0xFF:
+            p += 1
+        if p >= n:
+            self.past_end = True
+            return 0
+        if d[p] == 0:
+            self.pos = p + 1
+            return 0xFF
+        self.at_marker, self.marker = True, self.pos - 1
+        return 0
+
+    def decode(self, stats: List[int], i: int) -> int:
+        while self.a < 0x8000:
+            self.ct -= 1
+            if self.ct < 0:
+                self.c = (self.c << 8) | self.byte()
+                self.ct += 8
+                if self.ct < 0:
+                    self.ct += 1
+                    if self.ct == 0:
+                        self.a = 0x8000
+            self.a <<= 1
+        sv = stats[i]
+        qe = int(ARITAB[sv & 0x7F])
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        self.a -= qe
+        temp = self.a << self.ct
+        if self.c >= temp:
+            self.c -= temp
+            if self.a < qe:
+                self.a, stats[i] = qe, (sv & 0x80) ^ nm
+            else:
+                self.a, stats[i] = qe, (sv & 0x80) ^ nl
+                sv ^= 0x80
+        elif self.a < 0x8000:
+            if self.a < qe:
+                stats[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                stats[i] = (sv & 0x80) ^ nm
+        return sv >> 7
+
+
+def _next_marker(d: bytes, p: int) -> int:
+    """Where the next marker starts at or after p, any other bytes skipped
+    as libjpeg's marker reader skips them; -1 where the data ends first."""
+    n = len(d)
+    while True:
+        while p < n and d[p] != 0xFF:
+            p += 1
+        q = p
+        while q < n and d[q] == 0xFF:
+            q += 1
+        if q >= n:
+            return -1
+        if d[q] != 0:
+            return p
+        p = q + 1
+
+
+def decode_scan_arith_plain(data, start: int, scan, comps, coefs: Sequence[np.ndarray], cond) -> int:
+    """The plain version of `decode_scan_arith`, in Python."""
+    _, scan, comps, _ = _check_scan(data, scan, comps, coefs, np.zeros((8, 272), np.uint8))
+    cond = [int(x) for x in _check_cond(cond)]
+    ns, Ss, Se, Ah, Al, interval, mcus_x, mcus_y, progressive = (int(x) for x in scan)
+    d = bytes(data)
+    sc = [dict(h=int(c[0]), v=int(c[1]), bw=int(c[3]), bh=int(c[4]), dc=int(c[5]), ac=int(c[6]),
+               coef=a.reshape(-1, 64), stride=int(c[2]), pred=0, ctx=0) for c, a in zip(comps, coefs)]
+    dc_stats = {c["dc"]: [0] * 64 for c in sc}
+    ac_stats = {c["ac"]: [0] * 256 for c in sc}
+    fixed = [113]
+    ar = _PlainArith(d, start)
+    p1, m1 = 1 << Al, -(1 << Al)
+
+    def reset():
+        for c in sc:
+            if not progressive or (Ss == 0 and Ah == 0):
+                dc_stats[c["dc"]][:] = [0] * 64
+            if not progressive or Ss:
+                ac_stats[c["ac"]][:] = [0] * 256
+            c["pred"] = c["ctx"] = 0
+
+    class Overflow(Exception):
+        pass
+
+    def dc_diff(c) -> int:
+        st, i = dc_stats[c["dc"]], c["ctx"]
+        if ar.decode(st, i) == 0:
+            c["ctx"] = 0
+            return 0
+        sign = ar.decode(st, i + 1)
+        i += 2 + sign
+        m = ar.decode(st, i)
+        if m:
+            i = 20
+            while ar.decode(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    raise Overflow
+                i += 1
+        if m < (1 << cond[c["dc"]]) >> 1:
+            c["ctx"] = 0
+        elif m > (1 << cond[4 + c["dc"]]) >> 1:
+            c["ctx"] = 12 + sign * 4
+        else:
+            c["ctx"] = 4 + sign * 4
+        v = m
+        i += 14
+        while m > 1:
+            m >>= 1
+            if ar.decode(st, i):
+                v |= m
+        return -(v + 1) if sign else v + 1
+
+    def ac_value(tbl: int, k: int, i: int) -> int:
+        st = ac_stats[tbl]
+        sign = ar.decode(fixed, 0)
+        i += 2
+        m = ar.decode(st, i)
+        if m and ar.decode(st, i):
+            m <<= 1
+            i = 189 if k <= cond[8 + tbl] else 217
+            while ar.decode(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    raise Overflow
+                i += 1
+        v = m
+        i += 14
+        while m > 1:
+            m >>= 1
+            if ar.decode(st, i):
+                v |= m
+        return -(v + 1) if sign else v + 1
+
+    def block(c, b):
+        if not progressive or (Ss == 0 and Ah == 0):
+            c["pred"] = (c["pred"] + dc_diff(c)) & 0xFFFF
+            b[0] = _i16(_i16(c["pred"]) * (1 << Al)) if progressive else _i16(c["pred"])
+            if progressive:
+                return
+        elif Ss == 0:
+            if ar.decode(fixed, 0):
+                b[0] = int(b[0]) | p1
+            return
+        st = ac_stats[c["ac"]]
+        lo, hi = (Ss, Se) if progressive else (1, 63)
+        if not progressive or Ah == 0:
+            k = lo
+            while k <= hi:
+                i = 3 * (k - 1)
+                if ar.decode(st, i):
+                    break
+                while ar.decode(st, i + 1) == 0:
+                    i += 3
+                    k += 1
+                    if k > hi:
+                        raise Overflow
+                v = ac_value(c["ac"], k, i)
+                b[NATURAL[k]] = _i16(v * (1 << Al)) if progressive else v
+                k += 1
+            return
+        kex = Se
+        while kex > 0 and not b[NATURAL[kex]]:
+            kex -= 1
+        k = Ss
+        while k <= Se:
+            i = 3 * (k - 1)
+            if k > kex and ar.decode(st, i):
+                break
+            while True:
+                pos = NATURAL[k]
+                if b[pos]:
+                    if ar.decode(st, i + 2):
+                        b[pos] = int(b[pos]) + (m1 if b[pos] < 0 else p1)
+                    break
+                if ar.decode(st, i + 1):
+                    b[pos] = m1 if ar.decode(fixed, 0) else p1
+                    break
+                i += 3
+                k += 1
+                if k > Se:
+                    raise Overflow
+            k += 1
+
+    reset()
+    total = sc[0]["bw"] * sc[0]["bh"] if ns == 1 else mcus_x * mcus_y
+    rst, stopped = 0, False
+    for m in range(total):
+        if interval and m and m % interval == 0:
+            p = _next_marker(d, ar.marker if ar.at_marker else ar.pos)
+            if p < 0:
+                raise ValueError("corrupt JPEG data: the data ends inside a scan (truncated)")
+            while d[p] == 0xFF:
+                p += 1
+            if d[p] != 0xD0 + (rst & 7):
+                raise ValueError("corrupt JPEG data: a missing or misnumbered restart marker")
+            rst += 1
+            ar.restart(p + 1)
+            reset()
+            stopped = False
+        if not stopped:
+            try:
+                if ns == 1:
+                    c = sc[0]
+                    block(c, c["coef"][(m // c["bw"]) * c["stride"] + m % c["bw"]])
+                else:
+                    my, mx = divmod(m, mcus_x)
+                    for c in sc:
+                        for y in range(c["v"]):
+                            for x in range(c["h"]):
+                                block(c, c["coef"][(my * c["v"] + y) * c["stride"] + mx * c["h"] + x])
+            except Overflow:  # libjpeg warns and decodes nothing more until the next restart
+                stopped = True
+        if ar.past_end:
+            raise ValueError("corrupt JPEG data: the data ends inside a scan (truncated)")
+    p = _next_marker(d, ar.marker if ar.at_marker else ar.pos)
+    if p < 0:
+        raise ValueError("corrupt JPEG data: the data ends inside a scan (truncated)")
+    return p
+
+
+# --------------------------------------------------------------------------- #
+# lossless frames: differences and their prediction undone
+# --------------------------------------------------------------------------- #
+
+
+def _check_lossless(data, scan, comps, planes, tables):
+    buf = np.frombuffer(data, np.uint8)
+    scan = np.ascontiguousarray(scan, np.int32)
+    comps = np.ascontiguousarray(comps, np.int32)
+    tables = np.ascontiguousarray(tables, np.uint8)
+    ns = int(scan[0]) if scan.shape == (9,) else -1
+    if ns < 1 or comps.shape != (ns, 8) or tables.shape != (8, 272) or len(planes) != ns:
+        raise ValueError(f"scan {scan.shape}, components {comps.shape}, tables {tables.shape}, {len(planes)} planes")
+    if not (1 <= scan[1] <= 7 and 0 <= scan[4] < scan[8] <= 16):
+        raise ValueError(f"predictor {scan[1]}, point transform {scan[4]}, precision {scan[8]}")
+    for (h, v, stride, bw, bh, dc, _, _), pl in zip(comps, planes):
+        rows = scan[7] * v if ns > 1 else bh
+        cols = scan[6] * h if ns > 1 else bw
+        if pl.dtype != np.int32 or not pl.flags.c_contiguous or pl.ndim != 2 or pl.shape[1] != stride:
+            raise ValueError(f"plane {pl.dtype} {pl.shape}, expected int32 [rows, {stride}]")
+        if pl.shape[0] < rows or stride < cols or not 0 <= dc < 4:
+            raise ValueError(f"plane {pl.shape} for {rows} x {cols} samples, table {dc}")
+    return buf, scan, comps, tables
+
+
+def decode_scan_lossless(data, start: int, scan, comps, planes: Sequence[np.ndarray], tables) -> int:
+    """Entropy-decode a lossless scan and undo its prediction into
+    `planes` (int32 [rows, stride] a component, the samples before the
+    point transform is undone). scan: [components, predictor, 0, 0, point
+    transform, restart interval, MCUs across, MCUs down, precision]; comps
+    [n, 8]: [h, v, stride, samples across and down coded alone, DC table,
+    0, 0]. Returns where the next marker starts; a corrupt or truncated
+    scan raises ValueError."""
+    buf, scan, comps, tables = _check_lossless(data, scan, comps, planes, tables)
+    ptrs = (ctypes.c_void_p * len(planes))(*[_ptr(p) for p in planes])
+    end = ctypes.c_int64(0)
+    err = ctypes.create_string_buffer(256)
+    if load().jpeg_decode_scan_lossless(_ptr(buf), buf.size, start, _ptr(scan), _ptr(comps), ptrs, _ptr(tables),
+                                        ctypes.byref(end), err, len(err)):
+        raise ValueError(f"corrupt JPEG data: {err.value.decode()}")
+    return int(end.value)
+
+
+def decode_scan_lossless_plain(data, start: int, scan, comps, planes: Sequence[np.ndarray], tables) -> int:
+    """The plain version of `decode_scan_lossless`, in Python."""
+    _, scan, comps, tables = _check_lossless(data, scan, comps, planes, tables)
+    ns, predictor, _, _, pt, interval, mcus_x, mcus_y, precision = (int(x) for x in scan)
+    d = bytes(data)
+    looks = [_lookup16(tables[int(c[5])].tobytes()) for c in comps]
+    one = ns == 1
+    per_row, rows = (int(comps[0][3]), int(comps[0][4])) if one else (mcus_x, mcus_y)
+    if interval and interval % per_row:
+        raise ValueError("corrupt JPEG data: a restart interval that is not a whole number of MCU rows")
+    br = _PlainBits(d, start)
+
+    def fail(msg):
+        raise ValueError(f"corrupt JPEG data: {msg}")
+
+    def ends_cleanly():
+        br.fill()
+        return br.at_marker and br.bits - br.phantom < 8
+
+    rst = 0
+    for m in range(rows * per_row):
+        if interval and m and m % interval == 0:
+            if not ends_cleanly():
+                fail("data past the end of a restart interval")
+            p = br.marker
+            while p < len(d) and d[p] == 0xFF:
+                p += 1
+            if p >= len(d):
+                fail("the data ends inside a scan (truncated)")
+            if d[p] != 0xD0 + (rst & 7):
+                fail("a missing or misnumbered restart marker")
+            rst += 1
+            br.restart(p + 1)
+        my, mx = divmod(m, per_row)
+        for i, c in enumerate(comps):
+            h, v = (1, 1) if one else (int(c[0]), int(c[1]))
+            for y in range(v):
+                for x in range(h):
+                    t = br.decode(looks[i])
+                    if t < 0 or t > 16:
+                        fail("a bad Huffman code in a sample difference")
+                    planes[i][my * v + y, mx * h + x] = 32768 if t == 16 else _extend(br.get(t), t)
+        if br.bits < br.phantom:
+            fail("the data ends inside a scan (truncated)" if br.marker >= len(d)
+                 else "a scan's data ends before its last sample")
+    if not ends_cleanly():
+        fail("data past the end of a scan")
+    initial = 1 << (precision - pt - 1)
+    reset = interval // per_row if interval else rows
+    for i, c in enumerate(comps):
+        v = 1 if one else int(c[1])
+        width = int(c[3]) if one else mcus_x * int(c[0])
+        pl = planes[i]
+        for r in range(rows * v):
+            row = pl[r]
+            if r % (reset * v) == 0:
+                ra = initial
+                for x in range(width):
+                    ra = (int(row[x]) + ra) & 0xFFFF
+                    row[x] = ra
+                continue
+            up = pl[r - 1]
+            rb = int(up[0])
+            ra = (int(row[0]) + rb) & 0xFFFF
+            row[0] = ra
+            for x in range(1, width):
+                rc, rb = rb, int(up[x])
+                pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                        7: (ra + rb) >> 1}[predictor]
+                ra = (int(row[x]) + pred) & 0xFFFF
+                row[x] = ra
+    return br.marker
+
+
+# --------------------------------------------------------------------------- #
 # inverse DCT
 # --------------------------------------------------------------------------- #
 
@@ -427,7 +840,7 @@ def idct_plain(coef: np.ndarray, qt, method: int) -> np.ndarray:
 
 def _check_plane(plane: np.ndarray, cw: int, ch: int, hf: int, vf: int, out_w: int, out_h: int) -> np.ndarray:
     plane = np.ascontiguousarray(plane, np.uint8)
-    if (hf, vf) not in ((1, 1), (2, 1), (1, 2), (2, 2)):
+    if not (1 <= hf <= 4 and 1 <= vf <= 4):
         raise ValueError(f"upsampling by {hf} x {vf}")
     if plane.ndim != 2 or plane.shape[0] < ch or plane.shape[1] < cw or cw < 1 or ch < 1:
         raise ValueError(f"plane {plane.shape} for {cw} x {ch} samples")
@@ -438,7 +851,9 @@ def _check_plane(plane: np.ndarray, cw: int, ch: int, hf: int, vf: int, out_w: i
 
 def upsample(plane: np.ndarray, cw: int, ch: int, hf: int, vf: int, out_w: int, out_h: int) -> np.ndarray:
     """A component plane whose real samples are cw x ch -> uint8 [out_h,
-    out_w], upsampled by hf x vf as libjpeg-turbo's fancy upsampling does."""
+    out_w], upsampled by hf x vf as libjpeg-turbo's fancy upsampling does
+    (the triangle filter for h2v1, h2v2 and h1v2, each sample repeated for
+    any other ratio)."""
     plane = _check_plane(plane, cw, ch, hf, vf, out_w, out_h)
     out = np.empty((out_h, out_w), np.uint8)
     load().jpeg_upsample(_ptr(plane), plane.shape[1], cw, ch, hf, vf, _ptr(out), out_w, out_h)
@@ -448,8 +863,8 @@ def upsample(plane: np.ndarray, cw: int, ch: int, hf: int, vf: int, out_w: int, 
 def upsample_plain(plane: np.ndarray, cw: int, ch: int, hf: int, vf: int, out_w: int, out_h: int) -> np.ndarray:
     """The plain version of `upsample`, in numpy."""
     p = _check_plane(plane, cw, ch, hf, vf, out_w, out_h)[:ch, :cw].astype(np.int32)
-    fancy_h = hf == 2 and cw > 2
-    fancy_v = vf == 2 and (hf == 1 or cw > 2)
+    fancy_h = hf == 2 and vf <= 2 and cw > 2
+    fancy_v = vf == 2 and (hf == 1 or (hf == 2 and cw > 2))
     r = np.arange(out_h)
     rows = p[np.minimum(r // vf, ch - 1)]
     if fancy_v:
@@ -495,6 +910,8 @@ def ycc_to_rgb_plain(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarra
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
-NATIVE = SimpleNamespace(decode_scan=decode_scan, idct=idct, upsample=upsample, ycc_to_rgb=ycc_to_rgb)
-PLAIN = SimpleNamespace(decode_scan=decode_scan_plain, idct=idct_plain, upsample=upsample_plain,
+NATIVE = SimpleNamespace(decode_scan=decode_scan, decode_scan_arith=decode_scan_arith,
+                         decode_scan_lossless=decode_scan_lossless, idct=idct, upsample=upsample, ycc_to_rgb=ycc_to_rgb)
+PLAIN = SimpleNamespace(decode_scan=decode_scan_plain, decode_scan_arith=decode_scan_arith_plain,
+                        decode_scan_lossless=decode_scan_lossless_plain, idct=idct_plain, upsample=upsample_plain,
                         ycc_to_rgb=ycc_to_rgb_plain)

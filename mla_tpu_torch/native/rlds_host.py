@@ -2,7 +2,7 @@
 
 `csrc/rlds_host.cpp` holds the loops that are sequential and too slow in
 Python: TFRecord's masked CRC-32C, PNG un-filtering (the five filter
-types; Paeth depends on the left pixel and the row above) and the two
+types; Paeth depends on the left pixel and the row above), GIF's LZW and the two
 passes of TensorFlow's ScaleAndTranslate resampling, each a float32 sum in
 its tap order; and the C library's float sine, which TensorFlow's Lanczos
 kernel calls (numpy's float32 sine differs from it in the last bit). It is
@@ -36,6 +36,7 @@ def load() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.rlds_masked_crc32c.argtypes, lib.rlds_masked_crc32c.restype = [p, ctypes.c_size_t], ctypes.c_uint32
             lib.rlds_png_unfilter.argtypes, lib.rlds_png_unfilter.restype = [p, i, i, i, p], i
+            lib.rlds_gif_lzw.argtypes, lib.rlds_gif_lzw.restype = [p, ctypes.c_int64, i, p, ctypes.c_int64], i
             lib.rlds_sinf.argtypes, lib.rlds_sinf.restype = [p, ctypes.c_size_t, p], None
             lib.rlds_resample_rows.argtypes, lib.rlds_resample_rows.restype = [p, i, i, p, p, i, i, p], None
             lib.rlds_resample_cols.argtypes, lib.rlds_resample_cols.restype = [p, i, i, i, p, p, i, i, p], None
@@ -131,6 +132,74 @@ def png_unfilter_plain(raw, height: int, stride: int, bpp: int) -> np.ndarray:
                 raise ValueError(f"PNG row {y} has an unknown filter type {ftype}")
             row[i] = (src[i] + pred) & 0xFF
     return out.astype(np.uint8)
+
+
+# --------------------------------------------------------------------------- #
+# GIF's LZW
+# --------------------------------------------------------------------------- #
+
+_LZW_ERRORS = {1: "the GIF image data ends before its last pixel", 2: "a GIF LZW code past its table"}
+
+
+def _check_lzw(min_code: int, npix: int) -> None:
+    if not 2 <= min_code <= 11 or npix < 0:
+        raise ValueError(f"GIF LZW minimum code size {min_code} (2..11), {npix} pixels")
+
+
+def gif_lzw(data, min_code: int, npix: int) -> np.ndarray:
+    """GIF image data (its sub-blocks joined) -> the first `npix` colour
+    indices, uint8; corrupt or short data raises ValueError."""
+    _check_lzw(min_code, npix)
+    buf = np.frombuffer(bytes(data), np.uint8)
+    out = np.empty(npix, np.uint8)
+    err = load().rlds_gif_lzw(_ptr(buf) if buf.size else None, buf.size, min_code, _ptr(out), npix)
+    if err:
+        raise ValueError(_LZW_ERRORS[err])
+    return out
+
+
+def gif_lzw_plain(data, min_code: int, npix: int) -> np.ndarray:
+    """The plain version: the code table as a list of byte strings."""
+    _check_lzw(min_code, npix)
+    data = bytes(data)
+    clear, eoi = 1 << min_code, (1 << min_code) + 1
+    table = [bytes([i]) for i in range(clear)] + [b"", b""]
+    size, prev, out = min_code + 1, None, bytearray()
+    acc = bits = pos = 0
+    while len(out) < npix:
+        while bits < size:
+            if pos >= len(data):
+                raise ValueError(_LZW_ERRORS[1])
+            acc |= data[pos] << bits
+            pos += 1
+            bits += 8
+        code = acc & ((1 << size) - 1)
+        acc >>= size
+        bits -= size
+        if code == clear:
+            table, size, prev = table[:clear + 2], min_code + 1, None
+            continue
+        if code == eoi:
+            raise ValueError(_LZW_ERRORS[1])
+        if prev is None:
+            if code >= clear:
+                raise ValueError(_LZW_ERRORS[2])
+            out += table[code]
+            prev = table[code]
+            continue
+        if code < len(table):
+            cur = table[code]
+        elif code == len(table) and len(table) < 4096:
+            cur = prev + prev[:1]
+        else:
+            raise ValueError(_LZW_ERRORS[2])
+        out += cur
+        if len(table) < 4096:
+            table.append(prev + cur[:1])
+            if len(table) == 1 << size and size < 12:
+                size += 1
+        prev = cur
+    return np.frombuffer(bytes(out[:npix]), np.uint8).copy()
 
 
 # --------------------------------------------------------------------------- #

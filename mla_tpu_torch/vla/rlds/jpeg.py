@@ -6,26 +6,39 @@ runs libjpeg-turbo's fast integer inverse DCT (JDCT_IFAST, jidctfst.c),
 and the VLM stage calls Pillow's `convert("RGB")`, which runs its accurate
 one (JDCT_ISLOW, jidctint.c). `decode(data, dct="ifast" | "islow")` gives
 each one's pixels bit for bit: the markers are read here, the scans are
-entropy-decoded, inverse-transformed, upsampled ("fancy", the triangle
-filter of jdsample.c) and converted to RGB (jdcolor.c's fixed-point
-tables) through the host helper (`native/jpeg_host.py`). Grey is repeated
-into three channels. It decodes baseline and progressive Huffman streams,
-restart intervals, 1 and 3 components, and the samplings 4:4:4, 4:2:2
-(h2v1), 4:2:0 (h2v2) and 4:4:0 (h1v2) at any width and height. Arithmetic
-coding, 12-bit samples, lossless and hierarchical streams, CMYK and YCCK,
-and other samplings raise NotImplementedError; a corrupt or truncated
-stream raises ValueError. A cut into the scan data is refused by
-TensorFlow (try_recover_truncated false) and Pillow too. So is a stream cut
-only in its EOI marker: libjpeg under TensorFlow and Pillow reads past the
-scan's last byte as it fills its bit buffer and fails there too, unless
-that read-ahead happened to stop short of the end (one stream of the 36
-that tests/test_torch_jpeg.py cuts so), which the port does not copy.
+entropy-decoded (Huffman, or arithmetic by the QM-coder with the DAC
+conditioning), inverse-transformed, upsampled ("fancy", the triangle filter
+of jdsample.c, for h2v1, h2v2 and h1v2; each sample repeated for any other
+integral ratio, as 4:1:1 or 3 x 1) and converted to RGB (jdcolor.c's
+fixed-point tables) through the host helper (`native/jpeg_host.py`). Grey
+is repeated into three channels. It decodes baseline, extended and
+progressive frames, Huffman or arithmetic-coded, with restart intervals, 1,
+3 and 4 components (CMYK, or YCCK by the Adobe transform flag, converted to
+RGB as TensorFlow's jpeg_mem.cc and Pillow each convert them) at any width
+and height. Lossless frames (SOF3, 8-bit), which Pillow's libjpeg-turbo 3.1
+reads, decode with dct="islow": every predictor, point transforms,
+restarts, interleaved or one scan a component, upsampled by repeating
+samples, RGB (a JFIF or YCbCr-flagged one is refused, as libjpeg-turbo
+converts no colour in lossless mode); TensorFlow's libjpeg-turbo 2.1
+refuses them, so with dct="ifast" they raise ValueError. What both refuse
+raises ValueError: 12-bit samples, hierarchical frames, a fractional
+sampling ratio, a DNL height. A corrupt or truncated stream raises
+ValueError. A cut into the
+scan data is refused by TensorFlow (try_recover_truncated false) and
+Pillow too. So is a stream cut only in its EOI marker: libjpeg under
+TensorFlow and Pillow reads past the scan's last byte as it fills its bit
+buffer and fails there too, unless that read-ahead happened to stop short
+of the end (one stream of the 36 that tests/test_torch_jpeg.py cuts so),
+which the port does not copy.
 
-`encode` is the fixture writer, the counterpart of `tf.io.encode_jpeg`:
-ITU T.81 Annex K's tables scaled by the IJG quality, 4:2:0 or 4:4:4,
-baseline or progressive (spectral selection, the DC by successive
-approximation), with or without restart intervals. Its bytes are not
-TensorFlow's; TensorFlow and Pillow decode them.
+`encode` (and `encode_lossless` for SOF3 frames) is the fixture writer,
+the counterpart of `tf.io.encode_jpeg`:
+ITU T.81 Annex K's tables scaled by the IJG quality, any integral sampling,
+grey, YCbCr, CMYK or YCCK, baseline or progressive (spectral selection, the
+DC by successive approximation, and with arithmetic coding the first AC
+band too), Huffman or arithmetic-coded (jcarith.c's coder), with or
+without restart intervals. Its bytes are not TensorFlow's; TensorFlow and
+Pillow decode them.
 """
 
 from __future__ import annotations
@@ -41,14 +54,20 @@ from mla_tpu_torch.native import jpeg_host
 SIGNATURE = b"\xff\xd8\xff"
 ROADMAP_JPEG = "ROADMAP.md queue 1, item 2 (frame formats: JPEG variants)"
 _DCT = {"ifast": jpeg_host.IFAST, "islow": jpeg_host.ISLOW}
-_SOF_SUPPORTED = {0xC0: False, 0xC1: False, 0xC2: True}  # marker -> progressive
-_SOF_OTHER = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical", 0xC7: "hierarchical",
-              0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded", 0xCB: "arithmetic-coded",
-              0xCD: "arithmetic-coded", 0xCE: "arithmetic-coded", 0xCF: "arithmetic-coded"}
+# marker -> (progressive, arithmetic-coded)
+_SOF_SUPPORTED = {0xC0: (False, False), 0xC1: (False, False), 0xC2: (True, False), 0xC9: (False, True),
+                  0xCA: (True, True)}
+_SOF_LOSSLESS = (0xC3, 0xCB)
+_SOF_HIERARCHICAL = (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF)
 
 
 def _corrupt(msg: str) -> ValueError:
     return ValueError(f"corrupt JPEG data: {msg}")
+
+
+def _refused(msg: str) -> ValueError:
+    """What libjpeg-turbo refuses under TensorFlow and Pillow both."""
+    return ValueError(f"{msg} is refused by libjpeg-turbo, as by TensorFlow's and Pillow's decoders")
 
 
 def _unsupported(msg: str) -> NotImplementedError:
@@ -64,12 +83,15 @@ class _Component:
     width: int = 0   # its samples across and down (the downsampled size)
     height: int = 0
     coef: Optional[np.ndarray] = None  # int16 [rows, cols, 64]
+    samples: Optional[np.ndarray] = None  # a lossless frame's int32 [rows, cols], and its point transform
+    pt: int = 0
     qt: Optional[np.ndarray] = None    # latched at its first scan, as libjpeg does
 
 
 @dataclass
 class _Frame:
     progressive: bool
+    arithmetic: bool
     height: int
     width: int
     comps: List[_Component]
@@ -78,6 +100,7 @@ class _Frame:
     mcus_x: int = 0
     mcus_y: int = 0
     scans: int = 0
+    lossless: bool = False
 
 
 def _u16(b: bytes, i: int) -> int:
@@ -85,35 +108,38 @@ def _u16(b: bytes, i: int) -> int:
 
 
 def _frame(marker: int, body: bytes) -> _Frame:
+    """A frame header; an SOF3 (lossless) frame keeps samples, not
+    coefficients: its MCU is h x v samples of each component."""
     if len(body) < 6:
         raise _corrupt("a short frame header")
     precision, height, width, n = body[0], _u16(body, 1), _u16(body, 3), body[5]
     if precision != 8:
-        raise _unsupported(f"{precision}-bit JPEG samples")
+        raise _refused(f"a JPEG of {precision}-bit samples")
     if height == 0:
-        raise _unsupported("a JPEG height given by a DNL marker")
+        raise _refused("a JPEG height given by a DNL marker")
     if width == 0 or len(body) != 6 + 3 * n:
         raise _corrupt("a bad frame header")
-    if n == 4:
-        raise _unsupported("a four-component (CMYK or YCCK) JPEG")
-    if n not in (1, 3):
-        raise _corrupt(f"a frame of {n} components")
+    if n not in (1, 3, 4):
+        raise _refused(f"a JPEG of {n} components (no colour space converts them to RGB)")
     comps = [_Component(body[6 + 3 * i], body[7 + 3 * i] >> 4, body[7 + 3 * i] & 15, body[8 + 3 * i])
              for i in range(n)]
     if any(not (1 <= c.h <= 4 and 1 <= c.v <= 4) or c.tq > 3 for c in comps):
         raise _corrupt("bad sampling factors or quantization table")
-    f = _Frame(_SOF_SUPPORTED[marker], height, width, comps)
+    f = _Frame(*_SOF_SUPPORTED.get(marker, (False, False)), height, width, comps, lossless=marker == 0xC3)
     if n == 1:  # a lone component is coded alone whatever its factors say
         comps[0].h = comps[0].v = 1
     f.hmax, f.vmax = max(c.h for c in comps), max(c.v for c in comps)
     for c in comps:
-        if (f.hmax % c.h, f.vmax % c.v) != (0, 0) or (f.hmax // c.h, f.vmax // c.v) not in ((1, 1), (2, 1), (1, 2),
-                                                                                          (2, 2)):
-            raise _unsupported(f"JPEG sampling {[(k.h, k.v) for k in comps]} (only 4:4:4, 4:2:2, 4:2:0 and 4:4:0)")
-    f.mcus_x, f.mcus_y = -(-width // (8 * f.hmax)), -(-height // (8 * f.vmax))
+        if (f.hmax % c.h, f.vmax % c.v) != (0, 0):  # jdsample.c: "Fractional sampling not implemented yet"
+            raise _refused(f"JPEG sampling {[(k.h, k.v) for k in comps]} (a fractional ratio)")
+    unit = 1 if f.lossless else 8
+    f.mcus_x, f.mcus_y = -(-width // (unit * f.hmax)), -(-height // (unit * f.vmax))
     for c in comps:
         c.width, c.height = -(-width * c.h // f.hmax), -(-height * c.v // f.vmax)
-        c.coef = np.zeros((f.mcus_y * c.v, f.mcus_x * c.h, 64), np.int16)
+        if f.lossless:
+            c.samples = np.zeros((f.mcus_y * c.v, f.mcus_x * c.h), np.int32)
+        else:
+            c.coef = np.zeros((f.mcus_y * c.v, f.mcus_x * c.h, 64), np.int16)
     return f
 
 
@@ -149,8 +175,46 @@ def _huffman_tables(body: bytes, tables: np.ndarray, defined: set) -> None:
         i += 17 + n
 
 
+def _lossless_scan(f: _Frame, comps, params, tables: np.ndarray, defined: set, restart: int, data: bytes, start: int,
+                   host) -> int:
+    """One SOS of a lossless frame: Ss the predictor, Al the point
+    transform (jdlossls.c's checks), decoded through `host`."""
+    Ss, Se, Ah, Al = params
+    if not 1 <= Ss <= 7 or Se != 0 or Ah != 0 or Al >= 8:
+        raise _corrupt(f"lossless scan parameters Ss {Ss}, Se {Se}, Ah {Ah}, Al {Al}")
+    rows = []
+    for c, td, _ in comps:
+        if td > 3 or td not in defined:
+            raise _corrupt("a scan's Huffman table is not defined")
+        c.pt = Al
+        rows.append((c.h, c.v, c.samples.shape[1], c.width, c.height, td, 0, 0))
+    scan = np.array([len(comps), Ss, 0, 0, Al, restart, f.mcus_x, f.mcus_y, 8], np.int32)
+    f.scans += 1
+    return host.decode_scan_lossless(data, start, scan, np.array(rows, np.int32), [c.samples for c, _, _ in comps],
+                                     tables)
+
+
+def _conditioning(body: bytes, cond: np.ndarray) -> None:
+    """A DAC segment: DC bounds L and U, AC K, by table (jdmarker.c)."""
+    if len(body) % 2:
+        raise _corrupt("a bad DAC segment")
+    for i in range(0, len(body), 2):
+        index, val = body[i], body[i + 1]
+        if index >> 4 > 1 or index & 15 > 3:
+            raise _corrupt(f"a bogus DAC index {index}")
+        if index >> 4:
+            if not 1 <= val <= 63:
+                raise _corrupt(f"a bogus DAC value {val:#04x}")
+            cond[8 + (index & 15)] = val
+        else:
+            lo, hi = val & 15, val >> 4
+            if lo > hi:
+                raise _corrupt(f"a bogus DAC value {val:#04x}")
+            cond[index & 15], cond[4 + (index & 15)] = lo, hi
+
+
 def _scan(f: _Frame, body: bytes, qts, tables: np.ndarray, defined: set, restart: int, data: bytes, start: int,
-          host) -> int:
+          host, cond: np.ndarray) -> int:
     """One SOS: the scan's parameters checked, its data decoded through
     `host`; returns where the marker after it starts."""
     if f is None:
@@ -166,6 +230,8 @@ def _scan(f: _Frame, body: bytes, qts, tables: np.ndarray, defined: set, restart
             raise _corrupt("a scan of an unknown or repeated component")
         comps.append((c, body[2 + 2 * i] >> 4, body[2 + 2 * i] & 15))
     Ss, Se, Ah, Al = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns] >> 4, body[3 + 2 * ns] & 15
+    if f.lossless:
+        return _lossless_scan(f, comps, (Ss, Se, Ah, Al), tables, defined, restart, data, start, host)
     if f.progressive:
         bad = Se > 63 or Ss > Se or Al > 13 or Ah > 13 or (Ss == 0 and Se != 0) or (Ss > 0 and ns != 1)
     else:
@@ -179,7 +245,7 @@ def _scan(f: _Frame, body: bytes, qts, tables: np.ndarray, defined: set, restart
                 raise _corrupt(f"quantization table {c.tq} is not defined")
             c.qt = qts[c.tq]
         need = ([td] if Ss == 0 and Ah == 0 else []) + ([4 + ta] if Se > 0 else [])
-        if td > 3 or ta > 3 or any(s not in defined for s in need):
+        if td > 3 or ta > 3 or (not f.arithmetic and any(s not in defined for s in need)):
             raise _corrupt("a scan's Huffman table is not defined")
         if ns == 1:  # alone, a component codes only the blocks its samples cover
             bw, bh = -(-c.width // 8), -(-c.height // 8)
@@ -188,6 +254,8 @@ def _scan(f: _Frame, body: bytes, qts, tables: np.ndarray, defined: set, restart
         rows.append((c.h, c.v, c.coef.shape[1], bw, bh, td, ta, 0))
     scan = np.array([ns, Ss, Se, Ah, Al, restart, f.mcus_x, f.mcus_y, int(f.progressive)], np.int32)
     f.scans += 1
+    if f.arithmetic:
+        return host.decode_scan_arith(data, start, scan, np.array(rows, np.int32), [c.coef for c, _, _ in comps], cond)
     return host.decode_scan(data, start, scan, np.array(rows, np.int32), [c.coef for c, _, _ in comps], tables)
 
 
@@ -206,6 +274,7 @@ def decode(data, dct: str = "ifast", host=jpeg_host.NATIVE) -> np.ndarray:
     tables = np.zeros((8, 272), np.uint8)  # 4 DC then 4 AC Huffman tables, as the DHT segments define them
     defined: set = set()
     restart, jfif, adobe = 0, False, None
+    cond = np.array([0] * 4 + [1] * 4 + [5] * 4, np.int32)  # the DAC defaults: L 0, U 1, K 5
     while True:
         if pos >= n:
             raise _corrupt("the data ends before the EOI marker (truncated)")
@@ -234,10 +303,17 @@ def decode(data, dct: str = "ifast", host=jpeg_host.NATIVE) -> np.ndarray:
             if f is not None:
                 raise _corrupt("a second frame header")
             f = _frame(marker, body)
-        elif marker in _SOF_OTHER:
-            raise _unsupported(f"a {_SOF_OTHER[marker]} JPEG")
+        elif marker == 0xC3 and dct == "islow":  # Pillow's libjpeg-turbo 3 reads 8-bit lossless frames
+            if f is not None:
+                raise _corrupt("a second frame header")
+            f = _frame(marker, body)
+        elif marker in _SOF_LOSSLESS:  # TensorFlow's libjpeg-turbo 2.1 reads none; arithmetic-coded, neither
+            raise ValueError("a lossless JPEG is refused by libjpeg-turbo under "
+                             f"{'TensorFlow' if dct == 'ifast' else 'Pillow'}")
+        elif marker in _SOF_HIERARCHICAL:
+            raise _refused("a hierarchical JPEG")
         elif marker == 0xCC:
-            raise _unsupported("arithmetic coding (a DAC marker)")
+            _conditioning(body, cond)
         elif marker == 0xC4:
             _huffman_tables(body, tables, defined)
         elif marker == 0xDB:
@@ -247,26 +323,59 @@ def decode(data, dct: str = "ifast", host=jpeg_host.NATIVE) -> np.ndarray:
                 raise _corrupt("a bad restart interval")
             restart = _u16(body, 0)
         elif marker == 0xDA:
-            pos = _scan(f, body, qts, tables, defined, restart, data, pos, host)
+            pos = _scan(f, body, qts, tables, defined, restart, data, pos, host, cond)
         elif marker == 0xE0:
             jfif = jfif or body[:5] == b"JFIF\x00"
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
             adobe = body[11]
     if f is None or f.scans == 0:
         raise _corrupt("an image without a frame or a scan")
-    return _pixels(f, _DCT[dct], jfif, adobe, host)
+    return _pixels(f, _DCT[dct], jfif, adobe, host, dct == "ifast")
 
 
-def _pixels(f: _Frame, method: int, jfif: bool, adobe: Optional[int], host) -> np.ndarray:
-    planes = [host.idct(c.coef, c.qt if c.qt is not None else np.ones(64, np.uint16), method) for c in f.comps]
+def _cmyk_to_rgb(c: np.ndarray, m: np.ndarray, y: np.ndarray, k: np.ndarray, adobe: bool, tf: bool) -> np.ndarray:
+    """libjpeg's CMYK planes -> RGB as each reference converts them.
+    TensorFlow (jpeg_mem.cc): with an Adobe marker the planes are inverted
+    CMYK, r = k * c / 255, else r = (255 - k) * (255 - c) / 255. Pillow
+    reads every CMYK JPEG as inverted ("CMYK;I") and converts with
+    cmyk2rgb: r = nk - (c' * nk + 128 + ((c' * nk + 128) >> 8)) >> 8, where
+    c' = 255 - c and nk = k."""
+    cmy = np.stack([c, m, y], axis=-1).astype(np.int32)
+    kk = k.astype(np.int32)[..., None]
+    if tf:
+        out = kk * cmy // 255 if adobe else (255 - kk) * (255 - cmy) // 255
+        return out.astype(np.uint8)
+    t = (255 - cmy) * kk + 128
+    return np.clip(kk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+def _pixels(f: _Frame, method: int, jfif: bool, adobe: Optional[int], host, tf: bool) -> np.ndarray:
+    if f.lossless:
+        if len(f.comps) == 4:
+            raise _unsupported("a four-component lossless JPEG")
+        if len(f.comps) == 3 and (jfif or adobe not in (None, 0)):  # jdapimin.c: YCbCr, which no lossless
+            raise ValueError("a lossless JPEG in YCbCr is refused by libjpeg-turbo (no colour conversion in "
+                             "lossless mode), as by Pillow's decoder")
+        planes = [((c.samples << c.pt) & 0xFF).astype(np.uint8) for c in f.comps]
+    else:
+        planes = [host.idct(c.coef, c.qt if c.qt is not None else np.ones(64, np.uint16), method) for c in f.comps]
     if len(f.comps) == 1:
         grey = planes[0][:f.height, :f.width]
         return np.repeat(grey[:, :, None], 3, axis=2)
-    up = [host.upsample(p, c.width, c.height, f.hmax // c.h, f.vmax // c.v, f.width, f.height)
-          for p, c in zip(planes, f.comps)]
-    # libjpeg's guess of the colour space (jdapimin.c default_decompress_parms)
+    if f.lossless:  # libjpeg-turbo upsamples a lossless frame by repeating samples (no fancy filter)
+        up = [np.ascontiguousarray(p[:c.height, :c.width].repeat(f.vmax // c.v, 0).repeat(f.hmax // c.h, 1)
+                                   [:f.height, :f.width]) for p, c in zip(planes, f.comps)]
+    else:
+        up = [host.upsample(p, c.width, c.height, f.hmax // c.h, f.vmax // c.v, f.width, f.height)
+              for p, c in zip(planes, f.comps)]
+    if len(f.comps) == 4:
+        # jdapimin.c: an Adobe transform of 0 is CMYK, any other YCCK, no Adobe marker CMYK
+        if adobe is not None and adobe != 0:  # jdcolor.c ycck_cmyk_convert: 255 - (Y, Cb, Cr as RGB), K kept
+            up[:3] = np.moveaxis(255 - host.ycc_to_rgb(*up[:3]), -1, 0)
+        return _cmyk_to_rgb(*up, adobe is not None, tf)
+    # libjpeg's guess of the colour space (jdapimin.c default_decompress_parms); a lossless frame is RGB
     ids = tuple(c.cid for c in f.comps)
-    rgb = (not jfif and adobe == 0) or (not jfif and adobe is None and ids == (82, 71, 66))
+    rgb = f.lossless or (not jfif and adobe == 0) or (not jfif and adobe is None and ids == (82, 71, 66))
     if rgb:
         return np.stack(up, axis=-1)
     return host.ycc_to_rgb(*up)
@@ -431,67 +540,125 @@ def _dc_events(ev: _Events, dc: np.ndarray, comp_of: np.ndarray, block_keys: np.
     ev.add(block_keys * 256, (codes << s) | _bits_of(diff, s), lens + s)
 
 
+_SAMPLINGS = {"4:4:4": (1, 1), "4:2:0": (2, 2), "4:2:2": (2, 1), "4:4:0": (1, 2), "4:1:1": (4, 1), "3x1": (3, 1)}
+
+
 def encode(img: np.ndarray, quality: int = 95, subsampling: str = "4:2:0", progressive: bool = False,
-           restart_interval: int = 0) -> bytes:
-    """uint8 [H, W, 3] (or [H, W] grey) -> JPEG bytes (JFIF, YCbCr)."""
+           restart_interval: int = 0, arithmetic: bool = False, colorspace: str = "ycc",
+           sampling: Optional[Sequence[Tuple[int, int]]] = None, adobe: Optional[int] = None,
+           conditioning: Optional[bytes] = None) -> bytes:
+    """uint8 [H, W, 3] (or [H, W] grey, or [H, W, 4] CMYK) -> JPEG bytes.
+    `subsampling` names the luma factors over chroma 1 x 1 (4:4:4, 4:2:0,
+    4:2:2, 4:4:0, 4:1:1, 3x1); `sampling` gives each component's (h, v)
+    instead. A 4-channel image is written as `colorspace` "cmyk" (the
+    channels stored as given) or "ycck" (255 - C, M, Y as RGB to YCbCr, K
+    kept) with an Adobe marker of transform `adobe` (0 and 2 by default; -1
+    writes none). `arithmetic` codes the scans with the QM-coder (SOF9,
+    SOF10) after a DAC segment of `conditioning` where given."""
     img = np.asarray(img, np.uint8)
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[:, :, 0]
-    if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3) or min(img.shape[:2]) < 1:
-        raise ValueError(f"encode takes uint8 [H, W, 3] or [H, W], got {img.shape}")
-    if subsampling not in ("4:2:0", "4:4:4"):
-        raise ValueError(f"subsampling {subsampling!r} is not 4:2:0 or 4:4:4")
+    if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] not in (3, 4)) or min(img.shape[:2]) < 1:
+        raise ValueError(f"encode takes uint8 [H, W, 3], [H, W, 4] or [H, W], got {img.shape}")
+    if subsampling not in _SAMPLINGS:
+        raise ValueError(f"subsampling {subsampling!r} is not one of {sorted(_SAMPLINGS)}")
     if not 0 <= restart_interval < 65536:
         raise ValueError(f"restart interval {restart_interval}")
     H, W = img.shape[:2]
     ql, qc = _quality_tables(quality)
-    if img.ndim == 2:
-        planes, factors, tq = [img.astype(np.int64)], [(1, 1)], [0]
-    else:
-        rgb = img.astype(np.int64)
+
+    def ycc(rgb):
         r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
         y = (19595 * r + 38470 * g + 7471 * b + 32768) >> 16
         cb = (-11059 * r - 21709 * g + 32768 * b + (128 << 16) + 32767) >> 16
         cr = (32768 * r - 27439 * g - 5329 * b + (128 << 16) + 32767) >> 16
-        planes, factors, tq = [y, cb, cr], [(2, 2) if subsampling == "4:2:0" else (1, 1), (1, 1), (1, 1)], [0, 1, 1]
+        return [y, cb, cr]
+
+    if img.ndim == 2:
+        planes, tq = [img.astype(np.int64)], [0]
+    elif img.shape[2] == 3:
+        planes, tq = ycc(img.astype(np.int64)), [0, 1, 1]
+    else:
+        px = img.astype(np.int64)
+        if colorspace == "ycck":
+            planes = ycc(255 - px[..., :3]) + [px[..., 3]]
+        elif colorspace == "cmyk":
+            planes = [px[..., i] for i in range(4)]
+        else:
+            raise ValueError(f"colorspace {colorspace!r} of a 4-channel image is not cmyk or ycck")
+        tq = [0, 1, 1, 0]
+    if sampling is not None:
+        factors = [tuple(f) for f in sampling]
+    else:
+        factors = [_SAMPLINGS[subsampling]] + [(1, 1)] * (len(planes) - 1) if len(planes) > 1 else [(1, 1)]
+    if len(factors) != len(planes):
+        raise ValueError(f"{len(factors)} sampling factors for {len(planes)} components")
     hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
     mx, my = -(-W // (8 * hmax)), -(-H // (8 * vmax))
     coefs = []
     for p, (h, v), t in zip(planes, factors, tq):
-        if (h, v) != (hmax, vmax):  # 2 x 2 means, alternating bias 1, 2 (jcsample.c)
-            p = np.pad(p, ((0, (-p.shape[0]) % 2), (0, (-p.shape[1]) % 2)), mode="edge")
-            s = p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2]
-            p = (s + np.where(np.arange(s.shape[1]) % 2 == 0, 1, 2)[None, :]) >> 2
+        sh, sv = hmax // h, vmax // v
+        if (sh, sv) != (1, 1):  # means over sh x sv samples, the edges repeated
+            p = np.pad(p, ((0, (-p.shape[0]) % sv), (0, (-p.shape[1]) % sh)), mode="edge")
+            s = p.reshape(p.shape[0] // sv, sv, p.shape[1] // sh, sh).sum((1, 3))
+            if (sh, sv) == (2, 2):  # jcsample.c's alternating bias 1, 2
+                p = (s + np.where(np.arange(s.shape[1]) % 2 == 0, 1, 2)[None, :]) >> 2
+            else:
+                p = (s + (sh * sv) // 2) // (sh * sv)
         coefs.append(_quantized(_blocks(p, my * v, mx * h), ql if t == 0 else qc))
     tables = {"dc": [_STD_DC_LUMA, _STD_DC_CHROMA], "ac": [_STD_AC_LUMA, _STD_AC_CHROMA]}
     codes = {k: [_code_table(*t) for t in v] for k, v in tables.items()}
     ncomp = len(planes)
 
     out = bytearray(b"\xff\xd8")
-    out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    if ncomp == 4:
+        transform = adobe if adobe is not None else (2 if colorspace == "ycck" else 0)
+        if transform >= 0:
+            out += _segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, transform))
+    else:
+        out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
     for i, q in enumerate((ql, qc)[: 1 if ncomp == 1 else 2]):
         out += _segment(0xDB, bytes([i]) + bytes(q.astype(np.uint8)))
     sof = struct.pack(">BHHB", 8, H, W, ncomp) + b"".join(
         bytes([i + 1, (h << 4) | v, t]) for i, ((h, v), t) in enumerate(zip(factors, tq)))
-    out += _segment(0xC2 if progressive else 0xC0, sof)
-    for cls, name in ((0, "dc"), (1, "ac")):
-        for i, (counts, values) in enumerate(tables[name][: 1 if ncomp == 1 else 2]):
-            out += _segment(0xC4, bytes([(cls << 4) | i]) + counts + values)
+    out += _segment((0xCA if progressive else 0xC9) if arithmetic else (0xC2 if progressive else 0xC0), sof)
+    if arithmetic:
+        if conditioning:
+            out += _segment(0xCC, conditioning)
+    else:
+        for cls, name in ((0, "dc"), (1, "ac")):
+            for i, (counts, values) in enumerate(tables[name][: 1 if ncomp == 1 else 2]):
+                out += _segment(0xC4, bytes([(cls << 4) | i]) + counts + values)
     if restart_interval:
         out += _segment(0xDD, struct.pack(">H", restart_interval))
+    cond = np.array([0] * 4 + [1] * 4 + [5] * 4, np.int64)
+    for i in range(0, len(conditioning or b""), 2):
+        index, val = conditioning[i], conditioning[i + 1]
+        if index >> 4:
+            cond[8 + (index & 15)] = val
+        else:
+            cond[index & 15], cond[4 + (index & 15)] = val & 15, val >> 4
 
     comp_ids = list(range(ncomp))
     if not progressive:
         scans = [(comp_ids, 0, 63, 0, 0)]
+    elif arithmetic:  # the DC and the first AC band by successive approximation, the rest by spectral selection
+        scans = [(comp_ids, 0, 0, 0, 1)] + [([c], 1, 5, 0, 1) for c in comp_ids] + [
+            ([c], 6, 63, 0, 0) for c in comp_ids] + [(comp_ids, 0, 0, 1, 0)] + [([c], 1, 5, 1, 0) for c in comp_ids]
     else:  # the DC by successive approximation, the AC by spectral selection
         scans = [(comp_ids, 0, 0, 0, 1)] + [([c], 1, 5, 0, 0) for c in comp_ids] + [
             ([c], 6, 63, 0, 0) for c in comp_ids] + [(comp_ids, 0, 0, 1, 0)]
+    bws = [(-(-W * h // hmax) + 7) // 8 for h, _ in factors]
+    bhs = [(-(-H * v // vmax) + 7) // 8 for _, v in factors]
     for comps, Ss, Se, Ah, Al in scans:
         hdr = bytes([len(comps)]) + b"".join(bytes([c + 1, (min(tq[c], 1) << 4) | min(tq[c], 1)]) for c in comps)
         out += _segment(0xDA, hdr + bytes([Ss, Se, (Ah << 4) | Al]))
-        out += _scan_data(coefs, factors, comps, (mx, my), (Ss, Se, Ah, Al), restart_interval, codes, tq,
-                          [(-(-W * h // hmax) + 7) // 8 for h, _ in factors],
-                          [(-(-H * v // vmax) + 7) // 8 for _, v in factors])
+        if arithmetic:
+            out += _arith_scan_data(coefs, factors, comps, (mx, my), (Ss, Se, Ah, Al), restart_interval,
+                                    [min(t, 1) for t in tq], bws, bhs, cond, progressive)
+        else:
+            out += _scan_data(coefs, factors, comps, (mx, my), (Ss, Se, Ah, Al), restart_interval, codes, tq, bws,
+                              bhs)
     out += b"\xff\xd9"
     return bytes(out)
 
@@ -500,11 +667,10 @@ def _segment(marker: int, body: bytes) -> bytes:
     return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
 
 
-def _scan_data(coefs, factors, comps, mcus, params, restart: int, codes, tq, bws, bhs) -> bytes:
-    """The entropy-coded data of one scan, restart markers included."""
-    Ss, Se, Ah, Al = params
+def _scan_blocks(factors, comps, mcus, bws, bhs):
+    """The blocks of a scan in coding order: (component, row, col) and the
+    MCU each is in."""
     mx, my = mcus
-    # the blocks in scan order: (component, row, col) and the MCU each is in
     if len(comps) == 1:
         c = comps[0]
         rr, cc = np.meshgrid(np.arange(bhs[c]), np.arange(bws[c]), indexing="ij")
@@ -521,6 +687,13 @@ def _scan_data(coefs, factors, comps, mcus, params, restart: int, codes, tq, bws
         comp_of, row, col, mcu, within = (np.concatenate(z) for z in zip(*parts))
         order = np.lexsort((within, mcu))
         comp_of, row, col, mcu = comp_of[order], row[order], col[order], mcu[order]
+    return comp_of, row, col, mcu
+
+
+def _scan_data(coefs, factors, comps, mcus, params, restart: int, codes, tq, bws, bhs) -> bytes:
+    """The entropy-coded data of one scan, restart markers included."""
+    Ss, Se, Ah, Al = params
+    comp_of, row, col, mcu = _scan_blocks(factors, comps, mcus, bws, bhs)
     zz = np.zeros((comp_of.size, 64), np.int64)
     for c in comps:
         m = comp_of == c
@@ -544,4 +717,360 @@ def _scan_data(coefs, factors, comps, mcus, params, restart: int, codes, tq, bws
         if i:
             out += bytes([0xFF, 0xD0 + ((i - 1) & 7)])
         out += ev.bytes()
+    return bytes(out)
+
+
+class _ArithEncoder:
+    """The QM-coder's encoder as jcarith.c runs it (Annex D.1), with
+    libjpeg's byte stacking and its flush."""
+
+    def __init__(self) -> None:
+        self.out = bytearray()
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _emit(self, b: int) -> None:
+        self.out.append(b)
+
+    def _zeros(self) -> None:
+        while self.zc:
+            self._emit(0)
+            self.zc -= 1
+
+    def encode(self, stats: List[int], i: int, val: int) -> None:
+        sv = stats[i]
+        qe = int(jpeg_host.ARITAB[sv & 0x7F])
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            stats[i] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            stats[i] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self._zeros()
+                        self._emit(self.buffer + 1)
+                        if self.buffer + 1 == 0xFF:
+                            self._emit(0)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    if self.buffer == 0:
+                        self.zc += 1
+                    elif self.buffer >= 0:
+                        self._zeros()
+                        self._emit(self.buffer)
+                    if self.sc:
+                        self._zeros()
+                        for _ in range(self.sc):
+                            self._emit(0xFF)
+                            self._emit(0)
+                        self.sc = 0
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def flush(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._zeros()
+                self._emit(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self._emit(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._zeros()
+                self._emit(self.buffer)
+            if self.sc:
+                self._zeros()
+                for _ in range(self.sc):
+                    self._emit(0xFF)
+                    self._emit(0)
+                self.sc = 0
+        if self.c & 0x7FFF800:
+            self._zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if ((self.c >> 19) & 0xFF) == 0xFF:
+                self._emit(0)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+                if ((self.c >> 11) & 0xFF) == 0xFF:
+                    self._emit(0)
+        return bytes(self.out)
+
+
+def _arith_scan_data(coefs, factors, comps, mcus, params, restart: int, tbl, bws, bhs, cond, progressive) -> bytes:
+    """The arithmetic-coded data of one scan (jcarith.c's encode_mcu and
+    its progressive forms), restart markers included."""
+    Ss, Se, Ah, Al = params
+    comp_of, row, col, mcu = _scan_blocks(factors, comps, mcus, bws, bhs)
+    out = bytearray()
+    enc, dc_stats, ac_stats, last, ctx = None, {}, {}, {}, {}
+    fixed = [113]
+
+    def restart_state():
+        for c in comps:
+            dc_stats[tbl[c]], ac_stats[tbl[c]] = [0] * 64, [0] * 256
+            last[c] = ctx[c] = 0
+
+    def magnitude(st, i, v, k=None, t=None):
+        """Figures F.8 and F.9 from bin i: v >= 1 (|value|)."""
+        m, v = 0, v - 1
+        if v:
+            enc.encode(st, i, 1)
+            m, v2 = 1, v
+            if k is None:
+                i = 20
+                v2 >>= 1
+                while v2:
+                    enc.encode(st, i, 1)
+                    m <<= 1
+                    i += 1
+                    v2 >>= 1
+            else:
+                v2 >>= 1
+                if v2:
+                    enc.encode(st, i, 1)
+                    m <<= 1
+                    i = 189 if k <= cond[8 + t] else 217
+                    v2 >>= 1
+                    while v2:
+                        enc.encode(st, i, 1)
+                        m <<= 1
+                        i += 1
+                        v2 >>= 1
+        enc.encode(st, i, 0)
+        i += 14
+        while m > 1:
+            m >>= 1
+            enc.encode(st, i, 1 if m & v else 0)
+
+    def point(v):  # the point transform of an AC value: division rounding to 0
+        return v >> Al if v >= 0 else -((-v) >> Al)
+
+    def block(c, b):
+        t = tbl[c]
+        if not progressive or (Ss == 0 and Ah == 0):
+            dcv = int(b[0]) >> Al if progressive else int(b[0])
+            st, i = dc_stats[t], ctx[c]
+            v = dcv - last[c]
+            last[c] = dcv
+            if v == 0:
+                enc.encode(st, i, 0)
+                ctx[c] = 0
+            else:
+                enc.encode(st, i, 1)
+                sign = int(v < 0)
+                enc.encode(st, i + 1, sign)
+                v = abs(v)
+                m = 1 << ((v - 1).bit_length() - 1) if v > 1 else 0  # the magnitude category's top bit
+                if m < (1 << cond[t]) >> 1:
+                    ctx[c] = 0
+                elif m > (1 << cond[4 + t]) >> 1:
+                    ctx[c] = 12 + 4 * sign
+                else:
+                    ctx[c] = 4 + 4 * sign
+                magnitude(st, i + 2 + sign, v)
+            if progressive:
+                return
+        elif Ss == 0:
+            enc.encode(fixed, 0, (int(b[0]) >> Al) & 1)
+            return
+        st = ac_stats[t]
+        lo, hi = (Ss, Se) if progressive else (1, 63)
+        vals = [point(int(b[k])) if progressive else int(b[k]) for k in range(64)]  # b is in zigzag order
+        ke = hi
+        while ke >= lo and vals[ke] == 0:
+            ke -= 1
+        if not progressive or Ah == 0:
+            k = lo
+            while k <= ke:
+                i = 3 * (k - 1)
+                enc.encode(st, i, 0)
+                while vals[k] == 0:
+                    enc.encode(st, i + 1, 0)
+                    i += 3
+                    k += 1
+                enc.encode(st, i + 1, 1)
+                enc.encode(fixed, 0, int(vals[k] < 0))
+                magnitude(st, i + 2, abs(vals[k]), k, t)
+                k += 1
+            if k <= hi:
+                enc.encode(st, 3 * (k - 1), 1)
+            return
+        prev = []  # the previous stage's values: point-transformed by Ah
+        for k in range(64):
+            v = int(b[k])
+            prev.append(v >> Ah if v >= 0 else -((-v) >> Ah))
+        kex = ke
+        while kex >= lo and prev[kex] == 0:
+            kex -= 1
+        k = lo
+        while k <= ke:
+            i = 3 * (k - 1)
+            if k > kex:
+                enc.encode(st, i, 0)
+            while True:
+                v = vals[k]
+                if v:
+                    if abs(v) >> 1:
+                        enc.encode(st, i + 2, abs(v) & 1)
+                    else:
+                        enc.encode(st, i + 1, 1)
+                        enc.encode(fixed, 0, int(v < 0))
+                    break
+                enc.encode(st, i + 1, 0)
+                i += 3
+                k += 1
+            k += 1
+        if k <= hi:
+            enc.encode(st, 3 * (k - 1), 1)
+
+    interval_of = mcu // restart if restart else np.zeros_like(mcu)
+    for n, start in enumerate(np.unique(interval_of)):
+        enc = _ArithEncoder()
+        restart_state()
+        for j in np.nonzero(interval_of == start)[0]:
+            c = int(comp_of[j])
+            block(c, coefs[c][row[j], col[j]])
+        if n:
+            out += bytes([0xFF, 0xD0 + ((n - 1) & 7)])
+        out += enc.flush()
+    return bytes(out)
+
+
+def _lossless_predict(x: np.ndarray, predictor: int, initial: int, reset_rows) -> np.ndarray:
+    """The predictions of ITU T.81 H.1.2.1 for the samples x [rows, cols]
+    (int64): on a reset row (the scan's first and each restart's) the
+    first sample from `initial`, the rest from the left; on other rows the
+    first sample from above, the rest by `predictor` (1..7)."""
+    pred = np.zeros_like(x)
+    for r in range(x.shape[0]):
+        if r in reset_rows:
+            pred[r, 0] = initial
+            pred[r, 1:] = x[r, :-1]
+            continue
+        ra, rb, rc = x[r, :-1], x[r - 1, 1:], x[r - 1, :-1]
+        pred[r, 0] = x[r - 1, 0]
+        pred[r, 1:] = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                       7: (ra + rb) >> 1}[predictor]
+    return pred
+
+
+def _pack_bits(pairs) -> bytes:
+    """(value, bit count) pairs -> bytes, padded with ones, 0xFF stuffed."""
+    acc, n, out = 0, 0, bytearray()
+    for v, k in pairs:
+        acc = (acc << k) | (v & ((1 << k) - 1))
+        n += k
+        while n >= 8:
+            n -= 8
+            b = (acc >> n) & 0xFF
+            out.append(b)
+            if b == 0xFF:
+                out.append(0)
+    if n:
+        b = ((acc << (8 - n)) | ((1 << (8 - n)) - 1)) & 0xFF
+        out.append(b)
+        if b == 0xFF:
+            out.append(0)
+    return bytes(out)
+
+
+def encode_lossless(img: np.ndarray, predictor: int = 1, point_transform: int = 0, restart_rows: int = 0,
+                    sampling: Optional[Sequence[Tuple[int, int]]] = None, marker: str = "adobe",
+                    interleaved: bool = True) -> bytes:
+    """uint8 [H, W, 3] or [H, W] -> a lossless JPEG (SOF3, 8-bit, Huffman):
+    the channels stored as given (no colour conversion), each downsampled
+    by `sampling` (means), predicted by `predictor` after the point
+    transform, with a restart every `restart_rows` MCU rows, one
+    interleaved scan or a scan a component, and an Adobe (transform 0),
+    JFIF or no marker. The fixture writer for the lossless decoder."""
+    img = np.asarray(img, np.uint8)
+    planes = [img.astype(np.int64)] if img.ndim == 2 else [img[..., i].astype(np.int64) for i in range(img.shape[2])]
+    H, W = img.shape[:2]
+    factors = [tuple(f) for f in sampling] if sampling else [(1, 1)] * len(planes)
+    hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+    mx, my = -(-W // hmax), -(-H // vmax)  # an MCU is h x v samples of each component
+    dc_codes = _code_table(*_STD_DC_LUMA)
+    initial = 1 << (8 - point_transform - 1)
+    out = bytearray(b"\xff\xd8")
+    if marker == "adobe":
+        out += _segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, 0))
+    elif marker == "jfif":
+        out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    out += _segment(0xC3, struct.pack(">BHHB", 8, H, W, len(planes)) + b"".join(
+        bytes([i + 1, (h << 4) | v, 0]) for i, (h, v) in enumerate(factors)))
+    out += _segment(0xC4, bytes([0]) + _STD_DC_LUMA[0] + _STD_DC_LUMA[1])
+    samples = []
+    for p, (h, v) in zip(planes, factors):
+        sh, sv = hmax // h, vmax // v
+        ch_, cw_ = -(-H * v // vmax), -(-W * h // hmax)
+        if (sh, sv) != (1, 1):
+            p = np.pad(p, ((0, (-p.shape[0]) % sv), (0, (-p.shape[1]) % sh)), mode="edge")
+            p = (p.reshape(p.shape[0] // sv, sv, p.shape[1] // sh, sh).sum((1, 3)) + (sh * sv) // 2) // (sh * sv)
+        p = p[:ch_, :cw_]
+        if interleaved and len(planes) > 1:
+            p = np.pad(p, ((0, my * v - p.shape[0]), (0, mx * h - p.shape[1])), mode="edge")
+        samples.append(p >> point_transform)
+    mcus_per_row = mx if interleaved and len(planes) > 1 else None
+    if restart_rows:
+        out += _segment(0xDD, struct.pack(">H", restart_rows * (mcus_per_row or samples[0].shape[1])))
+    scans = [list(range(len(planes)))] if interleaved and len(planes) > 1 else [[c] for c in range(len(planes))]
+    for comps in scans:
+        out += _segment(0xDA, bytes([len(comps)]) + b"".join(bytes([c + 1, 0]) for c in comps)
+                        + bytes([predictor, 0, point_transform]))
+        rows_a_restart = restart_rows or 10**9
+        diffs = {}
+        for c in comps:
+            v = factors[c][1] if len(comps) > 1 else 1
+            x = samples[c]
+            resets = set(range(0, x.shape[0], rows_a_restart * v))
+            d = (x - _lossless_predict(x, predictor, initial, resets)) & 0xFFFF
+            diffs[c] = np.where(d >= 32768, d - 65536, d)
+        n_rows = my if len(comps) > 1 else samples[comps[0]].shape[0]
+        for start in range(0, n_rows, rows_a_restart):
+            pairs = []
+            for mrow in range(start, min(start + rows_a_restart, n_rows)):
+                if len(comps) > 1:
+                    for mcol in range(mx):
+                        for c in comps:
+                            h, v = factors[c]
+                            for y in range(v):
+                                for x in range(h):
+                                    pairs.append(diffs[c][mrow * v + y, mcol * h + x])
+                else:
+                    pairs.extend(diffs[comps[0]][mrow])
+            vals = np.array(pairs, np.int64)
+            s = _size(vals)
+            bits = [(int(dc_codes[0][k]), int(dc_codes[1][k])) for k in s]
+            if start:
+                out += bytes([0xFF, 0xD0 + ((start // rows_a_restart - 1) & 7)])
+            out += _pack_bits([p for (code, n), v, k in zip(bits, vals, s) for p in ((code, n), (int(_bits_of(v, k)), int(k)))])
+    out += b"\xff\xd9"
     return bytes(out)

@@ -13,8 +13,8 @@ strings are object arrays of bytes.
     converting it to float32 first; so does this copy, and the normalized
     actions and proprio come out bit for bit as JAX's pipeline gives them.
   * decode_and_resize_image: the decode of tf.io.decode_image(channels=3)
-    by the stream's signature, PNG (png.py) or JPEG (jpeg.py, the fast
-    IDCT TensorFlow runs), then TensorFlow's
+    by the stream's signature (frames.py: PNG, JPEG with the fast IDCT
+    TensorFlow runs, GIF, BMP, WebP), then TensorFlow's
     tf.image.resize(method="lanczos3") with antialias off, which is
     ScaleAndTranslate: each axis a float32 sum over at most 7 taps of the
     Lanczos-3 kernel (weights normalized to sum 1), the vertical pass first,
@@ -47,7 +47,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from mla_tpu_torch.native import rlds_host
-from mla_tpu_torch.vla.rlds import jpeg, png
+from mla_tpu_torch.vla.rlds import frames
 
 
 class NormalizationType(str, Enum):
@@ -268,14 +268,9 @@ def resize_lanczos3(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
 
 def decode_image(data) -> np.ndarray:
     """Encoded bytes -> uint8 [H, W, 3], as tf.io.decode_image(data,
-    channels=3) decodes PNG and JPEG; any other format raises."""
-    head = bytes(data[:8])
-    if head.startswith(png.SIGNATURE):
-        return png.decode(data)
-    if head.startswith(jpeg.SIGNATURE):
-        return jpeg.decode(data, "ifast")
-    raise ValueError(f"an image that is neither PNG nor JPEG (it starts {head.hex()}): GIF, BMP and WebP frames are "
-                     f"not decoded (ROADMAP.md queue 1, item 2 (frame formats))")
+    channels=3, expand_animations=False) decodes PNG, JPEG, GIF, BMP and
+    WebP (`frames.decode`); JPEG XL and unknown formats raise."""
+    return frames.decode(data, "tf")
 
 
 def decode_and_resize_image(image, size=672) -> np.ndarray:

@@ -20,9 +20,10 @@ the two stage behaviours of the Prismatic lineage:
 `image_transform` defaults to the model's CLIP preprocessing (resize,
 center crop, normalize, mask channel -> [4, S, S] float32), what
 `prismatic.get_fused_tokens` expects. Images are read from disk by
-`_load_image`, which decodes PNG and JPEG (what the LLaVA files hold)
-with the port's own decoders (vla/rlds/png.py, vla/rlds/jpeg.py with
-Pillow's accurate IDCT); any other format raises (ROADMAP.md item 2). With
+`_load_image`, which decodes PNG, JPEG (what the LLaVA files hold), GIF,
+BMP and WebP with the port's own decoders (vla/rlds/frames.py, JPEG with
+Pillow's accurate IDCT), as Pillow's convert("RGB") gives them; any other
+format raises (ROADMAP.md item 2). With
 no data root the examples and frames are synthetic
 (`synthetic_vlm_examples`), as in JAX.
 
@@ -65,19 +66,17 @@ def default_image_transform(image_size: int) -> Callable[[np.ndarray], np.ndarra
 
 def _load_image(image_dir: Path, rel: str) -> np.ndarray:
     """An image file as uint8 [H, W, 3], as Pillow's convert("RGB") gives
-    it: PNG (grey repeated into three channels, alpha dropped, a palette
-    expanded) or JPEG (libjpeg-turbo's accurate integer IDCT, the one
-    Pillow runs). Any other format raises NotImplementedError."""
-    from mla_tpu_torch.vla.rlds import jpeg, png
+    it: PNG, JPEG (libjpeg-turbo's accurate integer IDCT, the one Pillow
+    runs), GIF, BMP or WebP, through `vla/rlds/frames.decode`. Any other
+    format Pillow reads (TIFF and the rest) raises NotImplementedError."""
+    from mla_tpu_torch.vla.rlds import frames
 
     path = Path(image_dir) / rel
     data = path.read_bytes()
-    if data.startswith(png.SIGNATURE):
-        return png.decode(data)
-    if data.startswith(jpeg.SIGNATURE):
-        return jpeg.decode(data, "islow")
-    raise NotImplementedError(f"{path} is a format other than PNG and JPEG, which the port decodes "
-                              f"({ROADMAP_IMAGES})")
+    if frames.format_of(data) in ("unknown", "jxl"):
+        raise NotImplementedError(f"{path} is a format other than PNG, JPEG, GIF, BMP and WebP, which the port "
+                                  f"decodes ({ROADMAP_IMAGES})")
+    return frames.decode(data, "pillow")
 
 
 class VLMAlignDataset:

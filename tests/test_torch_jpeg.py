@@ -210,8 +210,8 @@ def _sof_marker(data: bytes, marker: int) -> bytes:
 
 
 @pytest.mark.parametrize("what,make", [
-    ("arithmetic", lambda d: _sof_marker(d, 0xC9)),
-    ("progressive arithmetic", lambda d: _sof_marker(d, 0xCA)),
+    ("arithmetic", lambda d: jpeg.encode(frame(16, 16), 90, arithmetic=True)),
+    ("progressive arithmetic", lambda d: jpeg.encode(frame(16, 16), 90, progressive=True, arithmetic=True)),
     ("lossless", lambda d: _sof_marker(d, 0xC3)),
     ("12-bit", lambda d: _patched(d, 0xC0, 0, 12)),
     ("cmyk", lambda d: _cmyk()),
@@ -219,10 +219,28 @@ def _sof_marker(data: bytes, marker: int) -> bytes:
                                    cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411)),
 ])
 def test_unsupported_streams_raise_citing_the_roadmap(what, make):
+    """(The name is the test's from before the port decoded these.) Each
+    variant decodes to TensorFlow's pixels where TensorFlow decodes it
+    (arithmetic coding, CMYK, 4:1:1), and raises ValueError where it
+    refuses it (lossless, 12-bit), with both sets of host loops; the
+    patched lossless stream, whose scan is not a lossless one, raises with
+    Pillow's flavour too, as Pillow refuses it."""
     data = make(tf.io.encode_jpeg(frame(16, 16), quality=90).numpy())
+    try:
+        want = tf_decode(data)
+    except tf.errors.InvalidArgumentError:
+        want = None
     for host in (jpeg_host.NATIVE, jpeg_host.PLAIN):
-        with pytest.raises(NotImplementedError, match=ROADMAP):
-            jpeg.decode(data, "ifast", host)
+        if want is None:
+            with pytest.raises(ValueError, match="refused by libjpeg-turbo"):
+                jpeg.decode(data, "ifast", host)
+        else:
+            assert np.array_equal(jpeg.decode(data, "ifast", host), want), what
+    if what == "lossless":
+        with pytest.raises(OSError):
+            pil_decode(data)
+        with pytest.raises(ValueError, match="lossless scan parameters"):
+            jpeg.decode(data, "islow")
 
 
 def _cmyk() -> bytes:
@@ -292,16 +310,19 @@ def test_not_a_jpeg_raises():
 
 
 def test_decode_image_dispatches_on_the_signature():
-    """transforms.decode_image decodes as tf.io.decode_image does: PNG, or
-    JPEG with the fast IDCT; another format raises."""
+    """transforms.decode_image decodes as tf.io.decode_image does: PNG,
+    JPEG with the fast IDCT, and since GIF, BMP and WebP (a corrupt GIF
+    raises as a GIF); an unknown format raises."""
     from mla_tpu_torch.vla.rlds import png
 
     img = frame(24, 40)
     data = jpeg.encode(img, 90)
     assert np.array_equal(tT.decode_image(data), tf_decode(data))
     assert np.array_equal(tT.decode_image(png.encode(img)), img)
-    with pytest.raises(ValueError, match="neither PNG nor JPEG"):
+    with pytest.raises(ValueError, match="corrupt GIF data"):
         tT.decode_image(b"GIF89a" + bytes(20))
+    with pytest.raises(ValueError, match="unknown format"):
+        tT.decode_image(b"\x00" * 20)
 
 
 # --------------------------------------------------------------------------- #
@@ -341,6 +362,6 @@ def test_host_loops_check_their_arguments():
     with pytest.raises(ValueError):
         jpeg_host.idct(np.zeros((2, 2, 63), np.int16), np.ones(64, np.uint16), 0)
     with pytest.raises(ValueError):
-        jpeg_host.upsample(np.zeros((4, 4), np.uint8), 4, 4, 3, 1, 12, 4)
+        jpeg_host.upsample(np.zeros((4, 4), np.uint8), 4, 4, 5, 1, 20, 4)  # no sampling factor is above 4
     with pytest.raises(ValueError):
         jpeg_host.ycc_to_rgb(np.zeros((2, 2), np.uint8), np.zeros((2, 3), np.uint8), np.zeros((2, 2), np.uint8))

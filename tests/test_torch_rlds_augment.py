@@ -274,19 +274,28 @@ def test_trajectory_options_run_in_the_pipeline(data_root):
 
 
 def test_refusal_messages_name_their_items():
-    """Only frame formats still raise in the data path, under item 2;
-    tensor parallelism under item 13 (test_torch_distributed.py)."""
+    """What still raises in the data path cites item 2: JPEG XL frames,
+    unknown formats, Pillow-only JPEG and image formats, directories written
+    by tensorflow_datasets; tensor parallelism cites item 13
+    (test_torch_distributed.py). Every PNG now decodes (no PNG refusal is
+    left), and a GIF frame decodes where it used to be refused."""
     from mla_tpu_torch.vla import vlm_datasets
-    from mla_tpu_torch.vla.rlds import jpeg, png, tfds_compat
+    from mla_tpu_torch.vla.rlds import frames, gif, jpeg, png, tfds_compat
 
-    assert png.ROADMAP_PNG == "ROADMAP.md queue 1, item 2 (frame formats: PNG variants)"
+    assert not hasattr(png, "ROADMAP_PNG")
     assert jpeg.ROADMAP_JPEG == "ROADMAP.md queue 1, item 2 (frame formats: JPEG variants)"
     assert tfds_compat.ROADMAP_TFDS == ("ROADMAP.md queue 1, item 2 (frame formats: directories written by "
                                         "tensorflow_datasets)")
     assert vlm_datasets.ROADMAP_IMAGES == "ROADMAP.md queue 1, item 2 (frame formats)"
+    assert frames.ROADMAP_FRAMES == "ROADMAP.md queue 1, item 2 (frame formats)"
     assert not hasattr(tds, "ROADMAP_DATA")
-    with pytest.raises(ValueError, match=r"neither PNG nor JPEG.*item 2 \(frame formats\)"):
-        tT.decode_image(b"GIF89a" + bytes(20))
+    with pytest.raises(NotImplementedError, match=r"JPEG XL.*item 2 \(frame formats\)"):
+        tT.decode_image(b"\xff\x0a" + bytes(20))
+    with pytest.raises(ValueError, match=r"unknown format.*item 2 \(frame formats\)"):
+        tT.decode_image(b"II*\x00" + bytes(20))
+    idx = np.arange(12, dtype=np.uint8).reshape(3, 4)
+    table = np.arange(48, dtype=np.uint8).reshape(16, 3) * 5
+    assert np.array_equal(tT.decode_image(gif.encode([idx], table)), table[idx])
 
 
 def test_no_jax_check_covers_the_parallel_modules():

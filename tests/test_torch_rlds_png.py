@@ -73,13 +73,18 @@ def test_encoded_filters_round_trip(filter_type):
 
 
 def test_sixteen_bit_and_interlaced_raise():
-    """16-bit and interlaced PNGs are refused with the ROADMAP.md item;
-    a broken chunk CRC raises."""
-    data16 = tf.io.encode_png(np.full((4, 5, 3), 300, np.uint16)).numpy()
-    with pytest.raises(NotImplementedError, match="16-bit.*ROADMAP.md queue 1, item 2"):
-        png.decode(data16)
+    """(The name is the test's from before the port decoded them.) A 16-bit
+    PNG decodes to TensorFlow's pixels (each sample's high byte), an
+    interlaced one too; rows that do not fill an interlaced image raise,
+    and so does a broken chunk CRC."""
+    data16 = tf.io.encode_png(np.arange(60, dtype=np.uint16).reshape(4, 5, 3) * 1000).numpy()
+    assert np.array_equal(png.decode(data16), tf.io.decode_png(data16, channels=3, dtype=tf.uint8).numpy())
+    img = np.random.default_rng(2).integers(0, 256, (4, 5, 3), np.uint8)
+    interlaced = png.encode_samples(img, 2, 8, interlace=True)
+    assert np.array_equal(png.decode(interlaced), img)
+    assert np.array_equal(png.decode(interlaced), tf.io.decode_png(interlaced, channels=3).numpy())
     rows = np.zeros((4, 1 + 5 * 3), np.uint8).tobytes()
-    with pytest.raises(NotImplementedError, match="interlaced.*ROADMAP.md queue 1, item 2"):
+    with pytest.raises(ValueError, match="PNG image data"):
         png.decode(_raw_png((5, 4, 8, 2, 0, 0, 1), rows))
     good = png.encode(np.zeros((4, 5, 3), np.uint8))
     bad = bytearray(good)

@@ -175,7 +175,8 @@ def test_png_data_root_items_match_jax(tmp_path, stage):
 def test_a_jpeg_is_refused(tmp_path):
     """(The name is the test's from before the port decoded JPEG.) A JPEG
     now loads as Pillow's convert("RGB") gives it, bit for bit, as JAX's
-    loader reads it; a GIF is still refused, citing the ROADMAP item."""
+    loader reads it, and so does a GIF; a corrupt GIF raises, and a TIFF,
+    which only Pillow reads, is refused citing the ROADMAP item."""
     from PIL import Image
 
     rng = np.random.default_rng(4)
@@ -184,12 +185,16 @@ def test_a_jpeg_is_refused(tmp_path):
     Image.fromarray(img).save(tmp_path / "a.jpg", quality=90)
     Image.fromarray(img[..., 0]).save(tmp_path / "grey.jpg", quality=90)
     (tmp_path / "b.gif").write_bytes(b"GIF89a" + bytes(20))
-    for name in ("a.jpg", "grey.jpg"):
+    Image.fromarray(img).convert("P").save(tmp_path / "c.gif")
+    Image.fromarray(img).save(tmp_path / "d.tif")
+    for name in ("a.jpg", "grey.jpg", "c.gif"):
         want = np.asarray(Image.open(tmp_path / name).convert("RGB"))
         assert np.array_equal(tvlm._load_image(tmp_path, name), want)
         assert np.array_equal(jvlm._load_image(tmp_path, name), want)
-    with pytest.raises(NotImplementedError, match=r"other than PNG and JPEG.*item 2"):
+    with pytest.raises(ValueError, match="corrupt GIF data"):
         tvlm._load_image(tmp_path, "b.gif")
+    with pytest.raises(NotImplementedError, match=r"other than PNG, JPEG, GIF, BMP and WebP.*item 2"):
+        tvlm._load_image(tmp_path, "d.tif")
 
 
 @pytest.mark.parametrize("stage", ["align", "finetune"])

@@ -6,8 +6,10 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (`--only PHASES` runs the build, the kernels phase and only the named
-phases among mistral-agree ... augment, qualify and formats, the oxe
-phase's format checks alone, and prints no result line), or, to
+phases among mistral-agree ... augment, qualify, tp and formats, the oxe
+phase's format checks alone, and prints no result line; `--tp_world 2,4
+--tp_backend nccl` runs the tp phase at those worlds, a rank a card, on
+a machine with that many cards), or, to
 time this tree's flash forward, dQ, dK/dV, W8A8, weight-only int8
 and FPS kernels against another version of them (such as the parent
 commit's, written out with `git show HEAD~1:mla_tpu_torch/csrc/flash_fwd.cu`,
@@ -265,12 +267,12 @@ Phases, each of which fails the run if it fails:
                   and per-step generators, deterministic algorithms on: the
                   same losses and launches, grad_norm and every updated
                   master within 1e-6.
-     dp           `python -m torch.distributed.run --nproc_per_node 1 -m
-                  mla_tpu_torch.train --model mla-2b --dp 1` (2 steps and
-                  a checkpoint), resumed in this process at world size 1
-                  for 2 more steps (re-sharded from the file, which is the
-                  same at every world size; the last save skipped): exact launches, step ms,
-                  tokens/s, MFU, peak GiB and the rank's optimizer GiB
+     dp           `python -m torch.distributed.run --nproc_per_node 1` of
+                  mla_tpu_torch.train --model mla-2b --dp 1 through this
+                  script's --dp-child, which skips the checkpoint write (2
+                  steps), then 2 steps of the same run in this process at
+                  world size 1 (the save skipped): exact launches, step
+                  ms, tokens/s, MFU, peak GiB and the rank's optimizer GiB
                   beside the one-device trainer's.
      augment      the RLDS frame stage on a franka root (640 x 480 PNG
                   views) with augment=True and without: frames/s of each,
@@ -284,6 +286,27 @@ Phases, each of which fails the run if it fails:
                   W8A8 within QUALIFY_INT8_RMS of the chunk's rms, exact
                   launches of the flash forward and backward, FPS and W8A8
                   (qualify_counts).
+     tp           tensor-parallel serving: the int8 mla-7b at full width
+                  and depth (seeded) through the one-process W8A8 and
+                  weight-only policies, then TP_WORLD ranks of this script
+                  (--tp-child) over one tp group, sharing the card over
+                  gloo (which the script names; NCCL refuses two ranks on
+                  a device), each building the whole tree and keeping its
+                  part: DDIM-8 and DPM-4 chunks bit for bit the one-process
+                  ones (else within TP_CHUNK_RTOL of their scale, logged),
+                  predict_action_ar's ids equal, the AR logits of a prefill
+                  and 7 decode steps fed the one-process ids within
+                  AR_AGREE_RTOL on the decoder cut to 4 layers and within
+                  TP_AR_FULL_DEPTH_RTOL at 32 (a control with the
+                  row-parallel sums skipped must miss it), the ranks'
+                  results equal, exact
+                  launches of every call (tp_expected: W8A8 2L, its
+                  row-parallel steps 2L each, a forward; int8_matmul 2L +
+                  1 and its fp32 output 2L an AR forward; flash L, FPS 2),
+                  each rank's decoder GiB and ms (not tensor-parallel
+                  speed on a shared card). The kernels phase holds the
+                  row-parallel W8A8 (bit for bit) and int8_mm's fp32
+                  output at T = 2 and 4, by o and down.
  13. trainer-agree  the trainer's two new step kinds on `mla-small` with
                   fp32 master weights (bf16 compute), card vs CPU from the
                   same weights, batch and draws: one step of the AR loss
@@ -409,8 +432,11 @@ its serving shapes; on the data phase's trainer run for the flash
 forward, dQ and dK/dV, timed at BH 256 / S 979; on the oxe phase's
 trainer run for the same three, timed at BH 256 / S 723; on the hf-vlm phase's
 align and finetune runs for the same three, timed at BH 512 / S 1025;
-and on the eval phase's three mla-7b runs for the flash forward and FPS,
-timed at B = 1 (BH 32 / S 534; FPS at B = 1); the other paths' counts
+on the eval phase's three mla-7b runs for the flash forward and FPS,
+timed at B = 1 (BH 32 / S 534; FPS at B = 1); and on the tp phase's rank 0
+for the row-parallel W8A8 (w8a8_matmul_rowpar: its int32 products) and
+int8_mm's fp32 output, timed as a rank's launches at T = 2 by o and down
+(M = 534 and 18; 1 and 535); the other paths' counts
 are in the log and in chip_smoke.json); an earlier line says whether
 tensorflow, tensorflow_datasets, protobuf and Pillow are installed; the
 last is
@@ -1092,7 +1118,7 @@ def load_parent_int8_mm(lib: Path, abi: str):
     from mla_tpu_torch.ops import cuda
 
     if abi == "split":
-        return cuda.load("int8_mm", lib)
+        return cuda.load("int8_mm", lib, symbols=("int8_mm",))
     handle = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
     handle.int8_mm.argtypes = [P, I, P, P, P, I, I, I, P]
@@ -1107,7 +1133,7 @@ def load_parent_w8a8(lib: Path, abi: str):
     from mla_tpu_torch.ops import cuda
 
     if abi == "k_major":
-        return cuda.load("w8a8", lib)
+        return cuda.load("w8a8", lib, symbols=("w8a8_matmul",))
     handle = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
     handle.w8a8_matmul.argtypes = [P, I, P, P, P, P, P, P, I, I, I, P]
@@ -1400,6 +1426,183 @@ def check_int8_mm(torch, report, control):
         "bound_by": "bytes" if tot["b_bytes"] >= tot["b_ops"] else "operations",
         "library_ms": tot["library_ms"] if library_ok else None,
     }
+
+
+# the tensor-parallel row-parallel products: o and down of the int8 mla-7b
+# split on K over T ranks; W8A8 at the serving prefill and suffix rows, the
+# weight-only product at a decode step and the AR prefill
+ROWPAR_T = (2, 4)
+ROWPAR_LINEARS = ((4096, 4096), (11008, 4096))
+ROWPAR_W8A8_M = (PREFIX_LEN, SUFFIX_LEN)
+ROWPAR_INT8_M = (1, PREFIX_LEN + 1)
+ROWPAR_ROW_T = 2  # the kernels line's rows: the tp phase's group
+
+
+def rowpar_w8a8(torch, x, w_qt, ws, T: int):
+    """The row-parallel W8A8 of T ranks in one process: K cut in T, each
+    slice's row scale, one global s_x (their max: the all-reduce MAX), each
+    rank's int32 sums added (the all-reduce SUM), the rescale. Returns (y,
+    acc, the steps' outputs)."""
+    from mla_tpu_torch.ops import quantization as q
+
+    Kl = x.shape[1] // T
+    xs = [x[:, t * Kl:(t + 1) * Kl].contiguous() for t in range(T)]
+    ws_t = [w_qt[:, t * Kl:(t + 1) * Kl].contiguous() for t in range(T)]
+    scales = [q.w8a8_row_scale(xt) for xt in xs]
+    sx = torch.stack(scales).amax(0)
+    accs = [q.w8a8_matmul_acc(xt, wt, sx) for xt, wt in zip(xs, ws_t)]
+    acc = torch.stack(accs).sum(0, dtype=torch.int32)
+    return q.w8a8_rescale(acc, sx, ws, x.dtype), acc, (xs, ws_t, scales, sx, accs)
+
+
+def check_rowpar(torch, report, w8a8_control, int8_control):
+    """The two row-parallel modes of tensor parallelism at T = 2 and 4 in one
+    process. W8A8 (w8a8_row_scale, w8a8_matmul_acc, w8a8_rescale): each step
+    equal to its plain version, and y and the int32 sums equal to the
+    one-card kernel on the whole rows bit for bit; the control (the last K
+    tile dropped) must miss. The weight-only product's fp32-output mode
+    (int8_mm_f32out): each rank's partials within INT8_COL_RTOL of the plain
+    version per column, bit-identical over two launches, their sum rounded
+    to bf16 within AR_AGREE_RTOL of the one-card product's scale; the
+    control must miss the plain version. Times a rank's launches (CUDA
+    graphs, weights cycled past L2) beside the one-card kernel, the plain
+    version, the bound and a library yardstick."""
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.ops import quantization as q
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "err": 0.0, "b_bytes": 0.0,
+                   "b_ops": 0.0} for name in ("w8a8_matmul_rowpar", "int8_matmul_f32out")}
+    readings = {"w8a8": [], "int8_mm": []}
+
+    def add(name, ms, plain_ms, b, lib_ms, nbytes, ops, kind):
+        r = rows[name]
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b), ("library_ms", lib_ms)):
+            r[k] += v
+        r["b_bytes"] += nbytes / PEAK_BYTES * 1e3
+        r["b_ops"] += ops / PEAK_OPS[kind] * 1e3
+
+    for T in ROWPAR_T:
+        for K, N in ROWPAR_LINEARS:
+            Kl = K // T
+            for M in ROWPAR_W8A8_M:
+                where = f"T={T} M={M} K={K} (rank K {Kl}) N={N}"
+                x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+                w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+                w_qt = w_q.t().contiguous()
+                ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
+                y1, acc1 = q.w8a8_matmul(x, w_qt, ws, return_acc=True)
+                y, acc, (xs, wts, scales, sx, accs) = rowpar_w8a8(torch, x, w_qt, ws, T)
+                with kernel_from(cuda, "w8a8", w8a8_control):
+                    _, acc_c, _ = rowpar_w8a8(torch, x, w_qt, ws, T)
+                torch.cuda.synchronize()
+                for t in range(T):
+                    if not torch.equal(scales[t], q.w8a8_row_scale_plain(xs[t])):
+                        raise AssertionError(f"w8a8 row-parallel {where}: rank {t}'s row scale differs from plain")
+                    if not torch.equal(accs[t], q.w8a8_matmul_acc_plain(xs[t], wts[t], sx)):
+                        raise AssertionError(f"w8a8 row-parallel {where}: rank {t}'s int32 sums differ from plain")
+                if not torch.equal(y, q.w8a8_rescale_plain(acc, sx, ws, x.dtype)):
+                    raise AssertionError(f"w8a8 row-parallel {where}: the rescale differs from plain")
+                if not (torch.equal(acc, acc1) and torch.equal(y, y1)):
+                    raise AssertionError(f"w8a8 row-parallel {where}: not the one-card kernel's sums and output "
+                                         f"({int((acc != acc1).sum())} sums, {int((y != y1).sum())} outputs differ)")
+                if torch.equal(acc_c, acc1):
+                    raise AssertionError(f"w8a8 row-parallel {where}: the check passes the control")
+                entry = {"where": where, "identical": True, "control_missed": int((acc_c != acc1).sum())}
+                if T == ROWPAR_ROW_T:
+                    copies_kn = weight_copies(torch, gen, Kl, N)
+                    copies = [c.t().contiguous() for c in copies_kn]
+                    whole = [c.t().contiguous() for c in weight_copies(torch, gen, K, N)]
+                    x0 = xs[0]
+                    cyc, cyc_kn, cyc_whole = itertools.cycle(copies), itertools.cycle(copies_kn), itertools.cycle(whole)
+                    ms = graph_ms(torch, lambda: q.w8a8_rescale(
+                        q.w8a8_matmul_acc(x0, next(cyc), q.w8a8_row_scale(x0)), sx, ws, x.dtype))
+                    one_ms = graph_ms(torch, lambda: q.w8a8_matmul(x, next(cyc_whole), ws))
+                    plain_ms = cuda_ms(torch, lambda: q.w8a8_rescale_plain(q.w8a8_matmul_acc_plain(
+                        x0, copies[0], q.w8a8_row_scale_plain(x0)), sx, ws, x.dtype), 3, 1)
+
+                    def library():
+                        xq, s = q.quantize_rows(x0)
+                        return (torch._int_mm(xq, next(cyc_kn)).float() * s * ws).to(torch.bfloat16)
+
+                    lib_ms = graph_ms(torch, library)
+                    # x's slice, the rank's weight rows and scales in; its int32
+                    # partials (which leave the rank) and y out
+                    nbytes, ops = M * Kl * 2 + Kl * N + N * 4 + M * N * 4 + M * N * 2, 2.0 * M * Kl * N
+                    b, by = bound_ms(nbytes, ops, "int8")
+                    add("w8a8_matmul_rowpar", ms, plain_ms, b, lib_ms, nbytes, ops, "int8")
+                    entry.update(ms=ms, one_card_ms=one_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
+                                 bound_by=by)
+                    log(f"w8a8 row-parallel {where}: y and acc identical to the one-card kernel, the control "
+                        f"missed; a rank's 3 launches {ms:.4f} ms (one card, whole K {one_ms:.4f} ms), plain "
+                        f"{plain_ms:.4f} ms, _int_mm {lib_ms:.4f} ms, bound {b:.4f} ms ({by})")
+                    report["shapes"].append({"kernel": "w8a8_matmul_rowpar", "T": T, "M": M, "K": Kl, "N": N,
+                                             "ms": ms, "one_card_ms": one_ms, "plain_ms": plain_ms,
+                                             "library_ms": lib_ms, "bound_ms": b, "bound_by": by, "max_abs_err": 0.0})
+                    del copies, copies_kn, whole
+                readings["w8a8"].append(entry)
+            for M in ROWPAR_INT8_M:
+                where = f"T={T} M={M} K={K} (rank K {Kl}) N={N}"
+                x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+                w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+                ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3 + 1e-4
+                y1 = q.int8_matmul(x, w_q, ws)
+                xs = [x[:, t * Kl:(t + 1) * Kl].contiguous() for t in range(T)]
+                wqs = [w_q[t * Kl:(t + 1) * Kl].contiguous() for t in range(T)]
+                parts = [q.int8_matmul(xt, wt, ws, out_dtype=torch.float32) for xt, wt in zip(xs, wqs)]
+                again = q.int8_matmul(xs[0], wqs[0], ws, out_dtype=torch.float32)
+                with kernel_from(cuda, "int8_mm", int8_control):
+                    bad = q.int8_matmul(xs[0], wqs[0], ws, out_dtype=torch.float32)
+                y = torch.stack(parts).sum(0).to(torch.bfloat16)
+                torch.cuda.synchronize()
+                if not (parts[0].dtype == torch.float32 and torch.equal(parts[0], again)):
+                    raise AssertionError(f"int8_mm fp32 output {where}: two launches differ")
+                rel = max(col_rel_err(p, q.int8_matmul_plain(xt, wt, ws, torch.float32))
+                          for p, xt, wt in zip(parts, xs, wqs))
+                rel_c = col_rel_err(bad, q.int8_matmul_plain(xs[0], wqs[0], ws, torch.float32))
+                err = float((y.float() - y1.float()).abs().max())
+                scale = float(y1.float().abs().max())
+                if not rel <= INT8_COL_RTOL or not rel_c > INT8_COL_RTOL:
+                    raise AssertionError(f"int8_mm fp32 output {where}: columns {rel} of their norm from plain, "
+                                         f"control {rel_c} (tol {INT8_COL_RTOL})")
+                if not err <= AR_AGREE_RTOL * scale:
+                    raise AssertionError(f"int8_mm row-parallel {where}: the summed partials are {err} from the "
+                                         f"one-card product (scale {scale}, tol {AR_AGREE_RTOL})")
+                entry = {"where": where, "col_rel_err": rel, "control_col_rel_err": rel_c, "sum_vs_one_card": err,
+                         "scale": scale}
+                if T == ROWPAR_ROW_T:
+                    copies, whole = weight_copies(torch, gen, Kl, N), weight_copies(torch, gen, K, N)
+                    x0 = xs[0]
+                    cyc, cyc_whole = itertools.cycle(copies), itertools.cycle(whole)
+                    ms = graph_ms(torch, lambda: q.int8_matmul(x0, next(cyc), ws, out_dtype=torch.float32))
+                    one_ms = graph_ms(torch, lambda: q.int8_matmul(x, next(cyc_whole), ws))
+                    plain_ms = cuda_ms(torch, lambda: q.int8_matmul_plain(x0, copies[0], ws, torch.float32), 3, 1)
+                    nbytes, ops = M * Kl * 2 + Kl * N + N * 4 + M * N * 4, 2.0 * M * Kl * N
+                    b, by = bound_ms(nbytes, ops, "bf16")
+                    add("int8_matmul_f32out", ms, plain_ms, b, 0.0, nbytes, ops, "bf16")
+                    entry.update(ms=ms, one_card_ms=one_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+                    log(f"int8_mm fp32 output {where}: columns within {rel:.3e} of plain (control {rel_c:.3e}), "
+                        f"the summed partials {err / scale:.3e} of the one-card product's scale; a rank's launch "
+                        f"{ms:.4f} ms (one card, whole K {one_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b:.4f} ms "
+                        f"({by})")
+                    report["shapes"].append({"kernel": "int8_matmul_f32out", "T": T, "M": M, "K": Kl, "N": N,
+                                             "ms": ms, "one_card_ms": one_ms, "plain_ms": plain_ms,
+                                             "library_ms": None, "bound_ms": b, "bound_by": by, "max_abs_err": err})
+                    rows["int8_matmul_f32out"]["err"] = max(rows["int8_matmul_f32out"]["err"], err)
+                    del copies, whole
+                readings["int8_mm"].append(entry)
+        log(f"row-parallel T={T}: W8A8 identical to the one-card kernel at M = {ROWPAR_W8A8_M}, int8_mm's fp32 "
+            f"partials within tolerance at M = {ROWPAR_INT8_M}, by o and down; both controls missed")
+    report["rowpar"] = readings
+    out = []
+    for name, replaces, src in (("w8a8_matmul_rowpar", "mla_tpu/ops/quantization.py:347", "w8a8.cu"),
+                                ("int8_matmul_f32out", "mla_tpu/ops/quantization.py:264", "int8_mm.cu")):
+        r = rows[name]
+        out.append({"name": name, "route": "cuda", "source": f"mla_tpu_torch/csrc/{src}", "replaces": replaces,
+                    "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": "bytes" if r["b_bytes"] >= r["b_ops"] else "operations",
+                    "library_ms": r["library_ms"] if name == "w8a8_matmul_rowpar" else None, "path": "tp"})
+    return out
 
 
 def request_inputs(cfg, seed: int):
@@ -5549,20 +5752,32 @@ def dp_agree(torch, report):
         report["dp_agree"] = dp_equality(torch, report)
 
 
+def dp_child(argv) -> int:
+    """The dp phase's torchrun trainer: train.main(argv) with its checkpoint
+    writes skipped (the trainer phase times and checks the 21.8 GiB save
+    and its resume)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mla_tpu_torch import train
+
+    with checkpoint_writes_skipped() as skipped:
+        train.main(argv)
+    print(f"dp child: checkpoint writes skipped at steps {skipped}", flush=True)
+    return 0
+
+
 def dp_phase(torch, report):
-    """`python -m
-    torch.distributed.run --nproc_per_node 1 -m mla_tpu_torch.train --model
-    mla-2b --dp 1` (the trainer phase's flags: fp32 masters, accumulation
-    2) for 2 steps and its checkpoint; that run resumed in this process at
-    world size 1 (the checkpoint re-sharded) for steps 3 and 4 with exact
-    launches, the save skipped; step ms, tokens/s, MFU, peak GiB and the
-    rank's optimizer GiB (fp32 masters and moments) beside the one-device
-    trainer's. Returns the resumed run's launches."""
+    """`python -m torch.distributed.run --nproc_per_node 1` of
+    mla_tpu_torch.train --model mla-2b --dp 1 (the trainer phase's flags:
+    fp32 masters, accumulation 2; through this script's --dp-child, which
+    skips the checkpoint write) for 2 steps; then 2 steps of the same run
+    in this process at world size 1 with exact launches, the save skipped;
+    step ms, tokens/s, MFU, peak GiB and the rank's optimizer GiB (fp32
+    masters and moments) beside the one-device trainer's. Returns the
+    in-process run's launches."""
     import numpy as np
 
     from mla_tpu_torch import train
     from mla_tpu_torch.ops import cuda
-    from mla_tpu_torch.training import checkpointing as ckpt
     from mla_tpu_torch.training import metrics
 
     rep = {}
@@ -5570,10 +5785,11 @@ def dp_phase(torch, report):
     runs = DP_ROOT / "runs"
     args = list(TRAINER_ARGS) + ["--run_root_dir", str(runs), "--run_id", "dp", "--dp", "1"]
     try:
-        # -- the trainer through torchrun: 2 steps and a checkpoint ----------
+        # -- the trainer through torchrun: 2 steps, the save skipped ----------
         env = {k: v for k, v in os.environ.items() if k not in DP_LAUNCH}
         cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
-               "--master_port", str(_free_port()), "-m", "mla_tpu_torch.train", *args, "--max_steps", "2"]
+               "--master_port", str(_free_port()), str(Path(__file__).resolve()), "--dp-child", *args,
+               "--max_steps", "2"]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=300)
         run_s = time.perf_counter() - t0
@@ -5581,25 +5797,23 @@ def dp_phase(torch, report):
         if proc.returncode != 0:
             raise AssertionError(f"dp: torchrun trainer exited {proc.returncode}:\n" + "\n".join(lines[-30:]))
         strategy = [l for l in lines if "strategy ::" in l]
-        saved = [l for l in lines if "checkpoint step-" in l]
+        skipped_line = [l for l in lines if "checkpoint writes skipped at steps" in l]
         jsonl = runs / "dp" / "dp.jsonl"
         records = [json.loads(l) for l in jsonl.read_text().splitlines()] if jsonl.exists() else []
-        step2 = ckpt.latest_checkpoint(runs / "dp")
-        if not (strategy and "mesh={'dp': 1, 'fsdp': 1, 'tp': 1}" in strategy[0] and step2 is not None
-                and step2.name.startswith("step-000002-")):
-            raise AssertionError(f"dp: torchrun trainer wrote {step2}, strategy {strategy}")
+        if not (strategy and "mesh={'dp': 1, 'fsdp': 1, 'tp': 1}" in strategy[0] and len(records) >= 2
+                and skipped_line and skipped_line[-1].endswith("[2]")):
+            raise AssertionError(f"dp: torchrun trainer logged {len(records)} records, strategy {strategy}, "
+                                 f"{skipped_line}")
         log(f"dp: torchrun --nproc_per_node 1 -m mla_tpu_torch.train --model mla-2b --dp 1, 2 steps: {run_s:.1f} s "
-            f"(process start, init, 2 steps, a {(step2 / ckpt.STATE_FILE).stat().st_size / 2**30:.2f} GiB "
-            f"checkpoint); {strategy[0].split('>> ')[-1]}; {saved[-1].split('>> ')[-1] if saved else ''}")
-        rep["torchrun"] = {"run_s": run_s, "strategy": strategy[0].split(">> ")[-1], "records": records[-2:],
-                           "checkpoint": step2.name}
+            f"(process start, init, 2 steps; the checkpoint write skipped); {strategy[0].split('>> ')[-1]}")
+        rep["torchrun"] = {"run_s": run_s, "strategy": strategy[0].split(">> ")[-1], "records": records[-2:]}
 
-        # -- resumed in this process at world size 1 ---------------------------
+        # -- 2 steps in this process at world size 1 ---------------------------
         with nccl_world_of_one(torch):
             torch.cuda.reset_peak_memory_stats()
             cuda.launches.clear()
             with checkpoint_writes_skipped() as skipped:
-                out = train.main(args + ["--max_steps", "4", "--is_resume", "true"])
+                out = train.main(args + ["--run_id", "dp-in-process", "--max_steps", "2"])
             torch.cuda.synchronize()
             totals = {k: cuda.launches[k] for k in TRAINER_KERNELS}
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -5610,21 +5824,21 @@ def dp_phase(torch, report):
             copies = sorted({str(t.dtype) for t in shards.compute})
         expected = trainer_counts(cfg, micro_batches=2 * 2)
         if totals != expected:
-            raise AssertionError(f"dp: resumed steps 3-4 launched {totals}, expected {expected}")
+            raise AssertionError(f"dp: steps 1-2 in this process launched {totals}, expected {expected}")
         losses = list(out["metrics"].windows["total_loss"])
-        if not (out["load_s"] is not None and int(state["step"]) == 4 and all(np.isfinite(losses))):
-            raise AssertionError(f"dp: resume loaded {out['load_s']}, step {state['step']}, losses {losses}")
+        if not (int(state["step"]) == 2 and all(np.isfinite(losses))):
+            raise AssertionError(f"dp: the run in this process reached step {state['step']}, losses {losses}")
         S = 16 + cfg.fused_len + cfg.diff_block_len
         tokens = 4 * 4 * S
         peak = metrics.bf16_peak_flops(torch.cuda.get_device_name(0))
         ms, tok_s, mfu = _trainer_step_line(out, tokens, out["metrics"].flops_per_token, peak)
-        rep["resumed"] = {"load_s": out["load_s"], "losses": losses, "step_ms": ms, "tokens_per_s": tok_s, "mfu": mfu,
-                          "peak_gib": peak_gib, "optimizer_gib": opt_gib, "masters_gib": masters_gib,
-                          "compute_dtypes": copies, "launches": totals, "save_skipped_at_step": skipped,
-                          "step_times_s": list(out["metrics"].windows["step_time"]),
-                          "plain_trainer_ms": DP_PLAIN_TRAINER_MS}
-        log(f"dp: resumed at world 1 from {step2.name} (loaded and re-sharded in {out['load_s']:.1f} s), steps 3-4 "
-            f"of mla-2b ({gpu_line()}): losses {losses}, step 4 {ms:.1f} ms (one-device trainer "
+        rep["in_process"] = {"losses": losses, "step_ms": ms, "tokens_per_s": tok_s, "mfu": mfu,
+                             "peak_gib": peak_gib, "optimizer_gib": opt_gib, "masters_gib": masters_gib,
+                             "compute_dtypes": copies, "launches": totals, "save_skipped_at_step": skipped,
+                             "step_times_s": list(out["metrics"].windows["step_time"]),
+                             "plain_trainer_ms": DP_PLAIN_TRAINER_MS}
+        log(f"dp: steps 1-2 of mla-2b at world 1 in this process ({gpu_line()}): losses {losses}, step 2 {ms:.1f} ms "
+            f"(one-device trainer "
             f"{DP_PLAIN_TRAINER_MS[0]}-{DP_PLAIN_TRAINER_MS[1]} ms in PERF.md), {tok_s:.0f} tokens/s, MFU "
             f"{mfu if mfu is None else round(mfu, 4)}, peak {peak_gib:.2f} GiB, the rank's optimizer "
             f"{opt_gib:.2f} GiB (masters {masters_gib:.2f} GiB; N ranks hold 1/N of it), compute tensors in "
@@ -5636,6 +5850,279 @@ def dp_phase(torch, report):
         shutil.rmtree(DP_ROOT, ignore_errors=True)
     report["dp"] = rep
     return totals
+
+
+# tensor parallelism: the int8 mla-7b at full width and depth served by
+# TP_WORLD ranks (child processes of this script) over one tp group, held
+# to the one-process policy on the same weights and x_T. On one card the
+# ranks share it over gloo, which the caller names (NCCL refuses two ranks
+# on one device; parallel/tensor.py stages gloo's collectives through the
+# host), so their times are not tensor-parallel speed.
+TP_WORLD = 2
+TP_SEED = 180
+TP_ROOT = Path("build") / "chip_smoke_tp"
+TP_TIMEOUT = 600
+TP_KERNELS = ("w8a8_matmul", "w8a8_row_scale", "w8a8_matmul_acc", "w8a8_rescale", "int8_matmul",
+              "int8_matmul_f32out", "flash_attention", "furthest_point_sample")
+TP_CHUNK_RTOL = 1e-3  # of the chunk's scale, where a chunk is not bit-identical
+# the AR logits: the weight-only products sum in fp32 in another order
+# under tp (a rank's split of K, its partials added across the group), so
+# a bf16 output rounds one ulp apart where its sum lies near a rounding
+# boundary (with K = 4096 random terms, ~1e-4 relative), as the card's
+# kernel differs from its plain version (ar-agree); 4 layers give ~1e-2 of
+# the logits' scale, 32 random layers ~2.5e-2 (PERF.md section 6), as the
+# serving host's rows grow. Both sides' decode steps are fed the
+# one-process greedy ids; the logits are held to AR_AGREE_RTOL on the
+# decoder cut to TP_CUT_LAYERS and to TP_AR_FULL_DEPTH_RTOL at 32 layers,
+# where predict_action_ar's own ids must equal. That limit sits above the
+# sound readings (2.2-2.7e-2) and below a group whose row-parallel sums
+# drop the other ranks' partials (the control, which it must reject)
+TP_CUT_LAYERS = BUCKET_ROWS_LAYERS
+TP_AR_FULL_DEPTH_RTOL = 5e-2
+
+
+def tp_expected(cfg, T: int) -> dict:
+    """Each call's launches on a rank of a tp group of T (1: one process):
+    a forward's four int8 linears a layer, of which o and down are
+    row-parallel under tp (W8A8: row scale, int32 product and rescale;
+    weight-only: fp32 partials), the int8 lm_head of each AR forward (its
+    vocabulary split), the flash prefill on the rank's heads and FPS 2."""
+    L = cfg.llama.num_layers
+    out = {}
+    for call, forwards in (("ddim", 1 + 8), ("dpm", 1 + 4), ("ar", 1 + cfg.action_dim)):
+        e = dict.fromkeys(TP_KERNELS, 0)
+        e.update(flash_attention=L, furthest_point_sample=cfg.point.num_stages)
+        if call == "ar":
+            e["int8_matmul"] = (4 if T == 1 else 2) * L * forwards + forwards
+            e["int8_matmul_f32out"] = 0 if T == 1 else 2 * L * forwards
+        elif T == 1:
+            e["w8a8_matmul"] = 4 * L * forwards
+        else:
+            for k in ("w8a8_matmul", "w8a8_row_scale", "w8a8_matmul_acc", "w8a8_rescale"):
+                e[k] = 2 * L * forwards
+        out[call] = e
+    return out
+
+
+def tp_policies(torch, cfg, mesh) -> dict:
+    """The seeded int8 mla-7b (live head) and its W8A8 and weight-only
+    policies over `mesh` (None: one process), and a weight-only policy of
+    it cut to TP_CUT_LAYERS ('cut'); the whole trees are freed."""
+    from dataclasses import replace
+
+    from mla_tpu_torch import params as P
+    from mla_tpu_torch.models.mla import MLAPolicy
+    from mla_tpu_torch.ops.quantization import quantize_model
+
+    pols = {}
+    cut = replace(cfg, llama=replace(cfg.llama, num_layers=TP_CUT_LAYERS))
+    for c, modes in ((cfg, ("w8a8", "weight_only")), (cut, ("cut",))):
+        params, state = P.init(c, seed=TP_SEED, device="cuda")
+        live_head(torch, params, TP_SEED + 1)
+        params = quantize_model(params)
+        pols.update({mode: MLAPolicy(params, state, c, norm_stats=STATS, mesh=mesh,
+                                     int8_mode="weight_only" if mode == "cut" else mode) for mode in modes})
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return pols
+
+
+def tp_calls(torch, cfg, pols, feed=None) -> dict:
+    """One request through DDIM-8, DPM-4 (W8A8) and predict_action_ar's
+    ids (weight-only): outputs, launches and host ms of each call (a first
+    call: no warm-up, the ranks' calls over gloo take seconds); then the AR
+    logits of a prefill and the decode steps, at full depth and cut, fed
+    feed[key] (None: their own greedy ids; drive_ar, in the policy's tp
+    block), and under a tp group the full-depth logits once more with the
+    row-parallel all-reduce SUM skipped (the control)."""
+    import numpy as np
+
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.parallel import tensor
+
+    img, pc, ids, noise = request_inputs(cfg, TP_SEED)
+    calls = {s: (lambda s=s: pols["w8a8"].predict_action_diff(img, pc, "", input_ids=ids, noise=noise, sampler=s,
+                                                              return_normalized=True)) for s in ("ddim", "dpm")}
+    calls["ar"] = lambda: pols["weight_only"].generate_ids(img, pc, ids, cfg.action_dim)[0]
+    torch.cuda.synchronize()
+    out = {"launches": {}, "ms": {}}
+    for name, fn in calls.items():
+        cuda.launches.clear()
+        t = time.perf_counter()
+        out[name] = np.asarray(fn())
+        torch.cuda.synchronize()
+        out["ms"][name] = (time.perf_counter() - t) * 1e3
+        out["launches"][name] = {k: cuda.launches[k] for k in TP_KERNELS}
+    for key in ("weight_only", "cut"):
+        with pols[key].tp_scope():
+            logits, fed, _ = drive_ar(torch, pols[key], img, pc, ids, cfg.action_dim, feed and feed[key])
+        out[f"{key}_logits"], out[f"{key}_fed"] = logits.numpy(), fed
+    if pols["weight_only"].mesh is not None:
+        real = tensor.reduce_from_tp
+        tensor.reduce_from_tp = lambda x: x
+        try:
+            with pols["weight_only"].tp_scope():
+                logits, _, _ = drive_ar(torch, pols["weight_only"], img, pc, ids, cfg.action_dim,
+                                        feed["weight_only"])
+        finally:
+            tensor.reduce_from_tp = real
+        out["control_logits"] = logits.numpy()
+    out["decoder_gib"] = {mode: tree_gib(pols[mode].params["llm_backbone"]) for mode in ("w8a8", "weight_only")}
+    return out
+
+
+def tp_child(root: Path, backend: str) -> int:
+    """One rank of the tp phase (its launch variables set by the parent):
+    joins the group over `backend` on cuda:LOCAL_RANK, builds its part of
+    the int8 mla-7b and writes tp_calls' results, its decode steps fed the
+    ids of root/feed.json, to root/rank{R}.pt."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mla_tpu_torch.conf.models import get_model_config
+    from mla_tpu_torch.parallel import mesh as tmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launch = tmesh.initialize_distributed("cuda", backend=backend)
+    mesh = tmesh.serving_mesh()
+    cfg = get_model_config("mla-7b")
+    t0 = time.perf_counter()
+    pols = tp_policies(torch, cfg, mesh)
+    build_s = time.perf_counter() - t0
+    out = tp_calls(torch, cfg, pols, json.loads((root / "feed.json").read_text()))
+    out.update(build_s=build_s, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               device=torch.cuda.get_device_name(launch["device"]), backend=backend)
+    torch.save(out, root / f"rank{launch['rank']}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_ranks(torch, cfg, ref, backend: str, world: int) -> tuple:
+    """`world` ranks of this script (--tp-child) over one tp group, their
+    decode steps fed the reference's ids; each rank held to `ref` (see
+    tp_phase). Returns (the report's entry, rank 0's launches, the
+    failures)."""
+    import numpy as np
+
+    shutil.rmtree(TP_ROOT, ignore_errors=True)
+    TP_ROOT.mkdir(parents=True)
+    (TP_ROOT / "feed.json").write_text(json.dumps({key: ref[f"{key}_fed"] for key in ("weight_only", "cut")}))
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items() if k not in DP_LAUNCH}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-child", str(TP_ROOT), backend],
+                              env={**env, "MLA_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                                   "MLA_NUM_PROCESSES": str(world), "MLA_PROCESS_ID": str(r), "LOCAL_RANK": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=TP_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"tp: rank {r} of {world} exited {p.returncode}:\n"
+                                 + "\n".join(text.splitlines()[-30:]))
+    ranks = [torch.load(TP_ROOT / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    shutil.rmtree(TP_ROOT, ignore_errors=True)
+    shared = torch.cuda.device_count() < world  # ranks share cards: their times are not tensor-parallel speed
+    rep = {"backend": backend, "world": world, "s": time.perf_counter() - t0, "ranks": [], "cards_shared": shared}
+    want = tp_expected(cfg, world)
+    failed = []
+    for r, got in enumerate(ranks):
+        if got["launches"] != want:
+            failed.append(f"rank {r} of {world} launched {got['launches']}, expected {want}")
+        for key in ("ddim", "dpm", "ar", "weight_only_logits", "cut_logits"):
+            if not np.array_equal(got[key], ranks[0][key]):
+                failed.append(f"rank {r} of {world}: its {key} differs from rank 0's")
+        entry = {"ms": got["ms"], "decoder_gib": got["decoder_gib"], "peak_gib": got["peak_gib"],
+                 "build_s": got["build_s"], "device": got["device"]}
+        for sampler in ("ddim", "dpm"):
+            a, b = got[sampler], ref[sampler]
+            identical = bool(np.array_equal(a, b))
+            err = float(np.abs(a - b).max()) / float(np.abs(b).max())
+            entry[sampler] = {"identical": identical, "max_err_of_scale": err}
+            if not identical and not err <= TP_CHUNK_RTOL:
+                failed.append(f"rank {r} of {world}: its {sampler} chunk is {err} of its scale from the "
+                              f"one-process chunk (tol {TP_CHUNK_RTOL})")
+        if not np.array_equal(got["ar"], ref["ar"]):
+            failed.append(f"rank {r} of {world}: AR ids {got['ar'].tolist()}, one process {ref['ar'].tolist()}")
+        for key, tol in (("cut", AR_AGREE_RTOL), ("weight_only", TP_AR_FULL_DEPTH_RTOL)):
+            a, b = got[f"{key}_logits"], ref[f"{key}_logits"]
+            step_err = np.abs(a - b).max(axis=1) / float(np.abs(b).max())
+            if not float(step_err.max()) <= tol:
+                failed.append(f"rank {r} of {world}: its {key} AR logits are {float(step_err.max())} of their "
+                              f"scale from the one process's (tol {tol})")
+            entry[f"{key}_logits_step_err_of_scale"] = [float(e) for e in step_err]
+        b = ref["weight_only_logits"]
+        entry["control_err_of_scale"] = float(np.abs(got["control_logits"] - b).max()) / float(np.abs(b).max())
+        if not entry["control_err_of_scale"] > TP_AR_FULL_DEPTH_RTOL:
+            failed.append(f"rank {r} of {world}: the control (row-parallel sums skipped) is only "
+                          f"{entry['control_err_of_scale']} of the logits' scale from the one process's "
+                          f"(tol {TP_AR_FULL_DEPTH_RTOL})")
+        rep["ranks"].append(entry)
+        chunks = ", ".join(f"{name} " + ("identical" if entry[k]["identical"] else
+                                         f"NOT identical, {entry[k]['max_err_of_scale']} of its scale")
+                           for k, name in (("ddim", "DDIM-8"), ("dpm", "DPM-4")))
+        log(f"tp rank {r} of {world} ({backend}, {got['device']}): chunks to the one-process ones: {chunks}; "
+            f"decoder {got['decoder_gib']['w8a8']:.2f} GiB (W8A8) / {got['decoder_gib']['weight_only']:.2f} GiB "
+            f"(weight-only); peak {got['peak_gib']:.2f} GiB; first calls: DDIM-8 {got['ms']['ddim']:.1f} ms, DPM-4 "
+            f"{got['ms']['dpm']:.1f} ms, ids {got['ms']['ar']:.1f} ms"
+            f"{' (ranks sharing cards: not TP speed)' if shared else ''}; AR logits by step, of their scale: "
+            f"{TP_CUT_LAYERS} layers {[round(e, 5) for e in entry['cut_logits_step_err_of_scale']]}, "
+            f"{cfg.llama.num_layers} layers {[round(e, 5) for e in entry['weight_only_logits_step_err_of_scale']]}"
+            f" (tol {TP_AR_FULL_DEPTH_RTOL}; the control {entry['control_err_of_scale']:.4f})")
+    totals = {k: sum(ranks[0]["launches"][c][k] for c in want) for k in TP_KERNELS}
+    return rep, totals, failed
+
+
+def tp_phase(torch, report, backend: str = "gloo", worlds: str = str(TP_WORLD)):
+    """The int8 mla-7b (32 layers, seeded) served by the one-process policy,
+    then, for each world of `worlds` (comma-separated), by that many ranks
+    over one tp group (this script's children, over `backend`; gloo for
+    ranks that share one card, whose times are then not tensor-parallel
+    speed): every rank's DDIM-8 and DPM-4 chunks equal to each other and to
+    the one-process chunks bit for bit (else within TP_CHUNK_RTOL of their
+    scale, logged as not identical), predict_action_ar's ids equal, the AR
+    logits of a prefill and 7 decode steps (fed the one-process ids)
+    within AR_AGREE_RTOL of their scale on the decoder cut to TP_CUT_LAYERS
+    and within TP_AR_FULL_DEPTH_RTOL at full depth (the control with the
+    row-parallel sums skipped outside it), each call's launches exactly
+    tp_expected's, each rank's decoder GiB. Returns the first world's rank
+    0 launches of the row-parallel modes."""
+    from mla_tpu_torch.conf.models import get_model_config
+
+    cfg = get_model_config("mla-7b")
+    t0 = time.perf_counter()
+    pols = tp_policies(torch, cfg, None)
+    ref = tp_calls(torch, cfg, pols)
+    del pols
+    gc.collect()
+    torch.cuda.empty_cache()
+    if ref["launches"] != tp_expected(cfg, 1):
+        raise AssertionError(f"tp: the one-process calls launched {ref['launches']}, expected {tp_expected(cfg, 1)}")
+    rep = {"one_process": {"ms": ref["ms"], "decoder_gib": ref["decoder_gib"], "s": time.perf_counter() - t0},
+           "worlds": {}}
+    log(f"tp: one process, int8 mla-7b, first calls: DDIM-8 {ref['ms']['ddim']:.1f} ms, DPM-4 "
+        f"{ref['ms']['dpm']:.1f} ms, "
+        f"predict_action_ar ids {ref['ms']['ar']:.1f} ms, decoder {ref['decoder_gib']['w8a8']:.2f} GiB (W8A8) / "
+        f"{ref['decoder_gib']['weight_only']:.2f} GiB (weight-only)")
+    failed, first = [], None
+    for world in (int(w) for w in worlds.split(",")):
+        rep["worlds"][world], totals, bad = tp_ranks(torch, cfg, ref, backend, world)
+        rep["worlds"][world]["expected"] = tp_expected(cfg, world)
+        failed += bad
+        first = first or totals
+    report["tp"] = rep
+    if failed:
+        raise AssertionError("tp: " + "; ".join(failed))
+    return {"w8a8_matmul_rowpar": first["w8a8_matmul_acc"], "int8_matmul_f32out": first["int8_matmul_f32out"]}
 
 
 # the qualification entry at mla-small, full width: 1 weight seed, 2
@@ -5774,16 +6261,25 @@ def augment_phase(torch, report):
 # point-cloud library, training over a process group and the train-time
 # frame augmentation, which --only can run alone
 NEW_PHASES = ("mistral-agree", "mistral-serve", "mistral-train-agree", "mistral-train", "int4-agree", "int4-serve",
-              "phi-post-agree", "phi-post-train", "pointlib", "dp-agree", "dp", "augment", "qualify", "formats")
+              "phi-post-agree", "phi-post-train", "pointlib", "dp-agree", "dp", "augment", "qualify", "tp", "formats")
+# this script's own child processes: a rank of the tp phase, the dp phase's
+# torchrun trainer
+CHILDREN = {"--tp-child": lambda argv: tp_child(Path(argv[0]), argv[1]), "--dp-child": lambda argv: dp_child(argv)}
 
 
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] in CHILDREN:
+        return CHILDREN[sys.argv[1]](sys.argv[2:])
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.")
     parser.add_argument("--parent", help="a directory holding another version of flash_fwd.cu, flash_bwd.cu, "
                         "w8a8.cu, int8_mm.cu and fps.cu (such as the parent commit's, with its hopper.cuh) to time "
                         "against this tree's kernels")
     parser.add_argument("--only", help="a probe: the build, the kernels phase and only these comma-separated phases "
                         f"of {', '.join(NEW_PHASES)}; prints no result line")
+    parser.add_argument("--tp_world", default=str(TP_WORLD), help="ranks of the tp phase (comma-separated: each "
+                        "world in turn against one reference)")
+    parser.add_argument("--tp_backend", default="gloo", help="the tp phase's backend: gloo (ranks that share one "
+                        "card) or nccl (a card a rank)")
     args = parser.parse_args()
     try:
         import torch
@@ -5872,6 +6368,7 @@ def main() -> int:
     train_kernels = check_flash_bwd(torch, report, libs["flash_bwd"])
     check_mistral_kernels(torch, report, libs["w8a8"], libs["int8_mm"])
     check_fps_pointlib(torch, report, libs["fps"])
+    kernels += check_rowpar(torch, report, libs["w8a8"], libs["int8_mm"])
     report.setdefault("phase_s", {})["kernels"] = time.perf_counter() - t
     log(f"phase kernels: {report['phase_s']['kernels']:.1f} s")
     if args.parent:
@@ -5918,6 +6415,7 @@ def main() -> int:
     report["dp_launches"] = phase("dp", dp_phase, torch, report)
     phase("augment", augment_phase, torch, report)
     report["qualify_launches"] = phase("qualify", qualify_phase, torch, report)
+    tp_totals = phase("tp", tp_phase, torch, report, args.tp_backend, args.tp_world)
     if only is not None:
         phase("formats", formats_phase, torch, report)
         log(f"total: {time.perf_counter() - t_all:.1f} s (only {sorted(only)}: a partial run prints no result)")
@@ -5943,7 +6441,7 @@ def main() -> int:
     # and finetune runs for the flash kernels at their shapes
     kernels += train_kernels
     by_path = {"serve-host": host_totals, "ar-serve": ar_totals, "trainer": trainer_totals, "data": data_totals,
-               "oxe": oxe_totals, "hf-vlm": hf_totals, "eval": eval_totals}
+               "oxe": oxe_totals, "hf-vlm": hf_totals, "eval": eval_totals, "tp": tp_totals}
     for k in kernels:
         k.setdefault("path", "serve-host" if k["name"] in host_totals else
                      "ar-serve" if k["name"] == "int8_matmul" else "trainer")

@@ -48,9 +48,14 @@
 //     partials in split order (so two launches give the same bits), runs the
 //     epilogue and puts the ticket back to zero (a CUDA graph can replay it).
 //
+// fp32 output (int8_mm_f32out): the same product writes fp32 y whatever x's
+// dtype.  A row-parallel layer under tensor parallelism (o and down split on
+// K over a tp group) writes its partial sums so, with the column scale
+// applied; the caller all-reduces them in fp32 and rounds to x's dtype once.
+//
 // Numerics: exact products (int8 and bf16 values fit fp32; fp32 x rounds
 // each FMA once), fp32 sums, then one __fmul_rn by w_scale and one rounding
-// to x's dtype, as the TPU kernel does.  The output equals the plain
+// to y's dtype, as the TPU kernel does.  The output equals the plain
 // version's up to the order of the sums, and every launch sums in the same
 // order.  Ragged K and N read zeros from TMA; rows and columns past M and N
 // are not stored.
@@ -115,6 +120,13 @@ __device__ __forceinline__ void load_x4(const __nv_bfloat16* p, float (&v)[4]) {
 
 __device__ __forceinline__ void store_out(float* y, size_t i, float v) { y[i] = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* y, size_t i, float v) { y[i] = __float2bfloat16_rn(v); }
+// Columns n and n + 1 of one output row.
+__device__ __forceinline__ void store_pair(float* y, float a, float b) {
+  *reinterpret_cast<float2*>(y) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* y, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(y) = __floats2bfloat162_rn(a, b);
+}
 
 // Split K, in three steps.  Every block stores its partial sums
 // (store_partials: float4 vectors v0.. of each consumer thread, consecutive
@@ -185,10 +197,10 @@ constexpr size_t narrow_smem_bytes() {
 // Block (strip, split, row group) computes rows m0 .. m0 + MR - 1 of the
 // COLS output columns n0.. over its share of K.  Consumer thread (kg, cg)
 // takes K rows 4 kg .. 4 kg + 3 of each stage and columns CPT cg ..
-template <int MR, typename T>
+template <int MR, typename T, typename Y>
 __global__ void __launch_bounds__(THREADS, Narrow<MR>::MIN_BLOCKS)
 int8_mm_narrow(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUtensorMap tx,
-               const float* __restrict__ ws, T* __restrict__ y, float* __restrict__ part, int* __restrict__ tickets,
+               const float* __restrict__ ws, Y* __restrict__ y, float* __restrict__ part, int* __restrict__ tickets,
                int M, int N, int K, int splits) {
   constexpr int CPT = Narrow<MR>::CPT, COLS = Narrow<MR>::COLS, STAGES = Narrow<MR>::STAGES;
   constexpr uint32_t W_BYTES = Narrow<MR>::W_BYTES, X_BYTES = MR * BK * sizeof(T);
@@ -351,10 +363,10 @@ __device__ __forceinline__ void widen_a(uint32_t (&a)[4][4], uint32_t sw, int co
 // the x tile its K-major B operand (N = 64 MB).  A warp's A rows map to
 // columns in the order ldmatrix.trans delivers them: row 16 w + g + 8 h is
 // column n0 + 64 wg + 16 w + 2 g + h.
-template <int MB>
+template <int MB, typename Y>
 __global__ void __launch_bounds__(THREADS, 1)
 int8_mm_wide(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
-             const float* __restrict__ ws, __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+             const float* __restrict__ ws, Y* __restrict__ y, float* __restrict__ part,
              int* __restrict__ tickets, int M, int N, int K, int splits) {
   constexpr int ROWS = 64 * MB, R = ROWS / 2;  // x rows (wgmma's N) and accumulators per thread
   constexpr uint32_t X_BYTES = ROWS * BK * 2;
@@ -446,9 +458,7 @@ int8_mm_wide(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int m = m0 + 8 * j + 2 * t + e;
-      if (m < M)
-        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)m * N + n) =
-            __floats2bfloat162_rn(__fmul_rn(acc[4 * j + e], s0), __fmul_rn(acc[4 * j + 2 + e], s1));
+      if (m < M) store_pair(y + (size_t)m * N + n, __fmul_rn(acc[4 * j + e], s0), __fmul_rn(acc[4 * j + 2 + e], s1));
     }
 }
 
@@ -459,7 +469,7 @@ constexpr CUtensorMapDataType map_type() {
   return sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
-template <int MR, typename T>
+template <int MR, typename T, typename Y>
 int launch_narrow(const void* x, const int8_t* wq, const float* ws, void* y, float* part, int* tickets, int M, int K,
                   int N, int splits, cudaStream_t stream) {
   constexpr int COLS = Narrow<MR>::COLS;
@@ -470,27 +480,27 @@ int launch_narrow(const void* x, const int8_t* wq, const float* ws, void* y, flo
   constexpr size_t smem = narrow_smem_bytes<MR, T>();
   static bool smem_allowed = false;  // raised once, not at every launch
   if (!smem_allowed) {
-    cudaError_t err = cudaFuncSetAttribute(int8_mm_narrow<MR, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(int8_mm_narrow<MR, T, Y>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
     smem_allowed = true;
   }
   const dim3 grid((N + COLS - 1) / COLS, splits, (M + MR - 1) / MR);
-  int8_mm_narrow<MR, T><<<grid, THREADS, smem, stream>>>(tw, tx, ws, static_cast<T*>(y), part, tickets, M, N, K,
-                                                          splits);
+  int8_mm_narrow<MR, T, Y><<<grid, THREADS, smem, stream>>>(tw, tx, ws, static_cast<Y*>(y), part, tickets, M, N, K,
+                                                             splits);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename Y>
 int launch_narrow_rows(const void* x, const int8_t* wq, const float* ws, void* y, float* part, int* tickets, int M,
                        int K, int N, int splits, cudaStream_t stream) {
-  if (M <= 1) return launch_narrow<1, T>(x, wq, ws, y, part, tickets, M, K, N, splits, stream);
-  if (M <= 2) return launch_narrow<2, T>(x, wq, ws, y, part, tickets, M, K, N, splits, stream);
-  if (M <= 4) return launch_narrow<4, T>(x, wq, ws, y, part, tickets, M, K, N, splits, stream);
-  return launch_narrow<8, T>(x, wq, ws, y, part, tickets, M, K, N, splits, stream);
+  if (M <= 1) return launch_narrow<1, T, Y>(x, wq, ws, y, part, tickets, M, K, N, splits, stream);
+  if (M <= 2) return launch_narrow<2, T, Y>(x, wq, ws, y, part, tickets, M, K, N, splits, stream);
+  if (M <= 4) return launch_narrow<4, T, Y>(x, wq, ws, y, part, tickets, M, K, N, splits, stream);
+  return launch_narrow<8, T, Y>(x, wq, ws, y, part, tickets, M, K, N, splits, stream);
 }
 
-template <int MB>
+template <int MB, typename Y>
 int launch_wide(const void* x, const int8_t* wq, const float* ws, void* y, float* part, int* tickets, int M, int K,
                 int N, int splits, cudaStream_t stream) {
   CUtensorMap tx, tw;
@@ -500,14 +510,31 @@ int launch_wide(const void* x, const int8_t* wq, const float* ws, void* y, float
   constexpr size_t smem = wide_smem_bytes();
   static bool smem_allowed = false;
   if (!smem_allowed) {
-    cudaError_t err = cudaFuncSetAttribute(int8_mm_wide<MB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(int8_mm_wide<MB, Y>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return (int)err;
     smem_allowed = true;
   }
   const dim3 grid(((M + 64 * MB - 1) / (64 * MB)) * ((N + WIDE_BN - 1) / WIDE_BN), splits);
-  int8_mm_wide<MB><<<grid, THREADS, smem, stream>>>(tx, tw, ws, static_cast<__nv_bfloat16*>(y), part, tickets, M, N,
-                                                    K, splits);
+  int8_mm_wide<MB, Y><<<grid, THREADS, smem, stream>>>(tx, tw, ws, static_cast<Y*>(y), part, tickets, M, N,
+                                                       K, splits);
   return (int)cudaGetLastError();
+}
+
+// One launch along the caller's plan; y in Y (x's dtype, or float).
+template <typename Y>
+int launch(const void* x, int x_dtype, const int8_t* wq, const float* ws, void* y, float* part, int* tickets, int M,
+           int K, int N, int wide, int splits, cudaStream_t s) {
+  if (M < 1 || K < 16 || K % 16 != 0 || N < 16 || N % 16 != 0 || splits < 1 || splits > (K + BK - 1) / BK ||
+      (splits > 1 && (part == nullptr || tickets == nullptr)) || wide < 0 || wide > WIDE_MAX_MB ||
+      (wide && x_dtype != 1) || (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(wq) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (wide == 1) return launch_wide<1, Y>(x, wq, ws, y, part, tickets, M, K, N, splits, s);
+  if (wide == 2) return launch_wide<2, Y>(x, wq, ws, y, part, tickets, M, K, N, splits, s);
+  if (wide == 3) return launch_wide<3, Y>(x, wq, ws, y, part, tickets, M, K, N, splits, s);
+  if (x_dtype == 0) return launch_narrow_rows<float, Y>(x, wq, ws, y, part, tickets, M, K, N, splits, s);
+  return launch_narrow_rows<__nv_bfloat16, Y>(x, wq, ws, y, part, tickets, M, K, N, splits, s);
 }
 
 }  // namespace
@@ -523,15 +550,14 @@ int launch_wide(const void* x, const int8_t* wq, const float* ws, void* y, float
 // wq 16-byte aligned.  Returns the launch's error code.
 extern "C" int int8_mm(const void* x, int x_dtype, const int8_t* wq, const float* ws, void* y, float* part,
                        int* tickets, int M, int K, int N, int wide, int splits, void* stream) {
-  if (M < 1 || K < 16 || K % 16 != 0 || N < 16 || N % 16 != 0 || splits < 1 || splits > (K + BK - 1) / BK ||
-      (splits > 1 && (part == nullptr || tickets == nullptr)) || wide < 0 || wide > WIDE_MAX_MB ||
-      (wide && x_dtype != 1) || (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(wq) & 15) != 0)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide == 1) return launch_wide<1>(x, wq, ws, y, part, tickets, M, K, N, splits, s);
-  if (wide == 2) return launch_wide<2>(x, wq, ws, y, part, tickets, M, K, N, splits, s);
-  if (wide == 3) return launch_wide<3>(x, wq, ws, y, part, tickets, M, K, N, splits, s);
-  if (x_dtype == 0) return launch_narrow_rows<float>(x, wq, ws, y, part, tickets, M, K, N, splits, s);
-  return launch_narrow_rows<__nv_bfloat16>(x, wq, ws, y, part, tickets, M, K, N, splits, s);
+  if (x_dtype == 0) return launch<float>(x, x_dtype, wq, ws, y, part, tickets, M, K, N, wide, splits, s);
+  return launch<__nv_bfloat16>(x, x_dtype, wq, ws, y, part, tickets, M, K, N, wide, splits, s);
+}
+
+// int8_mm with y [M, N] in fp32 whatever x's dtype (a row-parallel layer's
+// partial sums, scaled).
+extern "C" int int8_mm_f32out(const void* x, int x_dtype, const int8_t* wq, const float* ws, float* y, float* part,
+                              int* tickets, int M, int K, int N, int wide, int splits, void* stream) {
+  return launch<float>(x, x_dtype, wq, ws, y, part, tickets, M, K, N, wide, splits, static_cast<cudaStream_t>(stream));
 }

@@ -46,6 +46,21 @@
 //     block's bit for bit.
 //   - epilogue: (acc * s_x) * w_scale with __fmul_rn, in x's dtype.
 //
+// Row-parallel mode (tensor parallelism: o and down split on K over a tp
+// group, parallel/tensor.py).  The TPU kernel quantizes each row from the
+// max over its whole K; a rank holds K / T of the row, so its product is
+// three launches around two collectives:
+//   (a) w8a8_row_scale: the row's scale from this rank's slice (one block a
+//       row, the first half of quant_rows); the caller all-reduces MAX
+//       (max(a, 1e-8) / 127 is monotone, so the max of the ranks' scales is
+//       the scale of the whole row, bit for bit);
+//   (b) w8a8_matmul_acc: xq quantized with that given scale, then the same
+//       narrow or wide product as above, which writes only its int32 sums
+//       (no epilogue); the caller all-reduces SUM in int32 (exact);
+//   (c) w8a8_rescale: y = (acc * s_x) * w_scale in x's dtype, elementwise,
+//       in the epilogue's order of multiplication.
+// The output equals the one-card kernel's on the whole row bit for bit.
+//
 // Numerics match the plain version bit for bit in the int32 accumulators:
 // round half to even (rintf), a true IEEE division (__fdiv_rn), no fast math.
 
@@ -103,6 +118,20 @@ __device__ __forceinline__ void quantize_vec(const uint4& u, float s, int8_t* ds
     *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(q);
 }
 
+// The max of every thread's amax over a block of QUANT_THREADS, to all.
+__device__ __forceinline__ float block_max(float amax, float* red) {
+  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float v = threadIdx.x < QUANT_THREADS / 32 ? red[threadIdx.x] : 0.f;
+    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    if (threadIdx.x == 0) red[0] = v;
+  }
+  __syncthreads();
+  return red[0];
+}
+
 // One block per row; x 16-byte aligned, K a multiple of 64.
 template <typename T>
 __global__ void __launch_bounds__(QUANT_THREADS)
@@ -130,16 +159,7 @@ quant_rows(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__
 #pragma unroll
     for (int i = 0; i < V; ++i) amax = fmaxf(amax, fabsf(elem(u, i, x)));
   }
-  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float v = threadIdx.x < QUANT_THREADS / 32 ? red[threadIdx.x] : 0.f;
-    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if (threadIdx.x == 0) red[0] = v;
-  }
-  __syncthreads();
-  const float s = __fdiv_rn(fmaxf(red[0], 1e-8f), 127.0f);
+  const float s = __fdiv_rn(fmaxf(block_max(amax, red), 1e-8f), 127.0f);
   if (threadIdx.x == 0) sx[row] = s;
 #pragma unroll
   for (int c = 0; c < QUANT_CACHE; ++c) {
@@ -148,6 +168,54 @@ quant_rows(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__
   }
   for (int v = threadIdx.x + QUANT_CACHE * QUANT_THREADS; v < nv; v += QUANT_THREADS)
     quantize_vec<T>(__ldg(xr + v), s, qr + (size_t)v * V);
+}
+
+// Row-parallel step (a): sx[row] = max(amax, 1e-8) / 127 of this rank's
+// slice of the row; one block per row.
+template <typename T>
+__global__ void __launch_bounds__(QUANT_THREADS)
+row_scale(const T* __restrict__ x, float* __restrict__ sx, int K) {
+  constexpr int V = 16 / sizeof(T);
+  __shared__ float red[QUANT_THREADS / 32];
+  const size_t row = blockIdx.x;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * K);
+  float amax = 0.f;
+  for (int v = threadIdx.x; v < K / V; v += QUANT_THREADS) {
+    const uint4 u = __ldg(xr + v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) amax = fmaxf(amax, fabsf(elem(u, i, x)));
+  }
+  const float s = __fdiv_rn(fmaxf(block_max(amax, red), 1e-8f), 127.0f);
+  if (threadIdx.x == 0) sx[row] = s;
+}
+
+// Row-parallel step (b)'s first pass: xq from the given (all-reduced) sx;
+// one block per row.
+template <typename T>
+__global__ void __launch_bounds__(QUANT_THREADS)
+quant_rows_given(const T* __restrict__ x, int8_t* __restrict__ xq, const float* __restrict__ sx, int K) {
+  grid_dep_launch();
+  constexpr int V = 16 / sizeof(T);
+  const size_t row = blockIdx.x;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * K);
+  int8_t* qr = xq + row * K;
+  const float s = sx[row];
+  for (int v = threadIdx.x; v < K / V; v += QUANT_THREADS) quantize_vec<T>(__ldg(xr + v), s, qr + (size_t)v * V);
+}
+
+// Row-parallel step (c): y = (acc * sx[m]) * ws[n] in T, four outputs a
+// thread (N a multiple of 64).
+template <typename T>
+__global__ void __launch_bounds__(256)
+rescale(const int32_t* __restrict__ acc, const float* __restrict__ sx, const float* __restrict__ ws,
+        T* __restrict__ y, int M, int N) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= (size_t)M * N) return;
+  const int m = (int)(i / N), n = (int)(i % N);
+  const int4 a = *reinterpret_cast<const int4*>(acc + i);
+  const float s = sx[m];
+  store_f2(y, i, __fmul_rn(__fmul_rn((float)a.x, s), ws[n]), __fmul_rn(__fmul_rn((float)a.y, s), ws[n + 1]));
+  store_f2(y, i + 2, __fmul_rn(__fmul_rn((float)a.z, s), ws[n + 2]), __fmul_rn(__fmul_rn((float)a.w, s), ws[n + 3]));
 }
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -285,7 +353,7 @@ w8a8_narrow(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUte
         for (int h = 0; h < 2; ++h) {
           const int n = n0 + 16 * w + g + 8 * h, v = acc[4 * j + 2 * h + e];
           const size_t o = (size_t)m * N + n;
-          store_f(y, o, __fmul_rn(__fmul_rn((float)v, s), ws[n]));
+          if (y) store_f(y, o, __fmul_rn(__fmul_rn((float)v, s), ws[n]));
           if (acc_out) acc_out[o] = v;
         }
       }
@@ -384,7 +452,7 @@ w8a8_wide(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtens
       if (n >= N) continue;
       const int v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
       const size_t o = (size_t)m * N + n;
-      store_f2(y, o, __fmul_rn(__fmul_rn((float)v0, s), ws[n]), __fmul_rn(__fmul_rn((float)v1, s), ws[n + 1]));
+      if (y) store_f2(y, o, __fmul_rn(__fmul_rn((float)v0, s), ws[n]), __fmul_rn(__fmul_rn((float)v1, s), ws[n + 1]));
       if (acc_out) *reinterpret_cast<int2*>(acc_out + o) = make_int2(v0, v1);
     }
   }
@@ -445,16 +513,36 @@ int launch_wide(const int8_t* wt, const int8_t* xq, const float* sx, const float
   return (int)cudaLaunchKernelEx(&cfg, w8a8_wide<T>, tx, tw, sx, ws, y, acc_out, part, tickets, M, N, K, splits);
 }
 
+// Pass 2 on xq and sx, by M; y (in T) may be null (the row-parallel mode
+// writes only acc_out).
+template <typename T>
+int product(const int8_t* wt, const int8_t* xq, const float* sx, const float* ws, T* y, int32_t* acc_out, int* part,
+            int* tickets, int M, int K, int N, int splits, cudaStream_t stream) {
+  if (M > NARROW_MAX_M) return launch_wide<T>(wt, xq, sx, ws, y, acc_out, part, tickets, M, K, N, splits, stream);
+  if (M > 32) return launch_narrow<64, T>(wt, xq, sx, ws, y, acc_out, part, tickets, M, K, N, splits, stream);
+  return launch_narrow<32, T>(wt, xq, sx, ws, y, acc_out, part, tickets, M, K, N, splits, stream);
+}
+
 template <typename T>
 int launch(const void* x, const int8_t* wt, const float* ws, void* y, int8_t* xq, float* sx, int32_t* acc_out,
            int* part, int* tickets, int M, int K, int N, int splits, cudaStream_t stream) {
   quant_rows<T><<<M, QUANT_THREADS, 0, stream>>>(static_cast<const T*>(x), xq, sx, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  T* out = static_cast<T*>(y);
-  if (M > NARROW_MAX_M) return launch_wide<T>(wt, xq, sx, ws, out, acc_out, part, tickets, M, K, N, splits, stream);
-  if (M > 32) return launch_narrow<64, T>(wt, xq, sx, ws, out, acc_out, part, tickets, M, K, N, splits, stream);
-  return launch_narrow<32, T>(wt, xq, sx, ws, out, acc_out, part, tickets, M, K, N, splits, stream);
+  return product<T>(wt, xq, sx, ws, static_cast<T*>(y), acc_out, part, tickets, M, K, N, splits, stream);
+}
+
+template <typename T>
+int launch_acc(const void* x, const int8_t* wt, const float* sx, int32_t* acc_out, int8_t* xq, int* part,
+               int* tickets, int M, int K, int N, int splits, cudaStream_t stream) {
+  quant_rows_given<T><<<M, QUANT_THREADS, 0, stream>>>(static_cast<const T*>(x), xq, sx, K);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return product<float>(wt, xq, sx, nullptr, nullptr, acc_out, part, tickets, M, K, N, splits, stream);
+}
+
+bool legal(const void* x, int M, int K, int N) {
+  return M >= 1 && K % 64 == 0 && N % 64 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
 }
 
 }  // namespace
@@ -478,4 +566,50 @@ extern "C" int w8a8_matmul(const void* x, int x_dtype, const int8_t* wt, const f
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0) return launch<float>(x, wt, ws, y, xq, sx, acc_out, part, tickets, M, K, N, splits, s);
   return launch<__nv_bfloat16>(x, wt, ws, y, xq, sx, acc_out, part, tickets, M, K, N, splits, s);
+}
+
+// Row-parallel step (a): sx fp32 [M] of x [M, K] (x_dtype 0 = float32, 1 =
+// bfloat16; K a multiple of 64, x 16-byte aligned).  Returns the launch's
+// error code.
+extern "C" int w8a8_row_scale(const void* x, int x_dtype, float* sx, int M, int K, void* stream) {
+  if (!legal(x, M, K, 64)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0)
+    row_scale<float><<<M, QUANT_THREADS, 0, s>>>(static_cast<const float*>(x), sx, K);
+  else
+    row_scale<__nv_bfloat16><<<M, QUANT_THREADS, 0, s>>>(static_cast<const __nv_bfloat16*>(x), sx, K);
+  return (int)cudaGetLastError();
+}
+
+// Row-parallel step (b): acc_out int32 [M, N] = xq @ wt^T, xq quantized
+// from the given sx fp32 [M]; xq, part and tickets as for w8a8_matmul (the
+// same narrow or wide pass, with no epilogue).  Returns the launch's error
+// code.
+extern "C" int w8a8_matmul_acc(const void* x, int x_dtype, const int8_t* wt, const float* sx, int32_t* acc_out,
+                               int8_t* xq, int* part, int* tickets, int M, int K, int N, int splits, void* stream) {
+  if (!legal(x, M, K, N) || acc_out == nullptr || splits < 1 ||
+      (splits > 1 && (part == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0) return launch_acc<float>(x, wt, sx, acc_out, xq, part, tickets, M, K, N, splits, s);
+  return launch_acc<__nv_bfloat16>(x, wt, sx, acc_out, xq, part, tickets, M, K, N, splits, s);
+}
+
+// Row-parallel step (c): y [M, N] in y_dtype (0 = float32, 1 = bfloat16) =
+// (acc * sx) * ws, acc int32 [M, N], sx fp32 [M], ws fp32 [N]; N a
+// multiple of 64, acc and y 16-byte aligned.  Returns the launch's error
+// code.
+extern "C" int w8a8_rescale(const int32_t* acc, const float* sx, const float* ws, void* y, int y_dtype, int M, int N,
+                            void* stream) {
+  if (M < 1 || N % 64 != 0 || (reinterpret_cast<uintptr_t>(acc) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(y) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t threads = (size_t)M * N / 4;
+  const unsigned blocks = (unsigned)((threads + 255) / 256);
+  if (y_dtype == 0)
+    rescale<float><<<blocks, 256, 0, s>>>(acc, sx, ws, static_cast<float*>(y), M, N);
+  else
+    rescale<__nv_bfloat16><<<blocks, 256, 0, s>>>(acc, sx, ws, static_cast<__nv_bfloat16*>(y), M, N);
+  return (int)cudaGetLastError();
 }

@@ -15,6 +15,15 @@ cache_len, under the key mask. `int8_mode` picks the product of the int8
 linears (nn.linear). The layer loop (`run_layers`) and the attention of
 each cache mode (ops/attention.decoder_attention) are shared with the phi
 decoder (models/phi.py).
+
+Under tensor parallelism (a tp group active, parallel/tensor.py) each rank
+holds its part of the tree by JAX's rules (params.tp_local): its heads of
+q|k|v and of the KV cache, its columns of gate|up, its rows of o and down
+(row-parallel products, summed over the group), its slice of the
+vocabulary in a bf16 embedding and in the lm_head (logits gathered). Which
+of them a rank holds in part, the group's block says (tensor.split, the
+keys params.tp_local split); the layer reads its local head counts from
+its own leaves. The int8 embedding stays whole, as in JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from mla_tpu_torch.ops import attention as attn_ops
 from mla_tpu_torch.ops import quantization
 from mla_tpu_torch.ops import rope as rope_ops
 from mla_tpu_torch.parallel import collectives
+from mla_tpu_torch.parallel import tensor as tp
 
 
 @dataclass(frozen=True)
@@ -61,9 +71,20 @@ MISTRAL_7B = LlamaConfig(
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None, device=None) -> Dict[str, torch.Tensor]:
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    """Zeros [L, B, Hkv, max_len, hd] for k and v; under a tp group of T,
+    this rank's Hkv / T heads."""
+    Hkv = cfg.num_kv_heads // tp.size() if tp.split("layers/attn/k/w") else cfg.num_kv_heads
+    shape = (cfg.num_layers, batch, Hkv, max_len, cfg.head_dim)
     dtype = dtype or cfg.compute_dtype
     return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def in_features(leaf: Dict[str, torch.Tensor]) -> int:
+    """The input width K of a linear leaf, in any of its forms (w, w_q,
+    w_qt, w_q4)."""
+    if "w_qt" in leaf:
+        return leaf["w_qt"].shape[-1]
+    return next(leaf[k] for k in ("w", "w_q", "w_q4") if k in leaf).shape[-2]
 
 
 def _mlp_block(lp, h, cfg, int8_mode="w8a8"):
@@ -75,20 +96,25 @@ def _mlp_block(lp, h, cfg, int8_mode="w8a8"):
     else:
         gated = nn.silu(nn.linear(lp["mlp"]["gate"], x, int8_mode=int8_mode)) * nn.linear(
             lp["mlp"]["up"], x, int8_mode=int8_mode)
-    return h + nn.linear(lp["mlp"]["down"], gated, int8_mode=int8_mode)
+    return h + nn.linear(lp["mlp"]["down"], gated, int8_mode=int8_mode,
+                         row_parallel=tp.split("layers/mlp/down/w"))
 
 
 def _layer_fn(lp, h, cache_kv, cfg, cos_table, sin_table, positions, key_mask, cache_len,
               cache_read_only=False, inflight_mask=None, int8_mode="w8a8", scores_dtype=None):
     """One decoder layer. cache_kv: this layer's (k_cache, v_cache)
-    [B, Hkv, S_max, hd] views, or None. Returns h."""
+    [B, Hkv, S_max, hd] views, or None. Returns h. The head counts are the
+    leaves' own: H and Hkv, or this rank's H / T and Hkv / T under a tp
+    group (o then row-parallel)."""
     B, S, D = h.shape
-    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H = in_features(lp["attn"]["o"]) // hd
+    Hkv = H * cfg.num_kv_heads // cfg.num_heads
     x = nn.rms_norm(lp["input_ln"], h, cfg.rms_eps)
-    kvd = Hkv * hd
+    qd, kvd = H * hd, Hkv * hd
     if "qkv_fused" in lp["attn"]:
         qkv = nn.linear(lp["attn"]["qkv_fused"], x, int8_mode=int8_mode)
-        q, k, v = qkv[..., :D], qkv[..., D : D + kvd], qkv[..., D + kvd :]
+        q, k, v = qkv[..., :qd], qkv[..., qd : qd + kvd], qkv[..., qd + kvd :]
     else:
         q = nn.linear(lp["attn"]["q"], x, int8_mode=int8_mode)
         k = nn.linear(lp["attn"]["k"], x, int8_mode=int8_mode)
@@ -99,8 +125,8 @@ def _layer_fn(lp, h, cache_kv, cfg, cos_table, sin_table, positions, key_mask, c
     q, k = rope_ops.apply_rope(q, k, cos_table, sin_table, positions)
     out = attn_ops.decoder_attention(q, k, v, cache_kv, cache_len, key_mask, cache_read_only, inflight_mask,
                                      scores_dtype)
-    out = out.transpose(1, 2).reshape(B, S, D)
-    h = h + nn.linear(lp["attn"]["o"], out, int8_mode=int8_mode)
+    out = out.transpose(1, 2).reshape(B, S, qd)
+    h = h + nn.linear(lp["attn"]["o"], out, int8_mode=int8_mode, row_parallel=tp.split("layers/attn/o/w"))
     return _mlp_block(lp, h, cfg, int8_mode)
 
 
@@ -199,15 +225,18 @@ def lm_head_logits(params: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor
     the dot, through the weight-only product in fp32 (on the card its
     kernel reads the int8 bytes; nothing widens the head). An int4 head is
     dequantized and multiplied in fp32, with no activation quantization, as
-    in JAX."""
+    in JAX. Under a tp group that split the head on the vocabulary, the
+    ranks' logits are gathered."""
     head = params["lm_head"]
     hf = hidden.float()
     if "w_q4" in head:
         return hf @ quantization.dequantize_weight_int4(head, torch.float32)
     if "w_q" in head:
         y = quantization.int8_matmul(hf.reshape(-1, hf.shape[-1]).contiguous(), head["w_q"], head["w_scale"])
-        return y.reshape(*hf.shape[:-1], y.shape[-1])
-    return hf @ head["w"].float()
+        y = y.reshape(*hf.shape[:-1], y.shape[-1])
+    else:
+        y = hf @ head["w"].float()
+    return tp.gather_from_tp(y) if tp.split("lm_head/w") else y
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
@@ -222,11 +251,16 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int
 
 
 def embed_tokens(params: Dict[str, Any], ids: torch.Tensor) -> torch.Tensor:
+    """The rows of `ids`. An int8 table (whole under tp, as in JAX) gives
+    bf16 rows; a bf16/fp32 table that a tp group split on the vocabulary is
+    looked up vocab-parallel."""
     emb = params["embed"]
     if "table_q" in emb:
         # int8 rows come back in bf16 whatever the compute dtype, as in JAX
         rows = emb["table_q"][ids].to(torch.bfloat16)
         return rows * emb["table_scale"][ids].to(torch.bfloat16)
+    if tp.split("embed/table"):
+        return tp.vocab_parallel_embedding(emb["table"], ids)
     return nn.embedding(emb, ids)
 
 
@@ -240,7 +274,12 @@ def fuse_for_serving(params: Dict[str, Any], k_major: bool = False) -> Dict[str,
     out K-major, 'w_qt' int8 [L, out, in], the layout the W8A8 kernel reads
     (the card's int8 tensor cores take both operands K-major). The fused
     leaves hold only that copy; o and down keep JAX's w_q beside it. Built
-    once, on the leaves' device. An int4 tree gets no K-major copy."""
+    once, on the leaves' device. An int4 tree gets no K-major copy.
+
+    Under tensor parallelism this fuses a rank's own tree
+    (params.tp_local): its q, k, v and gate, up slices, so each fused leaf
+    holds [q_r | k_r | v_r] and [gate_r | up_r] (a slice of the whole fused
+    leaf would hold the wrong columns)."""
 
     def cat(leaves):
         if "w" in leaves[0]:

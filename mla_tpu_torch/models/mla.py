@@ -20,6 +20,7 @@ phi families serve and train through the same functions.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import time
@@ -35,8 +36,11 @@ from mla_tpu_torch.models import action_model as am
 from mla_tpu_torch.models import embedders
 from mla_tpu_torch.models import llama as llama_mod
 from mla_tpu_torch.models import prismatic
-from mla_tpu_torch.params import tree_to
+from mla_tpu_torch.parallel import tensor as tp
+from mla_tpu_torch.params import tp_local, tree_items, tree_to
 from mla_tpu_torch.vla.action_tokenizer import ActionTokenizer
+
+ROADMAP_TP_SERVING = "ROADMAP.md queue 1, item 16 (tensor-parallel serving: {})"
 
 DDIM_STEPS = 8     # the reference's DDIM respacing (MLAPolicy's default)
 DPM_STEPS = 4      # DPM-Solver++(2M) model evaluations (the default)
@@ -455,6 +459,28 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def _check_tp(mesh, cfg: prismatic.MLAModelConfig, backbone: Dict[str, Any]) -> None:
+    """Raise unless the port can serve `cfg`'s decoder over mesh's tp group:
+    a serving mesh (dp = fsdp = 1), a llama decoder that is not int4, head
+    counts that T divides (JAX's GSPMD can split mid-head; the port's layer
+    splits whole heads)."""
+    from mla_tpu_torch.parallel.mesh import ROADMAP_TP
+
+    T = mesh.tp
+    if mesh.world != T:
+        raise NotImplementedError(f"serving over tp {T} in a mesh of {mesh.world}: the port's serving mesh is "
+                                  f"dp = fsdp = 1 ({ROADMAP_TP})")
+    if cfg.llm_family != "llama":
+        raise NotImplementedError(f"a {cfg.llm_family} decoder over a tp group: "
+                                  + ROADMAP_TP_SERVING.format("mla-phi"))
+    if any(path.endswith("/w_q4") for path, _ in tree_items(backbone)):
+        raise NotImplementedError("an int4 tree over a tp group: " + ROADMAP_TP_SERVING.format("int4"))
+    H, Hkv = cfg.llama.num_heads, cfg.llama.num_kv_heads
+    if H % T or Hkv % T:
+        raise NotImplementedError(f"{H} heads and {Hkv} kv heads over tp {T}: T must divide both ("
+                                  + ROADMAP_TP_SERVING.format("heads that T does not divide") + ")")
+
+
 class MLAPolicy:
     """Deployment-facing policy: load once, call predict_action_* per step.
 
@@ -471,18 +497,31 @@ class MLAPolicy:
     when a call names none; cache_margin the spare KV-cache slots;
     prefill_scores_dtype the diffusion prefill's score dtype (torch.bfloat16
     or torch.float32; None reads MLA_PREFILL_SCORES here), which only the
-    plain attention reads."""
+    plain attention reads.
+
+    mesh (parallel/mesh.serving_mesh) serves over a tensor-parallel group:
+    the policy takes the whole tree and keeps this rank's part of the
+    decoder by JAX's rules (params.tp_local), fused per rank; every rank
+    calls predict_action_diff or predict_action_ar with the same inputs and
+    gets the same result. The other entry points, a phi decoder, an int4
+    tree and head counts that T does not divide raise under tp (ROADMAP
+    item 16)."""
 
     def __init__(
         self, params: Dict[str, Any], state: Dict[str, Any], cfg: prismatic.MLAModelConfig,
         tokenizer=None, norm_stats: Optional[Dict[str, Any]] = None, device=None, int8_mode: str = "w8a8",
         num_ddim_steps: int = DDIM_STEPS, cache_margin: int = CACHE_MARGIN,
-        prefill_scores_dtype: Optional[torch.dtype] = None,
+        prefill_scores_dtype: Optional[torch.dtype] = None, mesh=None,
     ) -> None:
         if int8_mode not in nn.INT8_MODES:
             raise ValueError(f"int8_mode must be one of {nn.INT8_MODES}, got {int8_mode!r}")
         self.int8_mode = int8_mode
         self.device = _resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        if self.mesh is not None:
+            _check_tp(self.mesh, cfg, params["llm_backbone"])
+            backbone, self.tp_split = tp_local(params["llm_backbone"], self.mesh)
+            params = {**params, "llm_backbone": backbone}
         params, state = tree_to(params, self.device), tree_to(state, self.device)
         if cfg.llm_family == "llama":
             params = {**params, "llm_backbone": llama_mod.fuse_for_serving(params["llm_backbone"],
@@ -495,6 +534,20 @@ class MLAPolicy:
         self.sched_ddim = gd.create_schedule(f"ddim{num_ddim_steps}", diffusion_steps=100)
         self.cache_margin = cache_margin
         self.prefill_scores_dtype = prefill_scores_dtype or serving_scores_dtype_from_env()
+
+    def tp_scope(self):
+        """A block whose decoder ops run over the policy's tp group, on the
+        leaves tp_local split (a null block without a group). The policy's
+        calls enter it; so must a caller that runs prefill or decode_step
+        on the policy's tree itself."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return tp.tp_group(self.mesh.tp_group, self.tp_split)
+
+    def _refuse_under_tp(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"{what} over a tp group of {self.mesh.tp}: "
+                                      + ROADMAP_TP_SERVING.format(what))
 
     def _stats(self, unnorm_key: Optional[str], kind: str) -> Dict[str, Any]:
         if unnorm_key is None:
@@ -549,7 +602,7 @@ class MLAPolicy:
         cache_max = embed_len + 2 + cfg.action_horizon + tail_len + self.cache_margin
         sched = self._sched(use_ddpm, sampler, num_ddim_steps)
         use_cfg = cfg_scale > 1.0
-        with torch.inference_mode():
+        with torch.inference_mode(), self.tp_scope():
             prefix = build_prefix_embeds(self.params, self.state, cfg, prefix_ids, images, pc, with_uncond=use_cfg)
             kv, _ = prefill(self.params, cfg, prefix, cache_max, compute_logits=False, int8_mode=self.int8_mode,
                             scores_dtype=self.prefill_scores_dtype)
@@ -612,6 +665,7 @@ class MLAPolicy:
         input_ids [B, L], or one row / one instruction broadcast. Rows of
         cur_robot_states may be None (then normalized zero). Returns [B,
         horizon, action_dim]. dispatch_action_diff_batched(...)()."""
+        self._refuse_under_tp("the batched calls")
         return self.dispatch_action_diff_batched(
             images, pointclouds, instruction, unnorm_key=unnorm_key, seed=seed, input_ids=input_ids,
             cur_robot_states=cur_robot_states, sampler=sampler, num_dpm_steps=num_dpm_steps,
@@ -631,6 +685,7 @@ class MLAPolicy:
         copy (waiting for the call) and unnormalizes. A serving host
         dispatches the next batch while this one runs
         (serving.BatchingServer)."""
+        self._refuse_under_tp("the batched calls")
         cfg = self.cfg
         if input_ids is None:
             if instruction is None:
@@ -681,6 +736,8 @@ class MLAPolicy:
         slots."""
         if num_beams > 1 and temperature > 0:
             raise ValueError("beam search and sampling are mutually exclusive")
+        if num_beams > 1 or temperature > 0:
+            self._refuse_under_tp("text generation and beam search")
         cfg = self.cfg
         ids = np.asarray(input_ids)
         cache_max = ids.shape[1] + cfg.fused_len + num_tokens + self.cache_margin
@@ -688,7 +745,7 @@ class MLAPolicy:
         if temperature > 0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-        with torch.inference_mode():
+        with torch.inference_mode(), self.tp_scope():
             prefix = build_prefix_embeds(self.params, self.state, cfg, self._tensor(ids.astype(np.int64)),
                                          self._images(image), self._points(pointcloud))
             kv, last = prefill(self.params, cfg, prefix, cache_max, int8_mode=self.int8_mode)
@@ -739,6 +796,7 @@ class MLAPolicy:
         """Multimodal text generation: greedy by default, sampled with
         temperature / top_k (seeded), or beam search with num_beams > 1 and
         HF's length_penalty. The output stops at the first EOS."""
+        self._refuse_under_tp("text generation and beam search")
         if input_ids is None:
             input_ids = self._text_ids(prompt)
         toks, _ = self.generate_ids(image, pointcloud, input_ids, max_new_tokens, num_beams=num_beams,
@@ -752,6 +810,7 @@ class MLAPolicy:
         """Batched generation: rows are grouped by prompt token length and
         each group runs as one batch (beams ride the [B*K] rows); padding
         prompts instead would shift the splice layout."""
+        self._refuse_under_tp("text generation and beam search")
         ids_list = [self._text_ids(p) for p in prompts]
         groups: Dict[int, List[int]] = {}
         for i, ids in enumerate(ids_list):
@@ -799,6 +858,7 @@ class MLAPolicy:
         state denoises a batch of chunks (DDIM, classifier-free guidance
         when cfg_scale > 1). Prompts are right-padded with PAD_ID to the
         longest. Returns [B, horizon, action_dim]."""
+        self._refuse_under_tp("the batched calls")
         if action_model_params is None:
             raise ValueError("predict_action_batch requires action_model params")
         cfg = self.cfg

@@ -17,6 +17,14 @@ reads:
   "dequant"     `x @ w_q * scale` in x's dtype [dequant].
 An int4 leaf ({'w_q4','w_scale4'}) runs ops/quantization.int4_linear
 whatever the mode, as in JAX.
+
+`row_parallel` marks a leaf that holds this rank's rows of a weight split
+on K over the active tp group (parallel/tensor.py; o and down): W8A8 runs
+its row-parallel mode, the weight-only product its fp32 partials; the
+other products run in x's dtype, as without a group, and their partials
+are widened to fp32. Each is summed over the group in fp32 and rounded to
+x's dtype once, and a bias is added after. A leaf split on N (q|k|v,
+gate|up) runs its product as it is.
 """
 
 from __future__ import annotations
@@ -29,36 +37,45 @@ import torch.nn.functional as F
 
 from mla_tpu_torch.ops.quantization import int4_linear, int8_linear, w8a8_linear
 from mla_tpu_torch.parallel import collectives
+from mla_tpu_torch.parallel import tensor as tp
 
 Params = Dict[str, Any]
 
 INT8_MODES = ("w8a8", "weight_only", "dequant")
 
 
-def weight_only_eligible(p: Params) -> bool:
+def weight_only_eligible(p: Params, k_split: int = 1) -> bool:
     """JAX's rule for its weight-only kernel: a 2-D leaf, K and N multiples
-    of 128."""
+    of 128; K is the whole leaf's, k_split times the rows of a leaf split
+    on K."""
     wq = p["w_q"]
-    return wq.dim() == 2 and wq.shape[0] % 128 == 0 and wq.shape[1] % 128 == 0
+    return wq.dim() == 2 and wq.shape[0] * k_split % 128 == 0 and wq.shape[1] % 128 == 0
 
 
-def linear(p: Params, x: torch.Tensor, *, int8_mode: str = "w8a8") -> torch.Tensor:
+def _summed(y: torch.Tensor, row_parallel: bool) -> torch.Tensor:
+    """y, or for a leaf split on K the ranks' partial products summed over
+    the tp group in fp32 and rounded to y's dtype once."""
+    return tp.reduce_from_tp(y.float()).to(y.dtype) if row_parallel else y
+
+
+def linear(p: Params, x: torch.Tensor, *, int8_mode: str = "w8a8", row_parallel: bool = False) -> torch.Tensor:
     if "w_q4" in p:
+        if row_parallel:
+            raise ValueError("an int4 leaf is never split over a tp group (JAX keeps w_q4 whole)")
         return int4_linear(p, x)
     if "w_q" in p or "w_qt" in p:
         if int8_mode not in INT8_MODES:
             raise ValueError(f"int8_mode must be one of {INT8_MODES}, got {int8_mode!r}")
         if int8_mode == "w8a8":
-            return w8a8_linear(p, x)
+            return w8a8_linear(p, x, row_parallel)
         if "w_q" not in p:
             raise ValueError(f"int8_mode {int8_mode!r} reads w_q [K, N]; this leaf holds only the K-major W8A8 "
                              "copy (w_qt) of a W8A8 serving tree")
-        if int8_mode == "weight_only" and weight_only_eligible(p):
-            return int8_linear(p, x)
-        y = x @ p["w_q"].to(x.dtype)
-        y = y * p["w_scale"][..., 0, :].to(x.dtype)
+        if int8_mode == "weight_only" and weight_only_eligible(p, tp.size() if row_parallel else 1):
+            return int8_linear(p, x, row_parallel)
+        y = _summed(x @ p["w_q"].to(x.dtype), row_parallel) * p["w_scale"][..., 0, :].to(x.dtype)
     else:
-        y = x @ p["w"].to(x.dtype)
+        y = _summed(x @ p["w"].to(x.dtype), row_parallel)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y

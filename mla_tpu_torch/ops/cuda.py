@@ -35,14 +35,23 @@ _F = ctypes.c_float
 # C signatures of each library's entry points: {symbol: argtypes}; the
 # first entry point is the library's default
 SIGNATURES = {
-    "w8a8": {"w8a8_matmul": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "w8a8": {
+        "w8a8_matmul": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # the row-parallel mode's three steps (ops/quantization.w8a8_matmul_rowpar)
+        "w8a8_row_scale": [_P, _I, _P, _I, _I, _P],
+        "w8a8_matmul_acc": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "w8a8_rescale": [_P, _P, _P, _P, _I, _I, _I, _P],
+    },
     "fps": {"fps": [_P, _P, _P, _I, _I, _I, _P]},
     "flash_fwd": {"flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]},
     "flash_bwd": {
         "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
         "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     },
-    "int8_mm": {"int8_mm": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "int8_mm": {
+        "int8_mm": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "int8_mm_f32out": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],  # fp32 y (row-parallel partials)
+    },
 }
 # extra nvcc flags per source: FPS must not contract its distance into FMAs
 EXTRA_FLAGS = {"fps": ["-fmad=false"]}
@@ -107,10 +116,14 @@ def build(names=tuple(SIGNATURES)) -> Dict[str, str]:
     return reports
 
 
-def load(name: str, path: Path) -> ctypes.CDLL:
-    """Load the library at `path` with the entry points of library `name`."""
+def load(name: str, path: Path, symbols=None) -> ctypes.CDLL:
+    """Load the library at `path` with the entry points of library `name`
+    (only `symbols` of them where given: another version's library may
+    lack the newer ones)."""
     lib = ctypes.CDLL(str(path))
     for symbol, argtypes in SIGNATURES[name].items():
+        if symbols is not None and symbol not in symbols:
+            continue
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

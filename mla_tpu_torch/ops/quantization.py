@@ -22,6 +22,18 @@ way, y = (x @ float(w_q)) * w_scale. On a CUDA tensor it launches
 csrc/int8_mm.cu along the path and split of K that `int8_mm_plan` picks; on
 a CPU tensor it runs `int8_matmul_plain`.
 
+Row-parallel products (tensor parallelism: o and down split on K over a
+tp group, parallel/tensor.py). `w8a8_matmul_rowpar` splits W8A8 into three
+launches of csrc/w8a8.cu around two collectives: the row scale of the
+local slice (all-reduced MAX, so every rank quantizes from the whole row's
+max, as the TPU kernel does), the int32 product from that scale
+(all-reduced SUM, exact) and the rescale; its output equals the one-card
+kernel's on the whole row bit for bit (`w8a8_matmul_rowpar_plain` is its
+plain twin). The weight-only product writes fp32 partials
+(`int8_matmul(..., out_dtype=torch.float32)`, int8_mm.cu's fp32-output
+mode), all-reduced in fp32 and rounded to x's dtype once
+(`int8_matmul_rowpar`).
+
 The int4 weight path is JAX's memory mode: a leaf {'w_q4': int8 [..., in,
 out/2] (two output channels a byte, the even one in the low nibble),
 'w_scale4': fp32 [..., in/group, out]}. `int4_linear` quantizes the rows
@@ -41,6 +53,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from mla_tpu_torch.ops import cuda
+from mla_tpu_torch.parallel import tensor as tp
 from mla_tpu_torch.params import tree_to
 
 
@@ -361,6 +374,124 @@ def w8a8_matmul(x: torch.Tensor, w_qt: torch.Tensor, w_scale: torch.Tensor, *, r
     return (y, acc) if return_acc else y
 
 
+# --------------------------------------------------------------------------- #
+# Row-parallel W8A8: three launches around two collectives
+# --------------------------------------------------------------------------- #
+
+
+def _check_w8a8(x: torch.Tensor, what: str) -> None:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: x must be float32 or bfloat16, got {x.dtype}")
+    cuda.check(x, f"{what} x", ndim=2)
+    if x.shape[1] % 64 or x.data_ptr() % 16:
+        raise ValueError(f"{what}: the kernel needs K a multiple of 64 and x 16-byte aligned, got K={x.shape[1]}")
+
+
+def w8a8_row_scale_plain(x: torch.Tensor) -> torch.Tensor:
+    """s_x fp32 [M] of x [M, K]: max(amax, 1e-8) / 127 over the row."""
+    return _div127(x.float().abs().amax(dim=-1))
+
+
+def w8a8_row_scale(x: torch.Tensor) -> torch.Tensor:
+    """Step (a): the row scale of x [M, K] (a rank's slice of each row). On
+    CUDA the kernel's first half of its quantization pass; on the CPU the
+    plain version."""
+    if not x.is_cuda:
+        return w8a8_row_scale_plain(x)
+    _check_w8a8(x, "w8a8_row_scale")
+    M, K = x.shape
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    if M > 0:
+        cuda.call("w8a8", x.data_ptr(), 0 if x.dtype == torch.float32 else 1, sx.data_ptr(), M, K,
+                  symbol="w8a8_row_scale")
+        cuda.launches["w8a8_row_scale"] += 1
+    return sx
+
+
+def w8a8_matmul_acc_plain(x: torch.Tensor, w_qt: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """int32 [M, N]: x quantized from the given s_x [M], times w_qt [N, K]
+    (exact, through float64)."""
+    xq = torch.round(x.float() / sx.reshape(-1, 1)).clamp(-127, 127).to(torch.int8)
+    return (xq.double() @ w_qt.double().t()).to(torch.int32)
+
+
+def w8a8_matmul_acc(x: torch.Tensor, w_qt: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """Step (b): the int32 sums of x [M, K] quantized from the given s_x
+    [M] times the K-major weight w_qt int8 [N, K]. On CUDA the W8A8 kernel's
+    quantization and product passes with no epilogue; on the CPU the plain
+    version."""
+    if not x.is_cuda:
+        return w8a8_matmul_acc_plain(x, w_qt, sx)
+    _check_w8a8(x, "w8a8_matmul_acc")
+    cuda.check(w_qt, "w8a8_matmul_acc w_qt", torch.int8, 2)
+    cuda.check(sx, "w8a8_matmul_acc sx", torch.float32, 1)
+    M, K = x.shape
+    N = w_qt.shape[0]
+    if w_qt.shape[1] != K or sx.shape[0] != M or N % 64 or w_qt.data_ptr() % 16:
+        raise ValueError(f"w8a8_matmul_acc: shapes x {tuple(x.shape)}, w_qt {tuple(w_qt.shape)}, sx {sx.shape[0]} "
+                         "(N a multiple of 64, w_qt 16-byte aligned)")
+    acc = torch.empty((M, N), dtype=torch.int32, device=x.device)
+    if M > 0:
+        plan = w8a8_plan(M, K, N, _sm_count(x.device))
+        xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+        split = plan.splits > 1
+        part = torch.empty((plan.part_ints,), dtype=torch.int32, device=x.device) if split else None
+        cuda.call("w8a8", x.data_ptr(), 0 if x.dtype == torch.float32 else 1, w_qt.data_ptr(), sx.data_ptr(),
+                  acc.data_ptr(), xq.data_ptr(), part.data_ptr() if split else None,
+                  _tickets(x.device, plan.tiles).data_ptr() if split else None, M, K, N, plan.splits,
+                  symbol="w8a8_matmul_acc")
+        cuda.launches["w8a8_matmul_acc"] += 1
+    return acc
+
+
+def w8a8_rescale_plain(acc: torch.Tensor, sx: torch.Tensor, w_scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (acc.float() * sx.reshape(-1, 1) * w_scale.float().reshape(1, -1)).to(dtype)
+
+
+def w8a8_rescale(acc: torch.Tensor, sx: torch.Tensor, w_scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Step (c): (acc * s_x) * w_scale in `dtype`, the epilogue of W8A8 in
+    its order of multiplication. On CUDA a kernel; on the CPU the plain
+    version."""
+    if not acc.is_cuda:
+        return w8a8_rescale_plain(acc, sx, w_scale, dtype)
+    cuda.check(acc, "w8a8_rescale acc", torch.int32, 2)
+    cuda.check(sx, "w8a8_rescale sx", torch.float32, 1)
+    w_scale = w_scale.reshape(-1)
+    cuda.check(w_scale, "w8a8_rescale w_scale", torch.float32, 1)
+    M, N = acc.shape
+    if sx.shape[0] != M or w_scale.shape[0] != N or N % 64 or dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"w8a8_rescale: acc {tuple(acc.shape)}, sx {sx.shape[0]}, w_scale {w_scale.shape[0]}, "
+                         f"{dtype} (N a multiple of 64, float32 or bfloat16)")
+    y = torch.empty((M, N), dtype=dtype, device=acc.device)
+    if M > 0:
+        cuda.call("w8a8", acc.data_ptr(), sx.data_ptr(), w_scale.data_ptr(), y.data_ptr(),
+                  0 if dtype == torch.float32 else 1, M, N, symbol="w8a8_rescale")
+        cuda.launches["w8a8_rescale"] += 1
+    return y
+
+
+def w8a8_matmul_rowpar(x: torch.Tensor, w_qt: torch.Tensor, w_scale: torch.Tensor, *, return_acc: bool = False):
+    """W8A8 of a row-parallel layer: x [M, K / T] (this rank's slice of each
+    row) times its rows of the weight, w_qt int8 [N, K / T]; y [M, N] in
+    x's dtype, the same on every rank of the active tp group and bit for
+    bit the one-card product of the whole rows (one process: the three
+    steps on the whole row)."""
+    sx = tp.all_reduce_max(w8a8_row_scale(x))
+    acc = tp.reduce_from_tp(w8a8_matmul_acc(x, w_qt, sx))
+    y = w8a8_rescale(acc, sx, w_scale, x.dtype)
+    return (y, acc) if return_acc else y
+
+
+def w8a8_matmul_rowpar_plain(x: torch.Tensor, w_qt: torch.Tensor, w_scale: torch.Tensor, *,
+                             return_acc: bool = False):
+    """The plain twin of w8a8_matmul_rowpar: the plain steps around the same
+    collectives."""
+    sx = tp.all_reduce_max(w8a8_row_scale_plain(x))
+    acc = tp.reduce_from_tp(w8a8_matmul_acc_plain(x, w_qt, sx))
+    y = w8a8_rescale_plain(acc, sx, w_scale, x.dtype)
+    return (y, acc) if return_acc else y
+
+
 def _int8_leaf_linear(matmul, w: torch.Tensor, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
     y = matmul(x.reshape(-1, x.shape[-1]).contiguous(), w, p["w_scale"])
@@ -370,13 +501,14 @@ def _int8_leaf_linear(matmul, w: torch.Tensor, p: Dict[str, Any], x: torch.Tenso
     return y
 
 
-def w8a8_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+def w8a8_linear(p: Dict[str, Any], x: torch.Tensor, row_parallel: bool = False) -> torch.Tensor:
     """nn.linear entry for a 2-D int8 leaf; x [..., K]. Reads the leaf's
     K-major copy 'w_qt' where it has one (the W8A8 serving tree's); else
     JAX's w_q through a transposed view, which the plain version takes and
-    the kernel refuses."""
+    the kernel refuses. row_parallel: the leaf holds this rank's rows of a
+    weight split on K over the tp group (w8a8_matmul_rowpar)."""
     w = p["w_qt"] if "w_qt" in p else p["w_q"].transpose(-1, -2)
-    return _int8_leaf_linear(w8a8_matmul, w, p, x)
+    return _int8_leaf_linear(w8a8_matmul_rowpar if row_parallel else w8a8_matmul, w, p, x)
 
 
 # --------------------------------------------------------------------------- #
@@ -384,13 +516,13 @@ def w8a8_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 
-def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """The plain version: x [M, K] (fp32/bf16), w_q int8 [K, N], w_scale fp32
-    [1, N] or [N] -> (x @ float(w_q)) * w_scale in x's dtype. The products
-    are exact (int8 and bf16 values fit fp32), the sums fp32, the scale after
-    the dot in fp32, as in the JAX kernel."""
+    [1, N] or [N] -> (x @ float(w_q)) * w_scale in out_dtype (None: x's
+    dtype). The products are exact (int8 and bf16 values fit fp32), the
+    sums fp32, the scale after the dot in fp32, as in the JAX kernel."""
     acc = x.float() @ w_q.float()
-    return (acc * w_scale.float().reshape(1, -1)).to(x.dtype)
+    return (acc * w_scale.float().reshape(1, -1)).to(out_dtype or x.dtype)
 
 
 # The kernel's two paths (csrc/int8_mm.cu): fp32 x, and bf16 x up to
@@ -453,11 +585,15 @@ def int8_mm_plan(M: int, K: int, N: int, sms: int, fp32: bool, narrow: Optional[
     return Int8MMPlan(False, 64 * mb, tiles, splits, part if splits > 1 else 0)
 
 
-def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """Weight-only int8 product. On CUDA the kernel (csrc/int8_mm.cu; K and
-    N multiples of 16, ragged tiles masked); on the CPU the plain version."""
+    N multiples of 16, ragged tiles masked); on the CPU the plain version.
+    out_dtype torch.float32 for bf16 x is the kernel's fp32-output mode (a
+    row-parallel layer's partial sums); None is x's dtype."""
+    if out_dtype is not None and out_dtype not in (x.dtype, torch.float32):
+        raise ValueError(f"int8_matmul: out_dtype must be x's dtype or float32, got {out_dtype}")
     if not x.is_cuda:
-        return int8_matmul_plain(x, w_q, w_scale)
+        return int8_matmul_plain(x, w_q, w_scale, out_dtype)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"int8_matmul: x must be float32 or bfloat16, got {x.dtype}")
     cuda.check(x, "int8_matmul x", ndim=2)
@@ -472,7 +608,7 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> to
         raise ValueError(f"int8_matmul: the kernel needs K and N multiples of 16, got K={K} N={N}")
     if x.data_ptr() % 16 or w_q.data_ptr() % 16:
         raise ValueError("int8_matmul: x and w_q must be 16-byte aligned")
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    y = torch.empty((M, N), dtype=out_dtype or x.dtype, device=x.device)
     if M > 0:
         int8_mm_launch(x, w_q, w_scale, y, int8_mm_plan(M, K, N, _sm_count(x.device), x.dtype == torch.float32))
     return y
@@ -481,19 +617,29 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> to
 def int8_mm_launch(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, y: torch.Tensor,
                    plan: Int8MMPlan) -> None:
     """One launch of csrc/int8_mm.cu along `plan` on tensors int8_matmul
-    has checked (w_scale [N]); y [M, N] in x's dtype is written."""
+    has checked (w_scale [N]); y [M, N] in x's dtype, or fp32 for bf16 x
+    (the fp32-output mode, counted apart), is written."""
     M, K = x.shape
     N = w_q.shape[1]
     split = plan.splits > 1
+    f32out = y.dtype != x.dtype
     part = torch.empty((plan.part_floats,), dtype=torch.float32, device=x.device) if split else None
     cuda.call("int8_mm", x.data_ptr(), 0 if x.dtype == torch.float32 else 1, w_q.data_ptr(), w_scale.data_ptr(),
               y.data_ptr(), part.data_ptr() if split else None,
               _tickets(x.device, plan.tiles).data_ptr() if split else None, M, K, N,
-              0 if plan.narrow else plan.rows // 64, plan.splits)
-    cuda.launches["int8_matmul"] += 1
+              0 if plan.narrow else plan.rows // 64, plan.splits, symbol="int8_mm_f32out" if f32out else None)
+    cuda.launches["int8_matmul_f32out" if f32out else "int8_matmul"] += 1
 
 
-def int8_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+def int8_matmul_rowpar(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """The weight-only product of a row-parallel layer: x [M, K / T] times
+    this rank's rows w_q int8 [K / T, N]; each rank's fp32 partials (column
+    scale applied) are all-reduced in fp32 and rounded to x's dtype once."""
+    return tp.reduce_from_tp(int8_matmul(x, w_q, w_scale, out_dtype=torch.float32)).to(x.dtype)
+
+
+def int8_linear(p: Dict[str, Any], x: torch.Tensor, row_parallel: bool = False) -> torch.Tensor:
     """nn.linear entry of the weight-only mode for a 2-D {'w_q','w_scale'(,'b')}
-    leaf; x [..., K]."""
-    return _int8_leaf_linear(int8_matmul, p["w_q"], p, x)
+    leaf; x [..., K]. row_parallel: this rank's rows of a weight split on K
+    (int8_matmul_rowpar)."""
+    return _int8_leaf_linear(int8_matmul_rowpar if row_parallel else int8_matmul, p["w_q"], p, x)

@@ -12,8 +12,10 @@ device cpu). A partial set of either raises: a half-configured launch would
 otherwise train N unsynchronized single-process replicas. `make_mesh`
 splits the world as JAX's ('dp', 'fsdp', 'tp') mesh does: rank
 (d * fsdp + f) * tp + t. Optimizer state is sharded over 'fsdp' and
-replicated over 'dp'; the global batch splits over both. Tensor
-parallelism is not ported (`--tp` > 1 raises).
+replicated over 'dp'; the global batch splits over both. The ranks of a
+'tp' group are consecutive; the port serves over one (`serving_mesh`:
+dp = fsdp = 1, parallel/tensor.py) and does not train over one yet (the
+trainer's `--tp` > 1 raises, citing ROADMAP_TP).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-ROADMAP_TP = "ROADMAP.md queue 1, item 13 (tensor parallelism for training and serving)"
+ROADMAP_TP = "ROADMAP.md queue 1, item 15 (tensor parallelism for training)"
 
 _TORCHRUN = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 _MLA = ("MLA_COORDINATOR_ADDRESS", "MLA_NUM_PROCESSES", "MLA_PROCESS_ID")
@@ -51,11 +53,15 @@ def _launch_env(env: Dict[str, str]) -> Optional[Dict[str, Any]]:
     return {"rank": rank, "world": world, "local_rank": int(env.get("LOCAL_RANK", rank)), "init_method": addr}
 
 
-def initialize_distributed(device: str = "cuda", env: Optional[Dict[str, str]] = None) -> Optional[Dict[str, Any]]:
+def initialize_distributed(device: str = "cuda", env: Optional[Dict[str, str]] = None,
+                           backend: Optional[str] = None) -> Optional[Dict[str, Any]]:
     """Join the launch's process group, once. Returns {'rank', 'world',
     'local_rank', 'device'}, or None for a plain single-process run (no
-    variables set). With device cuda the process binds cuda:LOCAL_RANK and
-    NCCL; with device cpu, gloo."""
+    variables set). With device cuda the process binds cuda:LOCAL_RANK;
+    backend None means NCCL there and gloo with device cpu. Only a caller
+    that names it gets gloo for CUDA tensors (ranks that share one card,
+    which NCCL refuses; parallel/tensor.py stages their collectives through
+    the host)."""
     import torch.distributed as dist
 
     launch = _launch_env(dict(os.environ) if env is None else env)
@@ -66,9 +72,9 @@ def initialize_distributed(device: str = "cuda", env: Optional[Dict[str, str]] =
             raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
         dev = torch.device("cuda", launch["local_rank"] % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-        backend = "nccl"
+        backend = backend or "nccl"
     else:
-        dev, backend = torch.device("cpu"), "gloo"
+        dev, backend = torch.device("cpu"), backend or "gloo"
     if not dist.is_initialized():
         kw = {"device_id": dev} if backend == "nccl" else {}
         dist.init_process_group(backend, init_method=launch["init_method"], rank=launch["rank"],
@@ -81,8 +87,9 @@ class Mesh:
     """The ('dp', 'fsdp', 'tp') split of the world and this rank's groups:
     `group` spans the world (the global batch), `fsdp_group` the ranks that
     share this rank's dp index (an optimizer shard each; the dp ranks hold
-    the same shards). Groups are None without a process group (a
-    one-process mesh)."""
+    the same shards), `tp_group` the tp consecutive ranks that hold the
+    parts of one tensor-parallel model. Groups are None without a process
+    group (a one-process mesh)."""
 
     dp: int
     fsdp: int
@@ -90,10 +97,15 @@ class Mesh:
     rank: int
     group: Any = None
     fsdp_group: Any = None
+    tp_group: Any = None
 
     @property
     def world(self) -> int:
         return self.dp * self.fsdp * self.tp
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
 
     @property
     def fsdp_rank(self) -> int:
@@ -110,20 +122,24 @@ class Mesh:
 
 
 def fsdp_ranks(dp: int, fsdp: int, tp: int) -> List[List[int]]:
-    """The ranks of each fsdp group (one per dp index), in JAX's
+    """The ranks of each fsdp group (one per dp and tp index), in JAX's
     devices.reshape(dp, fsdp, tp) order."""
-    return [[(d * fsdp + f) * tp for f in range(fsdp)] for d in range(dp)]
+    return [[(d * fsdp + f) * tp + t for f in range(fsdp)] for d in range(dp) for t in range(tp)]
+
+
+def tp_ranks(dp: int, fsdp: int, tp: int) -> List[List[int]]:
+    """The ranks of each tp group: rank (d * fsdp + f) * tp + t, t = 0 ..
+    tp - 1, consecutive."""
+    return [[(d * fsdp + f) * tp + t for t in range(tp)] for d in range(dp) for f in range(fsdp)]
 
 
 def make_mesh(dp: int = 1, fsdp: Optional[int] = None, tp: int = 1, world: Optional[int] = None) -> Mesh:
     """JAX's make_mesh over the processes: all of them to fsdp by default
-    (fsdp = world / (dp * tp)), dp * fsdp * tp must equal the world. tp > 1
-    raises (tensor parallelism is not ported). With a process group every
-    rank must call this, in the same order (it makes the groups)."""
+    (fsdp = world / (dp * tp)), dp * fsdp * tp must equal the world. With a
+    process group every rank must call this, in the same order (it makes
+    the groups: the fsdp groups, then, for tp > 1, the tp groups)."""
     import torch.distributed as dist
 
-    if tp != 1:
-        raise NotImplementedError(f"--tp {tp}: tensor parallelism is not ported ({ROADMAP_TP})")
     live = dist.is_available() and dist.is_initialized()
     n = world if world is not None else (dist.get_world_size() if live else 1)
     if fsdp is None:
@@ -134,9 +150,21 @@ def make_mesh(dp: int = 1, fsdp: Optional[int] = None, tp: int = 1, world: Optio
         raise ValueError(f"dp*fsdp*tp={dp * fsdp * tp} != {n} processes")
     if not live:
         return Mesh(dp, fsdp, tp, rank=0)
-    rank, mine = dist.get_rank(), None
-    for ranks in fsdp_ranks(dp, fsdp, tp):
-        g = dist.new_group(ranks)  # every rank makes every group, in order
-        if rank in ranks:
-            mine = g
-    return Mesh(dp, fsdp, tp, rank=rank, group=dist.group.WORLD, fsdp_group=mine)
+    rank = dist.get_rank()
+    mine = {"tp": None}  # tp 1: no tp groups
+    for kind, groups in (("fsdp", fsdp_ranks(dp, fsdp, tp)), ("tp", tp_ranks(dp, fsdp, tp) if tp > 1 else [])):
+        for ranks in groups:
+            g = dist.new_group(ranks)  # every rank makes every group, in order
+            if rank in ranks:
+                mine[kind] = g
+    return Mesh(dp, fsdp, tp, rank=rank, group=dist.group.WORLD, fsdp_group=mine["fsdp"], tp_group=mine["tp"])
+
+
+def serving_mesh() -> Mesh:
+    """The mesh a tensor-parallel policy serves over: the whole world as
+    one tp group, dp = fsdp = 1 (a mesh with fsdp or dp beside tp is
+    refused by the policy, citing ROADMAP_TP)."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return make_mesh(dp=1, fsdp=1, tp=world, world=world)

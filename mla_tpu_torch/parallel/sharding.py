@@ -1,8 +1,15 @@
 """Which rank holds which part of each trainable leaf's master weights and
 optimizer state, and which rows of the global batch.
 
-Counterpart of mla_tpu/parallel/sharding.py (fsdp rules only; its tp
-rules are ROADMAP item 13). JAX shards each leaf's largest dim that
+Counterpart of mla_tpu/parallel/sharding.py. Its tp rules (`TP_RULES`,
+`tp_dim`) are JAX's `_TP_RULES` and the tp branch of `_spec_for_leaf`, rule
+for rule: the serving decoder's q/k/v/gate/up split on the output dim, o
+and down on the input dim, the embedding and the lm_head on the
+vocabulary (params.tp_local takes a rank's part). The port serves over tp
+alone (dp = fsdp = 1, parallel/mesh.serving_mesh); tp composed with fsdp
+is ROADMAP item 15.
+
+For fsdp, JAX shards each leaf's largest dim that
 divides by the fsdp size and keeps the stacked [L] axis of the decoder
 leaves whole (sharding it would all-gather inside the layer scan). The
 port's optimizer step is per element and its layer loop indexes a whole
@@ -24,6 +31,51 @@ from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+
+# llama leaf paths (suffix match) -> tp dim counted from the END, as in JAX
+# (negative indexing serves stacked [L, in, out] and flat [in, out] leaves)
+TP_RULES = {
+    "layers/attn/q/w": -1,
+    "layers/attn/k/w": -1,
+    "layers/attn/v/w": -1,
+    "layers/attn/o/w": -2,
+    "layers/mlp/gate/w": -1,
+    "layers/mlp/up/w": -1,
+    "layers/mlp/down/w": -2,
+    "embed/table": -2,   # vocab dim of [V, D]
+    "lm_head/w": -1,     # vocab dim of [D, V]
+}
+
+
+def tp_rule(path: str) -> Optional[str]:
+    """The TP_RULES key that the leaf at `path` falls under (an int8 leaf's
+    w_q and w_scale under their w's), or None."""
+    base = path
+    for tail in ("/w_q", "/w_scale"):
+        if path.endswith(tail):
+            base = path[: -len(tail)] + "/w"
+    return next((suffix for suffix in TP_RULES if base.endswith(suffix)), None)
+
+
+def tp_dim(path: str, shape: Sequence[int], tp: int) -> Optional[int]:
+    """The dim (counted from 0) that a leaf at `path` splits over a tp axis
+    of `tp`, or None when it stays whole: JAX's rule. An int8 leaf follows
+    its bf16 leaf's rule, w_q [.., K, N] like w; the per-output-channel
+    w_scale [.., 1, N] splits only under the N-split (-1) rules and stays
+    whole under the K-split ones. int4 (w_q4, w_scale4) and the int8
+    embedding (table_q, table_scale: 'embed/table' does not match their
+    paths) stay whole, as does a leaf whose dim does not divide by tp."""
+    ndim, rule = len(shape), tp_rule(path)
+    if tp <= 1 or ndim == 0 or rule is None:
+        return None
+    if path.endswith("/w_scale"):
+        if TP_RULES[rule] != -1:
+            return None
+        d = ndim - 1
+    else:
+        d = ndim + TP_RULES[rule]
+    return d if 0 <= d < ndim and shape[d] % tp == 0 else None
 
 
 @dataclass(frozen=True)

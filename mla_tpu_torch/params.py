@@ -38,6 +38,36 @@ def from_jax(tree, device=None):
     return t.to(device) if device is not None else t
 
 
+def tp_local(tree, mesh):
+    """This rank's own tree over the tp axis of `mesh` (parallel/mesh.Mesh),
+    and the TP_RULES keys whose leaves it holds in part: each leaf that
+    JAX's rules split (parallel/sharding.tp_dim) becomes a contiguous copy
+    of its slice mesh.tp_rank, the other leaves are kept whole, on the
+    leaves' device. The layers read the keys from the tp group's block
+    (parallel/tensor.tp_group); the caller frees the whole tree."""
+    from mla_tpu_torch.parallel.sharding import tp_dim, tp_rule
+
+    tp, tp_rank = mesh.tp, mesh.tp_rank
+    split = set()
+
+    def part(path, leaf):
+        d = tp_dim(path, tuple(leaf.shape), tp)
+        if d is None:
+            return leaf
+        split.add(tp_rule(path))
+        n = leaf.shape[d] // tp
+        return leaf.narrow(d, tp_rank * n, n).clone(memory_format=torch.contiguous_format)
+
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{prefix}{k}/") for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, f"{prefix}{n}/") for n, v in enumerate(t))
+        return part(prefix[:-1], t)
+
+    return walk(tree, ""), frozenset(split)
+
+
 def tree_map(fn, tree):
     """The same tree with fn applied to every leaf."""
     if isinstance(tree, dict):

@@ -48,7 +48,8 @@ optimizer state are sharded over fsdp, the global batch over every rank
 (training/strategy.py), each rank reads its own shard of the RLDS episodes
 and the sampler's rows; logs, trackers and checkpoints are written on rank
 0, and a checkpoint resumes at any world size. tokens/s and MFU count
-every rank. --tp other than 1 raises (ROADMAP item 13).
+every rank. --tp other than 1 raises (ROADMAP item 15: the port serves
+over a tp group, parallel/tensor.py, but does not train over one yet).
 """
 
 from __future__ import annotations
@@ -73,7 +74,8 @@ def parse_args(argv: Optional[List[str]] = None) -> Tuple[argparse.Namespace, Di
     p.add_argument("--model", default=None, help="model registry id (default: config.base_vlm)")
     p.add_argument("--data_root_dir", default=None, help="RLDS/TFDS data root (dummy data if unset)")
     p.add_argument("--dp", type=int, default=1, help="data-parallel mesh axis (fsdp = world / (dp * tp))")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh axis (not ported: only 1)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh axis (training over it is not ported: "
+                   "only 1)")
     p.add_argument("--hf_llama_dir", default=None, help="HF Llama base weights to initialize from")
     p.add_argument("--vlm_stage", default=None, choices=["align", "finetune"],
                    help="run the VLM-pretraining loop instead of the VLA loop: align = projector warm-up, "
@@ -351,12 +353,14 @@ def _device(args: argparse.Namespace) -> Tuple[torch.device, Any]:
     gloo with --device cpu) and its mesh, or the one device and None
     without a launch. --tp other than 1, a --dp that does not divide the
     world, a partial launch environment and a card-less cuda raise."""
-    from mla_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from mla_tpu_torch.parallel.mesh import ROADMAP_TP, initialize_distributed, make_mesh
 
+    if args.tp != 1:
+        raise NotImplementedError(f"--tp {args.tp}: training over a tensor-parallel group is not ported ({ROADMAP_TP})")
     launch = initialize_distributed(args.device)
     if launch is None:
-        if args.dp != 1 or args.tp != 1:
-            make_mesh(dp=args.dp, tp=args.tp)  # raises: tp is not ported, one process holds no dp > 1
+        if args.dp != 1:
+            make_mesh(dp=args.dp)  # raises: one process holds no dp > 1
         device = torch.device(args.device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")

@@ -608,9 +608,16 @@ def test_partial_environment_raises(env, match):
 
 
 def test_tp_raises_citing_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item 13 \(tensor parallelism"):
-        tmesh.make_mesh(tp=2, world=2)
-    assert tmesh.ROADMAP_TP == "ROADMAP.md queue 1, item 13 (tensor parallelism for training and serving)"
+    """A mesh takes a tp axis (the port serves over one, consecutive ranks
+    a group); training over it raises, citing item 15 (the trainer's --tp:
+    tests/test_torch_train_cli.py; a serving mesh with fsdp beside tp:
+    tests/test_torch_tp_serving.py)."""
+    m = tmesh.make_mesh(tp=2, world=2)
+    assert (m.dp, m.fsdp, m.tp, m.tp_rank) == (1, 1, 2, 0)
+    assert tmesh.tp_ranks(1, 2, 2) == [[0, 1], [2, 3]] and tmesh.fsdp_ranks(1, 2, 2) == [[0, 2], [1, 3]]
+    m = tmesh.serving_mesh()  # a world of one process
+    assert (m.dp, m.fsdp, m.tp, m.world) == (1, 1, 1, 1)
+    assert tmesh.ROADMAP_TP == "ROADMAP.md queue 1, item 15 (tensor parallelism for training)"
 
 
 def test_shard_plan_rules():

@@ -1,0 +1,384 @@
+"""Tensor-parallel serving of the port on the CPU, against the JAX package.
+
+mla-tiny (4 heads) is served by MLAPolicy over gloo tp groups of 2 and 4
+processes (tests/torch_tp_child.py; plain kernels on the CPU), each rank
+holding its part of the decoder by JAX's _TP_RULES. The same weights, ids
+and noise go through the JAX package unsharded (its MLAPolicy) and, for
+DDIM, through tests/test_tp_serving.py's graph on a tp=4 x fsdp=2 mesh of
+virtual devices, and through the port's one-process policies. Paths: fp32
+(DDIM, DPM), bf16 (DDIM), W8A8 (DDIM, DPM), weight-only int8 on mla-tiny
+widened to a 128-multiple decoder (DDIM and predict_action_ar's ids), and
+a GQA 4:2 decoder in W8A8 at T = 2. Two controls must be caught: W8A8's
+row max kept local, and the row-parallel all-reduce skipped. One spawn per
+world size runs every scenario.
+"""
+
+import contextlib
+import dataclasses
+import os
+import shutil
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_policy_parity as tpp
+import torch_tp_child as child
+from test_torch_distributed import _exclusive
+from mla_tpu.diffusion import gaussian as jgd
+from mla_tpu.models import mla as jmla
+from mla_tpu.models import prismatic as jprismatic
+from mla_tpu.ops import quantization as jq
+from mla_tpu.parallel import make_mesh, sharding as jsharding
+from mla_tpu_torch.models import mla as tmla
+from mla_tpu_torch.params import from_jax, init
+from mla_tpu_torch.parallel import mesh as tmesh
+
+HERE = Path(__file__).resolve().parent
+WORLDS = (2, 4)  # and a world of one: the one-process policies
+CHILD_TIMEOUT = 300  # a hang guard: a world of 4 takes ~20 s alone
+WIDE = dict(hidden_size=128, intermediate_size=384)  # JAX's weight-only kernel rule: K, N multiples of 128
+JAX_INT8_MODE = {"w8a8": "w8a8", "weight_only": "pallas"}
+# fp32 as tests/test_torch_policy_fp32.py, int8 as tests/test_torch_policy_int8.py;
+# bf16: the decoder's activations round to bf16 (3 significant digits) at
+# other places in XLA than in PyTorch
+RTOL = {"fp32": 1e-4, "int8": 1e-3, "wide_int8": 1e-3, "gqa_int8": 1e-3, "bf16": 3e-2}
+# (the GQA W8A8 chunk against JAX: 5e-3 of its scale, test_tp_chunk_matches_jax)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch(workdir: Path, world: int):
+    port = _free_port()
+    base = {k: v for k, v in os.environ.items() if k not in (
+        "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    base.update(OMP_NUM_THREADS="1", PYTHONPATH=str(HERE.parent))
+    return [subprocess.Popen([sys.executable, str(HERE / "torch_tp_child.py"), str(workdir)],
+                             env={**base, "MLA_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                                  "MLA_NUM_PROCESSES": str(world), "MLA_PROCESS_ID": str(r)},
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+
+def _wait(procs) -> None:
+    try:
+        outs = [p.communicate(timeout=CHILD_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+
+
+def _configs():
+    """{tree: (JAX config, port config)}."""
+    j, t = tpp.jconfig("mla-tiny"), tpp.tconfig("mla-tiny")
+
+    def both(**fields):
+        return (dataclasses.replace(j, llama=dataclasses.replace(j.llama, **fields)),
+                dataclasses.replace(t, llama=dataclasses.replace(t.llama, **{
+                    k: (torch.bfloat16 if v is jnp.bfloat16 else v) for k, v in fields.items()})))
+
+    return {"fp32": (j, t), "bf16": both(compute_dtype=jnp.bfloat16), "wide": both(**WIDE),
+            "gqa": both(num_kv_heads=2)}
+
+
+def _gqa(params):
+    """mla-tiny's tree with k and v cut to 2 of its 4 heads (GQA 4:2)."""
+    hd = 16
+    attn = params["llm_backbone"]["layers"]["attn"]
+    cut = {k: {"w": attn[k]["w"][..., : 2 * hd]} for k in ("k", "v")}
+    layers = {**params["llm_backbone"]["layers"], "attn": {**attn, **cut}}
+    return {**params, "llm_backbone": {**params["llm_backbone"], "layers": layers}}
+
+
+@contextlib.contextmanager
+def _int8_mode(mode):
+    prev = os.environ.get("MLA_INT8_MODE")
+    os.environ["MLA_INT8_MODE"] = mode
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("MLA_INT8_MODE", None)
+        else:
+            os.environ["MLA_INT8_MODE"] = prev
+
+
+def _jax_tp_ddim(params, state, cfg, req):
+    """tests/test_tp_serving.py's graph (prefix embeds, prefill into a
+    head-sharded cache, the read-only DDIM-8 suffix steps) jitted over a
+    tp=4 x fsdp=2 mesh."""
+    mesh = make_mesh(dp=1, fsdp=2, tp=4)
+    p_sh = jax.tree_util.tree_map(jax.device_put, params, jsharding.param_shardings(params, mesh, use_tp=True))
+    s_sh = jax.tree_util.tree_map(lambda x: jax.device_put(x, jsharding.replicate(mesh)), state)
+    ids = req["ids"]
+    sched = jgd.create_schedule("ddim8", diffusion_steps=100)
+    cache_max = ids.shape[1] - 1 + cfg.fused_len + 2 + cfg.action_horizon + 1 + 32
+
+    @jax.jit
+    def run(params, state, noise):
+        prefix = jmla.build_prefix_embeds(params, state, cfg, jnp.asarray(ids[:, :-1]),
+                                          {"front_image": jnp.asarray(req["img"])[None]}, jnp.asarray(req["pc"])[None])
+        kv, _ = jmla.prefill(params, cfg, prefix, cache_max, compute_logits=False)
+        return jmla.ddim_denoise_actions(params, cfg, sched, kv, prefix.shape[1], jnp.zeros((1, 1, cfg.action_dim)),
+                                         jnp.asarray(ids[:, -1:]), noise)
+
+    return np.asarray(run(p_sh, s_sh, jnp.asarray(req["noise"])[None]))[0]
+
+
+def _jax_runs(jtrees, req):
+    """{scenario: JAX's unsharded output} and {scenario: JAX's tp-sharded
+    DDIM chunk}."""
+    unsharded, sharded = {}, {}
+    policies = {}
+    for name, (tree, mode, call, sampler, _, ctrl) in child.SCENARIOS.items():
+        if ctrl is not None:
+            continue
+        params, state, cfg = jtrees[tree]
+        with _int8_mode(JAX_INT8_MODE[mode]):
+            if (tree, mode) not in policies:
+                policies[(tree, mode)] = jmla.MLAPolicy(params, state, cfg, tokenizer=None, norm_stats=tpp.STATS)
+            pol = policies[(tree, mode)]
+            if call == "diff":
+                unsharded[name] = np.asarray(pol.predict_action_diff(
+                    req["img"], req["pc"], "", input_ids=req["ids"], noise=req["noise"], sampler=sampler,
+                    return_normalized=True))
+            else:
+                unsharded[name] = pol.predict_action_ar(req["img"], req["pc"], "", input_ids=req["ids"],
+                                                        return_probs=True)
+            if name in ("fp32-ddim", "w8a8-ddim"):
+                sharded[name] = _jax_tp_ddim(params, state, cfg, req)
+    return unsharded, sharded
+
+
+@pytest.fixture(scope="module")
+def runs(request, tmp_path_factory):
+    """Every scenario: each rank's output at worlds 2 and 4, the port's
+    one-process output, JAX's unsharded and tp-sharded outputs, computed
+    once a session (the xdist workers that run this file's tests share them
+    through their session's temporary root: the first computes, the others
+    load)."""
+    base = tmp_path_factory.getbasetemp()
+    root = base.parent if hasattr(request.config, "workerinput") else base
+    done = root / "torch_tp_serving" / "runs.pt"
+    with _exclusive(root / "torch_tp_serving.lock"):
+        if not done.exists():
+            shutil.rmtree(done.parent, ignore_errors=True)
+            done.parent.mkdir(parents=True)
+            torch.save(_compute_runs(done.parent), done)
+    return torch.load(done, weights_only=False)
+
+
+def _compute_runs(work: Path):
+    params, state = tpp.model(seed=4)
+    cfgs = _configs()
+    wide_params, wide_state = jprismatic.mla_model_init(jax.random.PRNGKey(7), cfgs["wide"][0])
+    jfloat = {"fp32": (params, state), "bf16": (params, state), "wide": (wide_params, wide_state),
+              "gqa": (_gqa(params), state)}
+    img, pc, ids, noise, _ = tpp.request()
+    req = {"img": img, "pc": pc, "ids": ids, "noise": noise}
+    inputs = {"trees": {k: (from_jax(p), from_jax(s), cfgs[k][1]) for k, (p, s) in jfloat.items()},
+              "request": req, "stats": tpp.STATS}
+    torch.save(inputs, work / "inputs.pt")
+    procs = {w: _launch(work, w) for w in (1, *WORLDS)}
+    try:
+        jtrees = {k: (*jfloat[k], cfgs[k][0]) for k in jfloat}
+        for name, src in child.QUANTIZED.items():
+            p, s, c = jtrees[src]
+            jtrees[name] = (jq.quantize_model(p), s, c)
+        unsharded, sharded = _jax_runs(jtrees, req)
+    finally:
+        for w in procs:
+            _wait(procs[w])
+    ranks = {w: [torch.load(work / f"out_w{w}_r{r}.pt", weights_only=False) for r in range(w)] for w in procs}
+    return {"ranks": ranks, "one": ranks.pop(1)[0], "jax": unsharded, "jax_tp": sharded}
+
+
+def _ar_actions(toks):
+    tok = tmla.ActionTokenizer(None, vocab_size=32000)
+    stats = tpp.STATS["rlbench"]["action"]
+    return tmla.unnormalize_actions(tok.decode_token_ids_to_actions(np.asarray(toks)[0]), stats)
+
+
+DIFF = [n for n, s in child.SCENARIOS.items() if s[2] == "diff" and s[5] is None]
+CASES = [(w, n) for w in WORLDS for n in DIFF if w in child.SCENARIOS[n][4]]
+
+
+@pytest.mark.parametrize("world,name", CASES, ids=[f"w{w}-{n}" for w, n in CASES])
+def test_tp_chunk_matches_jax(runs, world, name, record_property):
+    """The tp policy's chunk against JAX's unsharded run and, for DDIM in
+    fp32 and W8A8, JAX's tp=4 x fsdp=2 run, at the slice's tolerances; and
+    against the port's one-process chunk: the W8A8 chunk bit for bit (the
+    row-parallel product's int32 sums are exact), the rest at the same
+    tolerance."""
+    tree = child.SCENARIOS[name][0]
+    got = runs["ranks"][world][0][name]
+    assert got.shape == (16, 7) and np.isfinite(got).all()
+    rtol = RTOL[tree]
+    record_property("max_abs_err_jax", float(np.abs(got - runs["jax"][name]).max()))
+    if tree == "gqa_int8":
+        # ROADMAP section 3, a known difference: a GQA W8A8 chunk of a
+        # random model is held to 5e-3 of its scale against JAX, as in
+        # tests/test_torch_mistral.py (a suffix row's quantization after an
+        # ulp of difference in the DDIM update)
+        assert float(np.abs(got - runs["jax"][name]).max()) <= 5e-3 * float(np.abs(runs["jax"][name]).max())
+    else:
+        np.testing.assert_allclose(got, runs["jax"][name], rtol=rtol, atol=rtol)
+    if name in runs["jax_tp"]:
+        np.testing.assert_allclose(got, runs["jax_tp"][name], rtol=rtol, atol=rtol)
+    if child.SCENARIOS[name][1] == "w8a8" and "int8" in tree:
+        np.testing.assert_array_equal(got, runs["one"][name])
+    else:
+        np.testing.assert_allclose(got, runs["one"][name], rtol=rtol, atol=rtol)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_tp_ar_matches_jax(runs, world):
+    """predict_action_ar's ids over weight-only int8 (int8_mm's fp32
+    partials on the row-parallel layers, the vocab-split lm_head's logits
+    gathered): the one-process policy's ids and JAX's actions exactly, the
+    per-token probabilities within the int8 tolerance."""
+    toks, probs = runs["ranks"][world][0]["weight_only-ar"]
+    one_toks, one_probs = runs["one"]["weight_only-ar"]
+    np.testing.assert_array_equal(toks, np.asarray(one_toks))
+    np.testing.assert_allclose(probs, np.asarray(one_probs), rtol=1e-5)
+    jactions, jprobs = runs["jax"]["weight_only-ar"]
+    np.testing.assert_array_equal(_ar_actions(toks), jactions)
+    np.testing.assert_allclose(probs[0], jprobs, rtol=RTOL["int8"])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_every_rank_returns_the_same(runs, world):
+    """Every scenario but the controls (which break the group's agreement)."""
+    first = runs["ranks"][world][0]
+    for other in runs["ranks"][world][1:]:
+        assert set(other) == set(first)
+        for name, out in first.items():
+            if name.startswith("control-") or name == "tensor_ops":
+                continue
+            for a, b in zip(out if isinstance(out, tuple) else (out,), other[name] if isinstance(out, tuple)
+                            else (other[name],)):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_tensor_ops_forward_and_backward(runs, world):
+    """parallel/tensor.py over gloo: reduce-from-tp sums forward and passes
+    the gradient through, copy-to-tp passes forward and sums the ranks'
+    gradients backward, gather-from-tp concatenates the last dim forward and
+    keeps the rank's slice of the gradient backward, the all-reduce MAX, and
+    the vocab-parallel lookup equal to the whole table's rows."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(world, 3, 4, generator=g).numpy()
+    up = torch.randn(world, 3, 4 * world, generator=g).numpy()
+    table = torch.randn(8 * world, 5, generator=g).numpy()
+    ids = np.array([[0, 8 * world - 1, 3, 8], [5, 9, 8 * world - 2, 1]])
+    for r in range(world):
+        got = runs["ranks"][world][r]["tensor_ops"]
+        np.testing.assert_allclose(got["reduce"], x.sum(0), rtol=1e-6)
+        np.testing.assert_array_equal(got["reduce_grad"], up[r][:, :4])
+        np.testing.assert_array_equal(got["copy"], x[r])
+        np.testing.assert_allclose(got["copy_grad"], up[:, :, :4].sum(0), rtol=1e-6)
+        np.testing.assert_array_equal(got["gather"], np.concatenate(list(x), axis=-1))
+        np.testing.assert_array_equal(got["gather_grad"], up[r][:, 4 * r:4 * r + 4])
+        np.testing.assert_array_equal(got["max"], x[:, 0].max(0))
+        np.testing.assert_array_equal(got["embed"], table[ids])
+
+
+CONTROLS = [(w, n) for w in WORLDS for n in child.SCENARIOS if n.startswith("control-")]
+
+
+@pytest.mark.parametrize("world,name", CONTROLS, ids=[f"w{w}-{n}" for w, n in CONTROLS])
+def test_controls_are_caught(runs, world, name):
+    """A tp group that quantizes each row from its own slice's max misses
+    the bit-identity with the one-process chunk; one that skips the
+    row-parallel all-reduce misses JAX's chunk (or ids and probabilities)."""
+    got = runs["ranks"][world][0][name]
+    if name == "control-wo-skip_reduce":
+        toks, probs = got
+        one_toks, one_probs = runs["one"]["weight_only-ar"]
+        assert (toks != np.asarray(one_toks)).any() or not np.allclose(probs, one_probs, rtol=RTOL["int8"])
+        return
+    assert not np.array_equal(got, runs["one"]["w8a8-ddim"])
+    if name == "control-skip_reduce":
+        assert not np.allclose(got, runs["jax"]["w8a8-ddim"], rtol=RTOL["int8"], atol=RTOL["int8"])
+
+
+@pytest.mark.parametrize("M,dtype", [(1, torch.bfloat16), (18, torch.float32), (70, torch.bfloat16)])
+def test_rowpar_products_without_a_group_are_the_whole_row_products(M, dtype):
+    """Without a group the row-parallel W8A8 (its three steps and its plain
+    twin) is W8A8 bit for bit, int32 sums included, and the weight-only
+    product's fp32 output is its product before the rounding to x's
+    dtype."""
+    from mla_tpu_torch.ops import quantization as tq
+
+    g = torch.Generator().manual_seed(M)
+    x = torch.randn(M, 128, generator=g).to(dtype)
+    w_q = torch.randint(-127, 128, (128, 64), generator=g, dtype=torch.int8)
+    ws = torch.rand(64, generator=g) * 1e-3 + 1e-4
+    y, acc = tq.w8a8_matmul(x, w_q.t(), ws, return_acc=True)
+    for fn in (tq.w8a8_matmul_rowpar, tq.w8a8_matmul_rowpar_plain):
+        y2, acc2 = fn(x, w_q.t(), ws, return_acc=True)
+        assert y2.dtype == dtype and torch.equal(acc2, acc) and torch.equal(y2, y)
+    full = tq.int8_matmul(x, w_q, ws, out_dtype=torch.float32)
+    assert full.dtype == torch.float32 and torch.equal(full.to(dtype), tq.int8_matmul(x, w_q, ws))
+    assert torch.equal(tq.int8_matmul_rowpar(x, w_q, ws), tq.int8_matmul(x, w_q, ws))
+
+
+# --------------------------------------------------------------------------- #
+# Refusals
+# --------------------------------------------------------------------------- #
+
+
+def _tiny_port(num_kv_heads=4):
+    """The port's own seeded mla-tiny (the refusals need no JAX weights)."""
+    cfg = _configs()["gqa" if num_kv_heads == 2 else "fp32"][1]
+    params, state = init(cfg, seed=0, device="cpu")
+    return params, state, cfg
+
+
+@pytest.mark.parametrize("tp,kv", [(4, 2), (8, 4)], ids=["kv-heads", "heads"])
+def test_heads_that_tp_does_not_divide_raise(tp, kv):
+    """JAX's GSPMD may split mid-head; the port's layer splits whole heads
+    and refuses a T that does not divide the head counts."""
+    params, state, cfg = _tiny_port(kv)
+    with pytest.raises(NotImplementedError, match=r"item 16 \(tensor-parallel serving: heads that T does not divide"):
+        tmla.MLAPolicy(params, state, cfg, device="cpu", mesh=tmesh.Mesh(1, 1, tp, rank=0))
+
+
+def test_serving_world_larger_than_tp_raises():
+    """The port's serving mesh is dp = fsdp = 1: tp composed with fsdp is
+    the training item."""
+    params, state, cfg = _tiny_port()
+    with pytest.raises(NotImplementedError, match=r"item 15 \(tensor parallelism for training\)"):
+        tmla.MLAPolicy(params, state, cfg, device="cpu", mesh=tmesh.Mesh(1, 2, 2, rank=0))
+
+
+def test_int4_and_other_entries_raise_under_tp():
+    from mla_tpu_torch.ops import quantization as tq
+
+    params, state, cfg = _tiny_port()
+    mesh = tmesh.Mesh(1, 1, 2, rank=0)
+    with pytest.raises(NotImplementedError, match=r"item 16 \(tensor-parallel serving: int4"):
+        tmla.MLAPolicy(tq.quantize_model_int4(params, group_size=0), state, cfg, device="cpu", mesh=mesh)
+    pol = tmla.MLAPolicy(params, state, cfg, device="cpu", mesh=mesh, norm_stats=tpp.STATS)
+    img, pc, ids, *_ = tpp.request()
+    with pytest.raises(NotImplementedError, match=r"item 16 \(tensor-parallel serving: the batched calls"):
+        pol.predict_action_diff_batched(img[None], pc[None], input_ids=ids)
+    with pytest.raises(NotImplementedError, match=r"item 16 \(tensor-parallel serving: text generation"):
+        pol.generate_ids(img, pc, ids, 3, num_beams=2)
+    # this rank's half of the decoder: q's output dim and o's input dim cut in two
+    attn = pol.params["llm_backbone"]["layers"]["attn"]
+    assert attn["qkv_fused"]["w"].shape[-1] == 3 * 64 // 2 and attn["o"]["w"].shape[-2] == 64 // 2

@@ -6,10 +6,11 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (`--only PHASES` runs the build, the kernels phase and only the named
-phases among mistral-agree ... augment, qualify, tp and formats, the oxe
-phase's format checks alone, and prints no result line; `--tp_world 2,4
---tp_backend nccl` runs the tp phase at those worlds, a rank a card, on
-a machine with that many cards), or, to
+phases among mistral-agree ... augment, qualify, tp, tp-train and formats,
+the oxe phase's format checks alone, and prints no result line; `--tp_world
+2,4 --tp_backend nccl` runs the tp phase at those worlds, a rank a card,
+on a machine with that many cards, `--tp_train_world 4` the tp-train
+phase at tp 2 x fsdp 2), or, to
 time this tree's flash forward, dQ, dK/dV, W8A8, weight-only int8
 and FPS kernels against another version of them (such as the parent
 commit's, written out with `git show HEAD~1:mla_tpu_torch/csrc/flash_fwd.cu`,
@@ -45,14 +46,15 @@ Phases, each of which fails the run if it fails:
                   the mla-2b training shapes (BH 256, S 563, and S 819 of
                   the post-training step, a ragged last tile of 51 rows)
                   and the trainer's (BH 256, S 547, a 35-key tail; BH 64,
-                  S 529 of its AR loss mode, a 17-key tail), the data
+                  S 529 of its AR loss mode, a 17-key tail; BH 128, S 547
+                  of a tp-train rank), the data
                   phase's (BH 256, S 979) and the VLM stage's (BH 512, S
                   1025, one key in the last tile; S 512, no ragged tile),
                   with and without a padded key tail, o and lse at every
                   valid row, the check rejecting the forward control
                   without padding wherever S has a ragged tile;
-                  the flash backward (dQ, dK/dV) at the four training
-                  shapes, with and without a padded key tail, each
+                  the flash backward (dQ, dK/dV) at the training shapes
+                  (a tp-train rank's too), with and without a padded key tail, each
                   gradient row within a bf16 tolerance of its own norm,
                   bit-identical over two launches; the same check must
                   reject the control; SDPA's backward, the yardstick, the
@@ -142,7 +144,7 @@ Phases, each of which fails the run if it fails:
                   480 frames with raw clouds of 16 384 points (--voxel_cell
                   0.01 brings them to 1024 through the C++ host ops), DDIM-8
                   then DPM-4; then the simulator loop over a stub lift3d
-                  RLBenchEnv replaying the trace, 2 tasks x 2 episodes x 3
+                  RLBenchEnv replaying the trace, 2 tasks x 1 episode x 3
                   steps in --predict_mode diff_ar. Exact launches (flash L
                   and FPS 2 a chunk, twice that a diff_ar step, no W8A8 or
                   int8_matmul), chunks [8, 16, 7], finite, the gripper
@@ -267,13 +269,11 @@ Phases, each of which fails the run if it fails:
                   and per-step generators, deterministic algorithms on: the
                   same losses and launches, grad_norm and every updated
                   master within 1e-6.
-     dp           `python -m torch.distributed.run --nproc_per_node 1` of
-                  mla_tpu_torch.train --model mla-2b --dp 1 through this
-                  script's --dp-child, which skips the checkpoint write (2
-                  steps), then 2 steps of the same run in this process at
-                  world size 1 (the save skipped): exact launches, step
-                  ms, tokens/s, MFU, peak GiB and the rank's optimizer GiB
-                  beside the one-device trainer's.
+     dp           2 steps of mla_tpu_torch.train --model mla-2b --dp 1 in
+                  this process at world size 1 over NCCL (the save
+                  skipped): exact launches, step ms, tokens/s, MFU, peak
+                  GiB and the rank's optimizer GiB beside the one-device
+                  trainer's (the trainer under torchrun runs in tp-train).
      augment      the RLDS frame stage on a franka root (640 x 480 PNG
                   views) with augment=True and without: frames/s of each,
                   and augment_image's host ms per frame (both views, the
@@ -307,6 +307,22 @@ Phases, each of which fails the run if it fails:
                   speed on a shared card). The kernels phase holds the
                   row-parallel W8A8 (bit for bit) and int8_mm's fp32
                   output at T = 2 and 4, by o and down.
+     tp-train     tensor-parallel training: mla_tpu_torch.train.main at
+                  mla-2b (TRAINER_ARGS: fp32 masters, AdamW), a row a
+                  rank a step, 1 step in this process on the rows the
+                  data ranks read (the reference), then
+                  `python -m torch.distributed.run --nproc_per_node 2` of
+                  this script's --tp-train-child at --tp 2, sharing the
+                  card over gloo (named; --tp_train_world 4 --tp_backend
+                  nccl: tp 2 x fsdp 2, a card a rank): 2 steps, each
+                  rank's step-1 loss and grad_norm within TRAIN_AGREE_RTOL
+                  of the reference's and its masters' update within
+                  TP_TRAIN_MASTER_RTOL, a control (copy_to_tp's backward
+                  all-reduce skipped) outside it, exact launches a step
+                  (flash forward 2L, dQ L, dK/dV L, FPS 2 on BH 128 at S
+                  547, which the kernels phase holds), each rank's
+                  compute, optimizer and peak GiB and step ms (not tp
+                  speed on a shared card).
  13. trainer-agree  the trainer's two new step kinds on `mla-small` with
                   fp32 master weights (bf16 compute), card vs CPU from the
                   same weights, batch and draws: one step of the AR loss
@@ -723,6 +739,9 @@ FLASH_LSE_ATOL = 1e-3
 # tokens): diffusion, 2 rows x 4 repeats at 16 + 513 + 18, and the AR loss
 # mode, 2 rows at 16 + 513
 TRAINER_S, TRAINER_AR_S = 547, 529
+# a rank of the tp-train phase: the world's 2 rows x 4 repeats on 16 of
+# the 32 heads at TRAINER_S
+TP_TRAIN_BH = 2 * 4 * 16
 # the data phase's trainer on real frames: the collated prompt of 192 ids,
 # the fused block of 256 point, 256 front, 256 wrist and 1 tactile tokens,
 # the 18-token diffusion block; 2 rows x 4 repeats x 32 heads
@@ -739,13 +758,14 @@ VLM_S, VLM_LANG_S, VLM_BH = VLM_MAX_LENGTH + 513, VLM_MAX_LENGTH, VLM_ROWS * 32
 FLASH_SHAPES = ((32, PREFIX_LEN, "serving prefill"), (2 * 32, PREFIX_LEN, "serving host bucket 2"),
                 (4 * 32, PREFIX_LEN, "serving host bucket 4"), (8 * 32, 563, "training"),
                 (8 * 32, 819, "post-training"), (8 * 32, TRAINER_S, "trainer"),
-                (2 * 32, TRAINER_AR_S, "trainer AR mode"), (DATA_BH, DATA_S, "data trainer"),
+                (2 * 32, TRAINER_AR_S, "trainer AR mode"), (TP_TRAIN_BH, TRAINER_S, "tp-train rank"),
+                (DATA_BH, DATA_S, "data trainer"),
                 (OXE_BH, OXE_S, "oxe trainer"), (VLM_BH, VLM_S, "hf-vlm"), (VLM_BH, VLM_LANG_S, "hf-vlm language-only"))
 # the shapes the kernels line times: the serving host's, the data phase's,
 # the oxe phase's, the VLM stage's multimodal batch and the eval entry's
 # B = 1 prefill
 FLASH_ROW_SHAPES = {"serving host bucket 4": "serve-host", "data trainer": "data", "oxe trainer": "oxe",
-                    "hf-vlm": "hf-vlm", "serving prefill": "eval"}
+                    "hf-vlm": "hf-vlm", "serving prefill": "eval", "tp-train rank": "tp-train"}
 # the controls drop the last, ragged tile of 64 keys (queries): at a length
 # that is a multiple of 64 there is none, and a control is the kernel itself
 FLASH_TILE = 64
@@ -988,7 +1008,10 @@ def check_flash_bwd(torch, report, control):
     for row in vlm_rows:
         row["path"] = "hf-vlm"
     flash_bwd_at(torch, report, control, VLM_BH, VLM_LANG_S, "hf-vlm language-only")
-    return rows + data_rows + oxe_rows + vlm_rows
+    tp_rows = flash_bwd_at(torch, report, control, TP_TRAIN_BH, TRAINER_S, "tp-train rank")
+    for row in tp_rows:
+        row["path"] = "tp-train"
+    return rows + data_rows + oxe_rows + vlm_rows + tp_rows
 
 
 def flash_bwd_at(torch, report, control, BH, S, what):
@@ -2478,7 +2501,7 @@ EVAL_FRAMES, EVAL_CAMERA = 8, (480, 640)
 EVAL_RAW_POINTS, EVAL_VOXEL = 16384, 0.01
 # the stub simulator: close_box ends in success at the last step, close_fridge
 # runs out of steps; every step is a diff_ar step (both heads)
-EVAL_TASKS, EVAL_EPISODES, EVAL_STEPS = ("close_box", "close_fridge"), 2, 3
+EVAL_TASKS, EVAL_EPISODES, EVAL_STEPS = ("close_box", "close_fridge"), 1, 3
 EVAL_AGREE_FRAMES = 3
 EVAL_KERNELS = ("flash_attention", "furthest_point_sample", "w8a8_matmul", "int8_matmul")
 
@@ -2653,7 +2676,7 @@ def eval_phase(torch, report):
     bf16 mla-7b run dir: the offline replay of EVAL_FRAMES 640 x 480 frames
     with 16 384-point raw clouds (--voxel_cell 0.01) with DDIM-8, then DPM-4;
     then the simulator loop over a stub lift3d RLBenchEnv replaying the
-    trace, 2 tasks x 2 episodes x 3 steps in --predict_mode diff_ar. Exact
+    trace, 2 tasks x 1 episode x 3 steps in --predict_mode diff_ar. Exact
     launches of every run, the chunks' shape, finiteness and gripper, the
     reference output layout, a PNG frame decoded equal to its trace frame,
     results.json; per-step latency percentiles and prepare_pointcloud's host
@@ -5752,28 +5775,13 @@ def dp_agree(torch, report):
         report["dp_agree"] = dp_equality(torch, report)
 
 
-def dp_child(argv) -> int:
-    """The dp phase's torchrun trainer: train.main(argv) with its checkpoint
-    writes skipped (the trainer phase times and checks the 21.8 GiB save
-    and its resume)."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from mla_tpu_torch import train
-
-    with checkpoint_writes_skipped() as skipped:
-        train.main(argv)
-    print(f"dp child: checkpoint writes skipped at steps {skipped}", flush=True)
-    return 0
-
-
 def dp_phase(torch, report):
-    """`python -m torch.distributed.run --nproc_per_node 1` of
-    mla_tpu_torch.train --model mla-2b --dp 1 (the trainer phase's flags:
-    fp32 masters, accumulation 2; through this script's --dp-child, which
-    skips the checkpoint write) for 2 steps; then 2 steps of the same run
-    in this process at world size 1 with exact launches, the save skipped;
-    step ms, tokens/s, MFU, peak GiB and the rank's optimizer GiB (fp32
-    masters and moments) beside the one-device trainer's. Returns the
-    in-process run's launches."""
+    """2 steps of mla_tpu_torch.train --model mla-2b --dp 1 (the trainer
+    phase's flags: fp32 masters, accumulation 2) in this process at world
+    size 1 over NCCL with exact launches, the save skipped; step ms,
+    tokens/s, MFU, peak GiB and the rank's optimizer GiB (fp32 masters
+    and moments) beside the one-device trainer's. Returns the run's
+    launches."""
     import numpy as np
 
     from mla_tpu_torch import train
@@ -5782,32 +5790,8 @@ def dp_phase(torch, report):
 
     rep = {}
     shutil.rmtree(DP_ROOT, ignore_errors=True)
-    runs = DP_ROOT / "runs"
-    args = list(TRAINER_ARGS) + ["--run_root_dir", str(runs), "--run_id", "dp", "--dp", "1"]
+    args = list(TRAINER_ARGS) + ["--run_root_dir", str(DP_ROOT / "runs"), "--dp", "1"]
     try:
-        # -- the trainer through torchrun: 2 steps, the save skipped ----------
-        env = {k: v for k, v in os.environ.items() if k not in DP_LAUNCH}
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
-               "--master_port", str(_free_port()), str(Path(__file__).resolve()), "--dp-child", *args,
-               "--max_steps", "2"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=300)
-        run_s = time.perf_counter() - t0
-        lines = proc.stdout.splitlines()
-        if proc.returncode != 0:
-            raise AssertionError(f"dp: torchrun trainer exited {proc.returncode}:\n" + "\n".join(lines[-30:]))
-        strategy = [l for l in lines if "strategy ::" in l]
-        skipped_line = [l for l in lines if "checkpoint writes skipped at steps" in l]
-        jsonl = runs / "dp" / "dp.jsonl"
-        records = [json.loads(l) for l in jsonl.read_text().splitlines()] if jsonl.exists() else []
-        if not (strategy and "mesh={'dp': 1, 'fsdp': 1, 'tp': 1}" in strategy[0] and len(records) >= 2
-                and skipped_line and skipped_line[-1].endswith("[2]")):
-            raise AssertionError(f"dp: torchrun trainer logged {len(records)} records, strategy {strategy}, "
-                                 f"{skipped_line}")
-        log(f"dp: torchrun --nproc_per_node 1 -m mla_tpu_torch.train --model mla-2b --dp 1, 2 steps: {run_s:.1f} s "
-            f"(process start, init, 2 steps; the checkpoint write skipped); {strategy[0].split('>> ')[-1]}")
-        rep["torchrun"] = {"run_s": run_s, "strategy": strategy[0].split(">> ")[-1], "records": records[-2:]}
-
         # -- 2 steps in this process at world size 1 ---------------------------
         with nccl_world_of_one(torch):
             torch.cuda.reset_peak_memory_stats()
@@ -6125,6 +6109,304 @@ def tp_phase(torch, report, backend: str = "gloo", worlds: str = str(TP_WORLD)):
     return {"w8a8_matmul_rowpar": first["w8a8_matmul_acc"], "int8_matmul_f32out": first["int8_matmul_f32out"]}
 
 
+# tensor-parallel training: the trainer (train.main) at mla-2b with the
+# trainer phase's flags (fp32 masters, AdamW) over a tp group of
+# TP_TRAIN_WORLD ranks (torchrun of this script's child), 1 row a card: a
+# micro-batch of per-device x world rows, so each rank runs the world's 2
+# rows (x 4 diffusion repeats) on its 16 of the 32 heads, BH 128 at S 547;
+# held to one process running the same global rows (per-device = world: the
+# data ranks' rows in data-rank order, data_ranks_rows) and per-step draws.
+# On one card the ranks share it over gloo,
+# named explicitly (NCCL refuses two ranks on one device; the tp
+# collectives are staged through the host), so their step times are not
+# tp speed.
+TP_TRAIN_WORLD = 2
+TP_TRAIN_ROOT = Path("build") / "chip_smoke_tp_train"
+TP_TRAIN_TIMEOUT = 300
+TP_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "furthest_point_sample")
+# the masters after step 1, as their update Delta = master - init on the
+# compared leaves (layer 0 of q, o, up and down, the column- and
+# row-parallel products of both blocks; layer 0's two norms; the final
+# norm and every leaf of at most 2^16 elements, each rank's whole copy):
+# |Delta_rank - Delta_one| / |Delta_one| over a rank's parts, by group
+# (delta_rel). AdamW's first step moves each element by lr times ~sign(g)
+# (eps 1e-8), so an element whose bf16 gradient lies within its rounding
+# of 0 flips sign: the sound reading is ~2 sqrt(share of such elements).
+# The control (copy_to_tp's backward all-reduce skipped) leaves the norms'
+# gradient with one rank's heads, flips a large share of their signs and
+# must miss this limit there
+TP_TRAIN_MASTER_RTOL = 0.5
+TP_TRAIN_COMPARED = ("layers/attn/q/w", "layers/attn/o/w", "layers/mlp/up/w", "layers/mlp/down/w",
+                     "layers/input_ln/scale", "layers/post_ln/scale")
+TP_TRAIN_SMALL = 1 << 16
+
+
+@contextlib.contextmanager
+def data_ranks_rows(data_world: int):
+    """Within the block, a synthetic batch of B rows is data_world copies of
+    the batch of B / data_world rows, concatenated: the global batch that
+    data_world data ranks read, each from its own DummyDataset, whose seed
+    does not fold the rank."""
+    import numpy as np
+
+    from mla_tpu_torch.vla import dummy
+
+    real = dummy.synthetic_batch
+
+    def cat(parts):
+        if isinstance(parts[0], dict):
+            return {k: cat([p[k] for p in parts]) for k in parts[0]}
+        return np.concatenate(parts, axis=0)
+
+    def tiled(cfg, B=2, L=16, seed=0, training=True):
+        return cat([real(cfg, B // data_world, L, seed=seed, training=training)] * data_world)
+
+    dummy.synthetic_batch = tiled
+    try:
+        yield
+    finally:
+        dummy.synthetic_batch = real
+
+
+def tp_train_args(world: int, tp: int) -> list:
+    """The trainer's flags for `world` ranks at tp `tp` (1 row a card; the
+    one process: world rows a card), world rows a step, no accumulation."""
+    per_device = 1 if tp > 1 else world
+    return list(TRAINER_ARGS) + ["--per_device_batch_size", str(per_device), "--global_batch_size", str(world),
+                                 "--run_root_dir", str(TP_TRAIN_ROOT / "runs")]
+
+
+def compared_masters(torch, shards) -> dict:
+    """{path: this rank's part of a compared master, on the host}: layer 0
+    of the stacked decoder leaves of TP_TRAIN_COMPARED, the small leaves
+    whole."""
+    out = {}
+    for k, (path, shape) in enumerate(zip(shards.paths, shards.shapes)):
+        layer = path.startswith("llm_backbone/layers/")
+        if (path.endswith(TP_TRAIN_COMPARED) if layer else math.prod(shape) <= TP_TRAIN_SMALL):
+            # whole over fsdp (every rank of the fsdp group takes part)
+            m = shards._fsdp_whole(k, shards.masters[k], shards.specs[path].dim)
+            out[path] = (m[0] if layer else m).detach().to("cpu", torch.float32, copy=True)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_steps(torch):
+    """Within the block, the steps of strategy.make_train_step record each
+    step's metrics, host ms (synchronized) and TP_TRAIN_KERNELS launches,
+    and the compared masters' update of step 1 (compared_masters after it,
+    less before it)."""
+    from mla_tpu_torch.ops import cuda
+    from mla_tpu_torch.training import strategy
+
+    real, rec = strategy.make_train_step, {"steps": []}
+
+    def make(*a, **k):
+        step = real(*a, **k)
+
+        def run(state, batch, generator=None, draws=None):
+            first = not rec["steps"]
+            before = compared_masters(torch, state["shards"]) if first else None
+            torch.cuda.synchronize()
+            cuda.launches.clear()
+            t = time.perf_counter()
+            state, m = step(state, batch, generator, draws)
+            torch.cuda.synchronize()
+            rec["steps"].append({"ms": (time.perf_counter() - t) * 1e3,
+                                 "launches": {k: cuda.launches[k] for k in TP_TRAIN_KERNELS},
+                                 "metrics": {k: float(v) for k, v in m.items()}})
+            if first:
+                rec["delta"] = {p: a - before[p] for p, a in compared_masters(torch, state["shards"]).items()}
+            return state, m
+
+        return run
+
+    strategy.make_train_step = make
+    try:
+        yield rec
+    finally:
+        strategy.make_train_step = real
+
+
+def delta_rel(torch, got: dict, ref: dict, shards) -> dict:
+    """This rank's update of the compared masters against the one-process
+    update's part (its tp slice), by group: the tp-split leaves ('split'),
+    layer 0's two norms ('norms': held whole, their gradient is the
+    column-parallel inputs' through copy_to_tp) and the rest ('rest'):
+    |got - ref| / |ref| over each group, with its worst leaf and the share
+    of elements whose update has the other sign."""
+    from mla_tpu_torch.parallel.sharding import tp_part
+
+    groups = {}
+    for path, g in got.items():
+        d = shards.tp_dims[path]
+        if d is not None and path.startswith("llm_backbone/layers/"):
+            d -= 1  # layer 0 of a stacked leaf
+        r = tp_part(ref[path].float(), d, shards.mesh.tp_rank, shards.mesh.tp)
+        name = "split" if d is not None else "norms" if path.startswith("llm_backbone/layers/") else "rest"
+        e, n = float((g - r).pow(2).sum()), float(r.pow(2).sum())
+        acc = groups.setdefault(name, {"err": 0.0, "norm": 0.0, "flips": 0.0, "n": 0, "leaves": {}})
+        acc["err"], acc["norm"] = acc["err"] + e, acc["norm"] + n
+        acc["flips"], acc["n"] = acc["flips"] + float(((g > 0) != (r > 0)).sum()), acc["n"] + g.numel()
+        acc["leaves"][path] = (e / n) ** 0.5 if n else 0.0
+    out = {}
+    for name, acc in groups.items():
+        w = max(acc["leaves"], key=acc["leaves"].get)
+        out[name] = {"rel": (acc["err"] / acc["norm"]) ** 0.5 if acc["norm"] else 0.0, "worst_leaf": w,
+                     "worst_leaf_rel": acc["leaves"][w], "sign_flip_share": acc["flips"] / acc["n"]}
+    return out
+
+
+def tp_train_child(argv) -> int:
+    """One rank of the tp-train phase (torchrun's variables set): joins
+    the group over argv[1] on cuda:LOCAL_RANK, runs train.main(argv[2:]) for
+    2 steps (checkpoint writes skipped), then one step of a fresh run with
+    copy_to_tp's backward all-reduce skipped (the control); writes each
+    run's step records, its compared masters' update held to root/ref.pt,
+    its GiB and launches to root/rank{R}.pt."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mla_tpu_torch import train
+    from mla_tpu_torch.parallel import mesh as tmesh
+    from mla_tpu_torch.parallel import tensor
+    from mla_tpu_torch.params import tree_items
+
+    root, backend, args = Path(argv[0]), argv[1], list(argv[2:])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launch = tmesh.initialize_distributed("cuda", backend=backend)
+    ref = torch.load(root / "ref.pt", weights_only=True)
+    out = {"device": torch.cuda.get_device_name(launch["device"]), "backend": backend}
+    torch.cuda.reset_peak_memory_stats()
+    with checkpoint_writes_skipped(), recorded_steps(torch) as rec:
+        run = train.main(args + ["--run_id", "tp-train", "--max_steps", "2"])
+    sh = run["state"]["shards"]
+    out.update(steps=rec["steps"], delta=delta_rel(torch, rec["delta"], ref["delta"], sh),
+               mesh={"dp": sh.mesh.dp, "fsdp": sh.mesh.fsdp, "tp": sh.mesh.tp},
+               compute_gib=sum(t.numel() * t.element_size() for _, t in tree_items(run["state"]["params"])) / 2**30,
+               optimizer_gib=sh.optimizer_bytes()["held"] / 2**30, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               q_local=tuple(run["state"]["params"]["llm_backbone"]["layers"]["attn"]["q"]["w"].shape))
+    del run, sh
+    gc.collect()
+    torch.cuda.empty_cache()
+    real = tensor.copy_to_tp
+    tensor.copy_to_tp = lambda x: x  # the control: no all-reduce of the column-parallel inputs' gradients
+    try:
+        with checkpoint_writes_skipped(), recorded_steps(torch) as ctrl:
+            run = train.main(args + ["--run_id", "tp-train-control", "--max_steps", "1"])
+    finally:
+        tensor.copy_to_tp = real
+    out["control"] = {"steps": ctrl["steps"], "delta": delta_rel(torch, ctrl["delta"], ref["delta"],
+                                                                run["state"]["shards"])}
+    del run
+    torch.save(out, root / f"rank{launch['rank']}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_train_phase(torch, report, backend: str = "gloo", world: str = str(TP_TRAIN_WORLD)):
+    """mla-2b through train.main on one process, 1 step of `world` rows,
+    the rows the world / 2 data ranks read (data_ranks_rows; the reference:
+    its step-1 loss and grad_norm, its compared masters' update), then
+    `python -m torch.distributed.run --nproc_per_node world` of this
+    script's --tp-train-child at --tp 2 (fsdp = world / 2) over
+    `backend`, 2 steps: each rank's step-1 loss and grad_norm within
+    TRAIN_AGREE_RTOL of the reference's, its masters' update within
+    TP_TRAIN_MASTER_RTOL, both missed by the control; each step's flash
+    forward, dQ, dK/dV and FPS launches exactly trainer_counts' for one
+    micro-batch; each rank's compute, optimizer and peak GiB and step ms.
+    Returns rank 0's launches in its 2 steps."""
+    from mla_tpu_torch import train
+    from mla_tpu_torch.ops import cuda
+
+    n = int(world)
+    shutil.rmtree(TP_TRAIN_ROOT, ignore_errors=True)
+    TP_TRAIN_ROOT.mkdir(parents=True)
+    rep = {"backend": backend, "world": n, "cards_shared": torch.cuda.device_count() < n}
+    try:
+        t0 = time.perf_counter()
+        with checkpoint_writes_skipped(), recorded_steps(torch) as ref, data_ranks_rows(n // 2):
+            one = train.main(tp_train_args(n, 1) + ["--run_id", "one", "--max_steps", "1"])
+        cfg = one["cfg"]
+        S = 16 + cfg.fused_len + cfg.diff_block_len
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.save({"delta": {p: d.to(torch.bfloat16) for p, d in ref["delta"].items()}}, TP_TRAIN_ROOT / "ref.pt")
+        want = {k: v for k, v in trainer_counts(cfg, micro_batches=1).items() if k in TP_TRAIN_KERNELS}
+        if ref["steps"][0]["launches"] != want:
+            raise AssertionError(f"tp-train: the one-process step launched {ref['steps'][0]['launches']}, "
+                                 f"expected {want}")
+        rep["one_process"] = {"step": ref["steps"][0], "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        env = {k: v for k, v in os.environ.items() if k not in DP_LAUNCH}
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(n), "--master_addr",
+               "127.0.0.1", "--master_port", str(_free_port()), str(Path(__file__).resolve()), "--tp-train-child",
+               str(TP_TRAIN_ROOT), backend, *tp_train_args(n, 2), "--tp", "2"]
+        proc = subprocess.run(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              timeout=TP_TRAIN_TIMEOUT)
+        lines = proc.stdout.splitlines()
+        if proc.returncode != 0:
+            raise AssertionError(f"tp-train: torchrun exited {proc.returncode}:\n" + "\n".join(lines[-40:]))
+        strategy = [l for l in lines if "strategy ::" in l]
+        if not (strategy and f"'tp': 2" in strategy[0]):
+            raise AssertionError(f"tp-train: strategy line {strategy}")
+        ranks = [torch.load(TP_TRAIN_ROOT / f"rank{r}.pt", weights_only=False) for r in range(n)]
+        rep.update(s=time.perf_counter() - t0, strategy=strategy[0].split(">> ")[-1], ranks=[])
+        one = ref["steps"][0]["metrics"]
+        failed = []
+        for r, got in enumerate(ranks):
+            m = got["steps"][0]["metrics"]
+            rel = {k: abs(m[k] - one[k]) / abs(one[k]) for k in ("total_loss", "grad_norm")}
+            c = got["control"]["steps"][0]["metrics"]
+            ctrl = {k: abs(c[k] - one[k]) / abs(one[k]) for k in ("total_loss", "grad_norm")}
+            entry = {k: got[k] for k in ("mesh", "compute_gib", "optimizer_gib", "peak_gib", "q_local", "device")}
+            entry.update(rel_err=rel, delta=got["delta"], control_rel_err=ctrl, control_delta=got["control"]["delta"],
+                         step_ms=[st["ms"] for st in got["steps"]], losses=[st["metrics"]["total_loss"]
+                                                                            for st in got["steps"]],
+                         launches=[st["launches"] for st in got["steps"]])
+            rep["ranks"].append(entry)
+            if not all(v <= TRAIN_AGREE_RTOL for v in rel.values()):
+                failed.append(f"rank {r}: step 1 {rel} of the one-process step's (tol {TRAIN_AGREE_RTOL})")
+            if not all(got["delta"][g]["rel"] <= TP_TRAIN_MASTER_RTOL for g in ("split", "norms")):
+                failed.append(f"rank {r}: masters' update {got['delta']} (tol {TP_TRAIN_MASTER_RTOL})")
+            if not got["control"]["delta"]["norms"]["rel"] > TP_TRAIN_MASTER_RTOL:
+                failed.append(f"rank {r}: the control passes: masters {got['control']['delta']}")
+            for i, st in enumerate(got["steps"]):
+                if st["launches"] != want:
+                    failed.append(f"rank {r} step {i + 1}: launches {st['launches']}, expected {want}")
+            if got["q_local"][-1] * 2 != cfg.llama.hidden_size:
+                failed.append(f"rank {r}: its q is {got['q_local']}, not half the heads")
+            log(f"tp-train rank {r} of {n} ({backend}, {got['device']}, mesh {got['mesh']}): step 1 loss "
+                f"{m['total_loss']:.6f} grad_norm {m['grad_norm']:.6f} against one process's {one['total_loss']:.6f} "
+                f"{one['grad_norm']:.6f}: rel {rel['total_loss']:.3e} / {rel['grad_norm']:.3e} "
+                f"(tol {TRAIN_AGREE_RTOL}); masters' update off by "
+                + ", ".join(f"{g} {v['rel']:.4f} (signs {v['sign_flip_share']:.4f}, worst {v['worst_leaf']} "
+                            f"{v['worst_leaf_rel']:.4f})" for g, v in sorted(got["delta"].items()))
+                + f" of its norm (tol {TP_TRAIN_MASTER_RTOL} on split and norms); control: grad_norm "
+                f"{ctrl['grad_norm']:.3e}, masters "
+                + ", ".join(f"{g} {v['rel']:.4f}" for g, v in sorted(got["control"]["delta"].items()))
+                + "; launches a step "
+                f"{got['steps'][0]['launches']}; compute {got['compute_gib']:.2f} GiB, optimizer "
+                f"{got['optimizer_gib']:.2f} GiB, peak {got['peak_gib']:.2f} GiB; steps "
+                f"{[round(st['ms'], 1) for st in got['steps']]} ms"
+                f"{' (ranks sharing one card over gloo: not tp speed)' if rep['cards_shared'] else ''}")
+        log(f"tp-train: one process ({n} rows, {gpu_line()}): step 1 {ref['steps'][0]['ms']:.1f} ms, BH "
+            f"{n * 4 * cfg.llama.num_heads} at S {S}; a rank's BH {2 * 4 * cfg.llama.num_heads // 2}; "
+            f"{rep['strategy']}")
+        if S != TRAINER_S or TP_TRAIN_BH != 2 * 4 * cfg.llama.num_heads // 2:
+            failed.append(f"S {S}, BH {TP_TRAIN_BH}: not the shapes the kernels phase checked")
+        report["tp_train"] = rep
+        if failed:
+            raise AssertionError("tp-train: " + "; ".join(failed))
+        return {k: sum(st["launches"][k] for st in ranks[0]["steps"]) for k in TP_TRAIN_KERNELS}
+    finally:
+        shutil.rmtree(TP_TRAIN_ROOT, ignore_errors=True)
+
+
 # the qualification entry at mla-small, full width: 1 weight seed, 2
 # scenarios, DDIM-8 and DPM-4 against DDIM-100, W8A8 against bf16
 QUALIFY_TRAIN_STEPS = 10
@@ -6261,10 +6543,11 @@ def augment_phase(torch, report):
 # point-cloud library, training over a process group and the train-time
 # frame augmentation, which --only can run alone
 NEW_PHASES = ("mistral-agree", "mistral-serve", "mistral-train-agree", "mistral-train", "int4-agree", "int4-serve",
-              "phi-post-agree", "phi-post-train", "pointlib", "dp-agree", "dp", "augment", "qualify", "tp", "formats")
-# this script's own child processes: a rank of the tp phase, the dp phase's
-# torchrun trainer
-CHILDREN = {"--tp-child": lambda argv: tp_child(Path(argv[0]), argv[1]), "--dp-child": lambda argv: dp_child(argv)}
+              "phi-post-agree", "phi-post-train", "pointlib", "dp-agree", "dp", "augment", "qualify", "tp", "tp-train",
+              "formats")
+# this script's own child processes: a rank of the tp phase, a rank of the
+# tp-train phase
+CHILDREN = {"--tp-child": lambda argv: tp_child(Path(argv[0]), argv[1]), "--tp-train-child": tp_train_child}
 
 
 def main() -> int:
@@ -6278,8 +6561,10 @@ def main() -> int:
                         f"of {', '.join(NEW_PHASES)}; prints no result line")
     parser.add_argument("--tp_world", default=str(TP_WORLD), help="ranks of the tp phase (comma-separated: each "
                         "world in turn against one reference)")
-    parser.add_argument("--tp_backend", default="gloo", help="the tp phase's backend: gloo (ranks that share one "
-                        "card) or nccl (a card a rank)")
+    parser.add_argument("--tp_backend", default="gloo", help="the tp and tp-train phases' backend: gloo (ranks that "
+                        "share one card) or nccl (a card a rank)")
+    parser.add_argument("--tp_train_world", default=str(TP_TRAIN_WORLD), help="ranks of the tp-train phase (tp 2, "
+                        "fsdp = world / 2)")
     args = parser.parse_args()
     try:
         import torch
@@ -6416,6 +6701,7 @@ def main() -> int:
     phase("augment", augment_phase, torch, report)
     report["qualify_launches"] = phase("qualify", qualify_phase, torch, report)
     tp_totals = phase("tp", tp_phase, torch, report, args.tp_backend, args.tp_world)
+    tp_train_totals = phase("tp-train", tp_train_phase, torch, report, args.tp_backend, args.tp_train_world)
     if only is not None:
         phase("formats", formats_phase, torch, report)
         log(f"total: {time.perf_counter() - t_all:.1f} s (only {sorted(only)}: a partial run prints no result)")
@@ -6441,7 +6727,8 @@ def main() -> int:
     # and finetune runs for the flash kernels at their shapes
     kernels += train_kernels
     by_path = {"serve-host": host_totals, "ar-serve": ar_totals, "trainer": trainer_totals, "data": data_totals,
-               "oxe": oxe_totals, "hf-vlm": hf_totals, "eval": eval_totals, "tp": tp_totals}
+               "oxe": oxe_totals, "hf-vlm": hf_totals, "eval": eval_totals, "tp": tp_totals,
+               "tp-train": tp_train_totals}
     for k in kernels:
         k.setdefault("path", "serve-host" if k["name"] in host_totals else
                      "ar-serve" if k["name"] == "int8_matmul" else "trainer")

@@ -20,10 +20,14 @@ Under tensor parallelism (a tp group active, parallel/tensor.py) each rank
 holds its part of the tree by JAX's rules (params.tp_local): its heads of
 q|k|v and of the KV cache, its columns of gate|up, its rows of o and down
 (row-parallel products, summed over the group), its slice of the
-vocabulary in a bf16 embedding and in the lm_head (logits gathered). Which
-of them a rank holds in part, the group's block says (tensor.split, the
-keys params.tp_local split); the layer reads its local head counts from
-its own leaves. The int8 embedding stays whole, as in JAX.
+vocabulary in a bf16 embedding and in the lm_head (logits gathered for
+serving; a loss keeps them split and takes the vocab-parallel
+cross-entropy). The inputs of the column-parallel products and of a split
+lm_head pass through copy_to_tp, whose backward all-reduces their
+gradient. Which of them a rank holds in part, the group's block says
+(tensor.split, the keys params.tp_local split); the layer reads its local
+head counts from its own leaves, and the flash kernels run on them. The
+int8 embedding stays whole, as in JAX.
 """
 
 from __future__ import annotations
@@ -87,8 +91,14 @@ def in_features(leaf: Dict[str, torch.Tensor]) -> int:
     return next(leaf[k] for k in ("w", "w_q", "w_q4") if k in leaf).shape[-2]
 
 
+def _column_input(x: torch.Tensor, rule: str) -> torch.Tensor:
+    """x as the input of the column-parallel products of `rule`'s leaves:
+    through copy_to_tp where the tp ranks hold them in part."""
+    return tp.copy_to_tp(x) if tp.split(rule) else x
+
+
 def _mlp_block(lp, h, cfg, int8_mode="w8a8"):
-    x = nn.rms_norm(lp["post_ln"], h, cfg.rms_eps)
+    x = _column_input(nn.rms_norm(lp["post_ln"], h, cfg.rms_eps), "layers/mlp/gate/w")
     if "gateup_fused" in lp["mlp"]:
         gu = nn.linear(lp["mlp"]["gateup_fused"], x, int8_mode=int8_mode)
         I = gu.shape[-1] // 2
@@ -110,7 +120,7 @@ def _layer_fn(lp, h, cache_kv, cfg, cos_table, sin_table, positions, key_mask, c
     hd = cfg.head_dim
     H = in_features(lp["attn"]["o"]) // hd
     Hkv = H * cfg.num_kv_heads // cfg.num_heads
-    x = nn.rms_norm(lp["input_ln"], h, cfg.rms_eps)
+    x = _column_input(nn.rms_norm(lp["input_ln"], h, cfg.rms_eps), "layers/attn/q/w")
     qd, kvd = H * hd, Hkv * hd
     if "qkv_fused" in lp["attn"]:
         qkv = nn.linear(lp["attn"]["qkv_fused"], x, int8_mode=int8_mode)
@@ -190,6 +200,7 @@ def llama_forward(
     remat: bool = False,
     int8_mode: str = "w8a8",
     scores_dtype: Optional[torch.dtype] = None,
+    gather_logits: bool = True,
 ) -> Dict[str, Any]:
     """Decoder forward from embeddings [B, S, D] (cast to compute_dtype).
 
@@ -202,7 +213,8 @@ def llama_forward(
     remat (uncached only) checkpoints each layer. int8_mode: the product of
     the int8 linears (nn.linear). scores_dtype: the score dtype of the
     plain attention of the prefill and the uncached forward (None: fp32).
-    Returns {'last_hidden', 'hidden_mid',
+    gather_logits off keeps a vocab-split lm_head's logits split (this
+    rank's slice, for causal_lm_loss). Returns {'last_hidden', 'hidden_mid',
     'logits'?, 'kv_cache'?}."""
     h, hidden_mid = run_layers(_layer_fn, params["layers"], cfg, inputs_embeds, cfg.head_dim, positions=positions,
                                key_mask=key_mask, kv_cache=kv_cache, cache_len=cache_len,
@@ -215,20 +227,22 @@ def llama_forward(
     if kv_cache is not None:
         out["kv_cache"] = kv_cache
     if compute_logits:
-        out["logits"] = lm_head_logits(params, out["last_hidden"])
+        out["logits"] = lm_head_logits(params, out["last_hidden"], gather=gather_logits)
     return out
 
 
-def lm_head_logits(params: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor:
+def lm_head_logits(params: Dict[str, Any], hidden: torch.Tensor, gather: bool = True) -> torch.Tensor:
     """fp32 logits from final-normed hidden states [..., D]. An int8 head
     takes JAX's formula, (hf @ float(w_q)) * w_scale with the scale after
     the dot, through the weight-only product in fp32 (on the card its
     kernel reads the int8 bytes; nothing widens the head). An int4 head is
     dequantized and multiplied in fp32, with no activation quantization, as
-    in JAX. Under a tp group that split the head on the vocabulary, the
-    ranks' logits are gathered."""
+    in JAX. Under a tp group that split the head on the vocabulary, its
+    input passes through copy_to_tp and the ranks' logits are gathered
+    (kept split with gather off)."""
     head = params["lm_head"]
-    hf = hidden.float()
+    split = tp.split("lm_head/w")
+    hf = _column_input(hidden.float(), "lm_head/w")
     if "w_q4" in head:
         return hf @ quantization.dequantize_weight_int4(head, torch.float32)
     if "w_q" in head:
@@ -236,16 +250,23 @@ def lm_head_logits(params: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor
         y = y.reshape(*hf.shape[:-1], y.shape[-1])
     else:
         y = hf @ head["w"].float()
-    return tp.gather_from_tp(y) if tp.split("lm_head/w") else y
+    return tp.gather_from_tp(y) if split and gather else y
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
     """Shifted cross-entropy, mean over the labels that are not ignored (of
     the global batch inside a distributed step: the count is reduced over
-    the ranks, parallel/collectives.py)."""
+    the ranks, parallel/collectives.py). Under a tp group that split the
+    lm_head, `logits` are this rank's vocabulary slice
+    (lm_head_logits(gather=False)) and the loss is the vocab-parallel
+    cross-entropy (tensor.vocab_parallel_cross_entropy)."""
     shift_logits, shift_labels = logits[:, :-1].float(), labels[:, 1:].long()
     valid = shift_labels != ignore_index
-    nll = F.cross_entropy(shift_logits.transpose(1, 2), torch.where(valid, shift_labels, 0), reduction="none")
+    target = torch.where(valid, shift_labels, 0)
+    if tp.split("lm_head/w"):
+        nll = tp.vocab_parallel_cross_entropy(shift_logits, target)
+    else:
+        nll = F.cross_entropy(shift_logits.transpose(1, 2), target, reduction="none")
     count = collectives.global_count(valid.sum(), "label_count").clamp_min(1)
     return torch.where(valid, nll, 0.0).sum() / collectives.share(count, "label_count")
 

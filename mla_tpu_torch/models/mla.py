@@ -464,12 +464,11 @@ def _check_tp(mesh, cfg: prismatic.MLAModelConfig, backbone: Dict[str, Any]) -> 
     a serving mesh (dp = fsdp = 1), a llama decoder that is not int4, head
     counts that T divides (JAX's GSPMD can split mid-head; the port's layer
     splits whole heads)."""
-    from mla_tpu_torch.parallel.mesh import ROADMAP_TP
-
     T = mesh.tp
     if mesh.world != T:
         raise NotImplementedError(f"serving over tp {T} in a mesh of {mesh.world}: the port's serving mesh is "
-                                  f"dp = fsdp = 1 ({ROADMAP_TP})")
+                                  "dp = fsdp = 1 (" + ROADMAP_TP_SERVING.format("(f) a serving mesh with fsdp or "
+                                                                                "dp beside tp") + ")")
     if cfg.llm_family != "llama":
         raise NotImplementedError(f"a {cfg.llm_family} decoder over a tp group: "
                                   + ROADMAP_TP_SERVING.format("mla-phi"))

@@ -227,6 +227,13 @@ def generation_block(
     return outs, losses, new_state
 
 
+def _logits_split(decoder: ModuleType, for_loss: bool) -> Dict[str, Any]:
+    """A llama decoder's logits for the loss stay this rank's vocabulary
+    slice under a tp group that split the lm_head (causal_lm_loss reduces
+    them over the group); no tp group splits a phi head."""
+    return {"gather_logits": not for_loss} if decoder is llama_mod else {}
+
+
 def vlm_forward(
     params: Dict[str, Any], state: Dict[str, Any], cfg: MLAModelConfig, batch: Dict[str, Any],
     *, training: bool = False, use_diff: Optional[bool] = None, generator: Optional[torch.Generator] = None,
@@ -241,7 +248,8 @@ def vlm_forward(
     `generator` draws the condition dropout (when cfg.class_dropout_prob >
     0) and the generation heads' dropout; `fps_start` are the point
     tokenizer's FPS starts. Returns (outputs, new_state): last_hidden,
-    seq_mask, logits?, lm_loss?, in training img_pc_contrastive_loss,
+    seq_mask, logits? (with labels under a tp group that split the lm_head,
+    this rank's vocabulary slice), lm_loss?, in training img_pc_contrastive_loss,
     tactile_contrastive_loss (with tactile positives), generation_outputs
     and generation_losses (cfg.use_generation), and noise_pred
     (diffusion)."""
@@ -253,7 +261,8 @@ def vlm_forward(
 
     if not batch.get("images"):
         text_emb = decoder.embed_tokens(bb, input_ids)
-        out = decoder.forward(bb, cfg.llama, text_emb, key_mask=batch["attention_mask"].bool(), remat=remat)
+        out = decoder.forward(bb, cfg.llama, text_emb, key_mask=batch["attention_mask"].bool(), remat=remat,
+                              **_logits_split(decoder, batch.get("labels") is not None))
         outputs = {"last_hidden": out["last_hidden"], "logits": out["logits"]}
         if batch.get("labels") is not None:
             outputs["lm_loss"] = llama_mod.causal_lm_loss(out["logits"], batch["labels"])
@@ -301,7 +310,7 @@ def vlm_forward(
 
     out = decoder.forward(
         bb, cfg.llama, seq_emb, key_mask=seq_mask, remat=remat,
-        compute_logits=(seq_labels is not None) or not use_diff,
+        compute_logits=(seq_labels is not None) or not use_diff, **_logits_split(decoder, seq_labels is not None),
     )
     outputs: Dict[str, Any] = {"last_hidden": out["last_hidden"], "seq_mask": seq_mask}
     if "logits" in out:

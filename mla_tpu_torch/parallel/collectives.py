@@ -6,8 +6,10 @@ Under GSPMD the JAX package computes a few statistics over the whole
 depends on the batch's contents (valid labels, ROI pixels). With one
 process per card each rank holds only its rows, so these call the helpers
 here, which reduce across the ranks of the group the train step sets with
-`batch_group` (the world), and are the identity without one or at world
-size 1 (so a one-card step runs the very same ops).
+`batch_group` (the mesh's data group: the dp * fsdp ranks that share a tp
+index, the world at tp 1; the ranks of a tp group hold the same rows, so
+each row counts once), and are the identity without one or at size 1 (so
+a one-card step runs the very same ops).
 
 The objective of a distributed step is the mean over ranks of the
 per-rank losses (the step averages the ranks' gradients), so:
@@ -15,7 +17,7 @@ per-rank losses (the step averages the ranks' gradients), so:
     gradients (every rank's loss reads the sum);
   * `all_gather_rows` concatenates the ranks' rows; its backward sums the
     ranks' gradients of the gathered tensor and keeps this rank's rows;
-  * `share(count)` is a global count over the world size: a rank's
+  * `share(count)` is a global count over the group's size: a rank's
     `local_sum / share` averages over ranks to `global_sum / global_count`.
 
 Each call names its reduction ("batch_norm", "contrastive",
@@ -130,7 +132,7 @@ def global_count(count: torch.Tensor, what: str) -> torch.Tensor:
 
 
 def share(count: torch.Tensor, what: str) -> torch.Tensor:
-    """A global count (already clamped by the caller) over the world size:
+    """A global count (already clamped by the caller) over the group's size:
     the denominator of one rank's part of a mean over the global batch."""
     group = active(what)
     return count if group is None else count / _size(group)

@@ -11,11 +11,15 @@ say how many there are:
 device cpu). A partial set of either raises: a half-configured launch would
 otherwise train N unsynchronized single-process replicas. `make_mesh`
 splits the world as JAX's ('dp', 'fsdp', 'tp') mesh does: rank
-(d * fsdp + f) * tp + t. Optimizer state is sharded over 'fsdp' and
-replicated over 'dp'; the global batch splits over both. The ranks of a
-'tp' group are consecutive; the port serves over one (`serving_mesh`:
-dp = fsdp = 1, parallel/tensor.py) and does not train over one yet (the
-trainer's `--tp` > 1 raises, citing ROADMAP_TP).
+(d * fsdp + f) * tp + t, tp innermost. Optimizer state is sharded over
+'fsdp' and replicated over 'dp'; the global batch splits over both: the
+dp * fsdp ranks that share a tp index form a data group (data rank
+dp_rank * fsdp + fsdp_rank), and the ranks of one tp group, which are
+consecutive, see the same rows. The port trains over such a mesh
+(training/strategy.py) and serves over one tp group (`serving_mesh`: dp =
+fsdp = 1, parallel/tensor.py). The trainers hand the data pipeline the
+mesh's data rank and data world, so the ranks of a tp group read, shuffle
+and augment the same frames.
 """
 
 from __future__ import annotations
@@ -25,8 +29,6 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 import torch
-
-ROADMAP_TP = "ROADMAP.md queue 1, item 15 (tensor parallelism for training)"
 
 _TORCHRUN = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 _MLA = ("MLA_COORDINATOR_ADDRESS", "MLA_NUM_PROCESSES", "MLA_PROCESS_ID")
@@ -85,11 +87,12 @@ def initialize_distributed(device: str = "cuda", env: Optional[Dict[str, str]] =
 @dataclass
 class Mesh:
     """The ('dp', 'fsdp', 'tp') split of the world and this rank's groups:
-    `group` spans the world (the global batch), `fsdp_group` the ranks that
-    share this rank's dp index (an optimizer shard each; the dp ranks hold
-    the same shards), `tp_group` the tp consecutive ranks that hold the
-    parts of one tensor-parallel model. Groups are None without a process
-    group (a one-process mesh)."""
+    `group` spans the world, `data_group` the dp * fsdp ranks that share
+    this rank's tp index (the global batch; the world itself at tp 1),
+    `fsdp_group` the ranks that share this rank's dp and tp indices (an
+    optimizer shard each; the dp ranks hold the same shards), `tp_group`
+    the tp consecutive ranks that hold the parts of one tensor-parallel
+    model. Groups are None without a process group (a one-process mesh)."""
 
     dp: int
     fsdp: int
@@ -98,10 +101,22 @@ class Mesh:
     group: Any = None
     fsdp_group: Any = None
     tp_group: Any = None
+    data_group: Any = None
 
     @property
     def world(self) -> int:
         return self.dp * self.fsdp * self.tp
+
+    @property
+    def data_world(self) -> int:
+        """The ranks the global batch splits over: dp * fsdp."""
+        return self.dp * self.fsdp
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's block of the global batch, dp_rank * fsdp +
+        fsdp_rank (the same for the ranks of a tp group)."""
+        return self.dp_rank * self.fsdp + self.fsdp_rank
 
     @property
     def tp_rank(self) -> int:
@@ -133,11 +148,18 @@ def tp_ranks(dp: int, fsdp: int, tp: int) -> List[List[int]]:
     return [[(d * fsdp + f) * tp + t for t in range(tp)] for d in range(dp) for f in range(fsdp)]
 
 
+def data_ranks(dp: int, fsdp: int, tp: int) -> List[List[int]]:
+    """The ranks of each data group (one per tp index), in data-rank
+    order."""
+    return [[(d * fsdp + f) * tp + t for d in range(dp) for f in range(fsdp)] for t in range(tp)]
+
+
 def make_mesh(dp: int = 1, fsdp: Optional[int] = None, tp: int = 1, world: Optional[int] = None) -> Mesh:
     """JAX's make_mesh over the processes: all of them to fsdp by default
     (fsdp = world / (dp * tp)), dp * fsdp * tp must equal the world. With a
     process group every rank must call this, in the same order (it makes
-    the groups: the fsdp groups, then, for tp > 1, the tp groups)."""
+    the groups: the fsdp groups, then, for tp > 1, the tp groups and the
+    data groups)."""
     import torch.distributed as dist
 
     live = dist.is_available() and dist.is_initialized()
@@ -151,19 +173,39 @@ def make_mesh(dp: int = 1, fsdp: Optional[int] = None, tp: int = 1, world: Optio
     if not live:
         return Mesh(dp, fsdp, tp, rank=0)
     rank = dist.get_rank()
-    mine = {"tp": None}  # tp 1: no tp groups
-    for kind, groups in (("fsdp", fsdp_ranks(dp, fsdp, tp)), ("tp", tp_ranks(dp, fsdp, tp) if tp > 1 else [])):
+    mine = {"tp": None, "data": dist.group.WORLD}  # tp 1: no tp groups, the world is the data group
+    split = tp > 1
+    for kind, groups in (("fsdp", fsdp_ranks(dp, fsdp, tp)), ("tp", tp_ranks(dp, fsdp, tp) if split else []),
+                         ("data", data_ranks(dp, fsdp, tp) if split else [])):
         for ranks in groups:
             g = dist.new_group(ranks)  # every rank makes every group, in order
             if rank in ranks:
                 mine[kind] = g
-    return Mesh(dp, fsdp, tp, rank=rank, group=dist.group.WORLD, fsdp_group=mine["fsdp"], tp_group=mine["tp"])
+    return Mesh(dp, fsdp, tp, rank=rank, group=dist.group.WORLD, fsdp_group=mine["fsdp"], tp_group=mine["tp"],
+                data_group=mine["data"])
+
+
+def distinct_cards(device: torch.device) -> int:
+    """The cards the world's ranks run on, each counted once (ranks that
+    share a card, as a tp group over gloo on one card does, count it
+    once): (host, card UUID) gathered from every rank; 1 off the card or
+    without a process group."""
+    import socket
+
+    import torch.distributed as dist
+
+    if torch.device(device).type != "cuda" or not (dist.is_available() and dist.is_initialized()):
+        return 1
+    mine = (socket.gethostname(), str(torch.cuda.get_device_properties(device).uuid))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return len(set(every))
 
 
 def serving_mesh() -> Mesh:
     """The mesh a tensor-parallel policy serves over: the whole world as
     one tp group, dp = fsdp = 1 (a mesh with fsdp or dp beside tp is
-    refused by the policy, citing ROADMAP_TP)."""
+    refused by the policy, citing ROADMAP item 16 (f))."""
     import torch.distributed as dist
 
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1

@@ -5,19 +5,25 @@ Counterpart of mla_tpu/parallel/sharding.py. Its tp rules (`TP_RULES`,
 `tp_dim`) are JAX's `_TP_RULES` and the tp branch of `_spec_for_leaf`, rule
 for rule: the serving decoder's q/k/v/gate/up split on the output dim, o
 and down on the input dim, the embedding and the lm_head on the
-vocabulary (params.tp_local takes a rank's part). The port serves over tp
-alone (dp = fsdp = 1, parallel/mesh.serving_mesh); tp composed with fsdp
-is ROADMAP item 15.
+vocabulary (params.tp_local takes a rank's part; `tp_split_dims` says,
+for every leaf, which dim the tp ranks split or that each holds it
+whole, and every reduction of the train step reads it). The port serves
+over tp alone (dp = fsdp = 1, parallel/mesh.serving_mesh) and trains over
+tp composed with fsdp and dp.
 
 For fsdp, JAX shards each leaf's largest dim that
 divides by the fsdp size and keeps the stacked [L] axis of the decoder
-leaves whole (sharding it would all-gather inside the layer scan). The
-port's optimizer step is per element and its layer loop indexes a whole
-leaf, so it may cut the [L] axis too. Adafactor's factored moments need
-whole rows and columns in a slice, so its two factored dims are never cut
-(a stacked decoder leaf is then cut along L). A leaf with no dim to cut
-is owned whole by one rank, picked to balance the bytes, so a rank holds
-at most total / fsdp plus the largest such leaf.
+leaves whole (sharding it would all-gather inside the layer scan); under
+tp it takes the largest dim the tp rule left whole (`_spec_for_leaf`).
+`plan` takes a rank's tp-local shapes and the same rule: the tp dim stays
+whole. The port's optimizer step is per element and its layer loop
+indexes a whole leaf, so it may cut the [L] axis too. Adafactor's
+factored moments need whole rows and columns in a slice, so its two
+factored dims (of the whole leaf) are never cut (a stacked decoder leaf
+is then cut along L). A leaf with no dim to cut is owned whole by one
+rank, picked to balance the bytes, so a rank holds at most total / fsdp
+plus the largest such leaf. A rank's master part is its fsdp slice of its
+tp slice.
 
 `shard_batch` gives rank r the rows [r * b, (r + 1) * b) of each global
 micro-batch, the layout `make_array_from_process_local_data` assembles in
@@ -78,6 +84,24 @@ def tp_dim(path: str, shape: Sequence[int], tp: int) -> Optional[int]:
     return d if 0 <= d < ndim and shape[d] % tp == 0 else None
 
 
+def tp_split_dims(leaves: Iterable[Tuple[str, Sequence[int]]], tp: int) -> Dict[str, Optional[int]]:
+    """{path: the dim that the tp ranks hold a slice of, or None where each
+    holds the leaf whole} for (path, WHOLE shape) pairs: tp_dim leaf for
+    leaf. A reduction over the tp group sums a split leaf's partial
+    statistics and leaves a whole leaf's alone (the ranks hold the same
+    copy: its gradient arrives whole on each, through copy_to_tp's
+    all-reduce)."""
+    return {path: tp_dim(path, tuple(shape), tp) for path, shape in leaves}
+
+
+def tp_part(t: torch.Tensor, dim: Optional[int], tp_rank: int, tp: int) -> torch.Tensor:
+    """Slice tp_rank of `t` along `dim` (a view), or `t` itself (dim None)."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // tp
+    return t.narrow(dim, tp_rank * n, n)
+
+
 @dataclass(frozen=True)
 class Spec:
     """A leaf cut along `dim` into fsdp equal slices (slice i on fsdp rank
@@ -99,15 +123,15 @@ def shard_dim(shape: Sequence[int], fsdp: int, keep_whole: Iterable[int] = ()) -
 
 
 def plan(leaves: Sequence[Tuple[str, Tuple[int, ...], int]], fsdp: int,
-         keep_whole=lambda shape: ()) -> Dict[str, Spec]:
-    """{path: Spec} for (path, shape, bytes) leaves. keep_whole(shape) names
-    the dims that must stay whole (Adafactor's factored dims). Leaves with
-    no dim to cut go whole to the fsdp rank holding the fewest such bytes
-    so far, largest first."""
+         keep_whole=lambda path, shape: ()) -> Dict[str, Spec]:
+    """{path: Spec} for (path, shape, bytes) leaves, shapes tp-local.
+    keep_whole(path, shape) names the dims that must stay whole (the tp
+    dim, Adafactor's factored dims). Leaves with no dim to cut go whole to
+    the fsdp rank holding the fewest such bytes so far, largest first."""
     specs: Dict[str, Spec] = {}
     whole = []
     for path, shape, nbytes in leaves:
-        d = shard_dim(shape, fsdp, keep_whole(shape)) if fsdp > 1 else None
+        d = shard_dim(shape, fsdp, keep_whole(path, shape)) if fsdp > 1 else None
         if d is None:
             whole.append((path, nbytes))
         else:

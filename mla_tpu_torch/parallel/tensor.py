@@ -16,10 +16,15 @@ vocabulary. The decoder then needs four operations over the group:
     zeros for the other ids, summed over the group (exact: one rank
     contributes each row);
 and `all_reduce_max` of a row vector (the W8A8 row scale of a row-parallel
-product, ops/quantization.w8a8_matmul_rowpar).
+product, ops/quantization.w8a8_matmul_rowpar), and for training
+`vocab_parallel_cross_entropy`, Megatron's cross-entropy of vocab-split
+logits (the [.., V] logits are never gathered).
 
-The first three are torch.autograd.Functions, so a training step can use
-them too. `tp_group(group, split)` makes a group active inside a block,
+The first three are torch.autograd.Functions, so a training step uses
+them too: copy_to_tp enters every column-parallel product and the
+vocab-split lm_head, so the gradient of what feeds them (and of every
+leaf a rank holds whole) arrives whole, the same on every rank.
+`tp_group(group, split)` makes a group active inside a block,
 with the TP_RULES keys whose leaves the ranks hold in part
 (params.tp_local); the layers ask `split(key)` which of their products
 are row-parallel or vocab-split. `group()` is None without a group or at
@@ -93,8 +98,9 @@ def _staged(t: torch.Tensor, g: Any) -> bool:
     return t.is_cuda and dist.get_backend(g) == "gloo"
 
 
-def _all_reduce(t: torch.Tensor, g: Any, op=None) -> torch.Tensor:
-    """t reduced in place over g (SUM by default); returns t."""
+def all_reduce(t: torch.Tensor, g: Any, op=None) -> torch.Tensor:
+    """t reduced in place over g (SUM by default; a CUDA tensor over gloo
+    staged through the host); returns t."""
     import torch.distributed as dist
 
     op = dist.ReduceOp.SUM if op is None else op
@@ -124,13 +130,13 @@ class _CopyToTP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        return _all_reduce(grad.contiguous().clone(), ctx.group), None
+        return all_reduce(grad.contiguous().clone(), ctx.group), None
 
 
 class _ReduceFromTP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, g: Any) -> torch.Tensor:
-        return _all_reduce(x.contiguous().clone(), g)
+        return all_reduce(x.contiguous().clone(), g)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
@@ -172,7 +178,7 @@ def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
     import torch.distributed as dist
 
     g = group()
-    return x if g is None else _all_reduce(x.detach().contiguous().clone(), g, dist.ReduceOp.MAX)
+    return x if g is None else all_reduce(x.detach().contiguous().clone(), g, dist.ReduceOp.MAX)
 
 
 def vocab_parallel_embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -186,3 +192,37 @@ def vocab_parallel_embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Te
     mine = (local >= 0) & (local < table.shape[0])
     rows = table[torch.where(mine, local, 0)]
     return reduce_from_tp(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits: torch.Tensor, target: torch.Tensor, g: Any) -> torch.Tensor:
+        import torch.distributed as dist
+
+        vl = logits.shape[-1]
+        local = target - dist.get_rank(g) * vl
+        mine = (local >= 0) & (local < vl)
+        idx = torch.where(mine, local, 0)
+        m = all_reduce(logits.detach().amax(-1), g, dist.ReduceOp.MAX)
+        z = logits.detach() - m[..., None]
+        exp = z.exp()
+        picked = torch.where(mine, z.gather(-1, idx[..., None])[..., 0], 0.0)
+        sums = all_reduce(torch.stack([picked, exp.sum(-1)]), g)
+        ctx.save_for_backward(exp.div_(sums[1][..., None]), idx, mine)
+        return sums[1].log() - sums[0]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        softmax, idx, mine = ctx.saved_tensors
+        g = softmax.scatter_add(-1, idx[..., None], -mine[..., None].to(softmax.dtype))
+        return g * grad[..., None], None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[target] per row under the active tp group, the
+    logits [..., V / T] this rank's slice of the vocabulary (fp32), target
+    [...] global ids: Megatron's form, the row max, the sum of exp and the
+    target's logit (from the rank that holds it) all-reduced over the
+    group; backward softmax minus the target's one-hot on this rank's
+    slice."""
+    return _VocabParallelCE.apply(logits, target, group())

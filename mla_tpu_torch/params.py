@@ -45,7 +45,7 @@ def tp_local(tree, mesh):
     of its slice mesh.tp_rank, the other leaves are kept whole, on the
     leaves' device. The layers read the keys from the tp group's block
     (parallel/tensor.tp_group); the caller frees the whole tree."""
-    from mla_tpu_torch.parallel.sharding import tp_dim, tp_rule
+    from mla_tpu_torch.parallel.sharding import tp_dim, tp_part, tp_rule
 
     tp, tp_rank = mesh.tp, mesh.tp_rank
     split = set()
@@ -55,8 +55,7 @@ def tp_local(tree, mesh):
         if d is None:
             return leaf
         split.add(tp_rule(path))
-        n = leaf.shape[d] // tp
-        return leaf.narrow(d, tp_rank * n, n).clone(memory_format=torch.contiguous_format)
+        return tp_part(leaf, d, tp_rank, tp).clone(memory_format=torch.contiguous_format)
 
     def walk(t, prefix):
         if isinstance(t, dict):

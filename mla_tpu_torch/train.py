@@ -41,15 +41,20 @@ AR loss at stage vlm-align (projectors only) or vlm-finetune (the decoder
 too).
 
 Over N processes, one per card: `torchrun --nproc_per_node N -m
-mla_tpu_torch.train ... [--dp D]` (or the JAX package's
+mla_tpu_torch.train ... [--dp D] [--tp T]` (or the JAX package's
 MLA_COORDINATOR_ADDRESS / MLA_NUM_PROCESSES / MLA_PROCESS_ID). The world
-splits as JAX's mesh, fsdp = world / (dp * tp): the master weights and
-optimizer state are sharded over fsdp, the global batch over every rank
-(training/strategy.py), each rank reads its own shard of the RLDS episodes
-and the sampler's rows; logs, trackers and checkpoints are written on rank
-0, and a checkpoint resumes at any world size. tokens/s and MFU count
-every rank. --tp other than 1 raises (ROADMAP item 15: the port serves
-over a tp group, parallel/tensor.py, but does not train over one yet).
+splits as JAX's mesh, fsdp = world / (dp * tp), rank (d * fsdp + f) * tp +
+t: each rank computes with its tp-local part of the decoder (JAX's
+_TP_RULES, the llama family), the master weights and optimizer state are
+sharded over fsdp, the global batch over the dp * fsdp data ranks
+(training/strategy.py; the ranks of a tp group hold the same rows). As in
+scripts/train.py a step's micro-batch is per_device_batch_size x world
+rows, so a data rank collates per_device_batch_size x tp x accumulation
+rows; each data rank reads its own shard of the RLDS episodes and the
+sampler's rows; logs, trackers and checkpoints are written on rank 0, and
+a checkpoint (the whole tree) resumes at any (dp, fsdp, tp). tokens/s
+count each row once, MFU the distinct cards' peak. A phi decoder, or head
+counts that T does not divide, raise under tp (ROADMAP item 16 (c), (e)).
 """
 
 from __future__ import annotations
@@ -74,8 +79,7 @@ def parse_args(argv: Optional[List[str]] = None) -> Tuple[argparse.Namespace, Di
     p.add_argument("--model", default=None, help="model registry id (default: config.base_vlm)")
     p.add_argument("--data_root_dir", default=None, help="RLDS/TFDS data root (dummy data if unset)")
     p.add_argument("--dp", type=int, default=1, help="data-parallel mesh axis (fsdp = world / (dp * tp))")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh axis (training over it is not ported: "
-                   "only 1)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh axis (a llama decoder's tp group)")
     p.add_argument("--hf_llama_dir", default=None, help="HF Llama base weights to initialize from")
     p.add_argument("--vlm_stage", default=None, choices=["align", "finetune"],
                    help="run the VLM-pretraining loop instead of the VLA loop: align = projector warm-up, "
@@ -132,9 +136,10 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     resume: {'tc' (VLATrainConfig), 'cfg', 'device', 'seed', 'run_id',
     'run_dir', 'state' (a fresh train state), 'step_fn', 'schedule',
     'sched', 'dataset', 'collator', 'per_host_batch', 'grad_accum',
-    'steps_per_epoch', 'num_steps', 'world', 'mesh' (None for one process),
-    'hf_load' (load_base_llm's report with --hf_llama_dir, else empty)}.
-    Writes the run metadata."""
+    'steps_per_epoch', 'num_steps', 'world', 'data_world' (the ranks the
+    batch splits over), 'mesh' (None for one process), 'flops_per_token'
+    (6N of the whole decoder), 'hf_load' (load_base_llm's report with
+    --hf_llama_dir, else empty)}. Writes the run metadata."""
     args, overrides = parse_args(argv)
 
     from mla_tpu_torch import params as P
@@ -142,6 +147,7 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     from mla_tpu_torch.conf.vla import get_vla_config
     from mla_tpu_torch.diffusion import gaussian as gd
     from mla_tpu_torch.training import checkpointing as ckpt_mod
+    from mla_tpu_torch.training import metrics as metrics_mod
     from mla_tpu_torch.training import optim, strategy
     from mla_tpu_torch.utils import set_global_seed
     from mla_tpu_torch.utils.overwatch import process_count
@@ -160,11 +166,13 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
     # --- run dir -------------------------------------------------------------
     world = process_count()
+    tp = mesh.tp if mesh is not None else 1
+    data_rank, data_world = (mesh.data_rank, mesh.data_world) if mesh is not None else (0, 1)
     run_id = tc.run_id or f"{tc.vla_id}+n{world}+b{tc.per_device_batch_size}+x{tc.seed}"
     run_dir = Path(tc.run_root_dir) / run_id
     # the host generators take the rank-folded seed; the model's init and
     # the per-step draws take the run's seed on every rank (rank 0's fold)
-    set_global_seed(tc.seed)
+    set_global_seed(tc.seed, data_rank)
     seed = tc.seed
 
     # --- model ---------------------------------------------------------------
@@ -194,15 +202,19 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
             params = load_base_llm(args.hf_llama_dir, cfg, params, device=device, report=hf_load)
 
-    # --- strategy sizing -----------------------------------------------------
+    strategy.check_tp(cfg, tp)
+
+    # --- strategy sizing (scripts/train.py's: a micro-batch of per-device x
+    # every card's rows, split over the data ranks) ---------------------------
     global_bsz_per_step = tc.per_device_batch_size * world
     grad_accum = max(tc.global_batch_size // global_bsz_per_step, 1)
-    per_host_batch = tc.per_device_batch_size * grad_accum
+    per_host_batch = tc.per_device_batch_size * tp * grad_accum
 
     # --- data ----------------------------------------------------------------
     dataset, collator, dataset_statistics, dataset_len = get_vla_dataset_and_collator(
         data_root_dir=args.data_root_dir, data_mix=tc.data_mix, model_cfg=cfg, per_host_batch_size=per_host_batch,
         shuffle_buffer_size=tc.shuffle_buffer_size, action_tokenizer_exist=tc.action_tokenizer_exist, seed=tc.seed,
+        data_shard=(data_rank, data_world),
     )
     steps_per_epoch = max((dataset_len or tc.shuffle_buffer_size) // tc.global_batch_size, 1)
     num_steps = tc.max_steps or (tc.epochs * steps_per_epoch)
@@ -221,11 +233,13 @@ def build(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         extra_frozen = extra_frozen + ("lm_head",)
     opt, schedule, _ = optim.make_optimizer(params, **train_cfg.optimizer_settings(), extra_frozen=extra_frozen)
     sched = gd.create_schedule("", diffusion_steps=100)
+    flops_per_token = metrics_mod.decoder_flops_per_token(params["llm_backbone"], tc.use_diff)
     state = strategy.init_train_state(params, opt, mstate, use_ema=train_cfg.use_ema, mesh=mesh,
                                       compute_dtype=cfg.llama.compute_dtype)
     del params, opt
     return {
         "tc": tc, "cfg": cfg, "device": device, "seed": seed, "run_id": run_id, "run_dir": run_dir, "world": world,
+        "data_world": data_world, "flops_per_token": flops_per_token,
         "state": state, "step_fn": strategy.make_train_step(cfg, train_cfg, sched),
         "schedule": schedule, "sched": sched, "dataset": dataset, "collator": collator,
         "per_host_batch": per_host_batch, "grad_accum": grad_accum, "steps_per_epoch": steps_per_epoch,
@@ -250,7 +264,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     tc, cfg, device, seed, run_dir = run["tc"], run["cfg"], run["device"], run["seed"], run["run_dir"]
     state, step_fn, schedule = run["state"], run["step_fn"], run["schedule"]
     num_steps, steps_per_epoch = run["num_steps"], run["steps_per_epoch"]
-    collator, per_host_batch, world = run["collator"], run["per_host_batch"], run["world"]
+    collator, per_host_batch, data_world = run["collator"], run["per_host_batch"], run["data_world"]
     viz_fn = None  # built at the first visualize_interval hit
 
     start_step, load_s = 0, None
@@ -266,13 +280,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     overwatch.info(_strategy_line(run["mesh"], device, tc.global_batch_size, tc.per_device_batch_size,
                                   run["grad_accum"], num_steps))
 
-    # throughput: 6N model FLOPs per decoder token against the bf16 peak of
-    # every card of the world
-    peak_flops = _peak_flops(device, world)
+    # throughput: 6N model FLOPs per decoder token (the whole decoder's N)
+    # against the bf16 peak of every distinct card of the world
+    from mla_tpu_torch.parallel.mesh import distinct_cards
+
+    peak_flops = _peak_flops(device, distinct_cards(device))
     metrics = metrics_mod.VLAMetrics(
         tc.trackers.split(","), run["run_id"], run_dir, hparams=dataclasses.asdict(tc), resume_step=start_step or None,
-        flops_per_token=metrics_mod.decoder_flops_per_token(state["params"]["llm_backbone"], tc.use_diff),
-        peak_flops=peak_flops,
+        flops_per_token=run["flops_per_token"], peak_flops=peak_flops,
     )
 
     # preemption: the handler only sets a flag (saving inside a signal frame
@@ -309,14 +324,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             state, step_metrics = step_fn(state, host_batch, gen)
             # decoder tokens run this step: prompt + fused block (+ the
             # diffusion block [proprio, t, x_0..15], repeated
-            # repeated_diffusion_steps times)
+            # repeated_diffusion_steps times), each data rank's rows once
             bsz, ids_len = host_batch["input_ids"].shape[:2]
             seq_len, reps = ids_len + cfg.fused_len, 1
             if tc.use_diff:
                 seq_len += 2 + cfg.action_horizon
                 reps = tc.repeated_diffusion_steps
             metrics.commit(global_step=step, epoch=step // steps_per_epoch, lr=float(schedule(step)),
-                           update_step_time=True, tokens=bsz * world * reps * seq_len, **step_metrics)
+                           update_step_time=True, tokens=bsz * data_world * reps * seq_len, **step_metrics)
             if step % 10 == 0 or step == num_steps - 1:
                 overwatch.info(metrics.push())
             saved_this_step = (step + 1) % tc.save_interval == 0 or step == num_steps - 1
@@ -350,17 +365,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 def _device(args: argparse.Namespace) -> Tuple[torch.device, Any]:
     """(device, mesh): the launch's process group joined
     (parallel/mesh.initialize_distributed: cuda:LOCAL_RANK and NCCL, or
-    gloo with --device cpu) and its mesh, or the one device and None
-    without a launch. --tp other than 1, a --dp that does not divide the
+    gloo with --device cpu) and its mesh (dp x fsdp x tp), or the one
+    device and None without a launch. A dp * tp that does not divide the
     world, a partial launch environment and a card-less cuda raise."""
-    from mla_tpu_torch.parallel.mesh import ROADMAP_TP, initialize_distributed, make_mesh
+    from mla_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 
-    if args.tp != 1:
-        raise NotImplementedError(f"--tp {args.tp}: training over a tensor-parallel group is not ported ({ROADMAP_TP})")
     launch = initialize_distributed(args.device)
     if launch is None:
-        if args.dp != 1:
-            make_mesh(dp=args.dp)  # raises: one process holds no dp > 1
+        if args.dp != 1 or args.tp != 1:
+            make_mesh(dp=args.dp, tp=args.tp)  # raises: one process holds no dp or tp > 1
         device = torch.device(args.device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
@@ -379,13 +392,14 @@ def _strategy_line(mesh: Any, device: torch.device, global_bsz: int, per_device:
             f"grad_accum={grad_accum} steps={steps}")
 
 
-def _peak_flops(device: torch.device, world: int) -> Optional[float]:
+def _peak_flops(device: torch.device, cards: int) -> Optional[float]:
+    """The bf16 peak of `cards` cards like `device` (None off the card)."""
     from mla_tpu_torch.training import metrics as metrics_mod
 
     if device.type != "cuda":
         return None
     peak = metrics_mod.bf16_peak_flops(torch.cuda.get_device_name(device))
-    return peak * world if peak is not None else None
+    return peak * cards if peak is not None else None
 
 
 def vlm_model_batch(cb: Dict[str, Any]) -> Dict[str, Any]:
@@ -420,11 +434,11 @@ def train_vlm(args: argparse.Namespace, overrides: Dict[str, str]) -> Dict[str, 
     from mla_tpu_torch.conf.datasets import get_dataset_config
     from mla_tpu_torch.conf.models import get_model_config
     from mla_tpu_torch.diffusion import gaussian as gd
+    from mla_tpu_torch.parallel.mesh import distinct_cards
     from mla_tpu_torch.training import checkpointing as ckpt_mod
     from mla_tpu_torch.training import metrics as metrics_mod
     from mla_tpu_torch.training import optim, strategy
     from mla_tpu_torch.utils import set_global_seed, step_generator
-    from mla_tpu_torch.utils.overwatch import process_count, process_index
     from mla_tpu_torch.vla.sampler import SplitModalitySampler
     from mla_tpu_torch.vla.tokenizer import SimpleTokenizer, load_llama_tokenizer
     from mla_tpu_torch.vla.vlm_datasets import get_vlm_dataset_and_collator
@@ -432,6 +446,7 @@ def train_vlm(args: argparse.Namespace, overrides: Dict[str, str]) -> Dict[str, 
     stage = f"vlm-{args.vlm_stage}"
     model_id = args.model or "mla-7b"
     device, mesh = _device(args)
+    data_world, data_rank = (mesh.data_world, mesh.data_rank) if mesh is not None else (1, 0)
 
     def g(k, d):
         if k not in overrides:
@@ -450,7 +465,8 @@ def train_vlm(args: argparse.Namespace, overrides: Dict[str, str]) -> Dict[str, 
 
     cfg = get_model_config(model_id, use_diff=False, use_pointcloud=False, use_tactile=False,
                            use_contrastive=False, use_generation=False)
-    set_global_seed(seed)  # the host's, rank-folded; the init and the draws take `seed`
+    strategy.check_tp(cfg, mesh.tp if mesh is not None else 1)
+    set_global_seed(seed, data_rank)  # the host's, rank-folded; the init and the draws take `seed`
     params, mstate = P.init(cfg, seed=seed, device=device)
     hf_load: Dict[str, Any] = {}
     if args.hf_llama_dir:
@@ -465,10 +481,9 @@ def train_vlm(args: argparse.Namespace, overrides: Dict[str, str]) -> Dict[str, 
     )
     lengths = (ds.get_modality_lengths(n_image_patches=cfg.fused_len) if args.vlm_stage == "align"
                else ds.get_modality_lengths())
-    world = process_count()
-    sampler = SplitModalitySampler(lengths, global_batch_size=global_batch_size, num_replicas=world,
-                                   rank=process_index(), seed=seed, drop_last=False)
-    per_host = global_batch_size // world
+    sampler = SplitModalitySampler(lengths, global_batch_size=global_batch_size, num_replicas=data_world,
+                                   rank=data_rank, seed=seed, drop_last=False)
+    per_host = global_batch_size // data_world
     steps_per_epoch = max(len(sampler) // per_host, 1)
     num_steps = max_steps or epochs * steps_per_epoch
     overwatch.info(f"VLM {stage} :: model={model_id} dataset={args.vlm_dataset} examples={len(ds)} "
@@ -480,6 +495,7 @@ def train_vlm(args: argparse.Namespace, overrides: Dict[str, str]) -> Dict[str, 
     )
     opt, schedule, _ = optim.make_optimizer(params, learning_rate=learning_rate, num_training_steps=num_steps,
                                             stage=stage)
+    flops_per_token = metrics_mod.decoder_flops_per_token(params["llm_backbone"], use_diff=False)
     state = strategy.init_train_state(params, opt, mstate, mesh=mesh, compute_dtype=cfg.llama.compute_dtype)
     del params, mstate, opt
     step_fn = strategy.make_train_step(cfg, tcfg, gd.create_schedule("", diffusion_steps=100))
@@ -491,8 +507,7 @@ def train_vlm(args: argparse.Namespace, overrides: Dict[str, str]) -> Dict[str, 
         g("trackers", "jsonl").split(","), run_id, run_dir,
         hparams={"stage": stage, "dataset": args.vlm_dataset, "global_batch_size": global_batch_size,
                  "lr": learning_rate},
-        flops_per_token=metrics_mod.decoder_flops_per_token(state["params"]["llm_backbone"], use_diff=False),
-        peak_flops=_peak_flops(device, world),
+        flops_per_token=flops_per_token, peak_flops=_peak_flops(device, distinct_cards(device)),
     )
 
     step, epoch, step_metrics, multimodal = 0, 0, None, []
@@ -505,7 +520,7 @@ def train_vlm(args: argparse.Namespace, overrides: Dict[str, str]) -> Dict[str, 
             multimodal.append("images" in host_batch)
             B, L = host_batch["input_ids"].shape
             metrics.commit(global_step=step, epoch=epoch, lr=float(schedule(step)), update_step_time=True,
-                           tokens=B * world * L, **step_metrics)
+                           tokens=B * data_world * L, **step_metrics)
             if step % 10 == 0 or step == num_steps - 1:
                 overwatch.info(metrics.push())
             step += 1

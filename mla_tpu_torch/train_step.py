@@ -43,15 +43,16 @@ Over N processes, one per card:
     torchrun --nproc_per_node N -m mla_tpu_torch.train_step --model mla-7b
         --fp32_masters --batch 2
 
-shards the state over all of them (fsdp = N; training/strategy.py;
---batch rows a rank), with --fp32_masters as the trainer holds it (fp32
-masters, bf16 compute copies of the decoder's layer matrices); rank 0
-prints the global batch's numbers and each rank's build peak, step peak
-and optimizer GiB.
+shards the state over all of them (fsdp = N / tp; training/strategy.py;
+--batch rows a data rank), with --fp32_masters as the trainer holds it
+(fp32 masters, bf16 compute copies of the decoder's layer matrices);
+--tp T splits the decoder over tp groups of T ranks (JAX's _TP_RULES),
+which hold the same rows; rank 0 prints the global batch's numbers and
+each rank's build peak, step peak and optimizer GiB.
 
 Runs on the card unless given --device cpu. Results go to
 chiprun_out/train_step_<model>.json (with _post_franka, _adafactor,
-_fp32_masters and _w<N> for those options).
+_fp32_masters, _w<N> and _tp<T> for those options).
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ from mla_tpu_torch.conf.models import get_model_config
 from mla_tpu_torch.diffusion import gaussian as gd
 from mla_tpu_torch.models import mla as mla_mod
 from mla_tpu_torch.models import prismatic
-from mla_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+from mla_tpu_torch.parallel.mesh import distinct_cards, initialize_distributed, make_mesh
 from mla_tpu_torch.parallel.sharding import shard_batch
 from mla_tpu_torch.training import metrics, optim, strategy
 from mla_tpu_torch.vla.dummy import add_extra_views, synthetic_batch
@@ -117,11 +118,13 @@ def build(model: str, batch: int, text_len: int, device, seed: int = 0, stage: s
     scripts/tpu_smoke.py sets them up; `flags` are model_config's. With
     fp32_masters, the trainer's mixed precision: fp32 masters, the
     decoder's layer matrices as bf16 compute copies. Over `mesh` the state
-    is sharded and `batch` rows a rank (its rows of the global batch)."""
+    is sharded and `batch` rows a data rank (its rows of the global batch;
+    the ranks of a tp group hold the same)."""
     cfg = model_config(model, **flags)
     if fp32_masters:
         cfg = replace(cfg, llama=replace(cfg.llama, param_dtype=torch.float32))
-    world, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
+    strategy.check_tp(cfg, mesh.tp if mesh is not None else 1)
+    world, rank = (mesh.data_world, mesh.data_rank) if mesh is not None else (1, 0)
     params, mstate = P.init(cfg, seed=seed, device=device)
     tcfg = strategy.TrainConfig(repeated_diffusion_steps=1, enable_gradient_checkpointing=True)
     opt, _, _ = optim.make_optimizer(params, learning_rate=LEARNING_RATE, num_training_steps=10, stage=stage,
@@ -247,6 +250,7 @@ def main() -> None:
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "adafactor"])
     ap.add_argument("--fp32_masters", action="store_true", help="the trainer's fp32 masters and bf16 compute copies")
     ap.add_argument("--num_extra_views", type=int, default=0)
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh axis under torchrun")
     for flag in ("use_tactile", "use_generation", "gen_image", "use_roi", "gen_pointcloud", "gen_tactile"):
         ap.add_argument(f"--{flag}", action="store_true")
     args = ap.parse_args()
@@ -260,12 +264,15 @@ def main() -> None:
     if args.profile and not on_card:
         raise SystemExit("train_step: --profile measures device time and needs the card")
     launch = initialize_distributed(args.device)
-    mesh = make_mesh() if launch is not None else None
+    mesh = make_mesh(tp=args.tp) if launch is not None else None
+    if launch is None and args.tp != 1:
+        make_mesh(tp=args.tp)  # raises: one process holds no tp > 1
     if launch is not None:
         device = launch["device"]
         if args.profile:
             raise SystemExit("train_step: --profile runs in one process")
     world, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
+    cards = distinct_cards(device) if mesh is not None else 1
     say = print if rank == 0 else (lambda *a, **k: None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -280,7 +287,8 @@ def main() -> None:
     layers = run["cfg"].llama.num_layers
     say(f"{args.model}: built on {device} in {time.perf_counter() - t0:.1f} s"
         + (f" (decoder cut to {layers} layers)" if args.model in ONE_CARD_LAYERS else "")
-        + (f" over {world} processes, mesh dp {mesh.dp} x fsdp {mesh.fsdp}" if mesh is not None else ""))
+        + (f" over {world} processes, mesh dp {mesh.dp} x fsdp {mesh.fsdp} x tp {mesh.tp}" if mesh is not None
+           else ""))
     times = []
     for i in range(args.steps):
         _sync(device)
@@ -299,7 +307,8 @@ def main() -> None:
     result: Dict[str, Any] = {
         "model": args.model, "num_layers": layers, "batch": args.batch, "text_len": args.text_len, "flags": flags,
         "optimizer": args.optimizer, "fp32_masters": args.fp32_masters, "world": world,
-        "mesh": {"dp": mesh.dp, "fsdp": mesh.fsdp} if mesh is not None else None,
+        "mesh": ({"dp": mesh.dp, "fsdp": mesh.fsdp, **({"tp": mesh.tp} if mesh.tp > 1 else {})}
+                 if mesh is not None else None), "cards": cards,
         "tokens_per_step": run["tokens_per_step"], "step_ms": times, "step_ms_median": step_ms,
         "tokens_per_s": tok_s, "flops_per_token": run["flops_per_token"],
     }
@@ -308,7 +317,7 @@ def main() -> None:
         peak = metrics.bf16_peak_flops(name)
         result.update({
             "device": name, "bf16_peak_flops": peak,
-            "mfu": tok_s * run["flops_per_token"] / (peak * world) if peak else None,
+            "mfu": tok_s * run["flops_per_token"] / (peak * cards) if peak else None,
             "peak_gib": max(build_peak, torch.cuda.max_memory_allocated() / 2**30),
         })
     # per rank: the build's and the steps' peaks and the optimizer's bytes
@@ -344,6 +353,7 @@ def main() -> None:
     out.mkdir(exist_ok=True)
     tag = ("_post_franka" if args.post_franka else "") + ("_adafactor" if args.optimizer == "adafactor" else "")
     tag += ("_fp32_masters" if args.fp32_masters else "") + (f"_w{world}" if mesh is not None else "")
+    tag += f"_tp{mesh.tp}" if mesh is not None and mesh.tp > 1 else ""
     (out / f"train_step_{args.model}{tag}.json").write_text(json.dumps(result, indent=1))
 
 

@@ -98,19 +98,29 @@ class Optimizer:
         self.trainable, self.paths = trainable, paths
         self.count = 0
         # over master shards: the process group whose ranks together hold
-        # every leaf once (a slice each, or the whole leaf on its owner)
+        # every leaf of a tp slice once (a slice each, or the whole leaf on
+        # its owner); under tp, the tp group and the parts (by id) that are
+        # slices of a leaf split over it
         self.norm_group: Any = None
+        self.tp_group: Any = None
+        self.tp_split: set = set()
 
-    def over(self, parts: List[Optional[torch.Tensor]], group: Any) -> "Optimizer":
+    def over(self, parts: List[Optional[torch.Tensor]], group: Any, tp_group: Any = None,
+             tp_dims: Optional[Sequence[Optional[int]]] = None) -> "Optimizer":
         """A fresh optimizer of this rule, schedule and hyperparameters (the
         no-decay split included) over this rank's parts of the trainable
-        leaves: parts[i] is a slice of trainable[i], the whole leaf, or
-        None (another rank's); its global norm sums over `group`."""
+        leaves: parts[i] is a slice of trainable[i] (of its tp slice along
+        tp_dims[i] over `tp_group`, where that is not None), the whole
+        leaf, or None (another rank's); its global norm sums over `group`
+        and, for the tp-split parts, over `tp_group`."""
         kept = [(path, part, whole) for path, part, whole in zip(self.paths, parts, self.trainable)
                 if part is not None]
         opt = self._over([part for _, part, _ in kept], [path for path, _, _ in kept],
                          {id(whole): part for _, part, whole in kept})
         opt.norm_group = group
+        if tp_group is not None:
+            opt.tp_group = tp_group
+            opt.tp_split = {id(part) for part, d in zip(parts, tp_dims) if part is not None and d is not None}
         return opt
 
     def _over(self, leaves: List[torch.Tensor], paths: List[str], part_of: Dict[int, torch.Tensor]) -> "Optimizer":
@@ -120,16 +130,24 @@ class Optimizer:
         """Global norm of the trainable leaves' gradients: each leaf's sum of
         squares reduced in fp32 by torch.sum (a cascade on the CPU, a tree
         on the card: torch.linalg.vector_norm's CPU kernel loses ~2e-4 of a
-        2M-element leaf), then the root of their sum; over shards, the
-        ranks' sums are added across norm_group first."""
-        sq = [torch.sum(torch.square(p.grad.float())) for p in self.trainable if p.grad is not None]
-        dev = self.trainable[0].device if self.trainable else torch.device("cpu")
-        total = torch.stack(sq).sum() if sq else torch.zeros((), device=dev)
-        if self.norm_group is not None:
-            import torch.distributed as dist
+        2M-element leaf), then the root of their sum. The tp-split parts'
+        sum and the other leaves' are added across norm_group (over
+        shards), then the split parts' across the tp group, so a leaf each
+        tp rank holds whole counts once."""
+        from mla_tpu_torch.parallel import tensor as tp
 
-            dist.all_reduce(total, group=self.norm_group)
-        return torch.sqrt(total)
+        dev = self.trainable[0].device if self.trainable else torch.device("cpu")
+
+        def sum_sq(split: bool) -> torch.Tensor:
+            sq = [torch.sum(torch.square(p.grad.float())) for p in self.trainable
+                  if p.grad is not None and (id(p) in self.tp_split) == split]
+            return torch.stack(sq).sum() if sq else torch.zeros((), device=dev)
+
+        sums = torch.stack([sum_sq(True), sum_sq(False)])
+        if self.norm_group is not None:
+            tp.all_reduce(sums, self.norm_group)
+        split = sums[0] if self.tp_group is None else tp.all_reduce(sums[0].clone(), self.tp_group)
+        return torch.sqrt(split + sums[1])
 
     def step(self, norm: Optional[torch.Tensor] = None) -> None:
         """One update; `norm` is global_norm() if the caller has it."""
@@ -228,20 +246,38 @@ class Adafactor(Optimizer):
     def __init__(self, schedule, max_grad_norm, trainable, paths):
         super().__init__(schedule, max_grad_norm, trainable, paths)
         self.state: Dict[int, Dict[str, torch.Tensor]] = {}
-        # leaves that are slices of a leaf cut over ranks: id -> (process
-        # group, the whole leaf's numel); their update clip and parameter
-        # RMS are means over the whole leaf, summed across the group
-        self.sliced: Dict[int, Tuple[Any, int]] = {}
+        # leaves that are slices of a leaf cut over ranks: id -> (the fsdp
+        # group where the part is an fsdp slice, else None; the whole
+        # leaf's shape; the dim split over the tp group, or None). The
+        # factored dims are the whole leaf's; its update clip, parameter
+        # RMS and the row / column statistics over a tp-split dim are
+        # means over the whole leaf, summed across the groups
+        self.sliced: Dict[int, Tuple[Any, Tuple[int, ...], Optional[int]]] = {}
 
-    def over(self, parts: List[Optional[torch.Tensor]], group: Any) -> "Adafactor":
-        opt = super().over(parts, group)
-        for part, whole in zip(parts, self.trainable):
-            if part is not None and part.numel() != whole.numel():
-                opt.sliced[id(part)] = (group, whole.numel())
+    def over(self, parts: List[Optional[torch.Tensor]], group: Any, tp_group: Any = None,
+             tp_dims: Optional[Sequence[Optional[int]]] = None) -> "Adafactor":
+        opt = super().over(parts, group, tp_group, tp_dims)
+        dims = tp_dims if tp_dims is not None else [None] * len(parts)
+        for part, whole, d in zip(parts, self.trainable, dims):
+            if part is None:
+                continue
+            tp_numel = whole.numel() // (opt._tp_size() if d is not None else 1)
+            fsdp = group if part.numel() != tp_numel else None
+            if fsdp is not None or d is not None:
+                opt.sliced[id(part)] = (fsdp, tuple(whole.shape), d)
         return opt
 
     def _over(self, leaves, paths, part_of):
         return Adafactor(self.schedule, self.max_grad_norm, leaves, paths)
+
+    def _tp_size(self) -> int:
+        import torch.distributed as dist
+
+        return dist.get_world_size(self.tp_group) if self.tp_group is not None else 1
+
+    def _shape(self, p: torch.Tensor) -> Tuple[int, ...]:
+        """The whole leaf's shape (p may be a slice of it)."""
+        return self.sliced[id(p)][1] if id(p) in self.sliced else tuple(p.shape)
 
     def _means(self, p: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """mean(u * u) and mean(p * p) over the whole leaf."""
@@ -249,16 +285,32 @@ class Adafactor(Optimizer):
             return (u * u).mean(), (p * p).mean()
         import torch.distributed as dist
 
-        group, numel = self.sliced[id(p)]
+        from mla_tpu_torch.parallel import tensor as tp
+
+        fsdp, shape, d = self.sliced[id(p)]
         sums = torch.stack([(u.float() * u.float()).sum(), (p.float() * p.float()).sum()])
-        dist.all_reduce(sums, group=group)
-        sums = sums / numel
+        if fsdp is not None:
+            dist.all_reduce(sums, group=fsdp)
+        if d is not None:
+            tp.all_reduce(sums, self.tp_group)
+        sums = sums / math.prod(shape)
         return sums[0].to(u.dtype), sums[1].to(p.dtype)
+
+    def _mean(self, p: torch.Tensor, x: torch.Tensor, dim: int, p_dim: int, keepdim: bool = False) -> torch.Tensor:
+        """x.mean(dim) where x's `dim` is p's dim `p_dim`: summed across the
+        tp group where that dim is p's tp-split dim."""
+        d = self.sliced[id(p)][2] if id(p) in self.sliced else None
+        if d != p_dim:
+            return x.mean(dim=dim, keepdim=keepdim)
+        from mla_tpu_torch.parallel import tensor as tp
+
+        total = tp.all_reduce(x.float().sum(dim=dim, keepdim=keepdim), self.tp_group)
+        return (total / self._shape(p)[p_dim]).to(x.dtype)
 
     def _leaf_state(self, p: torch.Tensor, create: bool = False) -> Dict[str, torch.Tensor]:
         st = self.state.setdefault(id(p), {})
         if create and not st:
-            dims = factored_dims(p.shape)
+            dims = factored_dims(self._shape(p))
             if dims is None:
                 st["v"] = torch.zeros_like(p)
             else:
@@ -274,13 +326,13 @@ class Adafactor(Optimizer):
             g, st = p.grad, self._leaf_state(p, create=True)
             dt = p.dtype
             g_sq = g * g + self.EPS
-            dims = factored_dims(p.shape)
+            dims = factored_dims(self._shape(p))
             if dims is not None:
                 d1, d0 = dims
-                st["v_row"].copy_(decay * st["v_row"].float() + (1.0 - decay) * g_sq.mean(dim=d0).float())
-                st["v_col"].copy_(decay * st["v_col"].float() + (1.0 - decay) * g_sq.mean(dim=d1).float())
+                st["v_row"].copy_(decay * st["v_row"].float() + (1.0 - decay) * self._mean(p, g_sq, d0, d0).float())
+                st["v_col"].copy_(decay * st["v_col"].float() + (1.0 - decay) * self._mean(p, g_sq, d1, d1).float())
                 r1 = d1 - 1 if d1 > d0 else d1
-                row = (st["v_row"] / st["v_row"].mean(dim=r1, keepdim=True)) ** -0.5
+                row = (st["v_row"] / self._mean(p, st["v_row"], r1, d1, keepdim=True)) ** -0.5
                 u = g * row.unsqueeze(d0) * (st["v_col"] ** -0.5).unsqueeze(d1)
             else:
                 st["v"].copy_(decay * st["v"].float() + (1.0 - decay) * g_sq.float())

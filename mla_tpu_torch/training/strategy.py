@@ -4,34 +4,49 @@ visualization forward.
 
 Counterpart of mla_tpu/training/strategy.py. `init_train_state` lays the
 state out over the mesh (parallel/mesh.py; JAX's init_train_state and
-shard_train_state); `make_train_step` returns train_step(state, batch) ->
-(state, metrics). Each rank keeps the compute parameters whole: the
-decoder's layer matrices in the decoder's compute dtype (bf16) where the
-tree holds fp32 masters and the caller asks for it, every other leaf as
-the tree holds it. The master weights, the optimizer state and the
-reduced gradients are sharded over the fsdp group
-(parallel/sharding.py). A step runs this rank's rows of each global
-micro-batch (sharding.shard_batch) with the global-batch reductions on
-(parallel/collectives.py). With grad_accumulation_steps > 1 the rows are
+shard_train_state, `use_tp` on when the mesh has a tp axis);
+`make_train_step` returns train_step(state, batch) -> (state, metrics).
+
+Each rank keeps its compute parameters whole over fsdp: its tp-local tree
+(params.tp_local: JAX's `_TP_RULES` split q/k/v/gate/up on the output
+dim, o/down on the input dim, the embedding and the lm_head on the
+vocabulary; the whole tree at tp 1), the decoder's layer matrices in the
+decoder's compute dtype (bf16) where the tree holds fp32 masters and the
+caller asks for it, every other leaf as the tree holds it. The master
+weights, the optimizer state and the reduced gradients are sharded over
+the fsdp group (parallel/sharding.py): a rank's master part is its fsdp
+slice of its tp slice. A step runs this rank's rows of each global
+micro-batch (sharding.shard_batch by the data rank: the ranks of a tp
+group hold the same rows and draw the same noise, t, FPS starts and
+heads' dropout) with the global-batch reductions over the data group
+(parallel/collectives.py) and the decoder's tp operations over the tp
+group (parallel/tensor.py). With grad_accumulation_steps > 1 the rows are
 cut into that many micro-batches along dim 0; their gradients are summed
 in fp32 (in .grad itself for fp32 leaves, in an fp32 buffer for the
 others), their losses averaged, and the point tokenizer's batch-norm
 state threads from one micro-batch to the next, as the JAX lax.scan
-carry does. The gradients are then all-reduced over the world in fp32
-buckets and divided by world x accumulation (an all-reduce, then each
-rank keeps its slice: one collective whatever the cut dim); the step
-takes the global norm of the sharded gradients, steps only its own
-masters, and re-assembles the compute parameters on every rank
-(all-gather of the slices, broadcast of the leaves owned whole, in
-buckets). The layer loop (llama.run_layers) is untouched. On one process
-there is no collective: the masters are the tree's own leaves and the
-optimizer the caller's.
+carry does. The gradients are then all-reduced over the data group in
+fp32 buckets and divided by data world x accumulation (an all-reduce,
+then each rank keeps its slice: one collective whatever the cut dim). A
+leaf the tp ranks hold whole already has its whole gradient on each of
+them (copy_to_tp's backward all-reduced the gradients entering the
+column-parallel products), so it is not summed over tp again. The step
+takes the global norm of the sharded gradients (a tp-split leaf's squares
+summed over the tp group, a whole one's counted once), steps only its own
+masters (Adafactor's statistics across a tp-split leaf, optim.py), and
+re-assembles the compute parameters on every rank (all-gather of the
+fsdp slices, broadcast of the leaves owned whole, in buckets). The layer
+loop (llama.run_layers) is untouched: with remat each layer's forward
+runs again in the backward, its row-parallel all-reduces included, in
+the same order on every rank of the tp group, as Megatron's does. On one
+process there is no collective: the masters are the tree's own leaves and
+the optimizer the caller's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +57,8 @@ from mla_tpu_torch.models import prismatic
 from mla_tpu_torch.parallel import collectives
 from mla_tpu_torch.parallel import mesh as mesh_mod
 from mla_tpu_torch.parallel import sharding as shard_mod
-from mla_tpu_torch.params import tree_items, tree_leaves, tree_map
+from mla_tpu_torch.parallel import tensor as tp_mod
+from mla_tpu_torch.params import tp_local, tree_items, tree_leaves, tree_map
 from mla_tpu_torch.training import optim as optim_mod
 from mla_tpu_torch.training.optim import Optimizer
 from mla_tpu_torch.utils.tree import map_with_path
@@ -99,38 +115,72 @@ def _micro(tree: Any, accum: int, i: int) -> Any:
     return tree
 
 
+ROADMAP_TP_TRAIN = "ROADMAP.md queue 1, item 16 {}"
+
+
+def check_tp(cfg: prismatic.MLAModelConfig, tp: int) -> None:
+    """Raise unless the port can train `cfg`'s decoder over a tp group of
+    `tp`: a llama decoder (phi keeps its q bias whole while q/w is split)
+    whose head counts T divides (the port's layer splits whole heads)."""
+    if tp <= 1:
+        return
+    if cfg.llm_family != "llama":
+        raise NotImplementedError(f"a {cfg.llm_family} decoder over a tp group of {tp}: " + ROADMAP_TP_TRAIN.format(
+            "(c): mla-phi, whose q bias is kept whole while q/w is split"))
+    H, Hkv = cfg.llama.num_heads, cfg.llama.num_kv_heads
+    if H % tp or Hkv % tp:
+        raise NotImplementedError(f"{H} heads and {Hkv} kv heads over tp {tp}: T must divide both ("
+                                  + ROADMAP_TP_TRAIN.format("(e): heads that T does not divide") + ")")
+
+
 def init_train_state(params: Any, optimizer: Optimizer, model_state: Any, use_ema: bool = False, mesh: Any = None,
                      compute_dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """The train state of `params` (a tree of leaf tensors), `optimizer`
-    (optim.make_optimizer's over them, not yet stepped) and the model
-    state, laid out over `mesh` (one process and no group when None).
-    Each trainable leaf's master part on this rank (sharding.plan over the
-    fsdp group; Adafactor keeps its factored dims whole): on an fsdp group
-    of one the tree's own leaf, else a copy of this rank's slice, or of
-    the whole leaf on its owner; the optimizer over those parts
-    (`optimizer` itself on an fsdp group of one); state['params'] the
-    whole compute tensors (the decoder's layer matrices in `compute_dtype`
-    when given, else the masters themselves); EMA parts with use_ema."""
+    """The train state of `params` (the whole tree of leaf tensors),
+    `optimizer` (optim.make_optimizer's over them, not yet stepped) and the
+    model state, laid out over `mesh` (one process and no group when None).
+    Under a tp axis the compute tree is this rank's tp-local tree
+    (params.tp_local; the caller frees the whole one). Each trainable
+    leaf's master part on this rank (sharding.plan over the fsdp group on
+    the tp-local shapes; the tp dim and Adafactor's factored dims of the
+    whole leaf kept whole): on one process the tree's own leaf, else a
+    copy of this rank's slice of its tp slice, or of the whole tp slice on
+    its owner; the optimizer over those parts (`optimizer` itself on one
+    process); state['params'] the compute tensors (the decoder's layer
+    matrices in `compute_dtype` when given, else the masters themselves);
+    EMA parts with use_ema."""
     mesh = mesh if mesh is not None else mesh_mod.Mesh(1, 1, 1, rank=0)
     if any(optimizer.state_dict()["leaves"].values()):
         raise ValueError("init_train_state takes a fresh optimizer; load a checkpoint into the state instead")
     whole = dict(zip(optimizer.paths, optimizer.trainable))
-    paths = [p for p, _ in tree_items(params) if p in whole]
+    tp_dims = shard_mod.tp_split_dims([(p, t.shape) for p, t in tree_items(params)], mesh.tp)
+    split: frozenset = frozenset()
+    if mesh.tp > 1:
+        params, split = tp_local(tree_map(lambda t: t.detach(), params), mesh)
+        for path, leaf in tree_items(params):
+            leaf.requires_grad_(path in whole)
+    local = dict(tree_items(params))
+    paths = [p for p in local if p in whole]
     adafactor = isinstance(optimizer, optim_mod.Adafactor)
-    keep = (lambda shape: optim_mod.factored_dims(shape) or ()) if adafactor else (lambda shape: ())
-    specs = shard_mod.plan([(p, tuple(whole[p].shape), whole[p].numel() * whole[p].element_size()) for p in paths],
+
+    def keep(path, shape):
+        dims = set(optim_mod.factored_dims(tuple(whole[path].shape)) or ()) if adafactor else set()
+        return dims | ({tp_dims[path]} if tp_dims[path] is not None else set())
+
+    specs = shard_mod.plan([(p, tuple(local[p].shape), local[p].numel() * local[p].element_size()) for p in paths],
                            mesh.fsdp, keep)
     fr, fs = mesh.fsdp_rank, mesh.fsdp
 
     def part(p: str) -> Optional[torch.Tensor]:
-        got = shard_mod.local_part(whole[p].detach(), specs[p], fr, fs)
+        got = shard_mod.local_part(local[p].detach(), specs[p], fr, fs)
         return got.clone().contiguous() if got is not None else None
 
     if fs == 1:
-        masters = dict(whole)
+        masters = {p: local[p] for p in paths}
     else:
         masters = {p: part(p) for p in paths}
-        optimizer = optimizer.over([masters[p] for p in optimizer.paths], mesh.fsdp_group)
+    if fs > 1 or mesh.tp > 1:
+        optimizer = optimizer.over([masters[p] for p in optimizer.paths], mesh.fsdp_group,
+                                   mesh.tp_group, [tp_dims[p] for p in optimizer.paths])
     compute: Dict[str, torch.Tensor] = {}
 
     def swap(path, leaf):
@@ -143,10 +193,10 @@ def init_train_state(params: Any, optimizer: Optimizer, model_state: Any, use_em
     ema = frozen_ema = None
     if use_ema:
         ema = [part(p) for p in paths]
-        frozen_ema = {p: t.detach().clone() for p, t in tree_items(params) if p not in whole}
+        frozen_ema = {p: t.detach().clone() for p, t in local.items() if p not in whole}
     tree = map_with_path(swap, params)
     shards = ShardedState(mesh, paths, specs, [compute[p] for p in paths], [masters[p] for p in paths], optimizer,
-                          ema, frozen_ema)
+                          ema, frozen_ema, tp_dims, split, {p: tuple(whole[p].shape) for p in paths})
     return {"params": tree, "optimizer": optimizer, "model_state": model_state, "step": 0, "shards": shards}
 
 
@@ -171,7 +221,7 @@ def make_train_step(cfg: prismatic.MLAModelConfig, train_cfg: TrainConfig, sched
 
         sh: ShardedState = state["shards"]
         mesh = sh.mesh
-        world, rank = mesh.world, mesh.rank
+        world, rank = mesh.data_world, mesh.data_rank
         leaves = sh.compute
         dev = leaves[0].device
         batch = as_tensors(batch, dev)
@@ -187,7 +237,7 @@ def make_train_step(cfg: prismatic.MLAModelConfig, train_cfg: TrainConfig, sched
         acc = ([None if p.dtype == torch.float32 else torch.zeros(p.shape, dtype=torch.float32, device=dev)
                 for p in leaves] if accum > 1 else None)
         mstate, loss_sum = state["model_state"], None
-        with collectives.batch_group(mesh.group):
+        with collectives.batch_group(mesh.data_group), tp_mod.tp_group(mesh.tp_group, sh.tp_split):
             for i in range(accum):
                 if draws is not None:
                     overrides = shard_mod.shard_batch(draws[i], rank, world, 1, rep)
@@ -206,7 +256,7 @@ def make_train_step(cfg: prismatic.MLAModelConfig, train_cfg: TrainConfig, sched
                     total.backward()
                 # rank 0's forward drew from the step's generator: every rank
                 # continues from its state, so the next global draws agree
-                if generator is not None and world > 1 and i + 1 < accum:
+                if generator is not None and mesh.world > 1 and i + 1 < accum:
                     _sync_generator(generator, mesh)
                 loss_dict = {k: v.detach() for k, v in loss_dict.items()}
                 loss_sum = loss_dict if loss_sum is None else {k: loss_sum[k] + v for k, v in loss_dict.items()}
@@ -219,8 +269,8 @@ def make_train_step(cfg: prismatic.MLAModelConfig, train_cfg: TrainConfig, sched
         del acc
         keys = sorted(loss_sum)
         losses = torch.stack([loss_sum[k] for k in keys])
-        if mesh.group is not None:
-            dist.all_reduce(losses, group=mesh.group)
+        if mesh.data_group is not None:
+            dist.all_reduce(losses, group=mesh.data_group)
         metrics = dict(zip(keys, (losses / (world * accum)).unbind(0)))
         opt = sh.optimizer
         metrics["grad_norm"] = opt.global_norm()
@@ -301,17 +351,23 @@ def _compute_copy_dtype(path: str, leaf: torch.Tensor, compute_dtype: Optional[t
 
 class ShardedState:
     """The sharded half of a train state over a mesh: per trainable leaf
-    (in the optimizer's order) its path, Spec, whole compute tensor (in
-    state['params']) and this rank's master part (None where another rank
-    owns the leaf); the optimizer over the master parts; EMA parts."""
+    (in the optimizer's order) its path, Spec, compute tensor (in
+    state['params']; tp-local) and this rank's master part (None where
+    another rank owns the leaf); the optimizer over the master parts; EMA
+    parts; per leaf of the tree its tp split dim (sharding.tp_split_dims,
+    None: held whole), the TP_RULES keys the ranks hold in part and the
+    trainable leaves' whole shapes."""
 
     def __init__(self, mesh: Any, paths: List[str], specs: Dict[str, shard_mod.Spec], compute: List[torch.Tensor],
                  masters: List[Optional[torch.Tensor]], optimizer: Optimizer,
-                 ema: Optional[List[Optional[torch.Tensor]]], frozen_ema: Optional[Dict[str, torch.Tensor]]):
+                 ema: Optional[List[Optional[torch.Tensor]]], frozen_ema: Optional[Dict[str, torch.Tensor]],
+                 tp_dims: Dict[str, Optional[int]], tp_split: frozenset, whole_shapes: Dict[str, Tuple[int, ...]]):
         self.mesh, self.paths, self.specs = mesh, paths, specs
         self.compute, self.masters, self.optimizer = compute, masters, optimizer
         self.ema, self.frozen_ema = ema, frozen_ema
         self.shapes = [tuple(c.shape) for c in compute]
+        self.tp_dims, self.tp_split, self.whole_shapes = tp_dims, tp_split, whole_shapes
+        self.device = compute[0].device if compute else torch.device("cpu")
 
     # -- collectives ---------------------------------------------------------
     def _fsdp(self) -> bool:
@@ -319,7 +375,7 @@ class ShardedState:
 
     def reduce_gradients(self, acc: Optional[List[Optional[torch.Tensor]]], divisor: int) -> None:
         """Sum this rank's gradients (acc[k] where the step accumulated in a
-        buffer, else the compute leaf's .grad) over the world in fp32
+        buffer, else the compute leaf's .grad) over the data group in fp32
         buckets, divide, and hand each master part its slice (in the
         master's dtype). Each gradient is copied into its bucket and freed
         (its .grad and its buffer) as the bucket fills: no whole fp32
@@ -342,8 +398,8 @@ class ShardedState:
                 if acc is not None:
                     acc[k] = None
                 off += c.numel()
-            if self.mesh.group is not None:
-                dist.all_reduce(flat, group=self.mesh.group)
+            if self.mesh.data_group is not None:
+                dist.all_reduce(flat, group=self.mesh.data_group)
             flat.div_(divisor)
             off = 0
             for k in run:
@@ -355,7 +411,8 @@ class ShardedState:
                 off += size
 
     def assemble(self) -> None:
-        """Copy the updated masters into every rank's whole compute tensors:
+        """Copy the updated masters into every rank's compute tensors (whole
+        over fsdp, tp-local):
         slices are all-gathered, owned leaves broadcast by their owner,
         packed per dtype (and owner) in buckets of BUCKET_ELEMS."""
         import torch.distributed as dist
@@ -398,90 +455,112 @@ class ShardedState:
                             c.copy_(flat[off : off + c.numel()].view(c.shape))
                             off += c.numel()
 
-    def _gather(self, k: int, part: Optional[torch.Tensor], dim: Optional[int]) -> Optional[torch.Tensor]:
-        """The whole tensor of which `part` is this rank's piece along `dim`
-        (leaf k's spec; dim is where its cut lies in this tensor), on host
-        memory of rank 0 (None elsewhere)."""
+    def _fsdp_whole(self, k: int, t: Any, dim: Optional[int]) -> Any:
+        """Leaf k's tensor whole over the fsdp group, on every rank of it:
+        `t` is this rank's piece, cut along `dim` (None: not cut, a 0-d
+        count), or for a leaf owned whole the owner's tensor (or dict of
+        tensors; None elsewhere), broadcast to host memory."""
         import torch.distributed as dist
 
         spec = self.specs[self.paths[k]]
         if not self._fsdp():
-            return _to_host(part) if self.mesh.rank == 0 else None
+            return t
         if spec.dim is None:
-            obj = [_to_host(part)]
+            obj = [_to_host(t)]
             dist.broadcast_object_list(obj, src=self.mesh.fsdp_peer(spec.owner), group=self.mesh.fsdp_group,
-                                       device=self.compute[k].device)
-            return obj[0] if self.mesh.rank == 0 else None
-        part = part.detach().contiguous()
-        if part.dim() == 0:
-            return part.to("cpu", copy=True) if self.mesh.rank == 0 else None
-        pieces = [torch.empty_like(part) for _ in range(self.mesh.fsdp)]
-        dist.all_gather(pieces, part, group=self.mesh.fsdp_group)
-        return torch.cat(pieces, dim).cpu() if self.mesh.rank == 0 else None
+                                       device=self.device)
+            return obj[0]
+        if dim is None:
+            return t
+        return _all_gather_cat(t, self.mesh.fsdp_group, dim, self.device)
 
-    def _state_dim(self, k: int, name: str, t: torch.Tensor) -> Optional[int]:
-        """Where leaf k's cut lies in its optimizer state tensor `name`."""
-        d = self.specs[self.paths[k]].dim
-        if d is None or t.dim() == 0:
-            return None
-        if t.dim() == len(self.shapes[k]):
-            return d
-        d1, d0 = optim_mod.factored_dims(self.shapes[k])
+    def _tp_whole(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """t whole over the tp group, cut along `dim` (None: held whole)."""
+        if dim is None or self.mesh.tp == 1:
+            return t
+        return _all_gather_cat(t, self.mesh.tp_group, dim, self.device)
+
+    def _host0(self, t: torch.Tensor) -> Optional[torch.Tensor]:
+        return t.detach().to("cpu", copy=True) if self.mesh.rank == 0 else None
+
+    def _state_dims(self, k: int, name: str, t: torch.Tensor) -> Tuple[Optional[int], Optional[int]]:
+        """Where leaf k's fsdp cut and tp split lie in its optimizer state
+        tensor `name` (None: not cut; a factored statistic that reduces over
+        the tp-split dim is the same on every tp rank)."""
+        path = self.paths[k]
+        d, td = self.specs[path].dim, self.tp_dims[path]
+        shape = self.whole_shapes[path]
+        if t.dim() == 0:
+            return None, None
+        if t.dim() == len(shape):
+            return d, td
+        d1, d0 = optim_mod.factored_dims(shape)
         removed = d0 if name == "v_row" else d1
-        return d - (1 if removed < d else 0)
+
+        def shift(dim):
+            return None if dim is None or dim == removed else dim - (1 if removed < dim else 0)
+
+        return shift(d), shift(td)
 
     # -- checkpoints -----------------------------------------------------------
     def host_state(self, train_state: Dict[str, Any]) -> Optional[Dict[str, Any]]:
         """A one-device run's checkpoint blob, gathered on rank 0 (None on
         the other ranks, which take part in the gathers): the whole masters
-        as 'params', the optimizer's state_dict of whole leaves, EMA."""
-        rank0 = self.mesh.rank == 0
+        as 'params' (gathered over fsdp, then over tp), the optimizer's
+        state_dict of whole leaves, EMA."""
+        trained = set(self.paths)
         whole = {}
         for k, path in enumerate(self.paths):
-            whole[path] = self._gather(k, self.masters[k], self.specs[path].dim)
+            m = self._fsdp_whole(k, self.masters[k], self.specs[path].dim)
+            whole[path] = self._host0(self._tp_whole(m, self.tp_dims[path]))
         opt = self.optimizer.state_dict()
         leaves = {}
         for k, path in enumerate(self.paths):
             mine = opt["leaves"].get(path, {}) if self.masters[k] is not None else None
             if self.specs[path].dim is None:
-                got = self._gather(k, mine, None)
-                leaves[path] = got
-                continue
-            out = {}
-            for name in sorted(mine):
-                out[name] = self._gather(k, mine[name], self._state_dim(k, name, mine[name]))
-            leaves[path] = out
+                st = self._fsdp_whole(k, mine, None)
+            else:
+                st = {name: self._fsdp_whole(k, v, self._state_dims(k, name, v)[0]) for name, v in sorted(mine.items())}
+            leaves[path] = {name: self._host0(self._tp_whole(v, self._state_dims(k, name, v)[1]))
+                            for name, v in sorted(st.items())}
+        frozen = {path: self._host0(self._tp_whole(t, self.tp_dims[path]))
+                  for path, t in tree_items(train_state["params"]) if path not in trained}
         ema = None
         if self.ema is not None:
-            ema = {path: self._gather(k, self.ema[k], self.specs[path].dim) for k, path in enumerate(self.paths)}
-        if not rank0:
+            ema = {path: self._host0(self._tp_whole(self._fsdp_whole(k, self.ema[k], self.specs[path].dim),
+                                                    self.tp_dims[path])) for k, path in enumerate(self.paths)}
+            ema.update({path: self._host0(self._tp_whole(t, self.tp_dims[path]))
+                        for path, t in self.frozen_ema.items()})
+        if self.mesh.rank != 0:
             return None
-
-        def host(path, t):
-            return whole[path] if path in whole else t.detach().to("cpu", copy=True)
-
+        whole.update(frozen)
         out = {
-            "params": map_with_path(host, train_state["params"]),
+            "params": map_with_path(lambda p, t: whole[p], train_state["params"]),
             "opt_state": {"count": opt["count"], "leaves": leaves},
             "model_state": tree_map(lambda t: t.detach().to("cpu", copy=True), train_state["model_state"]),
             "step": int(train_state["step"]),
         }
         if ema is not None:
-            out["ema_params"] = map_with_path(
-                lambda p, t: ema[p] if p in ema else self.frozen_ema[p].detach().to("cpu", copy=True), train_state["params"])
+            out["ema_params"] = map_with_path(lambda p, t: ema[p], train_state["params"])
         return out
 
     def load(self, blob: Dict[str, Any], train_state: Dict[str, Any]) -> None:
-        """Copy a one-device checkpoint blob (whole leaves, any world size's
-        save) into this rank's compute tensors, master parts, optimizer
-        state and EMA: re-sharded by this mesh's plan."""
+        """Copy a one-device checkpoint blob (whole leaves, any mesh's save)
+        into this rank's compute tensors, master parts, optimizer state and
+        EMA: cut by this mesh's tp rule, then by its fsdp plan."""
         saved = dict(tree_items(blob["params"]))
         live = dict(tree_items(train_state["params"]))
+        T, tr = self.mesh.tp, self.mesh.tp_rank
+
+        def tp_cut(path: str, t: torch.Tensor, dim: Optional[int] = -1) -> torch.Tensor:
+            return shard_mod.tp_part(t, self.tp_dims[path] if dim == -1 else dim, tr, T)
+
         with torch.no_grad():
             for path, t in live.items():
-                s = saved[path]
+                s = tp_cut(path, saved[path])
                 if tuple(s.shape) != tuple(t.shape):
-                    raise ValueError(f"params/{path}: checkpoint {tuple(s.shape)}, live {tuple(t.shape)}")
+                    raise ValueError(f"params/{path}: checkpoint {tuple(s.shape)} (this rank's part), live "
+                                     f"{tuple(t.shape)}")
                 t.copy_(s)
             fr, fs = self.mesh.fsdp_rank, self.mesh.fsdp
             held = {}
@@ -490,17 +569,18 @@ class ShardedState:
                 if self.masters[k] is None:
                     continue
                 spec = self.specs[path]
-                self.masters[k].copy_(shard_mod.local_part(saved[path], spec, fr, fs))
-                st = blob["opt_state"]["leaves"][path]
-                held[path] = {name: (v if self._state_dim(k, name, v) is None else
-                                     shard_mod.local_part(v, shard_mod.Spec(dim=self._state_dim(k, name, v)), fr, fs))
-                              for name, v in st.items()}
+                self.masters[k].copy_(shard_mod.local_part(tp_cut(path, saved[path]), spec, fr, fs))
+                held[path] = {}
+                for name, v in blob["opt_state"]["leaves"][path].items():
+                    fd, td = self._state_dims(k, name, v)
+                    v = tp_cut(path, v, td)
+                    held[path][name] = v if fd is None else shard_mod.local_part(v, shard_mod.Spec(dim=fd), fr, fs)
                 if self.ema is not None:
-                    self.ema[k].copy_(shard_mod.local_part(ema_saved[path], spec, fr, fs))
+                    self.ema[k].copy_(shard_mod.local_part(tp_cut(path, ema_saved[path]), spec, fr, fs))
             self.optimizer.load_state_dict({"count": blob["opt_state"]["count"], "leaves": held})
             if self.frozen_ema is not None:
                 for path, t in self.frozen_ema.items():
-                    t.copy_(ema_saved[path])
+                    t.copy_(tp_cut(path, ema_saved[path]))
 
     def optimizer_bytes(self) -> Dict[str, int]:
         """This rank's bytes of master parts and optimizer state, and the
@@ -516,6 +596,19 @@ class ShardedState:
             if self.specs[path].dim is None:
                 unit = max(unit, b)
         return {"held": held, "unit": unit}
+
+
+def _all_gather_cat(t: torch.Tensor, group: Any, dim: int, device: torch.device) -> torch.Tensor:
+    """The group's pieces of a tensor concatenated along `dim`, on every
+    rank: through host memory over gloo (which gathers no CUDA tensor), on
+    `device` over NCCL."""
+    import torch.distributed as dist
+
+    src = t.detach().contiguous()
+    src = src.cpu() if dist.get_backend(group) == "gloo" else src.to(device)
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim)
 
 
 def _to_host(obj: Any) -> Any:

@@ -2,16 +2,19 @@
 
 Counterpart of mla_tpu/utils/seed.py. `set_global_seed` seeds Python's and
 numpy's generators for host-side data code and returns the seed, folded
-with the process index as the JAX package folds it. `step_generator` is the
-counterpart of `jax.random.fold_in(rng, step)`: a torch.Generator whose seed
-depends on (seed, step) alone, so a resumed run draws at a step what an
-uninterrupted run draws there.
+with the data rank (the mesh's, which the ranks of a tp group share; the
+process index by default) as the JAX package folds it with the process
+index, so the ranks of a tp group draw the same host data.
+`step_generator` is the counterpart of `jax.random.fold_in(rng, step)`: a
+torch.Generator whose seed depends on (seed, step) alone, so a resumed run
+draws at a step what an uninterrupted run draws there.
 """
 
 from __future__ import annotations
 
 import os
 import random
+from typing import Optional
 
 import numpy as np
 import torch
@@ -21,10 +24,10 @@ from mla_tpu_torch.utils.overwatch import process_index
 _MASK64 = (1 << 64) - 1
 
 
-def set_global_seed(seed: int) -> int:
+def set_global_seed(seed: int, data_rank: Optional[int] = None) -> int:
     if not 0 <= seed < 2**32:
         raise ValueError(f"seed must fit in uint32, got {seed}")
-    seed = (seed + 1_000_003 * process_index()) % (2**32)
+    seed = (seed + 1_000_003 * (process_index() if data_rank is None else data_rank)) % (2**32)
     random.seed(seed)
     np.random.seed(seed)
     # fixed at interpreter start-up for this process: this only makes child

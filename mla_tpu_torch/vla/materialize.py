@@ -31,12 +31,15 @@ def get_vla_dataset_and_collator(
     max_prompt_len: int = 192,
     augment: bool = False,
     seed: int = 0,
+    data_shard: Optional[Tuple[int, int]] = None,
 ) -> Tuple[Any, Optional[Any], Dict, Optional[int]]:
     """(frame iterable, collator or None, dataset statistics, dataset length
     or None). The length is the interleaved mixture's effective transition
     count; the synthetic DummyDataset has no collator and no length. With
     action_tokenizer_exist false the discretized action tokens are left out
-    of prompt and labels (diffusion-only supervision, the default)."""
+    of prompt and labels (diffusion-only supervision, the default).
+    `data_shard` (data rank, data world) keys the episode shards and the
+    train-time draws (the process index and count by default)."""
     if data_root_dir is None:
         overwatch.info(f"data: DummyDataset (no data_root_dir) mix={data_mix}")
         ad = model_cfg.action_dim
@@ -68,6 +71,7 @@ def get_vla_dataset_and_collator(
         augment=augment,
         seed=seed,
         proprio_dim=model_cfg.action_dim,
+        data_shard=data_shard,
     )
     transform = RLDSBatchTransform(
         action_tokenizer=action_tokenizer,

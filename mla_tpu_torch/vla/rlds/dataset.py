@@ -30,14 +30,16 @@ place of tf.data, with the same stages in the same order:
     also prefetches.
   * RLDSDataset and EpisodicRLDSDataset.
 
-Over several processes (torchrun) each rank reads its own shard of every
-dataset's episodes: every world-th episode from its rank, cut from the
-canonical file order with no per-rank file shuffle, as JAX's
+Over several processes (torchrun) each data rank reads its own shard of
+every dataset's episodes: every data-world-th episode from its data rank,
+cut from the canonical file order with no per-rank file shuffle, as JAX's
 ds.shard(process_count, process_index) does; a mixture is sharded per
-dataset. The trajectory draws cannot be TensorFlow's (its stateful RNG
-replays nowhere else); the frame augmentation's are (stateless Philox),
-given the frame's seed. Each rank draws both from its own seed
-(draw_seed), as JAX's processes draw independently.
+dataset. The data rank and world (`data_shard`) are the trainer's mesh's:
+the ranks of a tp group share one and read the same frames; by default
+the process index and count. The trajectory draws cannot be TensorFlow's
+(its stateful RNG replays nowhere else); the frame augmentation's are
+(stateless Philox), given the frame's seed. Each data rank draws both
+from its own seed (draw_seed), as JAX's processes draw independently.
 """
 
 from __future__ import annotations
@@ -74,14 +76,21 @@ DEFAULT_IMAGE_AUGMENT_KWARGS: Dict[str, Any] = {
 }
 
 
-def draw_seed(seed: int) -> int:
+def _data_shard(data_shard: Optional[Tuple[int, int]]) -> Tuple[int, int]:
+    """(data rank, data world): the given pair, or this process's index and
+    the process count."""
+    return tuple(data_shard) if data_shard is not None else (process_index(), process_count())
+
+
+def draw_seed(seed: int, data_rank: Optional[int] = None) -> int:
     """The seed of this rank's train-time draws (the trajectory transforms'
-    and the frames' augmentation seeds): seed + 1_000_003 * rank, the fold
-    of utils.set_global_seed. The ranks then draw independently, as JAX's
-    processes do from TensorFlow's unseeded RNG, and a run on one process
-    draws from `seed` itself. The shuffle and the mixture's sampling keep
-    `seed` on every rank, as JAX's do."""
-    return seed + 1_000_003 * process_index()
+    and the frames' augmentation seeds): seed + 1_000_003 * data rank, the
+    fold of utils.set_global_seed. The data ranks then draw independently,
+    as JAX's processes do from TensorFlow's unseeded RNG (the ranks of a
+    tp group alike), and a run on one process draws from `seed` itself.
+    The shuffle and the mixture's sampling keep `seed` on every rank, as
+    JAX's do. `data_rank` defaults to the process index."""
+    return seed + 1_000_003 * (process_index() if data_rank is None else data_rank)
 
 
 def _enumerated(ds: Dataset) -> Dataset:
@@ -186,12 +195,14 @@ def make_dataset_from_rlds(
     num_parallel_calls: Optional[int] = None,
     stats_cache_dir: str = _DEFAULT_STATS_CACHE,
     stats_sample_trajectories: Optional[int] = None,
+    data_shard: Optional[Tuple[int, int]] = None,
 ) -> Tuple[Dataset, Dict]:
     """One standardized, normalized trajectory stream and its statistics.
     The key maps default to the dataset's OXE config entry; episodes are
     parsed, restructured and normalized in one pool of threads. Over
-    several processes, this rank's shard of the episodes (statistics over
-    all of them)."""
+    several data ranks (`data_shard`: data rank, data world; by default
+    the process index and count), this rank's shard of the episodes
+    (statistics over all of them)."""
     cfg = OXE_DATASET_CONFIGS.get(name, {})
     if standardize_fn is None:
         standardize_fn = get_standardization_transform(name)
@@ -245,7 +256,7 @@ def make_dataset_from_rlds(
     if load_all_data_for_training and train:
         split = "train"
 
-    num_shards, index = process_count(), process_index()
+    index, num_shards = _data_shard(data_shard)
     # shards are cut from the canonical file order: a per-rank file shuffle
     # would make shard(P, i) take every P-th episode of P different orders
     ds = builder.as_dataset(split=split, shuffle_files=shuffle and train and num_shards == 1)
@@ -276,17 +287,18 @@ def apply_trajectory_transforms(
     dataset_statistics: Optional[Dict] = None,
     num_parallel_calls: Optional[int] = None,
     seed: int = 0,
+    data_rank: Optional[int] = None,
 ) -> Dataset:
     """Trajectory-level filters, pad masks, goal relabelling, task
     augmentation (training), chunking and subsampling (training), in JAX's
-    order; trajectory n draws from numpy's generator of (this rank's
-    draw_seed(seed), n)."""
+    order; trajectory n draws from numpy's generator of (draw_seed(seed,
+    data_rank), n)."""
     if goal_relabeling_strategy not in (None, "uniform"):
         raise KeyError(goal_relabeling_strategy)
     if train and task_augment_strategy not in (None, "delete_task_conditioning"):
         raise KeyError(task_augment_strategy)
     n_calls = AUTOTUNE if num_parallel_calls in (None, -1) else num_parallel_calls
-    seed = draw_seed(seed)
+    seed = draw_seed(seed, data_rank)
 
     if skip_unlabeled:
         ds = ds.filter(lambda traj: bool(np.any(np.asarray(traj["task"]["language_instruction"]) != b"")))
@@ -372,6 +384,7 @@ def apply_frame_transforms(
     image_augment_kwargs: Optional[Dict] = None,
     num_parallel_calls: Optional[int] = AUTOTUNE,
     seed: int = 0,
+    data_rank: Optional[int] = None,
 ) -> Dataset:
     """Frame-level decode and resize of the observation's and the task's
     image_* keys; `resize_size` maps key suffixes to (h, w), others get
@@ -379,11 +392,11 @@ def apply_frame_transforms(
     DEFAULT_IMAGE_AUGMENT_KWARGS) or `image_augment_kwargs` (one dict with
     `augment_order`, or one per key suffix), each frame's images are
     augmented with one seed, two int32 in [0, 2**31 - 1) drawn for frame n
-    from numpy's generator of (this rank's draw_seed(seed), n) (JAX draws
+    from numpy's generator of (draw_seed(seed, data_rank), n) (JAX draws
     them from TensorFlow's stateful RNG)."""
     aug = image_augment_kwargs if image_augment_kwargs is not None else (
         DEFAULT_IMAGE_AUGMENT_KWARGS if augment else None)
-    seed = draw_seed(seed)
+    seed = draw_seed(seed, data_rank)
 
     def size_for(key: str) -> Tuple[int, int]:
         if resize_size and key in resize_size:
@@ -520,6 +533,7 @@ def make_interleaved_dataset(
     stats_cache_dir: str = _DEFAULT_STATS_CACHE,
     seed: int = 0,
     proprio_dim: int,
+    data_shard: Optional[Tuple[int, int]] = None,
 ) -> Tuple[Dataset, int, Dict]:
     """The mixture's frame stream: (dataset, effective length, per-dataset
     statistics), its frames fitted to a model that embeds a `proprio_dim`
@@ -527,7 +541,9 @@ def make_interleaved_dataset(
     multiplied by the dataset's transition count; the datasets' frames are
     interleaved by those weights, each stage of a dataset in a pool of its
     share of `traj_transform_threads`. The train-time transforms draw from
-    `seed` (dataset k's trajectories from seed + k)."""
+    `seed` (dataset k's trajectories from seed + k), folded with the data
+    rank of `data_shard` (make_dataset_from_rlds's)."""
+    data_shard = _data_shard(data_shard)
     per_dataset, raw_weights = _dataset_kwargs_for_mix(
         data_mix, data_dir, load_camera_views=load_camera_views, load_pointcloud=load_pointcloud,
         load_tactile=load_tactile)
@@ -539,7 +555,7 @@ def make_interleaved_dataset(
     sizes = []
     for kwargs, _ in per_dataset:
         _, stats = make_dataset_from_rlds(**kwargs, train=train, stats_sample_trajectories=stats_sample_trajectories,
-                                          stats_cache_dir=stats_cache_dir)
+                                          stats_cache_dir=stats_cache_dir, data_shard=data_shard)
         all_stats[kwargs["name"]] = stats
         sizes.append(int(stats["num_transitions"]))
     weights, dataset_len = compute_sample_weights(raw_weights, sizes, balance_weights)
@@ -549,7 +565,7 @@ def make_interleaved_dataset(
     datasets = []
     for k, ((kwargs, frame_kwargs), zero, n_threads) in enumerate(zip(per_dataset, zero_proprio, threads_per)):
         ds, stats = make_dataset_from_rlds(**kwargs, train=train, dataset_statistics=all_stats[kwargs["name"]],
-                                           num_parallel_calls=int(n_threads))
+                                           num_parallel_calls=int(n_threads), data_shard=data_shard)
         if zero:
             ds = ds.map(partial(_zero_proprio, width=proprio_dim), num_parallel_calls=int(n_threads))
         ds = apply_trajectory_transforms(
@@ -557,7 +573,7 @@ def make_interleaved_dataset(
             future_action_window_size=future_action_window_size, goal_relabeling_strategy=goal_relabeling_strategy,
             task_augment_strategy=task_augment_strategy, task_augment_kwargs=task_augment_kwargs,
             subsample_length=subsample_length, max_action=max_action, max_proprio=max_proprio,
-            dataset_statistics=stats, num_parallel_calls=int(n_threads), seed=seed + k,
+            dataset_statistics=stats, num_parallel_calls=int(n_threads), seed=seed + k, data_rank=data_shard[0],
         )
         datasets.append(apply_per_dataset_frame_transforms(flatten_to_frames(ds), **frame_kwargs))
 
@@ -567,7 +583,7 @@ def make_interleaved_dataset(
         ds = ds.take(shuffle_buffer_size).cache()
     ds = ds.shuffle(shuffle_buffer_size, seed=seed)
     ds = apply_frame_transforms(ds, image_size=image_size, resize_size=resize_size, train=train, augment=augment,
-                                image_augment_kwargs=image_augment_kwargs, seed=seed)
+                                image_augment_kwargs=image_augment_kwargs, seed=seed, data_rank=data_shard[0])
     return ds, dataset_len, all_stats
 
 

@@ -20,8 +20,8 @@ world-2 run continues. Each rank's optimizer bytes are at most total /
 fsdp plus the largest leaf held whole. The per-rank RLDS shards are
 tf.data's shard(2, i) of the JAX builder's episodes; the two ranks'
 train-time draws differ, rank 0's are a one-process run's. Mesh shapes, the
---tp and partial-environment refusals, and the VLM sampler at world size 2
-against JAX's.
+partial-environment refusals, and the VLM sampler at world size 2 against
+JAX's.
 """
 
 import contextlib
@@ -143,6 +143,7 @@ def _wait(procs, timeout: float) -> None:
                 p.wait()
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-4000:]
+    return outs
 
 
 def _rel(got: torch.Tensor, want: torch.Tensor, floor: float = 1e-3) -> float:
@@ -609,15 +610,15 @@ def test_partial_environment_raises(env, match):
 
 def test_tp_raises_citing_the_roadmap_item():
     """A mesh takes a tp axis (the port serves over one, consecutive ranks
-    a group); training over it raises, citing item 15 (the trainer's --tp:
-    tests/test_torch_train_cli.py; a serving mesh with fsdp beside tp:
-    tests/test_torch_tp_serving.py)."""
+    a group, and trains over one: tests/test_torch_tp_train.py), so the
+    item-15 refusal and its ROADMAP_TP are gone (a serving mesh with fsdp
+    beside tp cites item 16 (f): tests/test_torch_tp_serving.py)."""
     m = tmesh.make_mesh(tp=2, world=2)
     assert (m.dp, m.fsdp, m.tp, m.tp_rank) == (1, 1, 2, 0)
     assert tmesh.tp_ranks(1, 2, 2) == [[0, 1], [2, 3]] and tmesh.fsdp_ranks(1, 2, 2) == [[0, 2], [1, 3]]
     m = tmesh.serving_mesh()  # a world of one process
     assert (m.dp, m.fsdp, m.tp, m.world) == (1, 1, 1, 1)
-    assert tmesh.ROADMAP_TP == "ROADMAP.md queue 1, item 15 (tensor parallelism for training)"
+    assert not hasattr(tmesh, "ROADMAP_TP")
 
 
 def test_shard_plan_rules():

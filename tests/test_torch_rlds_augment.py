@@ -276,9 +276,10 @@ def test_trajectory_options_run_in_the_pipeline(data_root):
 def test_refusal_messages_name_their_items():
     """What still raises in the data path cites item 2: JPEG XL frames,
     unknown formats, Pillow-only JPEG and image formats, directories written
-    by tensorflow_datasets; training over tensor parallelism cites item 15
-    (test_torch_distributed.py). Every PNG now decodes (no PNG refusal is
-    left), and a GIF frame decodes where it used to be refused."""
+    by tensorflow_datasets; training over tensor parallelism no longer
+    raises (test_torch_tp_train.py; what tp still refuses cites item 16).
+    Every PNG now decodes (no PNG refusal is left), and a GIF frame decodes
+    where it used to be refused."""
     from mla_tpu_torch.vla import vlm_datasets
     from mla_tpu_torch.vla.rlds import frames, gif, jpeg, png, tfds_compat
 

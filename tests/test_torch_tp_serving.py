@@ -359,10 +359,10 @@ def test_heads_that_tp_does_not_divide_raise(tp, kv):
 
 
 def test_serving_world_larger_than_tp_raises():
-    """The port's serving mesh is dp = fsdp = 1: tp composed with fsdp is
-    the training item."""
+    """The port's serving mesh is dp = fsdp = 1 (it trains over tp composed
+    with fsdp): a serving mesh with fsdp or dp beside tp is item 16 (f)."""
     params, state, cfg = _tiny_port()
-    with pytest.raises(NotImplementedError, match=r"item 15 \(tensor parallelism for training\)"):
+    with pytest.raises(NotImplementedError, match=r"item 16 \(tensor-parallel serving: \(f\) a serving mesh with fsdp"):
         tmla.MLAPolicy(params, state, cfg, device="cpu", mesh=tmesh.Mesh(1, 2, 2, rank=0))
 
 

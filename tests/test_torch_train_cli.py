@@ -154,11 +154,11 @@ def test_ar_loss_mode_trains_lm_head(tmp_path):
 
 @pytest.mark.parametrize("extra,err,match", [
     (["--bogus_flag", "1"], ValueError, "unknown override --bogus_flag"),
-    # one process without a launch cannot hold dp 2 (a torchrun launch trains
-    # over --dp, tests/test_torch_distributed.py); training over tensor
-    # parallelism is ROADMAP item 15
+    # one process without a launch cannot hold dp 2 or tp 2 (a torchrun
+    # launch trains over --dp, tests/test_torch_distributed.py, and over
+    # --tp, tests/test_torch_tp_train.py)
     (["--dp", "2"], ValueError, "not divisible by dp"),
-    (["--tp", "2"], NotImplementedError, r"ROADMAP\.md queue 1, item 15 \(tensor parallelism for training"),
+    (["--tp", "2"], ValueError, r"not divisible by dp\*tp"),
     # a data root is read now: one without the mix's dataset is refused
     (["--data_root_dir", "{tmp}/no_data"], FileNotFoundError, "no dataset directory"),
     # a JAX orbax run dir: the port cannot read it without JAX

@@ -6,7 +6,8 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (`--only PHASES` runs the build, the kernels phase and only the named
-phases among mistral-agree ... augment, qualify, tp, tp-train and formats,
+phases among mistral-agree ... augment, qualify, tp, tp-train, fsdp-train
+and formats,
 the oxe phase's format checks alone, and prints no result line; `--tp_world
 2,4 --tp_backend nccl` runs the tp phase at those worlds, a rank a card,
 on a machine with that many cards, `--tp_train_world 4` the tp-train
@@ -321,8 +322,25 @@ Phases, each of which fails the run if it fails:
                   all-reduce skipped) outside it, exact launches a step
                   (flash forward 2L, dQ L, dK/dV L, FPS 2 on BH 128 at S
                   547, which the kernels phase holds), each rank's
-                  compute, optimizer and peak GiB and step ms (not tp
+                  parameter, optimizer and peak GiB and step ms (not tp
                   speed on a shared card).
+     fsdp-train   layer-wise gathering over fsdp: the same trainer at
+                  mla-2b (fp32 masters, AdamW), accumulation 2, 1 step in
+                  this process on the rows and draws the data ranks read
+                  (the reference), then 2 ranks of this script's
+                  --fsdp-train-child (fsdp 2, sharing the card over gloo):
+                  2 steps, each rank's step-1 loss and grad_norm within
+                  TRAIN_AGREE_RTOL of the reference's and its masters'
+                  update within TP_TRAIN_MASTER_RTOL on layer 0's
+                  matrices and norms, a control (the gathers'
+                  reduce-scatter skipped, each rank keeping its own
+                  gradient) whose grad_norm misses TRAIN_AGREE_RTOL, exact
+                  launches a step (flash forward 2L, dQ L, dK/dV L, FPS 2
+                  a micro-batch); printed: each rank's layer-stack bytes
+                  against the whole stack, the most whole layers alive at
+                  once, its parameter, optimizer and peak GiB and step ms
+                  (two ranks share the card's SMs and exchange through
+                  its buffers, tensor.SharedCard: not fsdp speed).
  13. trainer-agree  the trainer's two new step kinds on `mla-small` with
                   fp32 master weights (bf16 compute), card vs CPU from the
                   same weights, batch and draws: one step of the AR loss
@@ -2626,7 +2644,8 @@ def eval_step_profile(torch, policy, trace) -> dict:
     predict_action_diff (DDIM-8) on that float frame as the entry calls it,
     and on the uint8 frame resized on the host (the serving host's route,
     CLIP on the card): host wall ms, median of 3, and the device's busy ms
-    under torch.profiler, so its idle share."""
+    under torch.profiler (its CUDA activity alone: the kernels' time is all
+    it reads), so its idle share, and the seconds the profiles took."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -2642,7 +2661,7 @@ def eval_step_profile(torch, policy, trace) -> dict:
         t0 = time.perf_counter()
         img = _frame(frame, policy)
         host.append((time.perf_counter() - t0) * 1e3)
-    out = {"host_preprocess_ms": float(np.median(host))}
+    out = {"host_preprocess_ms": float(np.median(host)), "profile_s": 0.0}
     for name, im in (("float", img), ("uint8", _prep_image(frame, size))):
         def call():
             policy.predict_action_diff(im, pc, HTTP_INSTRUCTION, unnorm_key="rlbench")
@@ -2655,11 +2674,15 @@ def eval_step_profile(torch, policy, trace) -> dict:
             call()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             call()
             torch.cuda.synchronize()
         busy = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        out["profile_s"] += time.perf_counter() - t0
+        if busy <= 0:
+            raise AssertionError(f"eval step profile ({name}): the profiler saw no device time")
         wall = float(np.median(walls))
         out[name] = {"wall_ms": wall, "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall)}
     return out
@@ -2811,7 +2834,8 @@ def eval_phase(torch, report):
         f"{prof['host_preprocess_ms']:.1f} ms, then predict_action_diff on the float frame "
         f"{prof['float']['wall_ms']:.1f} ms (device busy {prof['float']['device_busy_ms']:.1f}, idle share "
         f"{prof['float']['idle_share']:.3f}); on the uint8 frame (CLIP on the card) {prof['uint8']['wall_ms']:.1f} "
-        f"ms (busy {prof['uint8']['device_busy_ms']:.1f}, idle {prof['uint8']['idle_share']:.3f})")
+        f"ms (busy {prof['uint8']['device_busy_ms']:.1f}, idle {prof['uint8']['idle_share']:.3f}); the two profiles "
+        f"{prof['profile_s']:.1f} s")
     del kept
     gc.collect()
     torch.cuda.empty_cache()
@@ -4157,8 +4181,9 @@ def checkpoint_writes_skipped():
     """Within the block, train.main's checkpoint saves write nothing and
     take no time; the steps they were asked for are collected. For the runs
     that repeat the trainer phase's ~20 GiB save, which that phase times
-    and checks bit for bit (the AR loss mode's, data's, oxe's and
-    trainer-viz's), so the script keeps to its time."""
+    and checks bit for bit (the AR loss mode's, data's, oxe's,
+    trainer-viz's, hf-vlm's and the sharded phases'), so the script keeps
+    to its time."""
     from mla_tpu_torch.training import checkpointing
 
     real, steps = checkpointing.save_checkpoint, []
@@ -5456,8 +5481,9 @@ def check_vlm_agreement(torch, report, control):
 
 
 def _vlm_run(torch, train, stage: str, extra=()):
-    """train.main(--vlm_stage stage) on mla-2b from HF_ROOT: the run's
-    output, its kernel launches and its seconds."""
+    """train.main(--vlm_stage stage) on mla-2b from HF_ROOT, its closing
+    checkpoint write skipped (the trainer phase times and checks one): the
+    run's output, its kernel launches and its seconds."""
     from mla_tpu_torch.ops import cuda
 
     args = ["--vlm_stage", stage, "--model", "mla-2b", "--hf_llama_dir", str(HF_ROOT), "--global_batch_size",
@@ -5465,8 +5491,11 @@ def _vlm_run(torch, train, stage: str, extra=()):
     torch.cuda.reset_peak_memory_stats()
     cuda.launches.clear()
     t0 = time.perf_counter()
-    out = train.main(args)
+    with checkpoint_writes_skipped() as skipped:
+        out = train.main(args)
     torch.cuda.synchronize()
+    if skipped != [VLM_STEPS]:
+        raise AssertionError(f"hf-vlm {stage}: the run's saves {skipped}, expected one at step {VLM_STEPS}")
     return out, {k: cuda.launches[k] for k in VLM_KERNELS}, time.perf_counter() - t0
 
 
@@ -5736,7 +5765,8 @@ def dp_equality(torch, report) -> dict:
         torch.cuda.synchronize()
         launches = {k: cuda.launches[k] for k in TRAINER_KERNELS}
         masters = st["shards"].host_state(st)["params"]
-        copies = sorted({str(t.dtype) for path, t in P.tree_items(st["params"]["llm_backbone"]["layers"])})
+        copies = sorted({str(leaf.dtype) for leaf in st["shards"].gatherer.leaves
+                         if leaf.path.startswith("llm_backbone/layers/")})
         runs[mode] = {"metrics": metrics, "launches": launches, "masters": dict(P.tree_items(masters)),
                       "layer_dtypes": copies}
         del st, step, opt, p
@@ -5762,7 +5792,7 @@ def dp_equality(torch, report) -> dict:
         f"the one-process step run again: losses {'equal' if repeat['loss_equal'] else 'DIFFERENT'}, "
         f"{repeat['leaves_identical']} masters bit-identical), grad_norm rel "
         f"{gn:.3e}, worst master {worst} {leaf[worst]:.3e} (tol {DP_EQ_RTOL}), {identical} of {len(leaf)} masters "
-        f"bit-identical; decoder layers held in {a['layer_dtypes']} (one-process: {b['layer_dtypes']}); launches "
+        f"bit-identical; decoder layers gathered in {a['layer_dtypes']} (one-process: {b['layer_dtypes']}); launches "
         f"{a['launches']} vs {b['launches']}")
     if not (loss_equal and a["launches"] == b["launches"] and gn <= DP_EQ_RTOL and leaf[worst] <= DP_EQ_RTOL):
         raise AssertionError(f"dp: the NCCL world-1 step differs from the one-process step: {out}")
@@ -5805,7 +5835,7 @@ def dp_phase(torch, report):
             opt_gib = shards.optimizer_bytes()["held"] / 2**30
             masters_gib = sum(m.numel() * m.element_size() for m in shards.masters if m is not None) / 2**30
             cfg, state = out["cfg"], out["state"]
-            copies = sorted({str(t.dtype) for t in shards.compute})
+            copies = sorted({str(leaf.dtype) for leaf in shards.gatherer.leaves})
         expected = trainer_counts(cfg, micro_batches=2 * 2)
         if totals != expected:
             raise AssertionError(f"dp: steps 1-2 in this process launched {totals}, expected {expected}")
@@ -5825,7 +5855,7 @@ def dp_phase(torch, report):
             f"(one-device trainer "
             f"{DP_PLAIN_TRAINER_MS[0]}-{DP_PLAIN_TRAINER_MS[1]} ms in PERF.md), {tok_s:.0f} tokens/s, MFU "
             f"{mfu if mfu is None else round(mfu, 4)}, peak {peak_gib:.2f} GiB, the rank's optimizer "
-            f"{opt_gib:.2f} GiB (masters {masters_gib:.2f} GiB; N ranks hold 1/N of it), compute tensors in "
+            f"{opt_gib:.2f} GiB (masters {masters_gib:.2f} GiB; N ranks hold 1/N of it), gathered in "
             f"{copies}, launches {totals}, the save skipped at step {skipped}")
         del out, state, shards
     finally:
@@ -6142,11 +6172,12 @@ TP_TRAIN_SMALL = 1 << 16
 
 
 @contextlib.contextmanager
-def data_ranks_rows(data_world: int):
-    """Within the block, a synthetic batch of B rows is data_world copies of
-    the batch of B / data_world rows, concatenated: the global batch that
-    data_world data ranks read, each from its own DummyDataset, whose seed
-    does not fold the rank."""
+def data_ranks_rows(data_world: int, accum: int = 1):
+    """Within the block, a synthetic batch of B rows is the global batch
+    that data_world data ranks read, each the batch of B / data_world rows
+    from its own DummyDataset (whose seed does not fold the rank), in the
+    order of the step's `accum` global micro-batches: micro-batch i is
+    every rank's i-th block of rows, in rank order."""
     import numpy as np
 
     from mla_tpu_torch.vla import dummy
@@ -6159,7 +6190,15 @@ def data_ranks_rows(data_world: int):
         return np.concatenate(parts, axis=0)
 
     def tiled(cfg, B=2, L=16, seed=0, training=True):
-        return cat([real(cfg, B // data_world, L, seed=seed, training=training)] * data_world)
+        rows = real(cfg, B // data_world, L, seed=seed, training=training)
+        m = B // data_world // accum
+
+        def part(tree, i):
+            if isinstance(tree, dict):
+                return {k: part(v, i) for k, v in tree.items()}
+            return tree[i * m : (i + 1) * m]
+
+        return cat([part(rows, i) for i in range(accum) for _ in range(data_world)])
 
     dummy.synthetic_batch = tiled
     try:
@@ -6168,12 +6207,13 @@ def data_ranks_rows(data_world: int):
         dummy.synthetic_batch = real
 
 
-def tp_train_args(world: int, tp: int) -> list:
-    """The trainer's flags for `world` ranks at tp `tp` (1 row a card; the
-    one process: world rows a card), world rows a step, no accumulation."""
-    per_device = 1 if tp > 1 else world
-    return list(TRAINER_ARGS) + ["--per_device_batch_size", str(per_device), "--global_batch_size", str(world),
-                                 "--run_root_dir", str(TP_TRAIN_ROOT / "runs")]
+def sharded_train_args(world: int, one_process: bool, accum: int, root: Path) -> list:
+    """The trainer's flags for micro-batches of `world` rows (1 row a card
+    on `world` ranks; the one process: world rows a card), `accum` of them
+    a step."""
+    per_device = world if one_process else 1
+    return list(TRAINER_ARGS) + ["--per_device_batch_size", str(per_device), "--global_batch_size",
+                                 str(world * accum), "--run_root_dir", str(root / "runs")]
 
 
 def compared_masters(torch, shards) -> dict:
@@ -6184,9 +6224,15 @@ def compared_masters(torch, shards) -> dict:
     for k, (path, shape) in enumerate(zip(shards.paths, shards.shapes)):
         layer = path.startswith("llm_backbone/layers/")
         if (path.endswith(TP_TRAIN_COMPARED) if layer else math.prod(shape) <= TP_TRAIN_SMALL):
-            # whole over fsdp (every rank of the fsdp group takes part)
-            m = shards._fsdp_whole(k, shards.masters[k], shards.specs[path].dim)
-            out[path] = (m[0] if layer else m).detach().to("cpu", torch.float32, copy=True)
+            # whole over fsdp (every rank of the fsdp group takes part); of a
+            # stacked leaf cut along another dim than [L], layer 0's slices only
+            m, d = shards.masters[k], shards.specs[path].dim
+            if layer and d:
+                m = shards._fsdp_whole(k, m[0], d - 1)
+            else:
+                m = shards._fsdp_whole(k, m, d)
+                m = m[0] if layer else m
+            out[path] = m.detach().to("cpu", torch.float32, copy=True)
     return out
 
 
@@ -6232,7 +6278,8 @@ def delta_rel(torch, got: dict, ref: dict, shards) -> dict:
     """This rank's update of the compared masters against the one-process
     update's part (its tp slice), by group: the tp-split leaves ('split'),
     layer 0's two norms ('norms': held whole, their gradient is the
-    column-parallel inputs' through copy_to_tp) and the rest ('rest'):
+    column-parallel inputs' through copy_to_tp), layer 0's matrices that
+    no tp group splits ('layers') and the rest ('rest'):
     |got - ref| / |ref| over each group, with its worst leaf and the share
     of elements whose update has the other sign."""
     from mla_tpu_torch.parallel.sharding import tp_part
@@ -6243,7 +6290,9 @@ def delta_rel(torch, got: dict, ref: dict, shards) -> dict:
         if d is not None and path.startswith("llm_backbone/layers/"):
             d -= 1  # layer 0 of a stacked leaf
         r = tp_part(ref[path].float(), d, shards.mesh.tp_rank, shards.mesh.tp)
-        name = "split" if d is not None else "norms" if path.startswith("llm_backbone/layers/") else "rest"
+        layer = path.startswith("llm_backbone/layers/")
+        name = ("split" if d is not None else "norms" if layer and path.endswith("/scale") else "layers" if layer
+                else "rest")
         e, n = float((g - r).pow(2).sum()), float(r.pow(2).sum())
         acc = groups.setdefault(name, {"err": 0.0, "norm": 0.0, "flips": 0.0, "n": 0, "leaves": {}})
         acc["err"], acc["norm"] = acc["err"] + e, acc["norm"] + n
@@ -6257,20 +6306,35 @@ def delta_rel(torch, got: dict, ref: dict, shards) -> dict:
     return out
 
 
-def tp_train_child(argv) -> int:
-    """One rank of the tp-train phase (torchrun's variables set): joins
-    the group over argv[1] on cuda:LOCAL_RANK, runs train.main(argv[2:]) for
-    2 steps (checkpoint writes skipped), then one step of a fresh run with
-    copy_to_tp's backward all-reduce skipped (the control); writes each
-    run's step records, its compared masters' update held to root/ref.pt,
-    its GiB and launches to root/rank{R}.pt."""
+def skipped_collective(control: str):
+    """(module, name, stand-in) of what a control run of a sharded-train
+    phase skips: copy_to_tp's backward all-reduce (tp-train) or the
+    gathers' reduce-scatter, each rank keeping its own gradient
+    (fsdp-train)."""
+    import torch.distributed as dist
+
+    from mla_tpu_torch.parallel import tensor
+
+    if control == "copy_to_tp":
+        return tensor, "copy_to_tp", lambda x: x
+    return tensor, "reduce_scatter", lambda flat, g: flat.chunk(dist.get_world_size(g))[dist.get_rank(g)].clone()
+
+
+def sharded_train_child(argv, control: str) -> int:
+    """One rank of the tp-train or fsdp-train phase (torchrun's variables
+    set): joins the group over argv[1] on cuda:LOCAL_RANK, runs
+    train.main(argv[2:]) for 2 steps (checkpoint writes skipped), then one
+    step of a fresh run with `control` skipped (skipped_collective); writes
+    each run's step records, its compared masters' update held to
+    root/ref.pt, its GiB, layer-stack bytes, the most whole layers alive at
+    once and launches to root/rank{R}.pt."""
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from mla_tpu_torch import train
+    from mla_tpu_torch.parallel import fsdp
     from mla_tpu_torch.parallel import mesh as tmesh
-    from mla_tpu_torch.parallel import tensor
     from mla_tpu_torch.params import tree_items
 
     root, backend, args = Path(argv[0]), argv[1], list(argv[2:])
@@ -6280,24 +6344,27 @@ def tp_train_child(argv) -> int:
     ref = torch.load(root / "ref.pt", weights_only=True)
     out = {"device": torch.cuda.get_device_name(launch["device"]), "backend": backend}
     torch.cuda.reset_peak_memory_stats()
+    fsdp.reset_counts()
     with checkpoint_writes_skipped(), recorded_steps(torch) as rec:
-        run = train.main(args + ["--run_id", "tp-train", "--max_steps", "2"])
-    sh = run["state"]["shards"]
+        run = train.main(args + ["--run_id", "sharded", "--max_steps", "2"])
+    sh, params = run["state"]["shards"], run["state"]["params"]
     out.update(steps=rec["steps"], delta=delta_rel(torch, rec["delta"], ref["delta"], sh),
                mesh={"dp": sh.mesh.dp, "fsdp": sh.mesh.fsdp, "tp": sh.mesh.tp},
-               compute_gib=sum(t.numel() * t.element_size() for _, t in tree_items(run["state"]["params"])) / 2**30,
+               params_gib=sum(t.numel() * t.element_size() for _, t in tree_items(params)) / 2**30,
                optimizer_gib=sh.optimizer_bytes()["held"] / 2**30, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-               q_local=tuple(run["state"]["params"]["llm_backbone"]["layers"]["attn"]["q"]["w"].shape))
-    del run, sh
+               q_local=sh.shapes[sh.paths.index("llm_backbone/layers/attn/q/w")], layer_bytes=sh.layer_bytes(params),
+               gathers={k: fsdp.counts[k] for k in ("layer_gathers", "layer_reduce_scatters", "max_live_layers")})
+    del run, sh, params
     gc.collect()
     torch.cuda.empty_cache()
-    real = tensor.copy_to_tp
-    tensor.copy_to_tp = lambda x: x  # the control: no all-reduce of the column-parallel inputs' gradients
+    mod, name, stand_in = skipped_collective(control)
+    real = getattr(mod, name)
+    setattr(mod, name, stand_in)
     try:
         with checkpoint_writes_skipped(), recorded_steps(torch) as ctrl:
-            run = train.main(args + ["--run_id", "tp-train-control", "--max_steps", "1"])
+            run = train.main(args + ["--run_id", "sharded-control", "--max_steps", "1"])
     finally:
-        tensor.copy_to_tp = real
+        setattr(mod, name, real)
     out["control"] = {"steps": ctrl["steps"], "delta": delta_rel(torch, ctrl["delta"], ref["delta"],
                                                                 run["state"]["shards"])}
     del run
@@ -6307,54 +6374,55 @@ def tp_train_child(argv) -> int:
     return 0
 
 
-def tp_train_phase(torch, report, backend: str = "gloo", world: str = str(TP_TRAIN_WORLD)):
-    """mla-2b through train.main on one process, 1 step of `world` rows,
-    the rows the world / 2 data ranks read (data_ranks_rows; the reference:
-    its step-1 loss and grad_norm, its compared masters' update), then
-    `python -m torch.distributed.run --nproc_per_node world` of this
-    script's --tp-train-child at --tp 2 (fsdp = world / 2) over
-    `backend`, 2 steps: each rank's step-1 loss and grad_norm within
-    TRAIN_AGREE_RTOL of the reference's, its masters' update within
-    TP_TRAIN_MASTER_RTOL, both missed by the control; each step's flash
-    forward, dQ, dK/dV and FPS launches exactly trainer_counts' for one
-    micro-batch; each rank's compute, optimizer and peak GiB and step ms.
-    Returns rank 0's launches in its 2 steps."""
+def sharded_train_phase(torch, report, key: str, root: Path, backend: str, n: int, tp: int, accum: int,
+                        groups, control_missed) -> dict:
+    """mla-2b through train.main on one process, 1 step of `accum`
+    micro-batches of n rows, the rows the n / tp data ranks read
+    (data_ranks_rows; the reference: its step-1 loss and grad_norm, its
+    compared masters' update), then `python -m torch.distributed.run
+    --nproc_per_node n` of this script's --KEY-child (tp `tp`, fsdp =
+    n / tp) over `backend`, 2 steps: each rank's step-1 loss and
+    grad_norm within TRAIN_AGREE_RTOL of the reference's, its masters'
+    update within TP_TRAIN_MASTER_RTOL on `groups` (delta_rel),
+    control_missed(rank's control record, its step-1 rel errors) true;
+    each step's flash forward, dQ, dK/dV and FPS launches exactly
+    trainer_counts' for `accum` micro-batches; each rank's parameter,
+    optimizer and peak GiB, layer-stack bytes, the most whole layers alive
+    at once and step ms. Returns rank 0's launches in its 2 steps."""
     from mla_tpu_torch import train
-    from mla_tpu_torch.ops import cuda
 
-    n = int(world)
-    shutil.rmtree(TP_TRAIN_ROOT, ignore_errors=True)
-    TP_TRAIN_ROOT.mkdir(parents=True)
-    rep = {"backend": backend, "world": n, "cards_shared": torch.cuda.device_count() < n}
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rep = {"backend": backend, "world": n, "tp": tp, "accum": accum, "cards_shared": torch.cuda.device_count() < n}
     try:
         t0 = time.perf_counter()
-        with checkpoint_writes_skipped(), recorded_steps(torch) as ref, data_ranks_rows(n // 2):
-            one = train.main(tp_train_args(n, 1) + ["--run_id", "one", "--max_steps", "1"])
+        with checkpoint_writes_skipped(), recorded_steps(torch) as ref, data_ranks_rows(n // tp, accum):
+            one = train.main(sharded_train_args(n, True, accum, root) + ["--run_id", "one", "--max_steps", "1"])
         cfg = one["cfg"]
         S = 16 + cfg.fused_len + cfg.diff_block_len
         del one
         gc.collect()
         torch.cuda.empty_cache()
-        torch.save({"delta": {p: d.to(torch.bfloat16) for p, d in ref["delta"].items()}}, TP_TRAIN_ROOT / "ref.pt")
-        want = {k: v for k, v in trainer_counts(cfg, micro_batches=1).items() if k in TP_TRAIN_KERNELS}
+        torch.save({"delta": {p: d.to(torch.bfloat16) for p, d in ref["delta"].items()}}, root / "ref.pt")
+        want = {k: v for k, v in trainer_counts(cfg, micro_batches=accum).items() if k in TP_TRAIN_KERNELS}
         if ref["steps"][0]["launches"] != want:
-            raise AssertionError(f"tp-train: the one-process step launched {ref['steps'][0]['launches']}, "
+            raise AssertionError(f"{key}: the one-process step launched {ref['steps'][0]['launches']}, "
                                  f"expected {want}")
         rep["one_process"] = {"step": ref["steps"][0], "s": time.perf_counter() - t0}
         t0 = time.perf_counter()
         env = {k: v for k, v in os.environ.items() if k not in DP_LAUNCH}
         cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(n), "--master_addr",
-               "127.0.0.1", "--master_port", str(_free_port()), str(Path(__file__).resolve()), "--tp-train-child",
-               str(TP_TRAIN_ROOT), backend, *tp_train_args(n, 2), "--tp", "2"]
+               "127.0.0.1", "--master_port", str(_free_port()), str(Path(__file__).resolve()), f"--{key}-child",
+               str(root), backend, *sharded_train_args(n, False, accum, root), "--tp", str(tp)]
         proc = subprocess.run(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                               timeout=TP_TRAIN_TIMEOUT)
         lines = proc.stdout.splitlines()
         if proc.returncode != 0:
-            raise AssertionError(f"tp-train: torchrun exited {proc.returncode}:\n" + "\n".join(lines[-40:]))
+            raise AssertionError(f"{key}: torchrun exited {proc.returncode}:\n" + "\n".join(lines[-40:]))
         strategy = [l for l in lines if "strategy ::" in l]
-        if not (strategy and f"'tp': 2" in strategy[0]):
-            raise AssertionError(f"tp-train: strategy line {strategy}")
-        ranks = [torch.load(TP_TRAIN_ROOT / f"rank{r}.pt", weights_only=False) for r in range(n)]
+        if not (strategy and f"'tp': {tp}" in strategy[0] and f"'fsdp': {n // tp}" in strategy[0]):
+            raise AssertionError(f"{key}: strategy line {strategy}")
+        ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(n)]
         rep.update(s=time.perf_counter() - t0, strategy=strategy[0].split(">> ")[-1], ranks=[])
         one = ref["steps"][0]["metrics"]
         failed = []
@@ -6363,7 +6431,8 @@ def tp_train_phase(torch, report, backend: str = "gloo", world: str = str(TP_TRA
             rel = {k: abs(m[k] - one[k]) / abs(one[k]) for k in ("total_loss", "grad_norm")}
             c = got["control"]["steps"][0]["metrics"]
             ctrl = {k: abs(c[k] - one[k]) / abs(one[k]) for k in ("total_loss", "grad_norm")}
-            entry = {k: got[k] for k in ("mesh", "compute_gib", "optimizer_gib", "peak_gib", "q_local", "device")}
+            entry = {k: got[k] for k in ("mesh", "params_gib", "optimizer_gib", "peak_gib", "q_local", "device",
+                                         "layer_bytes", "gathers")}
             entry.update(rel_err=rel, delta=got["delta"], control_rel_err=ctrl, control_delta=got["control"]["delta"],
                          step_ms=[st["ms"] for st in got["steps"]], losses=[st["metrics"]["total_loss"]
                                                                             for st in got["steps"]],
@@ -6371,40 +6440,69 @@ def tp_train_phase(torch, report, backend: str = "gloo", world: str = str(TP_TRA
             rep["ranks"].append(entry)
             if not all(v <= TRAIN_AGREE_RTOL for v in rel.values()):
                 failed.append(f"rank {r}: step 1 {rel} of the one-process step's (tol {TRAIN_AGREE_RTOL})")
-            if not all(got["delta"][g]["rel"] <= TP_TRAIN_MASTER_RTOL for g in ("split", "norms")):
-                failed.append(f"rank {r}: masters' update {got['delta']} (tol {TP_TRAIN_MASTER_RTOL})")
-            if not got["control"]["delta"]["norms"]["rel"] > TP_TRAIN_MASTER_RTOL:
-                failed.append(f"rank {r}: the control passes: masters {got['control']['delta']}")
+            if not all(got["delta"][g]["rel"] <= TP_TRAIN_MASTER_RTOL for g in groups):
+                failed.append(f"rank {r}: masters' update {got['delta']} (tol {TP_TRAIN_MASTER_RTOL} on {groups})")
+            if not control_missed(got["control"], ctrl):
+                failed.append(f"rank {r}: the control passes: {ctrl}, masters {got['control']['delta']}")
             for i, st in enumerate(got["steps"]):
                 if st["launches"] != want:
                     failed.append(f"rank {r} step {i + 1}: launches {st['launches']}, expected {want}")
-            if got["q_local"][-1] * 2 != cfg.llama.hidden_size:
-                failed.append(f"rank {r}: its q is {got['q_local']}, not half the heads")
-            log(f"tp-train rank {r} of {n} ({backend}, {got['device']}, mesh {got['mesh']}): step 1 loss "
-                f"{m['total_loss']:.6f} grad_norm {m['grad_norm']:.6f} against one process's {one['total_loss']:.6f} "
-                f"{one['grad_norm']:.6f}: rel {rel['total_loss']:.3e} / {rel['grad_norm']:.3e} "
-                f"(tol {TRAIN_AGREE_RTOL}); masters' update off by "
+            if got["q_local"][-1] * tp != cfg.llama.hidden_size:
+                failed.append(f"rank {r}: its q is {got['q_local']}, not 1/{tp} of the heads")
+            lb, ga = got["layer_bytes"], got["gathers"]
+            log(f"{key} rank {r} of {n} ({backend}, {got['device']}, mesh {got['mesh']}, accumulation {accum}): step 1 "
+                f"loss {m['total_loss']:.6f} grad_norm {m['grad_norm']:.6f} against one process's "
+                f"{one['total_loss']:.6f} {one['grad_norm']:.6f}: rel {rel['total_loss']:.3e} / "
+                f"{rel['grad_norm']:.3e} (tol {TRAIN_AGREE_RTOL}); masters' update off by "
                 + ", ".join(f"{g} {v['rel']:.4f} (signs {v['sign_flip_share']:.4f}, worst {v['worst_leaf']} "
                             f"{v['worst_leaf_rel']:.4f})" for g, v in sorted(got["delta"].items()))
-                + f" of its norm (tol {TP_TRAIN_MASTER_RTOL} on split and norms); control: grad_norm "
-                f"{ctrl['grad_norm']:.3e}, masters "
+                + f" of its norm (tol {TP_TRAIN_MASTER_RTOL} on {', '.join(groups)}); control: loss "
+                f"{ctrl['total_loss']:.3e}, grad_norm {ctrl['grad_norm']:.3e}, masters "
                 + ", ".join(f"{g} {v['rel']:.4f}" for g, v in sorted(got["control"]["delta"].items()))
-                + "; launches a step "
-                f"{got['steps'][0]['launches']}; compute {got['compute_gib']:.2f} GiB, optimizer "
-                f"{got['optimizer_gib']:.2f} GiB, peak {got['peak_gib']:.2f} GiB; steps "
-                f"{[round(st['ms'], 1) for st in got['steps']]} ms"
-                f"{' (ranks sharing one card over gloo: not tp speed)' if rep['cards_shared'] else ''}")
-        log(f"tp-train: one process ({n} rows, {gpu_line()}): step 1 {ref['steps'][0]['ms']:.1f} ms, BH "
-            f"{n * 4 * cfg.llama.num_heads} at S {S}; a rank's BH {2 * 4 * cfg.llama.num_heads // 2}; "
-            f"{rep['strategy']}")
-        if S != TRAINER_S or TP_TRAIN_BH != 2 * 4 * cfg.llama.num_heads // 2:
-            failed.append(f"S {S}, BH {TP_TRAIN_BH}: not the shapes the kernels phase checked")
-        report["tp_train"] = rep
+                + f"; launches a step {got['steps'][0]['launches']}; layer stack {lb['held'] / 2**30:.3f} GiB held of "
+                f"{lb['stack'] / 2**30:.3f} GiB whole (largest leaf owned whole {lb['unit'] / 2**30:.3f} GiB, whole "
+                f"copies of cut leaves {lb['whole_copies']}), {ga['layer_gathers']} layer gathers and "
+                f"{ga['layer_reduce_scatters']} reduce-scatters in 2 steps, at most {ga['max_live_layers']} whole "
+                f"layers alive; params {got['params_gib']:.2f} GiB, optimizer {got['optimizer_gib']:.2f} GiB, peak "
+                f"{got['peak_gib']:.2f} GiB; steps {[round(st['ms'], 1) for st in got['steps']]} ms"
+                f"{' (ranks sharing one card over gloo: not parallel speed)' if rep['cards_shared'] else ''}")
+        H = cfg.llama.num_heads
+        log(f"{key}: one process ({n} rows a micro-batch, {accum} micro-batches, {gpu_line()}): step 1 "
+            f"{ref['steps'][0]['ms']:.1f} ms, BH {n * 4 * H} at S {S}; a rank's BH {4 * H}; {rep['strategy']}")
+        if S != TRAINER_S or TP_TRAIN_BH != 4 * H:
+            failed.append(f"S {S}, BH {4 * H}: not the shapes the kernels phase checked")
+        report[key.replace("-", "_")] = rep
         if failed:
-            raise AssertionError("tp-train: " + "; ".join(failed))
+            raise AssertionError(f"{key}: " + "; ".join(failed))
         return {k: sum(st["launches"][k] for st in ranks[0]["steps"]) for k in TP_TRAIN_KERNELS}
     finally:
-        shutil.rmtree(TP_TRAIN_ROOT, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def tp_train_phase(torch, report, backend: str = "gloo", world: str = str(TP_TRAIN_WORLD)):
+    """sharded_train_phase at tp 2 (fsdp = world / 2), a micro-batch a step;
+    the control (copy_to_tp's backward all-reduce skipped) must move the
+    norms' update past TP_TRAIN_MASTER_RTOL."""
+    return sharded_train_phase(torch, report, "tp-train", TP_TRAIN_ROOT, backend, int(world), 2, 1, ("split", "norms"),
+                               lambda ctrl, rel: ctrl["delta"]["norms"]["rel"] > TP_TRAIN_MASTER_RTOL)
+
+
+# layer-wise gathering over fsdp: 2 ranks, fsdp 2, accumulation 2 (the
+# reduce-scatter and the fp32 accumulators exercised twice a step); the
+# control keeps each rank's own gradient, so the global norm of the parts
+# is another number
+FSDP_TRAIN_WORLD, FSDP_TRAIN_ACCUM = 2, 2
+FSDP_TRAIN_ROOT = Path("build") / "chip_smoke_fsdp_train"
+
+
+def fsdp_train_phase(torch, report, backend: str = "gloo"):
+    """sharded_train_phase at fsdp FSDP_TRAIN_WORLD, accumulation
+    FSDP_TRAIN_ACCUM: layer 0's matrices and norms within
+    TP_TRAIN_MASTER_RTOL; the control (no reduce-scatter) must miss
+    TRAIN_AGREE_RTOL on grad_norm."""
+    return sharded_train_phase(torch, report, "fsdp-train", FSDP_TRAIN_ROOT, backend, FSDP_TRAIN_WORLD, 1,
+                               FSDP_TRAIN_ACCUM, ("layers", "norms"),
+                               lambda ctrl, rel: rel["grad_norm"] > TRAIN_AGREE_RTOL)
 
 
 # the qualification entry at mla-small, full width: 1 weight seed, 2
@@ -6544,10 +6642,12 @@ def augment_phase(torch, report):
 # frame augmentation, which --only can run alone
 NEW_PHASES = ("mistral-agree", "mistral-serve", "mistral-train-agree", "mistral-train", "int4-agree", "int4-serve",
               "phi-post-agree", "phi-post-train", "pointlib", "dp-agree", "dp", "augment", "qualify", "tp", "tp-train",
-              "formats")
+              "fsdp-train", "formats")
 # this script's own child processes: a rank of the tp phase, a rank of the
-# tp-train phase
-CHILDREN = {"--tp-child": lambda argv: tp_child(Path(argv[0]), argv[1]), "--tp-train-child": tp_train_child}
+# tp-train phase, a rank of the fsdp-train phase
+CHILDREN = {"--tp-child": lambda argv: tp_child(Path(argv[0]), argv[1]),
+            "--tp-train-child": lambda argv: sharded_train_child(argv, "copy_to_tp"),
+            "--fsdp-train-child": lambda argv: sharded_train_child(argv, "reduce_scatter")}
 
 
 def main() -> int:
@@ -6561,8 +6661,8 @@ def main() -> int:
                         f"of {', '.join(NEW_PHASES)}; prints no result line")
     parser.add_argument("--tp_world", default=str(TP_WORLD), help="ranks of the tp phase (comma-separated: each "
                         "world in turn against one reference)")
-    parser.add_argument("--tp_backend", default="gloo", help="the tp and tp-train phases' backend: gloo (ranks that "
-                        "share one card) or nccl (a card a rank)")
+    parser.add_argument("--tp_backend", default="gloo", help="the tp, tp-train and fsdp-train phases' backend: "
+                        "gloo (ranks that share one card) or nccl (a card a rank)")
     parser.add_argument("--tp_train_world", default=str(TP_TRAIN_WORLD), help="ranks of the tp-train phase (tp 2, "
                         "fsdp = world / 2)")
     args = parser.parse_args()
@@ -6599,21 +6699,24 @@ def main() -> int:
                                                       (Path(args.parent) / f"{name}.cu").read_text(), "parent",
                                                       Path(args.parent))
                         for name in PARENT_KERNELS})
-    try:
-        built = cuda.build()
-    except BaseException:
-        for _, proc in started.values():
-            proc.kill()
-            proc.wait()
-        raise
-    for name, text in built.items():
-        log(f"built {name}.cu\n" + "\n".join("  " + l for l in text.strip().splitlines() if "registers" in l or "spill" in l))
+    from concurrent.futures import ThreadPoolExecutor
+
     from mla_tpu_torch.native import jpeg_host, pointops_host, rlds_host, webp_host
 
-    rlds_host.load()
-    jpeg_host.load()
-    webp_host.load()
-    pointops_host.load()
+    # the host helpers' g++ builds run beside the kernels' nvcc builds
+    with ThreadPoolExecutor(4) as helpers:
+        loads = [helpers.submit(m.load) for m in (rlds_host, jpeg_host, webp_host, pointops_host)]
+        try:
+            built = cuda.build()
+        except BaseException:
+            for _, proc in started.values():
+                proc.kill()
+                proc.wait()
+            raise
+        for f in loads:
+            f.result()
+    for name, text in built.items():
+        log(f"built {name}.cu\n" + "\n".join("  " + l for l in text.strip().splitlines() if "registers" in l or "spill" in l))
     log(f"built {rlds_host.SRC.name}, {jpeg_host.SRC.name} and {webp_host.SRC.name} (the data pipeline's host "
         f"helpers) and {pointops_host.SRC.name} (the eval entry's), g++")
     w8a8_layout = w8a8_abi((Path(args.parent) / "w8a8.cu").read_text()) if args.parent else None
@@ -6702,6 +6805,7 @@ def main() -> int:
     report["qualify_launches"] = phase("qualify", qualify_phase, torch, report)
     tp_totals = phase("tp", tp_phase, torch, report, args.tp_backend, args.tp_world)
     tp_train_totals = phase("tp-train", tp_train_phase, torch, report, args.tp_backend, args.tp_train_world)
+    report["fsdp_train_launches"] = phase("fsdp-train", fsdp_train_phase, torch, report, args.tp_backend)
     if only is not None:
         phase("formats", formats_phase, torch, report)
         log(f"total: {time.perf_counter() - t_all:.1f} s (only {sorted(only)}: a partial run prints no result)")

@@ -44,6 +44,7 @@ from mla_tpu_torch.ops import attention as attn_ops
 from mla_tpu_torch.ops import quantization
 from mla_tpu_torch.ops import rope as rope_ops
 from mla_tpu_torch.parallel import collectives
+from mla_tpu_torch.parallel import fsdp
 from mla_tpu_torch.parallel import tensor as tp
 
 
@@ -161,7 +162,13 @@ def run_layers(
     positions, key_mask, cache_len, cache_read_only, inflight_mask,
     int8_mode, scores_dtype), under torch.utils.checkpoint with remat. Returns (h,
     hidden_mid), hidden_mid taken before layer cfg.contrastive_layer (the
-    last h when that is past the last layer)."""
+    last h when that is past the last layer).
+
+    Inside a train step over fsdp (parallel/fsdp.gathering) the leaves of
+    `layers` that a rank holds in parts are gathered one layer at a time,
+    inside the function that the checkpoint wraps: with remat the backward
+    gathers each layer again rather than keeping it; without remat autograd
+    keeps every gathered layer until the backward."""
     S = inputs_embeds.shape[1]
     h = inputs_embeds.to(cfg.compute_dtype)
     dev = h.device
@@ -174,13 +181,18 @@ def run_layers(
     if remat and kv_cache is not None:
         raise ValueError("remat is for the uncached training forward")
     hidden_mid = h
-    for i, lp in enumerate(unstack_layers(layers)):
+    gathered = fsdp.layer_gather(layers)
+    if gathered is None:
+        views, fn = unstack_layers(layers), layer_fn
+    else:  # each layer's lp is its index; the gather runs inside fn
+        views, fn = range(gathered[0]), lambda i, *a: layer_fn(gathered[1](i), *a)
+    for i, lp in enumerate(views):
         if i == cfg.contrastive_layer:
             hidden_mid = h
         ck = (kv_cache["k"][i], kv_cache["v"][i]) if kv_cache is not None else None
         args = (lp, h, ck, cfg, cos_table, sin_table, positions, key_mask, cache_len, cache_read_only, inflight_mask,
                 int8_mode, scores_dtype)
-        h = checkpoint(layer_fn, *args, use_reentrant=False) if remat else layer_fn(*args)
+        h = checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
     if cfg.contrastive_layer >= cfg.num_layers:
         hidden_mid = h
     return h, hidden_mid

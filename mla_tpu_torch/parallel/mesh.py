@@ -11,8 +11,10 @@ say how many there are:
 device cpu). A partial set of either raises: a half-configured launch would
 otherwise train N unsynchronized single-process replicas. `make_mesh`
 splits the world as JAX's ('dp', 'fsdp', 'tp') mesh does: rank
-(d * fsdp + f) * tp + t, tp innermost. Optimizer state is sharded over
-'fsdp' and replicated over 'dp'; the global batch splits over both: the
+(d * fsdp + f) * tp + t, tp innermost. The trainable leaves (weights,
+gradients and optimizer state) are sharded over 'fsdp' and replicated
+over 'dp' (a replica group: the dp ranks that share an fsdp and a tp
+index); the global batch splits over both: the
 dp * fsdp ranks that share a tp index form a data group (data rank
 dp_rank * fsdp + fsdp_rank), and the ranks of one tp group, which are
 consecutive, see the same rows. The port trains over such a mesh
@@ -89,10 +91,13 @@ class Mesh:
     """The ('dp', 'fsdp', 'tp') split of the world and this rank's groups:
     `group` spans the world, `data_group` the dp * fsdp ranks that share
     this rank's tp index (the global batch; the world itself at tp 1),
-    `fsdp_group` the ranks that share this rank's dp and tp indices (an
-    optimizer shard each; the dp ranks hold the same shards), `tp_group`
-    the tp consecutive ranks that hold the parts of one tensor-parallel
-    model. Groups are None without a process group (a one-process mesh)."""
+    `fsdp_group` the ranks that share this rank's dp and tp indices (a
+    part of every trainable leaf each, gathered layer by layer:
+    parallel/fsdp.py), `replica_group` the dp ranks that share this
+    rank's fsdp and tp indices (they hold the same parts; None at dp 1),
+    `tp_group` the tp consecutive ranks that hold the parts of one
+    tensor-parallel model. Groups are None without a process group (a
+    one-process mesh)."""
 
     dp: int
     fsdp: int
@@ -102,6 +107,7 @@ class Mesh:
     fsdp_group: Any = None
     tp_group: Any = None
     data_group: Any = None
+    replica_group: Any = None
 
     @property
     def world(self) -> int:
@@ -148,6 +154,12 @@ def tp_ranks(dp: int, fsdp: int, tp: int) -> List[List[int]]:
     return [[(d * fsdp + f) * tp + t for t in range(tp)] for d in range(dp) for f in range(fsdp)]
 
 
+def replica_ranks(dp: int, fsdp: int, tp: int) -> List[List[int]]:
+    """The ranks of each replica group (one per fsdp and tp index), in dp
+    order."""
+    return [[(d * fsdp + f) * tp + t for d in range(dp)] for f in range(fsdp) for t in range(tp)]
+
+
 def data_ranks(dp: int, fsdp: int, tp: int) -> List[List[int]]:
     """The ranks of each data group (one per tp index), in data-rank
     order."""
@@ -159,7 +171,7 @@ def make_mesh(dp: int = 1, fsdp: Optional[int] = None, tp: int = 1, world: Optio
     (fsdp = world / (dp * tp)), dp * fsdp * tp must equal the world. With a
     process group every rank must call this, in the same order (it makes
     the groups: the fsdp groups, then, for tp > 1, the tp groups and the
-    data groups)."""
+    data groups, then, for dp > 1, the replica groups)."""
     import torch.distributed as dist
 
     live = dist.is_available() and dist.is_initialized()
@@ -173,16 +185,18 @@ def make_mesh(dp: int = 1, fsdp: Optional[int] = None, tp: int = 1, world: Optio
     if not live:
         return Mesh(dp, fsdp, tp, rank=0)
     rank = dist.get_rank()
-    mine = {"tp": None, "data": dist.group.WORLD}  # tp 1: no tp groups, the world is the data group
+    # tp 1: no tp groups, the world is the data group; dp 1: no replicas
+    mine = {"tp": None, "data": dist.group.WORLD, "replica": None}
     split = tp > 1
     for kind, groups in (("fsdp", fsdp_ranks(dp, fsdp, tp)), ("tp", tp_ranks(dp, fsdp, tp) if split else []),
-                         ("data", data_ranks(dp, fsdp, tp) if split else [])):
+                         ("data", data_ranks(dp, fsdp, tp) if split else []),
+                         ("replica", replica_ranks(dp, fsdp, tp) if dp > 1 else [])):
         for ranks in groups:
             g = dist.new_group(ranks)  # every rank makes every group, in order
             if rank in ranks:
                 mine[kind] = g
     return Mesh(dp, fsdp, tp, rank=rank, group=dist.group.WORLD, fsdp_group=mine["fsdp"], tp_group=mine["tp"],
-                data_group=mine["data"])
+                data_group=mine["data"], replica_group=mine["replica"])
 
 
 def distinct_cards(device: torch.device) -> int:

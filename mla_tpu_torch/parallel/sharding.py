@@ -1,5 +1,5 @@
-"""Which rank holds which part of each trainable leaf's master weights and
-optimizer state, and which rows of the global batch.
+"""Which rank holds which part of each trainable leaf (its master weight,
+gradient and optimizer state), and which rows of the global batch.
 
 Counterpart of mla_tpu/parallel/sharding.py. Its tp rules (`TP_RULES`,
 `tp_dim`) are JAX's `_TP_RULES` and the tp branch of `_spec_for_leaf`, rule
@@ -11,19 +11,21 @@ whole, and every reduction of the train step reads it). The port serves
 over tp alone (dp = fsdp = 1, parallel/mesh.serving_mesh) and trains over
 tp composed with fsdp and dp.
 
-For fsdp, JAX shards each leaf's largest dim that
-divides by the fsdp size and keeps the stacked [L] axis of the decoder
-leaves whole (sharding it would all-gather inside the layer scan); under
-tp it takes the largest dim the tp rule left whole (`_spec_for_leaf`).
-`plan` takes a rank's tp-local shapes and the same rule: the tp dim stays
-whole. The port's optimizer step is per element and its layer loop
-indexes a whole leaf, so it may cut the [L] axis too. Adafactor's
-factored moments need whole rows and columns in a slice, so its two
-factored dims (of the whole leaf) are never cut (a stacked decoder leaf
-is then cut along L). A leaf with no dim to cut is owned whole by one
-rank, picked to balance the bytes, so a rank holds at most total / fsdp
-plus the largest such leaf. A rank's master part is its fsdp slice of its
-tp slice.
+For fsdp, JAX shards each leaf's largest dim that divides by the fsdp
+size and keeps the stacked [L] axis of the decoder leaves whole (sharding
+it would all-gather inside the layer scan); under tp it takes the largest
+dim the tp rule left whole (`_spec_for_leaf`). `plan` takes a rank's
+tp-local shapes and the same rule: the tp dim stays whole. A rank keeps
+only its part of every trainable leaf, and the step gathers the compute
+tensors from the parts (parallel/fsdp.py: the decoder one layer at a
+time), so the plan may cut the [L] axis too: layer i of such a leaf lies
+whole on one rank, whose gather hands it to the others. The optimizer step
+is per element, but Adafactor's factored moments need whole rows and
+columns in a slice, so its two factored dims (of the whole leaf) are never
+cut (a stacked decoder leaf is then cut along L). A leaf with no dim to
+cut is owned whole by one rank, picked to balance the bytes, so a rank
+holds at most total / fsdp plus the largest such leaf. A rank's master part
+is its fsdp slice of its tp slice.
 
 `shard_batch` gives rank r the rows [r * b, (r + 1) * b) of each global
 micro-batch, the layout `make_array_from_process_local_data` assembles in

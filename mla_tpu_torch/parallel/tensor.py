@@ -31,15 +31,23 @@ are row-parallel or vocab-split. `group()` is None without a group or at
 T = 1, `split` is then False and every operation the identity, so
 one-process serving runs the very same ops.
 
-Gloo takes CPU tensors. Where the caller names gloo for ranks that share
-one card (NCCL refuses two ranks on one device), a CUDA tensor is staged
-through the host explicitly for each collective; NCCL reduces on the card.
+Gloo takes CPU tensors. `all_reduce`, `all_gather` and `reduce_scatter`
+are the port's collectives of tensors over any group (these operations,
+the layer gathers of parallel/fsdp.py and the checkpoint gathers of
+training/strategy.py), and `_run` is the one place that routes them:
+where the caller names gloo for ranks that share one card (NCCL refuses
+two ranks on one device), through `SharedCard`, buffers on the card that
+each rank opens of the others' (CUDA IPC), ordered by the group's
+barriers, no byte through the host (gloo's own path, over TCP between the
+processes, is the slow part of such a step: PERF.md section 6); a CUDA
+tensor over gloo between cards staged through the host; torch.distributed's
+own collective otherwise (NCCL on the card, gloo on CPU tensors).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, FrozenSet, Iterable, Iterator, Optional
+from typing import Any, Callable, Dict, FrozenSet, Iterable, Iterator, List, Optional
 
 import torch
 
@@ -92,34 +100,158 @@ def rank() -> int:
     return 0 if g is None else dist.get_rank(g)
 
 
-def _staged(t: torch.Tensor, g: Any) -> bool:
+class SharedCard:
+    """All-reduce (SUM or MAX), all-gather and reduce-scatter for the ranks
+    of a gloo group that share one card (gloo moves a card tensor only
+    through the host, over TCP; NCCL refuses two ranks on one device):
+    each rank keeps one buffer on the
+    card, which the others open through CUDA IPC (the handles exchanged
+    over the group whenever it grows); a device synchronize and a barrier
+    of the group order every write before the reads, and every read
+    before the next write."""
+
+    def __init__(self, group: Any, device: torch.device):
+        import torch.distributed as dist
+
+        self.group, self.device = group, device
+        self.size, self.rank = dist.get_world_size(group), dist.get_rank(group)
+        self.mine: Optional[torch.Tensor] = None
+        self.peers: List[torch.Tensor] = []
+
+    def _buffers(self, nbytes: int) -> List[torch.Tensor]:
+        """Every rank's buffer, at least nbytes long (this rank's own)."""
+        import torch.distributed as dist
+        from torch.multiprocessing.reductions import reduce_tensor
+
+        if self.mine is None or self.mine.numel() < nbytes:
+            self.peers = []
+            self.mine = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=self.device)
+            shared: List[Any] = [None] * self.size
+            dist.all_gather_object(shared, reduce_tensor(self.mine), group=self.group)
+            self.peers = [self.mine if r == self.rank else fn(*args) for r, (fn, args) in enumerate(shared)]
+        return [p[:nbytes] for p in self.peers]
+
+    def _fence(self) -> None:
+        import torch.distributed as dist
+
+        torch.cuda.synchronize(self.device)
+        dist.barrier(group=self.group)
+
+    def all_gather(self, mine: torch.Tensor) -> torch.Tensor:
+        bufs = self._buffers(mine.numel() * mine.element_size())
+        bufs[self.rank].view(mine.dtype).copy_(mine)
+        self._fence()
+        out = torch.cat([b.view(mine.dtype) for b in bufs])
+        self._fence()
+        return out
+
+    def all_reduce(self, t: torch.Tensor, op: Any) -> torch.Tensor:
+        """t reduced over the group in place (SUM in rank order, or MAX)."""
+        import torch.distributed as dist
+
+        bufs = self._buffers(t.numel() * t.element_size())
+        bufs[self.rank].view(t.dtype).copy_(t.reshape(-1))
+        self._fence()
+        got = [b.view(t.dtype).view(t.shape) for b in bufs]
+        out = got[0].clone()
+        for g in got[1:]:
+            if op == dist.ReduceOp.MAX:
+                torch.maximum(out, g, out=out)
+            else:
+                out += g
+        self._fence()
+        return t.copy_(out)
+
+    def reduce_scatter(self, flat: torch.Tensor) -> torch.Tensor:
+        bufs = self._buffers(flat.numel() * flat.element_size())
+        bufs[self.rank].view(flat.dtype).copy_(flat)
+        self._fence()
+        n = flat.numel() // self.size
+        out = bufs[0].view(flat.dtype)[self.rank * n : (self.rank + 1) * n].clone()
+        for b in bufs[1:]:
+            out += b.view(flat.dtype)[self.rank * n : (self.rank + 1) * n]
+        self._fence()
+        return out
+
+
+_SHARED: Dict[Any, Optional[SharedCard]] = {}  # gloo group -> its shared card, or None (ranks on several)
+
+
+def shared_card(t: torch.Tensor, group: Any) -> Optional[SharedCard]:
+    """The SharedCard of `group` where t lies on the card, the group runs
+    gloo and its ranks all hold that one card (decided with the group, once),
+    else None."""
     import torch.distributed as dist
 
-    return t.is_cuda and dist.get_backend(g) == "gloo"
+    if not (t.is_cuda and dist.get_backend(group) == "gloo"):
+        return None
+    if group not in _SHARED:
+        uuid = str(torch.cuda.get_device_properties(t.device).uuid)
+        every: List[Any] = [None] * dist.get_world_size(group)
+        dist.all_gather_object(every, uuid, group=group)
+        _SHARED[group] = SharedCard(group, t.device) if len(set(every)) == 1 else None
+    return _SHARED[group]
+
+
+def _run(t: torch.Tensor, g: Any, on_card: Callable[[SharedCard, torch.Tensor], torch.Tensor],
+         native: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """One collective of t over g, routed by where the group's ranks are:
+    on_card through the group's SharedCard where gloo ranks share t's card;
+    native (torch.distributed's own) otherwise, on a host copy of a CUDA
+    tensor over gloo between cards, its result moved back to t's device."""
+    import torch.distributed as dist
+
+    card = shared_card(t, g)
+    if card is not None:
+        return on_card(card, t)
+    if t.is_cuda and dist.get_backend(g) == "gloo":
+        return native(t.cpu()).to(t.device)
+    return native(t)
 
 
 def all_reduce(t: torch.Tensor, g: Any, op=None) -> torch.Tensor:
-    """t reduced in place over g (SUM by default; a CUDA tensor over gloo
-    staged through the host); returns t."""
+    """t reduced in place over g (SUM by default); returns t."""
     import torch.distributed as dist
 
     op = dist.ReduceOp.SUM if op is None else op
-    if _staged(t, g):
-        host = t.cpu()
-        dist.all_reduce(host, op=op, group=g)
-        t.copy_(host)
-    else:
-        dist.all_reduce(t, op=op, group=g)
-    return t
+
+    def native(x):
+        dist.all_reduce(x, op=op, group=g)
+        return x
+
+    out = _run(t, g, lambda card, x: card.all_reduce(x, op), native)
+    return out if out is t else t.copy_(out)
 
 
-def _all_gather_last(t: torch.Tensor, g: Any) -> torch.Tensor:
+def all_gather(t: torch.Tensor, g: Any, dim: int = 0) -> torch.Tensor:
+    """The group's tensors t (one shape on every rank) concatenated along
+    `dim` in rank order."""
     import torch.distributed as dist
 
-    src = t.contiguous().cpu() if _staged(t, g) else t.contiguous()
-    parts = [torch.empty_like(src) for _ in range(_size(g))]
-    dist.all_gather(parts, src, group=g)
-    return torch.cat(parts, dim=-1).to(t.device)
+    n = _size(g)
+
+    def native(x):
+        out = x.new_empty((n, *x.shape))
+        dist.all_gather(list(out.unbind(0)), x, group=g)
+        return out
+
+    parts = _run(t.contiguous(), g, lambda card, x: card.all_gather(x.reshape(-1)).view(n, *x.shape), native)
+    return parts.flatten(0, 1) if dim == 0 else torch.cat(parts.unbind(0), dim)
+
+
+def reduce_scatter(flat: torch.Tensor, g: Any) -> torch.Tensor:
+    """This rank's segment of the 1-D `flat` (the group's size of equal
+    segments), summed over g."""
+    import torch.distributed as dist
+
+    n = _size(g)
+
+    def native(x):
+        out = x.new_empty(x.numel() // n)
+        dist.reduce_scatter(out, list(x.chunk(n)), group=g)
+        return out
+
+    return _run(flat, g, lambda card, x: card.reduce_scatter(x), native)
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -149,7 +281,7 @@ class _GatherFromTP(torch.autograd.Function):
         import torch.distributed as dist
 
         ctx.rank, ctx.width = dist.get_rank(g), x.shape[-1]
-        return _all_gather_last(x, g)
+        return all_gather(x, g, -1)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):

@@ -88,6 +88,7 @@ def train(params, mstate, cfg, steps: int, seed: int, optimizer: str = "adamw", 
         losses.append(float(metrics["total_loss"]))
         if log is not None and (i % 25 == 0 or i == steps - 1):
             print(f"  train[{i}] loss {losses[-1]:.4f}", file=log)
+    # one process: the masters are the tree's own leaves, what the step's gather hands out
     trained = P.tree_map(lambda t: t.detach(), state["params"])
     return trained, state["model_state"], losses
 

@@ -45,8 +45,10 @@ mla_tpu_torch.train ... [--dp D] [--tp T]` (or the JAX package's
 MLA_COORDINATOR_ADDRESS / MLA_NUM_PROCESSES / MLA_PROCESS_ID). The world
 splits as JAX's mesh, fsdp = world / (dp * tp), rank (d * fsdp + f) * tp +
 t: each rank computes with its tp-local part of the decoder (JAX's
-_TP_RULES, the llama family), the master weights and optimizer state are
-sharded over fsdp, the global batch over the dp * fsdp data ranks
+_TP_RULES, the llama family); every trainable leaf (its master weight,
+gradient and optimizer state) is sharded over fsdp, and the step gathers
+the decoder layer by layer (parallel/fsdp.py, as JAX's GSPMD shardings
+do); the global batch splits over the dp * fsdp data ranks
 (training/strategy.py; the ranks of a tp group hold the same rows). As in
 scripts/train.py a step's micro-batch is per_device_batch_size x world
 rows, so a data rank collates per_device_batch_size x tp x accumulation

@@ -4,7 +4,7 @@ MFU and peak memory.
     python -m mla_tpu_torch.train_step --model mla-2b --batch 8 [--steps 5]
         [--text_len 32] [--profile] [--device cuda] [--post_franka] [--optimizer adamw|adafactor]
         [--stage S] [--use_tactile] [--num_extra_views N] [--use_generation]
-        [--gen_image] [--use_roi] [--gen_pointcloud] [--gen_tactile]
+        [--gen_image] [--use_roi] [--gen_pointcloud] [--gen_tactile] [--grad_accumulation_steps A]
 
 Counterpart of scripts/tpu_smoke.py. --model is any preset of
 conf/models.py (mla-2b, the llama rung; mla-phi, Phi-2 at full width;
@@ -15,7 +15,9 @@ Builds the model from the seeded random init on the device (`params.init`),
 then runs `--steps` steps
 of `make_train_step` on `synthetic_batch` (repeated_diffusion_steps 1, remat
 on, learning rate 1e-5; AdamW, or Adafactor with --optimizer adafactor, as
-scripts/tpu_smoke.py takes it), printing each step's loss, grad_norm and wall ms.
+scripts/tpu_smoke.py takes it; the --batch rows cut into
+--grad_accumulation_steps micro-batches), printing each step's loss,
+grad_norm and wall ms.
 Then: step ms (median of the steps after the first), tokens/s (B x S per
 step, S = text + fused + diffusion tokens), MFU (6N decoder FLOPs per token,
 training/metrics.py, over the card's dense bf16 peak: the front-ends and the
@@ -44,11 +46,13 @@ Over N processes, one per card:
         --fp32_masters --batch 2
 
 shards the state over all of them (fsdp = N / tp; training/strategy.py;
---batch rows a data rank), with --fp32_masters as the trainer holds it
-(fp32 masters, bf16 compute copies of the decoder's layer matrices);
---tp T splits the decoder over tp groups of T ranks (JAX's _TP_RULES),
-which hold the same rows; rank 0 prints the global batch's numbers and
-each rank's build peak, step peak and optimizer GiB.
+--batch rows a data rank): a rank holds its part of every trainable leaf
+and gathers the decoder layer by layer (parallel/fsdp.py), with
+--fp32_masters as the trainer holds it (fp32 masters, the decoder's layer
+matrices gathered in bf16); --tp T splits the decoder over tp groups of T
+ranks (JAX's _TP_RULES), which hold the same rows; rank 0 prints the
+global batch's numbers and each rank's build peak, step peak, optimizer
+GiB, layer-stack GiB and the most whole layers alive at once.
 
 Runs on the card unless given --device cpu. Results go to
 chiprun_out/train_step_<model>.json (with _post_franka, _adafactor,
@@ -72,6 +76,7 @@ from mla_tpu_torch.conf.models import get_model_config
 from mla_tpu_torch.diffusion import gaussian as gd
 from mla_tpu_torch.models import mla as mla_mod
 from mla_tpu_torch.models import prismatic
+from mla_tpu_torch.parallel import fsdp
 from mla_tpu_torch.parallel.mesh import distinct_cards, initialize_distributed, make_mesh
 from mla_tpu_torch.parallel.sharding import shard_batch
 from mla_tpu_torch.training import metrics, optim, strategy
@@ -113,20 +118,23 @@ def model_config(model: str, *, use_tactile: bool = False, num_extra_views: int 
 
 
 def build(model: str, batch: int, text_len: int, device, seed: int = 0, stage: str = "pretrain",
-          optimizer: str = "adamw", mesh: Any = None, fp32_masters: bool = False, **flags) -> Dict[str, Any]:
+          optimizer: str = "adamw", mesh: Any = None, fp32_masters: bool = False, accum: int = 1,
+          **flags) -> Dict[str, Any]:
     """Model, optimizer, train state, step function and batch, as
     scripts/tpu_smoke.py sets them up; `flags` are model_config's. With
     fp32_masters, the trainer's mixed precision: fp32 masters, the
-    decoder's layer matrices as bf16 compute copies. Over `mesh` the state
+    decoder's layer matrices gathered in bf16. Over `mesh` the state
     is sharded and `batch` rows a data rank (its rows of the global batch;
-    the ranks of a tp group hold the same)."""
+    the ranks of a tp group hold the same), cut into `accum`
+    micro-batches."""
     cfg = model_config(model, **flags)
     if fp32_masters:
         cfg = replace(cfg, llama=replace(cfg.llama, param_dtype=torch.float32))
     strategy.check_tp(cfg, mesh.tp if mesh is not None else 1)
     world, rank = (mesh.data_world, mesh.data_rank) if mesh is not None else (1, 0)
     params, mstate = P.init(cfg, seed=seed, device=device)
-    tcfg = strategy.TrainConfig(repeated_diffusion_steps=1, enable_gradient_checkpointing=True)
+    tcfg = strategy.TrainConfig(repeated_diffusion_steps=1, enable_gradient_checkpointing=True,
+                                grad_accumulation_steps=accum)
     opt, _, _ = optim.make_optimizer(params, learning_rate=LEARNING_RATE, num_training_steps=10, stage=stage,
                                      optimizer=optimizer)
     sched = gd.create_schedule("", diffusion_steps=100)
@@ -185,15 +193,18 @@ def profile_step(run: Dict[str, Any]) -> Dict[str, Any]:
     """Device-time split of one step (see the module docstring)."""
     cfg, st, b = run["cfg"], run["state"], run["batch"]
     gen = run["generator"]
+    gatherer = st["shards"].gatherer
 
-    def frontend():
-        prismatic.get_fused_tokens(st["params"], st["model_state"], cfg, b["images"], b.get("point_cloud"),
-                                   b.get("tactile"), b.get("gripper_xyz"), training=True)
+    def frontend():  # the weights as the step gathers them (in their compute dtype)
+        with fsdp.gathering(gatherer):
+            prismatic.get_fused_tokens(gatherer.tree(st["params"]), st["model_state"], cfg, b["images"],
+                                       b.get("point_cloud"), b.get("tactile"), b.get("gripper_xyz"), training=True)
 
     def forward():
-        mla_mod.mla_train_loss(st["params"], st["model_state"], cfg, run["sched"], b, gen,
-                               repeated_diffusion_steps=run["tcfg"].repeated_diffusion_steps,
-                               remat=run["tcfg"].enable_gradient_checkpointing)
+        with fsdp.gathering(gatherer):
+            mla_mod.mla_train_loss(gatherer.tree(st["params"]), st["model_state"], cfg, run["sched"], b, gen,
+                                   repeated_diffusion_steps=run["tcfg"].repeated_diffusion_steps,
+                                   remat=run["tcfg"].enable_gradient_checkpointing)
 
     def step():
         run["state"], _ = run["step"](run["state"], b, gen)
@@ -218,7 +229,9 @@ def profile_step(run: Dict[str, Any]) -> Dict[str, Any]:
 def heads_step(run: Dict[str, Any]) -> Callable[[], None]:
     """The generation heads' forward, losses and backward alone, on the
     hidden states and image tokens of the step's batch (computed once,
-    outside what the returned function runs)."""
+    outside what the returned function runs). One process (--profile):
+    the heads are the state's own fp32 leaves, as the step's gather hands
+    them out."""
     cfg, st = run["cfg"], run["state"]
     b = mla_mod._tile_batch(run["batch"], run["tcfg"].repeated_diffusion_steps)
     future = b["actions"][:, -cfg.action_horizon :].float()
@@ -248,9 +261,10 @@ def main() -> None:
     ap.add_argument("--post_franka", action="store_true", help="the stage flags of scripts/post_franka.sh")
     ap.add_argument("--stage", default="pretrain", choices=sorted(optim.STAGE_FROZEN_MODULES))
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "adafactor"])
-    ap.add_argument("--fp32_masters", action="store_true", help="the trainer's fp32 masters and bf16 compute copies")
+    ap.add_argument("--fp32_masters", action="store_true", help="the trainer's fp32 masters, bf16 layer matrices")
     ap.add_argument("--num_extra_views", type=int, default=0)
     ap.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh axis under torchrun")
+    ap.add_argument("--grad_accumulation_steps", type=int, default=1, help="micro-batches of the --batch rows")
     for flag in ("use_tactile", "use_generation", "gen_image", "use_roi", "gen_pointcloud", "gen_tactile"):
         ap.add_argument(f"--{flag}", action="store_true")
     args = ap.parse_args()
@@ -279,7 +293,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     run = build(args.model, args.batch, args.text_len, device, optimizer=args.optimizer, mesh=mesh,
-                fp32_masters=args.fp32_masters, **flags)
+                fp32_masters=args.fp32_masters, accum=args.grad_accumulation_steps, **flags)
     _sync(device)
     build_peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
     if on_card:
@@ -290,6 +304,7 @@ def main() -> None:
         + (f" over {world} processes, mesh dp {mesh.dp} x fsdp {mesh.fsdp} x tp {mesh.tp}" if mesh is not None
            else ""))
     times = []
+    fsdp.reset_counts()
     for i in range(args.steps):
         _sync(device)
         t = time.perf_counter()
@@ -307,6 +322,7 @@ def main() -> None:
     result: Dict[str, Any] = {
         "model": args.model, "num_layers": layers, "batch": args.batch, "text_len": args.text_len, "flags": flags,
         "optimizer": args.optimizer, "fp32_masters": args.fp32_masters, "world": world,
+        "grad_accumulation_steps": args.grad_accumulation_steps,
         "mesh": ({"dp": mesh.dp, "fsdp": mesh.fsdp, **({"tp": mesh.tp} if mesh.tp > 1 else {})}
                  if mesh is not None else None), "cards": cards,
         "tokens_per_step": run["tokens_per_step"], "step_ms": times, "step_ms_median": step_ms,
@@ -323,8 +339,10 @@ def main() -> None:
     # per rank: the build's and the steps' peaks and the optimizer's bytes
     # (master parts and moments)
     held = run["state"]["shards"].optimizer_bytes()["held"] / 2**30
+    stack = run["state"]["shards"].layer_bytes(run["state"]["params"])
     per_rank = {"build_peak_gib": build_peak, "step_peak_gib": torch.cuda.max_memory_allocated() / 2**30
-                if on_card else None, "optimizer_gib": held}
+                if on_card else None, "optimizer_gib": held, "layer_stack_gib": stack["held"] / 2**30,
+                "whole_stack_gib": stack["stack"] / 2**30, "max_live_layers": fsdp.counts["max_live_layers"]}
     if mesh is not None:
         import torch.distributed as dist
 
@@ -354,6 +372,7 @@ def main() -> None:
     tag = ("_post_franka" if args.post_franka else "") + ("_adafactor" if args.optimizer == "adafactor" else "")
     tag += ("_fp32_masters" if args.fp32_masters else "") + (f"_w{world}" if mesh is not None else "")
     tag += f"_tp{mesh.tp}" if mesh is not None and mesh.tp > 1 else ""
+    tag += f"_acc{args.grad_accumulation_steps}" if args.grad_accumulation_steps > 1 else ""
     (out / f"train_step_{args.model}{tag}.json").write_text(json.dumps(result, indent=1))
 
 

@@ -7,46 +7,53 @@ state out over the mesh (parallel/mesh.py; JAX's init_train_state and
 shard_train_state, `use_tp` on when the mesh has a tp axis);
 `make_train_step` returns train_step(state, batch) -> (state, metrics).
 
-Each rank keeps its compute parameters whole over fsdp: its tp-local tree
-(params.tp_local: JAX's `_TP_RULES` split q/k/v/gate/up on the output
-dim, o/down on the input dim, the embedding and the lm_head on the
-vocabulary; the whole tree at tp 1), the decoder's layer matrices in the
-decoder's compute dtype (bf16) where the tree holds fp32 masters and the
-caller asks for it, every other leaf as the tree holds it. The master
-weights, the optimizer state and the reduced gradients are sharded over
-the fsdp group (parallel/sharding.py): a rank's master part is its fsdp
-slice of its tp slice. A step runs this rank's rows of each global
-micro-batch (sharding.shard_batch by the data rank: the ranks of a tp
-group hold the same rows and draw the same noise, t, FPS starts and
-heads' dropout) with the global-batch reductions over the data group
-(parallel/collectives.py) and the decoder's tp operations over the tp
-group (parallel/tensor.py). With grad_accumulation_steps > 1 the rows are
-cut into that many micro-batches along dim 0; their gradients are summed
-in fp32 (in .grad itself for fp32 leaves, in an fp32 buffer for the
-others), their losses averaged, and the point tokenizer's batch-norm
-state threads from one micro-batch to the next, as the JAX lax.scan
-carry does. The gradients are then all-reduced over the data group in
-fp32 buckets and divided by data world x accumulation (an all-reduce,
-then each rank keeps its slice: one collective whatever the cut dim). A
-leaf the tp ranks hold whole already has its whole gradient on each of
-them (copy_to_tp's backward all-reduced the gradients entering the
+A rank holds every trainable leaf only in part, as GSPMD holds JAX's
+fsdp-sharded leaves: its fsdp slice (parallel/sharding.plan), or the whole
+leaf on its owner, of its tp slice (params.tp_local: JAX's `_TP_RULES`
+split q/k/v/gate/up on the output dim, o/down on the input dim, the
+embedding and the lm_head on the vocabulary; the whole leaf at tp 1). That
+part is the master weight the optimizer steps and what state['params']
+holds (an empty placeholder on the ranks that hold none of a leaf; the
+frozen leaves whole). The step builds the compute tensors from the parts
+(parallel/fsdp.py): the decoder's layers one at a time inside the layer
+loop (llama.run_layers; under remat the backward gathers each again), the
+other trainable leaves whole once per micro-batch; the decoder's layer
+matrices in the decoder's compute dtype (bf16) where the caller asks for
+it, every other leaf in its master's dtype. Each gather's backward
+reduce-scatters the fp32 gradients back to the parts, into one
+accumulator a part (the master's .grad for an fp32 master), where the
+micro-batches' gradients sum: no whole weight or gradient of a leaf
+outlives its use.
+
+A step runs this rank's rows of each global micro-batch
+(sharding.shard_batch by the data rank: the ranks of a tp group hold the
+same rows and draw the same noise, t, FPS starts and heads' dropout) with
+the global-batch reductions over the data group (parallel/collectives.py)
+and the decoder's tp operations over the tp group (parallel/tensor.py).
+With grad_accumulation_steps > 1 the rows are cut into that many
+micro-batches along dim 0, their losses averaged, and the point
+tokenizer's batch-norm state threads from one micro-batch to the next, as
+the JAX lax.scan carry does. The reduce-scatters sum over the fsdp group;
+the dp replicas of a part are then summed over the replica group (in fp32
+buckets) and the sum divided by data world x accumulation. A leaf the tp
+ranks hold whole already has its whole gradient on each of them
+(copy_to_tp's backward all-reduced the gradients entering the
 column-parallel products), so it is not summed over tp again. The step
 takes the global norm of the sharded gradients (a tp-split leaf's squares
-summed over the tp group, a whole one's counted once), steps only its own
-masters (Adafactor's statistics across a tp-split leaf, optim.py), and
-re-assembles the compute parameters on every rank (all-gather of the
-fsdp slices, broadcast of the leaves owned whole, in buckets). The layer
-loop (llama.run_layers) is untouched: with remat each layer's forward
-runs again in the backward, its row-parallel all-reduces included, in
-the same order on every rank of the tp group, as Megatron's does. On one
-process there is no collective: the masters are the tree's own leaves and
-the optimizer the caller's.
+summed over the tp group, a whole one's counted once) and steps only its
+own masters (Adafactor's statistics across a tp-split leaf, optim.py); the
+next gather reads the updated parts. With remat each layer's forward runs
+again in the backward, its gather and row-parallel all-reduces included,
+in the same order on every rank. On one process, and at fsdp 1, the
+gathers are the identity: the masters are the tree's own leaves and (on
+one process) the optimizer the caller's.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,10 +62,11 @@ from mla_tpu_torch.diffusion import gaussian as gd
 from mla_tpu_torch.models import mla as mla_mod
 from mla_tpu_torch.models import prismatic
 from mla_tpu_torch.parallel import collectives
+from mla_tpu_torch.parallel import fsdp
 from mla_tpu_torch.parallel import mesh as mesh_mod
 from mla_tpu_torch.parallel import sharding as shard_mod
 from mla_tpu_torch.parallel import tensor as tp_mod
-from mla_tpu_torch.params import tp_local, tree_items, tree_leaves, tree_map
+from mla_tpu_torch.params import tp_local, tree_items, tree_map
 from mla_tpu_torch.training import optim as optim_mod
 from mla_tpu_torch.training.optim import Optimizer
 from mla_tpu_torch.utils.tree import map_with_path
@@ -138,16 +146,17 @@ def init_train_state(params: Any, optimizer: Optimizer, model_state: Any, use_em
     """The train state of `params` (the whole tree of leaf tensors),
     `optimizer` (optim.make_optimizer's over them, not yet stepped) and the
     model state, laid out over `mesh` (one process and no group when None).
-    Under a tp axis the compute tree is this rank's tp-local tree
-    (params.tp_local; the caller frees the whole one). Each trainable
-    leaf's master part on this rank (sharding.plan over the fsdp group on
-    the tp-local shapes; the tp dim and Adafactor's factored dims of the
-    whole leaf kept whole): on one process the tree's own leaf, else a
-    copy of this rank's slice of its tp slice, or of the whole tp slice on
-    its owner; the optimizer over those parts (`optimizer` itself on one
-    process); state['params'] the compute tensors (the decoder's layer
-    matrices in `compute_dtype` when given, else the masters themselves);
-    EMA parts with use_ema."""
+    Under a tp axis a rank keeps its tp-local tree (params.tp_local; the
+    caller frees the whole one). Each trainable leaf's master part on this
+    rank (sharding.plan over the fsdp group on the tp-local shapes; the tp
+    dim and Adafactor's factored dims of the whole leaf kept whole): at
+    fsdp 1 the tree's own leaf, else a copy of this rank's slice of its tp
+    slice, or of the whole tp slice on its owner; the optimizer over those
+    parts (`optimizer` itself on one process); state['params'] the tree the
+    step consumes: the master parts (an empty placeholder where another
+    rank owns a leaf) and the frozen leaves. The step gathers the
+    decoder's layer matrices in `compute_dtype` when given, every other
+    leaf in its master's dtype. EMA parts with use_ema."""
     mesh = mesh if mesh is not None else mesh_mod.Mesh(1, 1, 1, rank=0)
     if any(optimizer.state_dict()["leaves"].values()):
         raise ValueError("init_train_state takes a fresh optimizer; load a checkpoint into the state instead")
@@ -181,22 +190,17 @@ def init_train_state(params: Any, optimizer: Optimizer, model_state: Any, use_em
     if fs > 1 or mesh.tp > 1:
         optimizer = optimizer.over([masters[p] for p in optimizer.paths], mesh.fsdp_group,
                                    mesh.tp_group, [tp_dims[p] for p in optimizer.paths])
-    compute: Dict[str, torch.Tensor] = {}
-
-    def swap(path, leaf):
-        if path not in whole:
-            return leaf
-        dt = _compute_copy_dtype(path, leaf, compute_dtype)
-        compute[path] = leaf.detach().to(dt).requires_grad_(True) if dt != leaf.dtype else leaf
-        return compute[path]
-
+    held = {p: masters[p] if masters[p] is not None else local[p].new_empty(0) for p in paths}
     ema = frozen_ema = None
     if use_ema:
         ema = [part(p) for p in paths]
         frozen_ema = {p: t.detach().clone() for p, t in local.items() if p not in whole}
-    tree = map_with_path(swap, params)
-    shards = ShardedState(mesh, paths, specs, [compute[p] for p in paths], [masters[p] for p in paths], optimizer,
-                          ema, frozen_ema, tp_dims, split, {p: tuple(whole[p].shape) for p in paths})
+    leaves = [fsdp.Leaf(p, specs[p], tuple(local[p].shape), _compute_copy_dtype(p, local[p], compute_dtype),
+                        masters[p], held[p], k) for k, p in enumerate(paths)]
+    device = next(iter(local.values())).device if local else torch.device("cpu")
+    tree = map_with_path(lambda path, leaf: held.get(path, leaf), params)
+    shards = ShardedState(mesh, leaves, optimizer, ema, frozen_ema, tp_dims, split,
+                          {p: tuple(whole[p].shape) for p in paths}, device)
     return {"params": tree, "optimizer": optimizer, "model_state": model_state, "step": 0, "shards": shards}
 
 
@@ -222,22 +226,17 @@ def make_train_step(cfg: prismatic.MLAModelConfig, train_cfg: TrainConfig, sched
         sh: ShardedState = state["shards"]
         mesh = sh.mesh
         world, rank = mesh.data_world, mesh.data_rank
-        leaves = sh.compute
-        dev = leaves[0].device
+        dev = sh.device
         batch = as_tensors(batch, dev)
         global_rows = batch["input_ids"].shape[0] // accum * world
         fwd_gen = generator
         if generator is not None and rank != 0:
             fwd_gen = torch.Generator(device=generator.device).manual_seed(
                 (generator.initial_seed() + 0x9E3779B97F4A7C15 * rank) % (1 << 63))
-        for p in leaves:
-            p.grad = None
-        # fp32 leaves sum their micro-batch gradients in .grad (backward adds
-        # into it); the others in an fp32 buffer
-        acc = ([None if p.dtype == torch.float32 else torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                for p in leaves] if accum > 1 else None)
+        sh.zero_accumulators(sums=accum > 1 or world > 1)
         mstate, loss_sum = state["model_state"], None
-        with collectives.batch_group(mesh.data_group), tp_mod.tp_group(mesh.tp_group, sh.tp_split):
+        with collectives.batch_group(mesh.data_group), tp_mod.tp_group(mesh.tp_group, sh.tp_split), \
+                fsdp.gathering(sh.gatherer):
             for i in range(accum):
                 if draws is not None:
                     overrides = shard_mod.shard_batch(draws[i], rank, world, 1, rep)
@@ -248,7 +247,8 @@ def make_train_step(cfg: prismatic.MLAModelConfig, train_cfg: TrainConfig, sched
                 else:
                     overrides = {}
                 total, (loss_dict, mstate) = mla_mod.mla_train_loss(
-                    state["params"], mstate, cfg, sched, _micro(batch, accum, i) if accum > 1 else batch, fwd_gen,
+                    sh.gatherer.tree(state["params"]), mstate, cfg, sched,
+                    _micro(batch, accum, i) if accum > 1 else batch, fwd_gen,
                     repeated_diffusion_steps=train_cfg.repeated_diffusion_steps,
                     remat=train_cfg.enable_gradient_checkpointing, **overrides,
                 )
@@ -260,13 +260,8 @@ def make_train_step(cfg: prismatic.MLAModelConfig, train_cfg: TrainConfig, sched
                     _sync_generator(generator, mesh)
                 loss_dict = {k: v.detach() for k, v in loss_dict.items()}
                 loss_sum = loss_dict if loss_sum is None else {k: loss_sum[k] + v for k, v in loss_dict.items()}
-                if acc is not None:
-                    for a, p in zip(acc, leaves):
-                        if a is not None and p.grad is not None:
-                            a += p.grad.float()
-                            p.grad = None
-        sh.reduce_gradients(acc, world * accum)
-        del acc
+                del total
+        sh.reduce_gradients(world * accum)
         keys = sorted(loss_sum)
         losses = torch.stack([loss_sum[k] for k in keys])
         if mesh.data_group is not None:
@@ -276,7 +271,6 @@ def make_train_step(cfg: prismatic.MLAModelConfig, train_cfg: TrainConfig, sched
         metrics["grad_norm"] = opt.global_norm()
         opt.step(metrics["grad_norm"])
         opt.zero_grad()
-        sh.assemble()
         if sh.ema is not None:
             d = train_cfg.ema_decay
             with torch.no_grad():
@@ -294,13 +288,17 @@ def make_train_step(cfg: prismatic.MLAModelConfig, train_cfg: TrainConfig, sched
 def make_visualize_step(cfg: prismatic.MLAModelConfig, sched: gd.Schedule) -> Callable:
     """viz_step(state, batch, generator) -> the generation heads' outputs:
     the training forward (noise, t and the FPS starts drawn from
-    `generator`, remat off) without gradients, for the trainer's
-    visualization cadence (JAX make_visualize_step)."""
+    `generator`, remat off; the weights gathered as the step gathers them)
+    without gradients, for the trainer's visualization cadence (JAX
+    make_visualize_step)."""
 
     @torch.no_grad()
     def viz_step(state: Dict[str, Any], batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
-        params = state["params"]
-        b = as_tensors(batch, tree_leaves(params)[0].device)
+        sh: ShardedState = state["shards"]
+        with tp_mod.tp_group(sh.mesh.tp_group, sh.tp_split), fsdp.gathering(sh.gatherer):
+            return _viz(sh.gatherer.tree(state["params"]), state, as_tensors(batch, sh.device), generator)
+
+    def _viz(params, state, b, generator):
         rows = b["input_ids"].shape[0]
         if cfg.use_diff:
             future = b["actions"][:, -cfg.action_horizon :, :].float()
@@ -321,139 +319,111 @@ def make_visualize_step(cfg: prismatic.MLAModelConfig, sched: gd.Schedule) -> Ca
 # the sharded state
 # --------------------------------------------------------------------------- #
 
-BUCKET_ELEMS = 1 << 25  # elements per gradient all-reduce (128 MiB of fp32) and per re-assembly gather
-
-
-def _buckets(ks: List[int], numel: Callable[[int], int]) -> Iterator[List[int]]:
-    """Consecutive runs of ks of at most BUCKET_ELEMS elements together (a
-    larger leaf alone)."""
-    run: List[int] = []
-    elems = 0
-    for k in ks:
-        if run and elems + numel(k) > BUCKET_ELEMS:
-            yield run
-            run, elems = [], 0
-        run.append(k)
-        elems += numel(k)
-    if run:
-        yield run
-
-
 def _compute_copy_dtype(path: str, leaf: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.dtype:
-    """The dtype a rank keeps the whole leaf in: the decoder's compute dtype
+    """The dtype the gather hands a leaf out in: the decoder's compute dtype
     for its layer matrices (every use casts them to it first), else the
     leaf's own."""
-    if (compute_dtype is not None and path.startswith("llm_backbone/layers/") and path.endswith("/w")
+    if (compute_dtype is not None and path.startswith(fsdp.LAYERS) and path.endswith("/w")
             and leaf.is_floating_point()):
         return compute_dtype
     return leaf.dtype
 
 
 class ShardedState:
-    """The sharded half of a train state over a mesh: per trainable leaf
-    (in the optimizer's order) its path, Spec, compute tensor (in
-    state['params']; tp-local) and this rank's master part (None where
-    another rank owns the leaf); the optimizer over the master parts; EMA
-    parts; per leaf of the tree its tp split dim (sharding.tp_split_dims,
-    None: held whole), the TP_RULES keys the ranks hold in part and the
-    trainable leaves' whole shapes."""
+    """The sharded half of a train state over a mesh: the gatherer that
+    builds the compute tensors from this rank's master parts
+    (parallel/fsdp.py), whose leaves (in the optimizer's order) are the one
+    record of each trainable leaf's path, Spec, tp-local whole shape and
+    master part (None where another rank owns the leaf); the optimizer over
+    the master parts; EMA parts; per leaf of the tree its tp split dim
+    (sharding.tp_split_dims, None: held whole), the TP_RULES keys the ranks
+    hold in part and the trainable leaves' whole shapes."""
 
-    def __init__(self, mesh: Any, paths: List[str], specs: Dict[str, shard_mod.Spec], compute: List[torch.Tensor],
-                 masters: List[Optional[torch.Tensor]], optimizer: Optimizer,
+    def __init__(self, mesh: Any, leaves: List[fsdp.Leaf], optimizer: Optimizer,
                  ema: Optional[List[Optional[torch.Tensor]]], frozen_ema: Optional[Dict[str, torch.Tensor]],
-                 tp_dims: Dict[str, Optional[int]], tp_split: frozenset, whole_shapes: Dict[str, Tuple[int, ...]]):
-        self.mesh, self.paths, self.specs = mesh, paths, specs
-        self.compute, self.masters, self.optimizer = compute, masters, optimizer
+                 tp_dims: Dict[str, Optional[int]], tp_split: frozenset, whole_shapes: Dict[str, Tuple[int, ...]],
+                 device: torch.device):
+        self.mesh, self.optimizer = mesh, optimizer
         self.ema, self.frozen_ema = ema, frozen_ema
-        self.shapes = [tuple(c.shape) for c in compute]
         self.tp_dims, self.tp_split, self.whole_shapes = tp_dims, tp_split, whole_shapes
-        self.device = compute[0].device if compute else torch.device("cpu")
+        self.device = device
+        self.gatherer = fsdp.Gatherer(leaves, mesh.fsdp_group, mesh.fsdp_rank, mesh.fsdp, device)
 
-    # -- collectives ---------------------------------------------------------
+    @property
+    def leaves(self) -> List[fsdp.Leaf]:
+        return self.gatherer.leaves
+
+    @property
+    def paths(self) -> List[str]:
+        return [leaf.path for leaf in self.leaves]
+
+    @property
+    def shapes(self) -> List[Tuple[int, ...]]:
+        return [leaf.shape for leaf in self.leaves]
+
+    @property
+    def masters(self) -> List[Optional[torch.Tensor]]:
+        return [leaf.part for leaf in self.leaves]
+
+    @property
+    def specs(self) -> Dict[str, shard_mod.Spec]:
+        return {leaf.path: leaf.spec for leaf in self.leaves}
+
+    # -- gradients -----------------------------------------------------------
+    def zero_accumulators(self, sums: bool) -> None:
+        """A zero accumulator for each master part this rank holds: fp32,
+        or the master's own dtype where nothing is summed (one micro-batch
+        on one data rank) and the gather hands the leaf out in it."""
+        self.gatherer.acc = [
+            None if leaf.part is None else torch.zeros(
+                leaf.part.shape, dtype=leaf.part.dtype if not sums and leaf.part.dtype == leaf.dtype else torch.float32,
+                device=leaf.part.device)
+            for leaf in self.leaves]
+
+    def reduce_gradients(self, divisor: int) -> None:
+        """Sum the accumulators (the step's reduce-scattered gradients) over
+        the replica group in fp32 buckets, divide them by `divisor` and hand
+        each master its own as .grad (in the master's dtype)."""
+        acc, self.gatherer.acc = self.gatherer.acc, [None] * len(self.leaves)
+        held = [k for k, a in enumerate(acc) if a is not None]
+        if self.mesh.replica_group is not None:
+            for run in fsdp.buckets(held, lambda k: acc[k].numel()):
+                flat = tp_mod.all_reduce(torch.cat([acc[k].reshape(-1) for k in run]), self.mesh.replica_group)
+                off = 0
+                for k in run:
+                    acc[k].copy_(flat[off : off + acc[k].numel()].view(acc[k].shape))
+                    off += acc[k].numel()
+        for k in held:
+            m = self.leaves[k].part
+            m.grad = acc[k].div_(divisor).to(m.dtype)
+
     def _fsdp(self) -> bool:
         return self.mesh.fsdp > 1
 
-    def reduce_gradients(self, acc: Optional[List[Optional[torch.Tensor]]], divisor: int) -> None:
-        """Sum this rank's gradients (acc[k] where the step accumulated in a
-        buffer, else the compute leaf's .grad) over the data group in fp32
-        buckets, divide, and hand each master part its slice (in the
-        master's dtype). Each gradient is copied into its bucket and freed
-        (its .grad and its buffer) as the bucket fills: no whole fp32
-        gradient beyond the buffers and one bucket exists."""
-        import torch.distributed as dist
-
-        dev = self.compute[0].device
-        for run in _buckets(list(range(len(self.paths))), lambda k: self.compute[k].numel()):
-            flat = torch.empty(sum(self.compute[k].numel() for k in run), dtype=torch.float32, device=dev)
-            off = 0
-            for k in run:
-                c = self.compute[k]
-                src = acc[k] if acc is not None and acc[k] is not None else c.grad
-                view = flat[off : off + c.numel()]
-                if src is None:
-                    view.zero_()
-                else:
-                    view.copy_(src.reshape(-1))
-                c.grad = None
-                if acc is not None:
-                    acc[k] = None
-                off += c.numel()
-            if self.mesh.data_group is not None:
-                dist.all_reduce(flat, group=self.mesh.data_group)
-            flat.div_(divisor)
-            off = 0
-            for k in run:
-                size = self.compute[k].numel()
-                if self.masters[k] is not None:
-                    g = flat[off : off + size].view(self.shapes[k])
-                    part = shard_mod.local_part(g, self.specs[self.paths[k]], self.mesh.fsdp_rank, self.mesh.fsdp)
-                    self.masters[k].grad = part.to(self.masters[k].dtype).contiguous()
-                off += size
-
-    def assemble(self) -> None:
-        """Copy the updated masters into every rank's compute tensors (whole
-        over fsdp, tp-local):
-        slices are all-gathered, owned leaves broadcast by their owner,
-        packed per dtype (and owner) in buckets of BUCKET_ELEMS."""
-        import torch.distributed as dist
-
-        with torch.no_grad():
-            if not self._fsdp():
-                for c, m in zip(self.compute, self.masters):
-                    if c is not m:
-                        c.copy_(m)
-                return
-            fs = self.mesh.fsdp
-            cut = [k for k, p in enumerate(self.paths) if self.specs[p].dim is not None]
-            for dt in sorted({self.compute[k].dtype for k in cut}, key=str):
-                for ks in _buckets([k for k in cut if self.compute[k].dtype == dt], lambda k: self.compute[k].numel()):
-                    dims = [self.specs[self.paths[k]].dim for k in ks]
-                    mine = torch.cat([self.masters[k].to(dt).movedim(d, 0).reshape(-1) for k, d in zip(ks, dims)])
-                    parts = [torch.empty_like(mine) for _ in range(fs)]
-                    dist.all_gather(parts, mine, group=self.mesh.fsdp_group)
-                    off = 0
-                    for k, d in zip(ks, dims):
-                        moved = self.compute[k].movedim(d, 0)
-                        size = moved.numel() // fs
-                        shape = (moved.shape[0] // fs,) + tuple(moved.shape[1:])
-                        self.compute[k].copy_(torch.cat([p[off : off + size].view(shape) for p in parts], 0).movedim(0, d))
-                        off += size
-            owned = [k for k, p in enumerate(self.paths) if self.specs[p].dim is None]
-            for owner in range(fs):
-                for dt in sorted({self.compute[k].dtype for k in owned}, key=str):
-                    mine = [k for k in owned if self.specs[self.paths[k]].owner == owner and self.compute[k].dtype == dt]
-                    for ks in _buckets(mine, lambda k: self.compute[k].numel()):
-                        if owner == self.mesh.fsdp_rank:
-                            flat = torch.cat([self.masters[k].to(dt).reshape(-1) for k in ks])
-                        else:
-                            flat = torch.empty(sum(self.compute[k].numel() for k in ks), dtype=dt,
-                                               device=self.compute[ks[0]].device)
-                        dist.broadcast(flat, src=self.mesh.fsdp_peer(owner), group=self.mesh.fsdp_group)
-                        off = 0
-                        for k in ks:
-                            c = self.compute[k]
-                            c.copy_(flat[off : off + c.numel()].view(c.shape))
-                            off += c.numel()
+    def layer_bytes(self, params: Any) -> Dict[str, Any]:
+        """The decoder's layer stack (fsdp.LAYERS) on this rank: 'held',
+        the bytes of the tensors state['params'] keeps for it (each storage
+        once); 'stack', the whole stack's (tp-local, in the masters'
+        dtypes); 'unit', the largest stacked leaf that one rank owns whole;
+        'whole_copies', the cut leaves this rank holds a whole copy of."""
+        held, seen = 0, set()
+        for path, t in tree_items(params):
+            if path.startswith(fsdp.LAYERS) and t.numel() and t.untyped_storage().data_ptr() not in seen:
+                seen.add(t.untyped_storage().data_ptr())
+                held += t.untyped_storage().nbytes()
+        trained = {leaf.path: leaf for leaf in self.leaves}
+        stack, unit, copies = 0, 0, []
+        for path, t in tree_items(params):
+            if not path.startswith(fsdp.LAYERS):
+                continue
+            leaf = trained.get(path)
+            nbytes = (math.prod(leaf.shape) if leaf is not None else t.numel()) * t.element_size()
+            stack += nbytes
+            if leaf is not None and leaf.spec.dim is None:
+                unit = max(unit, nbytes)
+            if leaf is not None and leaf.spec.dim is not None and tuple(t.shape) == leaf.shape:
+                copies.append(path)
+        return {"held": held, "stack": stack, "unit": unit, "whole_copies": copies}
 
     def _fsdp_whole(self, k: int, t: Any, dim: Optional[int]) -> Any:
         """Leaf k's tensor whole over the fsdp group, on every rank of it:
@@ -462,7 +432,7 @@ class ShardedState:
         tensors; None elsewhere), broadcast to host memory."""
         import torch.distributed as dist
 
-        spec = self.specs[self.paths[k]]
+        spec = self.leaves[k].spec
         if not self._fsdp():
             return t
         if spec.dim is None:
@@ -472,13 +442,13 @@ class ShardedState:
             return obj[0]
         if dim is None:
             return t
-        return _all_gather_cat(t, self.mesh.fsdp_group, dim, self.device)
+        return tp_mod.all_gather(t.detach(), self.mesh.fsdp_group, dim)
 
     def _tp_whole(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
         """t whole over the tp group, cut along `dim` (None: held whole)."""
         if dim is None or self.mesh.tp == 1:
             return t
-        return _all_gather_cat(t, self.mesh.tp_group, dim, self.device)
+        return tp_mod.all_gather(t.detach(), self.mesh.tp_group, dim)
 
     def _host0(self, t: torch.Tensor) -> Optional[torch.Tensor]:
         return t.detach().to("cpu", copy=True) if self.mesh.rank == 0 else None
@@ -487,8 +457,8 @@ class ShardedState:
         """Where leaf k's fsdp cut and tp split lie in its optimizer state
         tensor `name` (None: not cut; a factored statistic that reduces over
         the tp-split dim is the same on every tp rank)."""
-        path = self.paths[k]
-        d, td = self.specs[path].dim, self.tp_dims[path]
+        path = self.leaves[k].path
+        d, td = self.leaves[k].spec.dim, self.tp_dims[path]
         shape = self.whole_shapes[path]
         if t.dim() == 0:
             return None, None
@@ -510,14 +480,15 @@ class ShardedState:
         state_dict of whole leaves, EMA."""
         trained = set(self.paths)
         whole = {}
-        for k, path in enumerate(self.paths):
-            m = self._fsdp_whole(k, self.masters[k], self.specs[path].dim)
-            whole[path] = self._host0(self._tp_whole(m, self.tp_dims[path]))
+        for k, leaf in enumerate(self.leaves):
+            m = self._fsdp_whole(k, leaf.part, leaf.spec.dim)
+            whole[leaf.path] = self._host0(self._tp_whole(m, self.tp_dims[leaf.path]))
         opt = self.optimizer.state_dict()
         leaves = {}
-        for k, path in enumerate(self.paths):
-            mine = opt["leaves"].get(path, {}) if self.masters[k] is not None else None
-            if self.specs[path].dim is None:
+        for k, leaf in enumerate(self.leaves):
+            path = leaf.path
+            mine = opt["leaves"].get(path, {}) if leaf.part is not None else None
+            if leaf.spec.dim is None:
                 st = self._fsdp_whole(k, mine, None)
             else:
                 st = {name: self._fsdp_whole(k, v, self._state_dims(k, name, v)[0]) for name, v in sorted(mine.items())}
@@ -527,8 +498,9 @@ class ShardedState:
                   for path, t in tree_items(train_state["params"]) if path not in trained}
         ema = None
         if self.ema is not None:
-            ema = {path: self._host0(self._tp_whole(self._fsdp_whole(k, self.ema[k], self.specs[path].dim),
-                                                    self.tp_dims[path])) for k, path in enumerate(self.paths)}
+            ema = {leaf.path: self._host0(self._tp_whole(self._fsdp_whole(k, self.ema[k], leaf.spec.dim),
+                                                         self.tp_dims[leaf.path]))
+                   for k, leaf in enumerate(self.leaves)}
             ema.update({path: self._host0(self._tp_whole(t, self.tp_dims[path]))
                         for path, t in self.frozen_ema.items()})
         if self.mesh.rank != 0:
@@ -546,30 +518,33 @@ class ShardedState:
 
     def load(self, blob: Dict[str, Any], train_state: Dict[str, Any]) -> None:
         """Copy a one-device checkpoint blob (whole leaves, any mesh's save)
-        into this rank's compute tensors, master parts, optimizer state and
+        into this rank's frozen leaves, master parts, optimizer state and
         EMA: cut by this mesh's tp rule, then by its fsdp plan."""
         saved = dict(tree_items(blob["params"]))
-        live = dict(tree_items(train_state["params"]))
+        trained = {leaf.path: leaf for leaf in self.leaves}
         T, tr = self.mesh.tp, self.mesh.tp_rank
+        fr, fs = self.mesh.fsdp_rank, self.mesh.fsdp
 
         def tp_cut(path: str, t: torch.Tensor, dim: Optional[int] = -1) -> torch.Tensor:
             return shard_mod.tp_part(t, self.tp_dims[path] if dim == -1 else dim, tr, T)
 
         with torch.no_grad():
-            for path, t in live.items():
+            for path, t in tree_items(train_state["params"]):
                 s = tp_cut(path, saved[path])
-                if tuple(s.shape) != tuple(t.shape):
-                    raise ValueError(f"params/{path}: checkpoint {tuple(s.shape)} (this rank's part), live "
-                                     f"{tuple(t.shape)}")
-                t.copy_(s)
-            fr, fs = self.mesh.fsdp_rank, self.mesh.fsdp
+                if path in trained:  # the tree holds this rank's part (an empty placeholder: none)
+                    s = shard_mod.local_part(s, trained[path].spec, fr, fs)
+                shape = tuple(s.shape) if s is not None else (0,)
+                if shape != tuple(t.shape):
+                    raise ValueError(f"params/{path}: checkpoint {shape} (this rank's part), live {tuple(t.shape)}")
+                if path not in trained:
+                    t.copy_(s)
             held = {}
             ema_saved = dict(tree_items(blob["ema_params"])) if "ema_params" in blob else {}
-            for k, path in enumerate(self.paths):
-                if self.masters[k] is None:
+            for k, leaf in enumerate(self.leaves):
+                if leaf.part is None:
                     continue
-                spec = self.specs[path]
-                self.masters[k].copy_(shard_mod.local_part(tp_cut(path, saved[path]), spec, fr, fs))
+                path, spec = leaf.path, leaf.spec
+                leaf.part.copy_(shard_mod.local_part(tp_cut(path, saved[path]), spec, fr, fs))
                 held[path] = {}
                 for name, v in blob["opt_state"]["leaves"][path].items():
                     fd, td = self._state_dims(k, name, v)
@@ -587,28 +562,16 @@ class ShardedState:
         largest leaf it holds whole ('unit': masters + state)."""
         state = self.optimizer.state_dict()["leaves"]
         held, unit = 0, 0
-        for k, path in enumerate(self.paths):
-            m = self.masters[k]
+        for leaf in self.leaves:
+            m = leaf.part
             if m is None:
                 continue
-            b = m.numel() * m.element_size() + sum(v.numel() * v.element_size() for v in state.get(path, {}).values())
+            b = m.numel() * m.element_size() + sum(v.numel() * v.element_size()
+                                                   for v in state.get(leaf.path, {}).values())
             held += b
-            if self.specs[path].dim is None:
+            if leaf.spec.dim is None:
                 unit = max(unit, b)
         return {"held": held, "unit": unit}
-
-
-def _all_gather_cat(t: torch.Tensor, group: Any, dim: int, device: torch.device) -> torch.Tensor:
-    """The group's pieces of a tensor concatenated along `dim`, on every
-    rank: through host memory over gloo (which gathers no CUDA tensor), on
-    `device` over NCCL."""
-    import torch.distributed as dist
-
-    src = t.detach().contiguous()
-    src = src.cpu() if dist.get_backend(group) == "gloo" else src.to(device)
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim)
 
 
 def _to_host(obj: Any) -> Any:

@@ -14,8 +14,14 @@ within 1e-5 of JAX's (relative to each leaf's largest magnitude, floored at
 1e-2 in both); the same against the port's
 own one-process step; and the step over a gloo group of one bit for bit
 the one-process step. Controls: the batch-norm statistics, the contrastive
-negatives or the count of valid labels kept rank-local must miss that
-tolerance. A checkpoint saved at world size 2 resumes at 1 and at 4 as the
+negatives or the count of valid labels kept rank-local, or the gathers'
+gradients kept rank-local (no reduce-scatter), must miss that tolerance.
+The step gathers the decoder layer by layer (parallel/fsdp.py): each rank
+holds at most stack / fsdp plus the largest layer leaf owned whole of the
+layer stack and no whole copy of a cut leaf, every step runs exactly
+2 L x accumulation layer gathers and L x accumulation reduce-scatters
+(remat), and at most 2 whole layers are alive at once; the gather is the
+identity, forward and backward, over a gloo group of one. A checkpoint saved at world size 2 resumes at 1 and at 4 as the
 world-2 run continues. Each rank's optimizer bytes are at most total /
 fsdp plus the largest leaf held whole. The per-rank RLDS shards are
 tf.data's shard(2, i) of the JAX builder's episodes; the two ranks'
@@ -42,6 +48,7 @@ import torch
 
 from mla_tpu.training import optim as joptim
 from mla_tpu.training import strategy as jstrategy
+from mla_tpu_torch.parallel import fsdp
 from mla_tpu_torch.parallel import mesh as tmesh
 from mla_tpu_torch.parallel import sharding
 from mla_tpu_torch.training import checkpointing
@@ -63,7 +70,8 @@ OPT = {"adamw": dict(learning_rate=1e-4, weight_decay=0.1, max_grad_norm=1.0, nu
 PARITY = {"adamw-acc1": ("adamw", 1, True), "adamw-acc2": ("adamw", 2, True),
           "adafactor-acc1": ("adafactor", 1, True), "adafactor-acc2": ("adafactor", 2, True),
           "ar-adamw": ("adamw", 1, False)}
-CONTROLS = {"batch_norm": "adamw-acc1", "contrastive": "adamw-acc1", "label_count": "ar-adamw"}
+CONTROLS = {"batch_norm": "adamw-acc1", "contrastive": "adamw-acc1", "label_count": "ar-adamw",
+            "reduce_scatter": "adamw-acc1"}
 DP = {2: 1, 4: 2}
 CHILD_TIMEOUT = 420  # a hang guard: the children take ~40 s alone, more under a loaded box
 # the biases of the point tokenizer's convs, each followed by a batch norm
@@ -391,10 +399,10 @@ def test_noise_leaves_are_the_biases_before_batch_norm(runs):
 
 def test_world_size_one_with_bf16_compute_copies():
     """fp32 masters with a bf16-computing decoder: with compute_dtype the
-    state keeps the decoder's layer matrices as bf16 compute copies, and
-    two steps (accumulation 2, EMA, the per-step generator's draws) still
-    equal those of the state without copies (each use casting the fp32
-    masters) bit for bit."""
+    state keeps only the fp32 masters and the gather hands the decoder's
+    layer matrices out as bf16 copies, and two steps (accumulation 2, EMA,
+    the per-step generator's draws) still equal those of the state without
+    copies (each use casting the fp32 masters) bit for bit."""
     from dataclasses import replace
 
     from mla_tpu_torch import params as P
@@ -418,7 +426,12 @@ def test_world_size_one_with_bf16_compute_copies():
         for i in range(2):
             st, m = step(st, batch, step_generator(0, i, "cpu"))
             metrics.append({k: float(v) for k, v in m.items()})
-        dtypes = {t.dtype for _, t in tree_items(st["params"]["llm_backbone"]["layers"])}
+        layers = st["params"]["llm_backbone"]["layers"]
+        assert {t.dtype for _, t in tree_items(layers)} == {torch.float32}
+        with fsdp.gathering(st["shards"].gatherer):
+            n, layer = fsdp.layer_gather(layers)
+            dtypes = {t.dtype for _, t in tree_items(layer(0))}
+        assert n == cfg.llama.num_layers
         assert dtypes == ({torch.bfloat16, torch.float32} if mode == "copies" else {torch.float32})
         blob = st["shards"].host_state(st)
         out[mode] = (metrics, dict(tree_items(blob["params"])), dict(tree_items(blob["ema_params"])))
@@ -448,7 +461,8 @@ def test_controls_miss(runs, what):
     tolerance the real step meets."""
     base = CONTROLS[what]
     got, want = runs["w2"]["scenarios"][f"control-{what}"], runs["jax"][base]
-    key = {"batch_norm": "total_loss", "contrastive": "img_pc_contrastive_loss", "label_count": "ar_loss"}[what]
+    key = {"batch_norm": "total_loss", "contrastive": "img_pc_contrastive_loss", "label_count": "ar_loss",
+           "reduce_scatter": "grad_norm"}[what]
     v = want["metrics"][0][key]
     assert abs(got["metrics"][0][key] - v) > RTOL * abs(v), (what, got["metrics"][0][key], v)
     with pytest.raises(AssertionError):
@@ -498,6 +512,115 @@ def test_optimizer_bytes_per_rank(runs, world):
         for b in per_rank:
             assert b["held"] <= total / fsdp + b["unit"], (name, b, total)
             assert b["held"] < total
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_layer_stack_held_in_parts(runs, world):
+    """Each rank keeps at most stack / fsdp plus the largest stacked leaf a
+    rank owns whole of the decoder's layer stack, and no whole copy of a
+    leaf the plan cuts; the fsdp group together holds the stack once."""
+    fsdp_size = world // DP[world]
+    for name in ("adamw-acc1", "adafactor-acc1", "ar-adamw"):
+        per_rank = runs[f"w{world}"]["scenarios"][name]["layer_bytes"]
+        for b in per_rank:
+            assert b["whole_copies"] == [], (name, b)
+            assert b["held"] <= b["stack"] / fsdp_size + b["unit"], (name, b)
+            assert b["held"] < b["stack"], (name, b)
+        assert sum(b["held"] for b in per_rank[:fsdp_size]) == per_rank[0]["stack"], (name, per_rank)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_layer_gathers_per_step(runs, world):
+    """Under remat every step gathers each layer twice per micro-batch (the
+    forward and the backward's recomputation) and reduce-scatters it once,
+    the other trainable leaves once each way per micro-batch; at most 2
+    whole layers are alive at once, and none after the step."""
+    for name, (kind, accum, diff) in PARITY.items():
+        got = runs[f"w{world}"]["scenarios"][name]
+        L = got["num_layers"]
+        for counts in got["gathers"]:
+            assert counts["layer_gathers"] == 2 * L * accum, (name, counts)
+            assert counts["layer_reduce_scatters"] == L * accum, (name, counts)
+            assert counts["gathers"] == counts["reduce_scatters"] == accum, (name, counts)
+            assert 1 <= counts["max_live_layers"] <= 2 and counts["live_layers"] == 0, (name, counts)
+
+
+@pytest.mark.parametrize("compute", [None, torch.bfloat16], ids=["same-dtype", "bf16"])
+def test_gather_is_the_identity_on_a_world_of_one(compute):
+    """Over a gloo group of one the gather hands out each layer and each
+    other leaf as the masters hold them (cast to the compute dtype), and
+    its backward adds exactly their gradients into the accumulators: those
+    of the same loss on the masters (cast by hand) themselves."""
+    import torch.distributed as dist
+
+    gen = torch.Generator().manual_seed(3)
+    tree = {"llm_backbone": {"layers": {"q": {"w": torch.randn(3, 4, 6, generator=gen)},
+                                        "ln": {"scale": torch.randn(3, 4, generator=gen)}},
+                             "embed": {"table": torch.randn(5, 4, generator=gen)}},
+            "frozen": torch.randn(2, generator=gen)}
+    x = torch.randn(2, 4, generator=gen)
+
+    def loss(params, layer):
+        h = params["llm_backbone"]["embed"]["table"][:2] + x
+        for i in range(3):
+            lp = layer(i)
+            h = (h * lp["ln"]["scale"].float()) @ lp["q"]["w"].float()[:, :4]
+        return (h * params["frozen"][:, None]).square().sum()
+
+    with _gloo_world_of_one():
+        paths = [p for p, _ in tree_items(tree) if p != "frozen"]
+        masters = {p: t.clone().requires_grad_(True) for p, t in tree_items(tree) if p != "frozen"}
+        specs = sharding.plan([(p, tuple(masters[p].shape), 4) for p in paths], 1)
+        leaves = [fsdp.Leaf(p, specs[p], tuple(masters[p].shape), compute if p.endswith("/w") and compute else
+                            torch.float32, masters[p], masters[p], k) for k, p in enumerate(paths)]
+        g = fsdp.Gatherer(leaves, dist.group.WORLD, 0, 1, torch.device("cpu"))
+        g.acc = [torch.zeros_like(masters[p]) for p in paths]
+        held = {"llm_backbone": {"layers": {"q": {"w": masters[paths[0]]}, "ln": {"scale": masters[paths[1]]}},
+                                 "embed": {"table": masters[paths[2]]}}, "frozen": tree["frozen"]}
+        with fsdp.gathering(g):
+            params = g.tree(held)
+            n, layer = fsdp.layer_gather(params["llm_backbone"]["layers"])
+            assert n == 3
+            for i in range(3):
+                lp = layer(i)
+                assert lp["q"]["w"].dtype == (compute or torch.float32)
+                assert torch.equal(lp["q"]["w"], masters[paths[0]][i].detach().to(compute or torch.float32))
+                assert torch.equal(lp["ln"]["scale"], masters[paths[1]][i].detach())
+            assert torch.equal(params["llm_backbone"]["embed"]["table"], masters[paths[2]].detach())
+            loss(params, layer).backward()
+    want = {p: t.detach().clone() for p, t in masters.items()}
+    wl = {"llm_backbone": {"layers": {"q": {"w": (masters[paths[0]].to(compute) if compute else masters[paths[0]])},
+                                      "ln": {"scale": masters[paths[1]]}},
+                           "embed": {"table": masters[paths[2]]}}, "frozen": tree["frozen"]}
+    loss(wl, lambda i: {"q": {"w": wl["llm_backbone"]["layers"]["q"]["w"][i]},
+                        "ln": {"scale": wl["llm_backbone"]["layers"]["ln"]["scale"][i]}}).backward()
+    for k, p in enumerate(paths):
+        assert masters[p].grad is not None and torch.equal(g.acc[k], masters[p].grad), p
+        assert not torch.equal(g.acc[k], torch.zeros_like(want[p])), p
+
+
+@pytest.mark.parametrize("op", ["all_reduce", "all_gather_0", "all_gather_last", "reduce_scatter"])
+def test_collectives_on_a_world_of_one(op):
+    """parallel/tensor.py's collectives over a gloo group of one hand back
+    their input (a CPU tensor: torch.distributed's own collective, no
+    shared card)."""
+    import torch.distributed as dist
+
+    from mla_tpu_torch.parallel import tensor
+
+    t = torch.randn(3, 4, generator=torch.Generator().manual_seed(5))
+    with _gloo_world_of_one():
+        g = dist.group.WORLD
+        assert tensor.shared_card(t, g) is None
+        if op == "all_reduce":
+            x = t.clone()
+            got = tensor.all_reduce(x, g)
+            assert got is x
+        elif op == "reduce_scatter":
+            got = tensor.reduce_scatter(t.reshape(-1), g).view(t.shape)
+        else:
+            got = tensor.all_gather(t, g, 0 if op == "all_gather_0" else -1)
+    assert torch.equal(got, t)
 
 
 def test_rlds_shards_are_tf_datas(runs, tmp_path):

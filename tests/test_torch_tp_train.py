@@ -31,7 +31,9 @@ resumes at tp 2 x fsdp 2, each equal to the uninterrupted run. The
 vocab-parallel cross-entropy equals causal_lm_loss with its gradient;
 `torchrun ... -m mla_tpu_torch.train --tp 2 --device cpu` trains 2 steps;
 the ranks of a tp group key the data pipeline on one data rank; the fsdp
-plan on tp-local shapes puts fsdp where JAX's _spec_for_leaf does.
+plan on tp-local shapes puts fsdp where JAX's _spec_for_leaf does; at tp
+2 x fsdp 2 a rank holds only its part of the layer stack, which the step
+gathers layer by layer.
 """
 
 import os
@@ -260,9 +262,10 @@ def test_tp_step_matches_jax(runs, name, mesh, record_property):
 
 
 def test_ranks_hold_tp_local_trees(runs):
-    """Each rank computes with its tp-local tree: q/k/v/gate/up halved on
-    the output dim, o/down on the input dim, embedding and lm_head on the
-    vocabulary; the norms whole; and the masters gathered back whole."""
+    """Each rank computes with its tp-local tree (the leaves its gathers
+    hand out): q/k/v/gate/up halved on the output dim, o/down on the input
+    dim, embedding and lm_head on the vocabulary; the norms whole; and the
+    masters gathered back whole."""
     got = _result(runs, "gqa-adamw-acc2", FSDP)["local_shapes"]
     lay = "llm_backbone/layers/"
     assert got[lay + "attn/q/w"] == (4, 64, 32) and got[lay + "attn/k/w"] == (4, 64, 16)
@@ -273,6 +276,17 @@ def test_ranks_hold_tp_local_trees(runs):
     assert tuple(whole[lay + "attn/k/w"].shape) == (4, 64, 32)
     assert {"dp": 1, "fsdp": 2, "tp": 2, "data_world": 2} in runs["w4"]["meshes"]
     assert {"dp": 2, "fsdp": 1, "tp": 2, "data_world": 2} in runs["w4"]["meshes"]
+
+
+@pytest.mark.parametrize("name", ["adafactor-acc2", "gqa-adamw-acc2"])
+def test_tp_fsdp_ranks_hold_parts_of_the_layer_stack(runs, name):
+    """At tp 2 x fsdp 2 a rank keeps at most its tp-local stack / fsdp plus
+    the largest stacked leaf a rank owns whole of the decoder's layers, and
+    no whole copy of a cut leaf: the gather builds each layer per use."""
+    per_rank = _result(runs, name, FSDP)["layer_bytes"]
+    assert len(per_rank) == 4
+    for b in per_rank:
+        assert b["whole_copies"] == [] and b["held"] <= b["stack"] / 2 + b["unit"] and b["held"] < b["stack"], b
 
 
 def test_control_without_copy_to_tp_allreduce_misses(runs):

@@ -14,7 +14,10 @@ weights over make_mesh(dp=...); rank 0 writes result-<world>.pt: per
 scenario the metrics of every step, the whole masters after the last step
 (gathered like a checkpoint) and every rank's optimizer bytes. A control
 keeps its reductions rank-local by patching collectives.active in this
-process. At world size 2 each rank also reads its shard of the rlbench
+process; the reduce-scatter control keeps each rank's own gradient by
+patching parallel/tensor.reduce_scatter. Per step it also records the gather counts
+(parallel/fsdp.counts) and every rank's layer-stack bytes
+(ShardedState.layer_bytes). At world size 2 each rank also reads its shard of the rlbench
 fixture's episodes (`rlds_root`), and runs the train-time transforms on
 the same trajectories (`draw_trajs`, train_time_draws).
 """
@@ -30,7 +33,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from mla_tpu_torch.conf.models import get_model_config  # noqa: E402
 from mla_tpu_torch.diffusion import gaussian as gd  # noqa: E402
-from mla_tpu_torch.parallel import collectives, sharding  # noqa: E402
+from mla_tpu_torch.parallel import collectives, fsdp, sharding, tensor  # noqa: E402
 from mla_tpu_torch.parallel.mesh import initialize_distributed, make_mesh  # noqa: E402
 from mla_tpu_torch.params import tree_items, tree_map  # noqa: E402
 from mla_tpu_torch.training import checkpointing, optim, strategy  # noqa: E402
@@ -52,24 +55,30 @@ def run_scenario(sc, inputs, mesh, rank, world, workdir):
     if sc.get("load"):
         state = checkpointing.load_checkpoint(checkpointing.latest_checkpoint(workdir / sc["load"]), state)
     batch = sharding.shard_batch(inputs["batch_ar" if not sc["use_diff"] else "batch"], rank, world, sc["accum"])
-    local, active = set(sc.get("local", ())), collectives.active
+    local, active, scatter = set(sc.get("local", ())), collectives.active, tensor.reduce_scatter
     collectives.active = lambda what: None if what in local else active(what)
-    metrics = []
+    if "reduce_scatter" in local:  # each rank keeps its own gradient's segment
+        tensor.reduce_scatter = lambda flat, g: flat.chunk(dist.get_world_size(g))[dist.get_rank(g)].clone()
+    metrics, gathers = [], []
     try:
         for i, draws in enumerate(sc["draws"]):
+            fsdp.reset_counts()
             state, m = step(state, batch, draws=draws)
+            gathers.append(dict(fsdp.counts))
             metrics.append({k: float(v) for k, v in m.items()})
             if sc.get("save_after") == i + 1:
                 checkpointing.save_checkpoint(workdir / sc["save"], state, step=i + 1,
                                               loss=metrics[-1]["total_loss"])
     finally:
-        collectives.active = active
+        collectives.active, tensor.reduce_scatter = active, scatter
     blob = state["shards"].host_state(state)
-    nbytes = [None] * world
+    nbytes, layers = [None] * world, [None] * world
     dist.all_gather_object(nbytes, state["shards"].optimizer_bytes())
+    dist.all_gather_object(layers, state["shards"].layer_bytes(state["params"]))
     if rank == 0:
         return {"metrics": metrics, "params": dict(tree_items(blob["params"])), "opt_bytes": nbytes,
-                "opt_state": blob["opt_state"], "ema": dict(tree_items(blob.get("ema_params", {})))}
+                "opt_state": blob["opt_state"], "ema": dict(tree_items(blob.get("ema_params", {}))),
+                "gathers": gathers, "layer_bytes": layers, "num_layers": cfg.llama.num_layers}
     return None
 
 

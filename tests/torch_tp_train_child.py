@@ -13,8 +13,9 @@ the global batches and the scenarios (variant, optimizer, accumulation,
 loss mode, the global draws of every step and micro-batch, the meshes
 (world, dp, tp) to run at, a checkpoint save at one of them or a load, a
 control that skips copy_to_tp's backward all-reduce). Rank 0 writes
-result-<world>.pt: per scenario and mesh the metrics of every step and
-the whole masters after the last step (gathered like a checkpoint; the
+result-<world>.pt: per scenario and mesh the metrics of every step, the
+shapes rank 0 computes with (its gathered leaves), every rank's
+layer-stack bytes, and the whole masters after the last step (gathered like a checkpoint; the
 EMA and the optimizer state too where a scenario keeps an EMA or loads a
 checkpoint); Adafactor's two steps on the FACTORED leaves from seeded
 gradients at each mesh of the world; each rank's data rank, data world
@@ -140,7 +141,7 @@ def run_scenario(sc, inputs, mesh, workdir):
 
     from mla_tpu_torch.conf.models import get_model_config
     from mla_tpu_torch.diffusion import gaussian as gd
-    from mla_tpu_torch.parallel import sharding
+    from mla_tpu_torch.parallel import fsdp, sharding
     from mla_tpu_torch.parallel import tensor
     from mla_tpu_torch.params import tree_items, tree_map
     from mla_tpu_torch.training import checkpointing, optim, strategy
@@ -175,10 +176,19 @@ def run_scenario(sc, inputs, mesh, workdir):
     finally:
         tensor.copy_to_tp = real
     blob = state["shards"].host_state(state)
-    local = {p: tuple(t.shape) for p, t in tree_items(state["params"])}
+    sh = state["shards"]
+    with fsdp.gathering(sh.gatherer), torch.no_grad():  # the shapes a rank computes with: the gathered leaves
+        tree = sh.gatherer.tree(state["params"])
+        n, layer = fsdp.layer_gather(tree["llm_backbone"]["layers"])
+        first = dict(tree_items(layer(0)))
+    local = {p: (n, *first[p[len(fsdp.LAYERS):]].shape) if p.startswith(fsdp.LAYERS) else tuple(t.shape)
+             for p, t in tree_items(tree)}
+    layers = [None] * mesh.world
+    dist.all_gather_object(layers, sh.layer_bytes(state["params"]))
     if mesh.rank != 0:
         return None
-    out = {"metrics": metrics, "params": dict(tree_items(blob["params"])), "local_shapes": local}
+    out = {"metrics": metrics, "params": dict(tree_items(blob["params"])), "local_shapes": local,
+           "layer_bytes": layers}
     if sc.get("ema") or sc.get("load"):  # what the checkpoint tests read
         out.update(ema=dict(tree_items(blob.get("ema_params", {}))), opt_state=blob["opt_state"])
     return out

@@ -9,9 +9,9 @@ Run from the repository root with no arguments:
 phases among mistral-agree ... augment, qualify, tp, tp-train, fsdp-train
 and formats,
 the oxe phase's format checks alone, and prints no result line; `--tp_world
-2,4 --tp_backend nccl` runs the tp phase at those worlds, a rank a card,
-on a machine with that many cards, `--tp_train_world 4` the tp-train
-phase at tp 2 x fsdp 2), or, to
+2,4,2x2 --tp_backend nccl` runs the tp phase over those meshes (T, or T x
+F with fsdp F), a rank a card, on a machine with that many cards,
+`--tp_train_world 4` the tp-train phase at tp 2 x fsdp 2), or, to
 time this tree's flash forward, dQ, dK/dV, W8A8, weight-only int8
 and FPS kernels against another version of them (such as the parent
 commit's, written out with `git show HEAD~1:mla_tpu_torch/csrc/flash_fwd.cu`,
@@ -289,11 +289,14 @@ Phases, each of which fails the run if it fails:
                   (qualify_counts).
      tp           tensor-parallel serving: the int8 mla-7b at full width
                   and depth (seeded) through the one-process W8A8 and
-                  weight-only policies, then TP_WORLD ranks of this script
-                  (--tp-child) over one tp group, sharing the card over
-                  gloo (which the script names; NCCL refuses two ranks on
-                  a device), each building the whole tree and keeping its
-                  part: DDIM-8 and DPM-4 chunks bit for bit the one-process
+                  weight-only policies, then the ranks of this script
+                  (--tp-child) over each mesh of TP_MESHES: 2 ranks of one
+                  tp group, then 4 at tp 2 x fsdp 2 (each rank keeps its
+                  fsdp part of every leaf and gathers it per use), sharing
+                  the card over gloo (which the script names; NCCL refuses
+                  two ranks on a device), each building the whole tree
+                  (one rank at a time where ranks share the card) and
+                  keeping its part: DDIM-8 and DPM-4 chunks bit for bit the one-process
                   ones (else within TP_CHUNK_RTOL of their scale, logged),
                   predict_action_ar's ids equal, the AR logits of a prefill
                   and 7 decode steps fed the one-process ids within
@@ -304,8 +307,9 @@ Phases, each of which fails the run if it fails:
                   launches of every call (tp_expected: W8A8 2L, its
                   row-parallel steps 2L each, a forward; int8_matmul 2L +
                   1 and its fp32 output 2L an AR forward; flash L, FPS 2),
-                  each rank's decoder GiB and ms (not tensor-parallel
-                  speed on a shared card). The kernels phase holds the
+                  at fsdp 2 exactly L layer gathers a forward and at most
+                  2 whole layers alive, each rank's decoder GiB and ms (not
+                  tensor-parallel speed on a shared card). The kernels phase holds the
                   row-parallel W8A8 (bit for bit) and int8_mm's fp32
                   output at T = 2 and 4, by o and down.
      tp-train     tensor-parallel training: mla_tpu_torch.train.main at
@@ -1721,24 +1725,26 @@ STATS = {"rlbench": {"action": {"q01": [-1.0] * 6 + [0.0], "q99": [1.0] * 7}}}
 AR_AGREE_RTOL = 2e-2
 
 
-def drive_ar(torch, pol, img, pc, ids, T: int, feed=None):
+def drive_ar(torch, pol, img, pc, ids, T: int, feed=None, params=None):
     """A policy's prefill and T cached decode steps: (fp32 logits [T + 1,
     V] on the CPU, the ids fed, seconds), each step fed feed[i] (None: the
-    run's own greedy id), through the policy's int8 product."""
+    run's own greedy id), through the policy's int8 product, on `params`
+    (None: the policy's tree; over a mesh, the tree its tp_scope yields)."""
     from mla_tpu_torch.models import mla
 
     dev, cfg = pol.device, pol.cfg
+    params = pol.params if params is None else params
     t0 = time.perf_counter()
     with torch.inference_mode():
         prefix = mla.build_prefix_embeds(
-            pol.params, pol.state, cfg, torch.as_tensor(ids, device=dev).long(),
+            params, pol.state, cfg, torch.as_tensor(ids, device=dev).long(),
             {"front_image": torch.as_tensor(img, device=dev)[None]}, torch.as_tensor(pc, device=dev)[None])
         n = prefix.shape[1]
-        kv, logits = mla.prefill(pol.params, cfg, prefix, n + T + mla.CACHE_MARGIN, int8_mode=pol.int8_mode)
+        kv, logits = mla.prefill(params, cfg, prefix, n + T + mla.CACHE_MARGIN, int8_mode=pol.int8_mode)
         out, toks = [logits[0].float().cpu()], []
         for i in range(T):
             toks.append(int(logits[0].argmax()) if feed is None else feed[i])
-            logits = mla.decode_step(pol.params, cfg, kv, n + i, torch.tensor([toks[-1]], device=dev),
+            logits = mla.decode_step(params, cfg, kv, n + i, torch.tensor([toks[-1]], device=dev),
                                      int8_mode=pol.int8_mode)
             out.append(logits[0].float().cpu())
     return torch.stack(out), toks, time.perf_counter() - t0
@@ -5867,12 +5873,13 @@ def dp_phase(torch, report):
 
 
 # tensor parallelism: the int8 mla-7b at full width and depth served by
-# TP_WORLD ranks (child processes of this script) over one tp group, held
-# to the one-process policy on the same weights and x_T. On one card the
-# ranks share it over gloo, which the caller names (NCCL refuses two ranks
-# on one device; parallel/tensor.py stages gloo's collectives through the
-# host), so their times are not tensor-parallel speed.
-TP_WORLD = 2
+# the ranks (child processes of this script) of each mesh of TP_MESHES (T:
+# one tp group; T x F: F fsdp ranks beside it, each holding 1/F of every
+# leaf), held to the one-process policy on the same weights and x_T. On one
+# card the ranks share it over gloo, which the caller names (NCCL refuses
+# two ranks on one device; parallel/tensor.SharedCard exchanges through
+# buffers on the card), so their times are not tensor-parallel speed.
+TP_MESHES = "2,2x2"
 TP_SEED = 180
 TP_ROOT = Path("build") / "chip_smoke_tp"
 TP_TIMEOUT = 600
@@ -5918,10 +5925,10 @@ def tp_expected(cfg, T: int) -> dict:
     return out
 
 
-def tp_policies(torch, cfg, mesh) -> dict:
+def tp_policies(torch, cfg, mesh, cut: bool = True) -> dict:
     """The seeded int8 mla-7b (live head) and its W8A8 and weight-only
-    policies over `mesh` (None: one process), and a weight-only policy of
-    it cut to TP_CUT_LAYERS ('cut'); the whole trees are freed."""
+    policies over `mesh` (None: one process), and with `cut` a weight-only
+    policy of it cut to TP_CUT_LAYERS ('cut'); the whole trees are freed."""
     from dataclasses import replace
 
     from mla_tpu_torch import params as P
@@ -5929,8 +5936,8 @@ def tp_policies(torch, cfg, mesh) -> dict:
     from mla_tpu_torch.ops.quantization import quantize_model
 
     pols = {}
-    cut = replace(cfg, llama=replace(cfg.llama, num_layers=TP_CUT_LAYERS))
-    for c, modes in ((cfg, ("w8a8", "weight_only")), (cut, ("cut",))):
+    short = replace(cfg, llama=replace(cfg.llama, num_layers=TP_CUT_LAYERS))
+    for c, modes in ((cfg, ("w8a8", "weight_only")), (short, ("cut",)))[: 2 if cut else 1]:
         params, state = P.init(c, seed=TP_SEED, device="cuda")
         live_head(torch, params, TP_SEED + 1)
         params = quantize_model(params)
@@ -5949,48 +5956,59 @@ def tp_calls(torch, cfg, pols, feed=None) -> dict:
     logits of a prefill and the decode steps, at full depth and cut, fed
     feed[key] (None: their own greedy ids; drive_ar, in the policy's tp
     block), and under a tp group the full-depth logits once more with the
-    row-parallel all-reduce SUM skipped (the control)."""
+    row-parallel all-reduce SUM skipped (the control); over fsdp each
+    call's layer gathers and most whole layers alive (fsdp.counts) and the
+    layer stack a rank holds."""
     import numpy as np
 
     from mla_tpu_torch.ops import cuda
-    from mla_tpu_torch.parallel import tensor
+    from mla_tpu_torch.parallel import fsdp, tensor
 
     img, pc, ids, noise = request_inputs(cfg, TP_SEED)
     calls = {s: (lambda s=s: pols["w8a8"].predict_action_diff(img, pc, "", input_ids=ids, noise=noise, sampler=s,
                                                               return_normalized=True)) for s in ("ddim", "dpm")}
     calls["ar"] = lambda: pols["weight_only"].generate_ids(img, pc, ids, cfg.action_dim)[0]
     torch.cuda.synchronize()
-    out = {"launches": {}, "ms": {}}
+    out = {"launches": {}, "ms": {}, "gathers": {}}
     for name, fn in calls.items():
         cuda.launches.clear()
+        fsdp.reset_counts()
         t = time.perf_counter()
         out[name] = np.asarray(fn())
         torch.cuda.synchronize()
         out["ms"][name] = (time.perf_counter() - t) * 1e3
         out["launches"][name] = {k: cuda.launches[k] for k in TP_KERNELS}
-    for key in ("weight_only", "cut"):
-        with pols[key].tp_scope():
-            logits, fed, _ = drive_ar(torch, pols[key], img, pc, ids, cfg.action_dim, feed and feed[key])
+        out["gathers"][name] = {k: fsdp.counts[k] for k in ("layer_gathers", "max_live_layers", "live_layers")}
+    for key in [k for k in ("weight_only", "cut") if k in pols]:
+        with pols[key].tp_scope() as params:
+            logits, fed, _ = drive_ar(torch, pols[key], img, pc, ids, cfg.action_dim, feed and feed[key], params)
         out[f"{key}_logits"], out[f"{key}_fed"] = logits.numpy(), fed
     if pols["weight_only"].mesh is not None:
         real = tensor.reduce_from_tp
         tensor.reduce_from_tp = lambda x: x
         try:
-            with pols["weight_only"].tp_scope():
+            with pols["weight_only"].tp_scope() as params:
                 logits, _, _ = drive_ar(torch, pols["weight_only"], img, pc, ids, cfg.action_dim,
-                                        feed["weight_only"])
+                                        feed["weight_only"], params)
         finally:
             tensor.reduce_from_tp = real
         out["control_logits"] = logits.numpy()
     out["decoder_gib"] = {mode: tree_gib(pols[mode].params["llm_backbone"]) for mode in ("w8a8", "weight_only")}
+    out["layer_bytes"] = {mode: pols[mode].gatherer.layer_bytes() for mode in ("w8a8", "weight_only")
+                          if pols[mode].gatherer is not None}
     return out
 
 
-def tp_child(root: Path, backend: str) -> int:
-    """One rank of the tp phase (its launch variables set by the parent):
+def tp_child(root: Path, backend: str, fsdp: int) -> int:
+    """One rank of the tp phase (its launch variables set by the parent,
+    which starts it ahead of its turn): imports, waits for root/go (the
+    group's address, written when its mesh's turn comes), then
     joins the group over `backend` on cuda:LOCAL_RANK, builds its part of
-    the int8 mla-7b and writes tp_calls' results, its decode steps fed the
-    ids of root/feed.json, to root/rank{R}.pt."""
+    the int8 mla-7b over serving_mesh(fsdp) (one rank at a time where the
+    ranks share a card: each draws the whole tree there; the policy over
+    the decoder cut to TP_CUT_LAYERS only at fsdp 1) and writes tp_calls'
+    results, its decode steps fed the ids of root/feed.json, to
+    root/rank{R}.pt."""
     import torch
     import torch.distributed as dist
 
@@ -6000,38 +6018,63 @@ def tp_child(root: Path, backend: str) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    go, deadline = root / "go", time.monotonic() + TP_TIMEOUT
+    while not go.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{go} was not written within {TP_TIMEOUT} s")
+        time.sleep(0.05)
+    os.environ["MLA_COORDINATOR_ADDRESS"] = go.read_text()
     launch = tmesh.initialize_distributed("cuda", backend=backend)
-    mesh = tmesh.serving_mesh()
+    mesh = tmesh.serving_mesh(fsdp=fsdp)
     cfg = get_model_config("mla-7b")
     t0 = time.perf_counter()
-    pols = tp_policies(torch, cfg, mesh)
+    shared = torch.cuda.device_count() < launch["world"]
+    for turn in range(launch["world"] if shared else 1):
+        if not shared or turn == launch["rank"]:
+            pols = tp_policies(torch, cfg, mesh, cut=fsdp == 1)
+        if shared:
+            dist.barrier()
     build_s = time.perf_counter() - t0
+    build_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
     out = tp_calls(torch, cfg, pols, json.loads((root / "feed.json").read_text()))
-    out.update(build_s=build_s, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-               device=torch.cuda.get_device_name(launch["device"]), backend=backend)
+    out.update(build_s=build_s, build_peak_gib=build_peak_gib, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               device=torch.cuda.get_device_name(launch["device"]), backend=backend,
+               mesh={"tp": mesh.tp, "fsdp": mesh.fsdp})
     torch.save(out, root / f"rank{launch['rank']}.pt")
     dist.barrier()
     dist.destroy_process_group()
     return 0
 
 
-def tp_ranks(torch, cfg, ref, backend: str, world: int) -> tuple:
-    """`world` ranks of this script (--tp-child) over one tp group, their
-    decode steps fed the reference's ids; each rank held to `ref` (see
-    tp_phase). Returns (the report's entry, rank 0's launches, the
+def tp_spawn(backend: str, tp: int, fsdp: int) -> list:
+    """tp * fsdp ranks of this script (--tp-child) for serving_mesh(fsdp),
+    started ahead of their turn: they import and wait for their root's go
+    file (tp_ranks writes it)."""
+    world, root = tp * fsdp, TP_ROOT / f"{tp}x{fsdp}"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    env = {k: v for k, v in os.environ.items() if k not in DP_LAUNCH + ("MLA_COORDINATOR_ADDRESS",)}
+    return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-child", str(root), backend,
+                              str(fsdp)],
+                             env={**env, "MLA_NUM_PROCESSES": str(world), "MLA_PROCESS_ID": str(r),
+                                  "LOCAL_RANK": str(r)},
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+
+def tp_ranks(torch, cfg, ref, procs, backend: str, tp: int, fsdp: int, beside=None) -> tuple:
+    """The ranks `procs` (tp_spawn's) over serving_mesh(fsdp), their decode
+    steps fed the reference's ids; each rank held to `ref` (see tp_phase),
+    its decoder GiB logged beside `beside` (an earlier mesh's entry at the
+    same tp). Returns (the report's entry, rank 0's launches, the
     failures)."""
     import numpy as np
 
-    shutil.rmtree(TP_ROOT, ignore_errors=True)
-    TP_ROOT.mkdir(parents=True)
-    (TP_ROOT / "feed.json").write_text(json.dumps({key: ref[f"{key}_fed"] for key in ("weight_only", "cut")}))
-    port = _free_port()
-    env = {k: v for k, v in os.environ.items() if k not in DP_LAUNCH}
+    world, root = tp * fsdp, TP_ROOT / f"{tp}x{fsdp}"
+    (root / "feed.json").write_text(json.dumps({key: ref[f"{key}_fed"] for key in ("weight_only", "cut")}))
+    (root / "go.partial").write_text(f"127.0.0.1:{_free_port()}")
+    (root / "go.partial").rename(root / "go")
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-child", str(TP_ROOT), backend],
-                              env={**env, "MLA_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-                                   "MLA_NUM_PROCESSES": str(world), "MLA_PROCESS_ID": str(r), "LOCAL_RANK": str(r)},
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
     try:
         outs = [p.communicate(timeout=TP_TIMEOUT)[0] for p in procs]
     finally:
@@ -6039,100 +6082,139 @@ def tp_ranks(torch, cfg, ref, backend: str, world: int) -> tuple:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    label = f"{world}" if fsdp == 1 else f"{world} (tp {tp} x fsdp {fsdp})"
     for r, (p, text) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            raise AssertionError(f"tp: rank {r} of {world} exited {p.returncode}:\n"
+            raise AssertionError(f"tp: rank {r} of {label} exited {p.returncode}:\n"
                                  + "\n".join(text.splitlines()[-30:]))
-    ranks = [torch.load(TP_ROOT / f"rank{r}.pt", weights_only=False) for r in range(world)]
-    shutil.rmtree(TP_ROOT, ignore_errors=True)
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(world)]
     shared = torch.cuda.device_count() < world  # ranks share cards: their times are not tensor-parallel speed
-    rep = {"backend": backend, "world": world, "s": time.perf_counter() - t0, "ranks": [], "cards_shared": shared}
-    want = tp_expected(cfg, world)
+    rep = {"backend": backend, "world": world, "tp": tp, "fsdp": fsdp, "s": time.perf_counter() - t0, "ranks": [],
+           "cards_shared": shared}
+    want = tp_expected(cfg, tp)
+    forwards = {"ddim": 1 + 8, "dpm": 1 + 4, "ar": 1 + cfg.action_dim}
+    L = cfg.llama.num_layers
+    keys = ("ddim", "dpm", "ar", "weight_only_logits") + (("cut_logits",) if fsdp == 1 else ())
     failed = []
     for r, got in enumerate(ranks):
+        if got["mesh"] != {"tp": tp, "fsdp": fsdp}:
+            failed.append(f"rank {r} of {label} served over {got['mesh']}")
         if got["launches"] != want:
-            failed.append(f"rank {r} of {world} launched {got['launches']}, expected {want}")
-        for key in ("ddim", "dpm", "ar", "weight_only_logits", "cut_logits"):
+            failed.append(f"rank {r} of {label} launched {got['launches']}, expected {want}")
+        gathers = {c: L * n if fsdp > 1 else 0 for c, n in forwards.items()}
+        for c, n in gathers.items():
+            g = got["gathers"][c]
+            if g["layer_gathers"] != n or g["live_layers"] != 0 or g["max_live_layers"] > 2:
+                failed.append(f"rank {r} of {label}: {c} gathered {g}, expected {n} layer gathers, <= 2 whole "
+                              "layers alive and none after the call")
+        for key in keys:
             if not np.array_equal(got[key], ranks[0][key]):
-                failed.append(f"rank {r} of {world}: its {key} differs from rank 0's")
+                failed.append(f"rank {r} of {label}: its {key} differs from rank 0's")
         entry = {"ms": got["ms"], "decoder_gib": got["decoder_gib"], "peak_gib": got["peak_gib"],
-                 "build_s": got["build_s"], "device": got["device"]}
+                 "build_peak_gib": got["build_peak_gib"], "build_s": got["build_s"], "device": got["device"],
+                 "gathers": got["gathers"], "layer_bytes": got["layer_bytes"]}
+        for mode, b in got["layer_bytes"].items():
+            if not b["held"] <= b["stack"] / fsdp + b["unit"]:
+                failed.append(f"rank {r} of {label}: its {mode} layer stack holds {b['held']} bytes, over "
+                              f"{b['stack']} / {fsdp} + {b['unit']}")
         for sampler in ("ddim", "dpm"):
             a, b = got[sampler], ref[sampler]
             identical = bool(np.array_equal(a, b))
             err = float(np.abs(a - b).max()) / float(np.abs(b).max())
             entry[sampler] = {"identical": identical, "max_err_of_scale": err}
             if not identical and not err <= TP_CHUNK_RTOL:
-                failed.append(f"rank {r} of {world}: its {sampler} chunk is {err} of its scale from the "
+                failed.append(f"rank {r} of {label}: its {sampler} chunk is {err} of its scale from the "
                               f"one-process chunk (tol {TP_CHUNK_RTOL})")
         if not np.array_equal(got["ar"], ref["ar"]):
-            failed.append(f"rank {r} of {world}: AR ids {got['ar'].tolist()}, one process {ref['ar'].tolist()}")
-        for key, tol in (("cut", AR_AGREE_RTOL), ("weight_only", TP_AR_FULL_DEPTH_RTOL)):
+            failed.append(f"rank {r} of {label}: AR ids {got['ar'].tolist()}, one process {ref['ar'].tolist()}")
+        for key, tol in (("cut", AR_AGREE_RTOL), ("weight_only", TP_AR_FULL_DEPTH_RTOL))[0 if fsdp == 1 else 1:]:
             a, b = got[f"{key}_logits"], ref[f"{key}_logits"]
             step_err = np.abs(a - b).max(axis=1) / float(np.abs(b).max())
             if not float(step_err.max()) <= tol:
-                failed.append(f"rank {r} of {world}: its {key} AR logits are {float(step_err.max())} of their "
+                failed.append(f"rank {r} of {label}: its {key} AR logits are {float(step_err.max())} of their "
                               f"scale from the one process's (tol {tol})")
             entry[f"{key}_logits_step_err_of_scale"] = [float(e) for e in step_err]
         b = ref["weight_only_logits"]
         entry["control_err_of_scale"] = float(np.abs(got["control_logits"] - b).max()) / float(np.abs(b).max())
         if not entry["control_err_of_scale"] > TP_AR_FULL_DEPTH_RTOL:
-            failed.append(f"rank {r} of {world}: the control (row-parallel sums skipped) is only "
+            failed.append(f"rank {r} of {label}: the control (row-parallel sums skipped) is only "
                           f"{entry['control_err_of_scale']} of the logits' scale from the one process's "
                           f"(tol {TP_AR_FULL_DEPTH_RTOL})")
         rep["ranks"].append(entry)
         chunks = ", ".join(f"{name} " + ("identical" if entry[k]["identical"] else
                                          f"NOT identical, {entry[k]['max_err_of_scale']} of its scale")
                            for k, name in (("ddim", "DDIM-8"), ("dpm", "DPM-4")))
-        log(f"tp rank {r} of {world} ({backend}, {got['device']}): chunks to the one-process ones: {chunks}; "
+        side = (f" (tp {tp} alone: {beside['ranks'][r % len(beside['ranks'])]['decoder_gib']['w8a8']:.2f} / "
+                f"{beside['ranks'][r % len(beside['ranks'])]['decoder_gib']['weight_only']:.2f})" if beside else "")
+        cut = (f"{TP_CUT_LAYERS} layers {[round(e, 5) for e in entry['cut_logits_step_err_of_scale']]}, "
+               if "cut_logits_step_err_of_scale" in entry else "")
+        log(f"tp rank {r} of {label} ({backend}, {got['device']}): chunks to the one-process ones: {chunks}; "
             f"decoder {got['decoder_gib']['w8a8']:.2f} GiB (W8A8) / {got['decoder_gib']['weight_only']:.2f} GiB "
-            f"(weight-only); peak {got['peak_gib']:.2f} GiB; first calls: DDIM-8 {got['ms']['ddim']:.1f} ms, DPM-4 "
-            f"{got['ms']['dpm']:.1f} ms, ids {got['ms']['ar']:.1f} ms"
-            f"{' (ranks sharing cards: not TP speed)' if shared else ''}; AR logits by step, of their scale: "
-            f"{TP_CUT_LAYERS} layers {[round(e, 5) for e in entry['cut_logits_step_err_of_scale']]}, "
-            f"{cfg.llama.num_layers} layers {[round(e, 5) for e in entry['weight_only_logits_step_err_of_scale']]}"
+            f"(weight-only){side}; layer gathers a call {[got['gathers'][c]['layer_gathers'] for c in forwards]} "
+            f"(DDIM-8, DPM-4, AR), at most {max(g['max_live_layers'] for g in got['gathers'].values())} whole "
+            f"layers alive; peak {got['peak_gib']:.2f} GiB (build {got['build_peak_gib']:.2f}, {got['build_s']:.1f} "
+            f"s); first calls: DDIM-8 {got['ms']['ddim']:.1f} ms, DPM-4 {got['ms']['dpm']:.1f} ms, ids "
+            f"{got['ms']['ar']:.1f} ms{' (ranks sharing cards: not TP speed)' if shared else ''}; AR logits by "
+            f"step, of their scale: {cut}{cfg.llama.num_layers} layers "
+            f"{[round(e, 5) for e in entry['weight_only_logits_step_err_of_scale']]}"
             f" (tol {TP_AR_FULL_DEPTH_RTOL}; the control {entry['control_err_of_scale']:.4f})")
     totals = {k: sum(ranks[0]["launches"][c][k] for c in want) for k in TP_KERNELS}
     return rep, totals, failed
 
 
-def tp_phase(torch, report, backend: str = "gloo", worlds: str = str(TP_WORLD)):
+def tp_phase(torch, report, backend: str = "gloo", meshes: str = TP_MESHES):
     """The int8 mla-7b (32 layers, seeded) served by the one-process policy,
-    then, for each world of `worlds` (comma-separated), by that many ranks
-    over one tp group (this script's children, over `backend`; gloo for
+    then, for each mesh of `meshes` (comma-separated: T, a tp group of T
+    ranks, or TxF, T tp ranks beside F fsdp ranks, serving_mesh(fsdp=F)),
+    by that many ranks (this script's children, over `backend`; gloo for
     ranks that share one card, whose times are then not tensor-parallel
     speed): every rank's DDIM-8 and DPM-4 chunks equal to each other and to
     the one-process chunks bit for bit (else within TP_CHUNK_RTOL of their
     scale, logged as not identical), predict_action_ar's ids equal, the AR
     logits of a prefill and 7 decode steps (fed the one-process ids)
     within AR_AGREE_RTOL of their scale on the decoder cut to TP_CUT_LAYERS
-    and within TP_AR_FULL_DEPTH_RTOL at full depth (the control with the
-    row-parallel sums skipped outside it), each call's launches exactly
-    tp_expected's, each rank's decoder GiB. Returns the first world's rank
-    0 launches of the row-parallel modes."""
+    (at fsdp 1) and within TP_AR_FULL_DEPTH_RTOL at full depth (the control
+    with the row-parallel sums skipped outside it), each call's launches
+    exactly tp_expected's at T, at fsdp F > 1 L layer gathers a forward,
+    at most 2 whole layers alive and a layer stack of at most 1/F of the
+    rank's plus a leaf owned whole, each rank's decoder GiB. Returns the
+    first mesh's rank 0 launches of the row-parallel modes."""
     from mla_tpu_torch.conf.models import get_model_config
 
     cfg = get_model_config("mla-7b")
     t0 = time.perf_counter()
-    pols = tp_policies(torch, cfg, None)
-    ref = tp_calls(torch, cfg, pols)
-    del pols
-    gc.collect()
-    torch.cuda.empty_cache()
-    if ref["launches"] != tp_expected(cfg, 1):
-        raise AssertionError(f"tp: the one-process calls launched {ref['launches']}, expected {tp_expected(cfg, 1)}")
-    rep = {"one_process": {"ms": ref["ms"], "decoder_gib": ref["decoder_gib"], "s": time.perf_counter() - t0},
-           "worlds": {}}
-    log(f"tp: one process, int8 mla-7b, first calls: DDIM-8 {ref['ms']['ddim']:.1f} ms, DPM-4 "
-        f"{ref['ms']['dpm']:.1f} ms, "
-        f"predict_action_ar ids {ref['ms']['ar']:.1f} ms, decoder {ref['decoder_gib']['w8a8']:.2f} GiB (W8A8) / "
-        f"{ref['decoder_gib']['weight_only']:.2f} GiB (weight-only)")
-    failed, first = [], None
-    for world in (int(w) for w in worlds.split(",")):
-        rep["worlds"][world], totals, bad = tp_ranks(torch, cfg, ref, backend, world)
-        rep["worlds"][world]["expected"] = tp_expected(cfg, world)
-        failed += bad
-        first = first or totals
+    shapes = [tuple(int(n) for n in (spec.split("x") if "x" in spec else (spec, 1))) for spec in meshes.split(",")]
+    # every mesh's ranks start now and import while the reference and the
+    # meshes before theirs run; each joins its group when its turn comes
+    spawned = [tp_spawn(backend, tp, fsdp) for tp, fsdp in shapes]
+    try:
+        pols = tp_policies(torch, cfg, None)
+        ref = tp_calls(torch, cfg, pols)
+        del pols
+        gc.collect()
+        torch.cuda.empty_cache()
+        if ref["launches"] != tp_expected(cfg, 1):
+            raise AssertionError(f"tp: the one-process calls launched {ref['launches']}, expected "
+                                 f"{tp_expected(cfg, 1)}")
+        rep = {"one_process": {"ms": ref["ms"], "decoder_gib": ref["decoder_gib"], "s": time.perf_counter() - t0},
+               "worlds": {}}
+        log(f"tp: one process, int8 mla-7b, first calls: DDIM-8 {ref['ms']['ddim']:.1f} ms, DPM-4 "
+            f"{ref['ms']['dpm']:.1f} ms, "
+            f"predict_action_ar ids {ref['ms']['ar']:.1f} ms, decoder {ref['decoder_gib']['w8a8']:.2f} GiB (W8A8) / "
+            f"{ref['decoder_gib']['weight_only']:.2f} GiB (weight-only)")
+        failed, first = [], None
+        for spec, (tp, fsdp), procs in zip(meshes.split(","), shapes, spawned):
+            beside = next((w for w in rep["worlds"].values() if w["tp"] == tp and w["fsdp"] == 1), None)
+            rep["worlds"][spec], totals, bad = tp_ranks(torch, cfg, ref, procs, backend, tp, fsdp, beside)
+            rep["worlds"][spec]["expected"] = tp_expected(cfg, tp)
+            failed += bad
+            first = first or totals
+    finally:
+        for p in (p for procs in spawned for p in procs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(TP_ROOT, ignore_errors=True)
     report["tp"] = rep
     if failed:
         raise AssertionError("tp: " + "; ".join(failed))
@@ -6645,7 +6727,7 @@ NEW_PHASES = ("mistral-agree", "mistral-serve", "mistral-train-agree", "mistral-
               "fsdp-train", "formats")
 # this script's own child processes: a rank of the tp phase, a rank of the
 # tp-train phase, a rank of the fsdp-train phase
-CHILDREN = {"--tp-child": lambda argv: tp_child(Path(argv[0]), argv[1]),
+CHILDREN = {"--tp-child": lambda argv: tp_child(Path(argv[0]), argv[1], int(argv[2])),
             "--tp-train-child": lambda argv: sharded_train_child(argv, "copy_to_tp"),
             "--fsdp-train-child": lambda argv: sharded_train_child(argv, "reduce_scatter")}
 
@@ -6659,8 +6741,8 @@ def main() -> int:
                         "against this tree's kernels")
     parser.add_argument("--only", help="a probe: the build, the kernels phase and only these comma-separated phases "
                         f"of {', '.join(NEW_PHASES)}; prints no result line")
-    parser.add_argument("--tp_world", default=str(TP_WORLD), help="ranks of the tp phase (comma-separated: each "
-                        "world in turn against one reference)")
+    parser.add_argument("--tp_world", default=TP_MESHES, help="meshes of the tp phase (comma-separated, each in "
+                        "turn against one reference: T ranks of one tp group, or TxF: tp T x fsdp F)")
     parser.add_argument("--tp_backend", default="gloo", help="the tp, tp-train and fsdp-train phases' backend: "
                         "gloo (ranks that share one card) or nccl (a card a rank)")
     parser.add_argument("--tp_train_world", default=str(TP_TRAIN_WORLD), help="ranks of the tp-train phase (tp 2, "

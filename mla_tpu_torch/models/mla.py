@@ -36,7 +36,9 @@ from mla_tpu_torch.models import action_model as am
 from mla_tpu_torch.models import embedders
 from mla_tpu_torch.models import llama as llama_mod
 from mla_tpu_torch.models import prismatic
+from mla_tpu_torch.parallel import fsdp
 from mla_tpu_torch.parallel import tensor as tp
+from mla_tpu_torch.parallel.sharding import serving_tp_dim
 from mla_tpu_torch.params import tp_local, tree_items, tree_to
 from mla_tpu_torch.vla.action_tokenizer import ActionTokenizer
 
@@ -459,21 +461,21 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-def _check_tp(mesh, cfg: prismatic.MLAModelConfig, backbone: Dict[str, Any]) -> None:
-    """Raise unless the port can serve `cfg`'s decoder over mesh's tp group:
-    a serving mesh (dp = fsdp = 1), a llama decoder that is not int4, head
-    counts that T divides (JAX's GSPMD can split mid-head; the port's layer
-    splits whole heads)."""
-    T = mesh.tp
-    if mesh.world != T:
-        raise NotImplementedError(f"serving over tp {T} in a mesh of {mesh.world}: the port's serving mesh is "
-                                  "dp = fsdp = 1 (" + ROADMAP_TP_SERVING.format("(f) a serving mesh with fsdp or "
-                                                                                "dp beside tp") + ")")
+def _check_mesh(mesh, cfg: prismatic.MLAModelConfig, backbone: Dict[str, Any]) -> None:
+    """Raise unless the port can serve `cfg`'s decoder over `mesh` (a mesh
+    of more than one rank): dp = 1 (tp ranks, fsdp ranks or both), a llama
+    decoder that is not int4, head counts that T divides (JAX's GSPMD can
+    split mid-head; the port's layer splits whole heads)."""
+    T, F = mesh.tp, mesh.fsdp
+    if mesh.dp > 1:
+        raise NotImplementedError(f"serving over dp {mesh.dp} x fsdp {F} x tp {T}: the port's serving mesh is dp "
+                                  "= 1 (" + ROADMAP_TP_SERVING.format("(g) a serving mesh with dp beside tp or "
+                                                                      "fsdp") + ")")
     if cfg.llm_family != "llama":
-        raise NotImplementedError(f"a {cfg.llm_family} decoder over a tp group: "
+        raise NotImplementedError(f"a {cfg.llm_family} decoder over a serving mesh: "
                                   + ROADMAP_TP_SERVING.format("mla-phi"))
     if any(path.endswith("/w_q4") for path, _ in tree_items(backbone)):
-        raise NotImplementedError("an int4 tree over a tp group: " + ROADMAP_TP_SERVING.format("int4"))
+        raise NotImplementedError("an int4 tree over a serving mesh: " + ROADMAP_TP_SERVING.format("int4"))
     H, Hkv = cfg.llama.num_heads, cfg.llama.num_kv_heads
     if H % T or Hkv % T:
         raise NotImplementedError(f"{H} heads and {Hkv} kv heads over tp {T}: T must divide both ("
@@ -498,13 +500,16 @@ class MLAPolicy:
     or torch.float32; None reads MLA_PREFILL_SCORES here), which only the
     plain attention reads.
 
-    mesh (parallel/mesh.serving_mesh) serves over a tensor-parallel group:
-    the policy takes the whole tree and keeps this rank's part of the
-    decoder by JAX's rules (params.tp_local), fused per rank; every rank
-    calls predict_action_diff or predict_action_ar with the same inputs and
-    gets the same result. The other entry points, a phi decoder, an int4
-    tree and head counts that T does not divide raise under tp (ROADMAP
-    item 16)."""
+    mesh (parallel/mesh.serving_mesh(fsdp=F)) serves over T = world / F
+    tensor-parallel ranks composed with F fsdp ranks: the policy takes the
+    whole tree, keeps this rank's tp part of the decoder by JAX's rules
+    (params.tp_local), fuses it, and at F > 1 keeps only its fsdp part of
+    every leaf of that tree (parallel/fsdp.serving_parts), gathered per
+    use: the decoder layer by layer, the other leaves once a call. Every
+    rank calls predict_action_diff or predict_action_ar with the same
+    inputs and gets the same result. The other entry points, a phi
+    decoder, an int4 tree, head counts that T does not divide, and dp > 1
+    raise over a mesh (ROADMAP item 16)."""
 
     def __init__(
         self, params: Dict[str, Any], state: Dict[str, Any], cfg: prismatic.MLAModelConfig,
@@ -516,15 +521,22 @@ class MLAPolicy:
             raise ValueError(f"int8_mode must be one of {nn.INT8_MODES}, got {int8_mode!r}")
         self.int8_mode = int8_mode
         self.device = _resolve_device(device)
-        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None  # a mesh of one is one process
+        self.tp_split: frozenset = frozenset()
+        self.gatherer: Optional[fsdp.ServingGatherer] = None
         if self.mesh is not None:
-            _check_tp(self.mesh, cfg, params["llm_backbone"])
-            backbone, self.tp_split = tp_local(params["llm_backbone"], self.mesh)
-            params = {**params, "llm_backbone": backbone}
+            _check_mesh(self.mesh, cfg, params["llm_backbone"])
+            if self.mesh.tp > 1:
+                backbone, self.tp_split = tp_local(params["llm_backbone"], self.mesh)
+                params = {**params, "llm_backbone": backbone}
         params, state = tree_to(params, self.device), tree_to(state, self.device)
         if cfg.llm_family == "llama":
             params = {**params, "llm_backbone": llama_mod.fuse_for_serving(params["llm_backbone"],
                                                                           k_major=int8_mode == "w8a8")}
+        if self.mesh is not None and self.mesh.fsdp > 1:
+            split = self.tp_split
+            params, self.gatherer = fsdp.serving_parts(
+                params, self.mesh, lambda path, ndim: serving_tp_dim(path, ndim, split))
         self.params, self.state, self.cfg = params, state, cfg
         self.tokenizer = tokenizer
         self.norm_stats = norm_stats or {}
@@ -534,18 +546,29 @@ class MLAPolicy:
         self.cache_margin = cache_margin
         self.prefill_scores_dtype = prefill_scores_dtype or serving_scores_dtype_from_env()
 
+    @contextlib.contextmanager
     def tp_scope(self):
-        """A block whose decoder ops run over the policy's tp group, on the
-        leaves tp_local split (a null block without a group). The policy's
-        calls enter it; so must a caller that runs prefill or decode_step
-        on the policy's tree itself."""
+        """A block whose decoder ops run over the policy's mesh: the tp
+        group, on the leaves tp_local split, and the fsdp gather of the
+        layers held in parts. It yields the tree to call with: the policy's
+        own, or at fsdp > 1 that tree with every leaf outside the layer
+        stack gathered (once; the layers are gathered one at a time inside
+        llama.run_layers). The policy's calls enter it; so must a caller
+        that runs prefill or decode_step on the policy's tree itself, with
+        the tree it yields."""
         if self.mesh is None:
-            return contextlib.nullcontext()
-        return tp.tp_group(self.mesh.tp_group, self.tp_split)
+            yield self.params
+            return
+        with tp.tp_group(self.mesh.tp_group, self.tp_split):
+            if self.gatherer is None:
+                yield self.params
+                return
+            with fsdp.gathering(self.gatherer):
+                yield self.gatherer.tree(self.params)
 
     def _refuse_under_tp(self, what: str) -> None:
         if self.mesh is not None:
-            raise NotImplementedError(f"{what} over a tp group of {self.mesh.tp}: "
+            raise NotImplementedError(f"{what} over a tp {self.mesh.tp} x fsdp {self.mesh.fsdp} mesh: "
                                       + ROADMAP_TP_SERVING.format(what))
 
     def _stats(self, unnorm_key: Optional[str], kind: str) -> Dict[str, Any]:
@@ -601,16 +624,16 @@ class MLAPolicy:
         cache_max = embed_len + 2 + cfg.action_horizon + tail_len + self.cache_margin
         sched = self._sched(use_ddpm, sampler, num_ddim_steps)
         use_cfg = cfg_scale > 1.0
-        with torch.inference_mode(), self.tp_scope():
-            prefix = build_prefix_embeds(self.params, self.state, cfg, prefix_ids, images, pc, with_uncond=use_cfg)
-            kv, _ = prefill(self.params, cfg, prefix, cache_max, compute_logits=False, int8_mode=self.int8_mode,
+        with torch.inference_mode(), self.tp_scope() as params:
+            prefix = build_prefix_embeds(params, self.state, cfg, prefix_ids, images, pc, with_uncond=use_cfg)
+            kv, _ = prefill(params, cfg, prefix, cache_max, compute_logits=False, int8_mode=self.int8_mode,
                             scores_dtype=self.prefill_scores_dtype)
             if use_cfg:
                 proprio, noise_x = torch.cat([proprio, proprio]), torch.cat([noise, noise])
             else:
                 noise_x = noise
             samples = ddim_denoise_actions(
-                self.params, cfg, sched, kv, prefix.shape[1], proprio, noise_x,
+                params, cfg, sched, kv, prefix.shape[1], proprio, noise_x,
                 use_ddpm=use_ddpm, generator=generator, cfg_scale=cfg_scale, sampler=sampler,
                 num_dpm_steps=num_dpm_steps, int8_mode=self.int8_mode,
             )
@@ -744,18 +767,18 @@ class MLAPolicy:
         if temperature > 0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-        with torch.inference_mode(), self.tp_scope():
-            prefix = build_prefix_embeds(self.params, self.state, cfg, self._tensor(ids.astype(np.int64)),
+        with torch.inference_mode(), self.tp_scope() as params:
+            prefix = build_prefix_embeds(params, self.state, cfg, self._tensor(ids.astype(np.int64)),
                                          self._images(image), self._points(pointcloud))
-            kv, last = prefill(self.params, cfg, prefix, cache_max, int8_mode=self.int8_mode)
+            kv, last = prefill(params, cfg, prefix, cache_max, int8_mode=self.int8_mode)
             if num_beams > 1:
                 toks, extra = beam_search_decode(
-                    self.params, cfg, kv, prefix.shape[1], last, num_tokens, num_beams=num_beams,
+                    params, cfg, kv, prefix.shape[1], last, num_tokens, num_beams=num_beams,
                     length_penalty=length_penalty, int8_mode=self.int8_mode,
                 )
             else:
                 toks, extra = greedy_decode_actions(
-                    self.params, cfg, kv, prefix.shape[1], last, num_tokens, temperature=temperature,
+                    params, cfg, kv, prefix.shape[1], last, num_tokens, temperature=temperature,
                     top_k=top_k, generator=gen, int8_mode=self.int8_mode,
                 )
         return toks.cpu().numpy(), extra.float().cpu().numpy()

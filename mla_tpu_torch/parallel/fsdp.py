@@ -40,6 +40,13 @@ collectives are parallel/tensor.py's (all_gather, reduce_scatter), which
 route them by backend and card (tensor.SharedCard for ranks that share
 one card over gloo).
 
+A serving policy over a mesh with fsdp > 1 (models/mla.py MLAPolicy)
+holds its tree the same way, forward only (`serving_parts`,
+`ServingGatherer`): each leaf of the tree it serves (tp-local, fused,
+int8 where quantized) cut by the same plan, gathered as bytes in its own
+dtype, the layers inside llama.run_layers in the prefill, every suffix
+evaluation and every decode step, the other leaves once a call.
+
 `counts` tallies the layer gathers and reduce-scatters, the outer
 gathers, and the whole layers alive at once (each layer gather's outputs
 watched with weakref.finalize) with their most.
@@ -57,7 +64,7 @@ import torch
 
 from mla_tpu_torch.parallel import tensor as tp_mod
 from mla_tpu_torch.parallel.sharding import Spec
-from mla_tpu_torch.params import tree_map
+from mla_tpu_torch.params import tree_items, tree_map
 
 LAYERS = "llm_backbone/layers/"  # the stacked decoder leaves, gathered layer by layer
 BUCKET_ELEMS = 1 << 25  # elements per outer gather and per gradient all-reduce (128 MiB of fp32)
@@ -142,17 +149,15 @@ def _live_layer_freed() -> None:
     counts["live_layers"] -= 1
 
 
-class Gatherer:
-    """The compute tensors of a sharded state's trainable leaves, gathered
-    over `group` (this rank `rank` of `size`; None: a group of one) on
-    `device`. `acc` (set by the step) holds one accumulator per leaf index,
-    the shape of its master part, or None where this rank holds none."""
+class _Gathers:
+    """What the training and the serving gathers share: the leaves held in
+    parts over `group` (this rank `rank` of `size`; None: a group of one),
+    the pieces of a gather, and the compute tree built from them on
+    `device`. A subclass's `_apply` runs one gather."""
 
     def __init__(self, leaves: List[Leaf], group: Any, rank: int, size: int, device: torch.device):
-        self.leaves, self.group, self.rank, self.size = leaves, group, rank, size
+        self.leaves, self.group, self.rank, self.size, self.device = leaves, group, rank, size, device
         self.by_id = {id(leaf.held): leaf for leaf in leaves}
-        self.anchor = torch.zeros((), device=device, requires_grad=True)
-        self.acc: List[Optional[torch.Tensor]] = [None] * len(leaves)
 
     # -- what a gather moves ---------------------------------------------------
     def _piece(self, leaf: Leaf, i: Optional[int]) -> _Piece:
@@ -169,10 +174,6 @@ class Gatherer:
     def _source(self, p: _Piece) -> torch.Tensor:
         part = self.leaves[p.k].part
         return part if p.sel is None else part[p.sel]
-
-    def _dest(self, p: _Piece) -> Optional[torch.Tensor]:
-        acc = self.acc[p.k]
-        return acc if acc is None or p.sel is None else acc[p.sel]
 
     def _segments(self, pieces: Sequence[_Piece], itemsize: Callable[[_Piece], int], align: int):
         """Per rank, [(piece index, offset, elements)] of its segment, and
@@ -199,7 +200,7 @@ class Gatherer:
             return [self._source(p).to(p.dtype).view(p.shape) for p in pieces]
         item = lambda p: p.dtype.itemsize  # noqa: E731
         segs, nbytes = self._segments(pieces, item, _ALIGN)
-        mine = torch.zeros(nbytes, dtype=torch.uint8, device=self.anchor.device)
+        mine = torch.zeros(nbytes, dtype=torch.uint8, device=self.device)
         for j, off, elems in segs[self.rank]:
             p = pieces[j]
             mine[off : off + elems * item(p)].view(p.dtype).copy_(self._source(p).reshape(-1))
@@ -212,36 +213,14 @@ class Gatherer:
                 got[j].append(buf[at : at + elems * item(p)].view(p.dtype).view(self._slice_shape(p)))
         return [torch.cat(parts, p.dim) if p.dim is not None else parts[0].clone() for p, parts in zip(pieces, got)]
 
-    def _scatter(self, pieces: Sequence[_Piece], grads: Sequence[Optional[torch.Tensor]]) -> None:
-        if self.size == 1:
-            for p, g in zip(pieces, grads):
-                if g is not None:
-                    self._dest(p).add_(g)
-            return
-        segs, n = self._segments(pieces, lambda p: 1, 1)
-        flat = torch.zeros(self.size * n, dtype=torch.float32, device=self.anchor.device)
-        for r, seg in enumerate(segs):
-            for j, off, elems in seg:
-                p, g = pieces[j], grads[j]
-                if g is None:
-                    continue
-                if p.dim is not None:
-                    w = p.shape[p.dim] // self.size
-                    g = g.narrow(p.dim, r * w, w)
-                flat[r * n + off : r * n + off + elems].view(g.shape).copy_(g)
-        out = tp_mod.reduce_scatter(flat, self.group)
-        for j, off, elems in segs[self.rank]:
-            dest = self._dest(pieces[j])
-            dest.add_(out[off : off + elems].view(dest.shape))
-
     def _apply(self, pieces: List[_Piece], layer: bool) -> Tuple[torch.Tensor, ...]:
-        return _Gather.apply(self.anchor, self, tuple(pieces), layer)
+        raise NotImplementedError
 
     # -- the compute tree --------------------------------------------------------
     def tree(self, params: Any) -> Any:
-        """`params` (the state's tree) with every trainable leaf outside
+        """`params` (the state's tree) with every leaf held in parts outside
         LAYERS gathered whole; the stacked layer leaves stay the parts that
-        layer_gather recognises, the frozen leaves as they are."""
+        layer_gather recognises, the other leaves as they are."""
         outer = [leaf for leaf in self.leaves if not leaf.path.startswith(LAYERS)]
         whole: Dict[int, torch.Tensor] = {}
         for run in buckets(range(len(outer)), lambda j: math.prod(outer[j].shape)):
@@ -271,11 +250,119 @@ class Gatherer:
         return tree_map(lambda x: got[x] if isinstance(x, int) else x, slots)
 
 
-_ACTIVE: Optional[Gatherer] = None
+class Gatherer(_Gathers):
+    """The compute tensors of a sharded state's trainable leaves, gathered
+    over `group` on `device`, their gradients reduce-scattered back.
+    `acc` (set by the step) holds one accumulator per leaf index, the shape
+    of its master part, or None where this rank holds none."""
+
+    def __init__(self, leaves: List[Leaf], group: Any, rank: int, size: int, device: torch.device):
+        super().__init__(leaves, group, rank, size, device)
+        self.anchor = torch.zeros((), device=device, requires_grad=True)
+        self.acc: List[Optional[torch.Tensor]] = [None] * len(leaves)
+
+    def _dest(self, p: _Piece) -> Optional[torch.Tensor]:
+        acc = self.acc[p.k]
+        return acc if acc is None or p.sel is None else acc[p.sel]
+
+    def _scatter(self, pieces: Sequence[_Piece], grads: Sequence[Optional[torch.Tensor]]) -> None:
+        if self.size == 1:
+            for p, g in zip(pieces, grads):
+                if g is not None:
+                    self._dest(p).add_(g)
+            return
+        segs, n = self._segments(pieces, lambda p: 1, 1)
+        flat = torch.zeros(self.size * n, dtype=torch.float32, device=self.device)
+        for r, seg in enumerate(segs):
+            for j, off, elems in seg:
+                p, g = pieces[j], grads[j]
+                if g is None:
+                    continue
+                if p.dim is not None:
+                    w = p.shape[p.dim] // self.size
+                    g = g.narrow(p.dim, r * w, w)
+                flat[r * n + off : r * n + off + elems].view(g.shape).copy_(g)
+        out = tp_mod.reduce_scatter(flat, self.group)
+        for j, off, elems in segs[self.rank]:
+            dest = self._dest(pieces[j])
+            dest.add_(out[off : off + elems].view(dest.shape))
+
+    def _apply(self, pieces: List[_Piece], layer: bool) -> Tuple[torch.Tensor, ...]:
+        return _Gather.apply(self.anchor, self, tuple(pieces), layer)
+
+
+class ServingGatherer(_Gathers):
+    """The forward-only gather of a serving policy's tree (models/mla.py
+    MLAPolicy over a mesh with fsdp > 1): every leaf held in parts in its
+    serving dtype (int8 w_q / w_qt / table_q, their fp32 or bf16 scales,
+    the float leaves), gathered as bytes, so each gathered leaf equals the
+    one-process leaf bit for bit. No masters, no accumulators, no autograd
+    Function: the decoder's layers one at a time inside llama.run_layers
+    (prefill, every suffix evaluation and every decode step), the other
+    leaves once a call (`tree`)."""
+
+    def _apply(self, pieces: List[_Piece], layer: bool) -> Tuple[torch.Tensor, ...]:
+        counts["layer_gathers" if layer else "gathers"] += 1
+        return tuple(self._gather(pieces))
+
+    def layer_bytes(self) -> Dict[str, int]:
+        """The decoder's layer stack (LAYERS) on this rank: 'held', the
+        bytes of the storages its parts lie in (each once: a view into a
+        whole leaf would count the whole); 'stack', the whole stack's
+        (fused, tp-local); 'unit', the largest stacked leaf one rank owns
+        whole."""
+        held, stack, unit, seen = 0, 0, 0, set()
+        for leaf in self.leaves:
+            if not leaf.path.startswith(LAYERS):
+                continue
+            nbytes = math.prod(leaf.shape) * leaf.dtype.itemsize
+            stack += nbytes
+            if leaf.spec.dim is None:
+                unit = max(unit, nbytes)
+            if leaf.part is not None and leaf.part.untyped_storage().data_ptr() not in seen:
+                seen.add(leaf.part.untyped_storage().data_ptr())
+                held += leaf.part.untyped_storage().nbytes()
+        return {"held": held, "stack": stack, "unit": unit}
+
+
+def serving_parts(params: Any, mesh: Any, tp_dim: Callable[[str, int], Optional[int]]) -> Tuple[Any, ServingGatherer]:
+    """(this rank's tree, its ServingGatherer) for a serving tree over
+    mesh's fsdp group. The tree is the one the rank serves (tp-local and
+    fused, its K-major w_qt included), because that is the tensor a gather
+    must give back bit for bit: each leaf is cut by parallel/sharding.plan,
+    JAX's fsdp rule (the largest dim that fsdp divides, the dim tp_dim(path,
+    ndim) names and a stacked leaf's [L] axis kept whole); a leaf with no
+    such dim is owned whole by one rank. The tree holds this rank's parts
+    (contiguous copies, or the leaf itself for its owner) and an empty
+    placeholder where another rank owns a leaf; the caller frees the
+    whole tree."""
+    from mla_tpu_torch.parallel import sharding
+    from mla_tpu_torch.utils.tree import map_with_path
+
+    items = tree_items(params)
+
+    def keep(path, shape):
+        d = tp_dim(path, len(shape))
+        return ({0} if path.startswith(LAYERS) else set()) | ({d} if d is not None else set())
+
+    specs = sharding.plan([(p, tuple(t.shape), t.numel() * t.element_size()) for p, t in items], mesh.fsdp, keep)
+    leaves, held = [], {}
+    for k, (path, t) in enumerate(items):
+        part = sharding.local_part(t, specs[path], mesh.fsdp_rank, mesh.fsdp)
+        if part is not None and specs[path].dim is not None:
+            part = part.clone(memory_format=torch.contiguous_format)
+        held[path] = part if part is not None else t.new_empty(0)
+        leaves.append(Leaf(path, specs[path], tuple(t.shape), t.dtype, part, held[path], k))
+    device = items[0][1].device
+    return (map_with_path(lambda path, _: held[path], params),
+            ServingGatherer(leaves, mesh.fsdp_group, mesh.fsdp_rank, mesh.fsdp, device))
+
+
+_ACTIVE: Optional[_Gathers] = None
 
 
 @contextlib.contextmanager
-def gathering(g: Gatherer) -> Iterator[None]:
+def gathering(g: _Gathers) -> Iterator[None]:
     """Gather the layer stacks that `g` holds in parts inside the block."""
     global _ACTIVE
     prev, _ACTIVE = _ACTIVE, g

@@ -18,10 +18,10 @@ index); the global batch splits over both: the
 dp * fsdp ranks that share a tp index form a data group (data rank
 dp_rank * fsdp + fsdp_rank), and the ranks of one tp group, which are
 consecutive, see the same rows. The port trains over such a mesh
-(training/strategy.py) and serves over one tp group (`serving_mesh`: dp =
-fsdp = 1, parallel/tensor.py). The trainers hand the data pipeline the
-mesh's data rank and data world, so the ranks of a tp group read, shuffle
-and augment the same frames.
+(training/strategy.py) and serves over tp composed with fsdp
+(`serving_mesh`: dp = 1; parallel/tensor.py, parallel/fsdp.py). The
+trainers hand the data pipeline the mesh's data rank and data world, so
+the ranks of a tp group read, shuffle and augment the same frames.
 """
 
 from __future__ import annotations
@@ -216,11 +216,16 @@ def distinct_cards(device: torch.device) -> int:
     return len(set(every))
 
 
-def serving_mesh() -> Mesh:
-    """The mesh a tensor-parallel policy serves over: the whole world as
-    one tp group, dp = fsdp = 1 (a mesh with fsdp or dp beside tp is
-    refused by the policy, citing ROADMAP item 16 (f))."""
+def serving_mesh(fsdp: int = 1) -> Mesh:
+    """The mesh a policy serves over: dp = 1, `fsdp` ranks that each hold
+    a part of every leaf (gathered per use, parallel/fsdp.py), and the
+    world // fsdp consecutive ranks of each tp group (make_mesh's rank
+    layout, as training's). fsdp 1 is the whole world as one tp group
+    (a mesh with dp beside tp or fsdp is refused by the policy, citing
+    ROADMAP item 16 (g)). Raises unless fsdp divides the world."""
     import torch.distributed as dist
 
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-    return make_mesh(dp=1, fsdp=1, tp=world, world=world)
+    if fsdp < 1 or world % fsdp:
+        raise ValueError(f"fsdp {fsdp} does not divide a world of {world} processes")
+    return make_mesh(dp=1, fsdp=fsdp, tp=world // fsdp, world=world)

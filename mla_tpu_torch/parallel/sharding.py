@@ -7,8 +7,9 @@ for rule: the serving decoder's q/k/v/gate/up split on the output dim, o
 and down on the input dim, the embedding and the lm_head on the
 vocabulary (params.tp_local takes a rank's part; `tp_split_dims` says,
 for every leaf, which dim the tp ranks split or that each holds it
-whole, and every reduction of the train step reads it). The port serves
-over tp alone (dp = fsdp = 1, parallel/mesh.serving_mesh) and trains over
+whole, and every reduction of the train step reads it; `serving_tp_dim`
+says it for the serving tree's fused leaves). The port serves over tp
+composed with fsdp (dp = 1, parallel/mesh.serving_mesh) and trains over
 tp composed with fsdp and dp.
 
 For fsdp, JAX shards each leaf's largest dim that divides by the fsdp
@@ -84,6 +85,33 @@ def tp_dim(path: str, shape: Sequence[int], tp: int) -> Optional[int]:
     else:
         d = ndim + TP_RULES[rule]
     return d if 0 <= d < ndim and shape[d] % tp == 0 else None
+
+
+# the serving tree's fused leaves (models/llama.fuse_for_serving) and the
+# leaf whose TP_RULES key each holds
+_FUSED = {"/attn/qkv_fused/": "/attn/q/", "/mlp/gateup_fused/": "/mlp/gate/"}
+
+
+def serving_tp_dim(path: str, ndim: int, split: Iterable[str]) -> Optional[int]:
+    """The dim of a serving tree's leaf (tp-local, fused; params.tp_local
+    then llama.fuse_for_serving) that the tp ranks hold a slice of, or None
+    where each holds it whole: its TP_RULES key's dim where that key is in
+    `split`, a fused leaf under its q's or gate's key, the K-major w_qt
+    [.., out, in] under its w_q's with the last two dims swapped, a
+    per-output-channel w_scale only under the N-split (-1) rules."""
+    base = path
+    for fused, one in _FUSED.items():
+        base = base.replace(fused, one)
+    k_major = base.endswith("/w_qt")
+    if k_major:
+        base = base[: -len("/w_qt")] + "/w_q"
+    rule = tp_rule(base)
+    if rule is None or rule not in set(split):
+        return None
+    if base.endswith("/w_scale") and TP_RULES[rule] != -1:
+        return None
+    d = -1 if base.endswith("/w_scale") else TP_RULES[rule]
+    return ndim + (-3 - d if k_major else d)
 
 
 def tp_split_dims(leaves: Iterable[Tuple[str, Sequence[int]]], tp: int) -> Dict[str, Optional[int]]:

@@ -104,32 +104,39 @@ class SharedCard:
     """All-reduce (SUM or MAX), all-gather and reduce-scatter for the ranks
     of a gloo group that share one card (gloo moves a card tensor only
     through the host, over TCP; NCCL refuses two ranks on one device):
-    each rank keeps one buffer on the
-    card, which the others open through CUDA IPC (the handles exchanged
-    over the group whenever it grows); a device synchronize and a barrier
-    of the group order every write before the reads, and every read
-    before the next write."""
+    each rank keeps two buffers on the card, which the others open through
+    CUDA IPC (the handles exchanged over the group whenever one grows). A
+    device synchronize and a barrier of the group (the fence) order every
+    write before the reads of the same call. The calls alternate between
+    the two sets of buffers, so a call writes the set that the call before
+    last read: every rank has passed the last call's fence, which waited
+    for its own device, so those reads are done, and no fence follows the
+    reads. Each output is a new tensor, never a view of a buffer."""
 
     def __init__(self, group: Any, device: torch.device):
         import torch.distributed as dist
 
         self.group, self.device = group, device
         self.size, self.rank = dist.get_world_size(group), dist.get_rank(group)
-        self.mine: Optional[torch.Tensor] = None
-        self.peers: List[torch.Tensor] = []
+        self.mine: List[Optional[torch.Tensor]] = [None, None]
+        self.peers: List[List[torch.Tensor]] = [[], []]
+        self.turn = 0
 
     def _buffers(self, nbytes: int) -> List[torch.Tensor]:
-        """Every rank's buffer, at least nbytes long (this rank's own)."""
+        """Every rank's buffer of this call's set, at least nbytes long
+        (this rank's own); the next call takes the other set. A set that
+        grows replaces buffers whose reads are done, as a write would."""
         import torch.distributed as dist
         from torch.multiprocessing.reductions import reduce_tensor
 
-        if self.mine is None or self.mine.numel() < nbytes:
-            self.peers = []
-            self.mine = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=self.device)
+        k, self.turn = self.turn, 1 - self.turn
+        if self.mine[k] is None or self.mine[k].numel() < nbytes:
+            self.peers[k] = []
+            self.mine[k] = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=self.device)
             shared: List[Any] = [None] * self.size
-            dist.all_gather_object(shared, reduce_tensor(self.mine), group=self.group)
-            self.peers = [self.mine if r == self.rank else fn(*args) for r, (fn, args) in enumerate(shared)]
-        return [p[:nbytes] for p in self.peers]
+            dist.all_gather_object(shared, reduce_tensor(self.mine[k]), group=self.group)
+            self.peers[k] = [self.mine[k] if r == self.rank else fn(*args) for r, (fn, args) in enumerate(shared)]
+        return [p[:nbytes] for p in self.peers[k]]
 
     def _fence(self) -> None:
         import torch.distributed as dist
@@ -141,9 +148,7 @@ class SharedCard:
         bufs = self._buffers(mine.numel() * mine.element_size())
         bufs[self.rank].view(mine.dtype).copy_(mine)
         self._fence()
-        out = torch.cat([b.view(mine.dtype) for b in bufs])
-        self._fence()
-        return out
+        return torch.cat([b.view(mine.dtype) for b in bufs])
 
     def all_reduce(self, t: torch.Tensor, op: Any) -> torch.Tensor:
         """t reduced over the group in place (SUM in rank order, or MAX)."""
@@ -159,7 +164,6 @@ class SharedCard:
                 torch.maximum(out, g, out=out)
             else:
                 out += g
-        self._fence()
         return t.copy_(out)
 
     def reduce_scatter(self, flat: torch.Tensor) -> torch.Tensor:
@@ -170,7 +174,6 @@ class SharedCard:
         out = bufs[0].view(flat.dtype)[self.rank * n : (self.rank + 1) * n].clone()
         for b in bufs[1:]:
             out += b.view(flat.dtype)[self.rank * n : (self.rank + 1) * n]
-        self._fence()
         return out
 
 

@@ -272,21 +272,52 @@ def _exclusive(lock: Path, timeout: float = 1200):
         lock.unlink(missing_ok=True)
 
 
-@pytest.fixture(scope="module")
-def runs(request, tmp_path_factory):
-    """The children's and the references' results, computed once a session:
-    the xdist workers that run this file's tests share them through their
-    session's temporary root (a lock file; the first computes, the others
-    load)."""
+def shared_runs(request, tmp_path_factory, name: str, compute):
+    """compute(workdir) once a session, shared by the xdist workers that run
+    a file's tests through their session's temporary root: under a lock
+    file the first computes into root/name and writes runs.pt (under a
+    temporary name, renamed when whole); the others load it, mapped from
+    the file rather than copied into each worker. A compute that raised
+    leaves its traceback in root/name/failed.txt, which every later worker
+    raises again instead of computing anew (each retry would start the
+    same children beside the rest of the suite, at the same moment, and
+    meet the same fault)."""
+    import traceback
+
     base = tmp_path_factory.getbasetemp()
     root = base.parent if hasattr(request.config, "workerinput") else base
-    done = root / "torch_distributed" / "runs.pt"
-    with _exclusive(root / "torch_distributed.lock"):
+    work = root / name
+    done, failed = work / "runs.pt", work / "failed.txt"
+    with _exclusive(root / f"{name}.lock"):
+        if failed.exists():
+            raise RuntimeError(f"{name}: another worker's compute of the shared results failed:\n"
+                               + failed.read_text())
         if not done.exists():
-            shutil.rmtree(done.parent, ignore_errors=True)
-            done.parent.mkdir(parents=True)
-            torch.save(_compute_runs(done.parent), done)
-    return torch.load(done, weights_only=False)
+            shutil.rmtree(work, ignore_errors=True)
+            work.mkdir(parents=True)
+            try:
+                partial = work / "runs.pt.partial"
+                torch.save(compute(work), partial)
+                partial.rename(done)
+            except BaseException:
+                with contextlib.suppress(OSError):
+                    failed.write_text(traceback.format_exc())
+                raise
+    return torch.load(done, weights_only=False, mmap=True)
+
+
+def _load_and_remove(path: Path):
+    """A child's result file, loaded and then deleted: runs.pt holds it."""
+    out = torch.load(path, weights_only=False)
+    path.unlink()
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(request, tmp_path_factory):
+    """The children's and the references' results, computed once a session
+    (shared_runs)."""
+    return shared_runs(request, tmp_path_factory, "torch_distributed", _compute_runs)
 
 
 def _compute_runs(work: Path):
@@ -317,7 +348,8 @@ def _compute_runs(work: Path):
                           "worlds": (2,), "dp": DP, "draws": draws[base][:1], "local": (what,)})
     both = draws["adamw-acc1"]
     scenarios.append({"name": "ckpt", "opt": OPT["adamw"], "accum": 1, "rep": REP, "use_diff": True, "worlds": (2,),
-                      "dp": DP, "draws": both, "save_after": 1, "save": "ckpt_run", "ema": True})
+                      "dp": DP, "draws": both, "save_after": 1, "save": "ckpt_run", "ema": True,
+                      "keep_opt_state": True})
     scenarios.append({"name": "resume", "opt": OPT["adamw"], "accum": 1, "rep": REP, "use_diff": True,
                       "worlds": (4,), "dp": DP, "draws": both[1:], "load": "ckpt_run", "ema": True})
     torch.save({"params": from_jax(params), "model_state": from_jax(mstate), "batch": _global_batch(True),
@@ -329,14 +361,18 @@ def _compute_runs(work: Path):
     try:
         jax_refs = {name: _jax_step(name, keys_draws[name][0]) for name in PARITY}
         port1 = {name: _port_step(name, draws[name][:1]) for name in PARITY}
+        for name in PARITY:  # test_noise_leaves_are_the_biases_before_batch_norm reads one
+            if name != "adamw-acc1":
+                del port1[name]["grads"]
         draws1 = train_time_draws(trajs, stats)
     finally:
         _wait(procs, CHILD_TIMEOUT)
     procs = _launch(work, 4, "mla") + [_launch_trainer(work), _launch_train_step(work)]
     _wait(procs, CHILD_TIMEOUT)
+    (work / "inputs.pt").unlink()
     return {"work": work, "rlds": rlds, "jax": jax_refs, "port1": port1, "draws": draws, "draws1": draws1,
-            "w2": torch.load(work / "result-2.pt", weights_only=False),
-            "w4": torch.load(work / "result-4.pt", weights_only=False), "seconds": time.monotonic() - t0}
+            "w2": _load_and_remove(work / "result-2.pt"), "w4": _load_and_remove(work / "result-4.pt"),
+            "seconds": time.monotonic() - t0}
 
 
 def _assert_step_matches(got, want, what, tol=RTOL):
@@ -734,8 +770,8 @@ def test_partial_environment_raises(env, match):
 def test_tp_raises_citing_the_roadmap_item():
     """A mesh takes a tp axis (the port serves over one, consecutive ranks
     a group, and trains over one: tests/test_torch_tp_train.py), so the
-    item-15 refusal and its ROADMAP_TP are gone (a serving mesh with fsdp
-    beside tp cites item 16 (f): tests/test_torch_tp_serving.py)."""
+    item-15 refusal and its ROADMAP_TP are gone (a serving mesh with dp
+    beside tp or fsdp cites item 16 (g): tests/test_torch_tp_serving.py)."""
     m = tmesh.make_mesh(tp=2, world=2)
     assert (m.dp, m.fsdp, m.tp, m.tp_rank) == (1, 1, 2, 0)
     assert tmesh.tp_ranks(1, 2, 2) == [[0, 1], [2, 3]] and tmesh.fsdp_ranks(1, 2, 2) == [[0, 2], [1, 3]]

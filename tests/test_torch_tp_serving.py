@@ -11,12 +11,23 @@ widened to a 128-multiple decoder (DDIM and predict_action_ar's ids), and
 a GQA 4:2 decoder in W8A8 at T = 2. Two controls must be caught: W8A8's
 row max kept local, and the row-parallel all-reduce skipped. One spawn per
 world size runs every scenario.
+
+The same spawns serve over parallel/mesh.serving_mesh(fsdp=2) (the mesh of
+tests/test_tp_serving.py: tp composed with fsdp), each rank keeping its
+fsdp part of every leaf of the tree it serves and gathering it per use:
+tp 1 x fsdp 2 at world 2, tp 2 x fsdp 2 at world 4. Their fp32 DDIM and
+W8A8 DDIM / DPM chunks are bit-identical to the policy's over the same tp
+without fsdp (the gather moves the leaves' bytes), the weight-only AR ids
+and probabilities equal; each rank holds at most its tp-local stack /
+fsdp plus the largest stacked leaf owned whole, gathers each layer once a
+forward and holds at most 2 whole layers; a gather that zeroes the peer's
+segment must be caught.
 """
 
 import contextlib
 import dataclasses
+import math
 import os
-import shutil
 import socket
 import subprocess
 import sys
@@ -30,7 +41,7 @@ import torch
 
 import torch_policy_parity as tpp
 import torch_tp_child as child
-from test_torch_distributed import _exclusive
+from test_torch_distributed import _load_and_remove, shared_runs
 from mla_tpu.diffusion import gaussian as jgd
 from mla_tpu.models import mla as jmla
 from mla_tpu.models import prismatic as jprismatic
@@ -165,20 +176,11 @@ def _jax_runs(jtrees, req):
 
 @pytest.fixture(scope="module")
 def runs(request, tmp_path_factory):
-    """Every scenario: each rank's output at worlds 2 and 4, the port's
-    one-process output, JAX's unsharded and tp-sharded outputs, computed
-    once a session (the xdist workers that run this file's tests share them
-    through their session's temporary root: the first computes, the others
-    load)."""
-    base = tmp_path_factory.getbasetemp()
-    root = base.parent if hasattr(request.config, "workerinput") else base
-    done = root / "torch_tp_serving" / "runs.pt"
-    with _exclusive(root / "torch_tp_serving.lock"):
-        if not done.exists():
-            shutil.rmtree(done.parent, ignore_errors=True)
-            done.parent.mkdir(parents=True)
-            torch.save(_compute_runs(done.parent), done)
-    return torch.load(done, weights_only=False)
+    """Every scenario: each rank's output at worlds 2 and 4 (and over
+    serving_mesh(fsdp=2)), the port's one-process output, JAX's unsharded
+    and tp-sharded outputs, computed once a session and shared by the xdist
+    workers (test_torch_distributed.shared_runs)."""
+    return shared_runs(request, tmp_path_factory, "torch_tp_serving", _compute_runs)
 
 
 def _compute_runs(work: Path):
@@ -202,7 +204,8 @@ def _compute_runs(work: Path):
     finally:
         for w in procs:
             _wait(procs[w])
-    ranks = {w: [torch.load(work / f"out_w{w}_r{r}.pt", weights_only=False) for r in range(w)] for w in procs}
+    (work / "inputs.pt").unlink()
+    ranks = {w: [_load_and_remove(work / f"out_w{w}_r{r}.pt") for r in range(w)] for w in procs}
     return {"ranks": ranks, "one": ranks.pop(1)[0], "jax": unsharded, "jax_tp": sharded}
 
 
@@ -266,7 +269,7 @@ def test_every_rank_returns_the_same(runs, world):
     for other in runs["ranks"][world][1:]:
         assert set(other) == set(first)
         for name, out in first.items():
-            if name.startswith("control-") or name == "tensor_ops":
+            if name.startswith("control-") or name in ("tensor_ops", "fsdp"):
                 continue
             for a, b in zip(out if isinstance(out, tuple) else (out,), other[name] if isinstance(out, tuple)
                             else (other[name],)):
@@ -316,6 +319,92 @@ def test_controls_are_caught(runs, world, name):
         assert not np.allclose(got, runs["jax"]["w8a8-ddim"], rtol=RTOL["int8"], atol=RTOL["int8"])
 
 
+# serving_mesh(fsdp=2): world -> (tp, the world whose tp-only policy it must equal: 1 is one process)
+FSDP = {2: (1, 1), 4: (2, 2)}
+FSDP_DIFF = [n for n, s in child.FSDP_SCENARIOS.items() if s[2] == "diff" and s[4] is None]
+FSDP_CASES = [(w, n) for w in WORLDS for n in FSDP_DIFF]
+
+
+def _tp_only(runs, world):
+    """Rank 0's outputs of the policy over the same tp without fsdp."""
+    want = FSDP[world][1]
+    return runs["one"] if want == 1 else runs["ranks"][want][0]
+
+
+@pytest.mark.parametrize("world,name", FSDP_CASES, ids=[f"w{w}-{n}" for w, n in FSDP_CASES])
+def test_fsdp_chunk_equals_tp_alone(runs, world, name, record_property):
+    """Over serving_mesh(fsdp=2) (tp 1 x fsdp 2 at world 2, tp 2 x fsdp 2 at
+    world 4) every rank's chunk is bit for bit the chunk of the policy over
+    the same tp without fsdp (one process at tp 1): the gather hands each
+    leaf back byte for byte. The fp32 and W8A8 DDIM chunks are also within
+    test_tp_chunk_matches_jax's tolerance of JAX's tp=4 x fsdp=2 graph."""
+    tp, _ = FSDP[world]
+    for r in range(world):
+        got = runs["ranks"][world][r]["fsdp"]
+        assert (got["mesh"]["tp"], got["mesh"]["fsdp"]) == (tp, 2)
+        assert (got["mesh"]["tp_rank"], got["mesh"]["fsdp_rank"]) == (r % tp, r // tp)
+        out = got["outputs"][name]
+        assert out.shape == (16, 7) and np.isfinite(out).all()
+        np.testing.assert_array_equal(out, _tp_only(runs, world)[name])
+    if name in runs["jax_tp"]:
+        rtol = RTOL[child.SCENARIOS[name][0]]
+        out = runs["ranks"][world][0]["fsdp"]["outputs"][name]
+        record_property("max_abs_err_jax_tp", float(np.abs(out - runs["jax_tp"][name]).max()))
+        np.testing.assert_allclose(out, runs["jax_tp"][name], rtol=rtol, atol=rtol)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_fsdp_ar_ids_equal_tp_alone(runs, world):
+    """predict_action_ar's core (weight-only int8, 7 greedy tokens) over
+    serving_mesh(fsdp=2): the ids and the per-token probabilities of the
+    policy over the same tp without fsdp, exactly, on every rank."""
+    want = _tp_only(runs, world)["weight_only-ar"]
+    for r in range(world):
+        toks, probs = runs["ranks"][world][r]["fsdp"]["outputs"]["weight_only-ar"]
+        np.testing.assert_array_equal(toks, np.asarray(want[0]))
+        np.testing.assert_array_equal(probs, np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_fsdp_layer_stack_and_gathers(runs, world):
+    """Each rank holds at most its tp-local fused stack / fsdp plus the
+    largest stacked leaf one rank owns whole (the storages of its parts:
+    no view into a whole leaf), the fsdp group together holds that stack
+    once, and the tp-local stack is the one-process stack / T plus the
+    leaves each tp rank keeps whole (norms, row-parallel scales). A call
+    gathers each layer once a forward (L x (1 prefill + 8 suffix
+    evaluations) for DDIM-8, L x (1 + 4) for DPM-4, L x (1 + 7 decode steps)
+    for 7 AR tokens), the other leaves in at least one gather, and holds at
+    most 2 whole layers, none after the call."""
+    tp, _ = FSDP[world]
+    forwards = {"fp32-ddim": 9, "w8a8-ddim": 9, "w8a8-dpm": 5, "weight_only-ar": 1 + child.AR_TOKENS}
+    ranks = [runs["ranks"][world][r]["fsdp"] for r in range(world)]
+    for key in ranks[0]["layer_bytes"]:
+        for got in ranks:
+            b = got["layer_bytes"][key]
+            assert b["held"] <= b["stack"] / 2 + b["unit"], (key, b)
+            assert b["held"] < b["stack"], (key, b)
+            assert b["stack"] == (b["one_process"] - b["tp_whole"]) / tp + b["tp_whole"], (key, b)
+        for t in range(tp):  # the fsdp group of tp rank t: global ranks t and tp + t
+            group = [ranks[t]["layer_bytes"][key], ranks[tp + t]["layer_bytes"][key]]
+            assert sum(b["held"] for b in group) == group[0]["stack"], (key, group)
+    for got in ranks:
+        for name, n in forwards.items():
+            c = got["counts"][name]
+            assert c["layer_gathers"] == c["num_layers"] * n, (name, c)
+            assert c["gathers"] >= 1 and 1 <= c["max_live_layers"] <= 2 and c["live_layers"] == 0, (name, c)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_fsdp_control_is_caught(runs, world):
+    """A gather on rank 0 that hands back the peer's segment zeroed (the
+    leaves the other fsdp rank holds) misses the bit-identity with the
+    policy over tp alone."""
+    got = runs["ranks"][world][0]["fsdp"]["outputs"]["control-fsdp-zero_peer"]
+    assert not np.array_equal(got, _tp_only(runs, world)["w8a8-ddim"])
+    assert not np.allclose(got, runs["jax"]["w8a8-ddim"], rtol=RTOL["int8"], atol=RTOL["int8"])
+
+
 @pytest.mark.parametrize("M,dtype", [(1, torch.bfloat16), (18, torch.float32), (70, torch.bfloat16)])
 def test_rowpar_products_without_a_group_are_the_whole_row_products(M, dtype):
     """Without a group the row-parallel W8A8 (its three steps and its plain
@@ -359,11 +448,54 @@ def test_heads_that_tp_does_not_divide_raise(tp, kv):
 
 
 def test_serving_world_larger_than_tp_raises():
-    """The port's serving mesh is dp = fsdp = 1 (it trains over tp composed
-    with fsdp): a serving mesh with fsdp or dp beside tp is item 16 (f)."""
+    """The port serves over tp composed with fsdp (dp = 1, JAX's
+    tests/test_tp_serving.py mesh; JAX's MLAPolicy takes no mesh): a
+    serving mesh with dp beside tp or fsdp, or dp alone, is item 16 (g),
+    and no mesh of more than one rank is ignored."""
     params, state, cfg = _tiny_port()
-    with pytest.raises(NotImplementedError, match=r"item 16 \(tensor-parallel serving: \(f\) a serving mesh with fsdp"):
-        tmla.MLAPolicy(params, state, cfg, device="cpu", mesh=tmesh.Mesh(1, 2, 2, rank=0))
+    for dp, fsdp, tp in ((2, 1, 2), (2, 2, 1), (2, 1, 1)):
+        with pytest.raises(NotImplementedError,
+                           match=r"item 16 \(tensor-parallel serving: \(g\) a serving mesh with dp beside tp or fsdp"):
+            tmla.MLAPolicy(params, state, cfg, device="cpu", mesh=tmesh.Mesh(dp, fsdp, tp, rank=0))
+
+
+@pytest.mark.parametrize("fsdp,tp", [(2, 1), (2, 2)], ids=["fsdp2", "tp2xfsdp2"])
+def test_refusals_hold_over_an_fsdp_mesh(fsdp, tp):
+    """Item 16's refusals (the batched calls, text generation and beam
+    search, a phi decoder, int4, heads that T does not divide) apply to
+    every serving mesh of more than one rank, fsdp alone included; the
+    policy keeps its fsdp part of every leaf (an empty placeholder where
+    the other rank owns one)."""
+    from mla_tpu_torch.ops import quantization as tq
+    from mla_tpu_torch.params import tree_items
+
+    params, state, cfg = _tiny_port()
+    mesh = tmesh.Mesh(1, fsdp, tp, rank=0)
+    with pytest.raises(NotImplementedError, match=r"item 16 \(tensor-parallel serving: mla-phi"):
+        tmla.MLAPolicy(params, state, dataclasses.replace(cfg, llm_family="phi"), device="cpu", mesh=mesh)
+    with pytest.raises(NotImplementedError, match=r"item 16 \(tensor-parallel serving: heads that T does not divide"):
+        tmla.MLAPolicy(*_tiny_port(num_kv_heads=2), device="cpu", mesh=tmesh.Mesh(1, fsdp, 4, rank=0))
+    with pytest.raises(NotImplementedError, match=r"item 16 \(tensor-parallel serving: int4"):
+        tmla.MLAPolicy(tq.quantize_model_int4(params, group_size=0), state, cfg, device="cpu", mesh=mesh)
+    pol = tmla.MLAPolicy(params, state, cfg, device="cpu", mesh=mesh, norm_stats=tpp.STATS)
+    img, pc, ids, *_ = tpp.request()
+    with pytest.raises(NotImplementedError, match=r"item 16 \(tensor-parallel serving: the batched calls"):
+        pol.predict_action_diff_batched(img[None], pc[None], input_ids=ids)
+    with pytest.raises(NotImplementedError, match=r"item 16 \(tensor-parallel serving: text generation"):
+        pol.generate_text(img, pc, "pick up the cup", input_ids=ids)
+    whole = dict(tree_items(tmla.MLAPolicy(params, state, cfg, device="cpu").params))
+    held = dict(tree_items(pol.params))
+    assert set(held) == set(whole) == {leaf.path for leaf in pol.gatherer.leaves}
+    for leaf in pol.gatherer.leaves:
+        if tp == 1:
+            assert leaf.shape == tuple(whole[leaf.path].shape), leaf.path
+        if leaf.spec.dim is not None:
+            assert held[leaf.path].numel() * fsdp == math.prod(leaf.shape), leaf.path
+            assert not (leaf.path.startswith("llm_backbone/layers/") and leaf.spec.dim == 0), leaf.path
+        else:
+            assert held[leaf.path].numel() == (math.prod(leaf.shape) if leaf.spec.owner == 0 else 0), leaf.path
+    with pytest.raises(ValueError, match="does not divide"):
+        tmesh.serving_mesh(fsdp=2)  # a world of one process
 
 
 def test_int4_and_other_entries_raise_under_tp():

@@ -37,7 +37,6 @@ gathers layer by layer.
 """
 
 import os
-import shutil
 import subprocess
 import sys
 import time
@@ -57,7 +56,7 @@ from mla_tpu_torch.parallel import sharding
 from mla_tpu_torch.training import checkpointing
 from mla_tpu_torch.training import optim as toptim
 from mla_tpu_torch.training import strategy as tstrategy
-from test_torch_distributed import NOISE, OPT, _exclusive, _free_port, _rel, _wait
+from test_torch_distributed import NOISE, OPT, _free_port, _load_and_remove, _rel, _wait, shared_runs
 from torch_tp_train_child import REP, global_batch, variant, wait_for_checkpoint
 from torch_train_parity import from_jax, jax_draws, jconfig, tree_items
 
@@ -138,16 +137,8 @@ def _port_state(inputs, name, use_ema=False):
 @pytest.fixture(scope="module")
 def runs(request, tmp_path_factory):
     """The children's and JAX's results, computed once a session and shared
-    by the xdist workers through their session's temporary root."""
-    base = tmp_path_factory.getbasetemp()
-    root = base.parent if hasattr(request.config, "workerinput") else base
-    done = root / "torch_tp_train" / "runs.pt"
-    with _exclusive(root / "torch_tp_train.lock"):
-        if not done.exists():
-            shutil.rmtree(done.parent, ignore_errors=True)
-            done.parent.mkdir(parents=True)
-            torch.save(_compute_runs(done.parent), done)
-    return torch.load(done, weights_only=False)
+    by the xdist workers (test_torch_distributed.shared_runs)."""
+    return shared_runs(request, tmp_path_factory, "torch_tp_train", _compute_runs)
 
 
 def _compute_runs(work: Path):
@@ -200,10 +191,11 @@ def _compute_runs(work: Path):
         resumed = _resume_at_world_1(inputs, first["draws"][1], wait_for_checkpoint(work / "ckpt_tp2xfsdp2"))
     finally:
         outs = _wait(procs, CHILD_TIMEOUT)
+    (work / "inputs.pt").unlink()
     return {"work": work, "jax_adafactor": factored, "resumed_world1": resumed,
-            "jax": {name: torch.load(work / f"jax-{name}.pt", weights_only=False) for name in SCENARIOS},
-            "w2": torch.load(work / "result-2.pt", weights_only=False),
-            "w4": torch.load(work / "result-4.pt", weights_only=False), "trainer_out": outs[len(SCENARIOS)],
+            "jax": {name: _load_and_remove(work / f"jax-{name}.pt") for name in SCENARIOS},
+            "w2": _load_and_remove(work / "result-2.pt"),
+            "w4": _load_and_remove(work / "result-4.pt"), "trainer_out": outs[len(SCENARIOS)],
             "draws": {s["name"]: s["draws"] for s in scenarios}, "seconds": time.monotonic() - t0}
 
 

@@ -12,7 +12,8 @@ the global draws of every step and micro-batch, reductions kept local as
 controls, checkpoint save / load). Each scenario trains from the same
 weights over make_mesh(dp=...); rank 0 writes result-<world>.pt: per
 scenario the metrics of every step, the whole masters after the last step
-(gathered like a checkpoint) and every rank's optimizer bytes. A control
+(gathered like a checkpoint), with keep_opt_state the optimizer state,
+and every rank's optimizer bytes. A control
 keeps its reductions rank-local by patching collectives.active in this
 process; the reduce-scatter control keeps each rank's own gradient by
 patching parallel/tensor.reduce_scatter. Per step it also records the gather counts
@@ -76,9 +77,12 @@ def run_scenario(sc, inputs, mesh, rank, world, workdir):
     dist.all_gather_object(nbytes, state["shards"].optimizer_bytes())
     dist.all_gather_object(layers, state["shards"].layer_bytes(state["params"]))
     if rank == 0:
-        return {"metrics": metrics, "params": dict(tree_items(blob["params"])), "opt_bytes": nbytes,
-                "opt_state": blob["opt_state"], "ema": dict(tree_items(blob.get("ema_params", {}))),
-                "gathers": gathers, "layer_bytes": layers, "num_layers": cfg.llama.num_layers}
+        out = {"metrics": metrics, "params": dict(tree_items(blob["params"])), "opt_bytes": nbytes,
+               "ema": dict(tree_items(blob.get("ema_params", {}))), "gathers": gathers, "layer_bytes": layers,
+               "num_layers": cfg.llama.num_layers}
+        if sc.get("keep_opt_state"):  # the moments only where a test reads them (the checkpoint's)
+            out["opt_state"] = blob["opt_state"]
+        return out
     return None
 
 

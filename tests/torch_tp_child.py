@@ -7,7 +7,11 @@ Each child joins a gloo group from the MLA_* variables (parallel/mesh.py),
 serves every scenario of WORKDIR/inputs.pt that its world size takes
 through an MLAPolicy over parallel/mesh.serving_mesh(), and writes
 WORKDIR/out_w{world}_r{rank}.pt. A world of one is the one-process policy
-(a mesh of tp 1), which runs every scenario but the controls.
+(a mesh of tp 1), which runs every scenario but the controls. A world of
+more than one also serves FSDP_SCENARIOS over serving_mesh(fsdp=2) (tp 1
+x fsdp 2 at world 2, tp 2 x fsdp 2 at world 4): each call's outputs, its
+layer gathers and most whole layers alive (parallel/fsdp.counts), and
+each policy's layer-stack bytes, under 'fsdp'.
 
 A scenario names a tree ('fp32', 'bf16', 'int8', 'wide_int8', 'gqa_int8'),
 an int8_mode, a call ('diff' with a sampler, or 'ar': generate_ids of the
@@ -20,6 +24,7 @@ SUM).
 from __future__ import annotations
 
 import contextlib
+import math
 import sys
 from pathlib import Path
 
@@ -41,6 +46,11 @@ SCENARIOS = {
     "control-wo-skip_reduce": ("wide_int8", "weight_only", "ar", None, (2, 4), "skip_reduce"),
 }
 AR_TOKENS = 7
+# over serving_mesh(fsdp=2); the control's gather zeroes the other fsdp
+# rank's segment on global rank 0
+FSDP_SCENARIOS = {name: SCENARIOS[name][:4] + (None,) for name in ("fp32-ddim", "w8a8-ddim", "w8a8-dpm",
+                                                                   "weight_only-ar")}
+FSDP_SCENARIOS["control-fsdp-zero_peer"] = SCENARIOS["w8a8-ddim"][:4] + ("zero_peer",)
 
 
 @contextlib.contextmanager
@@ -101,6 +111,81 @@ def run_scenarios(inputs, mesh, world: int):
     return out
 
 
+@contextlib.contextmanager
+def zero_peer(mesh, on: bool):
+    """Inside the block (with `on`, on global rank 0) the fsdp gathers hand
+    back the other fsdp rank's segment zeroed."""
+    from mla_tpu_torch.parallel import fsdp
+
+    real = fsdp.tp_mod.all_gather
+    if not on or mesh.rank != 0:
+        yield
+        return
+
+    def broken(t, g, dim=0):
+        out = real(t, g, dim)
+        if g is mesh.fsdp_group:
+            n = out.shape[0] // mesh.fsdp
+            peer = (mesh.fsdp_rank + 1) % mesh.fsdp
+            out[peer * n:(peer + 1) * n] = 0
+        return out
+
+    fsdp.tp_mod.all_gather = broken
+    try:
+        yield
+    finally:
+        fsdp.tp_mod.all_gather = real
+
+
+def one_process_stack(params, cfg, mode: str) -> int:
+    """The bytes of the one-process policy's fused layer stack."""
+    from mla_tpu_torch.models import llama
+    from mla_tpu_torch.params import tree_items
+
+    fused = llama.fuse_for_serving(params["llm_backbone"], k_major=mode == "w8a8")
+    return sum(t.numel() * t.element_size() for _, t in tree_items(fused["layers"]))
+
+
+def run_fsdp_scenarios(inputs, mesh) -> dict:
+    """FSDP_SCENARIOS over `mesh` (fsdp > 1): {'mesh', 'outputs', 'counts',
+    'layer_bytes'}; layer_bytes per tree and mode: this rank's parts, the
+    rank's whole (tp-local, fused) stack, the largest stacked leaf owned
+    whole, the bytes of the stack's leaves each tp rank holds whole
+    ('tp_whole') and the one-process stack ('one_process')."""
+    from mla_tpu_torch.models import mla
+    from mla_tpu_torch.parallel import fsdp
+    from mla_tpu_torch.parallel.sharding import serving_tp_dim
+
+    req = inputs["request"]
+    built = trees(inputs)
+    policies, out = {}, {"mesh": {"tp": mesh.tp, "fsdp": mesh.fsdp, "tp_rank": mesh.tp_rank,
+                                  "fsdp_rank": mesh.fsdp_rank}, "outputs": {}, "counts": {}, "layer_bytes": {}}
+    for name, (tree, mode, call, sampler, ctrl) in FSDP_SCENARIOS.items():
+        key = f"{tree}-{mode}"
+        if key not in policies:
+            params, state, cfg = built[tree]
+            pol = policies[key] = mla.MLAPolicy(params, state, cfg, norm_stats=inputs["stats"], device="cpu",
+                                                int8_mode=mode, mesh=mesh)
+            held = pol.gatherer.layer_bytes()
+            held["tp_whole"] = sum(math.prod(leaf.shape) * leaf.dtype.itemsize for leaf in pol.gatherer.leaves
+                                   if leaf.path.startswith(fsdp.LAYERS)
+                                   and serving_tp_dim(leaf.path, len(leaf.shape), pol.tp_split) is None)
+            held["one_process"] = one_process_stack(params, cfg, mode)
+            out["layer_bytes"][key] = held
+        pol = policies[key]
+        fsdp.reset_counts()
+        with zero_peer(mesh, ctrl == "zero_peer"):
+            if call == "diff":
+                out["outputs"][name] = pol.predict_action_diff(req["img"], req["pc"], "", input_ids=req["ids"],
+                                                               noise=req["noise"], sampler=sampler,
+                                                               return_normalized=True)
+            else:
+                out["outputs"][name] = tuple(np.asarray(x) for x in pol.generate_ids(req["img"], req["pc"],
+                                                                                      req["ids"], AR_TOKENS))
+        out["counts"][name] = dict(fsdp.counts, num_layers=pol.cfg.llama.num_layers)
+    return out
+
+
 def tensor_ops(group, rank: int, world: int) -> dict:
     """parallel/tensor.py's operations over `group`, forward and backward,
     on inputs every rank draws alike (rank r's own: row r of them)."""
@@ -135,6 +220,7 @@ def main(workdir: Path) -> None:
     out = run_scenarios(inputs, mesh, launch["world"])
     if launch["world"] > 1:
         out["tensor_ops"] = tensor_ops(mesh.tp_group, launch["rank"], launch["world"])
+        out["fsdp"] = run_fsdp_scenarios(inputs, tmesh.serving_mesh(fsdp=2))
     torch.save({k: v if isinstance(v, dict) else tuple(np.asarray(x) for x in v) if isinstance(v, tuple)
                 else np.asarray(v) for k, v in out.items()}, workdir / f"out_w{launch['world']}_r{launch['rank']}.pt")
 

@@ -403,10 +403,12 @@ Phases, each of which fails the run if it fails:
                   stream refused, decode ms a frame (p50, one thread) at
                   256 x 256 and 640 x 480 beside the host's CPU model; the
                   other formats (oxe_format_checks: every golden stream of
-                  tests/data/frames, PNG, GIF, BMP, WebP and the JPEG
-                  variants, in both flavours from the C++ and the plain
-                  loops against its recorded digests, a truncated stream of
-                  each new format refused, decode ms at both sizes); the
+                  tests/data/frames, PNG, GIF, BMP, WebP, the JPEG variants
+                  and the formats only Pillow reads (TIFF, Netpbm, TGA, ICO,
+                  QOI, PCX, SGI), in both flavours from the C++ and the
+                  plain loops against its recorded digests, a truncated
+                  stream of each new format refused, decode ms at both
+                  sizes, TIFF's in Pillow's flavour); the
                   interleaved stream at the trainer's 4 rows a step
                   (frames/s, host batch ms p50 and p95, the first batch),
                   its statistics against a recount of the written episodes,
@@ -4716,11 +4718,20 @@ def oxe_fixture(root: Path, episodes: int, steps: int, shards: int, seed: int, k
     return out
 
 
-def llava_jpeg_fixture(root: Path, images: int, size, seed: int, stage: str = "finetune") -> Path:
+# golden streams of tests/data/frames/ that a mixed LLaVA root holds in place of every other JPEG, in turn
+LLAVA_OTHER_FORMATS = ("tiff_jpeg_640x480.tif", "tiff_g4_640x480.tif", "tiff_lzw_pred_256x256.tif",
+                       "tiff_deflate_pred_256x256.tif", "netpbm_p5_maxval1000.pgm", "tga_rle.tga", "ico_bmp32.ico",
+                       "qoi.qoi", "pcx.pcx", "sgi16.sgi")
+
+
+def llava_jpeg_fixture(root: Path, images: int, size, seed: int, stage: str = "finetune",
+                       mixed: bool = False) -> Path:
     """A LLaVA-layout data root (conf/datasets.py's llava-v15 paths) for the
     VLM stage: a chat json of `images` multimodal examples, every image a
     JPEG (quality 90, 4:2:0) from the port's encoder, and two language-only
-    ones. Returns the image directory."""
+    ones. With `mixed`, every other image is instead one of
+    LLAVA_OTHER_FORMATS in turn (formats only Pillow reads). Returns the
+    image directory."""
     from mla_tpu_torch.conf.datasets import get_dataset_config
     from mla_tpu_torch.vla.rlds import jpeg
 
@@ -4731,8 +4742,13 @@ def llava_jpeg_fixture(root: Path, images: int, size, seed: int, stage: str = "f
     (img_dir / "coco").mkdir(parents=True, exist_ok=True)
     examples = []
     for i in range(images):
-        rel = f"coco/{i:06d}.jpg"
-        (img_dir / rel).write_bytes(jpeg.encode(_camera_frame((seed, i), size, i), 90, "4:2:0"))
+        if mixed and i % 2:
+            name = LLAVA_OTHER_FORMATS[(i // 2) % len(LLAVA_OTHER_FORMATS)]
+            rel = f"coco/{i:06d}{Path(name).suffix}"
+            (img_dir / rel).write_bytes((FRAMES_DIR / name).read_bytes())
+        else:
+            rel = f"coco/{i:06d}.jpg"
+            (img_dir / rel).write_bytes(jpeg.encode(_camera_frame((seed, i), size, i), 90, "4:2:0"))
         examples.append({"id": str(i), "image": rel, "conversations": [
             {"from": "human", "value": "<image>\nWhat is on the table?"},
             {"from": "gpt", "value": f"a red block and {i % 5 + 1} cups"}]})
@@ -5093,7 +5109,12 @@ FRAMES_DIR = Path(__file__).resolve().parent / "tests" / "data" / "frames"
 # one golden stream a format or variant new since the JPEG decoder: each is cut in half and must be refused
 FORMAT_DECODE_REPS = 15
 FORMAT_CUTS = ("png16_adam7.png", "gif_offset_transparent.gif", "bmp_top_down.bmp", "webp_simple_filter.webp",
-               "webp_lossless.webp", "jpeg_arith_progressive.jpg", "jpeg_ycck.jpg", "jpeg_lossless.jpg")
+               "webp_lossless.webp", "jpeg_arith_progressive.jpg", "jpeg_ycck.jpg", "jpeg_lossless.jpg",
+               "tiff_lzw.tif", "tiff_g4.tif", "tiff_jpeg.tif", "netpbm_p5_maxval1000.pgm", "tga_rle.tga",
+               "ico_bmp32.ico", "qoi.qoi", "pcx.pcx", "sgi16.sgi")
+# the golden TIFF frames timed in Pillow's flavour (libtiff writes them; the port writes no TIFF)
+FORMAT_TIFF_TIMED = {"256x256": ("tiff_lzw_pred_256x256.tif", "tiff_deflate_pred_256x256.tif"),
+                     "640x480": ("tiff_g4_640x480.tif", "tiff_jpeg_640x480.tif")}
 
 
 def oxe_format_checks() -> dict:
@@ -5103,10 +5124,12 @@ def oxe_format_checks() -> dict:
     each against digests.json (TensorFlow's and Pillow's pixels, recorded
     where both ran; null where one refuses, and then the port must raise);
     a truncated stream of each new format refused in both flavours; decode
-    ms a frame (p50 of FORMAT_DECODE_REPS, one thread, TensorFlow's flavour) at
-    256 x 256 and 640 x 480: 16-bit Adam7 PNG, GIF, BMP and arithmetic-coded
-    JPEG from the port's encoders, lossy and lossless WebP from the timing
-    frames (the port writes no WebP)."""
+    ms a frame (p50 of FORMAT_DECODE_REPS, one thread) at 256 x 256 and 640 x
+    480 in TensorFlow's flavour: 16-bit Adam7 PNG, GIF, BMP and
+    arithmetic-coded JPEG from the port's encoders, lossy and lossless WebP
+    from the timing frames (the port writes no WebP); and in Pillow's the
+    timing TIFFs of FORMAT_TIFF_TIMED: LZW and Deflate, both with Predictor
+    2, at 256 x 256, Group 4 and JPEG (YCbCr) at 640 x 480."""
     import numpy as np
 
     from mla_tpu_torch.vla.rlds import bmp, frames, gif, jpeg, png
@@ -5149,12 +5172,15 @@ def oxe_format_checks() -> dict:
             "webp lossy": (FRAMES_DIR / f"webp_lossy_{label}.webp").read_bytes(),
             "webp lossless": (FRAMES_DIR / f"webp_lossless_{label}.webp").read_bytes(),
         }
-        for kind, data in streams.items():
-            frames.decode(data)
+        timed = [(kind, data, "tf") for kind, data in streams.items()]
+        timed += [(name.split("_" + label)[0].replace("_", " "), (FRAMES_DIR / name).read_bytes(), "pillow")
+                  for name in FORMAT_TIFF_TIMED[label]]
+        for kind, data, flavour in timed:
+            frames.decode(data, flavour)
             ms = []
             for _ in range(FORMAT_DECODE_REPS):
                 t = time.perf_counter()
-                frames.decode(data)
+                frames.decode(data, flavour)
                 ms.append((time.perf_counter() - t) * 1e3)
             timing[f"{label} {kind}"] = float(np.percentile(ms, 50))
     return {"streams": len(index), "decodes_checked": checked, "digests_differing": wrong,
@@ -5507,18 +5533,18 @@ def _vlm_run(torch, train, stage: str, extra=()):
 
 def jpeg_rows_equal(ds, rows, pixels, image_size: int) -> int:
     """How many rows of a collated batch hold the CLIP transform of the plain
-    decoder's accurate-IDCT decode of their JPEG image."""
+    loops' decode of their image in Pillow's flavour, whatever its format
+    (a JPEG's by the accurate IDCT)."""
     import numpy as np
 
-    from mla_tpu_torch.native import jpeg_host
-    from mla_tpu_torch.vla.rlds import jpeg
+    from mla_tpu_torch.vla.rlds import frames
     from mla_tpu_torch.vla.vlm_datasets import default_image_transform
 
     transform = default_image_transform(image_size)
     equal = 0
     for r, i in enumerate(rows):
         data = (ds.image_dir / ds.examples[i]["image"]).read_bytes()
-        want = transform(jpeg.decode(data, "islow", jpeg_host.PLAIN))
+        want = transform(frames.decode(data, "pillow", plain=True))
         equal += int(np.array_equal(np.asarray(pixels[r]), want))
     return equal
 
@@ -5532,10 +5558,10 @@ def vlm_step_split(torch, out, stage: str, peak_flops, data_root=None) -> dict:
     with the step's tokens/s and MFU (6N). The trainer's own clock runs
     from one step's commit to the next and does not wait for the card, so
     it mixes the two. These steps go on training the run's state. Under a
-    data root of JPEG images, the multimodal batch's pixels must equal the
-    CLIP transform of the plain decoder's (the accurate IDCT, Pillow's)
-    decode of each image: the count of rows that do is returned under
-    'jpeg_rows_equal'."""
+    data root of images, the multimodal batch's pixels must equal the CLIP
+    transform of the plain loops' decode of each image in Pillow's flavour
+    (a JPEG's by the accurate IDCT): the count of rows that do is returned
+    under 'jpeg_rows_equal'."""
     import numpy as np
 
     from mla_tpu_torch.conf.datasets import get_dataset_config
@@ -5581,10 +5607,12 @@ def hf_vlm(torch, report):
     to bf16, the mean rows included, bit for bit (the decoder is frozen in
     align, so the run's last state shows the load); the vision tower
     unchanged and the projector moved; then --vlm_stage finetune on a
-    LLaVA-layout data root of VLM_ROWS JPEG images at 640 x 480
-    (llava_jpeg_fixture): the decoder's weights moved, the tower unchanged,
-    the multimodal batch's pixels those of the plain decoder's accurate
-    IDCT (Pillow's) through the CLIP transform. Each run has a
+    LLaVA-layout data root of VLM_ROWS images, JPEG at 640 x 480 and every
+    other one a golden stream of a format only Pillow reads (TIFF JPEG,
+    Group 4, LZW and Deflate, Netpbm, TGA, ICO, QOI: llava_jpeg_fixture
+    mixed): the decoder's weights moved, the tower unchanged, the
+    multimodal batch's pixels those of the plain loops' decode in Pillow's
+    flavour through the CLIP transform. Each run has a
     language-only batch and a multimodal one past the first step. Exact
     launches per step; the last step of each kind: ms, tokens/s, MFU; peak
     GiB, the load's seconds and bytes; then vlm_step_split. Returns the
@@ -5601,7 +5629,7 @@ def hf_vlm(torch, report):
     totals = dict.fromkeys(VLM_KERNELS, 0)
     try:
         t = time.perf_counter()
-        llava_jpeg_fixture(LLAVA_ROOT, VLM_ROWS, LLAVA_SIZE, 73)
+        llava_jpeg_fixture(LLAVA_ROOT, VLM_ROWS, LLAVA_SIZE, 73, mixed=True)
         rep["llava_fixture"] = {"images": VLM_ROWS, "size": LLAVA_SIZE, "write_s": time.perf_counter() - t}
         rep["fixture"] = hf_fixture(torch, HF_ROOT, 71)
         fx = rep["fixture"]
@@ -5668,14 +5696,14 @@ def hf_vlm(torch, report):
                                      f"{proj_moved}")
             split = vlm_step_split(torch, out, stage, peak_flops, data_root)
             jpeg_equal = split.pop("jpeg_rows_equal", None)
-            log(f"hf-vlm {stage}{' on ' + str(VLM_ROWS) + ' JPEG images ' + str(LLAVA_SIZE[1]) + ' x ' + str(LLAVA_SIZE[0]) if data_root else ''}: "
+            log(f"hf-vlm {stage}{' on ' + str(VLM_ROWS) + ' images (JPEG ' + str(LLAVA_SIZE[1]) + ' x ' + str(LLAVA_SIZE[0]) + ' and other formats)' if data_root else ''}: "
                 "the host's batch, then the step to a synchronize (median of 3): " + ", ".join(
                     f"{k} {v['host_batch_ms']:.1f} ms + {v['step_ms']:.1f} ms ({v['tokens_per_s']:.0f} tokens/s, MFU "
                     f"{v['mfu'] if v['mfu'] is None else round(v['mfu'], 4)})" for k, v in split.items())
-                + (f"; the multimodal batch's rows equal to the plain accurate-IDCT decode: {jpeg_equal} of {VLM_ROWS}"
+                + (f"; the multimodal batch's rows equal to the plain loops' decode: {jpeg_equal} of {VLM_ROWS}"
                    if data_root else ""))
             if data_root and jpeg_equal != VLM_ROWS:
-                raise AssertionError(f"hf-vlm {stage}: {jpeg_equal} of {VLM_ROWS} JPEG rows equal the plain decode")
+                raise AssertionError(f"hf-vlm {stage}: {jpeg_equal} of {VLM_ROWS} image rows equal the plain decode")
             rep[stage] = {"run_s": run_s, "hf_load": load, "multimodal": mm, "losses": losses, "steps": by_kind,
                           "data_root": data_root, "jpeg_rows_equal": jpeg_equal,
                           "split": split, "peak_gib": peak_gib, "step_times_s": step_s, "launches": launches,

@@ -28,6 +28,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from mla_tpu_torch.vla.rlds import pillow_modes
+
 SIGNATURE = b"BM"
 FLAVOURS = ("tf", "pillow")
 _RAW, _RLE8, _RLE4, _BITFIELDS = 0, 1, 2, 3
@@ -136,14 +138,12 @@ def _decode_pillow(data: bytes) -> np.ndarray:
     if bpp <= 8:
         pal_at = 14 + hsize
         n = min(colours or (1 << bpp), max(0, len(data) - pal_at) // pal_entry)  # as much as the file holds
-        table = np.zeros((256, 3), np.uint8)
-        pal = np.frombuffer(data, np.uint8, n * pal_entry, pal_at).reshape(n, pal_entry)[:256, 2::-1]
-        table[:len(pal)] = pal
+        table = np.frombuffer(data, np.uint8, n * pal_entry, pal_at).reshape(n, pal_entry)[:, 2::-1]
     if comp in (_RLE8, _RLE4):
         if (comp, bpp) not in ((_RLE8, 8), (_RLE4, 4)):
             raise ValueError(f"a BMP of compression {comp} at {bpp} bits a pixel")
         idx = _rle(data, offset, width, height, comp == _RLE4)
-        return table[idx if top_down else idx[::-1]]
+        return pillow_modes.palette(idx if top_down else idx[::-1], table)
     if comp not in (_RAW, _BITFIELDS) or bpp not in (1, 4, 8, 16, 24, 32):
         raise ValueError(f"a BMP of compression {comp} at {bpp} bits a pixel, which Pillow does not read")
     row = (bpp * width + 31) // 32 * 4
@@ -155,7 +155,7 @@ def _decode_pillow(data: bytes) -> np.ndarray:
     if bpp <= 8:
         bits = np.unpackbits(rows, axis=1)[:, :width * bpp].reshape(height, width, bpp)
         idx = (bits << np.arange(bpp - 1, -1, -1, dtype=np.uint8)).sum(-1, dtype=np.uint8)
-        return table[idx]
+        return pillow_modes.palette(idx, table)
     if bpp == 24:
         return np.ascontiguousarray(rows[:, :3 * width].reshape(height, width, 3)[..., ::-1])
     if bpp == 16:

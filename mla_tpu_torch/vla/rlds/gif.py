@@ -34,6 +34,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from mla_tpu_torch.native import rlds_host
+from mla_tpu_torch.vla.rlds import pillow_modes
 
 SIGNATURES = (b"GIF87a", b"GIF89a")
 FLAVOURS = ("tf", "pillow")
@@ -169,9 +170,7 @@ def decode(data, flavour: str = "tf", lzw=rlds_host.gif_lzw) -> np.ndarray:
     x1, y1 = fr.left + fr.width, fr.top + fr.height
     canvas = np.full((max(f.height, y1), max(f.width, x1)), fr.transparent or 0, np.uint8)
     canvas[fr.top:y1, fr.left:x1] = px
-    full = np.zeros((256, 3), np.uint8)
-    full[:len(table)] = table
-    return full[canvas]
+    return pillow_modes.palette(canvas, table)
 
 
 # --------------------------------------------------------------------------- #

@@ -50,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from mla_tpu_torch.native import jpeg_host
+from mla_tpu_torch.vla.rlds import pillow_modes
 
 SIGNATURE = b"\xff\xd8\xff"
 ROADMAP_JPEG = "ROADMAP.md queue 1, item 2 (frame formats: JPEG variants)"
@@ -107,7 +108,7 @@ def _u16(b: bytes, i: int) -> int:
     return (b[i] << 8) | b[i + 1]
 
 
-def _frame(marker: int, body: bytes) -> _Frame:
+def _frame(marker: int, body: bytes, components=(1, 3, 4)) -> _Frame:
     """A frame header; an SOF3 (lossless) frame keeps samples, not
     coefficients: its MCU is h x v samples of each component."""
     if len(body) < 6:
@@ -119,7 +120,7 @@ def _frame(marker: int, body: bytes) -> _Frame:
         raise _refused("a JPEG height given by a DNL marker")
     if width == 0 or len(body) != 6 + 3 * n:
         raise _corrupt("a bad frame header")
-    if n not in (1, 3, 4):
+    if n not in components:
         raise _refused(f"a JPEG of {n} components (no colour space converts them to RGB)")
     comps = [_Component(body[6 + 3 * i], body[7 + 3 * i] >> 4, body[7 + 3 * i] & 15, body[8 + 3 * i])
              for i in range(n)]
@@ -259,22 +260,34 @@ def _scan(f: _Frame, body: bytes, qts, tables: np.ndarray, defined: set, restart
     return host.decode_scan(data, start, scan, np.array(rows, np.int32), [c.coef for c, _, _ in comps], tables)
 
 
-def decode(data, dct: str = "ifast", host=jpeg_host.NATIVE) -> np.ndarray:
-    """JPEG bytes -> uint8 [H, W, 3]: dct "ifast" gives TensorFlow's
-    decode_image pixels, "islow" Pillow's convert("RGB") pixels. `host` is
-    the set of host loops (jpeg_host.NATIVE; the tests pass PLAIN)."""
-    if dct not in _DCT:
-        raise ValueError(f"dct {dct!r} is not one of {sorted(_DCT)}")
-    data = bytes(data)
+@dataclass
+class _Tables:
+    """What a stream's marker segments define for the scans after them: the
+    quantization and Huffman tables, the arithmetic conditioning and the
+    restart interval. A tables-only stream (TIFF's JPEGTables) fills one
+    that the abbreviated streams of each strip or tile then read."""
+    qts: Dict[int, np.ndarray]
+    huffman: np.ndarray
+    defined: set
+    cond: np.ndarray
+    restart: int = 0
+
+    @staticmethod
+    def empty() -> "_Tables":
+        # 4 DC then 4 AC Huffman tables, as the DHT segments define them; the DAC defaults L 0, U 1, K 5
+        return _Tables({}, np.zeros((8, 272), np.uint8), set(), np.array([0] * 4 + [1] * 4 + [5] * 4, np.int32))
+
+
+def _read(data: bytes, dct: str, host, t: _Tables, components=(1, 3, 4), tables_only: bool = False):
+    """The markers of one stream from SOI to EOI, its scans decoded through
+    `host` into the frame -> (frame or None, JFIF seen, Adobe transform or
+    None). A tables-only stream (no frame, no scan) is read with
+    tables_only, as libjpeg reads one."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG image (no SOI marker)")
     n, pos = len(data), 2
     f: Optional[_Frame] = None
-    qts: Dict[int, np.ndarray] = {}
-    tables = np.zeros((8, 272), np.uint8)  # 4 DC then 4 AC Huffman tables, as the DHT segments define them
-    defined: set = set()
-    restart, jfif, adobe = 0, False, None
-    cond = np.array([0] * 4 + [1] * 4 + [5] * 4, np.int32)  # the DAC defaults: L 0, U 1, K 5
+    jfif, adobe = False, None
     while True:
         if pos >= n:
             raise _corrupt("the data ends before the EOI marker (truncated)")
@@ -299,62 +312,101 @@ def decode(data, dct: str = "ifast", host=jpeg_host.NATIVE) -> np.ndarray:
             raise _corrupt(f"marker {marker:#04x}'s segment of {length} bytes runs past the data (truncated)")
         body = data[pos + 2:pos + length]
         pos += length
-        if marker in _SOF_SUPPORTED:
+        if marker in _SOF_SUPPORTED or (marker == 0xC3 and dct == "islow"):
+            # Pillow's libjpeg-turbo 3 reads 8-bit lossless frames
             if f is not None:
                 raise _corrupt("a second frame header")
-            f = _frame(marker, body)
-        elif marker == 0xC3 and dct == "islow":  # Pillow's libjpeg-turbo 3 reads 8-bit lossless frames
-            if f is not None:
-                raise _corrupt("a second frame header")
-            f = _frame(marker, body)
+            f = _frame(marker, body, components)
         elif marker in _SOF_LOSSLESS:  # TensorFlow's libjpeg-turbo 2.1 reads none; arithmetic-coded, neither
             raise ValueError("a lossless JPEG is refused by libjpeg-turbo under "
                              f"{'TensorFlow' if dct == 'ifast' else 'Pillow'}")
         elif marker in _SOF_HIERARCHICAL:
             raise _refused("a hierarchical JPEG")
         elif marker == 0xCC:
-            _conditioning(body, cond)
+            _conditioning(body, t.cond)
         elif marker == 0xC4:
-            _huffman_tables(body, tables, defined)
+            _huffman_tables(body, t.huffman, t.defined)
         elif marker == 0xDB:
-            _quant_tables(body, qts)
+            _quant_tables(body, t.qts)
         elif marker == 0xDD:
             if len(body) != 2:
                 raise _corrupt("a bad restart interval")
-            restart = _u16(body, 0)
+            t.restart = _u16(body, 0)
         elif marker == 0xDA:
-            pos = _scan(f, body, qts, tables, defined, restart, data, pos, host, cond)
+            pos = _scan(f, body, t.qts, t.huffman, t.defined, t.restart, data, pos, host, t.cond)
         elif marker == 0xE0:
             jfif = jfif or body[:5] == b"JFIF\x00"
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
             adobe = body[11]
+    if tables_only:
+        if f is not None:
+            raise _corrupt("a tables-only stream with a frame")
+        return None, jfif, adobe
     if f is None or f.scans == 0:
         raise _corrupt("an image without a frame or a scan")
+    return f, jfif, adobe
+
+
+def decode(data, dct: str = "ifast", host=jpeg_host.NATIVE) -> np.ndarray:
+    """JPEG bytes -> uint8 [H, W, 3]: dct "ifast" gives TensorFlow's
+    decode_image pixels, "islow" Pillow's convert("RGB") pixels. `host` is
+    the set of host loops (jpeg_host.NATIVE; the tests pass PLAIN)."""
+    if dct not in _DCT:
+        raise ValueError(f"dct {dct!r} is not one of {sorted(_DCT)}")
+    f, jfif, adobe = _read(bytes(data), dct, host, _Tables.empty())
     return _pixels(f, _DCT[dct], jfif, adobe, host, dct == "ifast")
+
+
+def decode_abbreviated(data, tables: Optional[bytes] = None, ycc: bool = False,
+                       host=jpeg_host.NATIVE) -> np.ndarray:
+    """One strip or tile of a JPEG-compressed TIFF (compression 7) ->
+    uint8 [h, w, components], as libtiff has libjpeg-turbo decode it: the
+    tables of `tables` (the JPEGTables tag, a tables-only stream) read
+    first, then the strip's own stream, which may omit them; the accurate
+    IDCT; 1 to 4 components. With `ycc` (photometric YCbCr, which Pillow
+    asks libtiff to give as RGB) the components are upsampled by the
+    triangle filter and converted to RGB; else they come as stored, with no
+    colour conversion (libtiff's JCS_UNKNOWN)."""
+    t = _Tables.empty()
+    if tables:
+        _read(bytes(tables), "islow", host, t, tables_only=True)
+    f, _, _ = _read(bytes(data), "islow", host, t, components=(1, 2, 3, 4))
+    if f.lossless:
+        raise _unsupported("a lossless JPEG inside a TIFF")
+    planes = [host.idct(c.coef, c.qt if c.qt is not None else np.ones(64, np.uint16), jpeg_host.ISLOW)
+              for c in f.comps]
+    if len(f.comps) == 1:
+        return np.ascontiguousarray(planes[0][:f.height, :f.width, None])
+    up = [host.upsample(p, c.width, c.height, f.hmax // c.h, f.vmax // c.v, f.width, f.height)
+          for p, c in zip(planes, f.comps)]
+    if ycc:
+        if len(f.comps) != 3:
+            raise _corrupt(f"a YCbCr strip of {len(f.comps)} components")
+        return host.ycc_to_rgb(*up)
+    return np.stack(up, axis=-1)
 
 
 def _cmyk_to_rgb(c: np.ndarray, m: np.ndarray, y: np.ndarray, k: np.ndarray, adobe: bool, tf: bool) -> np.ndarray:
     """libjpeg's CMYK planes -> RGB as each reference converts them.
     TensorFlow (jpeg_mem.cc): with an Adobe marker the planes are inverted
     CMYK, r = k * c / 255, else r = (255 - k) * (255 - c) / 255. Pillow
-    reads every CMYK JPEG as inverted ("CMYK;I") and converts with
-    cmyk2rgb: r = nk - (c' * nk + 128 + ((c' * nk + 128) >> 8)) >> 8, where
-    c' = 255 - c and nk = k."""
+    reads every CMYK JPEG as inverted ("CMYK;I") and converts it with
+    cmyk2rgb (pillow_modes.cmyk)."""
     cmy = np.stack([c, m, y], axis=-1).astype(np.int32)
     kk = k.astype(np.int32)[..., None]
     if tf:
         out = kk * cmy // 255 if adobe else (255 - kk) * (255 - cmy) // 255
         return out.astype(np.uint8)
-    t = (255 - cmy) * kk + 128
-    return np.clip(kk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+    return pillow_modes.cmyk(255 - np.concatenate([cmy, kk], axis=-1))
 
 
 def _pixels(f: _Frame, method: int, jfif: bool, adobe: Optional[int], host, tf: bool) -> np.ndarray:
     if f.lossless:
-        if len(f.comps) == 4:
-            raise _unsupported("a four-component lossless JPEG")
         if len(f.comps) == 3 and (jfif or adobe not in (None, 0)):  # jdapimin.c: YCbCr, which no lossless
             raise ValueError("a lossless JPEG in YCbCr is refused by libjpeg-turbo (no colour conversion in "
+                             "lossless mode), as by Pillow's decoder")
+        if len(f.comps) == 4 and adobe not in (None, 0):  # YCCK: Pillow asks for CMYK, which is a conversion
+            raise ValueError("a lossless JPEG in YCCK is refused by libjpeg-turbo (no colour conversion in "
                              "lossless mode), as by Pillow's decoder")
         planes = [((c.samples << c.pt) & 0xFF).astype(np.uint8) for c in f.comps]
     else:

@@ -7,9 +7,12 @@ data with zlib and un-filters it through the host helper
 alpha, RGB, RGBA, palette) at every bit depth PNG allows (1, 2, 4, 8, 16),
 plain or Adam7-interlaced, into uint8 [H, W, 3]: grey repeated into three
 channels, alpha and tRNS dropped, the palette expanded. The two references
-differ only in how 16-bit grey becomes bytes (`_to_uint8`): libpng under
+differ in how 16-bit grey becomes bytes (`_to_uint8`): libpng under
 TensorFlow keeps the high byte, as both do for 16-bit colour; Pillow clips
-it to 255.
+it to 255. They differ too in how much of the stream they read: libpng
+checks every critical chunk's CRC up to IEND, while Pillow reads the run
+of IDAT chunks, unchecked, only until its last row inflates, so a stream
+cut after that still decodes.
 
 `encode` writes RGB images with zlib, each row filtered by the usual
 heuristic (the filter type whose output has the least sum of absolute
@@ -26,6 +29,7 @@ from typing import Optional
 import numpy as np
 
 from mla_tpu_torch.native import rlds_host
+from mla_tpu_torch.vla.rlds import pillow_modes
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # by colour type
@@ -33,13 +37,24 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 _CRITICAL = (b"IHDR", b"PLTE", b"IDAT", b"IEND")
 
 
-def _chunks(data: bytes):
+def _chunks(data: bytes, lenient: bool = False):
+    """The chunks in order, each critical one's CRC checked, to IEND. With
+    `lenient` (Pillow's reading) the run of IDAT chunks ends the walk: their
+    CRCs go unchecked, and the last may be cut short by the end of the data;
+    nothing after them is needed."""
     if data[:8] != SIGNATURE:
         raise ValueError("not a PNG image (bad signature)")
-    pos = len(SIGNATURE)
+    pos, seen_idat = len(SIGNATURE), False
     while pos + 8 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if lenient and seen_idat and kind != b"IDAT":
+            return
         body = data[pos + 8:pos + 8 + n]
+        if lenient and kind == b"IDAT":
+            seen_idat = True
+            yield kind, body
+            pos += 12 + n
+            continue
         if len(body) != n or pos + 12 + n > len(data):
             raise ValueError(f"PNG chunk {kind!r} runs past the end of the image")
         crc = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0]
@@ -49,7 +64,8 @@ def _chunks(data: bytes):
         if kind == b"IEND":
             return
         pos += 12 + n
-    raise ValueError("PNG image ends without an IEND chunk")
+    if not (lenient and seen_idat):
+        raise ValueError("PNG image ends without an IEND chunk")
 
 
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
@@ -96,6 +112,14 @@ def _samples(data: bytes, width: int, height: int, ch: int, depth: int, interlac
     return out
 
 
+def _passes(width: int, height: int, interlace: int):
+    """(width, height) of each pass that holds pixels: the image, or Adam7's."""
+    if not interlace:
+        return [(width, height)]
+    sizes = [(-(-(width - x0) // dx), -(-(height - y0) // dy)) for x0, y0, dx, dy in ADAM7]
+    return [(w, h) for w, h in sizes if w > 0 and h > 0]
+
+
 def _to_uint8(px: np.ndarray, depth: int, ctype: int, flavour: str) -> np.ndarray:
     """Grey or colour samples of `depth` bits -> uint8, as each reference
     reduces them: both scale sub-byte grey to 0..255; libpng under
@@ -107,7 +131,7 @@ def _to_uint8(px: np.ndarray, depth: int, ctype: int, flavour: str) -> np.ndarra
     if depth < 8:
         return (px * (255 // ((1 << depth) - 1))).astype(np.uint8)
     if flavour == "pillow" and ctype == 0:
-        return np.minimum(px, 255).astype(np.uint8)
+        return pillow_modes.to_l("I;16", px)
     return (px >> 8).astype(np.uint8)
 
 
@@ -122,7 +146,7 @@ def decode(data, flavour: str = "tf", unfilter=rlds_host.png_unfilter) -> np.nda
         raise ValueError(f"flavour {flavour!r} is not one of {FLAVOURS}")
     data = bytes(data)
     header, palette, idat = None, None, []
-    for kind, body in _chunks(data):
+    for kind, body in _chunks(data, lenient=flavour == "pillow"):
         if kind == b"IHDR":
             if len(body) != 13:
                 raise ValueError("PNG IHDR chunk of a bad length")
@@ -141,7 +165,13 @@ def decode(data, flavour: str = "tf", unfilter=rlds_host.png_unfilter) -> np.nda
                          f"interlace {interlace}")
     ch = _CHANNELS[ctype]
     try:
-        raw = zlib.decompress(b"".join(idat))
+        if flavour == "tf":
+            raw = zlib.decompress(b"".join(idat))
+        else:  # Pillow inflates only as far as the last row and needs no end to the stream
+            need = sum(h * (-(-w * ch * depth // 8) + 1) for w, h in _passes(width, height, interlace))
+            raw = zlib.decompressobj().decompress(b"".join(idat), need)
+            if len(raw) < need:
+                raise ValueError(f"PNG image data ends after {len(raw)} of its {need} bytes (truncated)")
     except zlib.error as e:
         raise ValueError(f"PNG image data does not inflate: {e}") from None
     px = _samples(raw, width, height, ch, depth, interlace, unfilter)

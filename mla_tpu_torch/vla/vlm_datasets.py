@@ -45,7 +45,6 @@ from mla_tpu_torch.vla.datasets import add_mask_channel, clip_preprocess
 from mla_tpu_torch.vla.tokenizer import EOS_ID
 
 IGNORE_INDEX = -100
-ROADMAP_IMAGES = "ROADMAP.md queue 1, item 2 (frame formats)"
 
 
 def _encode(tokenizer, text: str, add_special_tokens: bool = True) -> List[int]:
@@ -66,17 +65,22 @@ def default_image_transform(image_size: int) -> Callable[[np.ndarray], np.ndarra
 
 def _load_image(image_dir: Path, rel: str) -> np.ndarray:
     """An image file as uint8 [H, W, 3], as Pillow's convert("RGB") gives
-    it: PNG, JPEG (libjpeg-turbo's accurate integer IDCT, the one Pillow
-    runs), GIF, BMP or WebP, through `vla/rlds/frames.decode`. Any other
-    format Pillow reads (TIFF and the rest) raises NotImplementedError."""
+    it, through `vla/rlds/frames.decode`: PNG, JPEG (libjpeg-turbo's
+    accurate integer IDCT, the one Pillow runs), GIF, BMP, WebP, TIFF (its
+    first page; no compression, LZW, Deflate, PackBits, CCITT RLE, Group 3
+    and 4, JPEG, LZMA), Netpbm, TGA, ICO, QOI, PCX and SGI. A format or TIFF
+    codec that Pillow reads and the port does not (JPEG 2000, AVIF, DDS,
+    PSD, EPS, TIFF's ZSTD and WebP, ...) raises NotImplementedError citing
+    the ROADMAP item (frames.py's message, after the path); a stream Pillow
+    refuses raises ValueError."""
     from mla_tpu_torch.vla.rlds import frames
 
     path = Path(image_dir) / rel
     data = path.read_bytes()
-    if frames.format_of(data) in ("unknown", "jxl"):
-        raise NotImplementedError(f"{path} is a format other than PNG, JPEG, GIF, BMP and WebP, which the port "
-                                  f"decodes ({ROADMAP_IMAGES})")
-    return frames.decode(data, "pillow")
+    try:
+        return frames.decode(data, "pillow")
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{path}: {e}") from None
 
 
 class VLMAlignDataset:

@@ -3,7 +3,9 @@
     python tests/data/frames/make_frames.py
 
 Each stream is a small frame of one format and variant the port decodes
-(vla/rlds/frames.py); digests.json records, per stream, the SHA-256 of
+(vla/rlds/frames.py); the ones after WebP are formats only Pillow reads,
+the VLM path's (TIFF by libtiff's LZW, Group 4 and JPEG, Netpbm, TGA,
+ICO, QOI, PCX, SGI, four-component lossless JPEG). digests.json records, per stream, the SHA-256 of
 TensorFlow's decode_image(channels=3, expand_animations=False) pixels
 ("tf") and of Pillow's convert("RGB") pixels ("pillow"), each with its
 shape (frames.digest), or null where that reference refuses the stream;
@@ -14,7 +16,10 @@ chip_smoke.py's oxe phase and tests/test_torch_frame_formats.py read what
 it writes.
 """
 
+import io
 import json
+import re
+import struct
 import sys
 from pathlib import Path
 
@@ -79,6 +84,70 @@ def streams():
         "webp_lossy_640x480.webp": libwebp_encode(camera(480, 640), 80),
         "webp_lossless_256x256.webp": pillow_save(camera(256, 256, 0), "WEBP", lossless=True),
         "webp_lossless_640x480.webp": pillow_save(camera(480, 640, 0), "WEBP", lossless=True),
+        **pillow_only_streams(),
+    }
+
+
+def document(h: int, w: int) -> np.ndarray:
+    """A page of text-like lines: glyphs of 7 x 5 from a small font of
+    random shapes, black on white (bool, True white), as a fax or a
+    document scan holds."""
+    rng = np.random.default_rng(h + w)
+    font = rng.random((30, 7, 5)) > 0.55
+    page = np.ones((h, w), bool)
+    for y in range(12, h - 12, 12):
+        x = 10
+        while x < w - 16:
+            if rng.random() < 0.18:  # a space
+                x += 5
+                continue
+            page[y:y + 7, x:x + 5] = ~font[rng.integers(0, 30)]
+            x += 6
+    return page
+
+
+def tiff(img: np.ndarray, compression, mode=None, **tags) -> bytes:
+    """A TIFF by Pillow (libtiff for every compression), with `tags` by number
+    (t317=2: Predictor 2)."""
+    from PIL import Image, TiffImagePlugin
+
+    im = Image.fromarray(img) if mode is None else Image.fromarray(img).convert(mode)
+    ifd = TiffImagePlugin.ImageFileDirectory_v2()
+    for k, v in tags.items():
+        ifd[int(k[1:])] = v
+    f = io.BytesIO()
+    im.save(f, "TIFF", compression=compression, tiffinfo=ifd)
+    return f.getvalue()
+
+
+def pillow_only_streams():
+    """The formats only Pillow reads, each small, and the TIFF frames that
+    chip_smoke.py times: LZW and Deflate, both with Predictor 2, at 256 x
+    256, Group 4 and JPEG (YCbCr) at 640 x 480, the largest that fit the
+    set's cap."""
+    rng = np.random.default_rng(23)
+    img, small = image(48, 64, 1), image(24, 32, 2)
+    cmyk = np.dstack([small, rng.integers(0, 256, small.shape[:2], np.uint8)])
+    grey = rng.integers(0, 1001, (24, 32))
+    ico_px = np.dstack([small, rng.integers(0, 256, small.shape[:2], np.uint8)])[::-1, :, [2, 1, 0, 3]]
+    mask = rng.integers(0, 256, (24, 4), np.uint8)
+    dib = struct.pack("<IiiHHIIiiII", 40, 32, 48, 1, 32, 0, 0, 0, 0, 0, 0) + ico_px.tobytes() + mask.tobytes()
+    ico = struct.pack("<HHHBBBBHHII", 0, 1, 1, 32, 24, 0, 0, 1, 32, len(dib), 22) + dib
+    return {
+        "tiff_lzw.tif": tiff(small, "tiff_lzw"),
+        "tiff_g4.tif": tiff(document(48, 64), "group4"),
+        "tiff_jpeg.tif": tiff(img, "jpeg", "YCbCr"),
+        "netpbm_p5_maxval1000.pgm": b"P5\n# a comment\n32 24\n1000\n" + grey.astype(">u2").tobytes(),
+        "tga_rle.tga": pillow_save(small, "TGA", compression="tga_rle"),
+        "ico_bmp32.ico": ico,
+        "qoi.qoi": pillow_save(small, "QOI"),
+        "pcx.pcx": pillow_save(small, "PCX"),
+        "sgi16.sgi": pillow_save(small, "SGI", bpc=2),
+        "jpeg_lossless_cmyk.jpg": jpeg.encode_lossless(cmyk, predictor=6, restart_rows=3),
+        "tiff_lzw_pred_256x256.tif": tiff(camera(256, 256, 0), "tiff_lzw", t317=2),
+        "tiff_deflate_pred_256x256.tif": tiff(camera(256, 256, 0), "tiff_deflate", t317=2),
+        "tiff_g4_640x480.tif": tiff(document(480, 640), "group4"),
+        "tiff_jpeg_640x480.tif": tiff(camera(480, 640, 0), "jpeg", "YCbCr"),
     }
 
 
@@ -92,7 +161,7 @@ def main() -> None:
                 entry[flavour] = frames.digest(ref(data))
             except Exception:  # noqa: BLE001 - the reference refuses the stream
                 entry[flavour] = None
-        if "x" in name.rsplit("_", 1)[-1]:  # a timing frame, too large for the plain loops' tests
+        if re.search(r"_\d+x\d+\.", name):  # a timing frame, too large for the plain loops' tests
             entry["timing"] = True
         index[name] = entry
     (HERE / "digests.json").write_text(json.dumps(index, indent=1) + "\n")

@@ -408,7 +408,8 @@ def test_jpeg_variants_match_both_references(case):
 def test_decode_image_and_the_vlm_loader_read_every_format(tmp_path):
     """transforms.decode_image (TensorFlow's pixels) and the VLM loader
     (Pillow's) dispatch on the signature; JPEG XL and unknown streams
-    raise citing item 2 (a TIFF, which Pillow reads, in the VLM path)."""
+    raise citing item 2 (a JPEG 2000 stream, which Pillow reads, in the VLM
+    path)."""
     from mla_tpu_torch.vla.rlds import transforms
 
     img = _image(21, 34)
@@ -424,9 +425,9 @@ def test_decode_image_and_the_vlm_loader_read_every_format(tmp_path):
         transforms.decode_image(b"\x00\x00\x00\x0cJXL \r\n\x87\n" + bytes(20))
     with pytest.raises(ValueError, match=r"unknown format.*item 2"):
         frames.decode(b"\x00" * 16, "pillow")
-    (tmp_path / "t.tif").write_bytes(pillow_save(img, "TIFF"))
+    (tmp_path / "t.jp2").write_bytes(pillow_save(img, "JPEG2000"))
     with pytest.raises(NotImplementedError, match=r"item 2"):
-        vlm_datasets._load_image(tmp_path, "t.tif")
+        vlm_datasets._load_image(tmp_path, "t.jp2")
 
 
 def test_golden_streams_hold_their_digests():

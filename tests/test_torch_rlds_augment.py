@@ -275,20 +275,24 @@ def test_trajectory_options_run_in_the_pipeline(data_root):
 
 def test_refusal_messages_name_their_items():
     """What still raises in the data path cites item 2: JPEG XL frames,
-    unknown formats, Pillow-only JPEG and image formats, directories written
-    by tensorflow_datasets; training over tensor parallelism no longer
-    raises (test_torch_tp_train.py; what tp still refuses cites item 16).
-    Every PNG now decodes (no PNG refusal is left), and a GIF frame decodes
-    where it used to be refused."""
+    unknown formats, the JPEG variants and image formats that Pillow reads
+    and the port does not (frames.py, tiff.py's codecs, netpbm.py's
+    test-only forms), directories written by tensorflow_datasets; training
+    over tensor parallelism no longer raises (test_torch_tp_train.py; what
+    tp still refuses cites item 16). Every PNG now decodes (no PNG refusal
+    is left), a GIF frame decodes where it used to be refused, and the VLM
+    loader passes on frames.py's refusal (its own constant is gone)."""
     from mla_tpu_torch.vla import vlm_datasets
-    from mla_tpu_torch.vla.rlds import frames, gif, jpeg, png, tfds_compat
+    from mla_tpu_torch.vla.rlds import frames, gif, jpeg, netpbm, png, tfds_compat, tiff
 
     assert not hasattr(png, "ROADMAP_PNG")
     assert jpeg.ROADMAP_JPEG == "ROADMAP.md queue 1, item 2 (frame formats: JPEG variants)"
     assert tfds_compat.ROADMAP_TFDS == ("ROADMAP.md queue 1, item 2 (frame formats: directories written by "
                                         "tensorflow_datasets)")
-    assert vlm_datasets.ROADMAP_IMAGES == "ROADMAP.md queue 1, item 2 (frame formats)"
+    assert not hasattr(vlm_datasets, "ROADMAP_IMAGES")
     assert frames.ROADMAP_FRAMES == "ROADMAP.md queue 1, item 2 (frame formats)"
+    assert tiff.ROADMAP_TIFF == "ROADMAP.md queue 1, item 2 (frame formats: TIFF codecs)"
+    assert netpbm.ROADMAP_NETPBM == "ROADMAP.md queue 1, item 2 (frame formats: Netpbm extensions)"
     assert not hasattr(tds, "ROADMAP_DATA")
     with pytest.raises(NotImplementedError, match=r"JPEG XL.*item 2 \(frame formats\)"):
         tT.decode_image(b"\xff\x0a" + bytes(20))

@@ -175,8 +175,9 @@ def test_png_data_root_items_match_jax(tmp_path, stage):
 def test_a_jpeg_is_refused(tmp_path):
     """(The name is the test's from before the port decoded JPEG.) A JPEG
     now loads as Pillow's convert("RGB") gives it, bit for bit, as JAX's
-    loader reads it, and so does a GIF; a corrupt GIF raises, and a TIFF,
-    which only Pillow reads, is refused citing the ROADMAP item."""
+    loader reads it, and so do a GIF and a TIFF; a corrupt GIF raises, and a
+    JPEG 2000 stream, which only Pillow reads, is refused citing the
+    ROADMAP item."""
     from PIL import Image
 
     rng = np.random.default_rng(4)
@@ -187,31 +188,35 @@ def test_a_jpeg_is_refused(tmp_path):
     (tmp_path / "b.gif").write_bytes(b"GIF89a" + bytes(20))
     Image.fromarray(img).convert("P").save(tmp_path / "c.gif")
     Image.fromarray(img).save(tmp_path / "d.tif")
-    for name in ("a.jpg", "grey.jpg", "c.gif"):
+    Image.fromarray(img).save(tmp_path / "e.jp2")
+    for name in ("a.jpg", "grey.jpg", "c.gif", "d.tif"):
         want = np.asarray(Image.open(tmp_path / name).convert("RGB"))
         assert np.array_equal(tvlm._load_image(tmp_path, name), want)
         assert np.array_equal(jvlm._load_image(tmp_path, name), want)
     with pytest.raises(ValueError, match="corrupt GIF data"):
         tvlm._load_image(tmp_path, "b.gif")
-    with pytest.raises(NotImplementedError, match=r"other than PNG, JPEG, GIF, BMP and WebP.*item 2"):
-        tvlm._load_image(tmp_path, "d.tif")
+    with pytest.raises(NotImplementedError, match=r"JPEG2000 images.*not decoded.*item 2"):
+        tvlm._load_image(tmp_path, "e.jp2")
 
 
-@pytest.mark.parametrize("stage", ["align", "finetune"])
+@pytest.mark.parametrize("stage", ["align", "finetune", "align mixed", "finetune mixed"])
 def test_jpeg_data_root_items_match_jax(tmp_path, stage):
-    """A LLaVA-layout data root of JPEG images (the port's encoder): the
-    stage's items through get_vlm_dataset_and_collator, Pillow's
-    convert("RGB") in JAX and the port's accurate-IDCT decoder here: ids,
-    labels and pixels exactly."""
+    """A LLaVA-layout data root of JPEG images (the port's encoder), and a
+    mixed one whose every other image is a golden stream of a format only
+    Pillow reads (TIFF, Netpbm, TGA, ICO, QOI, PCX, SGI): the stage's items
+    through get_vlm_dataset_and_collator, Pillow's convert("RGB") in JAX and
+    the port's decoders here: ids, labels and pixels exactly."""
     import chip_smoke
 
-    chip_smoke.llava_jpeg_fixture(tmp_path, 5, (29, 45), 3, stage)
+    stage, mixed = stage.split()[0], stage.endswith("mixed")
+    images = 2 * len(chip_smoke.LLAVA_OTHER_FORMATS) if mixed else 5
+    chip_smoke.llava_jpeg_fixture(tmp_path, images, (29, 45), 3, stage, mixed)
     kw = dict(image_size=24, max_length=40)
     tds, _ = tvlm.get_vlm_dataset_and_collator(stage, tdatasets.get_dataset_config("llava-v15"), str(tmp_path),
                                                 TTokenizer(), **kw)
     jds, _ = jvlm.get_vlm_dataset_and_collator(stage, jdatasets.get_dataset_config("llava-v15"), str(tmp_path),
                                                 JTokenizer(), **kw)
-    assert len(tds) == len(jds) == 7
+    assert len(tds) == len(jds) == images + 2
     for i in range(len(jds)):
         assert_items_equal(tds[i], jds[i])
 

@@ -309,7 +309,18 @@ Phases, each of which fails the run if it fails:
                   1 and its fp32 output 2L an AR forward; flash L, FPS 2),
                   at fsdp 2 exactly L layer gathers a forward and at most
                   2 whole layers alive, each rank's decoder GiB and ms (not
-                  tensor-parallel speed on a shared card). The kernels phase holds the
+                  tensor-parallel speed on a shared card). Also, on each
+                  mesh, a bucket-4 batched DPM-4 call, 4-beam
+                  search (weight-only and W8A8), sampled text and the
+                  serving host (rank 0's BatchingServer leading the others:
+                  12 requests, each dispatch replayed on one process):
+                  chunks bit for bit the one-process ones where a rank's
+                  plain attention rounds as the one-process call's
+                  (tp_attention, measured in the phase), else within
+                  FULL_DEPTH_RTOL; beams' ids equal or their score within
+                  TP_BEAM_SCORE_RTOL; the sampled text equal on every
+                  rank; exact launches per call and per host dispatch on
+                  every rank. The kernels phase holds the
                   row-parallel W8A8 (bit for bit) and int8_mm's fp32
                   output at T = 2 and 4, by o and down.
      tp-train     tensor-parallel training: mla_tpu_torch.train.main at
@@ -1480,8 +1491,11 @@ def check_int8_mm(torch, report, control):
 # weight-only product at a decode step and the AR prefill
 ROWPAR_T = (2, 4)
 ROWPAR_LINEARS = ((4096, 4096), (11008, 4096))
-ROWPAR_W8A8_M = (PREFIX_LEN, SUFFIX_LEN)
-ROWPAR_INT8_M = (1, PREFIX_LEN + 1)
+# W8A8 at one request's prefill and suffix rows and at buckets 2 and 4 of
+# the serving host over a mesh; the weight-only product at a decode step of
+# one row and of 4 beams (tp phase, TP_BEAMS), and the AR prefill
+ROWPAR_W8A8_M = (PREFIX_LEN, SUFFIX_LEN, 2 * PREFIX_LEN, 4 * PREFIX_LEN, 2 * SUFFIX_LEN, 4 * SUFFIX_LEN)
+ROWPAR_INT8_M = (1, 4, PREFIX_LEN + 1)
 ROWPAR_ROW_T = 2  # the kernels line's rows: the tp phase's group
 
 
@@ -5928,6 +5942,43 @@ TP_CHUNK_RTOL = 1e-3  # of the chunk's scale, where a chunk is not bit-identical
 # drop the other ranks' partials (the control, which it must reject)
 TP_CUT_LAYERS = BUCKET_ROWS_LAYERS
 TP_AR_FULL_DEPTH_RTOL = 5e-2
+# ROADMAP item 16 (a) and (b) on each mesh, the same calls in one process:
+# the batched DPM-4 chunks at bucket TP_BUCKET (W8A8, M = 4 x 534 prefill
+# rows a rank), beam search (TP_BEAMS beams over TP_BEAM_TOKENS tokens) and
+# sampled text (TP_SAMPLING, TP_TEXT_TOKENS tokens) through the weight-only
+# policy (int8_mm's fp32 partials at M = B x K rows), beam search through
+# the W8A8 policy too (the serving default), and the serving host:
+# a BatchingServer on rank 0 leading the other ranks (serving.lead and
+# follow), each client's waves of requests submitted at once, every
+# dispatch replayed here through the one-process policy
+TP_BUCKET = 4
+TP_BEAMS, TP_BEAM_TOKENS = 4, 8
+TP_TEXT_TOKENS = 8
+TP_SAMPLING = dict(temperature=0.7, top_k=50)
+TP_AR_MODE = "weight_only"
+# two clients' waves of requests, at once, then the first client's tail
+# waves alone (so every bucket of 1/2/4 is dispatched): 12 requests
+TP_HOST_WAVES, TP_HOST_TAIL = ((4, 2), (2, 1)), (2, 1)
+# each call's decoder forwards and int8 mode; a beam search of n tokens
+# runs n - 1 decode steps, greedy and sampled decoding n
+TP_FORWARDS = {"ddim": 1 + 8, "dpm": 1 + 4, "ar": None, "batched": 1 + 4, "beams": TP_BEAM_TOKENS,
+               "beams_w8a8": TP_BEAM_TOKENS, "sampled": 1 + TP_TEXT_TOKENS}
+TP_MODES = {"ddim": "w8a8", "dpm": "w8a8", "ar": "weight_only", "batched": "w8a8", "beams": TP_AR_MODE,
+            "beams_w8a8": "w8a8", "sampled": TP_AR_MODE}
+# the plain attention (ops/attention.py: the read-only suffix and the decode
+# step) runs a layer's heads as the batch of cuBLAS's GEMMs, so a tp rank's
+# call holds 1/T of the one-process call's heads; where that changes the
+# rounding of a head's output (tp_attention, measured in the phase), a
+# call's chunk is held to FULL_DEPTH_RTOL (32 random W8A8 layers grow a
+# bf16 ulp as they grow the bucket rows' batch-dependent roundings) in place
+# of TP_CHUNK_RTOL
+TP_ATTENTION_ROWS = {"suffix": (1, 2, TP_BUCKET), "decode": (1, TP_BEAMS)}
+# beam search over a rank's roundings (the weight-only products' fp32 order,
+# the decode attention over its heads) may pick another best beam than one
+# process: its length-penalized log-prob is then held to the one process's
+# within TP_BEAM_SCORE_RTOL (read on an H100: 9.5e-4 in W8A8, 2.1e-3
+# weight-only)
+TP_BEAM_SCORE_RTOL = 1e-2
 
 
 def tp_expected(cfg, T: int) -> dict:
@@ -5935,21 +5986,58 @@ def tp_expected(cfg, T: int) -> dict:
     a forward's four int8 linears a layer, of which o and down are
     row-parallel under tp (W8A8: row scale, int32 product and rescale;
     weight-only: fp32 partials), the int8 lm_head of each AR forward (its
-    vocabulary split), the flash prefill on the rank's heads and FPS 2."""
+    vocabulary split), the flash prefill on the rank's heads and FPS 2
+    (at any batch)."""
     L = cfg.llama.num_layers
     out = {}
-    for call, forwards in (("ddim", 1 + 8), ("dpm", 1 + 4), ("ar", 1 + cfg.action_dim)):
+    for call, mode in TP_MODES.items():
+        forwards = TP_FORWARDS[call] or 1 + cfg.action_dim
         e = dict.fromkeys(TP_KERNELS, 0)
         e.update(flash_attention=L, furthest_point_sample=cfg.point.num_stages)
-        if call == "ar":
-            e["int8_matmul"] = (4 if T == 1 else 2) * L * forwards + forwards
+        if mode == "weight_only":
+            e["int8_matmul"] = (4 if T == 1 else 2) * L * forwards
             e["int8_matmul_f32out"] = 0 if T == 1 else 2 * L * forwards
         elif T == 1:
             e["w8a8_matmul"] = 4 * L * forwards
         else:
             for k in ("w8a8_matmul", "w8a8_row_scale", "w8a8_matmul_acc", "w8a8_rescale"):
                 e[k] = 2 * L * forwards
+        if call in ("ar", "beams", "beams_w8a8", "sampled"):
+            e["int8_matmul"] += forwards  # the lm_head, fp32
         out[call] = e
+    return out
+
+
+def tp_attention(torch, cfg) -> dict:
+    """{(kind, rows, T): outputs that differ}: the plain attention of the
+    int8 mla-7b's shapes (the read-only suffix: 18 queries over the 535-slot
+    prefix, rows B; a decode step: 1 query, rows B x K) on all the heads at
+    once against the same heads in T calls of 1/T of them (a tp rank's),
+    bf16, seeded."""
+    from mla_tpu_torch.ops import attention
+
+    H, hd = cfg.llama.num_heads, cfg.llama.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED)
+    out = {}
+    for kind, rows_list in TP_ATTENTION_ROWS.items():
+        S, Sc, cache_len = (SUFFIX_LEN, PREFIX_LEN + SUFFIX_LEN + 33, PREFIX_LEN) if kind == "suffix" else (
+            1, PREFIX_LEN + TP_BEAM_TOKENS + 32, PREFIX_LEN + 3)
+        for rows in rows_list:
+            draws = 1 if kind == "suffix" else 8  # a decode step has few outputs: several draws show a difference
+            q, k, v, kc, vc = (torch.randn((rows * draws, H, n, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                               for n in (S, S, S, Sc, Sc))
+            mask = torch.arange(Sc, device="cuda")[None].expand(rows, -1) < cache_len + S
+
+            def run(d, a, b):
+                r = slice(d * rows, (d + 1) * rows)
+                return attention.decoder_attention(q[r, a:b].contiguous(), k[r, a:b].contiguous(),
+                                                   v[r, a:b].contiguous(), (kc[r, a:b].clone(), vc[r, a:b].clone()),
+                                                   cache_len, mask, cache_read_only=kind == "suffix")
+
+            for T in (2, 4):
+                n = H // T
+                out[(kind, rows, T)] = sum(int((torch.cat([run(d, t * n, (t + 1) * n) for t in range(T)], dim=1)
+                                                != run(d, 0, H)).sum()) for d in range(draws))
     return out
 
 
@@ -5979,7 +6067,9 @@ def tp_policies(torch, cfg, mesh, cut: bool = True) -> dict:
 
 def tp_calls(torch, cfg, pols, feed=None) -> dict:
     """One request through DDIM-8, DPM-4 (W8A8) and predict_action_ar's
-    ids (weight-only): outputs, launches and host ms of each call (a first
+    ids (weight-only), TP_BUCKET rows through the batched DPM-4 (W8A8),
+    the request through TP_BEAMS-beam search and sampled generate_text
+    (TP_AR_MODE): outputs, launches and host ms of each call (a first
     call: no warm-up, the ranks' calls over gloo take seconds); then the AR
     logits of a prefill and the decode steps, at full depth and cut, fed
     feed[key] (None: their own greedy ids; drive_ar, in the policy's tp
@@ -5993,16 +6083,28 @@ def tp_calls(torch, cfg, pols, feed=None) -> dict:
     from mla_tpu_torch.parallel import fsdp, tensor
 
     img, pc, ids, noise = request_inputs(cfg, TP_SEED)
+    frames, clouds = serve_frames(cfg, TP_BUCKET, TP_SEED + 2)
     calls = {s: (lambda s=s: pols["w8a8"].predict_action_diff(img, pc, "", input_ids=ids, noise=noise, sampler=s,
                                                               return_normalized=True)) for s in ("ddim", "dpm")}
     calls["ar"] = lambda: pols["weight_only"].generate_ids(img, pc, ids, cfg.action_dim)[0]
+    calls["batched"] = lambda: pols["w8a8"].dispatch_action_diff_batched(
+        np.stack(frames), np.stack(clouds), input_ids=np.repeat(ids, TP_BUCKET, 0), seed=TP_SEED, sampler="dpm",
+        return_normalized=True)()
+    calls["beams"] = lambda: pols[TP_AR_MODE].generate_ids(img, pc, ids, TP_BEAM_TOKENS, num_beams=TP_BEAMS)
+    calls["beams_w8a8"] = lambda: pols["w8a8"].generate_ids(img, pc, ids, TP_BEAM_TOKENS, num_beams=TP_BEAMS)
+    calls["sampled"] = lambda: pols[TP_AR_MODE].generate_text(img, pc, "", input_ids=ids,
+                                                              max_new_tokens=TP_TEXT_TOKENS, seed=TP_SEED,
+                                                              **TP_SAMPLING)
     torch.cuda.synchronize()
     out = {"launches": {}, "ms": {}, "gathers": {}}
     for name, fn in calls.items():
         cuda.launches.clear()
         fsdp.reset_counts()
         t = time.perf_counter()
-        out[name] = np.asarray(fn())
+        got = fn()
+        if name.startswith("beams"):  # the ids [1, n] and the best beam's score
+            got, out[f"{name}_score"] = got[0], float(got[1][0])
+        out[name] = np.asarray(got)
         torch.cuda.synchronize()
         out["ms"][name] = (time.perf_counter() - t) * 1e3
         out["launches"][name] = {k: cuda.launches[k] for k in TP_KERNELS}
@@ -6066,6 +6168,7 @@ def tp_child(root: Path, backend: str, fsdp: int) -> int:
     build_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     out = tp_calls(torch, cfg, pols, json.loads((root / "feed.json").read_text()))
+    out["host"] = tp_host(torch, cfg, pols["w8a8"])
     out.update(build_s=build_s, build_peak_gib=build_peak_gib, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                device=torch.cuda.get_device_name(launch["device"]), backend=backend,
                mesh={"tp": mesh.tp, "fsdp": mesh.fsdp})
@@ -6073,6 +6176,76 @@ def tp_child(root: Path, backend: str, fsdp: int) -> int:
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def tp_host(torch, cfg, policy) -> dict:
+    """The serving host over the policy's mesh: on rank 0 a BatchingServer
+    (DPM-4, buckets 1/2/4) on `policy`, which leads the other ranks
+    (serving.lead), two client threads submitting TP_HOST_WAVES, then the
+    first client's TP_HOST_TAIL alone; each
+    dispatch's arguments and normalized chunks recorded for the replay.
+    The other ranks follow (serving.follow) until rank 0 closes the
+    channel. Each rank's launches over the run."""
+    import threading
+
+    import numpy as np
+
+    from mla_tpu_torch import serving
+    from mla_tpu_torch.ops import cuda
+
+    torch.cuda.synchronize()
+    cuda.launches.clear()
+    t0 = time.perf_counter()
+    if policy.mesh.rank != 0:
+        n = serving.follow(policy)
+        torch.cuda.synchronize()
+        return {"followed": n, "launches": {k: cuda.launches[k] for k in TP_KERNELS}}
+    channel = serving.lead(policy)
+    log, real = [], policy.dispatch_action_diff_batched
+
+    def recording(images, pointclouds, **kw):
+        finalize = real(images, pointclouds, return_normalized=True, **kw)
+
+        def recorded():
+            chunks = finalize()
+            log.append({"images": images, "pointclouds": pointclouds, "kw": kw, "chunks": chunks})
+            return chunks
+        return recorded
+
+    policy.dispatch_action_diff_batched = recording
+    _, _, ids, _ = request_inputs(cfg, TP_SEED)
+    waves = TP_HOST_WAVES + (TP_HOST_TAIL,)
+    frames, clouds = serve_frames(cfg, sum(sum(w) for w in waves), TP_SEED + 3)
+    results, errors = [], []
+    server = serving.BatchingServer(policy, sampler="dpm", max_wait_ms=SERVE_WAIT_MS)
+    try:
+        def client(c):
+            start = sum(sum(w) for w in waves[:c])
+            for k in waves[c]:
+                try:
+                    futs = [server.submit(frames[i], clouds[i], input_ids=ids, seed=i) for i in range(start, start + k)]
+                    results.extend(f.result(timeout=TP_TIMEOUT) for f in futs)
+                except Exception as e:  # noqa: BLE001 - counted, reported by the parent
+                    errors.append(repr(e))
+                start += k
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(len(TP_HOST_WAVES))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        client(len(TP_HOST_WAVES))  # the first client's tail, alone
+        stats = server.stats()
+    finally:
+        server.close()
+        channel.close()
+        del policy.dispatch_action_diff_batched
+    torch.cuda.synchronize()
+    return {"requests": len(results), "errors": errors + ([f"{stats['errors']} server errors"] if stats["errors"]
+                                                          else []),
+            "buckets": stats["batch_size_hist"], "dispatches": len(log), "log": log,
+            "finite": all(np.isfinite(r).all() and r.shape == (cfg.action_horizon, cfg.action_dim) for r in results),
+            "s": time.perf_counter() - t0, "launches": {k: cuda.launches[k] for k in TP_KERNELS}}
 
 
 def tp_spawn(backend: str, tp: int, fsdp: int) -> list:
@@ -6090,12 +6263,37 @@ def tp_spawn(backend: str, tp: int, fsdp: int) -> list:
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
 
 
-def tp_ranks(torch, cfg, ref, procs, backend: str, tp: int, fsdp: int, beside=None) -> tuple:
+def tp_replay(one, host: dict) -> list:
+    """Rank 0's serving-host dispatches replayed through the one-process
+    policy `one` (dispatch_action_diff_batched, normalized chunks): each
+    dispatch's bucket, whether it was bit-identical, and its largest error
+    of the replay's scale."""
+    import numpy as np
+
+    out = []
+    for d in host["log"]:
+        again = one.dispatch_action_diff_batched(d["images"], d["pointclouds"], return_normalized=True, **d["kw"])()
+        out.append({"bucket": int(d["images"].shape[0]), "identical": bool(np.array_equal(again, d["chunks"])),
+                    "max_err_of_scale": float(np.abs(again - d["chunks"]).max()) / float(np.abs(again).max())})
+    return out
+
+
+def tp_chunk_tol(attn: dict, rows: int, tp: int) -> float:
+    """A tp chunk's tolerance at `rows` rows where it is not bit-identical:
+    FULL_DEPTH_RTOL where the plain suffix attention of a rank's heads
+    rounds apart from the one-process call's at those rows (tp_attention),
+    else TP_CHUNK_RTOL."""
+    return FULL_DEPTH_RTOL if attn[("suffix", rows, tp)] else TP_CHUNK_RTOL
+
+
+def tp_ranks(torch, cfg, ref, procs, backend: str, tp: int, fsdp: int, one, attn, beside=None) -> tuple:
     """The ranks `procs` (tp_spawn's) over serving_mesh(fsdp), their decode
     steps fed the reference's ids; each rank held to `ref` (see tp_phase),
-    its decoder GiB logged beside `beside` (an earlier mesh's entry at the
-    same tp). Returns (the report's entry, rank 0's launches, the
-    failures)."""
+    rank 0's serving-host dispatches replayed through the one-process W8A8
+    policy `one`, the tolerances where a call is not bit-identical by
+    `attn` (tp_attention's), each rank's decoder GiB logged beside `beside`
+    (an earlier mesh's entry at the same tp). Returns (the report's entry,
+    rank 0's launches, the failures)."""
     import numpy as np
 
     world, root = tp * fsdp, TP_ROOT / f"{tp}x{fsdp}"
@@ -6120,15 +6318,42 @@ def tp_ranks(torch, cfg, ref, procs, backend: str, tp: int, fsdp: int, beside=No
     rep = {"backend": backend, "world": world, "tp": tp, "fsdp": fsdp, "s": time.perf_counter() - t0, "ranks": [],
            "cards_shared": shared}
     want = tp_expected(cfg, tp)
-    forwards = {"ddim": 1 + 8, "dpm": 1 + 4, "ar": 1 + cfg.action_dim}
+    forwards = {c: n or 1 + cfg.action_dim for c, n in TP_FORWARDS.items()}
     L = cfg.llama.num_layers
-    keys = ("ddim", "dpm", "ar", "weight_only_logits") + (("cut_logits",) if fsdp == 1 else ())
+    keys = ("ddim", "dpm", "ar", "batched", "beams", "beams_w8a8", "sampled", "weight_only_logits") + (
+        ("cut_logits",) if fsdp == 1 else ())
     failed = []
+    host = ranks[0]["host"]
+    host_want = {k: v * host["dispatches"] for k, v in want["dpm"].items()}
+    replay = tp_replay(one, host)
+    rep["host"] = {k: host[k] for k in ("requests", "buckets", "dispatches", "s", "errors")}
+    rep["host"]["replay"] = replay
+    if (host["errors"] or host["requests"] != sum(sum(w) for w in TP_HOST_WAVES + (TP_HOST_TAIL,))
+            or not host["finite"] or set(host["buckets"]) != {1, 2, 4}):
+        failed.append(f"the serving host over {label}: {host['requests']} requests answered, errors "
+                      f"{host['errors']}, finite [16, 7] chunks {host['finite']}, buckets {host['buckets']}")
+    for d in replay:
+        tol = tp_chunk_tol(attn, d["bucket"], tp)
+        if not d["identical"] and not d["max_err_of_scale"] <= tol:
+            failed.append(f"the serving host over {label}: a bucket-{d['bucket']} dispatch's chunks are "
+                          f"{d['max_err_of_scale']} of their scale from its replay on one process (tol {tol})")
+    log(f"tp serving host over {label}: {host['requests']} requests from {len(TP_HOST_WAVES)} clients (the first's "
+        f"tail {TP_HOST_TAIL} alone) in "
+        f"{host['dispatches']} dispatches, buckets {host['buckets']}, {host['s']:.1f} s; replayed on one process: "
+        + ", ".join(f"bucket {d['bucket']} " + ("identical" if d["identical"] else
+                                                f"NOT identical, {d['max_err_of_scale']:.4g} of its scale (tol "
+                                                f"{tp_chunk_tol(attn, d['bucket'], tp)})") for d in replay))
     for r, got in enumerate(ranks):
         if got["mesh"] != {"tp": tp, "fsdp": fsdp}:
             failed.append(f"rank {r} of {label} served over {got['mesh']}")
         if got["launches"] != want:
             failed.append(f"rank {r} of {label} launched {got['launches']}, expected {want}")
+        if r > 0 and got["host"]["followed"] != host["dispatches"]:
+            failed.append(f"rank {r} of {label} followed {got['host']['followed']} of rank 0's "
+                          f"{host['dispatches']} dispatches")
+        if got["host"]["launches"] != host_want:
+            failed.append(f"rank {r} of {label} launched {got['host']['launches']} in the serving host, expected "
+                          f"{host_want} ({host['dispatches']} DPM-4 dispatches)")
         gathers = {c: L * n if fsdp > 1 else 0 for c, n in forwards.items()}
         for c, n in gathers.items():
             g = got["gathers"][c]
@@ -6145,16 +6370,27 @@ def tp_ranks(torch, cfg, ref, procs, backend: str, tp: int, fsdp: int, beside=No
             if not b["held"] <= b["stack"] / fsdp + b["unit"]:
                 failed.append(f"rank {r} of {label}: its {mode} layer stack holds {b['held']} bytes, over "
                               f"{b['stack']} / {fsdp} + {b['unit']}")
-        for sampler in ("ddim", "dpm"):
+        for sampler in ("ddim", "dpm", "batched"):
             a, b = got[sampler], ref[sampler]
             identical = bool(np.array_equal(a, b))
             err = float(np.abs(a - b).max()) / float(np.abs(b).max())
-            entry[sampler] = {"identical": identical, "max_err_of_scale": err}
-            if not identical and not err <= TP_CHUNK_RTOL:
+            tol = tp_chunk_tol(attn, TP_BUCKET, tp) if sampler == "batched" else TP_CHUNK_RTOL
+            entry[sampler] = {"identical": identical, "max_err_of_scale": err, "tol": tol}
+            if not identical and not err <= tol:
                 failed.append(f"rank {r} of {label}: its {sampler} chunk is {err} of its scale from the "
-                              f"one-process chunk (tol {TP_CHUNK_RTOL})")
+                              f"one-process chunk (tol {tol})")
         if not np.array_equal(got["ar"], ref["ar"]):
             failed.append(f"rank {r} of {label}: AR ids {got['ar'].tolist()}, one process {ref['ar'].tolist()}")
+        for key in ("beams", "beams_w8a8"):
+            # ids equal, else the best beam's score within
+            # TP_BEAM_SCORE_RTOL of the one process's, logged as not equal
+            equal = bool(np.array_equal(got[key], ref[key]))
+            err = abs(got[f"{key}_score"] - ref[f"{key}_score"]) / abs(ref[f"{key}_score"])
+            entry[key] = {"equal": equal, "score": got[f"{key}_score"], "score_err": err}
+            if not equal and not err <= TP_BEAM_SCORE_RTOL:
+                failed.append(f"rank {r} of {label}: {key} ids {got[key].tolist()} (score {got[f'{key}_score']}), "
+                              f"one process {ref[key].tolist()} ({ref[f'{key}_score']})")
+        entry["sampled_equals_one_process"] = bool(np.array_equal(got["sampled"], ref["sampled"]))
         for key, tol in (("cut", AR_AGREE_RTOL), ("weight_only", TP_AR_FULL_DEPTH_RTOL))[0 if fsdp == 1 else 1:]:
             a, b = got[f"{key}_logits"], ref[f"{key}_logits"]
             step_err = np.abs(a - b).max(axis=1) / float(np.abs(b).max())
@@ -6171,7 +6407,13 @@ def tp_ranks(torch, cfg, ref, procs, backend: str, tp: int, fsdp: int, beside=No
         rep["ranks"].append(entry)
         chunks = ", ".join(f"{name} " + ("identical" if entry[k]["identical"] else
                                          f"NOT identical, {entry[k]['max_err_of_scale']} of its scale")
-                           for k, name in (("ddim", "DDIM-8"), ("dpm", "DPM-4")))
+                           for k, name in (("ddim", "DDIM-8"), ("dpm", "DPM-4"),
+                                           ("batched", f"bucket-{TP_BUCKET} DPM-4")))
+        chunks += "".join(f"; {TP_BEAMS} beams ({mode}) " + (
+            "ids equal" if entry[k]["equal"] else f"ids NOT equal, score {entry[k]['score_err']:.3g} from one "
+            f"process's (tol {TP_BEAM_SCORE_RTOL})") for k, mode in (("beams", TP_AR_MODE), ("beams_w8a8", "w8a8")))
+        chunks += "; sampled text " + ("equal to one process's" if entry["sampled_equals_one_process"] else
+                                       "equal on every rank, NOT to one process's")
         side = (f" (tp {tp} alone: {beside['ranks'][r % len(beside['ranks'])]['decoder_gib']['w8a8']:.2f} / "
                 f"{beside['ranks'][r % len(beside['ranks'])]['decoder_gib']['weight_only']:.2f})" if beside else "")
         cut = (f"{TP_CUT_LAYERS} layers {[round(e, 5) for e in entry['cut_logits_step_err_of_scale']]}, "
@@ -6182,7 +6424,9 @@ def tp_ranks(torch, cfg, ref, procs, backend: str, tp: int, fsdp: int, beside=No
             f"(DDIM-8, DPM-4, AR), at most {max(g['max_live_layers'] for g in got['gathers'].values())} whole "
             f"layers alive; peak {got['peak_gib']:.2f} GiB (build {got['build_peak_gib']:.2f}, {got['build_s']:.1f} "
             f"s); first calls: DDIM-8 {got['ms']['ddim']:.1f} ms, DPM-4 {got['ms']['dpm']:.1f} ms, ids "
-            f"{got['ms']['ar']:.1f} ms{' (ranks sharing cards: not TP speed)' if shared else ''}; AR logits by "
+            f"{got['ms']['ar']:.1f} ms, bucket-{TP_BUCKET} DPM-4 {got['ms']['batched']:.1f} ms, {TP_BEAMS} beams "
+            f"{got['ms']['beams']:.1f} / {got['ms']['beams_w8a8']:.1f} ms, sampled text {got['ms']['sampled']:.1f} ms"
+            f"{' (ranks sharing cards: not TP speed)' if shared else ''}; AR logits by "
             f"step, of their scale: {cut}{cfg.llama.num_layers} layers "
             f"{[round(e, 5) for e in entry['weight_only_logits_step_err_of_scale']]}"
             f" (tol {TP_AR_FULL_DEPTH_RTOL}; the control {entry['control_err_of_scale']:.4f})")
@@ -6196,14 +6440,22 @@ def tp_phase(torch, report, backend: str = "gloo", meshes: str = TP_MESHES):
     ranks, or TxF, T tp ranks beside F fsdp ranks, serving_mesh(fsdp=F)),
     by that many ranks (this script's children, over `backend`; gloo for
     ranks that share one card, whose times are then not tensor-parallel
-    speed): every rank's DDIM-8 and DPM-4 chunks equal to each other and to
-    the one-process chunks bit for bit (else within TP_CHUNK_RTOL of their
-    scale, logged as not identical), predict_action_ar's ids equal, the AR
+    speed): every rank's DDIM-8, DPM-4 and bucket-4 DPM-4 chunks equal to
+    each other and to the one-process chunks bit for bit (else within
+    tp_chunk_tol of their scale, logged as not identical),
+    predict_action_ar's ids equal, the 4-beam ids equal (else the best
+    beam's score within TP_BEAM_SCORE_RTOL), the sampled text equal on
+    every rank (logged against one process's), the serving host (rank 0
+    leading the others) answering TP_HOST_WAVES' and TP_HOST_TAIL's
+    requests at buckets 1, 2 and 4 with each
+    dispatch's chunks equal to its replay through the one-process policy
+    (else within tp_chunk_tol at its bucket), the AR
     logits of a prefill and 7 decode steps (fed the one-process ids)
     within AR_AGREE_RTOL of their scale on the decoder cut to TP_CUT_LAYERS
     (at fsdp 1) and within TP_AR_FULL_DEPTH_RTOL at full depth (the control
     with the row-parallel sums skipped outside it), each call's launches
-    exactly tp_expected's at T, at fsdp F > 1 L layer gathers a forward,
+    exactly tp_expected's at T (the host's: its dispatches times a DPM-4
+    call's, on every rank), at fsdp F > 1 L layer gathers a forward,
     at most 2 whole layers alive and a layer stack of at most 1/F of the
     rank's plus a leaf owned whole, each rank's decoder GiB. Returns the
     first mesh's rank 0 launches of the row-parallel modes."""
@@ -6218,22 +6470,29 @@ def tp_phase(torch, report, backend: str = "gloo", meshes: str = TP_MESHES):
     try:
         pols = tp_policies(torch, cfg, None)
         ref = tp_calls(torch, cfg, pols)
+        one = pols["w8a8"]  # replays the meshes' serving-host dispatches
         del pols
         gc.collect()
         torch.cuda.empty_cache()
+        attn = tp_attention(torch, cfg)
+        log("tp: the plain attention of a rank's 1/T of the heads against all of them, outputs that differ: "
+            + ", ".join(f"{kind} {rows} rows T={T}: {n}" for (kind, rows, T), n in attn.items()))
         if ref["launches"] != tp_expected(cfg, 1):
             raise AssertionError(f"tp: the one-process calls launched {ref['launches']}, expected "
                                  f"{tp_expected(cfg, 1)}")
         rep = {"one_process": {"ms": ref["ms"], "decoder_gib": ref["decoder_gib"], "s": time.perf_counter() - t0},
+               "attention_differs": {f"{kind} {rows} rows T={T}": n for (kind, rows, T), n in attn.items()},
                "worlds": {}}
         log(f"tp: one process, int8 mla-7b, first calls: DDIM-8 {ref['ms']['ddim']:.1f} ms, DPM-4 "
             f"{ref['ms']['dpm']:.1f} ms, "
-            f"predict_action_ar ids {ref['ms']['ar']:.1f} ms, decoder {ref['decoder_gib']['w8a8']:.2f} GiB (W8A8) / "
-            f"{ref['decoder_gib']['weight_only']:.2f} GiB (weight-only)")
+            f"predict_action_ar ids {ref['ms']['ar']:.1f} ms, bucket-{TP_BUCKET} DPM-4 {ref['ms']['batched']:.1f} ms, "
+            f"{TP_BEAMS} beams {ref['ms']['beams']:.1f} ms, sampled text {ref['ms']['sampled']:.1f} ms, decoder "
+            f"{ref['decoder_gib']['w8a8']:.2f} GiB (W8A8) / {ref['decoder_gib']['weight_only']:.2f} GiB (weight-only)")
         failed, first = [], None
         for spec, (tp, fsdp), procs in zip(meshes.split(","), shapes, spawned):
             beside = next((w for w in rep["worlds"].values() if w["tp"] == tp and w["fsdp"] == 1), None)
-            rep["worlds"][spec], totals, bad = tp_ranks(torch, cfg, ref, procs, backend, tp, fsdp, beside)
+            rep["worlds"][spec], totals, bad = tp_ranks(torch, cfg, ref, procs, backend, tp, fsdp, one, attn,
+                                                        beside)
             rep["worlds"][spec]["expected"] = tp_expected(cfg, tp)
             failed += bad
             first = first or totals
@@ -6243,6 +6502,7 @@ def tp_phase(torch, report, backend: str = "gloo", meshes: str = TP_MESHES):
                 p.kill()
                 p.wait()
         shutil.rmtree(TP_ROOT, ignore_errors=True)
+        one = None
     report["tp"] = rep
     if failed:
         raise AssertionError("tp: " + "; ".join(failed))

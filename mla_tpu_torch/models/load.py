@@ -101,14 +101,16 @@ def load_vla(
     load_for_training: bool = False,
     use_ema: bool = False,
     device=None,
+    mesh=None,
     **flag_overrides,
 ) -> Union[MLAPolicy, Tuple[Dict[str, Any], Dict[str, Any], Any, Dict]]:
     """Build an MLA policy on `device` (None: the card; raises without one
     unless device="cpu") from a run dir or a checkpoint path. The model is
     `model_id`, else the run's recorded base_vlm, else mla-7b (a bare .pt),
-    with the run's recorded model flags and `flag_overrides`. With
-    load_for_training=True returns (params, state, cfg, norm_stats) instead
-    of a policy."""
+    with the run's recorded model flags and `flag_overrides`. `mesh`
+    (parallel/mesh.serving_mesh) is the policy's serving mesh: every rank
+    loads the whole tree and keeps its part. With load_for_training=True
+    returns (params, state, cfg, norm_stats) instead of a policy."""
     path = Path(checkpoint_or_run_dir)
     run_dir = path if path.is_dir() else path.parent.parent
     norm_stats = _read_json(run_dir / "dataset_statistics.json") or {}
@@ -151,7 +153,7 @@ def load_vla(
 
     if load_for_training:
         return params, state, cfg, norm_stats
-    return MLAPolicy(params, state, cfg, tokenizer=tokenizer, norm_stats=norm_stats, device=device)
+    return MLAPolicy(params, state, cfg, tokenizer=tokenizer, norm_stats=norm_stats, device=device, mesh=mesh)
 
 
 def load_openvla(

@@ -506,10 +506,13 @@ class MLAPolicy:
     (params.tp_local), fuses it, and at F > 1 keeps only its fsdp part of
     every leaf of that tree (parallel/fsdp.serving_parts), gathered per
     use: the decoder layer by layer, the other leaves once a call. Every
-    rank calls predict_action_diff or predict_action_ar with the same
-    inputs and gets the same result. The other entry points, a phi
-    decoder, an int4 tree, head counts that T does not divide, and dp > 1
-    raise over a mesh (ROADMAP item 16)."""
+    rank makes the same call with the same inputs and seed (any entry
+    point: the chunks, one and batched, greedy, sampled and beam decoding,
+    the text calls, the DiT batch) and gets the same result; a serving host
+    instead has rank 0 send each batched call's rows to the others
+    (`channel`: serving.lead, serving.follow). A phi decoder, an int4
+    tree, head counts that T does not divide, and dp > 1 raise over a mesh
+    (ROADMAP item 16)."""
 
     def __init__(
         self, params: Dict[str, Any], state: Dict[str, Any], cfg: prismatic.MLAModelConfig,
@@ -545,6 +548,9 @@ class MLAPolicy:
         self.sched_ddim = gd.create_schedule(f"ddim{num_ddim_steps}", diffusion_steps=100)
         self.cache_margin = cache_margin
         self.prefill_scores_dtype = prefill_scores_dtype or serving_scores_dtype_from_env()
+        # rank 0's parallel/mesh.Channel where it leads the mesh's other ranks
+        # (serving.lead): each batched call's rows go to them before it runs
+        self.channel = None
 
     @contextlib.contextmanager
     def tp_scope(self):
@@ -565,11 +571,6 @@ class MLAPolicy:
                 return
             with fsdp.gathering(self.gatherer):
                 yield self.gatherer.tree(self.params)
-
-    def _refuse_under_tp(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(f"{what} over a tp {self.mesh.tp} x fsdp {self.mesh.fsdp} mesh: "
-                                      + ROADMAP_TP_SERVING.format(what))
 
     def _stats(self, unnorm_key: Optional[str], kind: str) -> Dict[str, Any]:
         if unnorm_key is None:
@@ -687,7 +688,6 @@ class MLAPolicy:
         input_ids [B, L], or one row / one instruction broadcast. Rows of
         cur_robot_states may be None (then normalized zero). Returns [B,
         horizon, action_dim]. dispatch_action_diff_batched(...)()."""
-        self._refuse_under_tp("the batched calls")
         return self.dispatch_action_diff_batched(
             images, pointclouds, instruction, unnorm_key=unnorm_key, seed=seed, input_ids=input_ids,
             cur_robot_states=cur_robot_states, sampler=sampler, num_dpm_steps=num_dpm_steps,
@@ -706,8 +706,9 @@ class MLAPolicy:
         sync, and returns finalize(), which makes the one device-to-host
         copy (waiting for the call) and unnormalizes. A serving host
         dispatches the next batch while this one runs
-        (serving.BatchingServer)."""
-        self._refuse_under_tp("the batched calls")
+        (serving.BatchingServer). Whatever can refuse a request (the ids,
+        the proprio statistics) runs on the host before the rows are sent
+        (`channel`) or the device is touched."""
         cfg = self.cfg
         if input_ids is None:
             if instruction is None:
@@ -727,14 +728,17 @@ class MLAPolicy:
             for b, s in enumerate(cur_robot_states):
                 if s is not None:
                     proprio[b, 0] = normalize_proprio(np.asarray(s, np.float32), pstats)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        x_t = torch.randn((B, cfg.action_horizon, cfg.action_dim), generator=gen, device=self.device)
-        samples = self._run(
-            ids, {"front_image": self._tensor(np.asarray(images))},
-            self._tensor(np.asarray(pointclouds, np.float32)), self._tensor(proprio), x_t, sampler=sampler,
-            num_dpm_steps=num_dpm_steps, num_ddim_steps=num_ddim_steps,
-        )
+        rows = dict(ids=ids, images=np.asarray(images), pointclouds=np.asarray(pointclouds, np.float32),
+                    proprio=proprio, seed=seed, sampler=sampler, num_dpm_steps=num_dpm_steps,
+                    num_ddim_steps=num_ddim_steps)
+        if self.channel is not None:
+            self.channel.send(("dispatch_rows", rows))
+        try:
+            samples = self.dispatch_rows(**rows)
+        except BaseException as e:
+            if self.channel is not None:
+                self.channel.broken = e
+            raise
 
         def finalize() -> np.ndarray:
             out = samples.cpu().numpy()  # waits for the call
@@ -744,6 +748,23 @@ class MLAPolicy:
             return np.stack([unnormalize_actions(out[b], stats) for b in range(B)])
 
         return finalize
+
+    def dispatch_rows(self, ids: np.ndarray, images: np.ndarray, pointclouds: np.ndarray, proprio: np.ndarray,
+                      seed: int, sampler: str, num_dpm_steps: int, num_ddim_steps: Optional[int]) -> torch.Tensor:
+        """The device half of dispatch_action_diff_batched on its host rows
+        (ids [B, L], frames, clouds, normalized proprio [B, 1, action_dim]):
+        x_T drawn from a torch.Generator on this rank's device seeded with
+        `seed`, then the serving graph, enqueued without a host sync.
+        Returns the normalized chunks [B, horizon, action_dim] on the
+        device. A follower of a serving mesh runs it for each of rank 0's
+        batched calls (serving.follow)."""
+        cfg = self.cfg
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        x_t = torch.randn((ids.shape[0], cfg.action_horizon, cfg.action_dim), generator=gen, device=self.device)
+        return self._run(ids, {"front_image": self._tensor(images)}, self._tensor(pointclouds),
+                         self._tensor(proprio), x_t, sampler=sampler, num_dpm_steps=num_dpm_steps,
+                         num_ddim_steps=num_ddim_steps)
 
     # --- autoregressive heads ----------------------------------------------
     def generate_ids(self, image, pointcloud, input_ids: np.ndarray, num_tokens: int, *, num_beams: int = 1,
@@ -755,11 +776,22 @@ class MLAPolicy:
         decode, or beam search with num_beams > 1. Returns ([B, num_tokens]
         ids, [B, num_tokens] max probabilities, or [B] beam scores). The
         cache holds the prefix, the new tokens and cache_margin spare
-        slots."""
+        slots.
+
+        Over a mesh every rank selects the same tokens, and beam search the
+        same parents, with no exchange of its own, because the logits are
+        bit for bit the same on every rank: the vocab-split lm_head's
+        slices are all-gathered (tensor.gather_from_tp), and the hidden
+        state before it is the same, since the row-parallel all-reduce SUM
+        (tensor.reduce_from_tp) hands every rank of a group the same sum
+        (gloo and NCCL reduce each segment once and copy it out,
+        tensor.SharedCard adds the ranks' buffers in rank order on each
+        rank; W8A8's int32 sums are exact) and what follows runs the same
+        ops on the same tensors. A sampled token is then the same draw of
+        the same generator (seeded with `seed` on each rank's device)
+        from the same probabilities."""
         if num_beams > 1 and temperature > 0:
             raise ValueError("beam search and sampling are mutually exclusive")
-        if num_beams > 1 or temperature > 0:
-            self._refuse_under_tp("text generation and beam search")
         cfg = self.cfg
         ids = np.asarray(input_ids)
         cache_max = ids.shape[1] + cfg.fused_len + num_tokens + self.cache_margin
@@ -818,7 +850,6 @@ class MLAPolicy:
         """Multimodal text generation: greedy by default, sampled with
         temperature / top_k (seeded), or beam search with num_beams > 1 and
         HF's length_penalty. The output stops at the first EOS."""
-        self._refuse_under_tp("text generation and beam search")
         if input_ids is None:
             input_ids = self._text_ids(prompt)
         toks, _ = self.generate_ids(image, pointcloud, input_ids, max_new_tokens, num_beams=num_beams,
@@ -831,8 +862,9 @@ class MLAPolicy:
     ) -> List[str]:
         """Batched generation: rows are grouped by prompt token length and
         each group runs as one batch (beams ride the [B*K] rows); padding
-        prompts instead would shift the splice layout."""
-        self._refuse_under_tp("text generation and beam search")
+        prompts instead would shift the splice layout. The groups run in
+        the order of their first prompt, so the ranks of a mesh run them in
+        the same order."""
         ids_list = [self._text_ids(p) for p in prompts]
         groups: Dict[int, List[int]] = {}
         for i, ids in enumerate(ids_list):
@@ -879,8 +911,9 @@ class MLAPolicy:
         (models/action_model.py) conditioned on the decoder's last hidden
         state denoises a batch of chunks (DDIM, classifier-free guidance
         when cfg_scale > 1). Prompts are right-padded with PAD_ID to the
-        longest. Returns [B, horizon, action_dim]."""
-        self._refuse_under_tp("the batched calls")
+        longest. Returns [B, horizon, action_dim]. Over a mesh the
+        condition runs on the tree tp_scope() yields; the DiT head is whole
+        on every rank, as JAX's rules leave it."""
         if action_model_params is None:
             raise ValueError("predict_action_batch requires action_model params")
         cfg = self.cfg
@@ -896,8 +929,9 @@ class MLAPolicy:
         with torch.inference_mode():
             images_b = {"front_image": self._tensor(np.stack([np.asarray(im) for im in images]))}
             pc_b = self._tensor(np.stack([np.asarray(p) for p in pointclouds]), torch.float32)
-            z = cognition_feature(self.params, self.state, cfg, self._tensor(ids, torch.long), images_b, pc_b,
-                                  int8_mode=self.int8_mode)
+            with self.tp_scope() as params:
+                z = cognition_feature(params, self.state, cfg, self._tensor(ids, torch.long), images_b, pc_b,
+                                      int8_mode=self.int8_mode)
             noise = torch.randn((B, cfg.action_horizon, cfg.action_dim), generator=gen, device=self.device)
             if cfg_scale > 1.0:
                 z_all = torch.cat([z, dit["uncondition"][None].expand(z.shape)], dim=0)

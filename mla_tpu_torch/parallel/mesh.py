@@ -21,7 +21,9 @@ consecutive, see the same rows. The port trains over such a mesh
 (training/strategy.py) and serves over tp composed with fsdp
 (`serving_mesh`: dp = 1; parallel/tensor.py, parallel/fsdp.py). The
 trainers hand the data pipeline the mesh's data rank and data world, so
-the ranks of a tp group read, shuffle and augment the same frames.
+the ranks of a tp group read, shuffle and augment the same frames. A
+serving host over a mesh is led by rank 0, which sends each call to the
+others over a `Channel` (serving.lead, serving.follow).
 """
 
 from __future__ import annotations
@@ -229,3 +231,40 @@ def serving_mesh(fsdp: int = 1) -> Mesh:
     if fsdp < 1 or world % fsdp:
         raise ValueError(f"fsdp {fsdp} does not divide a world of {world} processes")
     return make_mesh(dp=1, fsdp=fsdp, tp=world // fsdp, world=world)
+
+
+class Channel:
+    """Rank 0 of a mesh to the other ranks, over the world group: rank 0
+    `send`s each call (a picklable message: the call's name and its host
+    rows, seed and step counts), in order; the others `recv` them in the
+    same order and run them. `close` sends None, which releases them. A
+    send after a failed call raises: a call that failed on rank 0 alone
+    after its message went out may have left the ranks' collectives out
+    of step."""
+
+    def __init__(self, mesh: Mesh):
+        self.group, self.rank = mesh.group, mesh.rank
+        self.broken: Optional[BaseException] = None
+
+    def _broadcast(self, msg: Any) -> Any:
+        import torch.distributed as dist
+
+        box = [msg]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+    def send(self, msg: Any) -> None:
+        if self.rank != 0:
+            raise RuntimeError(f"rank {self.rank} sends nothing: rank 0 leads the mesh")
+        if self.broken is not None:
+            raise RuntimeError("an earlier call failed after its message was sent; the mesh's ranks may be out "
+                               f"of step: {self.broken!r}")
+        self._broadcast(msg)
+
+    def recv(self) -> Any:
+        """The next message of rank 0 (None: closed)."""
+        return self._broadcast(None)
+
+    def close(self) -> None:
+        if self.rank == 0 and self.broken is None:
+            self._broadcast(None)

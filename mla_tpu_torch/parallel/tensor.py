@@ -111,7 +111,11 @@ class SharedCard:
     the two sets of buffers, so a call writes the set that the call before
     last read: every rank has passed the last call's fence, which waited
     for its own device, so those reads are done, and no fence follows the
-    reads. Each output is a new tensor, never a view of a buffer."""
+    reads. This holds across policy calls too (a serving host keeps two in
+    flight): every rank issues the same collectives in the same order. A
+    set grows to its largest call (a bucket-4 prefill's row-parallel W8A8
+    partials: 2136 x 4096 int32, 35 MB). Each output is a new tensor, never
+    a view of a buffer."""
 
     def __init__(self, group: Any, device: torch.device):
         import torch.distributed as dist

@@ -2,6 +2,7 @@
 
     python -m mla_tpu_torch.serve --checkpoint runs/<id> --port 8700 \\
         [--sampler dpm|ddim] [--max_wait_ms 5] [--warm_len 22] [--device cuda|cpu]
+    torchrun --nproc_per_node N -m mla_tpu_torch.serve --checkpoint runs/<id> [--fsdp F] ...
 
 Counterpart of scripts/serve.py: a stdlib HTTP front-end over
 `mla_tpu_torch.serving.BatchingServer`, which coalesces concurrent requests
@@ -10,6 +11,17 @@ into one bucketed batched device call, over a policy from `load_vla`.
 unless given --device cpu. Sets MLA_PREFILL_SCORES=bf16 unless it is set,
 as scripts/serve.py does (it reaches only the plain attention: the flash
 prefill never materializes scores).
+
+Under torchrun (or the MLA_* variables of parallel/mesh.py) the host
+serves over parallel/mesh.serving_mesh(fsdp=F) of the launch's world: T =
+world / F tensor-parallel ranks beside F fsdp ranks, a card a rank (NCCL;
+gloo with --device cpu). Every rank loads the checkpoint and keeps its part
+of the decoder. Rank 0 binds the HTTP port, preprocesses the requests and
+runs the BatchingServer, whose batched calls it sends to the other ranks
+(serving.lead); they follow (serving.follow) and exit 0 when rank 0 shuts
+down (SIGINT) and closes the channel. A follower that fails exits non-zero,
+and torchrun then stops the other ranks. Without a launch the host is one
+process, as before; --fsdp F > 1 then raises.
 
 Protocol (stdlib-only client, see tests/test_torch_serve_http.py):
 
@@ -186,6 +198,8 @@ def main(argv=None):
                    help="drive every bucket at startup for these prompt token lengths (e.g. --warm_len 22), so "
                         "no live request pays a first call's set-up")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="under torchrun: fsdp ranks of the serving mesh (T = world / F tensor-parallel ranks)")
     args = p.parse_args(argv)
 
     import torch
@@ -194,31 +208,58 @@ def main(argv=None):
         raise RuntimeError("no CUDA device is available; pass --device cpu to serve on the CPU")
     os.environ.setdefault("MLA_PREFILL_SCORES", "bf16")  # read when the policy is built
     from mla_tpu_torch.models.load import load_vla
-    from mla_tpu_torch.serving import BatchingServer
+    from mla_tpu_torch.parallel import mesh as tmesh
+    from mla_tpu_torch.serving import BatchingServer, follow, lead
     from mla_tpu_torch.vla.tokenizer import SimpleTokenizer, load_llama_tokenizer
 
+    launch = tmesh.initialize_distributed(args.device)
+    if launch is None and args.fsdp != 1:
+        raise ValueError(f"--fsdp {args.fsdp} needs a launch of several processes (torchrun)")
+    mesh = tmesh.serving_mesh(fsdp=args.fsdp) if launch is not None else None
     tokenizer = load_llama_tokenizer(args.tokenizer) if args.tokenizer else SimpleTokenizer()
     t0 = time.perf_counter()
-    policy = load_vla(args.checkpoint, use_ema=args.use_ema, tokenizer=tokenizer, device=args.device)
-    print(f"loaded {args.checkpoint} on {policy.device} in {time.perf_counter() - t0:.1f}s", file=sys.stderr,
+    policy = load_vla(args.checkpoint, use_ema=args.use_ema, tokenizer=tokenizer,
+                      device=launch["device"] if launch is not None else args.device, mesh=mesh)
+    where = f" (rank {mesh.rank} of tp {mesh.tp} x fsdp {mesh.fsdp})" if mesh is not None else ""
+    print(f"loaded {args.checkpoint} on {policy.device}{where} in {time.perf_counter() - t0:.1f}s", file=sys.stderr,
           flush=True)
+    if policy.mesh is not None and policy.mesh.rank != 0:
+        import signal
+
+        import torch.distributed as dist
+
+        signal.signal(signal.SIGINT, signal.SIG_IGN)  # rank 0's close message ends a follower
+        calls = follow(policy)
+        print(f"rank {mesh.rank}: rank 0 closed the mesh after {calls} calls", file=sys.stderr, flush=True)
+        dist.destroy_process_group()
+        return
+    channel = lead(policy) if policy.mesh is not None else None
     server = BatchingServer(
         policy, buckets=args.buckets, max_wait_ms=args.max_wait_ms,
         sampler=args.sampler, num_dpm_steps=args.num_dpm_steps,
         max_pending=args.max_pending or None,
     )
-    if args.warm_len:
-        warm_buckets(server, args.warm_len)
-
-    httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server, policy.cfg))
-    print(f"serving on http://{args.host}:{args.port} (sampler={args.sampler}, buckets={args.buckets})", flush=True)
     try:
-        httpd.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        if args.warm_len:
+            warm_buckets(server, args.warm_len)
+        httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server, policy.cfg))
+        print(f"serving on http://{args.host}:{args.port} (sampler={args.sampler}, buckets={args.buckets}"
+              f"{where})", flush=True)
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            httpd.server_close()
     finally:
-        httpd.server_close()
         server.close()
+        if channel is not None:
+            import torch.distributed as dist
+
+            channel.close()
+            if channel.broken is not None:
+                raise RuntimeError("a batched call failed after it was sent to the other ranks") from channel.broken
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

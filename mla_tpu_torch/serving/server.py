@@ -23,6 +23,14 @@ and sound only for launches in stream order.
     actions = fut.result()      # [horizon, action_dim]
 
 `python -m mla_tpu_torch.serve` wraps this in a stdlib HTTP front-end.
+
+Over a serving mesh (MLAPolicy(..., mesh=parallel.mesh.serving_mesh(F)))
+rank 0 runs the BatchingServer on a policy that `lead` gave a channel:
+each batched call sends its host rows (ids, frames, clouds and proprio
+rows, padding included; the seed, the sampler and the step counts) to the
+other ranks before it runs, and finalize() stays rank 0's. The other ranks
+run `follow`, which makes the same device calls in the same order until
+rank 0 closes the channel. Batching, buckets and stats are rank 0's alone.
 """
 
 from __future__ import annotations
@@ -359,3 +367,38 @@ class BatchingServer:
         for r in reqs:
             if not r.future.done():
                 r.future.set_exception(e)
+
+
+def lead(policy):
+    """Make rank 0's `policy` (over a mesh of more than one rank) the
+    leader of the others: each batched call's rows go to them first.
+    Returns the parallel/mesh.Channel; its close() releases the followers
+    (after the last call: BatchingServer.close first)."""
+    from mla_tpu_torch.parallel.mesh import Channel
+
+    if policy.mesh is None or policy.mesh.rank != 0:
+        raise ValueError("lead() takes rank 0's policy over a mesh of more than one rank")
+    policy.channel = Channel(policy.mesh)
+    return policy.channel
+
+
+def follow(policy) -> int:
+    """On a rank other than 0 of the policy's mesh: run each call rank 0
+    sends (its device half, on the same rows and seed; the results stay
+    on this rank, unread) until rank 0 closes the channel. Returns the
+    calls run. An error propagates: the follower ends, and a launcher
+    such as torchrun ends the other ranks with it."""
+    from mla_tpu_torch.parallel.mesh import Channel
+
+    if policy.mesh is None or policy.mesh.rank == 0:
+        raise ValueError("follow() takes a policy over a mesh of more than one rank, on a rank other than 0")
+    channel, calls = Channel(policy.mesh), 0
+    while True:
+        msg = channel.recv()
+        if msg is None:
+            return calls
+        name, rows = msg
+        if name != "dispatch_rows":
+            raise RuntimeError(f"rank 0 sent an unknown call {name!r}")
+        policy.dispatch_rows(**rows)
+        calls += 1
